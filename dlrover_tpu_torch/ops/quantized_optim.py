@@ -1,0 +1,418 @@
+"""8-bit (blockwise-quantized state) AdamW on Hopper (counterpart of
+``dlrover_tpu/ops/quantized_optim.py``).
+
+Optimizer moments are int8 codes plus one f32 scale per 128-element
+block, on the sqrt map (code = round(sign(y) sqrt|y| 127) of the
+block-max-normalized value). The hot path of ``adamw_8bit_flat``
+(dequantize -> Adam moment update -> requantize -> parameter delta)
+is one Triton kernel per packed group, ``adam8_flat``, replacing the
+Pallas ``_adam8_kernel_wide`` (``_adam8_update_pallas_flat``). It
+reads g, the codes and the scales once and writes them once, in place.
+What bounds it on the card is memory bandwidth (~12 bytes a parameter
+against a few dozen f32 operations, far below the H100's ridge): the
+design is one program per 32 x 128 tile, one block max per row, and
+no intermediate in device memory. Triton is imported only inside its
+launcher.
+
+The plain PyTorch version (``_adam8_update_plain``) is the CPU path and
+the kernel's oracle; both round half to even, give sign(0) = 0 and
+divide truly, as the JAX math does.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, NamedTuple, Sequence, Tuple
+
+import torch
+
+BLOCK = 128  # quantization block
+_FLAT_ROWS = 2048  # group sizes are multiples of _FLAT_ROWS * BLOCK
+_TILE_ROWS = 32  # rows per Triton program
+
+# launches of the Triton kernel, counted where the wrapper launches it
+launch_counts: Dict[str, int] = {"adam8_flat": 0}
+
+
+def reset_launch_counts() -> None:
+    launch_counts["adam8_flat"] = 0
+
+
+@dataclass
+class Quantized8:
+    """Blockwise sqrt-map quantized tensor: ``x ~ sign(c) c^2 scale``
+    with ``c = codes / 127``. Tree form: ``scales [nblocks, 1]``; the
+    flat optimizer's wide form: ``scales [nblocks // 128, 128]``."""
+
+    codes: torch.Tensor  # int8 [nblocks, BLOCK]
+    scales: torch.Tensor  # f32
+    shape: Tuple[int, ...]
+    signed: bool
+
+
+def _to_blocks(x):
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % BLOCK
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat.view(-1, BLOCK)
+
+
+def _from_blocks(blocks, shape):
+    n = 1
+    for d in shape:
+        n *= d
+    return blocks.reshape(-1)[:n].view(shape)
+
+
+def _sqrt_map_quant(x, signed, qmax):
+    """x [rows, N] f32 -> (float codes, scales [rows, 1])."""
+    scale = (x.abs() if signed else x).amax(-1, keepdim=True)
+    y = x / scale.clamp_min(1e-30)
+    codes = torch.round(torch.sign(y) * torch.sqrt(y.abs()) * qmax)
+    lo = -float(qmax) if signed else 0.0
+    return codes.clamp(lo, float(qmax)), scale
+
+
+def _sqrt_map_dequant(codes_f, scales, qmax):
+    c = codes_f / qmax
+    return torch.sign(c) * c * c * scales
+
+
+def quantize_8bit(x, signed: bool = True) -> Quantized8:
+    codes, scales = _sqrt_map_quant(_to_blocks(x.float()), signed, 127.0)
+    return Quantized8(codes.to(torch.int8), scales, tuple(x.shape), signed)
+
+
+def dequantize_8bit(q: Quantized8):
+    return _from_blocks(
+        _sqrt_map_dequant(q.codes.float(), q.scales, 127.0), q.shape
+    )
+
+
+# -- "wide" scale layout (the flat path): the scale of codes row r lives
+# at [r // 128, r % 128]
+def _quant_block_math_wide(x, signed):
+    R = x.shape[0]
+    x3 = x.view(R // 128, 128, 128)
+    s = (x3.abs() if signed else x3).amax(-1)  # [R//128, 128]
+    y = x3 / s.clamp_min(1e-30)[:, :, None]
+    codes = torch.round(torch.sign(y) * torch.sqrt(y.abs()) * 127.0)
+    lo = -127.0 if signed else 0.0
+    codes = codes.clamp(lo, 127.0).view(R, BLOCK)
+    return codes.to(torch.int8), s
+
+
+def _dequant_block_math_wide(codes, s2d):
+    R = codes.shape[0]
+    c = codes.float() / 127.0
+    y = torch.sign(c) * c * c
+    return (y.view(R // 128, 128, 128) * s2d[:, :, None]).view(R, BLOCK)
+
+
+def _adam8_block_math(g, m, v, lrA, invbc2, eps, b1, b2, classic_eps=True):
+    """Shared f32 Adam math; the operation order is the JAX package's,
+    so results agree to the bit where the primitives do."""
+    m_new = b1 * m + (1.0 - b1) * g
+    v_new = b2 * v + (1.0 - b2) * g * g
+    if classic_eps:
+        delta = -lrA * m_new / (torch.sqrt(v_new * invbc2) + eps)
+    else:
+        delta = -lrA * m_new * torch.rsqrt(v_new * invbc2 + eps)
+    return m_new, v_new, delta
+
+
+def _adam8_update_plain(g_blocks, mq, vq, scalars, b1, b2, classic_eps=True):
+    """Plain version of ``adam8_flat``: updates the codes and wide
+    scales of ``mq``/``vq`` in place and returns the delta in g's
+    dtype. ``scalars = (lrA, invbc2, eps)`` as f32-exact floats."""
+    lrA, invbc2, eps = scalars
+    m = _dequant_block_math_wide(mq.codes, mq.scales)
+    v = _dequant_block_math_wide(vq.codes, vq.scales)
+    m_new, v_new, delta = _adam8_block_math(
+        g_blocks.float(), m, v, lrA, invbc2, eps, b1, b2, classic_eps
+    )
+    for q, x, signed in ((mq, m_new, True), (vq, v_new, False)):
+        codes, s = _quant_block_math_wide(x, signed)
+        q.codes.copy_(codes)
+        q.scales.copy_(s)
+    return delta.to(g_blocks.dtype)
+
+
+_TRITON_KERNEL = None
+
+
+def _triton_kernel():
+    """Compile-once handle of the Triton kernel; Triton is imported here,
+    never at module import (the CPU has none)."""
+    global _TRITON_KERNEL, tl, libdevice
+    if _TRITON_KERNEL is not None:
+        return _TRITON_KERNEL
+    import triton
+    import triton.language as tl
+    from triton.language.extra import libdevice
+
+    @triton.jit
+    def adam8_flat(
+        g_ptr, mc_ptr, ms_ptr, vc_ptr, vs_ptr, d_ptr,
+        lrA, invbc2, eps, b1, omb1, b2, omb2,
+        TILE_ROWS: tl.constexpr, CLASSIC: tl.constexpr,
+    ):
+        rows = tl.program_id(0) * TILE_ROWS + tl.arange(0, TILE_ROWS)
+        offs = rows[:, None] * 128 + tl.arange(0, 128)[None, :]
+        g = tl.load(g_ptr + offs).to(tl.float32)
+        # sqrt-map dequantize: c = code / 127, x = sign(c) c c scale
+        cm = libdevice.div_rn(tl.load(mc_ptr + offs).to(tl.float32), 127.0)
+        cv = libdevice.div_rn(tl.load(vc_ptr + offs).to(tl.float32), 127.0)
+        sgn_m = tl.where(cm > 0, 1.0, tl.where(cm < 0, -1.0, 0.0))
+        m = sgn_m * cm * cm * tl.load(ms_ptr + rows)[:, None]
+        v = cv * cv * tl.load(vs_ptr + rows)[:, None]
+        # moments and delta, in the JAX math's operation order
+        m_new = b1 * m + omb1 * g
+        v_new = b2 * v + omb2 * g * g
+        if CLASSIC:
+            den = libdevice.sqrt_rn(v_new * invbc2) + eps
+            delta = libdevice.div_rn(-lrA * m_new, den)
+        else:
+            r = libdevice.div_rn(1.0, libdevice.sqrt_rn(v_new * invbc2 + eps))
+            delta = -lrA * m_new * r
+        tl.store(d_ptr + offs, delta.to(d_ptr.dtype.element_ty))
+        # requantize: one max per 128-element row, round half to even
+        s_m = tl.max(tl.abs(m_new), axis=1)
+        y = libdevice.div_rn(m_new, tl.maximum(s_m, 1e-30)[:, None])
+        sgn_y = tl.where(y > 0, 1.0, tl.where(y < 0, -1.0, 0.0))
+        qm = libdevice.rint(sgn_y * libdevice.sqrt_rn(tl.abs(y)) * 127.0)
+        qm = tl.minimum(tl.maximum(qm, -127.0), 127.0)
+        s_v = tl.max(v_new, axis=1)
+        yv = libdevice.div_rn(v_new, tl.maximum(s_v, 1e-30)[:, None])
+        sgn_v = tl.where(yv > 0, 1.0, tl.where(yv < 0, -1.0, 0.0))
+        qv = libdevice.rint(sgn_v * libdevice.sqrt_rn(tl.abs(yv)) * 127.0)
+        qv = tl.minimum(tl.maximum(qv, 0.0), 127.0)
+        tl.store(mc_ptr + offs, qm.to(tl.int8))
+        tl.store(vc_ptr + offs, qv.to(tl.int8))
+        tl.store(ms_ptr + rows, s_m)
+        tl.store(vs_ptr + rows, s_v)
+
+    _TRITON_KERNEL = adam8_flat
+    return _TRITON_KERNEL
+
+
+def _adam8_update_triton(g_blocks, mq, vq, scalars, b1, b2, classic_eps=True):
+    R = g_blocks.shape[0]
+    dev = g_blocks.device
+    ok = (
+        g_blocks.is_contiguous()
+        and g_blocks.shape[1] == BLOCK
+        and R % _FLAT_ROWS == 0
+        and all(
+            t.device == dev and t.is_contiguous()
+            for t in (mq.codes, mq.scales, vq.codes, vq.scales)
+        )
+        and mq.codes.dtype == vq.codes.dtype == torch.int8
+        and mq.codes.shape == vq.codes.shape == g_blocks.shape
+        and mq.scales.dtype == vq.scales.dtype == torch.float32
+        and mq.scales.numel() == vq.scales.numel() == R
+    )
+    if not ok:
+        raise NotImplementedError(
+            "adam8_flat takes a contiguous [R, 128] group (R a multiple "
+            f"of {_FLAT_ROWS}) with int8 codes and wide f32 scales on "
+            "the same device"
+        )
+    kernel = _triton_kernel()
+    delta = torch.empty_like(g_blocks)
+    lrA, invbc2, eps = scalars
+    with torch.cuda.device(dev):
+        kernel[(R // _TILE_ROWS,)](
+            g_blocks, mq.codes, mq.scales, vq.codes, vq.scales, delta,
+            lrA, invbc2, eps, b1, 1.0 - b1, b2, 1.0 - b2,
+            TILE_ROWS=_TILE_ROWS, CLASSIC=bool(classic_eps),
+            num_warps=4,
+            # no fused multiply-add: each product and sum rounds on its
+            # own, as in the JAX math and the plain version
+            enable_fp_fusion=False,
+        )
+    launch_counts["adam8_flat"] += 1
+    return delta
+
+
+def adam8_update_flat(g_blocks, mq, vq, scalars, b1, b2, classic_eps=True):
+    """One fused update of a packed group: the Triton kernel on CUDA,
+    the plain version on the CPU. Moments update in place."""
+    if g_blocks.device.type == "cuda":
+        return _adam8_update_triton(g_blocks, mq, vq, scalars, b1, b2, classic_eps)
+    return _adam8_update_plain(g_blocks, mq, vq, scalars, b1, b2, classic_eps)
+
+
+# ---------------------------------------------------------------------------
+# flat-buffer layout (leaf order = the JAX package's flatten order)
+# ---------------------------------------------------------------------------
+class _FlatGroup(NamedTuple):
+    idx: tuple  # leaf positions in this group
+    offsets: tuple  # start offset of each leaf (BLOCK-aligned)
+    total: int  # padded group size (multiple of BLOCK * _FLAT_ROWS)
+
+
+class _FlatLayout(NamedTuple):
+    groups: tuple
+    small_idx: tuple
+    small_offsets: tuple
+    small_total: int
+
+
+def _flat_layout(
+    leaves: Sequence[torch.Tensor], min_quantized_size: int, group_elems: int
+) -> _FlatLayout:
+    """Pack big leaves into dtype-homogeneous groups of ~``group_elems``
+    elements, each leaf padded to a BLOCK boundary so quantization
+    blocks never straddle leaves (the JAX package's layout)."""
+    chunk = BLOCK * _FLAT_ROWS
+    groups, g_idx, g_off, off = [], [], [], 0
+    g_dtype = None
+    small_idx, small_off, soff = [], [], 0
+
+    def _close_group():
+        nonlocal g_idx, g_off, off, g_dtype
+        if g_idx:
+            groups.append(
+                _FlatGroup(tuple(g_idx), tuple(g_off), -(-off // chunk) * chunk)
+            )
+            g_idx, g_off, off, g_dtype = [], [], 0, None
+
+    for i, leaf in enumerate(leaves):
+        n = leaf.numel()
+        if n >= min_quantized_size:
+            if off and (off + n > group_elems or leaf.dtype != g_dtype):
+                _close_group()
+            g_idx.append(i)
+            g_off.append(off)
+            g_dtype = leaf.dtype
+            off += -(-n // BLOCK) * BLOCK
+        else:
+            small_idx.append(i)
+            small_off.append(soff)
+            soff += n
+    _close_group()
+    return _FlatLayout(tuple(groups), tuple(small_idx), tuple(small_off), soff)
+
+
+def _pack_group(leaves, group: _FlatGroup, dtype):
+    """One group's leaves, each zero-padded to its BLOCK-aligned slot,
+    in one flat ``[group.total]`` buffer."""
+    dev = leaves[group.idx[0]].device
+    flat = torch.zeros((group.total,), dtype=dtype, device=dev)
+    for i, off in zip(group.idx, group.offsets):
+        n = leaves[i].numel()
+        flat[off:off + n].copy_(leaves[i].reshape(-1))
+    return flat
+
+
+class adamw_8bit_flat(torch.optim.Optimizer):
+    """AdamW with flat-buffer 8-bit state (the JAX ``adamw_8bit_flat``):
+    big leaves' moments live in group-packed ``Quantized8`` pairs with
+    wide scales, updated by one ``adam8_flat`` launch per group; leaves
+    under ``min_quantized_size`` keep f32 moments in one flat pair.
+
+    ``params`` are taken in the order given, which should be the JAX
+    flatten order (``Transformer.jax_ordered_parameters``) for the
+    layout to match the JAX package's. ``eps`` (outside the sqrt) and
+    ``eps_root`` (inside) are mutually exclusive. Weight decay is
+    decoupled, ``- lr * wd * p``, and each param group's
+    ``retune_scale`` multiplies the whole update, both applied after
+    the kernel as the JAX transform chain does."""
+
+    def __init__(
+        self,
+        params,
+        lr: float = 1e-3,
+        b1: float = 0.9,
+        b2: float = 0.999,
+        eps: float = 1e-8,
+        weight_decay: float = 0.0,
+        min_quantized_size: int = 4096,
+        group_elems: int = 1 << 27,
+        eps_root: float = 0.0,
+    ):
+        if eps_root and eps:
+            raise ValueError(
+                "pass either eps (classic, outside the sqrt) or eps_root "
+                "(inside), not both"
+            )
+        super().__init__(params, dict(lr=lr, retune_scale=1.0))
+        if len(self.param_groups) != 1:
+            raise ValueError("adamw_8bit_flat takes one param group")
+        self.b1, self.b2 = b1, b2
+        self.classic = eps_root == 0.0
+        self.eps_val = eps if self.classic else eps_root
+        self.weight_decay = weight_decay
+        leaves: List[torch.Tensor] = self.param_groups[0]["params"]
+        self.layout = _flat_layout(leaves, min_quantized_size, group_elems)
+        self.count = 0
+        self.mu, self.nu = [], []
+        for g in self.layout.groups:
+            dev = leaves[g.idx[0]].device
+            nblocks = g.total // BLOCK
+            for moments, signed in ((self.mu, True), (self.nu, False)):
+                moments.append(
+                    Quantized8(
+                        torch.zeros((nblocks, BLOCK), dtype=torch.int8, device=dev),
+                        torch.zeros((nblocks // 128, 128), dtype=torch.float32, device=dev),
+                        (g.total,),
+                        signed,
+                    )
+                )
+        dev = leaves[0].device if leaves else torch.device("cpu")
+        self.mu_small = torch.zeros(self.layout.small_total, device=dev)
+        self.nu_small = torch.zeros(self.layout.small_total, device=dev)
+
+    def _scalars(self, lr: float):
+        """(lrA = lr / bc1, invbc2 = 1 / bc2) in f32, as the JAX update
+        computes them, returned as floats exact in f32."""
+        cf = torch.tensor(float(self.count), dtype=torch.float32)
+        lrA = torch.tensor(lr, dtype=torch.float32) / (1.0 - self.b1**cf)
+        invbc2 = 1.0 / (1.0 - self.b2**cf)
+        return float(lrA), float(invbc2)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise NotImplementedError("adamw_8bit_flat takes no closure")
+        group = self.param_groups[0]
+        leaves = group["params"]
+        grads = [p.grad for p in leaves]
+        if any(g is None for g in grads):
+            raise ValueError("every parameter needs a gradient")
+        lr = group["lr"]
+        self.count += 1
+        lrA, invbc2 = self._scalars(lr)
+        eps32 = float(torch.tensor(self.eps_val, dtype=torch.float32))
+        scalars = (lrA, invbc2, eps32)
+        out: List[torch.Tensor] = [None] * len(leaves)
+        for gi, g in enumerate(self.layout.groups):
+            gflat = _pack_group(grads, g, grads[g.idx[0]].dtype)
+            delta = adam8_update_flat(
+                gflat.view(-1, BLOCK), self.mu[gi], self.nu[gi], scalars,
+                self.b1, self.b2, self.classic,
+            ).view(-1)
+            for i, off in zip(g.idx, g.offsets):
+                n = leaves[i].numel()
+                out[i] = delta[off:off + n].view(leaves[i].shape)
+        if self.layout.small_idx:
+            gs = torch.cat(
+                [grads[i].reshape(-1).float() for i in self.layout.small_idx]
+            )
+            m_new, v_new, ds = _adam8_block_math(
+                gs, self.mu_small, self.nu_small, lrA, invbc2,
+                self.eps_val, self.b1, self.b2, self.classic,
+            )
+            self.mu_small, self.nu_small = m_new, v_new
+            for i, off in zip(self.layout.small_idx, self.layout.small_offsets):
+                n = leaves[i].numel()
+                out[i] = ds[off:off + n].view(leaves[i].shape).to(leaves[i].dtype)
+        if self.weight_decay:
+            wd = float(torch.tensor(lr, dtype=torch.float32) * self.weight_decay)
+            out = torch._foreach_add(out, leaves, alpha=-wd)
+        if group["retune_scale"] != 1.0:
+            out = torch._foreach_mul(out, float(group["retune_scale"]))
+        torch._foreach_add_(leaves, out)
+        return None

@@ -1,0 +1,124 @@
+"""Port parity: the 8-bit AdamW of dlrover_tpu_torch (its plain CPU
+path) against the JAX package's fused Pallas kernel in interpret mode
+and its jnp twin.
+
+Codes must be equal; scales and deltas are held to the JAX package's
+kernel-vs-twin tolerances (tests/test_ops.py): 1e-6 and 1e-7."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dlrover_tpu.ops import quantized_optim as jq
+from dlrover_tpu_torch.ops import quantized_optim as tq
+
+SCALE_TOL = 1e-6
+DELTA_TOL = 1e-7
+
+
+def _group(rows=2048, seed=0):
+    """g and a non-trivial 8-bit moment state of one flat group."""
+    rng = np.random.default_rng(seed)
+    g = (rng.normal(size=(rows, 128)) * 1e-3).astype(np.float32)
+    m = (rng.normal(size=(rows, 128)) * 1e-3).astype(np.float32)
+    v = (rng.random(size=(rows, 128)) * 1e-6).astype(np.float32)
+    v[:7] = 0.0  # all-zero blocks: scale 0, codes 0
+    mc, ms = jq._quant_block_math_wide(jnp.asarray(m), True)
+    vc, vs = jq._quant_block_math_wide(jnp.asarray(v), False)
+    return g, tuple(np.asarray(x) for x in (mc, ms, vc, vs))
+
+
+def _scalars(lr, count, eps):
+    b1, b2 = 0.9, 0.999
+    cf = np.float32(count)
+    lrA = np.float32(lr) / (np.float32(1.0) - np.float32(b1) ** cf)
+    invbc2 = np.float32(1.0) / (np.float32(1.0) - np.float32(b2) ** cf)
+    return np.array([lrA, invbc2, eps], np.float32)
+
+
+@pytest.mark.parametrize("classic", [True, False])
+@pytest.mark.parametrize("jax_path", ["pallas_interpret", "jnp"])
+def test_update_matches_jax(classic, jax_path):
+    g, (mc, ms, vc, vs) = _group()
+    R = g.shape[0]
+    sc = _scalars(3e-4, 3, 1e-8)
+    tm = tq.Quantized8(*(torch.from_numpy(x.copy()) for x in (mc, ms)), (R * 128,), True)
+    tv = tq.Quantized8(*(torch.from_numpy(x.copy()) for x in (vc, vs)), (R * 128,), False)
+    jm = jq.Quantized8(jnp.asarray(mc), jnp.asarray(ms), (R * 128,), True)
+    jv = jq.Quantized8(jnp.asarray(vc), jnp.asarray(vs), (R * 128,), False)
+    if jax_path == "pallas_interpret":
+        jm2, jv2, jd = jq._adam8_update_pallas_flat(
+            jnp.asarray(g), jm, jv, jnp.asarray(sc), 0.9, 0.999,
+            interpret=True, classic_eps=classic,
+        )
+    else:
+        jm2, jv2, jd = jq._adam8_update_jnp(
+            jnp.asarray(g), jm, jv, jnp.asarray(sc), 0.9, 0.999, classic
+        )
+    td = tq.adam8_update_flat(
+        torch.from_numpy(g), tm, tv, tuple(float(x) for x in sc), 0.9, 0.999, classic
+    )
+    np.testing.assert_array_equal(tm.codes.numpy(), np.asarray(jm2.codes))
+    np.testing.assert_array_equal(tv.codes.numpy(), np.asarray(jv2.codes))
+    np.testing.assert_allclose(tm.scales.numpy(), np.asarray(jm2.scales), atol=SCALE_TOL)
+    np.testing.assert_allclose(tv.scales.numpy(), np.asarray(jv2.scales), atol=SCALE_TOL)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=DELTA_TOL)
+
+
+def test_tree_form_quantize_matches_jax():
+    x = np.random.default_rng(3).normal(size=(37, 300)).astype(np.float32)
+    for signed in (True, False):
+        src = x if signed else np.abs(x)
+        jqz = jq.quantize_8bit(jnp.asarray(src), signed)
+        tqz = tq.quantize_8bit(torch.from_numpy(src), signed)
+        np.testing.assert_array_equal(tqz.codes.numpy(), np.asarray(jqz.codes))
+        np.testing.assert_allclose(tqz.scales.numpy(), np.asarray(jqz.scales), rtol=0, atol=0)
+        np.testing.assert_allclose(
+            tq.dequantize_8bit(tqz).numpy(), np.asarray(jq.dequantize_8bit(jqz)), atol=1e-7
+        )
+
+
+# a param tree with big leaves (some BLOCK-ragged), small leaves, and a
+# group size that forces several groups; keys sorted = JAX flatten order
+_TREE = {"a_w": (64, 128), "b_s": (300,), "c_w": (4101,), "d_s": (2, 3), "e_w": (128, 96)}
+
+
+@pytest.mark.parametrize("wd,eps_root", [(0.0, 0.0), (0.01, 0.0), (0.01, 1e-8)])
+def test_optimizer_five_steps_match_jax(wd, eps_root):
+    import jax
+
+    rng = np.random.default_rng(7)
+    names = sorted(_TREE)
+    params0 = {k: rng.normal(size=_TREE[k]).astype(np.float32) for k in names}
+    grads = [
+        {k: (rng.normal(size=_TREE[k]) * 1e-2).astype(np.float32) for k in names}
+        for _ in range(5)
+    ]
+    eps = 0.0 if eps_root else 1e-8
+    kw = dict(weight_decay=wd, min_quantized_size=4096, group_elems=9000,
+              eps=eps, eps_root=eps_root)
+    jtx = jq.adamw_8bit_flat(1e-2, use_pallas=False, **kw)
+    jp = {k: jnp.asarray(v) for k, v in params0.items()}
+    js = jtx.init(jp)
+    tp = [torch.nn.Parameter(torch.from_numpy(params0[k].copy())) for k in names]
+    topt = tq.adamw_8bit_flat(tp, lr=1e-2, **kw)
+    assert len(topt.layout.groups) == len(js.mu) == 3
+    for step in range(5):
+        u, js = jtx.update({k: jnp.asarray(v) for k, v in grads[step].items()}, js, jp)
+        jp = jax.tree.map(lambda p, d: p + d, jp, u)
+        for p, k in zip(tp, names):
+            p.grad = torch.from_numpy(grads[step][k])
+        topt.step()
+        for p, k in zip(tp, names):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]), rtol=0, atol=1e-6)
+    for tm, jm in zip(topt.mu + topt.nu, js.mu + js.nu):
+        np.testing.assert_array_equal(tm.codes.numpy(), np.asarray(jm.codes))
+        np.testing.assert_allclose(tm.scales.numpy(), np.asarray(jm.scales), atol=SCALE_TOL)
+    np.testing.assert_allclose(topt.mu_small.numpy(), np.asarray(js.mu_small), atol=1e-7)
+    np.testing.assert_allclose(topt.nu_small.numpy(), np.asarray(js.nu_small), atol=1e-7)
+
+
+def test_both_eps_forms_refused_together():
+    with pytest.raises(ValueError):
+        tq.adamw_8bit_flat([torch.nn.Parameter(torch.zeros(3))], eps=1e-8, eps_root=1e-8)
