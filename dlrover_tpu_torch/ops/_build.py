@@ -2,8 +2,7 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, bound with ``ctypes``. Nothing
-builds at import time: a library builds at first use (or through
-``build_all``, which starts one ``nvcc`` per source at once) into
+builds at import time: a library builds at first use into
 ``ops/_build/``, named by a hash of its source and flags, so an
 unchanged source is never rebuilt in the same checkout.
 """
@@ -15,9 +14,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -28,6 +26,8 @@ NVCC_FLAGS = (
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# nvcc's report (registers, spills) of each library built by this process
+build_logs: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -44,60 +44,24 @@ def _nvcc() -> str:
     )
 
 
-def _target(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
-
-
-def _command(name: str, out: Path) -> List[str]:
-    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(SRC_DIR / f"{name}.cu")]
-
-
-def sources() -> List[str]:
-    return sorted(p.stem for p in SRC_DIR.glob("*.cu"))
-
-
-def build_all() -> Tuple[float, Dict[str, str]]:
-    """Build every missing library in parallel (one ``nvcc`` per
-    source, all started together); returns the wall seconds and each
-    build's compiler report (registers, spills). Raises with the
-    compiler's output if any build fails."""
-    t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for name in sources():
-        out = _target(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        p = subprocess.Popen(
-            _command(name, tmp),
-            stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT,
-            text=True,
-        )
-        procs.append((name, out, tmp, p))
-    failed, logs = [], {}
-    for name, out, tmp, p in procs:
-        logs[name], _ = p.communicate()
-        if p.returncode != 0:
-            failed.append(f"{name}.cu:\n{logs[name]}")
-            continue
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return time.perf_counter() - t0, logs
-
-
 def load_library(name: str) -> ctypes.CDLL:
-    """The bound library of ``csrc/<name>.cu``, built on first use."""
+    """The bound library of ``csrc/<name>.cu``, built on first use.
+    Raises with the compiler's output if the build fails."""
     lib = _libs.get(name)
     if lib is None:
-        out = _target(name)
+        src = SRC_DIR / f"{name}.cu"
+        h = hashlib.sha256(src.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        out = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
         if not out.exists():
-            build_all()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            res = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+                capture_output=True, text=True,
+            )
+            build_logs[name] = res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{build_logs[name]}")
         lib = ctypes.CDLL(str(out))
         _libs[name] = lib
     return lib

@@ -22,8 +22,10 @@
 // Numerics follow the Pallas kernels: NEG_INF = -1e30 is finite, rows
 // with no visible key give o = 0 and lse = NEG_INF, p is rounded to bf16
 // before each product that consumes it, and in the backward p = 0 on rows
-// whose lse is NEG_INF. The backward kernels write f32 gradients per
-// query head; the caller sums GQA groups and casts (as :818-833 does).
+// whose lse is NEG_INF. dq is written in bf16. dk/dv are written in bf16
+// when every kv head has one query head; under GQA they are written in f32
+// per query head and the caller sums each group and casts (as :818-833
+// does).
 //
 // Each C entry returns cudaGetLastError() of its launch (0 = success).
 
@@ -102,6 +104,31 @@ __device__ __forceinline__ void warp_ab_acc(FragC* acc, const bf16* A, const bf1
       wmma::mma_sync(acc[n], a, b, acc[n]);
     }
   }
+}
+
+// a warp's 16 x D accumulator rows -> global rows of D: f32 directly, or
+// bf16 through the warp's f32 shared scratch (16 x (D + 4)), since WMMA
+// stores accumulators as f32 only
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, FragC* acc, float*) {
+#pragma unroll
+  for (int n = 0; n < D / 16; ++n)
+    wmma::store_matrix_sync(dst + n * 16, acc[n], D, wmma::mem_row_major);
+}
+
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, FragC* acc, float* stage) {
+  constexpr int LDT = D + 4;
+#pragma unroll
+  for (int n = 0; n < D / 16; ++n)
+    wmma::store_matrix_sync(stage + n * 16, acc[n], LDT, wmma::mem_row_major);
+  __syncwarp();
+  for (int i = threadIdx.x % 32; i < WR * D / 2; i += 32) {
+    const int r = 2 * i / D, c = 2 * i % D;
+    *reinterpret_cast<__nv_bfloat162*>(dst + r * D + c) =
+        __floats2bfloat162_rn(stage[r * LDT + c], stage[r * LDT + c + 1]);
+  }
+  __syncwarp();
 }
 
 // ---------------------------------------------------------------------------
@@ -243,12 +270,12 @@ constexpr size_t bwd_smem_bytes() {
          + (size_t)2 * 64 * 4;             // lse, delta of the q tile
 }
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(NTHREADS)
 fa_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   float* __restrict__ dk, float* __restrict__ dv, int H,
+                   OutT* __restrict__ dk, OutT* __restrict__ dv, int H,
                    int Hkv, int Tq, int Tk, float scale, int causal,
                    int q_off, int k_off) {
   constexpr int LDH = D + 8;
@@ -323,12 +350,13 @@ fa_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     warp_ab_acc<D>(dk_acc, dSs + warp * WR * LDP, Qs);  // dK_w += dS^T_w Q
   }
 
+  // the score tiles are free once every warp has left the loop; each warp
+  // stages its rows there (16 x (D + 4) f32 fits in its share of S and dP)
+  __syncthreads();
+  float* stage = Ss + warp * WR * (D + 4);
   const size_t out_base = (((size_t)b * H + h) * Tk + k0 + warp * WR) * D;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::store_matrix_sync(dk + out_base + n * 16, dk_acc[n], D, wmma::mem_row_major);
-    wmma::store_matrix_sync(dv + out_base + n * 16, dv_acc[n], D, wmma::mem_row_major);
-  }
+  store_rows<D>(dk + out_base, dk_acc, stage);
+  store_rows<D>(dv + out_base, dv_acc, stage);
 }
 
 // ---------------------------------------------------------------------------
@@ -340,7 +368,7 @@ __global__ void __launch_bounds__(NTHREADS)
 fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 float* __restrict__ dq, int H, int Hkv, int Tq, int Tk,
+                 bf16* __restrict__ dq, int H, int Hkv, int Tq, int Tk,
                  float scale, int causal, int q_off, int k_off) {
   constexpr int LDH = D + 8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -406,10 +434,8 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     warp_ab_acc<D>(dq_acc, dSs + warp * WR * LDP, Ks);  // dQ_w += dS_w K
   }
 
-  const size_t out_base = q_base + (size_t)warp * WR * D;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(dq + out_base + n * 16, dq_acc[n], D, wmma::mem_row_major);
+  __syncthreads();  // as in dk/dv: stage in the freed score tiles
+  store_rows<D>(dq + q_base + (size_t)warp * WR * D, dq_acc, Ss + warp * WR * (D + 4));
 }
 
 // ---------------------------------------------------------------------------
@@ -431,7 +457,7 @@ static int launch_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename OutT>
 static int launch_dkdv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int H, int Hkv, int Tq,
@@ -439,12 +465,12 @@ static int launch_dkdv(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   const size_t smem = bwd_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      fa_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_bwd_dkdv_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(Tk / BK, H, B);
-  fa_bwd_dkdv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+  fa_bwd_dkdv_kernel<D, OutT><<<grid, NTHREADS, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, H, Hkv,
+      (const float*)lse, (const float*)delta, (OutT*)dk, (OutT*)dv, H, Hkv,
       Tq, Tk, scale, causal, q_off, k_off);
   return (int)cudaGetLastError();
 }
@@ -462,7 +488,7 @@ static int launch_dq(const void* q, const void* k, const void* v,
   dim3 grid(Tq / BQ, H, B);
   fa_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (float*)dq, H, Hkv, Tq, Tk,
+      (const float*)lse, (const float*)delta, (bf16*)dq, H, Hkv, Tq, Tk,
       scale, causal, q_off, k_off);
   return (int)cudaGetLastError();
 }
@@ -480,17 +506,20 @@ int fa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaErrorInvalidValue;
 }
 
+// out_bf16: dk/dv in bf16 (H == Hkv), else f32 per query head
 int fa_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dk, void* dv, int B,
                 int H, int Hkv, int Tq, int Tk, int D, float scale, int causal,
-                int q_off, int k_off, void* stream) {
+                int q_off, int k_off, int out_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64)
-    return launch_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Tq, Tk,
-                           scale, causal, q_off, k_off, s);
-  if (D == 128)
-    return launch_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Tq, Tk,
-                            scale, causal, q_off, k_off, s);
+#define FA_DKDV(DIM, T)                                                        \
+  return launch_dkdv<DIM, T>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Tq, \
+                             Tk, scale, causal, q_off, k_off, s)
+  if (D == 64 && out_bf16) FA_DKDV(64, bf16);
+  if (D == 64) FA_DKDV(64, float);
+  if (D == 128 && out_bf16) FA_DKDV(128, bf16);
+  if (D == 128) FA_DKDV(128, float);
+#undef FA_DKDV
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,8 +14,9 @@ A Hopper block cannot keep the fused kernels' ``[T, T]`` f32 score tile,
 so every kernel tiles (64 x 64) with the streaming algebra; the fused
 and streaming contracts compute the same function and each keeps its
 own check. ``delta = rowsum(do * o)`` stays a plain reduction outside
-the kernels, as in the JAX code, and GQA groups are summed outside the
-dk/dv kernel.
+the kernels, as in the JAX code. The backward kernels write bf16
+gradients, except dk/dv under GQA: those are written in f32 per query
+head and each group is summed outside the kernel.
 
 Dispatch is by device: a tensor on the CPU takes the plain PyTorch
 version (``flash_attention_reference`` forward, ``_bwd_plain``
@@ -47,7 +48,7 @@ launch_counts: Dict[str, int] = {"fa_fwd": 0, "fa_bwd_dkdv": 0, "fa_bwd_dq": 0}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fa_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _I, _P],
-    "fa_bwd_dkdv": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _P],
+    "fa_bwd_dkdv": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _I, _P],
     "fa_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _I, _P],
 }
 
@@ -219,11 +220,15 @@ def _fwd_cuda(qt, kt, vt, scale, causal, q_offset, k_offset):
 
 def _bwd_launch(name, outs, qt, kt, vt, dot, lse, delta, scale, causal,
                 q_offset, k_offset):
-    """One backward kernel (``fa_bwd_dkdv`` writes ``outs = (dk, dv)``,
-    ``fa_bwd_dq`` writes ``outs = (dq,)``, all f32 per q head) on
-    contiguous ``[B,H,T,D]`` inputs, f32 ``lse``/``delta [B,H,Tq]``."""
+    """One backward kernel (``fa_bwd_dkdv`` writes ``outs = (dk, dv)``
+    per q head, bf16 or f32; ``fa_bwd_dq`` writes ``outs = (dq,)``, bf16)
+    on contiguous ``[B,H,T,D]`` inputs, f32 ``lse``/``delta [B,H,Tq]``."""
     B, H, Tq, D = qt.shape
     Hkv, Tk = kt.shape[1], kt.shape[2]
+    out_bf16 = outs[0].dtype == torch.bfloat16
+    if name == "fa_bwd_dq" and not out_bf16:
+        raise ValueError("fa_bwd_dq writes bf16")
+    flag = (int(out_bf16),) if name == "fa_bwd_dkdv" else ()
     fn = getattr(_lib(), name)
     with torch.cuda.device(qt.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -231,7 +236,7 @@ def _bwd_launch(name, outs, qt, kt, vt, dot, lse, delta, scale, causal,
             _ptr(qt), _ptr(kt), _ptr(vt), _ptr(dot), _ptr(lse), _ptr(delta),
             *(_ptr(o) for o in outs),
             B, H, Hkv, Tq, Tk, D, float(scale), int(causal),
-            q_offset, k_offset, stream,
+            q_offset, k_offset, *flag, stream,
         )
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -242,13 +247,15 @@ def _bwd_cuda(qt, kt, vt, ot, lse, dot, scale, causal, q_offset, k_offset):
     qt, kt, vt, dot = (x.contiguous() for x in (qt, kt, vt, dot))
     lse = lse.float().contiguous()
     B, H, Tq, D = qt.shape
-    Tk = kt.shape[2]
+    Hkv, Tk = kt.shape[1], kt.shape[2]
     # bandwidth-bound rowsum, left to PyTorch as the JAX code leaves it
     # to XLA
     delta = (dot.float() * ot.float()).sum(-1)
-    dk = torch.empty((B, H, Tk, D), dtype=torch.float32, device=qt.device)
+    # per-q-head dk/dv in f32 under GQA, summed per group by the caller
+    gdt = qt.dtype if Hkv == H else torch.float32
+    dk = torch.empty((B, H, Tk, D), dtype=gdt, device=qt.device)
     dv = torch.empty_like(dk)
-    dq = torch.empty((B, H, Tq, D), dtype=torch.float32, device=qt.device)
+    dq = torch.empty_like(qt)
     args = (qt, kt, vt, dot, lse, delta, scale, causal, q_offset, k_offset)
     _bwd_launch("fa_bwd_dkdv", (dk, dv), *args)
     _bwd_launch("fa_bwd_dq", (dq,), *args)

@@ -4,9 +4,10 @@ on the card. Marked ``cuda``; on a host without a card every test skips
 
 Run on the card:  python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 
-Tolerances: attention outputs and gradients within 2e-2 of the plain
-f32 result's largest magnitude (bf16 inputs, p and ds rounded to bf16
-before their products), lse within 1e-3; the 8-bit update's codes may
+Tolerances: attention outputs and gradients within 0.2 of the plain f32
+result's rms in every 64-row tile (the kernels' tile; bf16 inputs and
+outputs, p and ds rounded to bf16 before their products), lse within
+1e-3; the 8-bit update's codes may
 differ by 1 on at most 0.1 % of elements, scales and deltas within 1e-6
 of their largest value. The plain versions run with TF32 off."""
 
@@ -20,7 +21,7 @@ from dlrover_tpu_torch.ops import quantized_optim as qo
 
 pytestmark = pytest.mark.cuda
 
-ATTN_TOL = 2e-2
+ATTN_TOL = 0.2  # per 64-row tile, over the tile's rms (see _tile_err)
 LSE_TOL = 1e-3
 
 
@@ -35,6 +36,16 @@ def dev():
 
 def _rel(got, ref):
     return ((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def _tile_err(got, ref, rows=64):
+    """Largest over 64-row tiles of max |got - ref| / rms(ref tile); empty
+    tiles are floored at 1e-3 of the tensor's rms."""
+    ref = ref.float()
+    shape = ref.shape[:-2] + (ref.shape[-2] // rows, rows * ref.shape[-1])
+    err = (got.float() - ref).abs().reshape(shape).amax(-1)
+    rms = ref.reshape(shape).square().mean(-1).sqrt()
+    return (err / rms.clamp_min(1e-3 * ref.square().mean().sqrt())).max().item()
 
 
 @pytest.mark.parametrize(
@@ -62,10 +73,11 @@ def test_attention_kernels_match_plain(dev, B, H, Hkv, T, D, q_off, k_off):
         *leaves, causal=True, q_offset=q_off, k_offset=k_off, return_residuals=True
     )
     refs = torch.autograd.grad(o_ref, leaves, do.float().transpose(1, 2))
-    assert _rel(o, o_ref.detach().transpose(1, 2)) <= ATTN_TOL
+    assert _tile_err(o, o_ref.detach().transpose(1, 2)) <= ATTN_TOL
     assert (lse - lse_ref).abs().max().item() <= LSE_TOL
     for got, ref in zip(grads, refs):
-        assert _rel(got, ref.transpose(1, 2)) <= ATTN_TOL
+        assert got.dtype == torch.bfloat16
+        assert _tile_err(got, ref.transpose(1, 2)) <= ATTN_TOL
 
 
 def test_autograd_op_counts_one_launch_each(dev):
