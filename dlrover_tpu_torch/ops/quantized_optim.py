@@ -3,11 +3,16 @@
 
 Optimizer moments are int8 codes plus one f32 scale per 128-element
 block, on the sqrt map (code = round(sign(y) sqrt|y| 127) of the
-block-max-normalized value). The hot path of ``adamw_8bit_flat``
-(dequantize -> Adam moment update -> requantize -> parameter delta)
-is one Triton kernel per packed group, ``adam8_flat``, replacing the
-Pallas ``_adam8_kernel_wide`` (``_adam8_update_pallas_flat``). It
-reads g, the codes and the scales once and writes them once, in place.
+block-max-normalized value). The hot path (dequantize -> Adam moment
+update -> requantize -> parameter delta) is one Triton kernel,
+``adam8_flat``, launched once per packed group by ``adamw_8bit_flat``
+(replacing the Pallas ``_adam8_kernel_wide``) and once per big leaf by
+the per-leaf ``adamw_8bit`` (replacing the Pallas ``_adam8_kernel``;
+its launches count under ``adam8_leaf``). The scale of codes row r
+lies at flat offset r in both layouts (the flat form's wide
+``[R//128, 128]`` and the per-leaf ``[R]``), so one kernel serves
+both; rows past R in the last tile are masked. It reads g, the codes
+and the scales once and writes them once, in place.
 What bounds it on the card is memory bandwidth (~12 bytes a parameter
 against a few dozen f32 operations, far below the H100's ridge): the
 design is one program per 32 x 128 tile, one block max per row, and
@@ -22,7 +27,7 @@ divide truly, as the JAX math does.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
@@ -30,19 +35,22 @@ BLOCK = 128  # quantization block
 _FLAT_ROWS = 2048  # group sizes are multiples of _FLAT_ROWS * BLOCK
 _TILE_ROWS = 32  # rows per Triton program
 
-# launches of the Triton kernel, counted where the wrapper launches it
-launch_counts: Dict[str, int] = {"adam8_flat": 0}
+# launches of the Triton kernel, counted where the wrapper launches it:
+# under "adam8_flat" for a packed group, "adam8_leaf" for one leaf
+launch_counts: Dict[str, int] = {"adam8_flat": 0, "adam8_leaf": 0}
 
 
 def reset_launch_counts() -> None:
-    launch_counts["adam8_flat"] = 0
+    for k in launch_counts:
+        launch_counts[k] = 0
 
 
 @dataclass
 class Quantized8:
     """Blockwise sqrt-map quantized tensor: ``x ~ sign(c) c^2 scale``
-    with ``c = codes / 127``. Tree form: ``scales [nblocks, 1]``; the
-    flat optimizer's wide form: ``scales [nblocks // 128, 128]``."""
+    with ``c = codes / 127``. ``quantize_8bit``: ``scales [nblocks, 1]``;
+    the per-leaf optimizer's state: ``scales [nblocks]``; the flat
+    optimizer's wide form: ``scales [nblocks // 128, 128]``."""
 
     codes: torch.Tensor  # int8 [nblocks, BLOCK]
     scales: torch.Tensor  # f32
@@ -103,13 +111,6 @@ def _quant_block_math_wide(x, signed):
     return codes.to(torch.int8), s
 
 
-def _dequant_block_math_wide(codes, s2d):
-    R = codes.shape[0]
-    c = codes.float() / 127.0
-    y = torch.sign(c) * c * c
-    return (y.view(R // 128, 128, 128) * s2d[:, :, None]).view(R, BLOCK)
-
-
 def _adam8_block_math(g, m, v, lrA, invbc2, eps, b1, b2, classic_eps=True):
     """Shared f32 Adam math; the operation order is the JAX package's,
     so results agree to the bit where the primitives do."""
@@ -123,19 +124,22 @@ def _adam8_block_math(g, m, v, lrA, invbc2, eps, b1, b2, classic_eps=True):
 
 
 def _adam8_update_plain(g_blocks, mq, vq, scalars, b1, b2, classic_eps=True):
-    """Plain version of ``adam8_flat``: updates the codes and wide
-    scales of ``mq``/``vq`` in place and returns the delta in g's
-    dtype. ``scalars = (lrA, invbc2, eps)`` as f32-exact floats."""
+    """Plain version of the kernel: updates the codes and scales of
+    ``mq``/``vq`` in place and returns the delta in g's dtype. Scales
+    of either layout hold row r's scale at flat offset r (the wide
+    math is the per-row math). ``scalars = (lrA, invbc2, eps)`` as
+    f32-exact floats."""
     lrA, invbc2, eps = scalars
-    m = _dequant_block_math_wide(mq.codes, mq.scales)
-    v = _dequant_block_math_wide(vq.codes, vq.scales)
+    R = g_blocks.shape[0]
+    m = _sqrt_map_dequant(mq.codes.float(), mq.scales.view(R, 1), 127.0)
+    v = _sqrt_map_dequant(vq.codes.float(), vq.scales.view(R, 1), 127.0)
     m_new, v_new, delta = _adam8_block_math(
         g_blocks.float(), m, v, lrA, invbc2, eps, b1, b2, classic_eps
     )
     for q, x, signed in ((mq, m_new, True), (vq, v_new, False)):
-        codes, s = _quant_block_math_wide(x, signed)
-        q.codes.copy_(codes)
-        q.scales.copy_(s)
+        codes, s = _sqrt_map_quant(x, signed, 127.0)
+        q.codes.copy_(codes.to(torch.int8))
+        q.scales.view(R, 1).copy_(s)
     return delta.to(g_blocks.dtype)
 
 
@@ -154,19 +158,21 @@ def _triton_kernel():
 
     @triton.jit
     def adam8_flat(
-        g_ptr, mc_ptr, ms_ptr, vc_ptr, vs_ptr, d_ptr,
+        g_ptr, mc_ptr, ms_ptr, vc_ptr, vs_ptr, d_ptr, R,
         lrA, invbc2, eps, b1, omb1, b2, omb2,
         TILE_ROWS: tl.constexpr, CLASSIC: tl.constexpr,
     ):
         rows = tl.program_id(0) * TILE_ROWS + tl.arange(0, TILE_ROWS)
+        live = rows < R  # the last tile of a leaf may run past its rows
         offs = rows[:, None] * 128 + tl.arange(0, 128)[None, :]
-        g = tl.load(g_ptr + offs).to(tl.float32)
+        mask = live[:, None]
+        g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
         # sqrt-map dequantize: c = code / 127, x = sign(c) c c scale
-        cm = libdevice.div_rn(tl.load(mc_ptr + offs).to(tl.float32), 127.0)
-        cv = libdevice.div_rn(tl.load(vc_ptr + offs).to(tl.float32), 127.0)
+        cm = libdevice.div_rn(tl.load(mc_ptr + offs, mask=mask, other=0).to(tl.float32), 127.0)
+        cv = libdevice.div_rn(tl.load(vc_ptr + offs, mask=mask, other=0).to(tl.float32), 127.0)
         sgn_m = tl.where(cm > 0, 1.0, tl.where(cm < 0, -1.0, 0.0))
-        m = sgn_m * cm * cm * tl.load(ms_ptr + rows)[:, None]
-        v = cv * cv * tl.load(vs_ptr + rows)[:, None]
+        m = sgn_m * cm * cm * tl.load(ms_ptr + rows, mask=live, other=0.0)[:, None]
+        v = cv * cv * tl.load(vs_ptr + rows, mask=live, other=0.0)[:, None]
         # moments and delta, in the JAX math's operation order
         m_new = b1 * m + omb1 * g
         v_new = b2 * v + omb2 * g * g
@@ -176,7 +182,7 @@ def _triton_kernel():
         else:
             r = libdevice.div_rn(1.0, libdevice.sqrt_rn(v_new * invbc2 + eps))
             delta = -lrA * m_new * r
-        tl.store(d_ptr + offs, delta.to(d_ptr.dtype.element_ty))
+        tl.store(d_ptr + offs, delta.to(d_ptr.dtype.element_ty), mask=mask)
         # requantize: one max per 128-element row, round half to even
         s_m = tl.max(tl.abs(m_new), axis=1)
         y = libdevice.div_rn(m_new, tl.maximum(s_m, 1e-30)[:, None])
@@ -188,22 +194,25 @@ def _triton_kernel():
         sgn_v = tl.where(yv > 0, 1.0, tl.where(yv < 0, -1.0, 0.0))
         qv = libdevice.rint(sgn_v * libdevice.sqrt_rn(tl.abs(yv)) * 127.0)
         qv = tl.minimum(tl.maximum(qv, 0.0), 127.0)
-        tl.store(mc_ptr + offs, qm.to(tl.int8))
-        tl.store(vc_ptr + offs, qv.to(tl.int8))
-        tl.store(ms_ptr + rows, s_m)
-        tl.store(vs_ptr + rows, s_v)
+        tl.store(mc_ptr + offs, qm.to(tl.int8), mask=mask)
+        tl.store(vc_ptr + offs, qv.to(tl.int8), mask=mask)
+        tl.store(ms_ptr + rows, s_m, mask=live)
+        tl.store(vs_ptr + rows, s_v, mask=live)
 
     _TRITON_KERNEL = adam8_flat
     return _TRITON_KERNEL
 
 
-def _adam8_update_triton(g_blocks, mq, vq, scalars, b1, b2, classic_eps=True):
+def _adam8_update_triton(g_blocks, mq, vq, scalars, b1, b2, classic_eps=True,
+                         counter="adam8_flat"):
+    """One launch over ``[R, 128]`` rows, any R (the last tile is
+    masked), counted under ``counter``."""
     R = g_blocks.shape[0]
     dev = g_blocks.device
     ok = (
         g_blocks.is_contiguous()
         and g_blocks.shape[1] == BLOCK
-        and R % _FLAT_ROWS == 0
+        and R > 0
         and all(
             t.device == dev and t.is_contiguous()
             for t in (mq.codes, mq.scales, vq.codes, vq.scales)
@@ -215,16 +224,15 @@ def _adam8_update_triton(g_blocks, mq, vq, scalars, b1, b2, classic_eps=True):
     )
     if not ok:
         raise NotImplementedError(
-            "adam8_flat takes a contiguous [R, 128] group (R a multiple "
-            f"of {_FLAT_ROWS}) with int8 codes and wide f32 scales on "
-            "the same device"
+            "adam8_flat takes contiguous [R, 128] rows with int8 codes and "
+            "R f32 scales (one a row) on the same device"
         )
     kernel = _triton_kernel()
     delta = torch.empty_like(g_blocks)
     lrA, invbc2, eps = scalars
     with torch.cuda.device(dev):
-        kernel[(R // _TILE_ROWS,)](
-            g_blocks, mq.codes, mq.scales, vq.codes, vq.scales, delta,
+        kernel[(-(-R // _TILE_ROWS),)](
+            g_blocks, mq.codes, mq.scales, vq.codes, vq.scales, delta, R,
             lrA, invbc2, eps, b1, 1.0 - b1, b2, 1.0 - b2,
             TILE_ROWS=_TILE_ROWS, CLASSIC=bool(classic_eps),
             num_warps=4,
@@ -232,7 +240,7 @@ def _adam8_update_triton(g_blocks, mq, vq, scalars, b1, b2, classic_eps=True):
             # own, as in the JAX math and the plain version
             enable_fp_fusion=False,
         )
-    launch_counts["adam8_flat"] += 1
+    launch_counts[counter] += 1
     return delta
 
 
@@ -241,6 +249,17 @@ def adam8_update_flat(g_blocks, mq, vq, scalars, b1, b2, classic_eps=True):
     the plain version on the CPU. Moments update in place."""
     if g_blocks.device.type == "cuda":
         return _adam8_update_triton(g_blocks, mq, vq, scalars, b1, b2, classic_eps)
+    return _adam8_update_plain(g_blocks, mq, vq, scalars, b1, b2, classic_eps)
+
+
+def adam8_update_leaf(g_blocks, mq, vq, scalars, b1, b2, classic_eps=True):
+    """One fused update of one leaf's ``[R, 128]`` blocks (any R) with
+    ``[R]`` scales: the Triton kernel on CUDA (counted as
+    ``adam8_leaf``), the plain version on the CPU."""
+    if g_blocks.device.type == "cuda":
+        return _adam8_update_triton(
+            g_blocks, mq, vq, scalars, b1, b2, classic_eps, counter="adam8_leaf"
+        )
     return _adam8_update_plain(g_blocks, mq, vq, scalars, b1, b2, classic_eps)
 
 
@@ -307,7 +326,52 @@ def _pack_group(leaves, group: _FlatGroup, dtype):
     return flat
 
 
-class adamw_8bit_flat(torch.optim.Optimizer):
+class _Adam8Base(torch.optim.Optimizer):
+    """What the two 8-bit AdamW forms share: one param group whose
+    ``retune_scale`` multiplies the whole update, the eps / eps_root
+    choice, the f32 bias-correction scalars, and decoupled weight decay
+    ``- lr * wd * p`` applied after the kernel, as the JAX transform
+    chain does."""
+
+    def __init__(self, params, lr, b1, b2, eps, weight_decay, eps_root):
+        if eps_root and eps:
+            raise ValueError(
+                "pass either eps (classic, outside the sqrt) or eps_root "
+                "(inside), not both"
+            )
+        super().__init__(params, dict(lr=lr, retune_scale=1.0))
+        if len(self.param_groups) != 1:
+            raise ValueError(f"{type(self).__name__} takes one param group")
+        self.b1, self.b2 = b1, b2
+        self.classic = eps_root == 0.0
+        self.eps_val = eps if self.classic else eps_root
+        self.weight_decay = weight_decay
+
+    def _scalars(self, lr: float, count: int):
+        """(lrA = lr / bc1, invbc2 = 1 / bc2, eps) in f32, as the JAX
+        update computes them, returned as floats exact in f32."""
+        cf = torch.tensor(float(count), dtype=torch.float32)
+        lrA = torch.tensor(lr, dtype=torch.float32) / (1.0 - self.b1**cf)
+        invbc2 = 1.0 / (1.0 - self.b2**cf)
+        eps32 = torch.tensor(self.eps_val, dtype=torch.float32)
+        return float(lrA), float(invbc2), float(eps32)
+
+    def _grads(self, leaves):
+        grads = [p.grad for p in leaves]
+        if any(g is None for g in grads):
+            raise ValueError("every parameter needs a gradient")
+        return grads
+
+    def _apply(self, leaves, out, lr, group):
+        if self.weight_decay:
+            wd = float(torch.tensor(lr, dtype=torch.float32) * self.weight_decay)
+            out = torch._foreach_add(out, leaves, alpha=-wd)
+        if group["retune_scale"] != 1.0:
+            out = torch._foreach_mul(out, float(group["retune_scale"]))
+        torch._foreach_add_(leaves, out)
+
+
+class adamw_8bit_flat(_Adam8Base):
     """AdamW with flat-buffer 8-bit state (the JAX ``adamw_8bit_flat``):
     big leaves' moments live in group-packed ``Quantized8`` pairs with
     wide scales, updated by one ``adam8_flat`` launch per group; leaves
@@ -316,10 +380,7 @@ class adamw_8bit_flat(torch.optim.Optimizer):
     ``params`` are taken in the order given, which should be the JAX
     flatten order (``Transformer.jax_ordered_parameters``) for the
     layout to match the JAX package's. ``eps`` (outside the sqrt) and
-    ``eps_root`` (inside) are mutually exclusive. Weight decay is
-    decoupled, ``- lr * wd * p``, and each param group's
-    ``retune_scale`` multiplies the whole update, both applied after
-    the kernel as the JAX transform chain does."""
+    ``eps_root`` (inside) are mutually exclusive."""
 
     def __init__(
         self,
@@ -333,18 +394,7 @@ class adamw_8bit_flat(torch.optim.Optimizer):
         group_elems: int = 1 << 27,
         eps_root: float = 0.0,
     ):
-        if eps_root and eps:
-            raise ValueError(
-                "pass either eps (classic, outside the sqrt) or eps_root "
-                "(inside), not both"
-            )
-        super().__init__(params, dict(lr=lr, retune_scale=1.0))
-        if len(self.param_groups) != 1:
-            raise ValueError("adamw_8bit_flat takes one param group")
-        self.b1, self.b2 = b1, b2
-        self.classic = eps_root == 0.0
-        self.eps_val = eps if self.classic else eps_root
-        self.weight_decay = weight_decay
+        super().__init__(params, lr, b1, b2, eps, weight_decay, eps_root)
         leaves: List[torch.Tensor] = self.param_groups[0]["params"]
         self.layout = _flat_layout(leaves, min_quantized_size, group_elems)
         self.count = 0
@@ -365,28 +415,17 @@ class adamw_8bit_flat(torch.optim.Optimizer):
         self.mu_small = torch.zeros(self.layout.small_total, device=dev)
         self.nu_small = torch.zeros(self.layout.small_total, device=dev)
 
-    def _scalars(self, lr: float):
-        """(lrA = lr / bc1, invbc2 = 1 / bc2) in f32, as the JAX update
-        computes them, returned as floats exact in f32."""
-        cf = torch.tensor(float(self.count), dtype=torch.float32)
-        lrA = torch.tensor(lr, dtype=torch.float32) / (1.0 - self.b1**cf)
-        invbc2 = 1.0 / (1.0 - self.b2**cf)
-        return float(lrA), float(invbc2)
-
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise NotImplementedError("adamw_8bit_flat takes no closure")
         group = self.param_groups[0]
         leaves = group["params"]
-        grads = [p.grad for p in leaves]
-        if any(g is None for g in grads):
-            raise ValueError("every parameter needs a gradient")
+        grads = self._grads(leaves)
         lr = group["lr"]
         self.count += 1
-        lrA, invbc2 = self._scalars(lr)
-        eps32 = float(torch.tensor(self.eps_val, dtype=torch.float32))
-        scalars = (lrA, invbc2, eps32)
+        scalars = self._scalars(lr, self.count)
+        lrA, invbc2, _ = scalars
         out: List[torch.Tensor] = [None] * len(leaves)
         for gi, g in enumerate(self.layout.groups):
             gflat = _pack_group(grads, g, grads[g.idx[0]].dtype)
@@ -409,10 +448,95 @@ class adamw_8bit_flat(torch.optim.Optimizer):
             for i, off in zip(self.layout.small_idx, self.layout.small_offsets):
                 n = leaves[i].numel()
                 out[i] = ds[off:off + n].view(leaves[i].shape).to(leaves[i].dtype)
-        if self.weight_decay:
-            wd = float(torch.tensor(lr, dtype=torch.float32) * self.weight_decay)
-            out = torch._foreach_add(out, leaves, alpha=-wd)
-        if group["retune_scale"] != 1.0:
-            out = torch._foreach_mul(out, float(group["retune_scale"]))
-        torch._foreach_add_(leaves, out)
+        self._apply(leaves, out, lr, group)
+        return None
+
+
+@dataclass
+class Adam8State:
+    """The per-leaf form's state (the JAX ``Adam8State``): the update
+    count and, per leaf, a ``Quantized8`` moment pair (``[R]`` scales)
+    or, under ``min_quantized_size``, an f32 pair."""
+
+    count: int
+    mu: List[Union[Quantized8, torch.Tensor]]
+    nu: List[Union[Quantized8, torch.Tensor]]
+
+
+class adamw_8bit(_Adam8Base):
+    """AdamW with per-leaf 8-bit state (the JAX ``adamw_8bit``, its
+    ``bits=8`` form): each leaf of at least ``min_quantized_size``
+    elements keeps its moments as int8 codes with one f32 scale per
+    128-element block and is updated by one launch of the Triton kernel
+    (``adam8_leaf``); smaller leaves keep f32 moments. Numerically the
+    same as ``adamw_8bit_flat``: blocks never straddle leaves in either
+    form. ``bits=4`` (``adamw_4bit``) is not ported yet (ROADMAP A4)."""
+
+    def __init__(
+        self,
+        params,
+        lr: float = 1e-3,
+        b1: float = 0.9,
+        b2: float = 0.999,
+        eps: float = 1e-8,
+        weight_decay: float = 0.0,
+        min_quantized_size: int = 4096,
+        bits: int = 8,
+        eps_root: float = 0.0,
+    ):
+        if bits == 4:
+            raise NotImplementedError(
+                "adamw_8bit(bits=4): the nibble-packed 4-bit state is not "
+                "ported yet (ROADMAP A4)"
+            )
+        if bits != 8:
+            raise ValueError(f"bits must be 4 or 8, got {bits}")
+        super().__init__(params, lr, b1, b2, eps, weight_decay, eps_root)
+        mu, nu = [], []
+        for p in self.param_groups[0]["params"]:
+            if p.numel() < min_quantized_size:
+                mu.append(torch.zeros(p.shape, dtype=torch.float32, device=p.device))
+                nu.append(torch.zeros(p.shape, dtype=torch.float32, device=p.device))
+                continue
+            nblocks = -(-p.numel() // BLOCK)
+            for moments, signed in ((mu, True), (nu, False)):
+                moments.append(
+                    Quantized8(
+                        torch.zeros((nblocks, BLOCK), dtype=torch.int8, device=p.device),
+                        torch.zeros((nblocks,), dtype=torch.float32, device=p.device),
+                        tuple(p.shape),
+                        signed,
+                    )
+                )
+        self.adam_state = Adam8State(0, mu, nu)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise NotImplementedError("adamw_8bit takes no closure")
+        group = self.param_groups[0]
+        leaves = group["params"]
+        grads = self._grads(leaves)
+        lr = group["lr"]
+        st = self.adam_state
+        st.count += 1
+        scalars = self._scalars(lr, st.count)
+        lrA, invbc2, _ = scalars
+        out: List[torch.Tensor] = []
+        for i, g in enumerate(grads):
+            m, v = st.mu[i], st.nu[i]
+            if isinstance(m, Quantized8):
+                delta = adam8_update_leaf(
+                    _to_blocks(g.float()), m, v, scalars, self.b1, self.b2,
+                    self.classic,
+                )
+                out.append(_from_blocks(delta, g.shape).to(g.dtype))
+            else:
+                # small leaf: plain f32 Adam with the kernel's eps form
+                st.mu[i], st.nu[i], d = _adam8_block_math(
+                    g.float(), m, v, lrA, invbc2, self.eps_val, self.b1,
+                    self.b2, self.classic,
+                )
+                out.append(d.to(g.dtype))
+        self._apply(leaves, out, lr, group)
         return None

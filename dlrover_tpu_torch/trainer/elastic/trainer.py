@@ -208,11 +208,11 @@ def build_optimizer(
     for the adaptive optimizers and L2-into-update for sgd, as in the
     JAX package; ``retune_scale`` multiplies the update."""
     lr_fn = lr_schedule(lr, schedule, warmup_steps, total_steps)
-    if name in ("agd", "adamw_8bit"):
+    if name == "agd":
         raise NotImplementedError(
             f"optimizer {name!r} is not ported yet (ROADMAP A4)"
         )
-    if name not in ("adamw", "adam", "sgd", "adamw_8bit_flat"):
+    if name not in ("adamw", "adam", "sgd", "adamw_8bit", "adamw_8bit_flat"):
         raise ValueError(f"unknown optimizer {name!r}")
     allowed = {"adamw": _ADAM_KW, "adam": _ADAM_KW, "sgd": _SGD_KW}.get(name)
     if allowed is not None and set(kwargs) - allowed:
@@ -220,10 +220,11 @@ def build_optimizer(
     lr0 = float(lr_fn(0))
 
     def make(params):
-        if name == "adamw_8bit_flat":
-            from dlrover_tpu_torch.ops.quantized_optim import adamw_8bit_flat
+        if name in ("adamw_8bit", "adamw_8bit_flat"):
+            from dlrover_tpu_torch.ops import quantized_optim
 
-            opt = adamw_8bit_flat(params, lr0, weight_decay=weight_decay, **kwargs)
+            cls = getattr(quantized_optim, name)
+            opt = cls(params, lr0, weight_decay=weight_decay, **kwargs)
         elif name in ("adamw", "adam"):
             # the JAX "adam" chains add_decayed_weights after the Adam
             # direction: decoupled decay, i.e. AdamW

@@ -9,13 +9,16 @@ result's rms in every 64-row tile (the kernels' tile; bf16 inputs and
 outputs, p and ds rounded to bf16 before their products), lse within
 1e-3; the 8-bit update's codes may
 differ by 1 on at most 0.1 % of elements, scales and deltas within 1e-6
-of their largest value. The plain versions run with TF32 off."""
+of their largest value; the embedding row kernels equal their plain
+versions bitwise (they only move f32 rows). The plain versions run with
+TF32 off."""
 
 import math
 
 import pytest
 import torch
 
+from dlrover_tpu_torch.ops import embedding_rows as er
 from dlrover_tpu_torch.ops import flash_attention as fa
 from dlrover_tpu_torch.ops import quantized_optim as qo
 
@@ -142,3 +145,100 @@ def test_small_train_step_on_the_card(dev):
     assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
     assert fa.launch_counts == {"fa_fwd": 6, "fa_bwd_dkdv": 6, "fa_bwd_dq": 6}
     assert qo.launch_counts["adam8_flat"] == 3 * len(state.opt_state.opt.layout.groups)
+
+
+@pytest.mark.parametrize("R", [301, 64])
+def test_adam8_leaf_route_masks_the_tail(dev, R):
+    """Per-leaf rows (R = 301 is no multiple of the 32-row tile) with
+    [R] scales; the rows past R in the last tile are neither read nor
+    written: a guard row after the state keeps its bytes."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    grad = torch.randn((R, 128), generator=g, device=dev) * 1e-3
+    m0 = torch.randn((R, 128), generator=g, device=dev) * 1e-3
+    v0 = torch.rand((R, 128), generator=g, device=dev) * 1e-6
+
+    def state():
+        out = []
+        for x, s in ((m0, True), (v0, False)):
+            codes = torch.full((R + 1, 128), 7, dtype=torch.int8, device=dev)
+            scales = torch.full((R + 1,), 3.0, device=dev)
+            c, sc = qo._sqrt_map_quant(x, s, 127.0)
+            codes[:R], scales[:R] = c.to(torch.int8), sc.view(R)
+            out.append((codes, scales, qo.Quantized8(codes[:R], scales[:R], (R * 128,), s)))
+        return out
+
+    scalars = tuple(float(torch.tensor(x, dtype=torch.float32))
+                    for x in (3e-4 / (1 - 0.9**3), 1 / (1 - 0.999**3), 1e-8))
+    k_state, p_state = state(), state()
+    qo.reset_launch_counts()
+    dk = qo.adam8_update_leaf(grad, k_state[0][2], k_state[1][2], scalars, 0.9, 0.999)
+    dp = qo._adam8_update_plain(grad, p_state[0][2], p_state[1][2], scalars, 0.9, 0.999)
+    torch.cuda.synchronize()
+    assert qo.launch_counts == {"adam8_flat": 0, "adam8_leaf": 1}
+    for (kc, ks, a), (_, _, b) in zip(k_state, p_state):
+        diff = (a.codes.int() - b.codes.int()).abs()
+        assert diff.max().item() <= 1 and diff.float().mean().item() <= 1e-3
+        assert _rel(a.scales, b.scales) <= 1e-6
+        assert (kc[R] == 7).all() and ks[R].item() == 3.0  # the guard row
+    assert _rel(dk, dp) <= 1e-6
+
+
+@pytest.mark.parametrize("row_floats", [256, 16, 6, 130])
+def test_embedding_row_kernels_equal_plain(dev, row_floats):
+    """Sorted unique slots padded with the scratch slot (the last row)
+    many times; widths that take the 16-byte path (256, 16) and the
+    scalar path (6, 130)."""
+    cap = 5000
+    g = torch.Generator(device=dev).manual_seed(3)
+    table = torch.randn((cap + 1, row_floats), generator=g, device=dev)
+    real = torch.randperm(cap, generator=g, device=dev)[:700].sort().values
+    slots = torch.full((1024,), cap, dtype=torch.int32, device=dev)
+    slots[:700] = real.int()
+    er.reset_launch_counts()
+    got = er.emb_gather(table, slots)
+    assert torch.equal(got, er.gather_plain(table, slots))
+    rows = torch.randn((1024, row_floats), generator=g, device=dev)
+    rows[700:] = rows[700]  # padding entries carry identical values
+    ref = er.scatter_plain(table.clone(), slots, rows)
+    out = er.emb_scatter_(table, slots, rows)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == table.data_ptr()  # in place
+    assert torch.equal(table, ref)
+    assert er.launch_counts == {"emb_gather": 1, "emb_scatter": 1}
+
+
+def test_device_tier_on_the_card_matches_the_cpu_and_repeats(dev):
+    """A spilling run of the tier on the card against the same run on
+    the CPU (1e-5 of the largest value: the dense math rounds
+    differently), and two card runs bitwise equal (the duplicate-id sum
+    is deterministic)."""
+    import numpy as np
+
+    from dlrover_tpu_torch.ops.embedding import (
+        DeviceSparseEmbedding,
+        ShardedKvEmbedding,
+    )
+
+    def run(devices):
+        host = ShardedKvEmbedding(2, 32, num_slots=2, seed=0)
+        emb = DeviceSparseEmbedding(host, capacity=256, sparse_optimizer="adam",
+                                    lr=0.05, devices=devices)
+        rng = np.random.default_rng(0)
+        for step in range(1, 9):
+            ids = np.minimum(rng.zipf(1.3, 512), 2000).astype(np.int64)
+            prep = emb.prepare(ids)
+            rows = emb.gather_for(prep)
+            emb.apply_grads(prep, rows * 0.1 + 0.01, step=step)
+        emb.flush()
+        assert emb.stats.spill_rows > 0
+        st = host.export_state()
+        order = np.argsort(st["keys"])
+        emb.close()
+        return st["keys"][order], st["rows"][order]
+
+    k1, r1 = run("cuda")
+    k2, r2 = run("cuda")
+    k0, r0 = run("cpu")
+    assert np.array_equal(k1, k2) and np.array_equal(r1, r2)
+    assert np.array_equal(k0, k1)
+    assert np.abs(r1 - r0).max() <= 1e-5 * np.abs(r0).max()

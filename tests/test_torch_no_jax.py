@@ -24,6 +24,8 @@ for m in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
 sys.meta_path.insert(0, Block())
 
 import dlrover_tpu_torch
+import dlrover_tpu_torch.ops.embedding.device_tier
+import dlrover_tpu_torch.trainer.sparse
 names = ["dlrover_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(dlrover_tpu_torch.__path__, "dlrover_tpu_torch.")
 ]
@@ -43,9 +45,10 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert p.returncode == 0, p.stderr[-3000:]
-    # every module of the slice: package inits, common, utils, models,
-    # ops, trainer
-    assert int(p.stdout.strip().splitlines()[-1]) >= 20
+    # every module of both slices: package inits, common, utils, models,
+    # ops (attention, optimizer, embedding rows, the store and the device
+    # tier), data (the sparse row pipeline), trainer (elastic and sparse)
+    assert int(p.stdout.strip().splitlines()[-1]) >= 28
 
 
 def test_probe_really_blocks():

@@ -122,3 +122,129 @@ def test_optimizer_five_steps_match_jax(wd, eps_root):
 def test_both_eps_forms_refused_together():
     with pytest.raises(ValueError):
         tq.adamw_8bit_flat([torch.nn.Parameter(torch.zeros(3))], eps=1e-8, eps_root=1e-8)
+
+
+# -- the per-leaf form (adamw_8bit, the B7 contract) -------------------------
+def _leaf_state(rows, seed=0):
+    """A non-trivial per-leaf 8-bit state: JAX tree-form codes and
+    ``[R, 1]`` scales, and the port's ``[R]`` scales."""
+    rng = np.random.default_rng(seed)
+    g = (rng.normal(size=(rows, 128)) * 1e-3).astype(np.float32)
+    m = (rng.normal(size=(rows, 128)) * 1e-3).astype(np.float32)
+    v = (rng.random(size=(rows, 128)) * 1e-6).astype(np.float32)
+    v[:3] = 0.0
+    jm, jv = jq.quantize_8bit(jnp.asarray(m), True), jq.quantize_8bit(jnp.asarray(v), False)
+    return g, jm, jv
+
+
+@pytest.mark.parametrize("classic", [True, False])
+@pytest.mark.parametrize("jax_path", ["pallas_interpret", "jnp"])
+def test_leaf_update_matches_jax(classic, jax_path):
+    """R = 301 rows: neither a multiple of the Triton kernel's 32-row
+    tile nor of the Pallas kernel's 256-row tile (which pads to it)."""
+    g, jm, jv = _leaf_state(301)
+    R = g.shape[0]
+    sc = _scalars(3e-4, 4, 1e-8)
+    if jax_path == "pallas_interpret":
+        jm2, jv2, jd = jq._adam8_update_pallas(
+            jnp.asarray(g), jm, jv, jnp.asarray(sc), 0.9, 0.999,
+            interpret=True, classic_eps=classic,
+        )
+    else:
+        jm2, jv2, jd = jq._adam8_update_jnp(jnp.asarray(g), jm, jv, jnp.asarray(sc), 0.9, 0.999, classic)
+    tm, tv = (
+        tq.Quantized8(torch.from_numpy(np.asarray(q.codes).copy()),
+                      torch.from_numpy(np.asarray(q.scales).reshape(R).copy()), (R * 128,), s)
+        for q, s in ((jm, True), (jv, False))
+    )
+    tq.reset_launch_counts()
+    td = tq.adam8_update_leaf(torch.from_numpy(g), tm, tv, tuple(float(x) for x in sc), 0.9, 0.999, classic)
+    assert tq.launch_counts == {"adam8_flat": 0, "adam8_leaf": 0}  # the CPU runs the plain version
+    assert tuple(tm.scales.shape) == (R,)
+    np.testing.assert_array_equal(tm.codes.numpy(), np.asarray(jm2.codes))
+    np.testing.assert_array_equal(tv.codes.numpy(), np.asarray(jv2.codes))
+    np.testing.assert_allclose(tm.scales.numpy(), np.asarray(jm2.scales).reshape(R), atol=SCALE_TOL)
+    np.testing.assert_allclose(tv.scales.numpy(), np.asarray(jv2.scales).reshape(R), atol=SCALE_TOL)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=DELTA_TOL)
+
+
+def _run_both(jtx_fn, topt_fn, steps=5, seed=7):
+    import jax
+
+    rng = np.random.default_rng(seed)
+    names = sorted(_TREE)
+    params0 = {k: rng.normal(size=_TREE[k]).astype(np.float32) for k in names}
+    grads = [
+        {k: (rng.normal(size=_TREE[k]) * 1e-2).astype(np.float32) for k in names}
+        for _ in range(steps)
+    ]
+    jtx = jtx_fn()
+    jp = {k: jnp.asarray(v) for k, v in params0.items()}
+    js = jtx.init(jp)
+    tp = [torch.nn.Parameter(torch.from_numpy(params0[k].copy())) for k in names]
+    topt = topt_fn(tp)
+    for step in range(steps):
+        u, js = jtx.update({k: jnp.asarray(v) for k, v in grads[step].items()}, js, jp)
+        jp = jax.tree.map(lambda p, d: p + d, jp, u)
+        for p, k in zip(tp, names):
+            p.grad = torch.from_numpy(grads[step][k])
+        topt.step()
+        for p, k in zip(tp, names):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]), rtol=0, atol=1e-6)
+    return names, js, topt, tp
+
+
+@pytest.mark.parametrize("wd,eps_root", [(0.0, 0.0), (0.01, 0.0), (0.01, 1e-8)])
+def test_per_leaf_optimizer_five_steps_match_jax(wd, eps_root):
+    """Leaves: a_w and e_w quantized (64 and 96 rows), c_w quantized with
+    a ragged last block (4101 elements, 33 rows), b_s and d_s under
+    min_quantized_size (f32 moments)."""
+    eps = 0.0 if eps_root else 1e-8
+    kw = dict(weight_decay=wd, min_quantized_size=4096, eps=eps, eps_root=eps_root)
+    names, js, topt, _ = _run_both(
+        lambda: jq.adamw_8bit(1e-2, use_pallas=False, **kw),
+        lambda tp: tq.adamw_8bit(tp, lr=1e-2, **kw),
+    )
+    st = topt.adam_state
+    assert st.count == int(js.count) == 5
+    for i, k in enumerate(names):
+        tm, tv, jm, jv = st.mu[i], st.nu[i], js.mu[k], js.nu[k]
+        if isinstance(tm, tq.Quantized8):
+            assert k in ("a_w", "c_w", "e_w")
+            for a, b in ((tm, jm), (tv, jv)):
+                np.testing.assert_array_equal(a.codes.numpy(), np.asarray(b.codes))
+                np.testing.assert_allclose(a.scales.numpy(), np.asarray(b.scales).reshape(-1), atol=SCALE_TOL)
+        else:
+            assert k in ("b_s", "d_s")
+            np.testing.assert_allclose(tm.numpy(), np.asarray(jm), atol=1e-7)
+            np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-7)
+
+
+def test_per_leaf_and_flat_forms_are_bitwise_equal():
+    """Blocks never straddle leaves in either form, so the two give the
+    same parameters to the bit (the JAX docstring's claim, on the port)."""
+    rng = np.random.default_rng(4)
+    names = sorted(_TREE)
+    p0 = {k: rng.normal(size=_TREE[k]).astype(np.float32) for k in names}
+    runs = []
+    for make in (
+        lambda tp: tq.adamw_8bit(tp, lr=1e-2, weight_decay=0.01),
+        lambda tp: tq.adamw_8bit_flat(tp, lr=1e-2, weight_decay=0.01, group_elems=9000),
+    ):
+        tp = [torch.nn.Parameter(torch.from_numpy(p0[k].copy())) for k in names]
+        opt = make(tp)
+        g_rng = np.random.default_rng(5)
+        for _ in range(4):
+            for p, k in zip(tp, names):
+                p.grad = torch.from_numpy((g_rng.normal(size=_TREE[k]) * 1e-2).astype(np.float32))
+            opt.step()
+        runs.append([p.detach().numpy().copy() for p in tp])
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_four_bit_form_is_not_ported():
+    with pytest.raises(NotImplementedError, match="A4"):
+        tq.adamw_8bit([torch.nn.Parameter(torch.zeros(3))], bits=4)
+    with pytest.raises(ValueError):
+        tq.adamw_8bit([torch.nn.Parameter(torch.zeros(3))], eps=1e-8, eps_root=1e-8)
