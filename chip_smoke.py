@@ -11,8 +11,11 @@ gpt2_small path and to the full-size sparse path.)
    g++ for the embedding store's ``kv_store.cc``, all started together);
 2. kernels: every hand-written kernel against its plain PyTorch version
    on the card, at the main paths' shapes (and the streaming attention
-   contracts' shapes), with error, time, plain time, library time and
-   the bound from shapes: attention in bf16, the 8-bit AdamW on a packed
+   contracts' shapes: Llama-2 width, GQA, a key offset, offsets that are
+   no multiple of a tile, no mask), with error, time, plain time, library
+   time, the bound from shapes, achieved TFLOP/s and the share of the
+   bound; nvcc's register and spill report is printed and held to 0
+   spill bytes for the wgmma kernels: attention in bf16, the 8-bit AdamW on a packed
    group (B6) and on gpt2_small's ``wte`` leaf (B7), the embedding row
    gather/scatter on a 4 GiB table (B8/B9, bitwise);
 3. paths, each driven with the launch counts set to 0 just before it and
@@ -35,8 +38,9 @@ Every phase prints one JSON line; any failure raises, and the script then
 exits nonzero without the last line. It needs a CUDA card and the
 repository around it; it imports nothing of JAX or of ``dlrover_tpu``.
 Times are CUDA-event means over many launches after warm-up (for the
-embedding row kernels, which run for tens of µs, over a replayed CUDA
-graph, so the wrapper's host time drops out); the inputs of the
+embedding row kernels and the two small attention shapes, which run for
+tens of µs, over a replayed CUDA graph, so the wrapper's host time drops
+out); the inputs of the
 attention shapes (50 MB and up) are about the size of the 50 MB L2
 cache or larger, so launches find them mostly cold.
 """
@@ -136,8 +140,10 @@ def tile_err(got, ref, rows=64):
     return (err / rms.clamp_min(floor)).max().item()
 
 
-def visible_pairs(Tq, Tk, q_off, k_off):
-    """(q, k) pairs a causal mask leaves visible for these offsets."""
+def visible_pairs(Tq, Tk, q_off, k_off, causal=True):
+    """(q, k) pairs the mask leaves visible for these offsets."""
+    if not causal:
+        return Tq * Tk
     rows = q_off + np.arange(Tq) - k_off + 1
     return int(np.clip(rows, 0, Tk).sum())
 
@@ -146,11 +152,12 @@ def visible_pairs(Tq, Tk, q_off, k_off):
 # attention
 # ---------------------------------------------------------------------------
 def check_attention(torch, fa, label, B, H, Hkv, T, D, q_off=0, k_off=0,
-                    probe=False, seed=0):
+                    causal=True, probe=False, graph=False, seed=0):
     """Kernels against the plain f32 result at one shape, then their
-    times. ``probe`` (the main shape) also reads the limit's power: the
-    plain output with each query of the last tile missing its own key, a
-    diagonal-tile bug, must fail ``ATTN_TOL``."""
+    times (``graph``: from a replayed CUDA graph, for shapes whose kernels
+    run for tens of µs). ``probe`` (the main shape) also reads the limit's
+    power: the plain output with each query of the last tile missing its
+    own key, a diagonal-tile bug, must fail ``ATTN_TOL``."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
@@ -158,7 +165,7 @@ def check_attention(torch, fa, label, B, H, Hkv, T, D, q_off=0, k_off=0,
     k = torch.randn((B, Hkv, T, D), generator=g, device=dev, dtype=bf)
     v = torch.randn((B, Hkv, T, D), generator=g, device=dev, dtype=bf)
     do = torch.randn((B, H, T, D), generator=g, device=dev, dtype=bf)
-    kw = dict(causal=True, q_offset=q_off, k_offset=k_off, layout="bhtd")
+    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off, layout="bhtd")
     o, lse = fa.flash_attention_fwd(q, k, v, **kw)
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
@@ -167,7 +174,7 @@ def check_attention(torch, fa, label, B, H, Hkv, T, D, q_off=0, k_off=0,
     # materialized reference), TF32 off
     qf, kf, vf = (x.float().transpose(1, 2).requires_grad_() for x in (q, k, v))
     o_ref, lse_ref = fa.flash_attention_reference(
-        qf, kf, vf, causal=True, q_offset=q_off, k_offset=k_off,
+        qf, kf, vf, causal=causal, q_offset=q_off, k_offset=k_off,
         return_residuals=True,
     )
     gq, gk, gv = torch.autograd.grad(o_ref, (qf, kf, vf), do.float().transpose(1, 2))
@@ -189,7 +196,7 @@ def check_attention(torch, fa, label, B, H, Hkv, T, D, q_off=0, k_off=0,
             raise RuntimeError(f"{label}: non-finite kernel output")
     ok = all(r <= ATTN_TOL for r in tile.values()) and lse_err <= LSE_TOL
     # rel_err (error over the tensor's largest |ref|) is shown, not gated
-    res = dict(shape=[B, H, Hkv, T, D], offsets=[q_off, k_off],
+    res = dict(shape=[B, H, Hkv, T, D], offsets=[q_off, k_off], causal=causal,
                tile_err=tile, tol=ATTN_TOL, rel_err=rel,
                lse_abs_err=lse_err, lse_tol=LSE_TOL, ok=ok)
     if probe:
@@ -204,7 +211,7 @@ def check_attention(torch, fa, label, B, H, Hkv, T, D, q_off=0, k_off=0,
             raise RuntimeError(f"{label}: ATTN_TOL would pass a diagonal-tile bug")
         del o_bug
     del qf, kf, vf, o_ref, lse_ref, gq, gk, gv, refs
-    res.update(time_attention(torch, fa, q, k, v, o, lse, do, q_off, k_off))
+    res.update(time_attention(torch, fa, q, k, v, o, lse, do, q_off, k_off, causal, graph))
     if probe:  # every SDPA backend once at the main shape (fwd, bwd ms)
         res["library_by_backend"] = {
             name: time_sdpa(torch, q, k, v, do, (name,))[:2]
@@ -215,76 +222,108 @@ def check_attention(torch, fa, label, B, H, Hkv, T, D, q_off=0, k_off=0,
     return res, abs_err
 
 
-def time_attention(torch, fa, q, k, v, o, lse, do, q_off, k_off):
-    """Kernel, plain and library times at these inputs, and bounds."""
+def time_attention(torch, fa, q, k, v, o, lse, do, q_off, k_off, causal, graph):
+    """Kernel, plain and library times at these inputs, the bounds, and
+    from them each kernel's achieved TFLOP/s and share of its bound."""
     B, H, T, D = q.shape
     scale = D**-0.5
-    pairs = visible_pairs(T, T, q_off, k_off) * B * H
+    pairs = visible_pairs(T, T, q_off, k_off, causal) * B * H
     delta = (do.float() * o.float()).sum(-1)
     # the gradients' dtypes on the path: bf16, and dk/dv f32 per q head
     # under GQA
     gdt = torch.bfloat16 if k.shape[1] == H else torch.float32
     dk = torch.empty((B, H, T, D), dtype=gdt, device=q.device)
     dv, dq = torch.empty_like(dk), torch.empty_like(q)
-    args = (q, k, v, do, lse, delta, scale, True, q_off, k_off)
+    args = (q, k, v, do, lse, delta, scale, causal, q_off, k_off)
+    timer = graph_ms if graph else time_ms
     t = {
-        "fa_fwd": time_ms(torch, lambda: fa._fwd_cuda(q, k, v, scale, True, q_off, k_off)),
-        "fa_bwd_dkdv": time_ms(torch, lambda: fa._bwd_launch("fa_bwd_dkdv", (dk, dv), *args)),
-        "fa_bwd_dq": time_ms(torch, lambda: fa._bwd_launch("fa_bwd_dq", (dq,), *args)),
+        "fa_fwd": timer(torch, lambda: fa._fwd_cuda(q, k, v, scale, causal, q_off, k_off)),
+        "fa_bwd_dkdv": timer(torch, lambda: fa._bwd_launch("fa_bwd_dkdv", (dk, dv), *args)),
+        "fa_bwd_dq": timer(torch, lambda: fa._bwd_launch("fa_bwd_dq", (dq,), *args)),
     }
     qb, kb, vb = (x.transpose(1, 2) for x in (q, k, v))
     plain_fwd = time_ms(torch, lambda: fa.flash_attention_reference(
-        qb, kb, vb, causal=True, q_offset=q_off, k_offset=k_off,
+        qb, kb, vb, causal=causal, q_offset=q_off, k_offset=k_off,
         return_residuals=True), iters=5)
     plain_bwd = time_ms(torch, lambda: fa._bwd_plain(
-        q, k, v, do, lse, delta, scale, True, None, q_off, k_off), iters=5)
-    lib_fwd = lib_bwd = lib_backend = None
-    if q_off == k_off:  # SDPA has no key offset: no library call then
-        lib_fwd, lib_bwd, lib_backend = time_sdpa(torch, q, k, v, do)
+        q, k, v, do, lse, delta, scale, causal, None, q_off, k_off), iters=5)
+    mask = None
+    if causal and q_off != k_off:
+        # SDPA has no offsets: the same function is one call with a
+        # boolean mask, which its flash backend does not take
+        pos = torch.arange(T, device=q.device)
+        mask = (q_off + pos)[:, None] >= (k_off + pos)[None, :]
+    lib_fwd, lib_bwd, lib_backend, lib_timed = time_sdpa(
+        torch, q, k, v, do, causal=causal, mask=mask, timer=timer,
+        backends=("EFFICIENT_ATTENTION", "MATH") if mask is not None
+        else ("FLASH_ATTENTION", "EFFICIENT_ATTENTION"))
     bf, fl = 2, 4
     n_q, n_kv = q.numel(), k.numel()
     rows = B * H * T
-    b_fwd = bound((n_q + 2 * n_kv + n_q) * bf + rows * fl, 4 * D * pairs, BF16_OPS)
     # inputs read once (q, k, v, do bf16; lse, delta f32), outputs
     # written once in the dtype the path writes
-    b_dkdv = bound((n_q + 2 * n_kv + n_q) * bf + 2 * rows * fl
-                   + 2 * dk.numel() * dk.element_size(), 8 * D * pairs, BF16_OPS)
-    b_dq = bound((n_q + 2 * n_kv + n_q) * bf + 2 * rows * fl
-                 + dq.numel() * dq.element_size(), 6 * D * pairs, BF16_OPS)
+    work = {
+        "fa_fwd": ((n_q + 2 * n_kv + n_q) * bf + rows * fl, 4 * D * pairs),
+        "fa_bwd_dkdv": ((n_q + 2 * n_kv + n_q) * bf + 2 * rows * fl
+                        + 2 * dk.numel() * dk.element_size(), 8 * D * pairs),
+        "fa_bwd_dq": ((n_q + 2 * n_kv + n_q) * bf + 2 * rows * fl
+                      + dq.numel() * dq.element_size(), 6 * D * pairs),
+    }
+    bounds = {name: bound(nbytes, ops, BF16_OPS) for name, (nbytes, ops) in work.items()}
     return {
         "ms": t,
+        "timed": "cuda graph replay" if graph else "eager launches",
         "plain_ms": {"fa_fwd": plain_fwd, "fa_bwd_dkdv": plain_bwd, "fa_bwd_dq": plain_bwd},
         "library_ms": {"fa_fwd": lib_fwd, "fa_bwd_dkdv": lib_bwd, "fa_bwd_dq": lib_bwd},
         "library_backend": lib_backend,
-        "bound": {"fa_fwd": b_fwd, "fa_bwd_dkdv": b_dkdv, "fa_bwd_dq": b_dq},
+        "library_timed": lib_timed,
+        "bound": bounds,
+        "tflops": {name: work[name][1] / (ms * 1e-3) / 1e12 for name, ms in t.items()},
+        "bound_share": {name: bounds[name][0] / ms for name, ms in t.items()},
     }
 
 
-def time_sdpa(torch, q, k, v, do, backends=("FLASH_ATTENTION", "EFFICIENT_ATTENTION")):
-    """``scaled_dot_product_attention(is_causal=True)`` forward and its
-    autograd backward (dq, dk, dv together), pinned to one named backend
-    (the first of ``backends`` that takes the shape; GQA through
-    ``enable_gqa``), so the column times one kernel and not whichever
-    SDPA picks."""
+def time_sdpa(torch, q, k, v, do, backends=("FLASH_ATTENTION", "EFFICIENT_ATTENTION"),
+              causal=True, mask=None, timer=time_ms):
+    """``scaled_dot_product_attention`` forward and its autograd backward
+    (dq, dk, dv together), pinned to one named backend (the first of
+    ``backends`` that takes the shape; GQA through ``enable_gqa``), so the
+    column times one kernel and not whichever SDPA picks. With a boolean
+    ``mask`` (the offsets' causal mask) the call takes it in place of
+    ``is_causal``. Where the library's call cannot be captured into a CUDA
+    graph (``timer=graph_ms``), it is timed eagerly, and the result says
+    so: it is a yardstick only."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     gqa = k.shape[1] != q.shape[1]
     ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    how = ["eager launches" if timer is time_ms else "cuda graph replay"]
+
+    def timed(fn):
+        if timer is not time_ms:
+            try:
+                return timer(torch, fn)
+            except RuntimeError as e:
+                torch.cuda.synchronize()
+                how[0] = f"eager launches (capture refused: {str(e)[:80]})"
+        return time_ms(torch, fn)
+
     for backend in (getattr(SDPBackend, name) for name in backends):
         try:
             with sdpa_kernel(backend):
                 def fwd():
                     return F.scaled_dot_product_attention(
-                        ql, kl, vl, is_causal=True, enable_gqa=gqa)
+                        ql, kl, vl, attn_mask=mask,
+                        is_causal=causal and mask is None, enable_gqa=gqa)
                 out = fwd()
-                lib_fwd = time_ms(torch, fwd)
-                lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                lib_fwd = timed(fwd)
+                lib_bwd = timed(lambda: torch.autograd.grad(
                     out, (ql, kl, vl), do, retain_graph=True))
-            return lib_fwd, lib_bwd, backend.name
+            return lib_fwd, lib_bwd, backend.name, how[0]
         except RuntimeError as e:  # this backend does not take the shape
             emit("sdpa_backend_refused", backend=backend.name, error=str(e)[:200])
-    return None, None, None
+    return None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -498,7 +537,8 @@ def profile_steps(torch, label, run_steps, step_ms, n):
     Reads the raw device events (kernels, copies, sets; not the
     annotations, whose device spans cover kernels already counted): their
     summed time, the union of their intervals (the device's busy time),
-    the busy share, the port's kernels' share and the top 15 by time."""
+    the busy share, the port's kernels' share, each of them by name, and
+    the top 15 of all kernels by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -529,7 +569,8 @@ def profile_steps(torch, label, run_steps, step_ms, n):
         if b > end:
             busy += b - max(a, end)
             end = b
-    ours = sum(us for k, (us, _) in by_name.items() if any(x in k for x in PORT_KERNELS))
+    port = {k: v for k, v in by_name.items() if any(x in k for x in PORT_KERNELS)}
+    ours = sum(us for us, _ in port.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     # the profiler slows the host, so the busy time is also set against
     # the unprofiled median step
@@ -538,6 +579,8 @@ def profile_steps(torch, label, run_steps, step_ms, n):
          busy_share_profiled=busy / wall_us,
          busy_share_vs_unprofiled_step=busy / n / 1e3 / step_ms,
          port_kernels_share=ours / max(total, 1),
+         port_kernels={k.split("(")[0][:60]: {"ms_per_step": us / 1e3 / n, "calls": c}
+                       for k, (us, c) in port.items()},
          host_spans_ms_per_step={k: v / 1e3 / n for k, v in notes.items()},
          top=[{"kernel": k[:90], "ms_per_step": us / 1e3 / n, "calls": c}
               for k, (us, c) in top])
@@ -763,6 +806,34 @@ def build_kernels():
          sources=list(_build.build_logs) + ["kv_store.cc"])
     for name, log in _build.build_logs.items():  # nvcc's register / spill report
         print(f"nvcc {name}.cu:\n{log}", flush=True)
+    check_ptxas_report(_build.build_logs.get("flash_attention", ""))
+
+
+def check_ptxas_report(log):
+    """From nvcc's ``-Xptxas -v`` report of flash_attention.cu (empty if the
+    library was built by an earlier process): every instantiation's
+    registers and spill bytes. The wgmma kernels keep their accumulators
+    in registers by design, so a spill, or ptxas serializing their wgmma
+    (its note C7512), fails the run."""
+    import re
+
+    kernels, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            kernels.setdefault(cur, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            kernels.setdefault(cur, {})["registers"] = int(m.group(1))
+    serialized = "C7512" in log
+    bad = [k for k, v in kernels.items()
+           if ("fa_fwd" in k or "fa_bwd_dkdv" in k) and v.get("spill_bytes", 0)]
+    emit("ptxas", kernels=kernels, wgmma_serialized=serialized, ok=not bad and not serialized)
+    if bad or serialized:
+        raise RuntimeError(f"ptxas spilled or serialized wgmma in {bad or 'flash_attention.cu'}")
 
 
 def main() -> int:
@@ -790,7 +861,13 @@ def main() -> int:
     check_attention(torch, fa, "B3-B5 GQA", 1, 32, 8, 2048, 128)
     # keys start 512 positions after the queries: whole tiles are
     # skipped and the queries before position 512 see no key at all
-    check_attention(torch, fa, "B3-B5 k_offset", 2, 4, 4, 1024, 64, q_off=0, k_off=512)
+    check_attention(torch, fa, "B3-B5 k_offset", 2, 4, 4, 1024, 64, q_off=0, k_off=512,
+                    graph=True)
+    # offsets that are no multiple of a tile: the diagonal crosses two
+    # key tiles of every query tile
+    check_attention(torch, fa, "B3-B5 misaligned offsets", 2, 4, 4, 1024, 64, q_off=40,
+                    k_off=72, graph=True)
+    check_attention(torch, fa, "B3-B5 not causal", 2, 12, 12, 1024, 64, causal=False)
     adam_res, adam_abs = check_adam8(torch, qo, gpt2_small())
     leaf_res, leaf_abs = check_adam8_leaf(torch, qo, gpt2_small())
     emb_t = check_embedding_rows(torch, er)

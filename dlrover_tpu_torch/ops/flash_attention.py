@@ -11,12 +11,16 @@ for the JAX package's six Pallas attention kernels:
   ``_bwd_dq_kernel``.
 
 A Hopper block cannot keep the fused kernels' ``[T, T]`` f32 score tile,
-so every kernel tiles (64 x 64) with the streaming algebra; the fused
-and streaming contracts compute the same function and each keeps its
-own check. ``delta = rowsum(do * o)`` stays a plain reduction outside
-the kernels, as in the JAX code. The backward kernels write bf16
-gradients, except dk/dv under GQA: those are written in f32 per query
-head and each group is summed outside the kernel.
+so every kernel tiles with the streaming algebra; the fused and
+streaming contracts compute the same function and each keeps its own
+check. ``fa_fwd`` (128 query rows a block, 64-key tiles) and
+``fa_bwd_dkdv`` (128 keys a block, 64-query steps) are built on TMA
+loads, ``wgmma`` and a producer warpgroup, with scores and accumulators
+in registers (the source's header has the design); ``fa_bwd_dq`` is the
+first 64 x 64 WMMA design. ``delta = rowsum(do * o)`` stays a plain
+reduction outside the kernels, as in the JAX code. The backward
+kernels write bf16 gradients, except dk/dv under GQA: those are written
+in f32 per query head and each group is summed outside the kernel.
 
 Dispatch is by device: a tensor on the CPU takes the plain PyTorch
 version (``flash_attention_reference`` forward, ``_bwd_plain``
@@ -37,7 +41,13 @@ from typing import Callable, Dict, Optional
 import torch
 
 NEG_INF = -1e30  # finite stand-in for -inf, as in the JAX package
-_TILE = 64  # the kernels' q and k tile
+_TILE = 64  # lengths come in 64-row tiles: a consumer warpgroup's rows
+# the tile schedule of csrc/flash_attention.cu (FWD_BM, FWD_BN, DKV_BN,
+# DKV_BM there): the forward takes 128 query rows a block, 64 each of two
+# consumer warpgroups, against 64-key tiles; dk/dv takes 128 keys a block,
+# 64 each, against 64-query steps
+FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64
+DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
 _HEAD_DIMS = (64, 128)
 
 MaskFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -198,8 +208,15 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned, as the kernels' bulk loads need (a
+    view into the middle of a buffer may be neither)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _fwd_cuda(qt, kt, vt, scale, causal, q_offset, k_offset):
-    qt, kt, vt = (x.contiguous() for x in (qt, kt, vt))
+    qt, kt, vt = (_dense(x) for x in (qt, kt, vt))
     B, H, Tq, D = qt.shape
     Hkv, Tk = kt.shape[1], kt.shape[2]
     o = torch.empty_like(qt)
@@ -222,7 +239,8 @@ def _bwd_launch(name, outs, qt, kt, vt, dot, lse, delta, scale, causal,
                 q_offset, k_offset):
     """One backward kernel (``fa_bwd_dkdv`` writes ``outs = (dk, dv)``
     per q head, bf16 or f32; ``fa_bwd_dq`` writes ``outs = (dq,)``, bf16)
-    on contiguous ``[B,H,T,D]`` inputs, f32 ``lse``/``delta [B,H,Tq]``."""
+    on contiguous, 16-byte aligned ``[B,H,T,D]`` inputs, f32
+    ``lse``/``delta [B,H,Tq]``."""
     B, H, Tq, D = qt.shape
     Hkv, Tk = kt.shape[1], kt.shape[2]
     out_bf16 = outs[0].dtype == torch.bfloat16
@@ -244,8 +262,8 @@ def _bwd_launch(name, outs, qt, kt, vt, dot, lse, delta, scale, causal,
 
 
 def _bwd_cuda(qt, kt, vt, ot, lse, dot, scale, causal, q_offset, k_offset):
-    qt, kt, vt, dot = (x.contiguous() for x in (qt, kt, vt, dot))
-    lse = lse.float().contiguous()
+    qt, kt, vt, dot = (_dense(x) for x in (qt, kt, vt, dot))
+    lse = _dense(lse.float())
     B, H, Tq, D = qt.shape
     Hkv, Tk = kt.shape[1], kt.shape[2]
     # bandwidth-bound rowsum, left to PyTorch as the JAX code leaves it

@@ -52,28 +52,51 @@ def _tile_err(got, ref, rows=64):
 
 
 @pytest.mark.parametrize(
-    "B,H,Hkv,T,D,q_off,k_off",
+    "B,H,Hkv,T,D,q_off,k_off,causal",
     [
-        (2, 4, 4, 256, 64, 0, 0),
-        (1, 4, 4, 256, 128, 0, 0),
-        (1, 8, 2, 192, 128, 0, 0),
-        (2, 4, 4, 256, 64, 0, 128),  # whole tiles skipped, empty rows
-        (1, 4, 2, 128, 64, 256, 0),  # every key visible
+        (2, 4, 4, 256, 64, 0, 0, True),
+        (1, 4, 4, 256, 128, 0, 0, True),
+        (1, 8, 2, 192, 128, 0, 0, True),  # a last block with one warpgroup idle
+        (2, 4, 4, 256, 64, 0, 128, True),  # whole tiles skipped, empty rows
+        (1, 4, 2, 128, 64, 256, 0, True),  # every key visible
+        (2, 4, 4, 64, 64, 0, 0, True),  # one tile: half a forward block
+        (2, 4, 4, 256, 64, 0, 0, False),
+        (1, 4, 2, 192, 128, 0, 0, False),
+        (2, 4, 4, 256, 64, 0, 32, True),  # the diagonal crosses two tiles
+        (2, 4, 2, 256, 64, 40, 0, True),
+        (1, 8, 2, 64, 128, 0, 0, True),
     ],
 )
-def test_attention_kernels_match_plain(dev, B, H, Hkv, T, D, q_off, k_off):
+def test_attention_kernels_match_plain(dev, B, H, Hkv, T, D, q_off, k_off, causal):
+    _check_attention(dev, B, H, Hkv, T, T, D, q_off, k_off, causal)
+
+
+@pytest.mark.parametrize(
+    "Tq,Tk,q_off,k_off,causal",
+    [
+        (128, 384, 256, 0, True),  # a chunk of queries at the end of its keys
+        (384, 128, 0, 0, True),  # later queries see every key
+        (192, 320, 0, 0, False),
+        (256, 256, -64, 0, True),  # the first 64 queries lie before key 0
+    ],
+)
+def test_attention_kernels_lengths_and_offsets(dev, Tq, Tk, q_off, k_off, causal):
+    _check_attention(dev, 1, 4, 2, Tq, Tk, 64, q_off, k_off, causal)
+
+
+def _check_attention(dev, B, H, Hkv, Tq, Tk, D, q_off, k_off, causal):
     g = torch.Generator(device=dev).manual_seed(0)
-    q, do = (torch.randn((B, H, T, D), generator=g, device=dev, dtype=torch.bfloat16) for _ in range(2))
-    k, v = (torch.randn((B, Hkv, T, D), generator=g, device=dev, dtype=torch.bfloat16) for _ in range(2))
+    q, do = (torch.randn((B, H, Tq, D), generator=g, device=dev, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, Hkv, Tk, D), generator=g, device=dev, dtype=torch.bfloat16) for _ in range(2))
     fa.reset_launch_counts()
-    kw = dict(causal=True, q_offset=q_off, k_offset=k_off, layout="bhtd")
+    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off, layout="bhtd")
     o, lse = fa.flash_attention_fwd(q, k, v, **kw)
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     assert fa.launch_counts == {"fa_fwd": 1, "fa_bwd_dkdv": 1, "fa_bwd_dq": 1}
     leaves = [x.float().transpose(1, 2).requires_grad_() for x in (q, k, v)]
     o_ref, lse_ref = fa.flash_attention_reference(
-        *leaves, causal=True, q_offset=q_off, k_offset=k_off, return_residuals=True
+        *leaves, causal=causal, q_offset=q_off, k_offset=k_off, return_residuals=True
     )
     refs = torch.autograd.grad(o_ref, leaves, do.float().transpose(1, 2))
     assert _tile_err(o, o_ref.detach().transpose(1, 2)) <= ATTN_TOL
@@ -81,6 +104,17 @@ def test_attention_kernels_match_plain(dev, B, H, Hkv, T, D, q_off, k_off):
     for got, ref in zip(grads, refs):
         assert got.dtype == torch.bfloat16
         assert _tile_err(got, ref.transpose(1, 2)) <= ATTN_TOL
+
+
+def test_attention_kernels_with_every_key_in_the_future(dev):
+    """No tile is loaded at all: o = 0, lse = NEG_INF, zero gradients."""
+    q, k, v, do = (torch.randn((1, 2, 192, 64), device=dev, dtype=torch.bfloat16) for _ in range(4))
+    kw = dict(causal=True, q_offset=0, k_offset=4096, layout="bhtd")
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert not o.any() and (lse == fa.NEG_INF).all()
+    assert not any(g.any() for g in grads)
 
 
 def test_autograd_op_counts_one_launch_each(dev):
