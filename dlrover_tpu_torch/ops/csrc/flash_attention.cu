@@ -17,42 +17,42 @@
 // 256 tensor-core operations, on a unit ~250x slower) cost about as much
 // as the products.
 //
-// fa_fwd and fa_bwd_dkdv are designed around what Hopper has:
+// All three kernels are designed around what Hopper has:
 //   - a block is three warpgroups: two consumers that own 64 rows each
-//     (query rows in the forward, key rows in dk/dv) and one producer, of
-//     which a single thread issues every load; setmaxnreg moves the
-//     producer's registers to the consumers (24 / 240);
+//     (query rows in the forward and in dq, key rows in dk/dv) and one
+//     producer, of which a single thread issues every load; setmaxnreg
+//     moves the producer's registers to the consumers (24 / 240);
 //   - loads are TMA tile copies (cp.async.bulk.tensor, 128-byte swizzle,
 //     tensor maps over [B*H, T, D] made on the host per call) into a ring
 //     of stages, each stage announced by an mbarrier and handed back by the
 //     consumers through a second one, so the tiles of later steps are in
-//     flight while the tensor cores work on this one;
-//   - products are wgmma (m64nNk16, f32 accumulation). The first product
-//     of a step (S = Q K^T; in dk/dv S^T = K Q^T and dP^T = V dO^T) reads
-//     both operands from shared memory; its result stays in registers,
-//     where the softmax runs (row max and sum are two shuffles inside a
-//     quad), and, rounded to bf16, is the register A operand of the second
-//     product (O += P V; dV += P^T dO, dK += dS^T Q), whose B operand is
-//     the [rows, D] tile read MN-major (transpose-B). Scores,
-//     probabilities and the accumulators never touch shared memory;
+//     flight while the tensor cores work on this one. The block's own rows
+//     (Q in the forward; Q and dO in dq; K and V in dk/dv) are loaded once;
+//   - products are wgmma (m64nNk16, f32 accumulation). The first products
+//     of a step (S = Q K^T; in dq also dP = dO V^T; in dk/dv S^T = K Q^T
+//     and dP^T = V dO^T) read both operands from shared memory; their
+//     results stay in registers, where the softmax runs (row max and sum
+//     are two shuffles inside a quad), and, rounded to bf16, are the
+//     register A operand of the next product (O += P V; dQ += dS K;
+//     dV += P^T dO, dK += dS^T Q), whose B operand is the [rows, D] tile
+//     read MN-major (transpose-B). Scores, probabilities and the
+//     accumulators never touch shared memory;
 //   - the exponent is exp2 with scale * log2(e) folded into the scores;
 //     lse is stored in natural log. The causal mask is evaluated only on
 //     tiles the diagonal crosses; tiles wholly in the future are not
-//     loaded; heavy (late) query tiles are scheduled first;
+//     loaded; heavy (late) query tiles are scheduled first (the forward
+//     and dq), early key tiles first (dk/dv);
 //   - results leave through shared memory (the warp's own rows of a tile
 //     that is no longer read) as 16-byte stores; dk/dv in f32 go straight
 //     from registers (a quad writes one 32-byte sector).
-// fa_bwd_dq keeps its first design: bf16 WMMA (mma.sync) 16x16x16
-// products, four warps a block, scores staged in shared memory,
-// synchronous loads (PERF.md holds its times).
 //
 // Numerics follow the Pallas kernels: NEG_INF = -1e30 is finite, rows
-// with no visible key give o = 0 and lse = NEG_INF, p is rounded to bf16
-// before each product that consumes it, and in the backward p = 0 on rows
-// whose lse is NEG_INF. dq is written in bf16. dk/dv are written in bf16
-// when every kv head has one query head; under GQA they are written in f32
-// per query head and the caller sums each group and casts (as :818-833
-// does).
+// with no visible key give o = 0 and lse = NEG_INF, p and ds are rounded
+// to bf16 before each product that consumes them, and in the backward
+// p = 0 on rows whose lse is NEG_INF. dq is written in bf16. dk/dv are
+// written in bf16 when every kv head has one query head; under GQA they
+// are written in f32 per query head and the caller sums each group and
+// casts (as :818-833 does).
 //
 // Each C entry returns cudaGetLastError() of its launch (0 = success), or
 // 10000 + the CUresult if a tensor map could not be made.
@@ -60,11 +60,9 @@
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <limits.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 #define NEG_INF (-1e30f)
@@ -79,6 +77,7 @@ constexpr int FA_THREADS = 3 * WG;   // two consumers and the producer
 constexpr int FWD_BM = 128;          // forward: query rows a block
 constexpr int FWD_BN = 64;           // forward: keys a tile
 constexpr int FWD_STAGES = 4;
+constexpr int DQ_STAGES = 4;         // dq: the forward's tiles, K and V ring
 constexpr int DKV_BN = 128;          // dk/dv: keys a block
 constexpr int DKV_BM = 64;           // dk/dv: query rows a step
 constexpr int DKV_STAGES = 3;
@@ -316,8 +315,8 @@ __device__ __forceinline__ void store_tile_f32(const float (&acc)[D / 2], float*
 // ===========================================================================
 // forward: one block per (128-row q tile, head, batch)
 // ===========================================================================
-// where a forward block works: its (batch, head), first query row and the
-// number of key tiles any of its rows sees. Each role works it out for
+// where a forward (or dq) block works: its (batch, head), first query row
+// and the number of key tiles any of its rows sees. Each role works it out for
 // itself after the split, so that nothing but the barriers' addresses
 // lives across setmaxnreg.
 struct FwdBlock {
@@ -691,181 +690,157 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ===========================================================================
-// backward, dq (first design: WMMA, scores staged in shared memory): one
-// block per (64-row q tile, head, batch); the loop runs over k tiles up to
-// the causal diagonal
+// backward, dq: one block per (128-row q tile, head, batch); the loop runs
+// over 64-key tiles up to the causal diagonal, as the forward's does
 // ===========================================================================
-constexpr int BQ = 64;         // query rows per tile
-constexpr int BK = 64;         // keys per tile
-constexpr int NWARPS = 4;      // each warp owns 16 rows of a 64-row tile
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int WR = 16;
-constexpr int LDS = BK + 4;    // f32 [64][64] score tiles, padded
-constexpr int LDP = BK + 8;    // bf16 [64][64] probability tiles, padded
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// rows x D bf16 tile, global (dense rows of D) -> shared (rows of LDH),
-// 16 bytes per thread per step
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int tid) {
-  constexpr int LDH = D + 8;
-  constexpr int CPR = D / 8;
-  for (int i = tid; i < 64 * CPR; i += NTHREADS) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
-  }
-}
-
-// C[16 x 64] (f32, row stride LDS) = A[16 x D] (row-major, stride LDH) x
-// B^T where B is [64 x D] row-major (stride LDH), i.e. A . B^T
-template <int D>
-__device__ __forceinline__ void warp_abt(float* C, const bf16* A, const bf16* B) {
-  constexpr int LDH = D + 8;
-  FragC acc[BK / 16];
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, A + kk, LDH);
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      FragBCol b;
-      wmma::load_matrix_sync(b, B + n * 16 * LDH + kk, LDH);
-      wmma::mma_sync(acc[n], a, b, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n)
-    wmma::store_matrix_sync(C + n * 16, acc[n], LDS, wmma::mem_row_major);
-}
-
-// acc[D/16] += A[16 x 64] (bf16, stride LDP) x B[64 x D] (row-major, stride LDH)
-template <int D>
-__device__ __forceinline__ void warp_ab_acc(FragC* acc, const bf16* A, const bf16* B) {
-  constexpr int LDH = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, A + kk, LDP);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragBRow b;
-      wmma::load_matrix_sync(b, B + kk * LDH + n * 16, LDH);
-      wmma::mma_sync(acc[n], a, b, acc[n]);
-    }
-  }
-}
-
-// a warp's 16 x D accumulator rows -> bf16 global rows of D, through the
-// warp's f32 shared scratch (16 x (D + 4)), since WMMA stores accumulators
-// as f32 only
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, FragC* acc, float* stage) {
-  constexpr int LDT = D + 4;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(stage + n * 16, acc[n], LDT, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = threadIdx.x % 32; i < WR * D / 2; i += 32) {
-    const int r = 2 * i / D, c = 2 * i % D;
-    *reinterpret_cast<__nv_bfloat162*>(dst + r * D + c) =
-        __floats2bfloat162_rn(stage[r * LDT + c], stage[r * LDT + c + 1]);
-  }
-  __syncwarp();
-}
-
+// The forward's schedule with one more product: Q and dO stay resident,
+// K and V stream through the ring, and each step forms S = Q K^T and
+// dP = dO V^T, then dQ += dS K with dS as the register A operand and the K
+// tile read MN-major (as O += P V reads V). A block's tiles and the
+// keys its rows see are FwdBlock's.
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return (size_t)4 * 64 * (D + 8) * 2      // two resident tiles + two streamed
-         + (size_t)2 * 64 * LDS * 4        // scores, dp
-         + (size_t)2 * 64 * LDP * 2        // ds (bf16), and room kept free
-         + (size_t)2 * 64 * 4;             // lse, delta of the q tile
+  return 1024                                       // room to align to the swizzle atom
+         + (size_t)2 * FWD_BM * D * 2               // Q and dO
+         + (size_t)DQ_STAGES * 2 * FWD_BN * D * 2   // K and V rings
+         + 8 * (1 + 2 * DQ_STAGES);                 // mbarriers
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(FA_THREADS, 1)
+fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_do,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dq, int H, int Hkv, int Tq, int Tk,
-                 float scale, int causal, int q_off, int k_off) {
-  constexpr int LDH = D + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + 64 * LDH;
-  bf16* Ks = dOs + 64 * LDH;
-  bf16* Vs = Ks + 64 * LDH;
-  float* Ss = reinterpret_cast<float*>(Vs + 64 * LDH);
-  float* dPs = Ss + 64 * LDS;
-  bf16* dSs = reinterpret_cast<bf16*>(dPs + 64 * LDS);
-  float* lse_s = reinterpret_cast<float*>(dSs + 2 * 64 * LDP);
-  float* delta_s = lse_s + BQ;
+                 bf16* __restrict__ dq, int H, int Hkv, int Tq, int Tk, float scale,
+                 int causal, int q_off, int k_off) {
+  constexpr int SUB = D / 64;
+  constexpr uint32_t Q_BYTES = FWD_BM * D * 2, KV_BYTES = FWD_BN * D * 2;
+  constexpr uint32_t Q_SUB = FWD_BM * 128, KV_SUB = FWD_BN * 128;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023u) & ~1023u, sdO = sQ + Q_BYTES;
+  uint8_t* gQ = smem_raw + (sQ - raw);
+  const uint32_t sKV = sdO + Q_BYTES;  // stage s: K at sKV + 2 s KV_BYTES, V after it
+  const uint32_t bar_q = sKV + DQ_STAGES * 2 * KV_BYTES;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * DQ_STAGES;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const size_t q_base = (((size_t)b * H + h) * Tq + q0) * D;
-  const bf16* kg = k + ((size_t)b * Hkv + hk) * Tk * D;
-  const bf16* vg = v + ((size_t)b * Hkv + hk) * Tk * D;
-
-  load_tile<D>(Qs, q + q_base, tid);
-  load_tile<D>(dOs, dout + q_base, tid);
-  if (tid < BQ) {
-    lse_s[tid] = lse[((size_t)b * H + h) * Tq + q0 + tid];
-    delta_s[tid] = delta[((size_t)b * H + h) * Tq + q0 + tid];
-  }
-
-  FragC dq_acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dq_acc[n], 0.f);
-
-  const int row = warp * WR + lane / 2;  // two lanes per row
-  const int half = lane & 1;
-  const int qp = q_off + q0 + row;
-  const int q_last = q_off + q0 + BQ - 1;
-  const int nk = Tk / BK;
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = k_off + j * BK;
-    // key tiles are in order: once one lies wholly in the future of
-    // every query of the tile, so do all later ones
-    if (causal && q_last < k0) break;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(Ks, kg + (size_t)j * BK * D, tid);
-    load_tile<D>(Vs, vg + (size_t)j * BK * D, tid);
-    __syncthreads();
-
-    warp_abt<D>(Ss + warp * WR * LDS, Qs + warp * WR * LDH, Ks);    // Q_w K^T
-    warp_abt<D>(dPs + warp * WR * LDS, dOs + warp * WR * LDH, Vs);  // dO_w V^T
-    __syncwarp();
-
-    const float l = lse_s[row];
-    // rows with no visible key (lse == NEG_INF) get p = 0, never exp(0)
-    const bool valid = l > NEG_INF * 0.5f;
-    const float dl = delta_s[row];
-    const float* srow = Ss + row * LDS;
-    const float* dprow = dPs + row * LDS;
-    bf16* dsrow = dSs + row * LDP;
-    for (int c = half * (BK / 2); c < (half + 1) * (BK / 2); ++c) {
-      float s = srow[c] * scale;
-      if (causal && qp < k0 + c) s = NEG_INF;
-      const float p = valid ? expf(s - l) : 0.f;
-      dsrow[c] = __float2bfloat16(p * (dprow[c] - dl) * scale);
+  const int tid = threadIdx.x, wg = tid / WG;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);  // a lane of each consumer warp
     }
-    __syncwarp();
-
-    warp_ab_acc<D>(dq_acc, dSs + warp * WR * LDP, Ks);  // dQ_w += dS_w K
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-
-  // the score tiles are free once every warp has left the loop; each warp
-  // stages its rows there (16 x (D + 4) f32 fits in its share of S and dP)
   __syncthreads();
-  store_rows<D>(dq + q_base + (size_t)warp * WR * D, dq_acc, Ss + warp * WR * (D + 4));
+
+  if (wg == 2) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid == 2 * WG) {
+      const FwdBlock blk(H, Hkv, Tq, Tk, causal, q_off, k_off);
+      const int bh = blk.bh, q0 = blk.q0, nk = blk.nk;
+      mbar_expect_tx(bar_q, 2 * Q_BYTES);
+      for (int s = 0; s < SUB; ++s) {
+        tma_load(sQ + s * Q_SUB, &map_q, bar_q, s * 64, q0, bh);
+        tma_load(sdO + s * Q_SUB, &map_do, bar_q, s * 64, q0, bh);
+      }
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % DQ_STAGES;
+        mbar_wait(bar_empty + 8 * st, ((j / DQ_STAGES) & 1) ^ 1);
+        const uint32_t full = bar_full + 8 * st, sK = sKV + st * 2 * KV_BYTES;
+        mbar_expect_tx(full, 2 * KV_BYTES);
+        for (int s = 0; s < SUB; ++s) {
+          tma_load(sK + s * KV_SUB, &map_k, full, s * 64, j * FWD_BN, blk.kv_bh);
+          tma_load(sK + KV_BYTES + s * KV_SUB, &map_v, full, s * 64, j * FWD_BN, blk.kv_bh);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    const FwdBlock blk(H, Hkv, Tq, Tk, causal, q_off, k_off);
+    const int bh = blk.bh, q0 = blk.q0, nk = blk.nk;
+    const int warp = (tid % WG) / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int qw0 = q0 + 64 * wg;          // first row of this warpgroup
+    const int qpos = q_off + qw0 - k_off;  // its position relative to key 0
+    int nk_wg = qw0 < Tq ? nk : 0, n_full = nk_wg;  // as in the forward
+    if (causal && nk_wg > 0) {
+      nk_wg = qpos + 63 < 0 ? 0 : min(nk, (qpos + 63) / FWD_BN + 1);
+      n_full = min(nk_wg, max(0, floordiv(qpos - FWD_BN + 1, FWD_BN) + 1));
+    }
+    // this lane's rows g and g + 8: lse in the exp2 domain and delta, read
+    // once. A row with no visible key (lse == NEG_INF) takes lse = 1e30,
+    // so that p = exp2(s - 1e30) = 0 there without a test per element.
+    float lq0 = 0.f, lq1 = 0.f, dl0 = 0.f, dl1 = 0.f;
+    if (qw0 < Tq) {
+      const size_t r = (size_t)bh * Tq + qw0 + 16 * warp + g;
+      const float l0 = lse[r], l1 = lse[r + 8];
+      lq0 = l0 > NEG_INF * 0.5f ? l0 * LOG2E : -NEG_INF;
+      lq1 = l1 > NEG_INF * 0.5f ? l1 * LOG2E : -NEG_INF;
+      dl0 = delta[r];
+      dl1 = delta[r + 8];
+    }
+    const float scale_log2 = scale * LOG2E;
+
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < nk; ++j) {
+      const int st = j % DQ_STAGES;
+      mbar_wait(bar_full + 8 * st, (j / DQ_STAGES) & 1);
+      if (j < nk_wg) {
+        const uint32_t sK = sKV + st * 2 * KV_BYTES;
+        float s[32], dp[32];
+        wgmma_fence();
+        product_abt<D>(s, sQ + 64 * wg * 128, Q_SUB, sK, KV_SUB);               // S = Q K^T
+        product_abt<D>(dp, sdO + 64 * wg * 128, Q_SUB, sK + KV_BYTES, KV_SUB);  // dP = dO V^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // p = exp(s scale - lse), 0 where the pair is masked; ds = p (dp -
+        // delta) scale, rounded to bf16 for its product, eight columns at
+        // a time. Key column c is visible to row g iff c <= d0 (row g + 8:
+        // d0 + 8); the mask is tested only on tiles the diagonal crosses.
+        const bool masked = j >= n_full;
+        const int d0 = qpos + 16 * warp + g - j * FWD_BN - 2 * t;
+        uint32_t ds[16];
+#pragma unroll
+        for (int i = 0; i < 32; i += 4) {
+          float dsv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool hi = e & 2;
+            float x = s[i + e] * scale_log2 - (hi ? lq1 : lq0);
+            if (masked && d0 + (hi ? 8 : 0) < 8 * (i / 4) + (e & 1)) x = NEG_INF;
+            dsv[e] = fast_exp2(x) * (dp[i + e] - (hi ? dl1 : dl0)) * scale;
+          }
+          ds[i / 2] = pack_bf16(dsv[0], dsv[1]);
+          ds[i / 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+        }
+        fence_regs(dq_acc);
+        wgmma_fence();
+        product_pb<D>(dq_acc, ds, sK, KV_SUB);  // dQ += dS K
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq_acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+    }
+
+    if (qw0 < Tq)  // Q's rows of this warpgroup are read by no one else any more
+      store_tile_bf16<D, FWD_BM>(gQ, 64 * wg, dq_acc, 1.f, 1.f,
+                                 dq + ((size_t)bh * Tq + qw0) * D, warp, lane);
+  }
 }
 
 // ===========================================================================
@@ -956,14 +931,19 @@ static int launch_dq(const void* q, const void* k, const void* v,
                      void* dq, int B, int H, int Hkv, int Tq, int Tk,
                      float scale, int causal, int q_off, int k_off,
                      cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  int e;
+  if ((e = make_map(&mq, q, B * H, Tq, D, FWD_BM))) return e;
+  if ((e = make_map(&mk, k, B * Hkv, Tk, D, FWD_BN))) return e;
+  if ((e = make_map(&mv, v, B * Hkv, Tk, D, FWD_BN))) return e;
+  if ((e = make_map(&mdo, dout, B * H, Tq, D, FWD_BM))) return e;
   const size_t smem = dq_smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(
+  cudaError_t ce = cudaFuncSetAttribute(
       fa_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(Tq / BQ, H, B);
-  fa_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, H, Hkv, Tq, Tk,
+  if (ce != cudaSuccess) return (int)ce;
+  dim3 grid(B * H, (Tq + FWD_BM - 1) / FWD_BM);
+  fa_bwd_dq_kernel<D><<<grid, FA_THREADS, smem, stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (bf16*)dq, H, Hkv, Tq, Tk,
       scale, causal, q_off, k_off);
   return (int)cudaGetLastError();
 }

@@ -13,11 +13,11 @@ for the JAX package's six Pallas attention kernels:
 A Hopper block cannot keep the fused kernels' ``[T, T]`` f32 score tile,
 so every kernel tiles with the streaming algebra; the fused and
 streaming contracts compute the same function and each keeps its own
-check. ``fa_fwd`` (128 query rows a block, 64-key tiles) and
-``fa_bwd_dkdv`` (128 keys a block, 64-query steps) are built on TMA
-loads, ``wgmma`` and a producer warpgroup, with scores and accumulators
-in registers (the source's header has the design); ``fa_bwd_dq`` is the
-first 64 x 64 WMMA design. ``delta = rowsum(do * o)`` stays a plain
+check. ``fa_fwd`` and ``fa_bwd_dq`` (128 query rows a block, 64-key
+tiles) and ``fa_bwd_dkdv`` (128 keys a block, 64-query steps) are built
+on TMA loads, ``wgmma`` and a producer warpgroup, with scores,
+probabilities and accumulators in registers (the source's header has
+the design). ``delta = rowsum(do * o)`` stays a plain
 reduction outside the kernels, as in the JAX code. The backward
 kernels write bf16 gradients, except dk/dv under GQA: those are written
 in f32 per query head and each group is summed outside the kernel.
@@ -43,10 +43,11 @@ import torch
 NEG_INF = -1e30  # finite stand-in for -inf, as in the JAX package
 _TILE = 64  # lengths come in 64-row tiles: a consumer warpgroup's rows
 # the tile schedule of csrc/flash_attention.cu (FWD_BM, FWD_BN, DKV_BN,
-# DKV_BM there): the forward takes 128 query rows a block, 64 each of two
-# consumer warpgroups, against 64-key tiles; dk/dv takes 128 keys a block,
-# 64 each, against 64-query steps
+# DKV_BM there): the forward and dq take 128 query rows a block, 64 each
+# of two consumer warpgroups, against 64-key tiles; dk/dv takes 128 keys
+# a block, 64 each, against 64-query steps
 FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64
+DQ_BLOCK_Q, DQ_BLOCK_K = FWD_BLOCK_Q, FWD_BLOCK_K
 DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
 _HEAD_DIMS = (64, 128)
 

@@ -14,14 +14,23 @@ lies at flat offset r in both layouts (the flat form's wide
 both; rows past R in the last tile are masked. It reads g, the codes
 and the scales once and writes them once, in place.
 What bounds it on the card is memory bandwidth (~12 bytes a parameter
-against a few dozen f32 operations, far below the H100's ridge): the
-design is one program per 32 x 128 tile, one block max per row, and
-no intermediate in device memory. Triton is imported only inside its
-launcher.
+against a few dozen f32 operations, far below the H100's ridge), so the
+design spends few instructions and few registers an element: one
+program per 8 x 128 tile (eight elements a thread), one block max per
+row, no intermediate in device memory; the dequantize takes no division
+(an fma-corrected product by rn(1/127), the same bits as ``code / 127``
+for every code), the requantize one IEEE division and square root a
+row (``k = 127 / sqrt(scale)``) and an approximate square root an
+element. The delta keeps its IEEE square root and division. Triton is
+imported only inside its launcher.
 
 The plain PyTorch version (``_adam8_update_plain``) is the CPU path and
-the kernel's oracle; both round half to even, give sign(0) = 0 and
-divide truly, as the JAX math does.
+the kernel's oracle; both round half to even and give sign(0) = 0; the
+plain version divides truly, as the JAX math does. The kernel's moments
+and delta equal it to the rounding of one operation; its requantize may
+move a code by 1 where ``sqrt(|x| / scale) 127`` lies within a few ulp
+of a half (about 2 in a million codes on an H100, in chip_smoke.py's
+check).
 """
 
 from __future__ import annotations
@@ -33,7 +42,13 @@ import torch
 
 BLOCK = 128  # quantization block
 _FLAT_ROWS = 2048  # group sizes are multiples of _FLAT_ROWS * BLOCK
-_TILE_ROWS = 32  # rows per Triton program
+# rows per Triton program and its warps: 8 x 128 elements over 128
+# threads keeps 8 a thread and ~56 registers, so enough programs share an
+# SM to keep loads in flight (on an H100, 32 rows took 157 registers and
+# reached 42 % of the byte bound; tools/torch_adam8_variants.py times the
+# choices)
+_TILE_ROWS = 8
+_WARPS = 4
 
 # launches of the Triton kernel, counted where the wrapper launches it:
 # under "adam8_flat" for a packed group, "adam8_leaf" for one leaf
@@ -144,6 +159,7 @@ def _adam8_update_plain(g_blocks, mq, vq, scalars, b1, b2, classic_eps=True):
 
 
 _TRITON_KERNEL = None
+_compiled: Dict[str, object] = {}  # the last launch's compiled kernel, by counter
 
 
 def _triton_kernel():
@@ -167,13 +183,20 @@ def _triton_kernel():
         offs = rows[:, None] * 128 + tl.arange(0, 128)[None, :]
         mask = live[:, None]
         g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        # sqrt-map dequantize: c = code / 127, x = sign(c) c c scale
-        cm = libdevice.div_rn(tl.load(mc_ptr + offs, mask=mask, other=0).to(tl.float32), 127.0)
-        cv = libdevice.div_rn(tl.load(vc_ptr + offs, mask=mask, other=0).to(tl.float32), 127.0)
-        sgn_m = tl.where(cm > 0, 1.0, tl.where(cm < 0, -1.0, 0.0))
-        m = sgn_m * cm * cm * tl.load(ms_ptr + rows, mask=live, other=0.0)[:, None]
+        # sqrt-map dequantize, x = sign(c) c c scale with c = code / 127,
+        # without a division: c0 = code rn(1/127) is off by at most an ulp,
+        # and one fma-corrected step gives rn(code / 127) for every code;
+        # c |c| is then sign(c) rn(c c), the same bits as the plain version
+        cm = tl.load(mc_ptr + offs, mask=mask, other=0).to(tl.float32)
+        cv = tl.load(vc_ptr + offs, mask=mask, other=0).to(tl.float32)
+        cm0 = cm * 0.007874015718698502  # rn(1/127) in f32
+        cv0 = cv * 0.007874015718698502
+        cm = tl.fma(tl.fma(-cm0, 127.0, cm), 0.007874015718698502, cm0)
+        cv = tl.fma(tl.fma(-cv0, 127.0, cv), 0.007874015718698502, cv0)
+        m = cm * tl.abs(cm) * tl.load(ms_ptr + rows, mask=live, other=0.0)[:, None]
         v = cv * cv * tl.load(vs_ptr + rows, mask=live, other=0.0)[:, None]
-        # moments and delta, in the JAX math's operation order
+        # moments and delta, in the JAX math's operation order, each
+        # operation rounded as IEEE rounds it
         m_new = b1 * m + omb1 * g
         v_new = b2 * v + omb2 * g * g
         if CLASSIC:
@@ -183,17 +206,18 @@ def _triton_kernel():
             r = libdevice.div_rn(1.0, libdevice.sqrt_rn(v_new * invbc2 + eps))
             delta = -lrA * m_new * r
         tl.store(d_ptr + offs, delta.to(d_ptr.dtype.element_ty), mask=mask)
-        # requantize: one max per 128-element row, round half to even
+        # requantize: one max per 128-element row; code = rint(sign(x)
+        # sqrt(|x| / s) 127) as sqrt(|x|) k with k = 127 / sqrt(s) once a
+        # row and the approximate square root (a code may move by 1 where
+        # sqrt(|x| / s) 127 lies within a few ulp of a half)
         s_m = tl.max(tl.abs(m_new), axis=1)
-        y = libdevice.div_rn(m_new, tl.maximum(s_m, 1e-30)[:, None])
-        sgn_y = tl.where(y > 0, 1.0, tl.where(y < 0, -1.0, 0.0))
-        qm = libdevice.rint(sgn_y * libdevice.sqrt_rn(tl.abs(y)) * 127.0)
-        qm = tl.minimum(tl.maximum(qm, -127.0), 127.0)
+        k_m = libdevice.div_rn(127.0, libdevice.sqrt_rn(tl.maximum(s_m, 1e-30)))
+        qm = libdevice.rint(tl.sqrt(tl.abs(m_new)) * k_m[:, None])
+        qm = tl.minimum(tl.maximum(tl.where(m_new < 0, -qm, qm), -127.0), 127.0)
         s_v = tl.max(v_new, axis=1)
-        yv = libdevice.div_rn(v_new, tl.maximum(s_v, 1e-30)[:, None])
-        sgn_v = tl.where(yv > 0, 1.0, tl.where(yv < 0, -1.0, 0.0))
-        qv = libdevice.rint(sgn_v * libdevice.sqrt_rn(tl.abs(yv)) * 127.0)
-        qv = tl.minimum(tl.maximum(qv, 0.0), 127.0)
+        k_v = libdevice.div_rn(127.0, libdevice.sqrt_rn(tl.maximum(s_v, 1e-30)))
+        qv = libdevice.rint(tl.sqrt(v_new) * k_v[:, None])
+        qv = tl.minimum(qv, 127.0)
         tl.store(mc_ptr + offs, qm.to(tl.int8), mask=mask)
         tl.store(vc_ptr + offs, qv.to(tl.int8), mask=mask)
         tl.store(ms_ptr + rows, s_m, mask=live)
@@ -231,17 +255,26 @@ def _adam8_update_triton(g_blocks, mq, vq, scalars, b1, b2, classic_eps=True,
     delta = torch.empty_like(g_blocks)
     lrA, invbc2, eps = scalars
     with torch.cuda.device(dev):
-        kernel[(-(-R // _TILE_ROWS),)](
+        compiled = kernel[(-(-R // _TILE_ROWS),)](
             g_blocks, mq.codes, mq.scales, vq.codes, vq.scales, delta, R,
             lrA, invbc2, eps, b1, 1.0 - b1, b2, 1.0 - b2,
             TILE_ROWS=_TILE_ROWS, CLASSIC=bool(classic_eps),
-            num_warps=4,
-            # no fused multiply-add: each product and sum rounds on its
-            # own, as in the JAX math and the plain version
+            num_warps=_WARPS,
+            # no fused multiply-add but the dequantize's own: each product
+            # and sum rounds on its own, as in the JAX math and the plain
+            # version
             enable_fp_fusion=False,
         )
     launch_counts[counter] += 1
+    _compiled[counter] = compiled
     return delta
+
+
+def triton_kernel_info(counter: str = "adam8_flat") -> Dict[str, int]:
+    """Registers a thread and spill bytes of the kernel that the last
+    launch under ``counter`` ran, as Triton compiled it."""
+    c = _compiled[counter]
+    return {"n_regs": c.n_regs, "n_spills": c.n_spills}
 
 
 def adam8_update_flat(g_blocks, mq, vq, scalars, b1, b2, classic_eps=True):

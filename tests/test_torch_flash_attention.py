@@ -5,10 +5,11 @@ Tolerances are the JAX package's own (tests/test_ops.py): 2e-5 on the
 forward in f32, 5e-4 on gradients.
 
 The CUDA kernels cannot run without a card, so their tile schedule is
-rehearsed here in PyTorch (``_emulate_fwd``, ``_emulate_dkdv``): the
-same blocks, warpgroup rows, key / query tiles, full / crossed / skipped
-classification and exp2-domain arithmetic as ``csrc/flash_attention.cu``,
-held to the plain versions and to the JAX package."""
+rehearsed here in PyTorch (``_emulate_fwd``, ``_emulate_dq``,
+``_emulate_dkdv``): the same blocks, warpgroup rows, key / query tiles,
+full / crossed / skipped classification and exp2-domain arithmetic as
+``csrc/flash_attention.cu``, held to the plain versions and to the JAX
+package."""
 
 import importlib
 import math
@@ -255,6 +256,58 @@ def _emulate_dkdv(q, k, v, do, lse, delta, causal, q_off, k_off):
     return dk, dv, classes
 
 
+def _emulate_dq(q, k, v, do, lse, delta, causal, q_off, k_off):
+    """``fa_bwd_dq`` tile by tile: the forward's blocks (128 query rows,
+    two 64-row warpgroups) against 64-key tiles up to each block's last
+    visible one, the mask only on tiles the diagonal crosses, p recomputed
+    from lse in the exp2 domain (a row whose lse is NEG_INF takes +1e30,
+    so its p is 0), ds rounded to the input dtype before dS K. Returns f32
+    dq, which (warpgroup row, key tile) pairs of head (0, 0) were computed
+    and how, and how many tiles each block loaded."""
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    BM, BN = tfa.DQ_BLOCK_Q, tfa.DQ_BLOCK_K
+    scale = D**-0.5
+    dq = torch.zeros((B, H, Tq, D))
+    classes, loaded = {}, {}
+    for b in range(B):
+        for h in range(H):
+            hk = h // (H // Hkv)
+            for q0 in range(0, Tq, BM):
+                rows_here = min(BM, Tq - q0)
+                nk = Tk // BN
+                if causal:
+                    lim = q_off + q0 + rows_here - 1 - k_off
+                    nk = 0 if lim < 0 else min(nk, lim // BN + 1)
+                loaded[q0] = nk
+                for qw0 in range(q0, q0 + rows_here, WGR):
+                    qpos = q_off + qw0 - k_off
+                    nk_wg = n_full = nk
+                    if causal and nk:
+                        nk_wg = 0 if qpos + 63 < 0 else min(nk, (qpos + 63) // BN + 1)
+                        n_full = min(nk_wg, max(0, (qpos - BN + 1) // BN + 1))
+                    rows = slice(qw0, qw0 + WGR)
+                    lq = lse[b, h, rows]
+                    lq = torch.where(lq > NEG * 0.5, lq * LOG2E, -NEG)[:, None]
+                    dl = delta[b, h, rows][:, None]
+                    qw, dow = q[b, h, rows].float(), do[b, h, rows].float()
+                    acc = torch.zeros(WGR, D)
+                    for j in range(nk_wg):
+                        kj = k[b, hk, j * BN:(j + 1) * BN].float()
+                        vj = v[b, hk, j * BN:(j + 1) * BN].float()
+                        x = qw @ kj.T * (scale * LOG2E) - lq
+                        if j >= n_full:
+                            qp = q_off + qw0 + torch.arange(WGR)[:, None]
+                            kp = k_off + j * BN + torch.arange(BN)[None, :]
+                            x = torch.where(qp >= kp, x, NEG)
+                        if (b, h) == (0, 0):
+                            classes[(qw0, j)] = "full" if j < n_full else "crossed"
+                        ds = torch.exp2(x) * (dow @ vj.T - dl) * scale
+                        acc += ds.to(q.dtype).float() @ kj
+                    dq[b, h, rows] = acc
+    return dq, classes, loaded
+
+
 def _tile_classes(Tq, Tk, causal, q_off, k_off, by_key=False):
     """What a 64 x 64 tile is, from the mask itself: every (64-row
     warpgroup, 64-wide tile) pair with a visible entry, 'full' if all of
@@ -313,6 +366,24 @@ def test_dkdv_tile_schedule_matches_plain(T, qo, ko, causal, Hkv):
     assert classes == _tile_classes(T, T, causal, qo, ko, by_key=True)
 
 
+@pytest.mark.parametrize("T,qo,ko,causal,Hkv", SCHEDULE_CASES)
+def test_dq_tile_schedule_matches_plain(T, qo, ko, causal, Hkv):
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(B=1, Hkv=Hkv, T=T, D=16, seed=5))
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, q_offset=qo,
+                                     k_offset=ko, layout="bhtd")
+    delta = (do * o).sum(-1)
+    dq_e, classes, loaded = _emulate_dq(q, k, v, do, lse, delta, causal, qo, ko)
+    dq_r, _, _ = tfa._bwd_plain(q, k, v, do, lse, delta, 16**-0.5, causal, None, qo, ko)
+    np.testing.assert_allclose(dq_e.numpy(), dq_r.numpy(), atol=BWD_TOL)
+    # the forward's tiles: exactly those with a visible entry, masked
+    # exactly where the diagonal crosses, none loaded past a block's last
+    want = _tile_classes(T, T, causal, qo, ko)
+    assert classes == want
+    for q0, n in loaded.items():
+        seen = [j for (r, j) in want if q0 <= r < q0 + tfa.DQ_BLOCK_Q]
+        assert n == (max(seen) + 1 if seen else 0)
+
+
 @pytest.mark.parametrize("name,H,Hkv,causal,qo,ko,fused", CASES)
 def test_forward_tile_schedule_matches_jax(name, H, Hkv, causal, qo, ko, fused):
     q, k, v, _ = _inputs(H=H, Hkv=Hkv)
@@ -339,9 +410,23 @@ def test_dkdv_tile_schedule_matches_jax(name, H, Hkv, causal, qo, ko, fused):
     np.testing.assert_allclose(fold(dv_e).numpy(), np.asarray(dv_j), atol=BWD_TOL)
 
 
+@pytest.mark.parametrize("name,H,Hkv,causal,qo,ko,fused", CASES)
+def test_dq_tile_schedule_matches_jax(name, H, Hkv, causal, qo, ko, fused):
+    q, k, v, do = _inputs(H=H, Hkv=Hkv, seed=1)
+    o, lse = _jax_fwd(q, k, v, causal, qo, ko, fused)
+    dq_j, _, _ = jfa.flash_attention_bwd(
+        *(jnp.asarray(x) for x in (q, k, v, o, lse, do)), causal=causal,
+        q_offset=qo, k_offset=ko, block_q=64, block_k=64, interpret=True,
+        layout="bhtd", allow_fused=fused,
+    )
+    tq, tk, tv, tdo, to, tlse = (torch.from_numpy(np.array(x)) for x in (q, k, v, do, o, lse))
+    dq_e, _, _ = _emulate_dq(tq, tk, tv, tdo, tlse, (tdo * to).sum(-1), causal, qo, ko)
+    np.testing.assert_allclose(dq_e.numpy(), np.asarray(dq_j), atol=BWD_TOL)
+
+
 def test_schedule_constants_tile_the_lengths_the_wrapper_admits():
     """Lengths come in multiples of 64; a block's last warpgroup may be
     empty (T an odd multiple of 64), never part of one."""
-    assert WGR == tfa.FWD_BLOCK_K == tfa.DKV_BLOCK_Q == 64
-    assert tfa.FWD_BLOCK_Q == tfa.DKV_BLOCK_K == 2 * WGR
+    assert WGR == tfa.FWD_BLOCK_K == tfa.DQ_BLOCK_K == tfa.DKV_BLOCK_Q == 64
+    assert tfa.FWD_BLOCK_Q == tfa.DQ_BLOCK_Q == tfa.DKV_BLOCK_K == 2 * WGR
     assert math.isclose(LOG2E * LN2, 1.0, rel_tol=1e-12)

@@ -106,6 +106,31 @@ def _check_attention(dev, B, H, Hkv, Tq, Tk, D, q_off, k_off, causal):
         assert _tile_err(got, ref.transpose(1, 2)) <= ATTN_TOL
 
 
+@pytest.mark.parametrize(
+    "B,H,Hkv,T,D",
+    [
+        (1, 32, 32, 4096, 128),  # Llama-2 width
+        (1, 32, 8, 2048, 128),  # GQA, four query heads a kv head
+    ],
+)
+def test_dq_kernel_matches_plain_at_full_width(dev, B, H, Hkv, T, D):
+    """``fa_bwd_dq`` alone against the plain backward's dq on the same
+    inputs and residuals (the forward kernel's o and lse)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, do = (torch.randn((B, H, T, D), generator=g, device=dev, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, Hkv, T, D), generator=g, device=dev, dtype=torch.bfloat16) for _ in range(2))
+    o, lse = fa.flash_attention_fwd(q, k, v, layout="bhtd")
+    delta = (do.float() * o.float()).sum(-1)
+    dq = torch.empty_like(q)
+    fa.reset_launch_counts()
+    fa._bwd_launch("fa_bwd_dq", (dq,), q, k, v, do, lse, delta, D**-0.5, True, 0, 0)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["fa_bwd_dq"] == 1
+    ref, _, _ = fa._bwd_plain(q, k, v, do, lse, delta, D**-0.5, True, None, 0, 0)
+    assert torch.isfinite(dq).all()
+    assert _tile_err(dq, ref) <= ATTN_TOL
+
+
 def test_attention_kernels_with_every_key_in_the_future(dev):
     """No tile is loaded at all: o = 0, lse = NEG_INF, zero gradients."""
     q, k, v, do = (torch.randn((1, 2, 192, 64), device=dev, dtype=torch.bfloat16) for _ in range(4))
@@ -181,9 +206,42 @@ def test_small_train_step_on_the_card(dev):
     assert qo.launch_counts["adam8_flat"] == 3 * len(state.opt_state.opt.layout.groups)
 
 
+def test_adam8_flat_on_rows_no_multiple_of_the_tile(dev):
+    """The flat entry over 4,096 + 17 rows: the last tile is masked."""
+    R = 4096 + 17
+    assert R % qo._TILE_ROWS
+    g = torch.Generator(device=dev).manual_seed(6)
+    grad = torch.randn((R, 128), generator=g, device=dev) * 1e-3
+    m0 = torch.randn((R, 128), generator=g, device=dev) * 1e-3
+    v0 = torch.rand((R, 128), generator=g, device=dev) * 1e-6
+
+    def state():
+        out = []
+        for x, s in ((m0, True), (v0, False)):
+            c, sc = qo._sqrt_map_quant(x, s, 127.0)
+            out.append(qo.Quantized8(c.to(torch.int8), sc.view(R).contiguous(), (R * 128,), s))
+        return out
+
+    scalars = tuple(float(torch.tensor(x, dtype=torch.float32))
+                    for x in (3e-4 / (1 - 0.9**5), 1 / (1 - 0.999**5), 1e-8))
+    (mk, vk), (mp, vp) = state(), state()
+    qo.reset_launch_counts()
+    dk = qo.adam8_update_flat(grad, mk, vk, scalars, 0.9, 0.999)
+    dp = qo._adam8_update_plain(grad, mp, vp, scalars, 0.9, 0.999)
+    torch.cuda.synchronize()
+    assert qo.launch_counts == {"adam8_flat": 1, "adam8_leaf": 0}
+    for a, b in ((mk, mp), (vk, vp)):
+        diff = (a.codes.int() - b.codes.int()).abs()
+        assert diff.max().item() <= 1 and diff.float().mean().item() <= 1e-3
+        assert _rel(a.scales, b.scales) <= 1e-6
+    assert _rel(dk, dp) <= 1e-6
+    info = qo.triton_kernel_info("adam8_flat")
+    assert info["n_spills"] == 0 and info["n_regs"] > 0
+
+
 @pytest.mark.parametrize("R", [301, 64])
 def test_adam8_leaf_route_masks_the_tail(dev, R):
-    """Per-leaf rows (R = 301 is no multiple of the 32-row tile) with
+    """Per-leaf rows (R = 301 is no multiple of the 8-row tile) with
     [R] scales; the rows past R in the last tile are neither read nor
     written: a guard row after the state keeps its bytes."""
     g = torch.Generator(device=dev).manual_seed(2)

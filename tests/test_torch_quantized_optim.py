@@ -3,7 +3,13 @@ path) against the JAX package's fused Pallas kernel in interpret mode
 and its jnp twin.
 
 Codes must be equal; scales and deltas are held to the JAX package's
-kernel-vs-twin tolerances (tests/test_ops.py): 1e-6 and 1e-7."""
+kernel-vs-twin tolerances (tests/test_ops.py): 1e-6 and 1e-7. The
+Triton kernel's own arithmetic (a dequantize without division, a
+requantize by a per-row factor) is modelled here on the CPU and held
+to the plain version: bitwise for the dequantize, within one code on a
+share of at most 1e-3 for the requantize."""
+
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -140,7 +146,7 @@ def _leaf_state(rows, seed=0):
 @pytest.mark.parametrize("classic", [True, False])
 @pytest.mark.parametrize("jax_path", ["pallas_interpret", "jnp"])
 def test_leaf_update_matches_jax(classic, jax_path):
-    """R = 301 rows: neither a multiple of the Triton kernel's 32-row
+    """R = 301 rows: neither a multiple of the Triton kernel's 8-row
     tile nor of the Pallas kernel's 256-row tile (which pads to it)."""
     g, jm, jv = _leaf_state(301)
     R = g.shape[0]
@@ -241,6 +247,83 @@ def test_per_leaf_and_flat_forms_are_bitwise_equal():
         runs.append([p.detach().numpy().copy() for p in tp])
     for a, b in zip(*runs):
         np.testing.assert_array_equal(a, b)
+
+
+# -- the Triton kernel's arithmetic, modelled on the CPU ----------------------
+INV127 = 0.007874015718698502  # the kernel's literal for rn(1/127) in f32
+
+
+def _rn32(x: Fraction) -> float:
+    """The f32 nearest to the exact rational ``x`` (ties to even); normal
+    numbers only."""
+    if x == 0:
+        return 0.0
+    sign, x = (-1 if x < 0 else 1), abs(x)
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    while Fraction(2) ** e > x:
+        e -= 1
+    while Fraction(2) ** (e + 1) <= x:
+        e += 1
+    ulp = Fraction(2) ** (e - 23)
+    n, rem = divmod(x, ulp)
+    if rem > ulp / 2 or (rem == ulp / 2 and n % 2):
+        n += 1
+    return sign * float(n * ulp)
+
+
+def test_dequantize_without_division_is_bitwise_the_plain_one():
+    """The kernel dequantizes code c as q |q| scale with q = fma(fma(-q0,
+    127, c), rn(1/127), q0) and q0 = c rn(1/127): every one of the 256
+    codes gives the plain version's sign(c) rn(rn(c / 127)^2), bitwise."""
+    assert INV127 == _rn32(Fraction(1, 127)) == float(np.float32(1) / np.float32(127))
+    inv = Fraction(INV127)
+    codes = np.arange(-128, 128, dtype=np.float32)
+    got = []
+    for c in codes.astype(int):
+        q0 = _rn32(c * inv)
+        r = _rn32(c - Fraction(q0) * 127)  # fma(-q0, 127, c), exact
+        q = np.float32(_rn32(Fraction(r) * inv + Fraction(q0)))  # fma(r, inv, q0)
+        got.append(q * np.abs(q))
+    want = tq._sqrt_map_dequant(torch.from_numpy(codes), torch.ones(()), 127.0).numpy()
+    np.testing.assert_array_equal(np.array(got, np.float32).view(np.uint32), want.view(np.uint32))
+
+
+def _requant_model(x, signed, sqrt_ulps=0, seed=0):
+    """The kernel's requantize in plain PyTorch: per row ``k = 127 /
+    sqrt(s)``, then ``rint(sqrt(|x|) k)`` with x's sign. ``sqrt_ulps``
+    moves each square root by up to that many ulp at random, standing in
+    for the approximate square root the kernel takes."""
+    s = (x.abs() if signed else x).amax(-1, keepdim=True)
+    k = 127.0 / torch.sqrt(s.clamp_min(1e-30))
+    root = torch.sqrt(x.abs())
+    if sqrt_ulps:
+        rng = np.random.default_rng(seed)
+        wobble = rng.integers(-sqrt_ulps, sqrt_ulps + 1, size=tuple(x.shape))
+        root = root * (1.0 + torch.from_numpy(wobble).float() * 2.0**-23)
+    q = torch.round(root * k)
+    q = torch.where(x < 0, -q, q)
+    return q.clamp(-127.0 if signed else 0.0, 127.0), s
+
+
+@pytest.mark.parametrize("sqrt_ulps", [0, 2])
+def test_requantize_by_row_factor_stays_within_one_code(sqrt_ulps):
+    """Against the plain requantize (``div_rn``, ``sqrt_rn``) on moments
+    after an update from a numpy seed: scales equal, codes off by at most
+    1 on a share of at most 1e-3 (chip_smoke.py's ADAM_CODE_SHARE)."""
+    g, (mc, ms, vc, vs) = _group(rows=4096, seed=11)
+    R = g.shape[0]
+    tm = tq.Quantized8(torch.from_numpy(mc.copy()), torch.from_numpy(ms.copy()), (R * 128,), True)
+    tv = tq.Quantized8(torch.from_numpy(vc.copy()), torch.from_numpy(vs.copy()), (R * 128,), False)
+    m = tq._sqrt_map_dequant(tm.codes.float(), tm.scales.view(R, 1), 127.0)
+    v = tq._sqrt_map_dequant(tv.codes.float(), tv.scales.view(R, 1), 127.0)
+    gt = torch.from_numpy(g)
+    for x, signed in ((0.9 * m + 0.1 * gt, True), (0.999 * v + 0.001 * gt * gt, False)):
+        want, s_want = tq._sqrt_map_quant(x, signed, 127.0)
+        got, s_got = _requant_model(x, signed, sqrt_ulps, seed=int(signed))
+        assert torch.equal(s_got, s_want)
+        diff = (got - want).abs()
+        assert diff.max().item() <= 1
+        assert (diff > 0).float().mean().item() <= 1e-3
 
 
 def test_four_bit_form_is_not_ported():
