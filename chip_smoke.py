@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlrover_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--phase flash_ckpt]
 
 (``--profile`` adds a torch.profiler window of a few more steps to the
-gpt2_small path and to the full-size sparse path.)
+gpt2_small path and to the full-size sparse path; ``--phase flash_ckpt``
+builds the kernels and runs that phase alone, without the contract's
+closing lines.)
 
 1. device: the card's name, power limit and count; builds the CUDA
    kernels from the checkout's sources (one nvcc for each ``.cu``, and
@@ -33,6 +35,14 @@ gpt2_small path and to the full-size sparse path.)
    - a small tier that spills (1,024 rows, bench.py's zipf 1.6 stream),
      its flushed host state held to the same run on the CPU and to a
      second run on the card;
+   - ``flash_ckpt``: Flash Checkpoint under ``ElasticTrainer`` on
+     gpt2_small (``examples/train_gpt2_torch.py`` workers, the saver in
+     this process): an uninterrupted run twice, a run killed after step
+     9, a fresh process resuming from shm and one resuming from disk
+     after the shm is gone, all held to the uninterrupted losses bit for
+     bit, with the launch counts of every worker; then the staging
+     routes timed against each other, and gpt2_xl's state when
+     ``/dev/shm`` holds it;
 4. a ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -51,6 +61,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -798,6 +809,332 @@ def run_sparse_spill(torch):
         raise RuntimeError(f"the spilling tier disagrees with the CPU or with itself: {res}")
 
 
+# ---------------------------------------------------------------------------
+# flash checkpoint
+# ---------------------------------------------------------------------------
+REPO = os.path.dirname(os.path.abspath(__file__))
+CKPT_WORKER = os.path.join(REPO, "examples", "train_gpt2_torch.py")
+CKPT_RUN = ["--model", "gpt2_small", "--steps", "12", "--batch", "8", "--seq", "1024",
+            "--prefetch", "2", "--save-memory-interval", "4", "--save-storage-interval", "6"]
+XL_SHM_BYTES = 24e9  # /dev/shm needed to also time gpt2_xl's state
+
+
+def ckpt_worker(label, ckpt_dir, evdir, *extra):
+    """One training process of the drill (``examples/train_gpt2_torch.py``,
+    started with ``subprocess``, never a fork of this process); returns
+    what its event file says."""
+    ev = os.path.join(evdir, f"{label}.jsonl")
+    t0 = time.time()
+    p = subprocess.run(
+        [sys.executable, CKPT_WORKER, *CKPT_RUN, "--ckpt-dir", ckpt_dir, "--events", ev, *extra],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, capture_output=True, text=True,
+        timeout=300,
+    )
+    evs = []
+    if os.path.exists(ev):
+        with open(ev) as f:
+            evs = [json.loads(line) for line in f]
+
+    def last(kind, default=None):
+        return next((e for e in reversed(evs) if e["event"] == kind), default)
+
+    loss_ev = [e for e in evs if e["event"] == "loss"]
+    return dict(
+        label=label, rc=p.returncode, wall_s=time.time() - t0, stderr=p.stderr[-3000:],
+        losses={e["step"]: e["loss"] for e in loss_ev},
+        loss_t={e["step"]: e["t"] for e in loss_ev},
+        first_loss_s=(loss_ev[0]["t"] - t0) if loss_ev else None,
+        restored=last("restored", {}), saves=last("saves", {}).get("log", []),
+        launches=last("launches", {}),
+    )
+
+
+def drill_step_ms(w):
+    """A worker's step times (host clock between the losses of two
+    steps, each read after its stream finished) split by whether a
+    staged save's copies or host side were in flight; steps right after
+    a disk save (which blocks the loop) are left out."""
+    t, drain, after_disk = w["loss_t"], set(), set()
+    for s in w["saves"]:
+        if s["kind"] == "memory" and "end_step" in s:
+            drain |= set(range(s["step"] + 1, s["end_step"] + 1))
+        elif s["kind"] == "storage":
+            after_disk.add(s["step"] + 1)
+    steps = sorted(t)
+    with_drain, without = [], []
+    for a, b in zip(steps, steps[1:]):
+        if b not in after_disk:
+            (with_drain if b in drain else without).append((t[b] - t[a]) * 1e3)
+    return with_drain, without
+
+
+def drill_launches_ok(w):
+    """fa_fwd / fa_bwd_dkdv / fa_bwd_dq once a layer and adam8_flat once
+    a packed group on every step the worker ran."""
+    n, la = len(w["losses"]), w["launches"]
+    c = la.get("counts", {})
+    want = {"fa_fwd": la.get("layers", 0) * n, "fa_bwd_dkdv": la.get("layers", 0) * n,
+            "fa_bwd_dq": la.get("layers", 0) * n, "adam8_flat": la.get("groups", 0) * n}
+    return n > 0 and all(c.get(k) == v for k, v in want.items()), want
+
+
+def stage_ring(torch, tensors, shm_buf, chunk_bytes, slots=2):
+    """Route (b), measured beside the engine's route (a): each tensor's
+    bytes go to the host through a ring of ``slots`` pinned buffers of
+    ``chunk_bytes`` on a side stream, and a host thread copies every
+    chunk into shm and folds its crc32. Returns (ms until the last
+    device copy finished, which is when an optimizer could go on; ms
+    until all is in shm; seconds of memcpy; seconds of crc)."""
+    import threading
+    import zlib
+
+    dev = tensors[0].device
+    stream = torch.cuda.Stream(device=dev)
+    ring = [torch.empty(chunk_bytes, dtype=torch.uint8, pin_memory=True) for _ in range(slots)]
+    free = [threading.Semaphore(1) for _ in range(slots)]
+    chunks, off = [], 0
+    for t in tensors:
+        flat = t.reshape(-1).view(torch.uint8)
+        for lo in range(0, flat.numel(), chunk_bytes):
+            n = min(chunk_bytes, flat.numel() - lo)
+            chunks.append((flat[lo:lo + n], off, n))
+            off += n
+    issued = []  # (event, slot, shm offset, n) in order
+    ready = threading.Condition()
+    timing = {"memcpy_s": 0.0, "crc_s": 0.0}
+    t0 = time.perf_counter()
+    torch.cuda.current_stream(dev).synchronize()
+
+    def host():
+        crc = 0
+        for i in range(len(chunks)):
+            with ready:
+                while len(issued) <= i:
+                    ready.wait()
+                ev, slot, o, n = issued[i]
+            ev.synchronize()
+            if i == len(chunks) - 1:
+                timing["last_copy_ms"] = (time.perf_counter() - t0) * 1e3
+            a = time.perf_counter()
+            shm_buf[o:o + n] = ring[slot][:n].numpy()
+            b = time.perf_counter()
+            crc = zlib.crc32(shm_buf[o:o + n], crc)
+            timing["memcpy_s"] += b - a
+            timing["crc_s"] += time.perf_counter() - b
+            free[slot].release()
+
+    th = threading.Thread(target=host)
+    th.start()
+    for i, (src, o, n) in enumerate(chunks):
+        slot = i % slots
+        free[slot].acquire()  # the host has copied this slot out
+        with torch.cuda.stream(stream):
+            ring[slot][:n].copy_(src, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(stream)
+        with ready:
+            issued.append((ev, slot, o, n))
+            ready.notify()
+    th.join()
+    timing["total_ms"] = (time.perf_counter() - t0) * 1e3
+    return timing
+
+
+def measure_stage_routes(torch, cfg, ckpt_root, label, rounds=2, ring=True):
+    """One model's train state staged into shm by the engine (route a:
+    the device copies land in the pinned segment, host threads fold the
+    crcs), ``rounds`` times (the first also pins the segment), and as
+    often by route (b) into a plain segment; then one restore of it
+    from shm into the live tensors. The saver runs in this process."""
+    from dlrover_tpu_torch.ckpt.engine import CheckpointEngine
+    from dlrover_tpu_torch.ckpt.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.ckpt.sharding import flatten_state
+    from dlrover_tpu_torch.common.multi_process import SharedMemory
+    from dlrover_tpu_torch.models.convert import train_state_tree
+    from dlrover_tpu_torch.models.train import state_from_params
+    from dlrover_tpu_torch.models.transformer import Transformer
+    from dlrover_tpu_torch.trainer.elastic.trainer import build_optimizer
+
+    # zeros, built on the card (a CPU draw of 1.5 B weights takes
+    # minutes); what is timed does not depend on the values
+    state = state_from_params(Transformer(cfg, device="cuda"), build_optimizer("adamw_8bit_flat"))
+    tree = {"train": train_state_tree(state), "sampler": {"epoch": 0, "completed_num": 0}}
+    tensors = [v for _, v in flatten_state(tree) if isinstance(v, torch.Tensor)]
+    AsyncCheckpointSaver.reset()
+    saver = AsyncCheckpointSaver.start_async_saving_ckpt(local_shard_num=1)
+    engine = CheckpointEngine()
+    d = os.path.join(ckpt_root, label)
+    res = {"label": label, "rounds": []}
+    try:
+        for r in range(rounds):
+            while not engine._lock.acquire(blocking=False):  # the saver hands it back
+                time.sleep(0.01)
+            engine._lock.force_release()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = engine.begin_chunked_save(r + 1, tree, d)
+            begin_ms = (time.perf_counter() - t0) * 1e3
+            st.commit()
+            total_ms = (time.perf_counter() - t0) * 1e3
+            res["state_bytes"] = st.total_bytes
+            res["rounds"].append(dict(
+                begin_ms=begin_ms, d2h_ms=st.timings["d2h_ms"], crc_s=st.timings["crc_s"],
+                total_ms=total_ms, d2h_GBps=st.total_bytes / st.timings["d2h_ms"] / 1e6,
+                crc_GBps=st.total_bytes / st.timings["crc_s"] / 1e9))
+        t0 = time.perf_counter()
+        step, _ = engine.load(tree, d)
+        res["restore_from_shm_s"] = time.perf_counter() - t0
+        if (step, engine.last_load_source) != (rounds, "memory"):
+            raise RuntimeError(f"{label}: shm restore gave {step} from {engine.last_load_source}")
+    finally:
+        engine.close()
+        # these saves are measurements: the saver's close must not
+        # persist them (gpt2_xl's would hold another ~20 GB of host RAM)
+        saver._persisted_step = rounds
+        AsyncCheckpointSaver.reset()
+    if ring:
+        name = f"dlrover_tpu_ring_{os.getpid()}"
+        seg = SharedMemory(name=name, create=True, size=res["state_bytes"])
+        try:
+            buf = np.ndarray((res["state_bytes"],), dtype=np.uint8, buffer=seg.buf)
+            nb = res["state_bytes"]
+            res["ring"] = []
+            for _ in range(rounds):  # the first also faults the segment's pages in
+                t = stage_ring(torch, tensors, buf, 64 << 20)
+                res["ring"].append(dict(t, memcpy_GBps=nb / t["memcpy_s"] / 1e9,
+                                        crc_GBps=nb / t["crc_s"] / 1e9))
+            del buf
+        finally:
+            seg.close()
+            seg.unlink()
+    del state, tree, tensors
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_flash_ckpt(torch):
+    """Flash Checkpoint under ElasticTrainer on gpt2_small (8 x 1024,
+    ``adamw_8bit_flat``, ``prefetch=2``, shm saves every 4 steps, disk
+    every 6), the saver hosted in this process under a job of its own:
+    U twice (12 steps, the same losses to the bit), A (killed with
+    SIGKILL after step 9's loss), B (a fresh process: step 8 from shm,
+    losses 9-12 equal to U's to the bit), C (the saver reset, shm gone:
+    the newest verified disk step of A's directory, losses equal to U's
+    to the bit). Then route (a) against route (b), and gpt2_xl's state
+    when ``/dev/shm`` holds it."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.ckpt.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.ckpt.shm_handler import shm_free_bytes
+    from dlrover_tpu_torch.models import gpt2_small, gpt2_xl
+
+    df = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True, text=True).stdout.strip()
+    shm_free = shm_free_bytes()
+    os.environ["DLROVER_TPU_JOB_NAME"] = f"smoke{os.getpid()}"
+    sock = tempfile.mkdtemp(prefix="dlr")  # unix socket paths stay short
+    os.environ["DLROVER_TPU_SOCKET_DIR"] = sock
+    root = tempfile.mkdtemp(prefix="flash_ckpt_")
+    evdir = os.path.join(root, "events")
+    os.makedirs(evdir)
+
+    def restart_saver():
+        AsyncCheckpointSaver.reset()
+        return AsyncCheckpointSaver.start_async_saving_ckpt(local_shard_num=1)
+
+    t_phase = time.perf_counter()
+    persist = []
+    try:
+        runs = {}
+        for label in ("U1", "U2"):
+            saver = restart_saver()
+            runs[label] = ckpt_worker(label, os.path.join(root, label), evdir)
+            persist += saver.persist_log
+        saver = restart_saver()
+        a_dir, c_dir = os.path.join(root, "A"), os.path.join(root, "C")
+        runs["A"] = ckpt_worker("A", a_dir, evdir, "--kill-after-step", "9")
+        shutil.copytree(a_dir, c_dir)  # A's disk state, as A left it, for C
+        runs["B"] = ckpt_worker("B", a_dir, evdir)
+        persist += saver.persist_log
+        saver = restart_saver()  # node loss: the shm segment is unlinked
+        runs["C"] = ckpt_worker("C", c_dir, evdir)
+        persist += saver.persist_log
+        AsyncCheckpointSaver.reset()
+        drill_s = time.perf_counter() - t_phase
+        for label, w in runs.items():
+            if w["rc"] != (-9 if label == "A" else 0):
+                print(w["stderr"], file=sys.stderr)
+                raise RuntimeError(f"flash_ckpt worker {label} exited {w['rc']}")
+        routes = measure_stage_routes(torch, gpt2_small(), root, "gpt2_small")
+        xl = (measure_stage_routes(torch, gpt2_xl(), root, "gpt2_xl", rounds=1, ring=False)
+              if shm_free >= XL_SHM_BYTES else "not run: /dev/shm holds less than 24 GB")
+    finally:
+        AsyncCheckpointSaver.reset()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(sock, ignore_errors=True)
+
+    u = runs["U1"]["losses"]
+    steps = list(range(1, 13))
+    checks = {
+        "u_steps": sorted(u) == steps,
+        "u_repeat_bitwise": runs["U2"]["losses"] == u,
+        "a_matches_u_bitwise": runs["A"]["losses"] == {s: u.get(s) for s in range(1, 10)},
+        "b_from_shm_step_8": (runs["B"]["restored"].get("step"),
+                              runs["B"]["restored"].get("source")) == (8, "memory"),
+        "b_bitwise": runs["B"]["losses"] == {s: u.get(s) for s in range(9, 13)},
+        "c_from_disk_step_6": (runs["C"]["restored"].get("step"),
+                               runs["C"]["restored"].get("source")) == (6, "storage"),
+        "c_bitwise": runs["C"]["losses"] == {s: u.get(s) for s in range(7, 13)},
+        "losses_finite": all(math.isfinite(x) for x in u.values()),
+        "first_loss_near_ln_vocab": abs(u.get(1, math.inf) - math.log(50257)) <= 1.0,
+    }
+    launches = {}
+    for label, w in runs.items():
+        ok, want = drill_launches_ok(w)
+        checks[f"launches_{label}"] = ok
+        launches[label] = {"counts": w["launches"].get("counts"), "expected": want}
+    saves = [dict(worker=label, **s) for label, w in runs.items() for s in w["saves"]]
+    mem = [s for s in saves if s["kind"] == "memory" and s["ok"]]
+    disk = [s for s in saves if s["kind"] == "storage" and s["ok"]]
+    with_d, without = [], []
+    for label in ("U1", "U2"):
+        a, b = drill_step_ms(runs[label])
+        with_d += a
+        without += b
+    med = lambda xs: float(statistics.median(xs)) if xs else None  # noqa: E731
+    state_bytes = max((s.get("bytes", 0) for s in saves), default=0)
+    res = dict(
+        model="gpt2_small", batch=8, seq=1024, optimizer="adamw_8bit_flat", prefetch=2,
+        save_memory_interval=4, save_storage_interval=6, state_bytes=state_bytes,
+        dev_shm_free_bytes=shm_free, df_dev_shm=df,
+        memory_save_block_ms=[s["block_ms"] for s in mem],
+        storage_save_block_ms=[s["block_ms"] for s in disk],
+        saves=saves,
+        step_ms_with_drain_median=med(with_d), step_ms_without_drain_median=med(without),
+        step_ms_with_drain=with_d, step_ms_without_drain=without,
+        d2h_GBps=[s["bytes"] / s["d2h_ms"] / 1e6 for s in mem if s.get("d2h_ms")],
+        crc_GBps=[s["bytes"] / s["crc_s"] / 1e9 for s in mem if s.get("crc_s")],
+        persist_s=[{"step": st, "s": sec, "outcome": oc} for st, sec, oc in persist],
+        restore={label: dict(step=runs[label]["restored"].get("step"),
+                             source=runs[label]["restored"].get("source"),
+                             restore_s=runs[label]["restored"].get("restore_s"),
+                             first_loss_s=runs[label]["first_loss_s"])
+                 for label in ("B", "C")},
+        worker_first_loss_s={k: w["first_loss_s"] for k, w in runs.items()},
+        worker_wall_s={k: w["wall_s"] for k, w in runs.items()},
+        losses={k: [runs[k]["losses"][s] for s in sorted(runs[k]["losses"])]
+                for k in ("U1", "B", "C")},
+        launches=launches, routes=routes, gpt2_xl=xl, drill_s=drill_s,
+        checks=checks, ok=all(checks.values()),
+    )
+    emit("flash_ckpt", **res)
+    if not res["ok"]:
+        for w in runs.values():
+            print(w["label"], w["stderr"], file=sys.stderr)
+        raise RuntimeError(f"flash_ckpt failed: {[k for k, v in checks.items() if not v]}")
+    return res
+
+
 def build_kernels():
     """Every kernel source, built at once: one nvcc for each ``.cu`` and
     g++ for the embedding store's ``kv_store.cc``."""
@@ -868,6 +1205,12 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
     build_kernels()
+    if "--phase" in sys.argv:  # one phase alone; the contract's lines need a full run
+        phase = sys.argv[sys.argv.index("--phase") + 1]
+        if phase != "flash_ckpt":
+            raise SystemExit(f"unknown phase {phase!r}")
+        run_flash_ckpt(torch)
+        return 0
 
     main_res, main_abs = check_attention(
         torch, fa, "B1/B2 gpt2_small", 8, 12, 12, 1024, 64, probe=True)
@@ -898,6 +1241,7 @@ def main() -> int:
         raise RuntimeError("adamw_8bit's losses leave adamw_8bit_flat's")
     emb_counts = run_sparse_full(torch, er, profile="--profile" in sys.argv)
     run_sparse_spill(torch)
+    run_flash_ckpt(torch)
 
     src_fa = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"
     fa_tpu = "dlrover_tpu/ops/flash_attention.py"

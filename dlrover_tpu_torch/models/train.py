@@ -12,7 +12,7 @@ the JAX flatten order and returns an optimizer with ``step()``
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -55,7 +55,8 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def build_train_step(
-    cfg: TransformerConfig, tx: Callable = None, grad_accum: int = 1
+    cfg: TransformerConfig, tx: Callable = None, grad_accum: int = 1,
+    before_update: Optional[Callable[[], None]] = None,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Tuple[TrainState, Dict]]:
     """``(state, tokens, targets) -> (state, {"loss", "grad_norm"})``,
     updating ``state`` in place (params, optimizer, step count).
@@ -64,7 +65,10 @@ def build_train_step(
     accumulates their grads in f32 whatever the param dtype, and casts
     the mean back to the param dtype once before ONE optimizer step.
     ``tx`` is accepted for the JAX signature; the step uses the
-    optimizer bound in ``state.opt_state``."""
+    optimizer bound in ``state.opt_state``. ``before_update()`` runs
+    after the backward and before the optimizer writes anything (the
+    trainer makes its stream wait there for a checkpoint's copies of
+    the state)."""
     check_supported(cfg)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -97,6 +101,8 @@ def build_train_step(
                 p.grad = (a / grad_accum).to(p.dtype)
             loss = loss / grad_accum
         gnorm = global_norm(p.grad for p in params)
+        if before_update is not None:
+            before_update()
         state.opt_state.step()
         state.step += 1
         return state, {"loss": loss, "grad_norm": gnorm}

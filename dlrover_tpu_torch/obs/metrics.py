@@ -1,0 +1,149 @@
+"""Metrics registry: counters and gauges (a copy of what the port's
+checkpoint path and fault points read of ``dlrover_tpu/obs/metrics.py``:
+``default_registry().counter(...)`` / ``.gauge(...)``, labelled
+children and ``value``; no histograms and no export yet).
+
+Re-requesting a name returns the existing metric; a kind mismatch is a
+hard error. A metric refuses to grow past ``max_label_sets`` label sets:
+later sets share one detached child.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional, Sequence, Tuple
+
+DEFAULT_MAX_LABEL_SETS = 256
+
+
+class _Value:
+    __slots__ = ("_v", "_lock")
+
+    def __init__(self):
+        self._v = 0.0
+        self._lock = threading.Lock()
+
+    @property
+    def value(self) -> float:
+        return self._v
+
+
+class _CounterChild(_Value):
+    def inc(self, amount: float = 1.0):
+        if amount < 0:
+            raise ValueError("counters only go up; use a gauge")
+        with self._lock:
+            self._v += amount
+
+
+class _GaugeChild(_Value):
+    def set(self, v: float):
+        with self._lock:
+            self._v = float(v)
+
+    def inc(self, amount: float = 1.0):
+        with self._lock:
+            self._v += amount
+
+    def dec(self, amount: float = 1.0):
+        self.inc(-amount)
+
+
+class _Metric:
+    kind = "untyped"
+    _child_cls = _Value
+
+    def __init__(self, name: str, help: str, labelnames: Sequence[str],
+                 max_label_sets: Optional[int] = None):
+        self.name = name
+        self.help = help
+        self.labelnames = tuple(labelnames)
+        self.max_label_sets = int(max_label_sets or DEFAULT_MAX_LABEL_SETS)
+        self._children: Dict[Tuple[str, ...], _Value] = {}
+        self._overflow: Optional[_Value] = None
+        self._lock = threading.Lock()
+
+    def labels(self, *labelvalues, **labelkw):
+        if labelkw:
+            labelvalues = tuple(labelkw[n] for n in self.labelnames)
+        if len(labelvalues) != len(self.labelnames):
+            raise ValueError(
+                f"expected labels {self.labelnames}, got {tuple(labelvalues)}"
+            )
+        key = tuple(str(v) for v in labelvalues)
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                if len(self._children) >= self.max_label_sets:
+                    if self._overflow is None:
+                        self._overflow = self._child_cls()
+                    return self._overflow
+                child = self._children[key] = self._child_cls()
+        return child
+
+    def _default_child(self):
+        if self.labelnames:
+            raise ValueError(
+                f"{self.name} has labels {self.labelnames}; call .labels(...) first"
+            )
+        return self.labels()
+
+    @property
+    def value(self) -> float:
+        return self._default_child().value
+
+
+class Counter(_Metric):
+    kind = "counter"
+    _child_cls = _CounterChild
+
+    def inc(self, amount: float = 1.0):
+        self._default_child().inc(amount)
+
+
+class Gauge(_Metric):
+    kind = "gauge"
+    _child_cls = _GaugeChild
+
+    def set(self, v: float):
+        self._default_child().set(v)
+
+    def inc(self, amount: float = 1.0):
+        self._default_child().inc(amount)
+
+    def dec(self, amount: float = 1.0):
+        self._default_child().dec(amount)
+
+
+class MetricsRegistry:
+    """Get-or-create metric catalog."""
+
+    def __init__(self):
+        self._metrics: Dict[str, _Metric] = {}
+        self._lock = threading.Lock()
+
+    def _get_or_create(self, cls, name, help, labelnames, max_label_sets):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = cls(name, help, labelnames, max_label_sets)
+            elif not isinstance(m, cls):
+                raise ValueError(
+                    f"{name} already registered as {m.kind}, requested {cls.kind}"
+                )
+            return m
+
+    def counter(self, name: str, help: str = "", labelnames=(),
+                max_label_sets=None) -> Counter:
+        return self._get_or_create(Counter, name, help, labelnames, max_label_sets)
+
+    def gauge(self, name: str, help: str = "", labelnames=(),
+              max_label_sets=None) -> Gauge:
+        return self._get_or_create(Gauge, name, help, labelnames, max_label_sets)
+
+
+_default = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    return _default

@@ -1,5 +1,5 @@
 """ElasticTrainer on PyTorch: the user-facing training loop (counterpart
-of ``dlrover_tpu/trainer/elastic/trainer.py``), lean first slice.
+of ``dlrover_tpu/trainer/elastic/trainer.py``).
 
 The same entry a user calls on the JAX package::
 
@@ -8,30 +8,50 @@ The same entry a user calls on the JAX package::
 
 runs here on one device (the card unless ``devices="cpu"``): the elastic
 sampler and data loader (master-retuned batch size and LR scale), the
-step of ``models/train.py``, the LR schedule and retune scale of
-``build_optimizer``, metrics at log cadence and the eval loop.
+device prefetcher (``prefetch`` batches ahead, ``data/prefetch.py``),
+the step of ``models/train.py``, the LR schedule and retune scale of
+``build_optimizer``, metrics at log cadence, the eval loop, and Flash
+Checkpoint (``ckpt_dir``): a shm save every ``save_memory_interval``
+steps whose copies run beside the next step (``chunked_staging``; the
+host side, crc32 over the bytes in shm in ``stage_chunk_mb`` chunks,
+runs on host threads of its own and takes at most ``stage_budget_ms``
+of the loop a step), a persisted save every ``save_storage_interval``
+steps (a stage still open at such a step yields to it), the
+best eval's checkpoint under ``ckpt_dir/best`` (``save_best``), and a
+restore from shm or storage at construction.
+
+``donation_aware``: the JAX trainer stops donating state buffers while
+a save reads them. Here the optimizer updates the state in place, so
+the step's stream waits for the save's device copies before the
+optimizer runs (forward and backward run beside them); with it off the
+loop waits for those copies at the save itself.
 
 ``TrainerConfig`` keeps every field and default of the JAX package.
 Knobs whose machinery is not ported yet raise ``NotImplementedError``
 when set away from their default (``_UNPORTED``, with the ROADMAP item
-that ports them). Knobs that only affect speed (``prefetch``,
-``chunked_staging``, ``donation_aware``, ``speculative_compile``,
-``report_metrics`` and the staging/sync sizes) are accepted and not yet
-honored (ROADMAP A6).
+that ports them). ``speculative_compile``, ``report_metrics`` and the
+gradient-sync sizes are accepted and not yet honored (ROADMAP A6/A7).
 """
 
 from __future__ import annotations
 
+import itertools
+import json
 import math
+import os
 import time
 from dataclasses import dataclass, fields
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.ckpt.checkpointer import FlashCheckpointer, StorageType
+from dlrover_tpu_torch.common import storage
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.data.prefetch import DevicePrefetcher, PipelineStats
 from dlrover_tpu_torch.models.config import TransformerConfig
+from dlrover_tpu_torch.models.convert import load_train_state_tree, train_state_tree
 from dlrover_tpu_torch.models.train import build_train_step, init_state
 from dlrover_tpu_torch.models.transformer import forward, token_nll
 from dlrover_tpu_torch.trainer.elastic.dataloader import ElasticDataLoader
@@ -81,8 +101,6 @@ class TrainerConfig:
 
 # knob -> the ROADMAP item that ports its machinery
 _UNPORTED = {
-    "ckpt_dir": "A5 (flash checkpoint)",
-    "save_best": "A5 (flash checkpoint)",
     "early_stopping_patience": "A6 (trainer loop)",
     "comm_overlap": "A7 (gradient sync)",
     "grad_compress": "A7 (gradient sync)",
@@ -266,7 +284,8 @@ class ElasticTrainer:
         self._metrics_hook = metrics_hook
         self.state = init_state(model_cfg, tx, seed=0, devices=self.device)
         self._step_fn = build_train_step(
-            model_cfg, tx, grad_accum=self.tcfg.grad_accum
+            model_cfg, tx, grad_accum=self.tcfg.grad_accum,
+            before_update=self._fence_staging,
         )
         self.sampler = ElasticDistributedSampler(len(dataset), shuffle=True)
         self.dataloader = ElasticDataLoader(
@@ -279,6 +298,30 @@ class ElasticTrainer:
         self._collate_fn = collate_fn
         self._applied_lr_scale = 1.0
         self._last_eval: Dict[str, float] = {}
+        self.pipeline_stats = PipelineStats()
+        self._prefetcher: Optional[DevicePrefetcher] = None
+        self._stager = None
+        # one record per save: step, kind, the loop thread's blocking ms,
+        # the stager's own times and, for a staged save, the step at which
+        # it committed or was aborted (``end_step``)
+        self.save_log: List[Dict] = []
+        # where the constructor resumed from: step, "memory" or "storage",
+        # and the seconds the restore took (-1 / None when it did not)
+        self.restored_step = -1
+        self.restore_source: Optional[str] = None
+        self.restore_s: Optional[float] = None
+        self._ckptr: Optional[FlashCheckpointer] = None
+        self._best_ckptr: Optional[FlashCheckpointer] = None
+        # the best PERSISTED eval loss survives restarts via a sidecar
+        self._best_eval_loss = float("inf")
+        self._last_best_save = 0.0
+        if self.tcfg.ckpt_dir:
+            self._ckptr = FlashCheckpointer(self.tcfg.ckpt_dir)
+            self._maybe_restore()
+            if self.tcfg.save_best:
+                self._best_dir = os.path.join(self.tcfg.ckpt_dir, "best")
+                self._best_ckptr = FlashCheckpointer(self._best_dir)
+                self._best_eval_loss = self._load_best_sidecar()
 
     @property
     def global_step(self) -> int:
@@ -354,46 +397,279 @@ class ElasticTrainer:
         self._applied_lr_scale = scale
         logger.info(f"learning rate rescaled x{scale} (linear scaling)")
 
+    # -- checkpoint ----------------------------------------------------
+    def _rewound_sampler_state(self, samp: Dict, buffered: int) -> Dict:
+        """Sampler state rewound by ``buffered`` prefetched batches: the
+        prefetcher's source cursor ran ahead of what actually trained,
+        so a restore must replay those batches instead of skipping
+        them."""
+        samp = dict(samp)
+        completed = self.sampler.rewound_completed(
+            samp["completed_num"], buffered * self.dataloader.batch_size
+        )
+        if completed < 0 and samp["epoch"] > 0:
+            # the sampler already rolled over but the buffered epoch tail
+            # has not trained: rewind ACROSS the rollover
+            samp["epoch"] -= 1
+            completed += self.sampler._epoch_total()
+        # a short final batch makes the rewind an over-estimate; clamping
+        # repeats a few samples, the safe direction (never skip)
+        samp["completed_num"] = max(0, completed)
+        return samp
+
+    def _ckpt_state(self):
+        """The train state as the JAX package's tree (its tensors live)
+        and the sampler snapshot, rewound by the prefetcher's lookahead
+        (read with no pull in flight, so the rewind is exact)."""
+        if self._prefetcher is not None:
+            samp, buffered = self._prefetcher.snapshot(self.sampler.state_dict)
+        else:
+            samp, buffered = self.sampler.state_dict(), 0
+        if buffered:
+            samp = self._rewound_sampler_state(samp, buffered)
+        return {"train": train_state_tree(self.state), "sampler": samp}
+
+    def _maybe_restore(self):
+        t0 = time.perf_counter()
+        step, restored = self._ckptr.load_checkpoint(self._ckpt_state())
+        if restored is not None and step >= 0:
+            load_train_state_tree(self.state, restored["train"])
+            self.sampler.load_state_dict(
+                {k: int(v) for k, v in restored["sampler"].items()}
+            )
+            self.restored_step = step
+            self.restore_source = self._ckptr.engine.last_load_source
+            self.restore_s = time.perf_counter() - t0
+            logger.info(
+                f"resumed from flash checkpoint step {step} "
+                f"({self.restore_source}, {self.restore_s:.3f}s)"
+            )
+
+    def _note_save(self, step, kind, t0=None, stager=None, ok=True):
+        rec = {"step": step, "kind": kind, "ok": bool(ok)}
+        if t0 is not None:
+            rec["block_ms"] = (time.perf_counter() - t0) * 1e3
+        if stager is not None:
+            if "block_ms" not in rec:
+                rec["block_ms"] = stager.block_s * 1e3
+            rec.update(bytes=stager.total_bytes, **stager.timings)
+        self.save_log.append(rec)
+
+    def save(self, storage_type: StorageType = StorageType.MEMORY) -> bool:
+        if self._ckptr is None:
+            return False
+        t0 = time.perf_counter()
+        engine = self._ckptr.engine
+        engine.last_stager = None
+        ok = self._ckptr.save_checkpoint(
+            self.global_step, self._ckpt_state(), storage_type
+        )
+        kind = "storage" if storage_type == StorageType.DISK else "memory"
+        self._note_save(self.global_step, kind, t0, engine.last_stager, ok)
+        return ok
+
+    def _fence_staging(self):
+        """Before the optimizer writes the state: the step's stream waits
+        for the device copies of any save still reading it."""
+        for ckptr in (self._ckptr, self._best_ckptr):
+            ev = ckptr.engine.copy_fence() if ckptr is not None else None
+            if ev is not None:
+                torch.cuda.current_stream(self.device).wait_event(ev)
+                self.pipeline_stats.fenced_steps += 1
+
+    def _advance_stager(self):
+        """Give the save in flight one budget's worth of the loop's time;
+        commit (metadata publish + saver notify) once its host side is
+        done."""
+        if self._stager is None:
+            return
+        if self.global_step % self.tcfg.save_storage_interval == 0:
+            # this step's disk save supersedes the stage and aborts it; a
+            # commit now would leave the shard lock with the saver just
+            # as the disk save asks for it, and that save would be skipped
+            return
+        self._stager.advance(
+            budget_s=self.tcfg.stage_budget_ms / 1e3,
+            stats=self.pipeline_stats,
+        )
+        if self._stager.done:
+            self._finish_stager()
+
+    def _finish_stager(self):
+        """The commit barrier: wait for what is left and publish."""
+        if self._stager is not None:
+            st, self._stager = self._stager, None
+            ok = st.commit(stats=self.pipeline_stats)
+            self._note_save(st.step, "memory", stager=st, ok=ok)
+            self.save_log[-1]["end_step"] = self.global_step
+
+    def wait_for_checkpoint(self):
+        """Commit the memory save in flight, if any (the barrier the
+        loop otherwise reaches within a few steps)."""
+        self._finish_stager()
+
+    def _abort_stager(self):
+        if self._stager is not None:
+            st, self._stager = self._stager, None
+            st.abort()
+            self._note_save(st.step, "memory", stager=st, ok=False)
+            self.save_log[-1]["end_step"] = self.global_step
+
+    def _maybe_save(self, step: int):
+        if self._ckptr is None:
+            return
+        if step % self.tcfg.save_storage_interval == 0:
+            # the persisted save supersedes a half-staged older step:
+            # abort it (nobody saw it — metadata is still invalid) so
+            # the shard lock is free for this one
+            self._abort_stager()
+            self.save(StorageType.DISK)
+        elif step % self.tcfg.save_memory_interval == 0:
+            if not self.tcfg.chunked_staging:
+                self.save(StorageType.MEMORY)
+            elif self._stager is None:
+                # a previous stage still draining keeps draining — skip
+                # this interval rather than stall on a forced commit
+                self._stager = self._ckptr.begin_chunked_save(
+                    step,
+                    self._ckpt_state(),
+                    chunk_bytes=self.tcfg.stage_chunk_mb << 20,
+                )
+                if self._stager is None:
+                    self._note_save(step, "memory", ok=False)
+                elif not self.tcfg.donation_aware:
+                    # no overlap asked for: the loop waits for the copies
+                    t0 = time.perf_counter()
+                    self._stager.wait_copied()
+                    self._stager.block_s += time.perf_counter() - t0
+
+    # -- save best -----------------------------------------------------
+    def _best_sidecar_path(self) -> str:
+        return os.path.join(self._best_dir, "best_eval.json")
+
+    def _load_best_sidecar(self) -> float:
+        try:
+            with open(self._best_sidecar_path()) as f:
+                return float(json.load(f)["eval_loss"])
+        except (OSError, ValueError, KeyError):
+            return float("inf")
+
+    def _after_eval(self, step: int):
+        """save_best: a new best eval loss persists a checkpoint under
+        ``ckpt_dir/best`` (at most once per ``save_best_min_interval_s``)
+        and then the sidecar that names it; a save skipped by the rate
+        limit stays beatable."""
+        loss = self._last_eval.get("eval_loss", float("inf"))
+        if (
+            self._best_ckptr is not None
+            and loss < self._best_eval_loss
+            and time.time() - self._last_best_save
+            >= self.tcfg.save_best_min_interval_s
+        ):
+            logger.info(
+                f"step {step}: new best eval_loss={loss:.4f}; "
+                f"persisting to {self._best_dir}"
+            )
+            t0 = time.perf_counter()
+            ok = self._best_ckptr.save_checkpoint(
+                step, self._ckpt_state(), StorageType.DISK
+            )
+            self._note_save(step, "best", t0, self._best_ckptr.engine.last_stager, ok)
+            if ok:
+                # the sidecar records the PERSISTED best, written after
+                # the commit and durable (fsync before rename)
+                storage.durable_replace(
+                    self._best_sidecar_path(),
+                    lambda f: json.dump({"eval_loss": loss, "step": step}, f),
+                )
+                self._best_eval_loss = loss
+                self._last_best_save = time.time()
+
+    # -- input ---------------------------------------------------------
+    def _epoch_batches(self, num_steps: int):
+        """One epoch's (x, y) device batches, prefetched when enabled.
+        The prefetcher's source is capped at the steps remaining, so its
+        lookahead never pulls samples past the run's end; what it does
+        buffer is rewound in ``_ckpt_state``."""
+        src = iter(self.dataloader)
+        if self.tcfg.prefetch <= 0:
+            self._prefetcher = None
+            return (self._device_batch(b) for b in src)
+        self._prefetcher = DevicePrefetcher(
+            itertools.islice(src, max(num_steps - self.global_step, 0)),
+            placement=self._device_batch,
+            depth=self.tcfg.prefetch,
+            stats=self.pipeline_stats,
+            device=self.device,
+        )
+        return self._prefetcher
+
+    def _close_prefetcher(self):
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+            self._prefetcher = None
+
     # -- loop ----------------------------------------------------------
     def train(self, num_steps: int):
         """Run up to ``num_steps`` optimizer steps (across epochs)."""
         t0 = time.time()
         start_step = self.global_step
-        while self.global_step < num_steps:
-            self.dataloader.load_config()  # master-retuned batch size
-            self._apply_lr_scale(self.dataloader.lr_scale)
-            for batch in self.dataloader:
-                x, y = self._device_batch(batch)
-                self.state, metrics = self._step_fn(self.state, x, y)
-                step = self.global_step
-                if self._metrics_hook is not None:
-                    self._metrics_hook(step, metrics)
-                if step % self.tcfg.log_interval == 0:
-                    # the loop's only host sync at log cadence
-                    loss = float(metrics["loss"])
-                    lr = self.current_lr()
-                    rate = (step - start_step) / max(time.time() - t0, 1e-9)
-                    lr_s = f" lr={lr:.2e}" if lr is not None else ""
-                    logger.info(f"step {step}: loss={loss:.4f}{lr_s} ({rate:.2f} it/s)")
-                if (
-                    self._eval_dataset is not None
-                    and self.tcfg.eval_interval
-                    and step % self.tcfg.eval_interval == 0
-                ):
-                    self._last_eval = self.evaluate()
-                    logger.info(
-                        f"step {step}: eval_loss={self._last_eval['eval_loss']:.4f} "
-                        f"ppl={self._last_eval['eval_ppl']:.2f}"
-                    )
+        try:
+            while self.global_step < num_steps:
+                self.dataloader.load_config()  # master-retuned batch size
+                self._apply_lr_scale(self.dataloader.lr_scale)
+                batches = self._epoch_batches(num_steps)
+                for x, y in batches:
+                    self.state, metrics = self._step_fn(self.state, x, y)
+                    step = self.global_step
+                    # the save in flight gets its budget while the next
+                    # step's kernels are queued
+                    self._advance_stager()
                     if self._metrics_hook is not None:
-                        self._metrics_hook(step, dict(self._last_eval))
-                if step >= num_steps:
-                    break
+                        self._metrics_hook(step, metrics)
+                    if step % self.tcfg.log_interval == 0:
+                        # the loop's only host sync at log cadence
+                        loss = float(metrics["loss"])
+                        lr = self.current_lr()
+                        rate = (step - start_step) / max(time.time() - t0, 1e-9)
+                        lr_s = f" lr={lr:.2e}" if lr is not None else ""
+                        logger.info(f"step {step}: loss={loss:.4f}{lr_s} ({rate:.2f} it/s)")
+                    if (
+                        self._eval_dataset is not None
+                        and self.tcfg.eval_interval
+                        and step % self.tcfg.eval_interval == 0
+                    ):
+                        self._last_eval = self.evaluate()
+                        logger.info(
+                            f"step {step}: eval_loss={self._last_eval['eval_loss']:.4f} "
+                            f"ppl={self._last_eval['eval_ppl']:.2f}"
+                        )
+                        if self._metrics_hook is not None:
+                            self._metrics_hook(step, dict(self._last_eval))
+                        self._after_eval(step)
+                    self._maybe_save(step)
+                    if step >= num_steps:
+                        break
+                self._close_prefetcher()  # a fresh buffer per epoch
+        finally:
+            self._close_prefetcher()
+            try:
+                # a half-staged checkpoint must not die with the loop:
+                # the barrier drains and publishes it
+                self._finish_stager()
+            except Exception as e:
+                # never mask the loop's own exception with a commit
+                # failure; the stage is already aborted (lock released)
+                logger.error(f"final stage commit failed: {e!r}")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self.state
 
     def close(self):
-        """Nothing to release yet: the port's trainer starts no thread
-        and opens no file (flash checkpoint and prefetch are ROADMAP
-        A5/A6)."""
+        """Stop the prefetcher, abort an uncommitted save, and close the
+        checkpoint engines."""
+        self._close_prefetcher()
+        self._abort_stager()
+        for ckptr in (self._ckptr, self._best_ckptr):
+            if ckptr is not None:
+                ckptr.engine.close()

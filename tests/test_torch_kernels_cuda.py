@@ -334,3 +334,56 @@ def test_device_tier_on_the_card_matches_the_cpu_and_repeats(dev):
     assert np.array_equal(k1, k2) and np.array_equal(r1, r2)
     assert np.array_equal(k0, k1)
     assert np.abs(r1 - r0).max() <= 1e-5 * np.abs(r0).max()
+
+
+def test_staged_bytes_equal_a_sync_snapshot_while_the_next_step_runs(dev, tmp_path, monkeypatch):
+    """A staged save begun after step 1 lands in shm with step 1's bytes
+    although step 2 (forward and backward beside the copies, then its
+    optimizer behind the copy fence) updates the state in place
+    meanwhile: equal to a synchronous snapshot of step 1, byte for
+    byte."""
+    import tempfile
+    import uuid
+    from dataclasses import replace
+
+    from dlrover_tpu_torch.ckpt.engine import CheckpointEngine
+    from dlrover_tpu_torch.ckpt.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.ckpt.sharding import host_shard_records
+    from dlrover_tpu_torch.models import gpt2_small
+    from dlrover_tpu_torch.models.convert import train_state_tree
+    from dlrover_tpu_torch.models.train import build_train_step, init_state
+    from dlrover_tpu_torch.trainer.elastic.trainer import build_optimizer
+
+    monkeypatch.setenv("DLROVER_TPU_JOB_NAME", f"t{uuid.uuid4().hex[:10]}")
+    monkeypatch.setenv("DLROVER_TPU_SOCKET_DIR", tempfile.mkdtemp(prefix="dlr"))
+    AsyncCheckpointSaver.reset()
+    AsyncCheckpointSaver.start_async_saving_ckpt(local_shard_num=1)
+    engine = CheckpointEngine()
+    try:
+        cfg = replace(gpt2_small(), num_layers=2, model_dim=128, num_heads=2,
+                      vocab_size=512, max_seq_len=128)
+        tx = build_optimizer("adamw_8bit_flat", lr=1e-3, min_quantized_size=512)
+        state = init_state(cfg, tx, seed=0, devices=dev)
+
+        def fence():
+            ev = engine.copy_fence()
+            if ev is not None:
+                torch.cuda.current_stream().wait_event(ev)
+
+        step = build_train_step(cfg, tx, before_update=fence)
+        g = torch.Generator(device=dev).manual_seed(0)
+        x, y = (torch.randint(0, 512, (4, 128), generator=g, device=dev) for _ in range(2))
+        state, _ = step(state, x, y)
+        tree = train_state_tree(state)
+        snap = {r.path: r.data.tobytes() for r in host_shard_records(tree)}
+        stager = engine.begin_chunked_save(1, tree, str(tmp_path), chunk_bytes=1 << 20)
+        assert stager.copy_done is not None
+        state, _ = step(state, x, y)
+        assert stager.commit()
+        _, recs, _ = engine._shm.load_records(copy=True, verify=True)
+        assert {r.path: r.data.tobytes() for r in recs} == snap
+        after = {r.path: r.data.tobytes() for r in host_shard_records(train_state_tree(state))}
+        assert after["params/embed/tokens"] != snap["params/embed/tokens"]  # step 2 updated
+    finally:
+        engine.close()
+        AsyncCheckpointSaver.reset()

@@ -34,8 +34,24 @@ for name in names:
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
+
+# the flash checkpoint slice's modules, which must be among them
+CKPT_SLICE = {
+    "dlrover_tpu_torch.ckpt",
+    "dlrover_tpu_torch.ckpt.checkpointer",
+    "dlrover_tpu_torch.ckpt.engine",
+    "dlrover_tpu_torch.ckpt.saver",
+    "dlrover_tpu_torch.ckpt.sharding",
+    "dlrover_tpu_torch.ckpt.shm_handler",
+    "dlrover_tpu_torch.common.multi_process",
+    "dlrover_tpu_torch.common.faults",
+    "dlrover_tpu_torch.common.storage",
+    "dlrover_tpu_torch.obs.metrics",
+    "dlrover_tpu_torch.obs.trace",
+    "dlrover_tpu_torch.data.prefetch",
+}
 
 
 def test_port_imports_with_jax_and_the_jax_package_blocked():
@@ -45,10 +61,13 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert p.returncode == 0, p.stderr[-3000:]
-    # every module of both slices: package inits, common, utils, models,
+    # every module of the slices: package inits, common, utils, models,
     # ops (attention, optimizer, embedding rows, the store and the device
-    # tier), data (the sparse row pipeline), trainer (elastic and sparse)
-    assert int(p.stdout.strip().splitlines()[-1]) >= 28
+    # tier), data (the sparse row pipeline, the prefetcher), trainer
+    # (elastic and sparse), ckpt and obs
+    names = set(p.stdout.strip().splitlines()[-1].split())
+    assert len(names) >= 40
+    assert CKPT_SLICE <= names, sorted(CKPT_SLICE - names)
 
 
 def test_probe_really_blocks():

@@ -143,7 +143,7 @@ def test_trainer_runs_on_cpu_in_the_jax_sampler_order():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("ckpt_dir", "/nonexistent"), ("save_best", True), ("early_stopping_patience", 2),
+    ("early_stopping_patience", 2),
     ("comm_overlap", True), ("grad_compress", "int8"), ("sdc_detect", True),
     ("moe_rebalance_interval", 5),
 ])
@@ -151,6 +151,39 @@ def test_unported_knob_raises(knob, value):
     tc = ttrainer.TrainerConfig(**{knob: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrainer.ElasticTrainer(tcfg.tiny(), ttrainer.build_optimizer("sgd"), _Tokens(), tc, devices="cpu")
+
+
+@pytest.mark.parametrize("save_best", [False, True])
+def test_checkpoint_knobs_are_honored(save_best, tmp_path, monkeypatch):
+    """``ckpt_dir`` (and ``save_best``) no longer raise: with no saver
+    serving the job every save is written to disk, ``save_best`` adds
+    the best eval's checkpoint and its sidecar under ``ckpt_dir/best``,
+    and a fresh trainer resumes from the newest step."""
+    import json
+    import os
+
+    monkeypatch.setenv("DLROVER_TPU_JOB_NAME", f"nosaver{os.getpid()}{save_best}")
+    d = str(tmp_path / "ck")
+    tc = ttrainer.TrainerConfig(
+        batch_size=4, seq_len=32, ckpt_dir=d, save_best=save_best, save_best_min_interval_s=0.0,
+        save_memory_interval=2, save_storage_interval=4, eval_interval=2, eval_steps=1,
+    )
+    mk = lambda: ttrainer.ElasticTrainer(  # noqa: E731
+        tcfg.tiny(), ttrainer.build_optimizer("adamw"), _Tokens(), tc, devices="cpu",
+        eval_dataset=_Tokens(n=8, seed=1))
+    tr = mk()
+    tr.train(4)
+    tr.close()
+    assert [(s["step"], s["kind"], s["ok"]) for s in tr.save_log if s["kind"] != "best"] == [
+        (2, "memory", True), (4, "storage", True)]
+    assert open(os.path.join(d, "latest_step")).read() == "4"
+    best = os.path.join(d, "best", "best_eval.json")
+    assert os.path.exists(best) == save_best
+    if save_best:
+        assert json.load(open(best))["step"] in (2, 4)
+    tr2 = mk()
+    assert (tr2.restored_step, tr2.restore_source, tr2.global_step) == (4, "storage", 4)
+    tr2.close()
 
 
 def test_trainer_config_keeps_the_jax_fields_and_defaults():
