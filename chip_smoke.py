@@ -36,13 +36,18 @@ closing lines.)
      its flushed host state held to the same run on the CPU and to a
      second run on the card;
    - ``flash_ckpt``: Flash Checkpoint under ``ElasticTrainer`` on
-     gpt2_small (``examples/train_gpt2_torch.py`` workers, the saver in
-     this process): an uninterrupted run twice, a run killed after step
-     9, a fresh process resuming from shm and one resuming from disk
-     after the shm is gone, all held to the uninterrupted losses bit for
-     bit, with the launch counts of every worker; then the staging
-     routes timed against each other, and gpt2_xl's state when
-     ``/dev/shm`` holds it;
+     gpt2_small (``examples/train_gpt2_torch.py`` workers): an
+     uninterrupted run twice beside a saver in this process; then the
+     port's launcher (``python -m dlrover_tpu_torch.trainer.run``: its
+     own master, the agent hosting the saver), whose worker is killed
+     after step 9 and relaunched by the agent from its shm; a launcher
+     whose whole process group is killed after step 10, and a fresh
+     launcher resuming from disk; every resumed loss held to the
+     uninterrupted losses bit for bit, the launch counts of every
+     worker, and no CUDA context in the launcher or the master (a
+     ``launcher`` line gives their timings); then the staging routes
+     timed against each other, and gpt2_xl's state when ``/dev/shm``
+     holds it;
 4. a ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -59,9 +64,11 @@ cache or larger, so launches find them mostly cold.
 
 from __future__ import annotations
 
+import datetime
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -88,8 +95,12 @@ SPILL_STATE_TOL = 1e-5  # card vs CPU host state, of its largest |value|
 FIRST_LOSS_TOL = 1e-3  # the sparse slice's first loss against ln 2
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase, **kv):
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """One phase's JSON line; ``t_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **kv, "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def card_line() -> str:
@@ -819,10 +830,45 @@ CKPT_RUN = ["--model", "gpt2_small", "--steps", "12", "--batch", "8", "--seq", "
 XL_SHM_BYTES = 24e9  # /dev/shm needed to also time gpt2_xl's state
 
 
+def read_procs(ev_path):
+    """The worker processes that appended to one events file (a launcher
+    run's relaunched worker appends to its predecessor's), each one's
+    events summarized."""
+    evs = []
+    if os.path.exists(ev_path):
+        with open(ev_path) as f:
+            evs = [json.loads(line) for line in f]
+    procs = []
+    for e in evs:
+        if e["event"] == "start":
+            procs.append([])
+        if procs:
+            procs[-1].append(e)
+
+    def summary(pe):
+        def last(kind, default=None):
+            return next((e for e in reversed(pe) if e["event"] == kind), default)
+
+        start = pe[0]
+        loss_ev = [e for e in pe if e["event"] == "loss"]
+        return dict(
+            pid=start["pid"], restart=start.get("restart", 0), t0=start.get("t0"),
+            import_s=start.get("import_s"),
+            losses={e["step"]: e["loss"] for e in loss_ev},
+            loss_t={e["step"]: e["t"] for e in loss_ev},
+            first_loss_s=(loss_ev[0]["t"] - start["t0"]) if loss_ev and "t0" in start else None,
+            restored=last("restored", {}), saves=last("saves", {}).get("log", []),
+            launches=last("launches", {}),
+        )
+
+    return [summary(pe) for pe in procs]
+
+
 def ckpt_worker(label, ckpt_dir, evdir, *extra):
-    """One training process of the drill (``examples/train_gpt2_torch.py``,
-    started with ``subprocess``, never a fork of this process); returns
-    what its event file says."""
+    """One training process of the drill run directly
+    (``examples/train_gpt2_torch.py``, started with ``subprocess``, never
+    a fork of this process), beside the saver this process hosts;
+    returns what its event file says."""
     ev = os.path.join(evdir, f"{label}.jsonl")
     t0 = time.time()
     p = subprocess.run(
@@ -830,23 +876,159 @@ def ckpt_worker(label, ckpt_dir, evdir, *extra):
         cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, capture_output=True, text=True,
         timeout=300,
     )
-    evs = []
-    if os.path.exists(ev):
-        with open(ev) as f:
-            evs = [json.loads(line) for line in f]
+    procs = read_procs(ev)
+    w = procs[0] if procs else dict(losses={}, loss_t={}, first_loss_s=None, restored={},
+                                    saves=[], launches={})  # it wrote nothing
+    return dict(w, label=label, rc=p.returncode, wall_s=time.time() - t0,
+                stderr=p.stderr[-3000:])
 
-    def last(kind, default=None):
-        return next((e for e in reversed(evs) if e["event"] == kind), default)
 
-    loss_ev = [e for e in evs if e["event"] == "loss"]
-    return dict(
-        label=label, rc=p.returncode, wall_s=time.time() - t0, stderr=p.stderr[-3000:],
-        losses={e["step"]: e["loss"] for e in loss_ev},
-        loss_t={e["step"]: e["t"] for e in loss_ev},
-        first_loss_s=(loss_ev[0]["t"] - t0) if loss_ev else None,
-        restored=last("restored", {}), saves=last("saves", {}).get("log", []),
-        launches=last("launches", {}),
+_LOG_LINE = re.compile(r"^\[(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3})\] \[\w+\] \[[^\]]*\] (.*)$")
+
+
+def launcher_log(text):
+    """(wall time, message) of each log line the launcher, its agent and
+    saver wrote."""
+    out = []
+    for line in text.splitlines():
+        m = _LOG_LINE.match(line)
+        if m:
+            t = datetime.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp()
+            out.append((t, m.group(2)))
+    return out
+
+
+class CardHolders:
+    """While a launcher runs, which processes of its group hold the card:
+    polls every process whose process group is the launcher's for open
+    ``/dev/nvidia*`` files (a CUDA context holds them) and, beside it,
+    ``nvidia-smi --query-compute-apps=pid``."""
+
+    def __init__(self, pgid):
+        import threading
+
+        self.pgid = pgid
+        self.roles = {}  # pid -> "launcher" / "master" / "worker"
+        self.by_fd, self.by_smi = set(), set()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _group(self):
+        pids = []
+        for name in os.listdir("/proc"):
+            if not name.isdigit():
+                continue
+            try:
+                with open(f"/proc/{name}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+                if int(fields[2]) == self.pgid:
+                    pids.append(int(name))
+            except (OSError, IndexError, ValueError):
+                pass
+        return pids
+
+    def _sample(self):
+        for pid in self._group():
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    argv = f.read().decode(errors="replace").split("\0")
+                fds = os.listdir(f"/proc/{pid}/fd")
+            except OSError:
+                continue
+            # a child forked but not yet exec'd still shows the launcher's
+            # command line, and an exiting one shows none: a role, once
+            # known, is kept
+            role = ("launcher" if pid == self.pgid else
+                    "master" if "dlrover_tpu_torch.master.main" in argv else
+                    "worker" if len(argv) > 1 and argv[1].endswith("train_gpt2_torch.py")
+                    else "other")
+            if role != "other" or pid not in self.roles:
+                self.roles[pid] = role
+            for fd in fds:
+                try:
+                    if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                        self.by_fd.add(pid)
+                        break
+                except OSError:
+                    pass
+        p = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=30)
+        self.by_smi |= {int(x) for x in p.stdout.split() if x.strip().isdigit()}
+
+    def _run(self):
+        while not self._stop.is_set():
+            self._sample()
+            self._stop.wait(0.5)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+        holders = self.by_fd | self.by_smi
+        roles = lambda kind: sorted(p for p, r in self.roles.items() if r == kind)  # noqa: E731
+        return dict(
+            launcher_pids=roles("launcher"), master_pids=roles("master"),
+            worker_pids=roles("worker"), holding_by_fd=sorted(self.by_fd),
+            holding_by_nvidia_smi=sorted(self.by_smi & set(self.roles)),
+            control_plane_holds_card=any(p in holders for p in roles("launcher") + roles("master")),
+            probe_sees_a_worker=any(p in self.by_fd for p in roles("worker")),
+        )
+
+
+def ckpt_launcher(label, job, ckpt_dir, evdir, *extra, background=False):
+    """One launcher run of the drill: ``python -m
+    dlrover_tpu_torch.trainer.run`` in a session of its own (its master,
+    agent, saver and workers share its process group), the worker
+    ``examples/train_gpt2_torch.py``. With ``background`` it returns a
+    function that waits for the run and returns its record."""
+    ev = os.path.join(evdir, f"{label}.jsonl")
+    log_path = os.path.join(evdir, f"{label}.launcher.log")
+    log = open(log_path, "w")
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dlrover_tpu_torch.trainer.run", "--nnodes=1",
+         "--nproc-per-node=1", "--monitor-interval=0.5", f"--job-name={job}",
+         f"--log-dir={os.path.join(evdir, label + '_workers')}", CKPT_WORKER, *CKPT_RUN,
+         "--ckpt-dir", ckpt_dir, "--events", ev, *extra],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, stdout=log, stderr=subprocess.STDOUT,
+        start_new_session=True,
     )
+    holders = CardHolders(proc.pid)
+
+    def finish():
+        try:
+            rc = proc.wait(timeout=400)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            rc = proc.wait()
+        wall = time.time() - t0
+        cards = holders.stop()
+        log.close()
+        try:  # nothing of the group may outlive the run
+            os.killpg(proc.pid, 9)
+        except ProcessLookupError:
+            pass
+        with open(log_path) as f:
+            text = f.read()
+        lines = launcher_log(text)
+
+        def at(fragment):
+            return next((t - t0 for t, msg in lines if fragment in msg), None)
+
+        return dict(label=label, rc=rc, wall_s=wall, t0=t0, log=text[-4000:], lines=lines,
+                    procs=read_procs(ev), cards=cards,
+                    master_s=at("spawned local master"), rendezvous_s=at("joined round 0"),
+                    worker_start_s=at("started 1 workers (restart 0)"),
+                    failure_s=at("worker failure"),
+                    relaunch_s=at("started 1 workers (restart 1)"),
+                    persist=[dict(step=int(m.group(1)), s=float(m.group(2)), outcome=m.group(3))
+                             for _, msg in lines
+                             for m in [re.match(r"persisted step (\d+) .* in ([\d.]+)s \[(\w+)\]", msg)]
+                             if m])
+
+    if background:
+        return finish
+    return finish()
 
 
 def drill_step_ms(w):
@@ -962,6 +1144,10 @@ def measure_stage_routes(torch, cfg, ckpt_root, label, rounds=2, ring=True):
     tensors = [v for _, v in flatten_state(tree) if isinstance(v, torch.Tensor)]
     AsyncCheckpointSaver.reset()
     saver = AsyncCheckpointSaver.start_async_saving_ckpt(local_shard_num=1)
+    # these saves are measurements: their steps count as persisted, so
+    # the saver hands each back without writing it to disk (gpt2_xl's
+    # would take a minute and another ~20 GB of host RAM)
+    saver._persisted_step = rounds
     engine = CheckpointEngine()
     d = os.path.join(ckpt_root, label)
     res = {"label": label, "rounds": []}
@@ -988,9 +1174,6 @@ def measure_stage_routes(torch, cfg, ckpt_root, label, rounds=2, ring=True):
             raise RuntimeError(f"{label}: shm restore gave {step} from {engine.last_load_source}")
     finally:
         engine.close()
-        # these saves are measurements: the saver's close must not
-        # persist them (gpt2_xl's would hold another ~20 GB of host RAM)
-        saver._persisted_step = rounds
         AsyncCheckpointSaver.reset()
     if ring:
         name = f"dlrover_tpu_ring_{os.getpid()}"
@@ -1015,23 +1198,32 @@ def measure_stage_routes(torch, cfg, ckpt_root, label, rounds=2, ring=True):
 def run_flash_ckpt(torch):
     """Flash Checkpoint under ElasticTrainer on gpt2_small (8 x 1024,
     ``adamw_8bit_flat``, ``prefetch=2``, shm saves every 4 steps, disk
-    every 6), the saver hosted in this process under a job of its own:
-    U twice (12 steps, the same losses to the bit), A (killed with
-    SIGKILL after step 9's loss), B (a fresh process: step 8 from shm,
-    losses 9-12 equal to U's to the bit), C (the saver reset, shm gone:
-    the newest verified disk step of A's directory, losses equal to U's
-    to the bit). Then route (a) against route (b), and gpt2_xl's state
-    when ``/dev/shm`` holds it."""
+    every 6). U: two direct runs beside the saver this process hosts (12
+    steps, the same losses to the bit); the second runs beside Ck. L:
+    the port's launcher, whose worker SIGKILLs itself after step 9's
+    loss; its agent persists at the breakpoint and relaunches it, and
+    the relaunched worker restores the newest staged step from the
+    agent's shm and trains to 12, its losses U's to the bit. Ck: a
+    launcher whose worker, after step 10 and once the newest staged step
+    is on disk, kills the launcher's whole process group (a node that
+    dies); its shm segment is unlinked. C: a fresh launcher of Ck's job
+    restores the newest verified step on disk and trains to 12, U's
+    losses to the bit. Neither launcher nor master may hold the card.
+    Then route (a) against route (b), and gpt2_xl's state when
+    ``/dev/shm`` holds it."""
     import shutil
     import tempfile
 
-    from dlrover_tpu_torch.ckpt.saver import AsyncCheckpointSaver
-    from dlrover_tpu_torch.ckpt.shm_handler import shm_free_bytes
+    from dlrover_tpu_torch.ckpt.saver import AsyncCheckpointSaver, read_tracker
+    from dlrover_tpu_torch.ckpt.shm_handler import shard_shm_name, shm_free_bytes
+    from dlrover_tpu_torch.common.multi_process import attach_shared_memory
+    from dlrover_tpu_torch.common.storage import PosixDiskStorage
     from dlrover_tpu_torch.models import gpt2_small, gpt2_xl
 
     df = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True, text=True).stdout.strip()
     shm_free = shm_free_bytes()
-    os.environ["DLROVER_TPU_JOB_NAME"] = f"smoke{os.getpid()}"
+    smoke_job = f"smoke{os.getpid()}"
+    os.environ["DLROVER_TPU_JOB_NAME"] = smoke_job
     sock = tempfile.mkdtemp(prefix="dlr")  # unix socket paths stay short
     os.environ["DLROVER_TPU_SOCKET_DIR"] = sock
     root = tempfile.mkdtemp(prefix="flash_ckpt_")
@@ -1042,67 +1234,146 @@ def run_flash_ckpt(torch):
         AsyncCheckpointSaver.reset()
         return AsyncCheckpointSaver.start_async_saving_ckpt(local_shard_num=1)
 
-    t_phase = time.perf_counter()
-    persist = []
-    try:
-        runs = {}
-        for label in ("U1", "U2"):
-            saver = restart_saver()
-            runs[label] = ckpt_worker(label, os.path.join(root, label), evdir)
-            persist += saver.persist_log
-        saver = restart_saver()
-        a_dir, c_dir = os.path.join(root, "A"), os.path.join(root, "C")
-        runs["A"] = ckpt_worker("A", a_dir, evdir, "--kill-after-step", "9")
-        shutil.copytree(a_dir, c_dir)  # A's disk state, as A left it, for C
-        runs["B"] = ckpt_worker("B", a_dir, evdir)
-        persist += saver.persist_log
-        saver = restart_saver()  # node loss: the shm segment is unlinked
-        runs["C"] = ckpt_worker("C", c_dir, evdir)
-        persist += saver.persist_log
-        AsyncCheckpointSaver.reset()
-        drill_s = time.perf_counter() - t_phase
-        for label, w in runs.items():
-            if w["rc"] != (-9 if label == "A" else 0):
-                print(w["stderr"], file=sys.stderr)
-                raise RuntimeError(f"flash_ckpt worker {label} exited {w['rc']}")
-        routes = measure_stage_routes(torch, gpt2_small(), root, "gpt2_small")
-        xl = (measure_stage_routes(torch, gpt2_xl(), root, "gpt2_xl", rounds=1, ring=False)
-              if shm_free >= XL_SHM_BYTES else "not run: /dev/shm holds less than 24 GB")
-    finally:
+    def unlink_shm(job):
+        """The segment a dead agent of ``job`` left in /dev/shm."""
+        os.environ["DLROVER_TPU_JOB_NAME"] = job
+        try:
+            seg = attach_shared_memory(shard_shm_name(0))
+        finally:
+            os.environ["DLROVER_TPU_JOB_NAME"] = smoke_job
+        if seg is not None:
+            seg.close()
+            seg.unlink()
+        return seg is not None
+
+    def cleanup():
         AsyncCheckpointSaver.reset()
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(sock, ignore_errors=True)
 
+    t_phase = time.perf_counter()
+    persist = []
+    try:
+        runs, launched = {}, {}
+        saver = restart_saver()
+        runs["U1"] = ckpt_worker("U1", os.path.join(root, "U1"), evdir)
+        persist += [dict(run="U1", step=st, s=sec, outcome=oc) for st, sec, oc in saver.persist_log]
+        saver = restart_saver()
+        ck_job, c_dir = f"ck{os.getpid()}", os.path.join(root, "C")
+        ck_wait = ckpt_launcher("Ck", ck_job, c_dir, evdir, "--kill-after-step", "10",
+                                "--kill-group", background=True)
+        runs["U2"] = ckpt_worker("U2", os.path.join(root, "U2"), evdir)
+        persist += [dict(run="U2", step=st, s=sec, outcome=oc) for st, sec, oc in saver.persist_log]
+        AsyncCheckpointSaver.reset()
+        launched["Ck"] = ck_wait()
+        c_on_disk = read_tracker(PosixDiskStorage(), c_dir)
+        ck_shm_left = unlink_shm(ck_job)
+        launched["L"] = ckpt_launcher("L", f"l{os.getpid()}", os.path.join(root, "L"), evdir,
+                                      "--kill-after-step", "9")
+        launched["C"] = ckpt_launcher("C", ck_job, c_dir, evdir)
+        for label, r in launched.items():
+            persist += [dict(run=label, **x) for x in r["persist"]]
+        drill_s = time.perf_counter() - t_phase
+        for label, w in runs.items():
+            if w["rc"] != 0:
+                print(w["stderr"], file=sys.stderr)
+                raise RuntimeError(f"flash_ckpt worker {label} exited {w['rc']}")
+        for label, r in launched.items():
+            if r["rc"] != (-9 if label == "Ck" else 0):
+                print(r["log"], file=sys.stderr)
+                raise RuntimeError(f"flash_ckpt launcher {label} exited {r['rc']}")
+    except BaseException:
+        cleanup()
+        raise
+
     u = runs["U1"]["losses"]
     steps = list(range(1, 13))
+    lw = launched["L"]["procs"]
+    ck = launched["Ck"]["procs"]
+    cw = launched["C"]["procs"]
+    ok_steps = lambda w: [s["step"] for s in w["saves"] if s["ok"]]  # noqa: E731
+    l_staged = max(ok_steps(lw[0]), default=None) if lw else None
+    ck_staged = max(ok_steps(ck[0]), default=None) if ck else None
+    workers = dict(runs, **{f"L{i}": w for i, w in enumerate(lw)},
+                   **{f"Ck{i}": w for i, w in enumerate(ck)},
+                   **{f"C{i}": w for i, w in enumerate(cw)})
     checks = {
         "u_steps": sorted(u) == steps,
         "u_repeat_bitwise": runs["U2"]["losses"] == u,
-        "a_matches_u_bitwise": runs["A"]["losses"] == {s: u.get(s) for s in range(1, 10)},
-        "b_from_shm_step_8": (runs["B"]["restored"].get("step"),
-                              runs["B"]["restored"].get("source")) == (8, "memory"),
-        "b_bitwise": runs["B"]["losses"] == {s: u.get(s) for s in range(9, 13)},
-        "c_from_disk_step_6": (runs["C"]["restored"].get("step"),
-                               runs["C"]["restored"].get("source")) == (6, "storage"),
-        "c_bitwise": runs["C"]["losses"] == {s: u.get(s) for s in range(7, 13)},
+        "l_one_relaunch": [w["restart"] for w in lw] == [0, 1],
+        "l_failure_seen": any("exitcode=-9" in msg for _, msg in launched["L"]["lines"]),
+        "l_killed_after_9_bitwise": len(lw) == 2 and lw[0]["losses"] == {s: u.get(s) for s in range(1, 10)},
+        "l_from_agent_shm": len(lw) == 2 and (lw[1]["restored"].get("step"),
+                                              lw[1]["restored"].get("source")) == (l_staged, "memory"),
+        "l_bitwise": len(lw) == 2 and l_staged is not None
+        and lw[1]["losses"] == {s: u.get(s) for s in range(l_staged + 1, 13)},
+        "ck_group_killed_after_10": len(ck) == 1 and ck[0]["losses"] == {s: u.get(s) for s in range(1, 11)},
+        "ck_newest_staged_step_on_disk": c_on_disk == ck_staged,
+        "ck_shm_left_and_unlinked": ck_shm_left,
+        "c_from_disk": len(cw) == 1 and (cw[0]["restored"].get("step"),
+                                         cw[0]["restored"].get("source")) == (c_on_disk, "storage"),
+        "c_bitwise": len(cw) == 1 and cw[0]["losses"] == {s: u.get(s) for s in range(c_on_disk + 1, 13)},
         "losses_finite": all(math.isfinite(x) for x in u.values()),
         "first_loss_near_ln_vocab": abs(u.get(1, math.inf) - math.log(50257)) <= 1.0,
     }
+    for label in ("L", "Ck", "C"):
+        cards = launched[label]["cards"]
+        checks[f"no_card_in_control_plane_{label}"] = (
+            not cards["control_plane_holds_card"] and bool(cards["launcher_pids"])
+            and bool(cards["master_pids"]))
+    checks["card_probe_sees_workers"] = all(launched[k]["cards"]["probe_sees_a_worker"]
+                                            for k in launched)
     launches = {}
-    for label, w in runs.items():
+    for label, w in workers.items():
         ok, want = drill_launches_ok(w)
         checks[f"launches_{label}"] = ok
         launches[label] = {"counts": w["launches"].get("counts"), "expected": want}
-    saves = [dict(worker=label, **s) for label, w in runs.items() for s in w["saves"]]
+    saves = [dict(worker=label, **s) for label, w in workers.items() for s in w["saves"]]
     mem = [s for s in saves if s["kind"] == "memory" and s["ok"]]
     disk = [s for s in saves if s["kind"] == "storage" and s["ok"]]
-    with_d, without = [], []
-    for label in ("U1", "U2"):
-        a, b = drill_step_ms(runs[label])
-        with_d += a
-        without += b
+    # step times from U1, which ran alone (U2 shared the card with Ck)
+    with_d, without = drill_step_ms(runs["U1"])
     med = lambda xs: float(statistics.median(xs)) if xs else None  # noqa: E731
     state_bytes = max((s.get("bytes", 0) for s in saves), default=0)
+    ll = launched["L"]
+    ck_kinds = {s["step"]: s["kind"] for s in ck[0]["saves"] if s["ok"]} if ck else {}
+    first_after = min(lw[1]["loss_t"].values()) if len(lw) == 2 and lw[1]["loss_t"] else None
+    launcher = dict(
+        card=card_line(),
+        L=dict(master_s=ll["master_s"], rendezvous_s=ll["rendezvous_s"],
+               worker_start_s=ll["worker_start_s"],
+               first_loss_s=lw[0]["first_loss_s"] if lw else None,
+               failure_detected_s=ll["failure_s"], relaunch_s=ll["relaunch_s"],
+               failure_to_relaunched_first_loss_s=(
+                   first_after - (ll["t0"] + ll["failure_s"])
+                   if first_after and ll["failure_s"] is not None else None),
+               relaunched_restore_s=lw[1]["restored"].get("restore_s") if len(lw) == 2 else None,
+               restored=dict(step=lw[1]["restored"].get("step"),
+                             source=lw[1]["restored"].get("source")) if len(lw) == 2 else None,
+               wall_s=ll["wall_s"]),
+        C=dict(master_s=launched["C"]["master_s"], rendezvous_s=launched["C"]["rendezvous_s"],
+               worker_start_s=launched["C"]["worker_start_s"],
+               first_loss_s=cw[0]["first_loss_s"] if cw else None,
+               restore_s=cw[0]["restored"].get("restore_s") if cw else None,
+               restored=dict(step=cw[0]["restored"].get("step"),
+                             source=cw[0]["restored"].get("source")) if cw else None,
+               restored_step_was=ck_kinds.get(c_on_disk),
+               wall_s=launched["C"]["wall_s"]),
+        Ck=dict(wall_s=launched["Ck"]["wall_s"], on_disk_step=c_on_disk),
+        worker_launches=launches,
+        # each worker's start: imports, trainer ready (restore included), first loss
+        worker_times={k: dict(import_s=w.get("import_s"),
+                              ready_s=w["restored"].get("since_start_s"),
+                              first_loss_s=w["first_loss_s"]) for k, w in workers.items()},
+        cards={k: r["cards"] for k, r in launched.items()},
+    )
+    emit("launcher", **launcher)
+    try:
+        routes = measure_stage_routes(torch, gpt2_small(), root, "gpt2_small")
+        xl = (measure_stage_routes(torch, gpt2_xl(), root, "gpt2_xl", rounds=1, ring=False)
+              if shm_free >= XL_SHM_BYTES else "not run: /dev/shm holds less than 24 GB")
+    finally:
+        cleanup()
     res = dict(
         model="gpt2_small", batch=8, seq=1024, optimizer="adamw_8bit_flat", prefetch=2,
         save_memory_interval=4, save_storage_interval=6, state_bytes=state_bytes,
@@ -1114,23 +1385,21 @@ def run_flash_ckpt(torch):
         step_ms_with_drain=with_d, step_ms_without_drain=without,
         d2h_GBps=[s["bytes"] / s["d2h_ms"] / 1e6 for s in mem if s.get("d2h_ms")],
         crc_GBps=[s["bytes"] / s["crc_s"] / 1e9 for s in mem if s.get("crc_s")],
-        persist_s=[{"step": st, "s": sec, "outcome": oc} for st, sec, oc in persist],
-        restore={label: dict(step=runs[label]["restored"].get("step"),
-                             source=runs[label]["restored"].get("source"),
-                             restore_s=runs[label]["restored"].get("restore_s"),
-                             first_loss_s=runs[label]["first_loss_s"])
-                 for label in ("B", "C")},
-        worker_first_loss_s={k: w["first_loss_s"] for k, w in runs.items()},
+        persist_s=persist,
+        worker_import_s={k: w.get("import_s") for k, w in workers.items()},
+        worker_first_loss_s={k: w["first_loss_s"] for k, w in workers.items()},
         worker_wall_s={k: w["wall_s"] for k, w in runs.items()},
-        losses={k: [runs[k]["losses"][s] for s in sorted(runs[k]["losses"])]
-                for k in ("U1", "B", "C")},
-        launches=launches, routes=routes, gpt2_xl=xl, drill_s=drill_s,
+        losses={k: [workers[k]["losses"][s] for s in sorted(workers[k]["losses"])]
+                for k in workers},
+        routes=routes, gpt2_xl=xl, drill_s=drill_s,
         checks=checks, ok=all(checks.values()),
     )
     emit("flash_ckpt", **res)
     if not res["ok"]:
         for w in runs.values():
             print(w["label"], w["stderr"], file=sys.stderr)
+        for r in launched.values():
+            print(r["label"], r["log"], file=sys.stderr)
         raise RuntimeError(f"flash_ckpt failed: {[k for k, v in checks.items() if not v]}")
     return res
 
@@ -1210,6 +1479,7 @@ def main() -> int:
         if phase != "flash_ckpt":
             raise SystemExit(f"unknown phase {phase!r}")
         run_flash_ckpt(torch)
+        emit("timing", total_s=time.perf_counter() - T0)
         return 0
 
     main_res, main_abs = check_attention(
@@ -1278,6 +1548,7 @@ def main() -> int:
             replaces=f"{emb_tpu}:{line}", also_replaces=[], launches=emb_counts[name],
             max_abs_err=0.0, **emb_t[name],
         ))
+    emit("timing", total_s=time.perf_counter() - T0)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,18 +7,29 @@ saver off the critical path, restored from shm or storage.
 - ``shm_handler.py``: the shm segment and its metadata;
 - ``sharding.py``: torch state <-> shard records;
 - ``checkpointer.py``: the user facade.
+
+The names below load on first use: the agent imports the saver alone,
+and the saver's side imports no torch.
 """
 
-from dlrover_tpu_torch.ckpt.checkpointer import (  # noqa: F401
-    FlashCheckpointer,
-    StorageType,
-)
-from dlrover_tpu_torch.ckpt.engine import CheckpointEngine  # noqa: F401
-from dlrover_tpu_torch.ckpt.saver import (  # noqa: F401
-    AsyncCheckpointSaver,
-    gc_checkpoints,
-    quarantine_step_dir,
-    resolve_verified_step,
-    verify_step_dir,
-)
-from dlrover_tpu_torch.ckpt.shm_handler import ShmCrcError  # noqa: F401
+import importlib
+
+_EXPORTS = {
+    "FlashCheckpointer": "checkpointer",
+    "StorageType": "checkpointer",
+    "CheckpointEngine": "engine",
+    "AsyncCheckpointSaver": "saver",
+    "gc_checkpoints": "saver",
+    "quarantine_step_dir": "saver",
+    "resolve_verified_step": "saver",
+    "verify_step_dir": "saver",
+    "ShmCrcError": "shm_handler",
+}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)

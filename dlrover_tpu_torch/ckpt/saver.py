@@ -5,20 +5,18 @@ other's checkpoints).
 
 Parity: ``AsyncCheckpointSaver`` ckpt_saver.py:341-1146 —
 
-- ``start_async_saving_ckpt`` (ckpt_saver.py:405): the agent starts a
-  daemon thread *before spawning workers* that owns the IPC endpoints
-  (event queue + per-shard meta dict/lock). Until the port's launcher
-  exists, whoever starts the training processes starts the saver in its
-  own process the same way.
+- ``start_async_saving_ckpt`` (ckpt_saver.py:405): the agent
+  (``trainer/run.py``) starts a daemon thread *before spawning workers*
+  that owns the IPC endpoints (event queue + per-shard meta dict/lock).
 - event loop (``_sync_shm_to_storage`` ckpt_saver.py:505): drains per-shard
   SAVE events; when every local shard reported a step (or the straggler
   timeout fires) it persists shm → storage with one thread per shard
   (``save_step_checkpoint``/``_save_shard`` ckpt_saver.py:750,534).
-  Only events of a storage save (``SaveEvent.sync``) are persisted, as
-  in the upstream saver: a memory save is handed straight back (its
-  shard lock released) and stays in shm, where a restart finds it and
-  ``save_shm_to_storage`` persists it at a breakpoint. (The JAX
-  package's copy persists every staged step.)
+  Every staged step is persisted, a memory save as well as a storage
+  save, as in the JAX package: after a node loss the newest staged step
+  is on disk. A persist holds the shard's lock, so a memory save the
+  trainer tries meanwhile is skipped (the engine's non-blocking
+  acquire), never queued behind it.
 - commit protocol (``commit_checkpoint`` ckpt_saver.py:813): every shard
   writes a done file; node-0 waits for ``global_shard_num`` done files on
   the shared filesystem, then atomically publishes the tracker file
@@ -40,7 +38,7 @@ import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from dlrover_tpu_torch.common import faults
 from dlrover_tpu_torch.common.log import default_logger as logger
@@ -582,6 +580,8 @@ class AsyncCheckpointSaver:
         # retried persist still fails; every later persist is a single
         # cheap probe, and the first success exits the mode
         self._degraded = False
+        # reporter(event, message) → the agent wires a master node event
+        self._event_reporter: Optional[Callable[[str, str], None]] = None
         self._event_queue = SharedQueue(CKPT_EVENT_QUEUE, create=True)
         self._shm_handlers = [
             ShmHandler(r, create=True) for r in range(local_shard_num)
@@ -708,11 +708,6 @@ class AsyncCheckpointSaver:
                     return
                 ev = None
             now = time.time()
-            if isinstance(ev, SaveEvent) and not ev.sync:
-                # a memory save: it stays in shm (a restart restores it,
-                # a breakpoint persists it); hand the shard lock back
-                self._release_if_shm_step(ev.local_rank, ev.step)
-                ev = None
             if isinstance(ev, SaveEvent):
                 if ev.step <= self._persisted_step:
                     # stale event (e.g. a straggler shard arriving after a
@@ -760,6 +755,16 @@ class AsyncCheckpointSaver:
         corrupt_failures: Dict[int, str] = {}  # shm checksum mismatches
         try:
             with self._persist_mutex:
+                if step <= self._persisted_step:
+                    # the event loop and a breakpoint (or close) persist
+                    # can both take the same shm step; the second finds
+                    # it persisted once it has the mutex. Writing it
+                    # again would cost a whole persist on the restart
+                    # path, so it only hands the shard locks back
+                    for r in sorted(st.ranks):
+                        self._release_if_shm_step(r, step)
+                    logger.info(f"step {step} already persisted")
+                    return
                 ckpt_dir = st.checkpoint_dir
                 # in degraded mode every persist is one cheap probe —
                 # the retry/prune dance already ran and failed, and the
@@ -856,7 +861,7 @@ class AsyncCheckpointSaver:
                 # fast-fail: a shard whose done file will never arrive
                 # must not make commit_checkpoint wait out its full
                 # timeout — skip the commit entirely and surface the
-                # failure (degraded-mode entry) now.
+                # failure (node event + degraded-mode entry) now.
                 # The handoff locks MUST come back too: a failure before
                 # _save_shard even ran (ENOSPC at makedirs) would leave
                 # the trainer's locks held and turn "degraded shm-only
@@ -883,6 +888,9 @@ class AsyncCheckpointSaver:
                         f"step {step}: shm checkpoint corrupt, persist "
                         f"refused: {detail}"
                     )
+                    self._report_event(
+                        "ckpt_shm_corrupt", f"step {step}: {detail}"
+                    )
                 if failures:
                     self._note_persist_failure(step, failures)
                 return
@@ -901,8 +909,10 @@ class AsyncCheckpointSaver:
                         name=f"ckpt-commit-{step}",
                         daemon=True,
                     )
-                    self._commit_threads[step] = t
+                    # started before close() can see it: joining a
+                    # thread not yet started raises
                     t.start()
+                    self._commit_threads[step] = t
         except Exception as e:
             # one bad step (disk full, transient FS error) must not kill the
             # saver thread or leave the handoff locks held — that would
@@ -981,6 +991,28 @@ class AsyncCheckpointSaver:
         except Exception as e:
             logger.warning(f"retention pruning failed: {e!r}")
 
+    @property
+    def degraded(self) -> bool:
+        """True while storage persists are failing and checkpoints live
+        only in shm (training continues; a crash in this mode loses
+        everything since the last verified storage step)."""
+        return self._degraded
+
+    def set_event_reporter(self, reporter: Callable[[str, str], None]):
+        """``reporter(event, message)`` — the agent wires this to a
+        master node event (``MasterClient.report_failure`` at WARNING
+        level) so degraded mode is visible off-host."""
+        self._event_reporter = reporter
+
+    def _report_event(self, event: str, message: str):
+        reporter = self._event_reporter
+        if reporter is None:
+            return
+        try:
+            reporter(event, message)
+        except Exception as e:
+            logger.warning(f"checkpoint event report failed: {e!r}")
+
     def _note_persist_failure(self, step: int, failures: Dict[int, str]):
         detail = "; ".join(
             f"shard {r}: {m}" for r, m in sorted(failures.items())
@@ -992,7 +1024,12 @@ class AsyncCheckpointSaver:
                 f"entering DEGRADED checkpoint mode (shm-only) after "
                 f"step {step} persist failure: {detail}"
             )
+            self._report_event(
+                "ckpt_degraded", f"step {step}: {detail}"
+            )
         else:
+            # already degraded: one node event per episode is enough —
+            # repeats would spam the master at the save cadence
             logger.warning(
                 f"still in degraded checkpoint mode: step {step} "
                 f"persist probe failed: {detail}"
@@ -1005,6 +1042,9 @@ class AsyncCheckpointSaver:
         _degraded_gauge().set(0.0)
         logger.info(
             f"leaving degraded checkpoint mode: step {step} persisted"
+        )
+        self._report_event(
+            "ckpt_degraded_recovered", f"step {step} persisted"
         )
 
     def _commit_checkpoint(

@@ -13,6 +13,10 @@ blocks from a sharded writer.
 ``restore_state`` copies into the target's existing tensors (a
 non-blocking ``copy_`` from pinned memory for CUDA tensors), so an
 optimizer bound to the parameters and its moment buffers stays bound.
+
+torch is imported inside the functions that take tensors: the saver,
+on the agent's side, needs only ``ShardRecord`` and ``Index``, and the
+agent's process imports no torch.
 """
 
 from __future__ import annotations
@@ -21,17 +25,14 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 # index of a shard in the global array: ((start, stop) per dim); () = scalar
 Index = Tuple[Tuple[int, int], ...]
 
-_NP_NAMES = {
-    torch.float64: "float64", torch.float32: "float32",
-    torch.float16: "float16", torch.int64: "int64", torch.int32: "int32",
-    torch.int16: "int16", torch.int8: "int8", torch.uint8: "uint8",
-    torch.bool: "bool",
-}
+_NP_NAMES = (
+    "float64", "float32", "float16", "int64", "int32", "int16", "int8",
+    "uint8", "bool",
+)
 # restore stages CUDA targets through pinned bins of at most this size
 _PIN_BIN_BYTES = 256 << 20
 
@@ -62,8 +63,8 @@ def dtype_name(path: str, dtype: torch.dtype) -> str:
     """The numpy name of a tensor dtype. A dtype numpy cannot name
     without ``ml_dtypes`` (bfloat16, the float8s) raises, naming the
     record: it is never cast quietly."""
-    name = _NP_NAMES.get(dtype)
-    if name is None:
+    name = str(dtype).removeprefix("torch.")
+    if name not in _NP_NAMES:
         raise ValueError(
             f"checkpoint record {path!r}: dtype {dtype} has no numpy name "
             f"(the record format stores numpy dtypes); keep this leaf in "
@@ -106,6 +107,8 @@ def _unflatten_like(state: Dict, values: Dict[str, Any]) -> Dict:
 
 def _record_for(path: str, leaf) -> Tuple[ShardRecord, Any]:
     """(record without data, source): the live tensor, or a host copy."""
+    import torch
+
     if isinstance(leaf, torch.Tensor):
         shape = tuple(leaf.shape)
         rec = ShardRecord(path, shape, dtype_name(path, leaf.dtype), full_index(shape))
@@ -126,6 +129,8 @@ def host_shard_plan(state: Dict) -> List[Tuple[ShardRecord, Any]]:
 def host_shard_records(state: Dict) -> List[ShardRecord]:
     """Every leaf as a record holding a host copy of its bytes (a
     device tensor is copied to the host and waited for)."""
+    import torch
+
     records = []
     for rec, src in host_shard_plan(state):
         if isinstance(src, torch.Tensor):
@@ -137,6 +142,8 @@ def host_shard_records(state: Dict) -> List[ShardRecord]:
 
 def host_shard_index_set(state: Dict) -> set:
     """The ``(path, index)`` pairs ``host_shard_records`` would give."""
+    import torch
+
     out = set()
     for path, leaf in flatten_state(state):
         shape = leaf.shape if isinstance(leaf, torch.Tensor) else np.shape(leaf)
@@ -202,6 +209,8 @@ def _check_records(path, shape, dtype, recs):
 def _copy_into_cuda(items: List[Tuple[torch.Tensor, np.ndarray]]) -> None:
     """Host blocks into CUDA tensors: packed into pinned bins, each bin
     moved by non-blocking copies and waited for before it is reused."""
+    import torch
+
     total = sum(b.nbytes for _, b in items)
     pinned = torch.empty(min(total, _PIN_BIN_BYTES), dtype=torch.uint8, pin_memory=True)
     if not pinned.is_pinned():
@@ -237,6 +246,8 @@ def restore_state(
     a record whose shape or dtype differs from its tensor raises, naming
     the path. Host leaves come back as numpy values (0-d leaves as numpy
     scalars). Returns a dict with the target's nesting."""
+    import torch
+
     values: Dict[str, Any] = {}
     cuda_items, cpu_items = [], []
     with torch.no_grad():

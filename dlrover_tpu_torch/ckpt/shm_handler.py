@@ -28,7 +28,6 @@ from dataclasses import asdict, dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from dlrover_tpu_torch.common import faults
 from dlrover_tpu_torch.common.log import default_logger as logger
@@ -147,7 +146,11 @@ class ShmHandler:
         self._meta.update({"valid": False})
 
     def host_tensor(self) -> torch.Tensor:
-        """The open segment as a uint8 CPU tensor sharing its memory."""
+        """The open segment as a uint8 CPU tensor sharing its memory (the
+        writer's side: the saver reads through numpy and never imports
+        torch)."""
+        import torch
+
         if self._host is None:
             self._host = torch.frombuffer(self._shm.buf, dtype=torch.uint8)
         return self._host
@@ -159,6 +162,8 @@ class ShmHandler:
         memory that is not pinned would quietly block instead."""
         if self._registered:
             return
+        import torch
+
         host = self.host_tensor()
         err = torch.cuda.cudart().cudaHostRegister(host.data_ptr(), host.numel(), 0)
         if int(err) != 0 or not host.is_pinned():
@@ -172,6 +177,8 @@ class ShmHandler:
         """Unpin and unmap the segment (every tensor view dropped first:
         a live export keeps the mapping from closing)."""
         if self._registered:
+            import torch
+
             torch.cuda.cudart().cudaHostUnregister(self._host.data_ptr())
             self._registered = False
         self._host = None

@@ -1,6 +1,6 @@
 """Deterministic fault injection: named fault points in production code
 (a copy of ``dlrover_tpu/common/faults.py``, trimmed to the sites the
-port's checkpoint path and prefetcher fire).
+port's checkpoint path, prefetcher and control plane fire).
 
 Production code declares *fault points* (named sites like
 ``ckpt.shard_write``), and a test or an operator arms them with spec
@@ -62,6 +62,9 @@ FAULT_SITES = frozenset(
         "ckpt.tracker_write",  # commit tracker / history publish
         "ckpt.persist",  # whole persist pass (saver or sync engine)
         "ckpt.shm_stage",  # device/host bytes → shm segment
+        "rpc.send",  # MasterClient._call request leg
+        "rpc.recv",  # MasterClient._call response leg
+        "rendezvous.join",  # agent's join-rendezvous report
         "prefetch.pull",  # prefetch producer's source pull
     }
 )

@@ -1,7 +1,8 @@
-"""Metrics registry: counters and gauges (a copy of what the port's
-checkpoint path and fault points read of ``dlrover_tpu/obs/metrics.py``:
-``default_registry().counter(...)`` / ``.gauge(...)``, labelled
-children and ``value``; no histograms and no export yet).
+"""Metrics registry: counters, gauges and histograms (a copy of what the
+port's checkpoint path, fault points and control plane read of
+``dlrover_tpu/obs/metrics.py``: ``default_registry().counter(...)`` /
+``.gauge(...)`` / ``.histogram(...)``, labelled children and ``value``;
+no export yet).
 
 Re-requesting a name returns the existing metric; a kind mismatch is a
 hard error. A metric refuses to grow past ``max_label_sets`` label sets:
@@ -10,10 +11,14 @@ later sets share one detached child.
 
 from __future__ import annotations
 
+import math
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 DEFAULT_MAX_LABEL_SETS = 256
+DEFAULT_BUCKETS = (
+    0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
 
 
 class _Value:
@@ -76,10 +81,13 @@ class _Metric:
             if child is None:
                 if len(self._children) >= self.max_label_sets:
                     if self._overflow is None:
-                        self._overflow = self._child_cls()
+                        self._overflow = self._new_child()
                     return self._overflow
-                child = self._children[key] = self._child_cls()
+                child = self._children[key] = self._new_child()
         return child
+
+    def _new_child(self):
+        return self._child_cls()
 
     def _default_child(self):
         if self.labelnames:
@@ -115,6 +123,85 @@ class Gauge(_Metric):
         self._default_child().dec(amount)
 
 
+class _HistogramChild:
+    __slots__ = ("_buckets", "_counts", "_sum", "_count", "_lock")
+
+    def __init__(self, buckets: Sequence[float]):
+        self._buckets = buckets
+        self._counts = [0] * (len(buckets) + 1)  # +1 for +Inf
+        self._sum = 0.0
+        self._count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, v: float):
+        v = float(v)
+        with self._lock:
+            self._sum += v
+            self._count += 1
+            for i, le in enumerate(self._buckets):
+                if v <= le:
+                    self._counts[i] += 1
+                    return
+            self._counts[-1] += 1
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    def cumulative(self) -> List[Tuple[float, int]]:
+        """[(le, cumulative_count)] including +Inf."""
+        out = []
+        running = 0
+        for le, c in zip(self._buckets, self._counts):
+            running += c
+            out.append((le, running))
+        out.append((math.inf, running + self._counts[-1]))
+        return out
+
+    def quantile(self, q: float) -> Optional[float]:
+        """Bucket-resolution quantile (upper bound of the bucket the
+        q-th observation lands in)."""
+        if not self._count:
+            return None
+        target = q * self._count
+        for le, cum in self.cumulative():
+            if cum >= target:
+                return le if le != math.inf else self._buckets[-1]
+        return self._buckets[-1]
+
+
+class Histogram(_Metric):
+    kind = "histogram"
+
+    def __init__(self, name, help, labelnames=(), max_label_sets=None,
+                 buckets=DEFAULT_BUCKETS):
+        super().__init__(name, help, labelnames, max_label_sets)
+        self.buckets = tuple(sorted(float(b) for b in buckets))
+        if not self.buckets:
+            raise ValueError("histogram needs at least one bucket")
+
+    def _new_child(self):
+        return _HistogramChild(self.buckets)
+
+    def observe(self, v: float):
+        self._default_child().observe(v)
+
+    @property
+    def count(self) -> int:
+        return self._default_child().count
+
+    @property
+    def sum(self) -> float:
+        return self._default_child().sum
+
+    def quantile(self, q: float) -> Optional[float]:
+        return self._default_child().quantile(q)
+
+
 class MetricsRegistry:
     """Get-or-create metric catalog."""
 
@@ -122,11 +209,11 @@ class MetricsRegistry:
         self._metrics: Dict[str, _Metric] = {}
         self._lock = threading.Lock()
 
-    def _get_or_create(self, cls, name, help, labelnames, max_label_sets):
+    def _get_or_create(self, cls, name, help, labelnames, max_label_sets, **kw):
         with self._lock:
             m = self._metrics.get(name)
             if m is None:
-                m = self._metrics[name] = cls(name, help, labelnames, max_label_sets)
+                m = self._metrics[name] = cls(name, help, labelnames, max_label_sets, **kw)
             elif not isinstance(m, cls):
                 raise ValueError(
                     f"{name} already registered as {m.kind}, requested {cls.kind}"
@@ -140,6 +227,11 @@ class MetricsRegistry:
     def gauge(self, name: str, help: str = "", labelnames=(),
               max_label_sets=None) -> Gauge:
         return self._get_or_create(Gauge, name, help, labelnames, max_label_sets)
+
+    def histogram(self, name: str, help: str = "", labelnames=(),
+                  buckets=DEFAULT_BUCKETS, max_label_sets=None) -> Histogram:
+        return self._get_or_create(Histogram, name, help, labelnames,
+                                   max_label_sets, buckets=buckets)
 
 
 _default = MetricsRegistry()

@@ -2,27 +2,37 @@
 Flash Checkpoint and the device prefetcher (the port's counterpart of
 ``examples/train_gpt2.py``).
 
-    python examples/train_gpt2_torch.py --steps 12 --ckpt-dir /ckpt/run1
+    python -m dlrover_tpu_torch.trainer.run --nnodes=1 --nproc-per-node=1 \
+        examples/train_gpt2_torch.py --steps 12 --ckpt-dir /ckpt/run1
 
 trains gpt2_small on the card at batch 8 x 1024 on random tokens from
 seed 0, saving to shm every ``--save-memory-interval`` steps and to disk
 every ``--save-storage-interval``. Started again with the same
 ``--ckpt-dir``, it resumes from shm when the saver's segment survived,
 else from the newest verified step on disk. ``--model tiny --devices
-cpu`` runs a small model on the CPU's plain path.
+cpu`` runs a small model on the CPU's plain path (under the launcher,
+``--device-spec cpu`` implies ``--devices cpu``).
 
-The saver lives outside the training process (the agent's; until the
-port's launcher exists, whoever starts this script hosts it, e.g.
-``AsyncCheckpointSaver.start_async_saving_ckpt(1)`` in the parent,
-with the same ``DLROVER_TPU_JOB_NAME`` and ``DLROVER_TPU_SOCKET_DIR``).
-Without a saver every save is written to disk synchronously.
+The saver lives outside the training process: the launcher's agent hosts
+it and persists every staged step; when a worker dies, the agent
+persists the newest staged step and relaunches the worker, which
+resumes from the agent's shm. Run alone, the script finds no saver
+unless its parent started one
+(``AsyncCheckpointSaver.start_async_saving_ckpt(1)`` with the same
+``DLROVER_TPU_JOB_NAME`` and ``DLROVER_TPU_SOCKET_DIR``), and every save
+is then written to disk synchronously.
 
-``--events FILE`` appends one JSON line per event: ``start``,
-``restored`` (step, source, seconds), ``loss`` (step, loss, wall time),
-``saves`` (the trainer's save records) and ``launches`` (the port's
-kernel launch counts). ``--kill-after-step K`` commits the save in
-flight after step K's loss and then kills the process with SIGKILL, a
-stand-in for a node that dies.
+``--events FILE`` appends one JSON line per event: ``start`` (pid and
+the agent's restart count), ``restored`` (step, source, seconds),
+``loss`` (step, loss, wall time), ``saves`` (the trainer's save records)
+and ``launches`` (the port's kernel launch counts). ``--kill-after-step
+K`` commits the save in flight after step K's loss and then kills the
+process with SIGKILL, a stand-in for a worker that dies; a worker the
+agent relaunched (restart count above 0) is not killed again. With
+``--kill-group`` it first waits until the agent's saver has committed
+that save to disk, then kills its whole process group, led by the
+launcher (start the launcher in a session of its own): the launcher, its
+master and agent die with the worker, a stand-in for a node that dies.
 """
 
 from __future__ import annotations
@@ -55,6 +65,25 @@ class RandomTokens:
         return {"x": row[:-1], "y": row[1:]}
 
 
+def kill_launcher_group(ckpt_dir, save_log, timeout=300.0):
+    """SIGKILL this worker's process group once the newest save it made
+    is committed on disk; refuses unless the group's leader is the
+    port's launcher."""
+    from dlrover_tpu_torch.ckpt.saver import read_tracker
+    from dlrover_tpu_torch.common.storage import PosixDiskStorage
+
+    pgid = os.getpgrp()
+    with open(f"/proc/{pgid}/cmdline", "rb") as f:
+        leader = f.read().replace(b"\0", b" ").decode()
+    if not any(n in leader for n in ("dlrover_tpu_torch.trainer.run", "dlrover-tpu-torch-run")):
+        raise SystemExit(f"--kill-group: the process group's leader is not the launcher: {leader!r}")
+    newest = max((s["step"] for s in save_log if s["ok"]), default=-1)
+    deadline = time.time() + timeout
+    while read_tracker(PosixDiskStorage(), ckpt_dir) < newest and time.time() < deadline:
+        time.sleep(0.05)
+    os.killpg(pgid, signal.SIGKILL)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", default="gpt2_small", choices=["gpt2_small", "tiny"])
@@ -71,10 +100,19 @@ def main(argv=None) -> int:
     ap.add_argument("--devices", default=None, help='"cpu" for the plain path')
     ap.add_argument("--threads", type=int, default=0, help="torch CPU threads (0: torch's choice)")
     ap.add_argument("--kill-after-step", type=int, default=0)
+    ap.add_argument("--kill-group", action="store_true",
+                    help="with --kill-after-step: kill the launcher's whole process group")
     ap.add_argument("--events", default="")
     args = ap.parse_args(argv)
     if args.threads:
         torch.set_num_threads(args.threads)
+
+    from dlrover_tpu_torch.trainer.elastic.distributed import init_elastic
+
+    # before anything touches the card: takes the local rank's card
+    ctx = init_elastic(device_spec="cpu" if args.devices == "cpu" else "")
+    if ctx.device_spec == "cpu":
+        args.devices = "cpu"
 
     from dlrover_tpu_torch.models import config as mcfg
     from dlrover_tpu_torch.ops import flash_attention as fa
@@ -97,7 +135,7 @@ def main(argv=None) -> int:
         kw["min_quantized_size"] = 512
         if args.optimizer == "adamw_8bit_flat":
             kw["group_elems"] = 8192
-    emit("start", pid=os.getpid(), import_s=time.time() - T_START)
+    emit("start", pid=os.getpid(), restart=ctx.restart_count, t0=T_START, import_s=time.time() - T_START)
     trainer = None
 
     def hook(step, metrics):
@@ -105,10 +143,12 @@ def main(argv=None) -> int:
             return
         loss = float(metrics["loss"])  # waits for this step's stream only
         emit("loss", step=step, loss=loss, t=time.time())
-        if step == args.kill_after_step:
+        if step == args.kill_after_step and ctx.restart_count == 0:
             trainer.wait_for_checkpoint()
             emit("saves", log=trainer.save_log)
             emit_launches()
+            if args.kill_group:
+                kill_launcher_group(args.ckpt_dir, trainer.save_log)
             os.kill(os.getpid(), signal.SIGKILL)
 
     def emit_launches():

@@ -151,16 +151,19 @@ class TestShmHandler:
 
 class TestEngineWithSaver:
     def test_memory_save_stays_in_shm(self, saver, tmp_path):
-        """A memory save is handed back by the saver (lock released),
-        not persisted: the port's saver persists storage saves only."""
+        """A memory save stays in shm for a restart to find, and the
+        saver persists it to disk as well (lock released after), as the
+        JAX package's saver persists every staged step."""
         d = str(tmp_path / "ck")
         engine = CheckpointEngine()
         assert engine._agent_mode
         assert engine.save_to_memory(10, _state(), d)
         _wait(lambda: engine._lock.acquire(blocking=False))
         engine._lock.force_release()
-        assert not os.path.exists(os.path.join(d, TRACKER_FILE))
         assert engine._shm.metadata()["step"] == 10
+        _wait(lambda: os.path.exists(os.path.join(d, TRACKER_FILE)))
+        assert open(os.path.join(d, TRACKER_FILE)).read().strip() == "10"
+        assert saver.persist_log[-1][0] == 10 and saver.persist_log[-1][2] == "ok"
         engine.close()
 
     def test_storage_save_persists_and_commits(self, saver, tmp_path):
@@ -185,11 +188,14 @@ class TestEngineWithSaver:
         step, got = engine.load(_zeros_like(state), d)
         assert (step, engine.last_load_source) == (9, "memory")
         _assert_state_equal(got, newer)
-        # a fresh process after node loss: no valid shm
+        # a fresh process after node loss: no valid shm. The saver
+        # persisted the memory save too, so the disk holds step 9
+        _wait(lambda: os.path.exists(os.path.join(d, TRACKER_FILE))
+              and open(os.path.join(d, TRACKER_FILE)).read().strip() == "9")
         saver._shm_handlers[0]._meta.set("valid", False)
         step, got = engine.load(_zeros_like(state), d)
-        assert (step, engine.last_load_source) == (5, "storage")
-        _assert_state_equal(got, state)
+        assert (step, engine.last_load_source) == (9, "storage")
+        _assert_state_equal(got, newer)
         engine.close()
 
     def test_shm_of_another_directory_is_not_restored(self, saver, tmp_path):

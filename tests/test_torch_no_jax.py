@@ -1,6 +1,7 @@
 """The port stands alone: every module of dlrover_tpu_torch (and the
 chip smoke script) imports in a fresh interpreter in which ``jax``,
-``jaxlib`` and ``dlrover_tpu`` cannot be imported."""
+``jaxlib``, ``dlrover_tpu`` and ``grpc`` cannot be imported (the card's
+host has no ``grpc``: the port's control plane speaks plain TCP)."""
 
 import os
 import subprocess
@@ -11,7 +12,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "dlrover_tpu")
+BLOCKED = ("jax", "jaxlib", "dlrover_tpu", "grpc")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -53,6 +54,42 @@ CKPT_SLICE = {
     "dlrover_tpu_torch.data.prefetch",
 }
 
+# the launcher, agent, master and distributed init (ROADMAP A6)
+CONTROL_PLANE = {
+    "dlrover_tpu_torch.agent.aggregator",
+    "dlrover_tpu_torch.agent.master_client",
+    "dlrover_tpu_torch.agent.monitor",
+    "dlrover_tpu_torch.agent.training_agent",
+    "dlrover_tpu_torch.common.comm",
+    "dlrover_tpu_torch.common.constants",
+    "dlrover_tpu_torch.common.daemon",
+    "dlrover_tpu_torch.common.global_context",
+    "dlrover_tpu_torch.common.node",
+    "dlrover_tpu_torch.common.telemetry_delta",
+    "dlrover_tpu_torch.master.elastic_ps",
+    "dlrover_tpu_torch.master.job_auto_scaler",
+    "dlrover_tpu_torch.master.job_manager",
+    "dlrover_tpu_torch.master.kv_store",
+    "dlrover_tpu_torch.master.local_master",
+    "dlrover_tpu_torch.master.main",
+    "dlrover_tpu_torch.master.monitor.speed_monitor",
+    "dlrover_tpu_torch.master.paral_config",
+    "dlrover_tpu_torch.master.rdzv_manager",
+    "dlrover_tpu_torch.master.resource.optimizer",
+    "dlrover_tpu_torch.master.scaler",
+    "dlrover_tpu_torch.master.servicer",
+    "dlrover_tpu_torch.master.shard.dataset_splitter",
+    "dlrover_tpu_torch.master.shard.task_manager",
+    "dlrover_tpu_torch.master.state",
+    "dlrover_tpu_torch.master.stats.collector",
+    "dlrover_tpu_torch.master.sync_service",
+    "dlrover_tpu_torch.obs.aggregate",
+    "dlrover_tpu_torch.obs.goodput",
+    "dlrover_tpu_torch.trainer.elastic.distributed",
+    "dlrover_tpu_torch.trainer.run",
+    "dlrover_tpu_torch.utils.env",
+}
+
 
 def test_port_imports_with_jax_and_the_jax_package_blocked():
     p = subprocess.run(
@@ -64,10 +101,11 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     # every module of the slices: package inits, common, utils, models,
     # ops (attention, optimizer, embedding rows, the store and the device
     # tier), data (the sparse row pipeline, the prefetcher), trainer
-    # (elastic and sparse), ckpt and obs
+    # (elastic and sparse), ckpt and obs, and the control plane
     names = set(p.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 40
+    assert len(names) >= 70
     assert CKPT_SLICE <= names, sorted(CKPT_SLICE - names)
+    assert CONTROL_PLANE <= names, sorted(CONTROL_PLANE - names)
 
 
 def test_probe_really_blocks():

@@ -13,8 +13,10 @@ thread, so the CPU's matmuls round the same way in every run):
 - B: a fresh process restores step 8 from shm; its losses 9-12 must
   equal U's bit for bit;
 - C: after the saver is reset (shm unlinked, as on node loss), a fresh
-  process restores the newest verified step on disk of A's directory
-  (step 6), and its losses 7-12 must equal U's bit for bit.
+  process restores the newest verified step on disk of A's directory as
+  A left it (the tracker's; the saver persists memory saves too, so it
+  is step 8 when the step-8 persist finished before the kill), and its
+  losses from there must equal U's bit for bit.
 """
 
 import json
@@ -28,7 +30,8 @@ import uuid
 
 import pytest
 
-from dlrover_tpu_torch.ckpt.saver import AsyncCheckpointSaver
+from dlrover_tpu_torch.ckpt.saver import AsyncCheckpointSaver, read_tracker
+from dlrover_tpu_torch.common.storage import PosixDiskStorage
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLE = os.path.join(REPO, "examples", "train_gpt2_torch.py")
@@ -54,7 +57,7 @@ def job(monkeypatch):
 
 def _restart_saver():
     AsyncCheckpointSaver.reset()
-    AsyncCheckpointSaver.start_async_saving_ckpt(local_shard_num=1)
+    return AsyncCheckpointSaver.start_async_saving_ckpt(local_shard_num=1)
 
 
 def _run(ckpt_dir, events, *extra):
@@ -80,7 +83,7 @@ def test_resume_from_shm_and_from_disk_is_bitwise(job, tmp_path):
     ok = {(s["step"], s["kind"]) for s in saves if s["ok"]}
     assert {(6, "storage"), (8, "memory"), (12, "storage")} <= ok, saves
 
-    _restart_saver()  # a new job: the saver's persisted step starts over
+    saver = _restart_saver()  # a new job: the saver's persisted step starts over
     a_dir = str(tmp_path / "a")
     p, a, _, _ = _run(a_dir, str(tmp_path / "a.jsonl"), "--kill-after-step", "9")
     assert p.returncode == -signal.SIGKILL, p.stderr[-3000:]
@@ -90,6 +93,9 @@ def test_resume_from_shm_and_from_disk_is_bitwise(job, tmp_path):
     # directory
     c_dir = str(tmp_path / "c")
     shutil.copytree(a_dir, c_dir)
+    on_disk = read_tracker(PosixDiskStorage(), c_dir)
+    # the newest step A committed to disk is one the saver persisted
+    assert (on_disk, "ok") in {(st, oc) for st, _, oc in saver.persist_log}
 
     p, b, r, _ = _run(a_dir, str(tmp_path / "b.jsonl"))
     assert p.returncode == 0, p.stderr[-3000:]
@@ -99,6 +105,6 @@ def test_resume_from_shm_and_from_disk_is_bitwise(job, tmp_path):
     _restart_saver()  # node loss: the shm segment is gone
     p, c, r, _ = _run(c_dir, str(tmp_path / "c.jsonl"))
     assert p.returncode == 0, p.stderr[-3000:]
-    assert (r["step"], r["source"]) == (6, "storage")
-    assert c == {s: u[s] for s in range(7, 13)}
+    assert on_disk >= 6 and (r["step"], r["source"]) == (on_disk, "storage")
+    assert c == {s: u[s] for s in range(on_disk + 1, 13)}
 
