@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlrover_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--profile] [--phase flash_ckpt]
+    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict]
 
 (``--profile`` adds a torch.profiler window of a few more steps to the
-gpt2_small path and to the full-size sparse path; ``--phase flash_ckpt``
-builds the kernels and runs that phase alone, without the contract's
-closing lines.)
+per-leaf gpt2_small path and to the full-size sparse path; ``--phase
+flash_ckpt`` builds the kernels and runs that phase alone, ``--phase
+evict`` its uninterrupted run and the eviction drill alone, without the
+contract's closing lines.)
 
 1. device: the card's name, power limit and count; builds the CUDA
    kernels from the checkout's sources (one nvcc for each ``.cu``, and
@@ -26,7 +27,10 @@ closing lines.)
    read just after:
    - ``ElasticTrainer(gpt2_small(), build_optimizer("adamw_8bit_flat"),
      ...).train(10)`` at batch 8 x seq 1024, plus one small model's loss
-     on the card against the plain CPU path from the same weights;
+     on the card against the plain CPU path from the same weights; then
+     3 steps and 3 under torch.profiler, the goodput ledger's
+     ``productive_compute`` a step against the profiled device time
+     (``ledger_vs_profile``);
    - the same with the per-leaf ``build_optimizer("adamw_8bit")``, its
      losses held to the flat run's;
    - ``SparseTrainer(DeviceSparseEmbedding(ShardedKvEmbedding(8, 128),
@@ -45,9 +49,19 @@ closing lines.)
      launcher resuming from disk; every resumed loss held to the
      uninterrupted losses bit for bit, the launch counts of every
      worker, and no CUDA context in the launcher or the master (a
-     ``launcher`` line gives their timings); then the staging routes
-     timed against each other, and gpt2_xl's state when ``/dev/shm``
-     holds it;
+     ``launcher`` line gives their timings, the step and goodput report
+     the master last received); the second uninterrupted run takes a
+     ``profile`` and a ``flight_dump`` command through its
+     worker-commands file (a ``commands`` line: the capture's Chrome
+     trace names the path's kernels, the bundle holds spans and the
+     registry); E, a launcher whose worker gets SIGTERM after step 7
+     and drains within ``DLROVER_TPU_EVICTION_DEADLINE_S`` (shm save of
+     step 7, its disk persist, a flight bundle, the notice at the
+     master), and R, a fresh launcher of E's job whose
+     ``--network-check`` runs ``gpu_check`` on the card (the first NCCL
+     communicator, at world size 1) before its worker resumes step 7 (an
+     ``eviction`` line); then the staging routes timed against each
+     other, and gpt2_xl's state when ``/dev/shm`` holds it;
 4. a ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -136,9 +150,18 @@ def graph_ms(torch, fn, iters=20):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+    prev = torch.cuda.current_stream()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    except BaseException:
+        # a capture that fails in capture_end leaves the capture stream
+        # current on this thread: restore the stream, or every later
+        # launch of this thread runs on a stream other threads' work is
+        # not ordered against
+        torch.cuda.set_stream(prev)
+        raise
     ms = time_ms(torch, graph.replay, iters=5, warmup=1) / iters
     del graph
     return ms
@@ -601,8 +624,12 @@ def profile_steps(torch, label, run_steps, step_ms, n):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     # the profiler slows the host, so the busy time is also set against
     # the unprofiled median step
-    emit("profile", label=label, steps=n, wall_ms=wall_us / 1e3, events=len(spans),
+    res = dict(label=label, steps=n, wall_ms=wall_us / 1e3, events=len(spans),
          device_ms_per_step=total / 1e3 / n, busy_ms_per_step=busy / 1e3 / n,
+         # first device event to last, a step: the device's span of the
+         # window, its idle gaps included
+         span_ms_per_step=(max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3 / n
+         if spans else None,
          busy_share_profiled=busy / wall_us,
          busy_share_vs_unprofiled_step=busy / n / 1e3 / step_ms,
          port_kernels_share=ours / max(total, 1),
@@ -611,6 +638,42 @@ def profile_steps(torch, label, run_steps, step_ms, n):
          host_spans_ms_per_step={k: v / 1e3 / n for k, v in notes.items()},
          top=[{"kernel": k[:90], "ms_per_step": us / 1e3 / n, "calls": c}
               for k, (us, c) in top])
+    emit("profile", **res)
+    return res
+
+
+def ledger_vs_profile(torch, trainer, done, step_ms, n=3):
+    """How far the goodput ledger's ``productive_compute`` a step is from
+    the profiled device time a step. The trainer books ``compute`` from
+    two CUDA events around each step (no per-step host sync), so the
+    windows here run without the slice's per-step hook: ``n`` steps
+    unprofiled, then ``n`` under torch.profiler (``profile_steps``), the
+    ledger read around each."""
+    trainer._metrics_hook = None
+
+    def booked():
+        return trainer._goodput.snapshot().seconds["productive_compute"]
+
+    torch.cuda.synchronize()
+    c0, t0 = booked(), time.perf_counter()
+    trainer.train(done + n)  # ends in a synchronize; books every step
+    c1, t1 = booked(), time.perf_counter()
+    prof = profile_steps(torch, "gpt2_small adamw_8bit_flat",
+                         lambda: trainer.train(done + 2 * n), step_ms, n)
+    c2 = booked()
+    ledger, ledger_prof = (c1 - c0) / n * 1e3, (c2 - c1) / n * 1e3
+    rep = trainer._goodput.snapshot()
+    emit("ledger_vs_profile", steps=n, card=card_line(),
+         ledger_compute_ms_per_step=ledger, wall_ms_per_step=(t1 - t0) / n * 1e3,
+         ledger_compute_ms_per_step_profiled=ledger_prof,
+         profile_busy_ms_per_step=prof["busy_ms_per_step"],
+         profile_device_ms_per_step=prof["device_ms_per_step"],
+         profile_span_ms_per_step=prof["span_ms_per_step"],
+         ledger_over_busy=ledger / prof["busy_ms_per_step"],
+         ledger_profiled_over_span=ledger_prof / prof["span_ms_per_step"],
+         goodput=rep.as_dict(), ok=rep.closure_error_pct <= CLOSURE_GATE_PCT and ledger > 0)
+    if not (rep.closure_error_pct <= CLOSURE_GATE_PCT and ledger > 0):
+        raise RuntimeError("the slice's goodput ledger booked no compute or does not close")
 
 
 def run_slice(torch, fa, qo, opt="adamw_8bit_flat", profile=False):
@@ -663,7 +726,9 @@ def run_slice(torch, fa, qo, opt="adamw_8bit_flat", profile=False):
          max_memory_allocated_bytes=peak, ok=ok)
     if not ok:
         raise RuntimeError("the slice's training run failed its checks")
-    if profile:
+    if opt == "adamw_8bit_flat":
+        ledger_vs_profile(torch, trainer, steps, med * 1e3)
+    elif profile:
         profile_steps(torch, f"gpt2_small {opt}", lambda: trainer.train(steps + 3),
                       med * 1e3, 3)
     trainer.close()
@@ -826,7 +891,13 @@ def run_sparse_spill(torch):
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT_WORKER = os.path.join(REPO, "examples", "train_gpt2_torch.py")
 CKPT_RUN = ["--model", "gpt2_small", "--steps", "12", "--batch", "8", "--seq", "1024",
-            "--prefetch", "2", "--save-memory-interval", "4", "--save-storage-interval", "6"]
+            "--prefetch", "2", "--save-memory-interval", "4", "--save-storage-interval", "6",
+            "--log-interval", "3"]
+LOGGED_STEPS = (3, 6, 9, 12)  # the trainer's log cadence in CKPT_RUN
+EVICT_AFTER_STEP = 7  # E's SIGTERM lands after this step (no save step)
+EVICT_GRACE_S = 10.0  # DLROVER_TPU_EVICTION_DEADLINE_S of E
+AGENT_KILL_S = 15.0  # the agent's SIGTERM-to-SIGKILL window (_stop_workers)
+CLOSURE_GATE_PCT = 1.0  # a goodput report's partition closes to this
 XL_SHM_BYTES = 24e9  # /dev/shm needed to also time gpt2_xl's state
 
 
@@ -858,29 +929,76 @@ def read_procs(ev_path):
             loss_t={e["step"]: e["t"] for e in loss_ev},
             first_loss_s=(loss_ev[0]["t"] - start["t0"]) if loss_ev and "t0" in start else None,
             restored=last("restored", {}), saves=last("saves", {}).get("log", []),
-            launches=last("launches", {}),
+            launches=last("launches", {}), telemetry=last("telemetry", {}),
+            await_t=last("await_eviction", {}).get("t"), exit_t=last("exit", {}).get("t"),
         )
 
     return [summary(pe) for pe in procs]
 
 
-def ckpt_worker(label, ckpt_dir, evdir, *extra):
+def run_files(evdir, label):
+    """The files a run's worker and agent share, each run its own: the
+    runtime-metrics file, the worker-commands file and the flight
+    recorder's directory (bundles and profiler captures)."""
+    return {
+        "DLROVER_TPU_RUNTIME_METRICS_PATH": os.path.join(evdir, f"{label}.metrics.json"),
+        "DLROVER_TPU_WORKER_COMMANDS_PATH": os.path.join(evdir, f"{label}.commands.json"),
+        "DLROVER_TPU_FLIGHT_DIR": os.path.join(evdir, f"{label}_flight"),
+    }
+
+
+def wait_for_event(ev_path, kind, proc, timeout=300.0):
+    """The first ``kind`` event in an events file, polled while ``proc``
+    runs (None when it ends first or the time runs out)."""
+    deadline = time.time() + timeout
+    while time.time() < deadline and proc.poll() is None:
+        if os.path.exists(ev_path):
+            with open(ev_path) as f:
+                for line in f:
+                    e = json.loads(line)
+                    if e["event"] == kind:
+                        return e
+        time.sleep(0.02)
+    return None
+
+
+def ckpt_worker(label, ckpt_dir, evdir, *extra, commands=()):
     """One training process of the drill run directly
     (``examples/train_gpt2_torch.py``, started with ``subprocess``, never
     a fork of this process), beside the saver this process hosts;
-    returns what its event file says."""
+    returns what its event file says. ``commands``, (kind, arg, reason)
+    each, are appended to its worker-commands file with the port's
+    ``append_worker_commands``, as the agent's relay does, once its
+    trainer is built (commands already in the file at that point target
+    an earlier incarnation and are skipped)."""
+    from dlrover_tpu_torch.agent.monitor import append_worker_commands
+    from dlrover_tpu_torch.common.comm import WorkerCommand
+
     ev = os.path.join(evdir, f"{label}.jsonl")
+    files = run_files(evdir, label)
     t0 = time.time()
-    p = subprocess.run(
+    p = subprocess.Popen(
         [sys.executable, CKPT_WORKER, *CKPT_RUN, "--ckpt-dir", ckpt_dir, "--events", ev, *extra],
-        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, capture_output=True, text=True,
-        timeout=300,
+        cwd=REPO, env={**os.environ, **files, "PYTHONPATH": REPO}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
     )
+    sent = []
+    if commands and wait_for_event(ev, "restored", p) is not None:
+        cmds = [WorkerCommand(id=i + 1, kind=k, arg=a, reason=r)
+                for i, (k, a, r) in enumerate(commands)]
+        append_worker_commands(files["DLROVER_TPU_WORKER_COMMANDS_PATH"], cmds)
+        sent = [dict(id=c.id, kind=c.kind, arg=c.arg, reason=c.reason, t=time.time())
+                for c in cmds]
+    try:
+        _, err = p.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        _, err = p.communicate()
     procs = read_procs(ev)
     w = procs[0] if procs else dict(losses={}, loss_t={}, first_loss_s=None, restored={},
-                                    saves=[], launches={})  # it wrote nothing
+                                    saves=[], launches={}, telemetry={})  # it wrote nothing
     return dict(w, label=label, rc=p.returncode, wall_s=time.time() - t0,
-                stderr=p.stderr[-3000:])
+                stderr=err[-3000:], commands=sent, files=files)
 
 
 _LOG_LINE = re.compile(r"^\[(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3})\] \[\w+\] \[[^\]]*\] (.*)$")
@@ -975,23 +1093,31 @@ class CardHolders:
         )
 
 
-def ckpt_launcher(label, job, ckpt_dir, evdir, *extra, background=False):
+_MASTER_EXIT = re.compile(r"master exiting: \w+; global step (-?\d+); goodput (.*)$")
+
+
+def ckpt_launcher(label, job, ckpt_dir, evdir, *extra, background=False, env=None,
+                  launcher_args=(), files_of=None):
     """One launcher run of the drill: ``python -m
     dlrover_tpu_torch.trainer.run`` in a session of its own (its master,
     agent, saver and workers share its process group), the worker
-    ``examples/train_gpt2_torch.py``. With ``background`` it returns a
-    function that waits for the run and returns its record."""
+    ``examples/train_gpt2_torch.py``. ``files_of`` names the run whose
+    metrics and command files it shares (a job resumed by a fresh
+    launcher). With ``background`` it returns a function that waits for
+    the run and returns its record (``proc`` / ``events`` name the
+    running launcher and its events file meanwhile)."""
     ev = os.path.join(evdir, f"{label}.jsonl")
     log_path = os.path.join(evdir, f"{label}.launcher.log")
     log = open(log_path, "w")
+    files = run_files(evdir, files_of or label)
     t0 = time.time()
     proc = subprocess.Popen(
         [sys.executable, "-m", "dlrover_tpu_torch.trainer.run", "--nnodes=1",
          "--nproc-per-node=1", "--monitor-interval=0.5", f"--job-name={job}",
-         f"--log-dir={os.path.join(evdir, label + '_workers')}", CKPT_WORKER, *CKPT_RUN,
-         "--ckpt-dir", ckpt_dir, "--events", ev, *extra],
-        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, stdout=log, stderr=subprocess.STDOUT,
-        start_new_session=True,
+         f"--log-dir={os.path.join(evdir, label + '_workers')}", *launcher_args, CKPT_WORKER,
+         *CKPT_RUN, "--ckpt-dir", ckpt_dir, "--events", ev, *extra],
+        cwd=REPO, env={**os.environ, **files, **(env or {}), "PYTHONPATH": REPO}, stdout=log,
+        stderr=subprocess.STDOUT, start_new_session=True,
     )
     holders = CardHolders(proc.pid)
 
@@ -1012,13 +1138,18 @@ def ckpt_launcher(label, job, ckpt_dir, evdir, *extra, background=False):
             text = f.read()
         lines = launcher_log(text)
 
-        def at(fragment):
-            return next((t - t0 for t, msg in lines if fragment in msg), None)
+        def at(fragment, last=False):
+            hits = [t - t0 for t, msg in lines if fragment in msg]
+            return (hits[-1] if last else hits[0]) if hits else None
 
+        exits = [m for _, msg in lines for m in [_MASTER_EXIT.search(msg)] if m]
+        master = (dict(global_step=int(exits[-1].group(1)),
+                       goodput=json.loads(exits[-1].group(2))) if exits else {})
         return dict(label=label, rc=rc, wall_s=wall, t0=t0, log=text[-4000:], lines=lines,
-                    procs=read_procs(ev), cards=cards,
+                    procs=read_procs(ev), cards=cards, files=files, master=master,
                     master_s=at("spawned local master"), rendezvous_s=at("joined round 0"),
-                    worker_start_s=at("started 1 workers (restart 0)"),
+                    # the last: a node check's rounds start workers first
+                    worker_start_s=at("started 1 workers (restart 0)", last=True),
                     failure_s=at("worker failure"),
                     relaunch_s=at("started 1 workers (restart 1)"),
                     persist=[dict(step=int(m.group(1)), s=float(m.group(2)), outcome=m.group(3))
@@ -1027,6 +1158,7 @@ def ckpt_launcher(label, job, ckpt_dir, evdir, *extra, background=False):
                              if m])
 
     if background:
+        finish.proc, finish.events = proc, ev
         return finish
     return finish()
 
@@ -1195,22 +1327,201 @@ def measure_stage_routes(torch, cfg, ckpt_root, label, rounds=2, ring=True):
     return res
 
 
-def run_flash_ckpt(torch):
-    """Flash Checkpoint under ElasticTrainer on gpt2_small (8 x 1024,
-    ``adamw_8bit_flat``, ``prefetch=2``, shm saves every 4 steps, disk
-    every 6). U: two direct runs beside the saver this process hosts (12
-    steps, the same losses to the bit); the second runs beside Ck. L:
-    the port's launcher, whose worker SIGKILLs itself after step 9's
-    loss; its agent persists at the breakpoint and relaunches it, and
-    the relaunched worker restores the newest staged step from the
-    agent's shm and trains to 12, its losses U's to the bit. Ck: a
-    launcher whose worker, after step 10 and once the newest staged step
-    is on disk, kills the launcher's whole process group (a node that
-    dies); its shm segment is unlinked. C: a fresh launcher of Ck's job
-    restores the newest verified step on disk and trains to 12, U's
-    losses to the bit. Neither launcher nor master may hold the card.
-    Then route (a) against route (b), and gpt2_xl's state when
-    ``/dev/shm`` holds it."""
+def trace_kernels(path, names):
+    """A torch.profiler Chrome trace: whether it is valid (the port's
+    ``validate_chrome_trace``), and for each of ``names`` how many
+    kernels whose name holds it ran on the card (``cat`` ``kernel``)."""
+    from dlrover_tpu_torch.obs.trace import validate_chrome_trace
+
+    with open(path) as f:
+        trace = json.load(f)
+    ok, why = validate_chrome_trace(trace)
+    kernels = [e for e in trace.get("traceEvents", []) if e.get("cat") == "kernel"]
+    return ok, why, {n: sum(n in e["name"] for e in kernels) for n in names}
+
+
+def check_commands(u2):
+    """U2's ``profile`` and ``flight_dump`` commands: the capture's Chrome
+    trace names the path's kernels launched on the card, and the bundle
+    holds its reason, the last spans and the registry."""
+    from dlrover_tpu_torch.obs.trace import validate_chrome_trace
+
+    tel = u2.get("telemetry", {})
+    profiles, dumps = tel.get("profiles", []), tel.get("flight_dumps", [])
+    out = dict(sent=u2.get("commands"), profiles=profiles, flight_dumps=dumps)
+    trace = os.path.join(profiles[0], "trace.json") if profiles else ""
+    if os.path.exists(trace):
+        ok, why, kern = trace_kernels(trace, ("fa_fwd", "fa_bwd_dkdv", "fa_bwd_dq", "adam8_flat"))
+        out.update(profile_trace_valid=ok, profile_trace_why=why, profile_kernels=kern,
+                   profile_trace_bytes=os.path.getsize(trace))
+    bundle = next((d for d in dumps if "_request_" in os.path.basename(d)), None)
+    if bundle is not None:
+        with open(os.path.join(bundle, "manifest.json")) as f:
+            manifest = json.load(f)
+        with open(os.path.join(bundle, "trace.json")) as f:
+            spans = json.load(f)
+        with open(os.path.join(bundle, "metrics.prom")) as f:
+            prom = f.read()
+        out.update(bundle_reason=manifest.get("reason"),
+                   bundle_spans=sum(e.get("ph") == "X" for e in spans["traceEvents"]),
+                   bundle_spans_valid=validate_chrome_trace(spans)[0],
+                   bundle_registry_lines=len(prom.splitlines()),
+                   bundle_has_step_time="dlrover_step_time_seconds" in prom)
+    checks = {
+        "u2_commands_sent": len(out["sent"] or []) == 2,
+        "u2_profile_trace_valid": bool(out.get("profile_trace_valid")),
+        "u2_profile_names_kernels": bool(out.get("profile_kernels"))
+        and all(v > 0 for v in out["profile_kernels"].values()),
+        "u2_flight_bundle": out.get("bundle_reason", "").startswith("request_")
+        and out.get("bundle_spans", 0) > 0 and bool(out.get("bundle_spans_valid"))
+        and bool(out.get("bundle_has_step_time")),
+    }
+    return out, checks
+
+
+def report_closure(goodput):
+    """A goodput report as the master holds it: the categories,
+    ``goodput_pct`` and the partition's closure error in % of wall."""
+    if not goodput:
+        return None
+    wall, secs = goodput["wall_s"], goodput["seconds"]
+    return dict(wall_s=wall, seconds=secs, goodput_pct=goodput["goodput_pct"],
+                closure_error_pct=100.0 * abs(sum(secs.values()) - wall) / wall if wall else None)
+
+
+def start_evict(job, ckpt_dir, evdir):
+    """E: a launcher of gpt2_small with ``DLROVER_TPU_EVICTION_DEADLINE_S``
+    whose worker holds after step 7's loss; a thread of this process
+    sends the worker SIGTERM then, as the agent's ``_stop_workers`` does,
+    and the worker drains. Returns a function that waits for E and
+    returns its record (with the signal's time and the metrics file the
+    drained worker left)."""
+    import signal
+    import threading
+
+    from dlrover_tpu_torch.agent.monitor import read_runtime_metrics
+
+    wait = ckpt_launcher(
+        "E", job, ckpt_dir, evdir, "--await-eviction-after-step", str(EVICT_AFTER_STEP),
+        background=True, env={"DLROVER_TPU_EVICTION_DEADLINE_S": str(EVICT_GRACE_S)})
+    box = {}
+
+    def signal_worker():
+        start = wait_for_event(wait.events, "start", wait.proc)
+        held = wait_for_event(wait.events, "await_eviction", wait.proc)
+        if start is not None and held is not None:
+            os.kill(start["pid"], signal.SIGTERM)
+            box["t_sig"] = time.time()
+
+    th = threading.Thread(target=signal_worker, daemon=True)
+    th.start()
+
+    def finish():
+        e = wait()
+        th.join(timeout=60)
+        e["t_sig"] = box.get("t_sig")
+        e["metrics_file"] = read_runtime_metrics(
+            e["files"]["DLROVER_TPU_RUNTIME_METRICS_PATH"])
+        return e
+
+    return finish
+
+
+def start_resume(job, ckpt_dir, evdir):
+    """R: a fresh launcher of E's job (the metrics file E's worker left,
+    as on the node) with ``--network-check``: ``gpu_check`` on the card
+    before the worker starts, then the worker resumes E's step."""
+    return ckpt_launcher("R", job, ckpt_dir, evdir, launcher_args=("--network-check",),
+                         files_of="E", background=True)
+
+
+def evict_result(e, r, u):
+    """The ``eviction`` line and its checks."""
+    ew = e["procs"][0] if len(e["procs"]) == 1 else {}
+    tel = ew.get("telemetry", {})
+    ev = tel.get("eviction", {})
+    metrics = e["metrics_file"]
+    flight = e["files"]["DLROVER_TPU_FLIGHT_DIR"]
+    bundles = sorted(d for d in os.listdir(flight) if "_eviction_" in d) if os.path.isdir(flight) else []
+    reason = None
+    if bundles:
+        with open(os.path.join(flight, bundles[-1], "manifest.json")) as f:
+            reason = json.load(f).get("reason")
+    notices = [msg for _, msg in e["lines"] if "eviction notice for worker-" in msg]
+    rw = r["procs"][0] if len(r["procs"]) == 1 else {}
+    restored = rw.get("restored", {})
+    checks_msgs = [json.loads(msg.split("gpu check: ", 1)[1]) for _, msg in r["lines"]
+                   if "gpu check: " in msg]
+    rounds = [(t - r["t0"], msg) for t, msg in r["lines"] if " check round " in msg]
+    persisted = ev.get("persisted")
+    line = dict(
+        card=card_line(), grace_s=EVICT_GRACE_S, signal_after_step=EVICT_AFTER_STEP,
+        drain_ms=ev.get("drain_ms"), emergency_stage_ms=ev.get("stage_ms"),
+        persist_s=ev.get("persist_s") if persisted else "skipped (floor)",
+        committed=ev.get("committed"), drained_step=ev.get("step"),
+        sigterm_to_worker_exit_s=(ew["exit_t"] - e["t_sig"])
+        if ew.get("exit_t") and e["t_sig"] else None,
+        metrics_file={k: metrics.get(k) for k in ("global_step", "eviction_pending",
+                                                    "eviction_grace_s", "eviction_drain_ms")},
+        flight_bundle=bundles[-1] if bundles else None, flight_bundle_reason=reason,
+        ledger_eviction_s=tel.get("goodput", {}).get("eviction"),
+        worker_goodput=tel.get("goodput"),
+        master_logged_notice=bool(notices), master_notices=notices,
+        master_after_drain=report_closure(e["master"].get("goodput")),
+        master_global_step=e["master"].get("global_step"),
+        restored=dict(step=restored.get("step"), source=restored.get("source"),
+                      restore_s=restored.get("restore_s")),
+        network_check=dict(gpu_check=checks_msgs, rounds=rounds,
+                           worker_start_s=r["worker_start_s"]),
+        launcher_wall_s=dict(E=e["wall_s"], R=r["wall_s"]),
+    )
+    steps = range(1, EVICT_AFTER_STEP + 1)
+    checks = {
+        "e_launcher_rc0": e["rc"] == 0 and r["rc"] == 0,
+        "e_one_worker_drained_at_7": tel.get("evicted") is True and ev.get("step") == EVICT_AFTER_STEP
+        and ev.get("committed") is True,
+        "e_losses_bitwise": ew.get("losses") == {s: u.get(s) for s in steps},
+        "e_drain_within_grace": (ev.get("drain_ms") or math.inf) < EVICT_GRACE_S * 1e3,
+        "e_exit_before_agent_kill": (line["sigterm_to_worker_exit_s"] or math.inf) < AGENT_KILL_S,
+        "e_metrics_file": metrics.get("eviction_pending") == 1.0
+        and metrics.get("eviction_grace_s") == EVICT_GRACE_S
+        and (metrics.get("eviction_drain_ms") or 0) > 0 and metrics.get("global_step") == EVICT_AFTER_STEP,
+        "e_flight_bundle": reason == "eviction",
+        "e_ledger_booked_eviction": (line["ledger_eviction_s"] or 0) > 0,
+        "e_master_logged_notice": bool(notices),
+        "r_restored_7": restored.get("step") == EVICT_AFTER_STEP,
+        "r_bitwise": rw.get("losses") == {s: u.get(s) for s in range(EVICT_AFTER_STEP + 1, 13)},
+        "r_network_check_passed": len(checks_msgs) == 2
+        and all(c["backend"] == "nccl" and c["world_size"] == 1 for c in checks_msgs)
+        and sum("success=True" in m for _, m in rounds) == 2,
+        "r_worker_after_check": bool(rounds) and r["worker_start_s"] is not None
+        and r["worker_start_s"] > max(t for t, _ in rounds),
+    }
+    return line, checks
+
+
+def run_flash_ckpt(torch, phase="flash_ckpt"):
+    """Flash Checkpoint and the worker's control loop under
+    ElasticTrainer on gpt2_small (8 x 1024, ``adamw_8bit_flat``,
+    ``prefetch=2``, shm saves every 4 steps, disk every 6, the trainer's
+    log and command poll every 3). U: two direct runs beside the saver
+    this process hosts (12 steps, the same losses to the bit); the second
+    runs beside Ck and takes a ``profile`` (3 steps) and a
+    ``flight_dump`` command through its worker-commands file. L: the
+    port's launcher, whose worker SIGKILLs itself after step 9's loss;
+    its agent persists at the breakpoint and relaunches it, and the
+    relaunched worker restores the newest staged step from the agent's
+    shm and trains to 12, its losses U's to the bit; its master must
+    hold the worker's last logged step and a goodput report that closes.
+    Ck: a launcher whose worker, after step 10 and once the newest staged
+    step is on disk, kills the launcher's whole process group (a node
+    that dies); its shm segment is unlinked. C: a fresh launcher of Ck's
+    job restores the newest verified step on disk and trains to 12, U's
+    losses to the bit. E / R: the eviction drill (``start_evict`` /
+    ``start_resume``), E beside L and R beside C. Neither
+    launcher nor master may hold the card. Then route (a) against route
+    (b), and gpt2_xl's state when ``/dev/shm`` holds it. ``phase``
+    ``evict``: U1, E and R alone."""
     import shutil
     import tempfile
 
@@ -1220,6 +1531,7 @@ def run_flash_ckpt(torch):
     from dlrover_tpu_torch.common.storage import PosixDiskStorage
     from dlrover_tpu_torch.models import gpt2_small, gpt2_xl
 
+    full = phase == "flash_ckpt"
     df = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True, text=True).stdout.strip()
     shm_free = shm_free_bytes()
     smoke_job = f"smoke{os.getpid()}"
@@ -1258,19 +1570,31 @@ def run_flash_ckpt(torch):
         saver = restart_saver()
         runs["U1"] = ckpt_worker("U1", os.path.join(root, "U1"), evdir)
         persist += [dict(run="U1", step=st, s=sec, outcome=oc) for st, sec, oc in saver.persist_log]
-        saver = restart_saver()
-        ck_job, c_dir = f"ck{os.getpid()}", os.path.join(root, "C")
-        ck_wait = ckpt_launcher("Ck", ck_job, c_dir, evdir, "--kill-after-step", "10",
-                                "--kill-group", background=True)
-        runs["U2"] = ckpt_worker("U2", os.path.join(root, "U2"), evdir)
-        persist += [dict(run="U2", step=st, s=sec, outcome=oc) for st, sec, oc in saver.persist_log]
+        if full:
+            saver = restart_saver()
+            ck_job, c_dir = f"ck{os.getpid()}", os.path.join(root, "C")
+            ck_wait = ckpt_launcher("Ck", ck_job, c_dir, evdir, "--kill-after-step", "10",
+                                    "--kill-group", background=True)
+            runs["U2"] = ckpt_worker("U2", os.path.join(root, "U2"), evdir,
+                                     commands=[("profile", 3, "smoke"), ("flight_dump", 0, "smoke")])
+            persist += [dict(run="U2", step=st, s=sec, outcome=oc) for st, sec, oc in saver.persist_log]
         AsyncCheckpointSaver.reset()
-        launched["Ck"] = ck_wait()
-        c_on_disk = read_tracker(PosixDiskStorage(), c_dir)
-        ck_shm_left = unlink_shm(ck_job)
-        launched["L"] = ckpt_launcher("L", f"l{os.getpid()}", os.path.join(root, "L"), evdir,
-                                      "--kill-after-step", "9")
-        launched["C"] = ckpt_launcher("C", ck_job, c_dir, evdir)
+        e_job, e_dir = f"e{os.getpid()}", os.path.join(root, "E")
+        if full:
+            launched["Ck"] = ck_wait()
+            c_on_disk = read_tracker(PosixDiskStorage(), c_dir)
+            ck_shm_left = unlink_shm(ck_job)
+            # E runs beside L, and R beside C (each pair shares the card)
+            e_wait = start_evict(e_job, e_dir, evdir)
+            launched["L"] = ckpt_launcher("L", f"l{os.getpid()}", os.path.join(root, "L"), evdir,
+                                          "--kill-after-step", "9")
+            launched["E"] = e_wait()
+            r_wait = start_resume(e_job, e_dir, evdir)
+            launched["C"] = ckpt_launcher("C", ck_job, c_dir, evdir)
+            launched["R"] = r_wait()
+        else:
+            launched["E"] = start_evict(e_job, e_dir, evdir)()
+            launched["R"] = start_resume(e_job, e_dir, evdir)()
         for label, r in launched.items():
             persist += [dict(run=label, **x) for x in r["persist"]]
         drill_s = time.perf_counter() - t_phase
@@ -1288,35 +1612,48 @@ def run_flash_ckpt(torch):
 
     u = runs["U1"]["losses"]
     steps = list(range(1, 13))
-    lw = launched["L"]["procs"]
-    ck = launched["Ck"]["procs"]
-    cw = launched["C"]["procs"]
-    ok_steps = lambda w: [s["step"] for s in w["saves"] if s["ok"]]  # noqa: E731
-    l_staged = max(ok_steps(lw[0]), default=None) if lw else None
-    ck_staged = max(ok_steps(ck[0]), default=None) if ck else None
-    workers = dict(runs, **{f"L{i}": w for i, w in enumerate(lw)},
-                   **{f"Ck{i}": w for i, w in enumerate(ck)},
-                   **{f"C{i}": w for i, w in enumerate(cw)})
+    evict_line, evict_checks = evict_result(launched["E"], launched["R"], u)
+    emit("eviction", **evict_line, checks=evict_checks, ok=all(evict_checks.values()))
     checks = {
         "u_steps": sorted(u) == steps,
-        "u_repeat_bitwise": runs["U2"]["losses"] == u,
-        "l_one_relaunch": [w["restart"] for w in lw] == [0, 1],
-        "l_failure_seen": any("exitcode=-9" in msg for _, msg in launched["L"]["lines"]),
-        "l_killed_after_9_bitwise": len(lw) == 2 and lw[0]["losses"] == {s: u.get(s) for s in range(1, 10)},
-        "l_from_agent_shm": len(lw) == 2 and (lw[1]["restored"].get("step"),
-                                              lw[1]["restored"].get("source")) == (l_staged, "memory"),
-        "l_bitwise": len(lw) == 2 and l_staged is not None
-        and lw[1]["losses"] == {s: u.get(s) for s in range(l_staged + 1, 13)},
-        "ck_group_killed_after_10": len(ck) == 1 and ck[0]["losses"] == {s: u.get(s) for s in range(1, 11)},
-        "ck_newest_staged_step_on_disk": c_on_disk == ck_staged,
-        "ck_shm_left_and_unlinked": ck_shm_left,
-        "c_from_disk": len(cw) == 1 and (cw[0]["restored"].get("step"),
-                                         cw[0]["restored"].get("source")) == (c_on_disk, "storage"),
-        "c_bitwise": len(cw) == 1 and cw[0]["losses"] == {s: u.get(s) for s in range(c_on_disk + 1, 13)},
         "losses_finite": all(math.isfinite(x) for x in u.values()),
         "first_loss_near_ln_vocab": abs(u.get(1, math.inf) - math.log(50257)) <= 1.0,
+        **evict_checks,
     }
-    for label in ("L", "Ck", "C"):
+    workers = dict(runs, **{f"{k}{i}": w for k in launched for i, w in enumerate(launched[k]["procs"])})
+    if full:
+        lw = launched["L"]["procs"]
+        ck = launched["Ck"]["procs"]
+        cw = launched["C"]["procs"]
+        ok_steps = lambda w: [s["step"] for s in w["saves"] if s["ok"]]  # noqa: E731
+        l_staged = max(ok_steps(lw[0]), default=None) if lw else None
+        ck_staged = max(ok_steps(ck[0]), default=None) if ck else None
+        commands, command_checks = check_commands(runs["U2"])
+        l_master = launched["L"]["master"]
+        l_logged = max((s for s in lw[-1]["losses"] if s in LOGGED_STEPS), default=None) if lw else None
+        l_report = report_closure(l_master.get("goodput"))
+        checks.update({
+            "u_repeat_bitwise": runs["U2"]["losses"] == u,
+            **command_checks,
+            "l_one_relaunch": [w["restart"] for w in lw] == [0, 1],
+            "l_failure_seen": any("exitcode=-9" in msg for _, msg in launched["L"]["lines"]),
+            "l_killed_after_9_bitwise": len(lw) == 2 and lw[0]["losses"] == {s: u.get(s) for s in range(1, 10)},
+            "l_from_agent_shm": len(lw) == 2 and (lw[1]["restored"].get("step"),
+                                                  lw[1]["restored"].get("source")) == (l_staged, "memory"),
+            "l_bitwise": len(lw) == 2 and l_staged is not None
+            and lw[1]["losses"] == {s: u.get(s) for s in range(l_staged + 1, 13)},
+            "l_master_holds_last_logged_step": l_logged is not None
+            and l_master.get("global_step", -1) >= l_logged,
+            "l_master_goodput_closes": l_report is not None
+            and l_report["closure_error_pct"] <= CLOSURE_GATE_PCT,
+            "ck_group_killed_after_10": len(ck) == 1 and ck[0]["losses"] == {s: u.get(s) for s in range(1, 11)},
+            "ck_newest_staged_step_on_disk": c_on_disk == ck_staged,
+            "ck_shm_left_and_unlinked": ck_shm_left,
+            "c_from_disk": len(cw) == 1 and (cw[0]["restored"].get("step"),
+                                             cw[0]["restored"].get("source")) == (c_on_disk, "storage"),
+            "c_bitwise": len(cw) == 1 and cw[0]["losses"] == {s: u.get(s) for s in range(c_on_disk + 1, 13)},
+        })
+    for label in launched:
         cards = launched[label]["cards"]
         checks[f"no_card_in_control_plane_{label}"] = (
             not cards["control_plane_holds_card"] and bool(cards["launcher_pids"])
@@ -1335,43 +1672,51 @@ def run_flash_ckpt(torch):
     with_d, without = drill_step_ms(runs["U1"])
     med = lambda xs: float(statistics.median(xs)) if xs else None  # noqa: E731
     state_bytes = max((s.get("bytes", 0) for s in saves), default=0)
-    ll = launched["L"]
-    ck_kinds = {s["step"]: s["kind"] for s in ck[0]["saves"] if s["ok"]} if ck else {}
-    first_after = min(lw[1]["loss_t"].values()) if len(lw) == 2 and lw[1]["loss_t"] else None
-    launcher = dict(
-        card=card_line(),
-        L=dict(master_s=ll["master_s"], rendezvous_s=ll["rendezvous_s"],
-               worker_start_s=ll["worker_start_s"],
-               first_loss_s=lw[0]["first_loss_s"] if lw else None,
-               failure_detected_s=ll["failure_s"], relaunch_s=ll["relaunch_s"],
-               failure_to_relaunched_first_loss_s=(
-                   first_after - (ll["t0"] + ll["failure_s"])
-                   if first_after and ll["failure_s"] is not None else None),
-               relaunched_restore_s=lw[1]["restored"].get("restore_s") if len(lw) == 2 else None,
-               restored=dict(step=lw[1]["restored"].get("step"),
-                             source=lw[1]["restored"].get("source")) if len(lw) == 2 else None,
-               wall_s=ll["wall_s"]),
-        C=dict(master_s=launched["C"]["master_s"], rendezvous_s=launched["C"]["rendezvous_s"],
-               worker_start_s=launched["C"]["worker_start_s"],
-               first_loss_s=cw[0]["first_loss_s"] if cw else None,
-               restore_s=cw[0]["restored"].get("restore_s") if cw else None,
-               restored=dict(step=cw[0]["restored"].get("step"),
-                             source=cw[0]["restored"].get("source")) if cw else None,
-               restored_step_was=ck_kinds.get(c_on_disk),
-               wall_s=launched["C"]["wall_s"]),
-        Ck=dict(wall_s=launched["Ck"]["wall_s"], on_disk_step=c_on_disk),
-        worker_launches=launches,
-        # each worker's start: imports, trainer ready (restore included), first loss
-        worker_times={k: dict(import_s=w.get("import_s"),
-                              ready_s=w["restored"].get("since_start_s"),
-                              first_loss_s=w["first_loss_s"]) for k, w in workers.items()},
-        cards={k: r["cards"] for k, r in launched.items()},
-    )
-    emit("launcher", **launcher)
+    if full:
+        ll = launched["L"]
+        ck_kinds = {s["step"]: s["kind"] for s in ck[0]["saves"] if s["ok"]} if ck else {}
+        first_after = min(lw[1]["loss_t"].values()) if len(lw) == 2 and lw[1]["loss_t"] else None
+        launcher = dict(
+            card=card_line(),
+            L=dict(master_s=ll["master_s"], rendezvous_s=ll["rendezvous_s"],
+                   worker_start_s=ll["worker_start_s"],
+                   first_loss_s=lw[0]["first_loss_s"] if lw else None,
+                   failure_detected_s=ll["failure_s"], relaunch_s=ll["relaunch_s"],
+                   failure_to_relaunched_first_loss_s=(
+                       first_after - (ll["t0"] + ll["failure_s"])
+                       if first_after and ll["failure_s"] is not None else None),
+                   relaunched_restore_s=lw[1]["restored"].get("restore_s") if len(lw) == 2 else None,
+                   restored=dict(step=lw[1]["restored"].get("step"),
+                                 source=lw[1]["restored"].get("source")) if len(lw) == 2 else None,
+                   worker_last_logged_step=l_logged,
+                   master_global_step=l_master.get("global_step"),
+                   master_goodput=l_report,
+                   worker_goodput=lw[-1]["telemetry"].get("goodput") if lw else None,
+                   wall_s=ll["wall_s"]),
+            C=dict(master_s=launched["C"]["master_s"], rendezvous_s=launched["C"]["rendezvous_s"],
+                   worker_start_s=launched["C"]["worker_start_s"],
+                   first_loss_s=cw[0]["first_loss_s"] if cw else None,
+                   restore_s=cw[0]["restored"].get("restore_s") if cw else None,
+                   restored=dict(step=cw[0]["restored"].get("step"),
+                                 source=cw[0]["restored"].get("source")) if cw else None,
+                   restored_step_was=ck_kinds.get(c_on_disk),
+                   wall_s=launched["C"]["wall_s"]),
+            Ck=dict(wall_s=launched["Ck"]["wall_s"], on_disk_step=c_on_disk),
+            worker_launches=launches,
+            # each worker's start: imports, trainer ready (restore included), first loss
+            worker_times={k: dict(import_s=w.get("import_s"),
+                                  ready_s=w["restored"].get("since_start_s"),
+                                  first_loss_s=w["first_loss_s"]) for k, w in workers.items()},
+            cards={k: r["cards"] for k, r in launched.items()},
+        )
+        emit("launcher", **launcher)
+        emit("commands", **commands, checks=command_checks, ok=all(command_checks.values()))
     try:
-        routes = measure_stage_routes(torch, gpt2_small(), root, "gpt2_small")
-        xl = (measure_stage_routes(torch, gpt2_xl(), root, "gpt2_xl", rounds=1, ring=False)
-              if shm_free >= XL_SHM_BYTES else "not run: /dev/shm holds less than 24 GB")
+        routes = xl = "not run: --phase evict"
+        if full:
+            routes = measure_stage_routes(torch, gpt2_small(), root, "gpt2_small")
+            xl = (measure_stage_routes(torch, gpt2_xl(), root, "gpt2_xl", rounds=1, ring=False)
+                  if shm_free >= XL_SHM_BYTES else "not run: /dev/shm holds less than 24 GB")
     finally:
         cleanup()
     res = dict(
@@ -1389,18 +1734,19 @@ def run_flash_ckpt(torch):
         worker_import_s={k: w.get("import_s") for k, w in workers.items()},
         worker_first_loss_s={k: w["first_loss_s"] for k, w in workers.items()},
         worker_wall_s={k: w["wall_s"] for k, w in runs.items()},
+        worker_goodput={k: w.get("telemetry", {}).get("goodput") for k, w in workers.items()},
         losses={k: [workers[k]["losses"][s] for s in sorted(workers[k]["losses"])]
                 for k in workers},
         routes=routes, gpt2_xl=xl, drill_s=drill_s,
         checks=checks, ok=all(checks.values()),
     )
-    emit("flash_ckpt", **res)
+    emit(phase, **res)
     if not res["ok"]:
         for w in runs.values():
             print(w["label"], w["stderr"], file=sys.stderr)
         for r in launched.values():
             print(r["label"], r["log"], file=sys.stderr)
-        raise RuntimeError(f"flash_ckpt failed: {[k for k, v in checks.items() if not v]}")
+        raise RuntimeError(f"{phase} failed: {[k for k, v in checks.items() if not v]}")
     return res
 
 
@@ -1476,9 +1822,9 @@ def main() -> int:
     build_kernels()
     if "--phase" in sys.argv:  # one phase alone; the contract's lines need a full run
         phase = sys.argv[sys.argv.index("--phase") + 1]
-        if phase != "flash_ckpt":
+        if phase not in ("flash_ckpt", "evict"):
             raise SystemExit(f"unknown phase {phase!r}")
-        run_flash_ckpt(torch)
+        run_flash_ckpt(torch, phase)
         emit("timing", total_s=time.perf_counter() - T0)
         return 0
 

@@ -500,6 +500,20 @@ class CheckpointEngine:
         self._active_stager = stager
         return stager
 
+    def wait_saver_idle(self, timeout_s: float) -> bool:
+        """Wait, at most ``timeout_s``, until the saver has handed the
+        shard lock back (it holds it while it persists a step); True at
+        once without a saver. The eviction drain waits here instead of
+        having its emergency save skipped."""
+        if not self._agent_mode:
+            return True
+        deadline = time.monotonic() + timeout_s
+        while self._lock.locked():
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.02)
+        return True
+
     def copy_fence(self) -> Optional[torch.cuda.Event]:
         """The event after which the active stage's device copies are
         done (None when none is pending): a step must make its stream

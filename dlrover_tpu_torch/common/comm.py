@@ -647,7 +647,7 @@ class WorkerCommand(Message):
     """One master-issued command for a specific worker. Kinds:
 
     - ``flight_dump`` — dump a flight-recorder bundle now;
-    - ``profile`` — capture ``arg`` train steps with jax.profiler;
+    - ``profile`` — capture ``arg`` train steps with torch.profiler;
     - ``evict`` — enter the graceful-drain state machine with a grace
       window of ``arg`` seconds (0 = the trainer's configured default):
       finish the in-flight step, emergency shm checkpoint, flush

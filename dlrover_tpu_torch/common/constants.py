@@ -25,6 +25,9 @@ class ConfigPath:
     RUNTIME_METRICS = os.path.join(_TMP, "runtime_metrics.json")
     ENV_WORKER_COMMANDS = "DLROVER_TPU_WORKER_COMMANDS_PATH"
     WORKER_COMMANDS = os.path.join(_TMP, "worker_commands.json")
+    # flight-recorder bundles and profiler captures (obs/flight_recorder)
+    ENV_FLIGHT_DIR = "DLROVER_TPU_FLIGHT_DIR"
+    FLIGHT_DIR = os.path.join(_TMP, "flight")
 
 
 class PlatformType:
@@ -155,6 +158,21 @@ class NodeEnv:
     PROCESS_ID = "DLROVER_TPU_PROCESS_ID"
     NUM_PROCESSES = "DLROVER_TPU_NUM_PROCESSES"
     RESTART_COUNT = "DLROVER_TPU_RESTART_COUNT"
+
+
+class TrainerEnv:
+    """Env vars the trainer and the node check read."""
+
+    # a platform's preemption deadline: sets the eviction grace window
+    # and installs the SIGTERM drain handler
+    EVICTION_DEADLINE_S = "DLROVER_TPU_EVICTION_DEADLINE_S"
+    # the flight recorder's hang watchdog threshold (default 120 s)
+    HANG_DUMP_AFTER_S = "DLROVER_TPU_HANG_DUMP_AFTER_S"
+    # the node check: where each rank writes its timing, and the ranks
+    # made to fail or lag on purpose
+    CHECK_RESULT_FILE = "DLROVER_TPU_CHECK_RESULT_FILE"
+    MOCK_ERR_RANK = "DLROVER_TPU_MOCK_ERR_RANK"
+    MOCK_SLOW_RANK = "DLROVER_TPU_MOCK_SLOW_RANK"
 
 
 class DefaultValues:

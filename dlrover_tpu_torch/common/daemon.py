@@ -33,6 +33,14 @@ class PollingDaemon:
             self._thread.join(timeout=5)
             self._thread = None
 
+    def tick_once(self):
+        """One tick now, on the caller's thread (a last report once the
+        loop is stopped); a failure is logged, not raised."""
+        try:
+            self._tick()
+        except Exception as e:
+            logger.warning(f"{self._name} tick failed: {e!r}")
+
     def _loop(self):
         while not self._stopped.wait(self._interval):
             try:

@@ -1,6 +1,7 @@
 """Deterministic fault injection: named fault points in production code
 (a copy of ``dlrover_tpu/common/faults.py``, trimmed to the sites the
-port's checkpoint path, prefetcher and control plane fire).
+port's checkpoint path, prefetcher, control plane, trainer and sparse
+trainer fire).
 
 Production code declares *fault points* (named sites like
 ``ckpt.shard_write``), and a test or an operator arms them with spec
@@ -11,6 +12,7 @@ strings::
 
     ckpt.shard_write:bit_flip:1.0          # every shard write flips a bit
     ckpt.persist:enospc:0.5:42             # seeded coin per persist
+    node.preempt:kill:@7                   # die at exactly the 7th step
 
 ``@N`` fires on exactly the Nth evaluation of its site. Specs are armed
 programmatically (``configure``) or through ``DLROVER_TPU_FAULTS``
@@ -21,9 +23,11 @@ the same decisions.
 
 Kinds: ``enospc`` / ``io_error`` raise ``OSError``; ``delay`` sleeps
 ``DELAY_S``; ``torn_write`` truncates a payload (zeroes the tail half at
-fixed-size sites); ``bit_flip`` flips one seeded bit. (The JAX
-package's ``scale`` and ``kill`` kinds serve sites the port does not
-have yet.) Control kinds fire through
+fixed-size sites); ``bit_flip`` flips one seeded bit; ``kill`` is a
+hard process death (``os._exit(137)``, no atexit, no flushes), a
+SIGKILL / OOM-killer / hard-preemption stand-in at sites like
+``node.preempt``. (The JAX package's ``scale`` kind serves a site the
+port does not have yet.) Control kinds fire through
 :func:`fire`; data kinds act only where a payload passes through
 :func:`corrupt` / :func:`corrupt_array`. Every triggered fault counts
 into ``obs.metrics`` (``dlrover_faults_triggered_total{site,kind}``).
@@ -50,7 +54,7 @@ ENV_VAR = "DLROVER_TPU_FAULTS"
 # race windows deterministically, not to stall test suites)
 DELAY_S = 0.05
 
-KINDS = ("enospc", "io_error", "delay", "torn_write", "bit_flip")
+KINDS = ("enospc", "io_error", "delay", "torn_write", "bit_flip", "kill")
 _DATA_KINDS = ("torn_write", "bit_flip")
 
 # the registered sites — arming a typo'd site is a hard error, so a
@@ -66,6 +70,10 @@ FAULT_SITES = frozenset(
         "rpc.recv",  # MasterClient._call response leg
         "rendezvous.join",  # agent's join-rendezvous report
         "prefetch.pull",  # prefetch producer's source pull
+        "node.preempt",  # trainer step boundary (preemption arrival)
+        "embedding.export",  # embedding ckpt bytes → storage (data
+        # kinds corrupt the serialized npz/delta payload)
+        "embedding.import",  # embedding ckpt read leg (restore)
     }
 )
 
@@ -237,6 +245,12 @@ class FaultInjector:
             raise OSError(errno.EIO, f"injected I/O error at {site}")
         if kind == "delay":
             time.sleep(DELAY_S)
+        if kind == "kill":
+            # hard process death: no atexit, no finally, no flushes —
+            # the closest in-process stand-in for SIGKILL / OOM-killer /
+            # hard preemption
+            logger.warning(f"fault kill: hard exit(137) at {site}")
+            os._exit(137)
 
     def fire(self, site: str):
         """Evaluate the control-kind specs armed for ``site``: raise

@@ -17,6 +17,14 @@ device as async D2H handoffs to ``DeviceSparseEmbedding``'s drain
 thread, so neither direction of the host link ever sits on the step's
 critical path.
 
+The producer runs ``prepare`` on the consumer's CUDA stream (the one
+current on the thread that built the pipeline): the embedding's lock
+orders the two threads' table reads and writes by launch, which holds
+on the card only when both launch onto one stream. A consumer training
+under a stream of its own (``torch.cuda.stream(s)``) would otherwise see
+the producer's fault-in scatters and victim reads race its gathers and
+updates on the default stream.
+
 Error/exhaustion semantics match ``DevicePrefetcher``: every prepared
 step before a failure is delivered first, then the original exception
 re-raises from ``__next__``; ``close()`` is idempotent and never blocks
@@ -54,6 +62,13 @@ class SparseRowPipeline:
     ):
         self._src = iter(source)
         self._emb = embedding
+        dev = getattr(embedding, "device", None)
+        # the consumer's stream (None off the card: a no-op context)
+        self._stream = (
+            torch.cuda.current_stream(dev)
+            if dev is not None and dev.type == "cuda"
+            else None
+        )
         self._depth = max(1, int(depth))
         self._cond = threading.Condition()
         self._buf: deque = deque()
@@ -85,7 +100,8 @@ class SparseRowPipeline:
                     # the overlap: host gather + H2D for step N+1 runs
                     # here while the consumer computes step N (the C++
                     # gather and numpy legs release the GIL)
-                    with torch.profiler.record_function("emb_fault_in"):
+                    with torch.cuda.stream(self._stream), \
+                            torch.profiler.record_function("emb_fault_in"):
                         prep = self._emb.prepare(ids)
                     entry = ("step", ids, batch, prep)
                 except BaseException as e:  # noqa: BLE001

@@ -9,6 +9,7 @@ platform-appropriate master, serve until the job exits.
 from __future__ import annotations
 
 import argparse
+import json
 import signal
 import sys
 
@@ -43,7 +44,13 @@ def run(args) -> int:
     signal.signal(signal.SIGTERM, _term)
     signal.signal(signal.SIGINT, _term)
     reason = master.run()
-    logger.info(f"master exiting: {reason}")
+    # what the master last heard from the workers: the newest global
+    # step and the goodput reports, rolled up
+    logger.info(
+        f"master exiting: {reason}; global step "
+        f"{master.speed_monitor.completed_global_step}; goodput "
+        f"{json.dumps(master.telemetry.fleet_goodput())}"
+    )
     return 0 if reason == "succeeded" else 1
 
 

@@ -926,14 +926,20 @@ class DeviceSparseEmbedding:
 
     # -- telemetry -----------------------------------------------------
     def export_metrics(self, registry=None) -> Dict[str, float]:
-        """The scalar dict the trainer forwards to the master. Gauge
-        publishing into a metrics registry is not ported yet."""
-        if registry is not None:
-            raise NotImplementedError(
-                "export_metrics(registry=...): gauge publishing is not "
-                "ported yet (ROADMAP A6)"
-            )
+        """Publish per-table gauges (``dlrover_embedding_*{table}``, into
+        the default registry unless one is given); returns the scalar
+        dict the trainer forwards to the master."""
+        if registry is None:
+            from dlrover_tpu_torch.obs.metrics import default_registry
+
+            registry = default_registry()
         scalars = self.stats.as_dict()
         scalars["emb_hot_rows"] = float(len(self.hot))
         scalars["emb_hbm_bytes"] = float(self.hot.hbm_bytes)
+        for name, value in scalars.items():
+            registry.gauge(
+                f"dlrover_embedding_{name[4:]}",
+                f"embedding hot tier: {name[4:]}",
+                labelnames=("table",),
+            ).labels(self.table_name).set(value)
         return scalars

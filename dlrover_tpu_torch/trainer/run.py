@@ -15,9 +15,16 @@ Usage:
         examples/train_gpt2_torch.py [args...]
     python -m dlrover_tpu_torch.trainer.run --nnodes=2:4 train.py  # elastic
 
-``--network-check`` raises until the node check, a GPU check in the
-port, lands (ROADMAP A15); its ``--exclude-straggler`` comes with it. The launcher and the agent never create a
-CUDA context: ``--auto-config`` counts the cards with ``nvidia-smi -L``.
+``--network-check`` runs the paired node check before training
+(``agent/node_check_agent.py``: two rounds of ``trainer/node_check/
+gpu_check.py``, a timed bf16 matmul on each card and a timed all-reduce
+over the check's process group); a node the master finds faulty (or a
+straggler, with ``--exclude-straggler``) leaves with exit code 3 before
+any worker starts. The launcher and the agent never create a CUDA
+context: ``--auto-config`` counts the cards with ``nvidia-smi -L``, and
+the check runs in worker processes. When the agent is done, its report
+daemons make one last report, so the master holds the workers' final
+step, goodput and any eviction notice.
 """
 
 from __future__ import annotations
@@ -79,8 +86,13 @@ def parse_args(argv=None):
     p.add_argument(
         "--network-check",
         action="store_true",
-        help="run the paired node health check before training "
-        "(not ported yet: ROADMAP A15)",
+        help="run the paired node health check before training",
+    )
+    p.add_argument(
+        "--exclude-straggler",
+        action="store_true",
+        help="with --network-check: a straggling node leaves the job "
+        "too (default: warn only)",
     )
     p.add_argument(
         "--auto-config",
@@ -158,22 +170,27 @@ def launch_local_master(node_num: int) -> Tuple[subprocess.Popen, str]:
 
 
 def _run_network_check(args, client: MasterClient) -> bool:
-    """The node health check before training (parity:
-    NetworkCheckElasticAgent training.py:799 + run_network_check:1014):
-    on the card it is a matmul and NCCL all-gather timing, not ported
-    yet."""
-    raise NotImplementedError(
-        "--network-check: the GPU node check is ROADMAP A15"
+    """Run the node health check before training (parity:
+    NetworkCheckElasticAgent training.py:799 + run_network_check:1014).
+    The check rendezvous was already configured via
+    RendezvousParamsReport."""
+    from dlrover_tpu_torch.agent.node_check_agent import run_network_check
+
+    return run_network_check(
+        node_rank=args.node_rank,
+        nproc_per_node=args.nproc_per_node,
+        client=client,
+        device_spec=args.device_spec,
+        exclude_straggler=args.exclude_straggler,
     )
 
 
 def auto_configure(args):
     """--auto-config (parity: elastic_run.py:33-40 + ElasticLaunchConfig
     .auto_configure_params training.py:140): nnodes from the platform's
-    NODE_NUM env (the operator sets it on every pod) and nproc-per-node
-    from the locally visible card count. The JAX package also turns the
-    network check on for jobs of >= 4 nodes; the port leaves it off
-    until the check is ported (ROADMAP A15)."""
+    NODE_NUM env (the operator sets it on every pod), nproc-per-node
+    from the locally visible card count, and network-check on for jobs
+    of >= 4 nodes."""
     try:
         node_num = int(os.getenv(NodeEnv.NODE_NUM, "0") or "0")
     except ValueError:
@@ -185,6 +202,12 @@ def auto_configure(args):
     n = local_device_count(args.device_spec)
     if n > 0:
         args.nproc_per_node = n
+    # gate on the RESOLVED min_nodes, not only the env-derived node_num:
+    # `--auto-config --nnodes=8` without the platform env must still turn
+    # the health check on (parity: training.py:154 gates on min_nodes)
+    min_nodes, _ = parse_nnodes(args.nnodes)
+    if min_nodes >= 4:
+        args.network_check = True
     logger.info(
         f"auto-config: nnodes={args.nnodes} "
         f"nproc_per_node={args.nproc_per_node} "
@@ -308,6 +331,12 @@ def run(args) -> int:
             lambda: saver.save_shm_to_storage(sync_commit=False)
         )
         result = agent.run()
+        # one last report now that the workers exited: their final step,
+        # goodput and any eviction notice reach the master before it
+        # stops (a daemon's next tick may be seconds away)
+        for m in monitors:
+            m.stop()
+            m.tick_once()
         logger.info(
             f"agent finished: {result.state} after "
             f"{result.restarts} restarts"

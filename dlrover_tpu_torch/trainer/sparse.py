@@ -29,9 +29,9 @@ Two train cycles:
   for step N+1 (overlapping step N's compute) and async spill-backs.
 
 ``dense_params`` is a tensor or a flat list, tuple or dict of tensors
-(dict keys sorted, the JAX flatten order). Not ported yet (ROADMAP A6):
-the fault-injection sites of the checkpoint legs and the booking of a
-refresh window to the goodput ledger.
+(dict keys sorted, the JAX flatten order). The checkpoint legs carry the
+``embedding.export`` / ``embedding.import`` fault sites, and a refresh
+window is booked to the goodput ledger as ``restart_replay``.
 """
 
 from __future__ import annotations
@@ -46,12 +46,28 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.common import faults
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.common.storage import fsync_dir
 from dlrover_tpu_torch.ops.embedding.device_tier import (
     DeviceSparseEmbedding,
     _to_numpy,
 )
+
+
+def _book_replay(t0_ns: int):
+    """Attribute a state-refresh window (re-import or warm reshard) to
+    the goodput ledger so it cannot vanish from the wall-time closure."""
+    try:
+        from dlrover_tpu_torch.obs.goodput import default_ledger
+
+        ledger = default_ledger()
+        if ledger is not None:
+            ledger.mark_interval(
+                "restart_replay", t0_ns, time.monotonic_ns()
+            )
+    except Exception:  # accounting must never break the refresh itself
+        pass
 
 
 def _flatten_dense(params) -> Tuple[List[torch.Tensor], Callable]:
@@ -177,8 +193,7 @@ class SparseTrainer:
         (parity: ps_addresses_changed → session refresh). The refresh
         is a WARM move-only reshard when a target shard count is known
         (``target_shards_fn``), else the npz re-import; both windows
-        would be booked to the goodput ledger, which is not ported yet
-        (ROADMAP A6)."""
+        are booked to the goodput ledger as ``restart_replay``."""
         if self._client is None:
             return False
         version = self._poll_cluster_version()
@@ -190,19 +205,23 @@ class SparseTrainer:
         )
         self._cluster_version = version
         t0 = time.perf_counter()
-        target = (
-            self._target_shards_fn()
-            if self._target_shards_fn is not None
-            else None
-        )
-        if target and hasattr(self.embedding, "warm_reshard"):
-            report = self.embedding.warm_reshard(int(target))
-            logger.info(
-                f"warm embedding reshard on version bump: "
-                f"{report.describe()}"
+        t0_ns = time.monotonic_ns()
+        try:
+            target = (
+                self._target_shards_fn()
+                if self._target_shards_fn is not None
+                else None
             )
-        else:
-            self.restore_embedding()
+            if target and hasattr(self.embedding, "warm_reshard"):
+                report = self.embedding.warm_reshard(int(target))
+                logger.info(
+                    f"warm embedding reshard on version bump: "
+                    f"{report.describe()}"
+                )
+            else:
+                self.restore_embedding()
+        finally:
+            _book_replay(t0_ns)
         logger.info(
             f"sparse state refreshed in {time.perf_counter() - t0:.3f} s"
         )
@@ -379,9 +398,10 @@ class SparseTrainer:
             },
             "step": int(self.step),
         }
-        # the crcs above are taken before any byte can be corrupted in
-        # flight; the fault site that corrupts the payload here waits
-        # for the fault-injection module (ROADMAP A6)
+        # fault site embedding.export: data kinds corrupt the payload
+        # AFTER the crcs were computed — exactly a torn/bit-rotted
+        # write, which restore must detect and roll back from
+        blob = faults.corrupt("embedding.export", blob)
         path = self._emb_path()
         if os.path.exists(path):
             os.replace(path, self._prev_path(path))
@@ -414,6 +434,7 @@ class SparseTrainer:
         ``ValueError`` on corruption (caller quarantines)."""
         if not os.path.exists(path):
             return None
+        faults.fire("embedding.import")
         with open(path, "rb") as f:
             blob = f.read()
         meta = None

@@ -22,10 +22,23 @@ unless its parent started one
 ``DLROVER_TPU_JOB_NAME`` and ``DLROVER_TPU_SOCKET_DIR``), and every save
 is then written to disk synchronously.
 
+``--log-interval`` is the trainer's: every that many steps it writes the
+runtime-metrics file the agent forwards to the master (step, loss,
+goodput) and polls the master's commands (``profile``, ``flight_dump``,
+``evict``). With ``DLROVER_TPU_EVICTION_DEADLINE_S`` set, a SIGTERM
+drains the trainer: it finishes the step, saves it to shm (and waits for
+its disk persist while the window allows), reports and exits cleanly.
+``--await-eviction-after-step K`` holds the loop after step K's loss
+until such a notice arrives (at most 120 s), so a drill's signal lands
+at a known step.
+
 ``--events FILE`` appends one JSON line per event: ``start`` (pid and
 the agent's restart count), ``restored`` (step, source, seconds),
-``loss`` (step, loss, wall time), ``saves`` (the trainer's save records)
-and ``launches`` (the port's kernel launch counts). ``--kill-after-step
+``loss`` (step, loss, wall time), ``await_eviction`` (step, wall time),
+``saves`` (the trainer's save records), ``launches`` (the port's kernel
+launch counts), ``telemetry`` (the goodput report, the eviction drain's
+record, profiler captures and flight bundles written) and ``exit``
+(wall time). ``--kill-after-step
 K`` commits the save in flight after step K's loss and then kills the
 process with SIGKILL, a stand-in for a worker that dies; a worker the
 agent relaunched (restart count above 0) is not killed again. With
@@ -99,6 +112,9 @@ def main(argv=None) -> int:
     ap.add_argument("--prefetch", type=int, default=2)
     ap.add_argument("--devices", default=None, help='"cpu" for the plain path')
     ap.add_argument("--threads", type=int, default=0, help="torch CPU threads (0: torch's choice)")
+    ap.add_argument("--log-interval", type=int, default=0,
+                    help="trainer log cadence (0: once, at the last step)")
+    ap.add_argument("--await-eviction-after-step", type=int, default=0)
     ap.add_argument("--kill-after-step", type=int, default=0)
     ap.add_argument("--kill-group", action="store_true",
                     help="with --kill-after-step: kill the launcher's whole process group")
@@ -143,6 +159,11 @@ def main(argv=None) -> int:
             return
         loss = float(metrics["loss"])  # waits for this step's stream only
         emit("loss", step=step, loss=loss, t=time.time())
+        if step == args.await_eviction_after_step and not trainer.evicted:
+            emit("await_eviction", step=step, t=time.time())
+            deadline = time.time() + 120.0
+            while not trainer.eviction_pending and time.time() < deadline:
+                time.sleep(0.01)
         if step == args.kill_after_step and ctx.restart_count == 0:
             trainer.wait_for_checkpoint()
             emit("saves", log=trainer.save_log)
@@ -165,7 +186,8 @@ def main(argv=None) -> int:
             batch_size=args.batch, seq_len=args.seq, ckpt_dir=args.ckpt_dir,
             save_memory_interval=args.save_memory_interval,
             save_storage_interval=args.save_storage_interval,
-            prefetch=args.prefetch, log_interval=max(args.steps, 1),
+            prefetch=args.prefetch,
+            log_interval=args.log_interval or max(args.steps, 1),
         ),
         devices=args.devices, metrics_hook=hook,
     )
@@ -174,7 +196,9 @@ def main(argv=None) -> int:
     trainer.train(args.steps)
     emit("saves", log=trainer.save_log)
     emit_launches()
+    emit("telemetry", **trainer.forensics())
     trainer.close()
+    emit("exit", t=time.time())
     if events is not None:
         events.close()
     return 0

@@ -110,12 +110,18 @@ def test_kernel_modes_are_refused():
 
 
 def test_unported_options_raise():
+    """Spill striping raises (ROADMAP A9); ``export_metrics`` publishes
+    its gauges into the registry it is given (ported), still without the
+    link model's host-leg price (A9)."""
+    from dlrover_tpu_torch.obs.metrics import MetricsRegistry
+
     with pytest.raises(NotImplementedError, match="A9"):
         _emb(spill_stripe_min_bytes=1 << 20)
     emb = _emb()
-    with pytest.raises(NotImplementedError, match="A6"):
-        emb.export_metrics(registry=object())
-    assert "emb_host_leg_ms" not in emb.export_metrics()
+    reg = MetricsRegistry()
+    scalars = emb.export_metrics(registry=reg)
+    assert "emb_host_leg_ms" not in scalars
+    assert reg.scalars()['dlrover_embedding_hot_rows{table="t0"}'] == scalars["emb_hot_rows"]
     emb.close()
 
 

@@ -186,11 +186,15 @@ class TestLauncher:
             assert coord.startswith("127.0.0.1:")
 
     def test_network_check_and_k8s_raise(self, job, scripts):
+        """The k8s master raises (ROADMAP A17); the node check is ported
+        (``tests/test_torch_node_check.py`` drives it), and its flags
+        parse."""
         from dlrover_tpu_torch.master import main as master_main
         from dlrover_tpu_torch.trainer import run as run_mod
 
-        with pytest.raises(NotImplementedError, match="A15"):
-            run_mod._run_network_check(None, None)
+        args = run_mod.parse_args(
+            ["--network-check", "--exclude-straggler", str(scripts / "exit0.py")])
+        assert args.network_check and args.exclude_straggler
         with pytest.raises(NotImplementedError, match="A17"):
             master_main.main(["--platform", "k8s"])
         with pytest.raises(ValueError, match="device spec"):
@@ -209,7 +213,8 @@ class TestLauncher:
         job.setenv("DLROVER_TPU_NODE_NUM", "4")
         job.setenv("CUDA_VISIBLE_DEVICES", "0,1,2")
         args = auto_configure(parse_args(["--auto-config", str(scripts / "exit0.py")]))
-        assert (args.nnodes, args.nproc_per_node, args.network_check) == ("4", 3, False)
+        # at >= 4 nodes the node check turns on, as in the JAX package
+        assert (args.nnodes, args.nproc_per_node, args.network_check) == ("4", 3, True)
         # the CPU spec has no card to count: --nproc-per-node stands
         args = auto_configure(parse_args(
             ["--auto-config", "--device-spec=cpu", "--nproc-per-node=2",

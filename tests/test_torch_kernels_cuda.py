@@ -336,6 +336,59 @@ def test_device_tier_on_the_card_matches_the_cpu_and_repeats(dev):
     assert np.abs(r1 - r0).max() <= 1e-5 * np.abs(r0).max()
 
 
+def test_pipelined_tier_under_a_side_stream_repeats_bitwise(dev):
+    """``SparseTrainer.run(overlapped=True)`` over a spilling tier while
+    the train thread runs under a stream of its own: the row pipeline's
+    thread prepares on that stream, so its fault-ins and victim reads
+    stay ordered against the train thread's gathers and updates, and
+    every run equals the run on the default stream bitwise (before the
+    pipeline took the consumer's stream, about one run in ten
+    differed)."""
+    import numpy as np
+
+    from dlrover_tpu_torch.ops.embedding import (
+        DeviceSparseEmbedding,
+        ShardedKvEmbedding,
+    )
+    from dlrover_tpu_torch.trainer.sparse import SparseTrainer
+
+    def dense_step(w, rows, batch):
+        rows = rows.detach().requires_grad_(True)
+        wg = w.detach().requires_grad_(True)
+        y = torch.as_tensor(batch, device=w.device)
+        p = torch.sigmoid(rows @ wg)
+        loss = -torch.mean(y * torch.log(p + 1e-7) + (1 - y) * torch.log(1 - p + 1e-7))
+        gw, grows = torch.autograd.grad(loss, (wg, rows))
+        return (w - 0.3 * gw).detach(), grows, {"loss": loss.item()}
+
+    def stream():
+        for s in range(12):
+            r = np.random.default_rng(11 * 100_000 + s)
+            ids = np.minimum(r.zipf(1.6, 4096), 50_000).astype(np.int64)
+            yield ids, (ids % 2).astype(np.float32)
+
+    def run():
+        host = ShardedKvEmbedding(4, 128, num_slots=1, seed=0)
+        emb = DeviceSparseEmbedding(host, capacity=1024, sparse_optimizer="adagrad",
+                                    lr=0.1, devices="cuda")
+        t = SparseTrainer(emb, torch.zeros(128, device="cuda"), dense_step)
+        t.run(stream(), overlapped=True)
+        emb.flush()
+        torch.cuda.synchronize()
+        assert emb.stats.spill_rows > 0
+        st = host.export_state()
+        emb.close()
+        return st["rows"][np.argsort(st["keys"])]
+
+    ref = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(6):
+            assert np.array_equal(run(), ref)
+    torch.cuda.current_stream().wait_stream(side)
+
+
 def test_staged_bytes_equal_a_sync_snapshot_while_the_next_step_runs(dev, tmp_path, monkeypatch):
     """A staged save begun after step 1 lands in shm with step 1's bytes
     although step 2 (forward and backward beside the copies, then its

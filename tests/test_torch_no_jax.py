@@ -54,6 +54,19 @@ CKPT_SLICE = {
     "dlrover_tpu_torch.data.prefetch",
 }
 
+# the worker's side of the control loop: telemetry, the node check
+WORKER_LOOP = {
+    "dlrover_tpu_torch.agent.node_check_agent",
+    "dlrover_tpu_torch.obs.flight_recorder",
+    "dlrover_tpu_torch.obs.goodput",
+    "dlrover_tpu_torch.obs.metrics",
+    "dlrover_tpu_torch.obs.trace",
+    "dlrover_tpu_torch.trainer.elastic.trainer",
+    "dlrover_tpu_torch.trainer.node_check",
+    "dlrover_tpu_torch.trainer.node_check.gpu_check",
+    "dlrover_tpu_torch.trainer.sparse",
+}
+
 # the launcher, agent, master and distributed init (ROADMAP A6)
 CONTROL_PLANE = {
     "dlrover_tpu_torch.agent.aggregator",
@@ -101,11 +114,13 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     # every module of the slices: package inits, common, utils, models,
     # ops (attention, optimizer, embedding rows, the store and the device
     # tier), data (the sparse row pipeline, the prefetcher), trainer
-    # (elastic and sparse), ckpt and obs, and the control plane
+    # (elastic and sparse, the node check), ckpt and obs, and the
+    # control plane
     names = set(p.stdout.strip().splitlines()[-1].split())
     assert len(names) >= 70
     assert CKPT_SLICE <= names, sorted(CKPT_SLICE - names)
     assert CONTROL_PLANE <= names, sorted(CONTROL_PLANE - names)
+    assert WORKER_LOOP <= names, sorted(WORKER_LOOP - names)
 
 
 def test_probe_really_blocks():

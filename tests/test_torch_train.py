@@ -143,7 +143,6 @@ def test_trainer_runs_on_cpu_in_the_jax_sampler_order():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("early_stopping_patience", 2),
     ("comm_overlap", True), ("grad_compress", "int8"), ("sdc_detect", True),
     ("moe_rebalance_interval", 5),
 ])

@@ -13,9 +13,9 @@ thread, so the CPU's matmuls round the same way in every run):
 - B: a fresh process restores step 8 from shm; its losses 9-12 must
   equal U's bit for bit;
 - C: after the saver is reset (shm unlinked, as on node loss), a fresh
-  process restores the newest verified step on disk of A's directory as
-  A left it (the tracker's; the saver persists memory saves too, so it
-  is step 8 when the step-8 persist finished before the kill), and its
+  process restores the newest verified step on disk of a copy of A's
+  directory, taken once the saver has persisted and committed A's newest
+  staged step (step 8; the saver persists memory saves too), and its
   losses from there must equal U's bit for bit.
 """
 
@@ -26,6 +26,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import time
 import uuid
 
 import pytest
@@ -85,12 +86,20 @@ def test_resume_from_shm_and_from_disk_is_bitwise(job, tmp_path):
 
     saver = _restart_saver()  # a new job: the saver's persisted step starts over
     a_dir = str(tmp_path / "a")
-    p, a, _, _ = _run(a_dir, str(tmp_path / "a.jsonl"), "--kill-after-step", "9")
+    p, a, _, a_saves = _run(a_dir, str(tmp_path / "a.jsonl"), "--kill-after-step", "9")
     assert p.returncode == -signal.SIGKILL, p.stderr[-3000:]
     assert sorted(a) == list(range(1, 10))
     assert all(a[s] == u[s] for s in a)
-    # C later reads A's disk state as A left it; B goes on writing A's
-    # directory
+    # C later reads A's disk state; B goes on writing A's directory. The
+    # saver persists and commits A's newest staged step after A's death:
+    # copy once that commit has landed, not while its tracker is written
+    newest = max(s["step"] for s in a_saves if s["ok"])
+    deadline = time.time() + 60
+    while time.time() < deadline and (
+        read_tracker(PosixDiskStorage(), a_dir) < newest
+        or any(t.is_alive() for t in list(saver._commit_threads.values()))
+    ):
+        time.sleep(0.05)
     c_dir = str(tmp_path / "c")
     shutil.copytree(a_dir, c_dir)
     on_disk = read_tracker(PosixDiskStorage(), c_dir)
