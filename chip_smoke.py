@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlrover_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict]
+    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp]
 
 (``--profile`` adds a torch.profiler window of a few more steps to the
 per-leaf gpt2_small path and to the full-size sparse path; ``--phase
 flash_ckpt`` builds the kernels and runs that phase alone, ``--phase
-evict`` its uninterrupted run and the eviction drill alone, without the
-contract's closing lines.)
+evict`` its uninterrupted run and the eviction drill alone, ``--phase
+dp`` the data-parallel phase alone, without the contract's closing
+lines. ``--dp-worker SPEC RANK`` is one rank of the dp phase, started
+by the phase itself.)
 
 1. device: the card's name, power limit and count; builds the CUDA
    kernels from the checkout's sources (one nvcc for each ``.cu``, and
@@ -39,6 +41,26 @@ contract's closing lines.)
    - a small tier that spills (1,024 rows, bench.py's zipf 1.6 stream),
      its flushed host state held to the same run on the CPU and to a
      second run on the card;
+   - ``dp``: data parallelism (``parallel/grad_sync.py``), in three
+     starts of rank processes: which collectives gloo takes on CUDA
+     tensors (all of them, or the phase fails: the sync has no
+     host-staged branch); gpt2_small at its full width, the global
+     batch of 8 x 1024 split over two ranks on the one card over gloo,
+     6 steps at dp=2 with the bucketed sync uncompressed and int8
+     (residual carried) and 4 at ZeRO dp=1 x fsdp=2 with the per-leaf
+     8-bit AdamW, each against this process fed the same global batches
+     in two microbatches of the ranks' rows (losses: ``LOSS_MATCH_RTOL``,
+     int8 ``DP_INT8_RTOL``; the first step's synced grad norm:
+     ``DP_GNORM_RTOL``, int8 within the ranks' residual norms), a run
+     with a planted fault (an all-gather that returns the local chunk)
+     that the norm check must catch, with each rank's step ms,
+     ``grad_sync_ms``, buckets, raw and wire bytes, kernel launches,
+     collectives and own peak and resident bytes; a memory save at step
+     4, both ranks SIGKILLed after step 5, and a fresh pair restoring it
+     from this process's saver's shm, its losses the uninterrupted
+     run's bit for bit; one rank on NCCL (``init_elastic`` and a trainer
+     whose ``comm_overlap`` resolves to the default path at dp=1, then
+     ``sync_grads`` on the lone-rank NCCL group);
    - ``flash_ckpt``: Flash Checkpoint under ``ElasticTrainer`` on
      gpt2_small (``examples/train_gpt2_torch.py`` workers): an
      uninterrupted run twice beside a saver in this process; then the
@@ -79,6 +101,7 @@ cache or larger, so launches find them mostly cold.
 from __future__ import annotations
 
 import datetime
+import gc
 import json
 import math
 import os
@@ -1750,6 +1773,441 @@ def run_flash_ckpt(torch, phase="flash_ckpt"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the dp phase: data parallelism on the card
+# ---------------------------------------------------------------------------
+DP_B, DP_T = 8, 1024  # the global batch, split over the ranks
+DP_STEPS = 6  # dp=2 runs and their one-process reference
+DP_ZERO_STEPS = 4  # the ZeRO run and its reference
+DP_CKPT_AT = 4  # the drill's memory save; both ranks die after the next step
+DP_INT8_RTOL = 2e-3  # int8 with error feedback against the f32 one-process run
+# the first step's synced grad norm against one process on the same
+# batch (the same params: nothing amplifies the sync's error there)
+DP_GNORM_RTOL = 1e-5
+DP_COLLECTIVES = ("all_reduce", "all_reduce_max", "all_reduce_int32", "reduce_scatter_tensor",
+                  "reduce_scatter_tensor_int32", "all_gather_into_tensor", "broadcast")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_worker(spec_path, rank):
+    """One rank of the dp phase (``chip_smoke.py --dp-worker SPEC RANK``),
+    on cuda:0: ranks of a world above 1 join over gloo (two ranks share
+    the one card; NCCL cannot put two ranks on one device). Runs the
+    spec's jobs in order and writes their results to ``SPEC.RANK``."""
+    import torch
+    import torch.distributed as dist
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    world = spec["world"]
+    os.environ.update(DLROVER_TPU_PROCESS_ID=str(rank), DLROVER_TPU_NUM_PROCESSES=str(world),
+                      DLROVER_TPU_LOCAL_RANK=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    if spec.get("backend"):
+        dist.init_process_group(spec["backend"], init_method=f"tcp://127.0.0.1:{spec['port']}",
+                                rank=rank, world_size=world)
+    out = {}
+    for job in spec["jobs"]:
+        fn = {"probe": _dp_probe, "train": _dp_train, "nccl": _dp_nccl}[job["kind"]]
+        if job.get("die_after"):  # the hook writes what ran before it dies
+            job["prior"] = out
+        out[job["name"]] = fn(torch, job, rank, world, spec_path)
+        with open(f"{spec_path}.{rank}", "w") as f:
+            json.dump(out, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _dp_probe(torch, job, rank, world, spec_path):
+    """Which collectives gloo takes on CUDA tensors (the package's sync
+    has no host-staged branch: each must be taken)."""
+    import torch.distributed as dist
+
+    res = {}
+    cases = {
+        "all_reduce": lambda: dist.all_reduce(torch.ones(8, device="cuda")),
+        "all_reduce_max": lambda: dist.all_reduce(torch.ones(8, device="cuda"), op=dist.ReduceOp.MAX),
+        "all_reduce_int32": lambda: dist.all_reduce(torch.ones(8, device="cuda", dtype=torch.int32)),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(8 // world, device="cuda"), torch.ones(8, device="cuda")),
+        "reduce_scatter_tensor_int32": lambda: dist.reduce_scatter_tensor(
+            torch.empty(8 // world, device="cuda", dtype=torch.int32),
+            torch.ones(8, device="cuda", dtype=torch.int32)),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8 * world, device="cuda"), torch.ones(8, device="cuda")),
+        "broadcast": lambda: dist.broadcast(torch.ones(8, device="cuda"), src=0),
+    }
+    for name in DP_COLLECTIVES:
+        try:
+            cases[name]()
+            torch.cuda.synchronize()
+            res[name] = "ok"
+        except RuntimeError as e:  # recorded and failed on by the phase
+            res[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    return dict(backend=dist.get_backend(), ops=res)
+
+
+def _local_all_gather(torch, real):
+    """A planted fault: an all-gather that hands back the local chunk in
+    its own slot and zeros elsewhere (a collective that silently did not
+    run), issued through the real one so the ranks stay in step."""
+
+    def gather(inp, group):
+        import torch.distributed as dist
+
+        out, h = real(inp, group)
+        h.wait()
+        r, n = dist.get_rank(group), inp.numel()
+        out.zero_()[r * n:(r + 1) * n].copy_(inp)
+        return out, h
+
+    return gather
+
+
+def _dp_train(torch, job, rank, world, spec_path):
+    """``ElasticTrainer`` on gpt2_small at the job's strategy: losses and
+    synced grad norms, step times, the sync's plan and probe, the
+    kernels' launches, the residual's norm after the first step; a job
+    with ``die_after`` commits its memory save and SIGKILLs itself, one
+    with ``fault`` runs with a planted sync fault."""
+    import signal
+
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.models import gpt2_small
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import quantized_optim as qo
+    from dlrover_tpu_torch.parallel import grad_sync
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig
+    from dlrover_tpu_torch.trainer.elastic.trainer import (
+        ElasticTrainer, TrainerConfig, build_optimizer,
+    )
+
+    losses, gnorms, stamps, first_res = [], [], [], []
+    trainer = None
+
+    def res_norm():
+        res = trainer.state.grad_residual
+        return None if res is None else float(torch.sqrt(sum((r.double() ** 2).sum() for r in res)))
+
+    def hook(step, metrics):
+        if "loss" not in metrics:
+            return
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if len(losses) == 1:
+            first_res.append(res_norm())
+        if step == job.get("die_after"):
+            trainer.wait_for_checkpoint()
+            with open(f"{spec_path}.{rank}", "w") as f:
+                json.dump({**job["prior"], job["name"]: dict(losses=losses)}, f)
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    real_gather = grad_sync._all_gather
+    if job.get("fault") == "local_all_gather":
+        grad_sync._all_gather = _local_all_gather(torch, real_gather)
+    kw = {"min_quantized_size": 4096} if job["optimizer"] == "adamw_8bit" else {}
+    gc.collect()  # what earlier jobs of this process left is not this job's
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        trainer = ElasticTrainer(
+            gpt2_small(), build_optimizer(job["optimizer"], lr=3e-4, **kw), RandomTokens(seq=DP_T),
+            TrainerConfig(batch_size=DP_B, seq_len=DP_T, report_metrics=False,
+                          log_interval=job["steps"], **job.get("trainer", {})),
+            strategy=Strategy(mesh=MeshConfig(**job["mesh"])), metrics_hook=hook,
+        )
+        stats = trainer.pipeline_stats
+        plan = trainer._grad_sync_plan
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        qo.reset_launch_counts()
+        grad_sync.reset_counts()
+        t0 = time.perf_counter()
+        trainer.train(job["steps"])
+    finally:
+        grad_sync._all_gather = real_gather
+    launches = {**fa.launch_counts, **qo.launch_counts}
+    step_ms = [x * 1e3 for x in np.diff([t0] + stamps)]
+    res = dict(
+        losses=losses, grad_norms=gnorms, step_ms=step_ms,
+        median_step_ms=float(statistics.median(step_ms[1:] or step_ms)),
+        launches=launches, collectives=dict(grad_sync.issued),
+        grad_sync_path=stats.grad_sync_path, grad_sync_ms=stats.grad_sync_ms,
+        comm_overlap_pct=stats.comm_overlap_pct,
+        grad_bytes_raw=stats.grad_bytes_raw, grad_bytes_wire=stats.grad_bytes_wire,
+        buckets=None if plan is None else plan.num_buckets,
+        plan=None if plan is None else plan.describe(),
+        restored_step=trainer.restored_step, restore_source=trainer.restore_source,
+        first_residual_norm=first_res[0] if first_res else None, residual_norm=res_norm(),
+        # this job's own bytes: its peak, and what its trainer holds
+        # between steps (under ZeRO: shards only)
+        peak_bytes=torch.cuda.max_memory_allocated() - base,
+        resident_bytes=torch.cuda.memory_allocated() - base,
+    )
+    trainer.close()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _dp_nccl(torch, job, rank, world, spec_path):
+    """One rank on NCCL: ``init_elastic`` on the card and a trainer whose
+    ``comm_overlap`` resolves to the default path at dp = 1; then
+    ``sync_grads`` called on a lone-rank NCCL group with dp = fsdp = 1
+    plans (every leg forced onto the world group, so each collective
+    runs on NCCL), against its own local grads."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.models import gpt2_small
+    from dlrover_tpu_torch.parallel import grad_sync
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from dlrover_tpu_torch.trainer.elastic.distributed import init_elastic
+    from dlrover_tpu_torch.trainer.elastic.trainer import (
+        ElasticTrainer, TrainerConfig, build_optimizer,
+    )
+
+    ctx = init_elastic()
+    losses = []
+    trainer = ElasticTrainer(
+        gpt2_small(), build_optimizer("adamw_8bit_flat", lr=3e-4), RandomTokens(seq=DP_T),
+        TrainerConfig(batch_size=DP_B, seq_len=DP_T, report_metrics=False, log_interval=2,
+                      comm_overlap=True),
+        strategy=Strategy(mesh=MeshConfig(dp=1)),
+        metrics_hook=lambda s, m: losses.append(float(m["loss"])) if "loss" in m else None,
+    )
+    trainer.train(2)
+    path = trainer.pipeline_stats.grad_sync_path
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{job['port']}", rank=0,
+                            world_size=1)
+    mesh = build_mesh(MeshConfig(), "cuda")
+    for name in ("dp", "data"):
+        mesh.groups[name] = dist.group.WORLD
+    leaves = grad_sync.model_leaves(gpt2_small())
+    g = torch.Generator(device="cuda").manual_seed(0)
+    grads = [torch.randn(p.shape, device="cuda", generator=g) for p in leaves]
+    out = {}
+    for compress in ("none", "int8"):
+        plan = grad_sync.plan_buckets(leaves, dp=1, fsdp=1, compress=compress, bucket_bytes=4 << 20)
+        res = grad_sync.zero_residual(plan, "cuda") if plan.compressed else None
+        grad_sync.reset_counts()
+        synced, new_res, gnorm, lanes = grad_sync.sync_grads(grads, mesh, plan, residual=res,
+                                                             device_norms=True)
+        torch.cuda.synchronize()
+        issued = dict(grad_sync.issued)
+        scales = [r.abs().max() for r in new_res] if new_res is not None else []
+        err = max(float((a - b).abs().max()) for a, b in zip(synced, grads))
+        # one sync, f32: the mean over one lane is the grad itself; int8:
+        # within half a code step of it, the error carried in the residual
+        bound = 0.0 if compress == "none" else float(max(
+            torch.cat([x.reshape(-1) for x in grads]).abs().max() / 127.0 / 2 * 1.0001, 1e-30))
+        ms = grad_sync.measure_sync_ms(plan, mesh, iters=3, device="cuda")
+        out[compress] = dict(buckets=plan.num_buckets, collectives=issued, max_err=err, bound=bound,
+                             residual_max=float(max(scales)) if scales else 0.0,
+                             gnorm=float(gnorm), lane_norm=float(lanes[0]), sync_ms=ms,
+                             ok=err <= bound and sum(issued.values()) > 0)
+    backend = dist.get_backend()
+    dist.destroy_process_group()
+    return dict(init_elastic_world=ctx.num_processes, trainer_losses=losses,
+                trainer_grad_sync_path=path, backend=backend, sync=out)
+
+
+def _dp_spawn(label, world, jobs, backend="gloo", timeout=900.0, expect_kill=False):
+    """Start ``world`` ranks of ``jobs`` (this script, ``--dp-worker``)
+    and return each rank's results; a rank that fails raises with its
+    output (a job with ``die_after`` is expected to die by SIGKILL)."""
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix=f"dp_{label}_")
+    spec = os.path.join(d, "spec.json")
+    with open(spec, "w") as f:
+        json.dump(dict(world=world, backend=backend, port=_free_port(), jobs=jobs), f)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", spec, str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        killed = expect_kill and p.returncode == -9
+        if p.returncode != 0 and not killed:
+            raise RuntimeError(f"dp {label}: rank {r} exited {p.returncode}:\n{outs[r][-4000:]}")
+    res = []
+    for r in range(world):
+        with open(f"{spec}.{r}") as f:
+            res.append(json.load(f))
+    return res
+
+
+def _rel(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def run_dp(torch):
+    """Data parallelism on the card: which collectives gloo takes on CUDA
+    tensors; gpt2_small at dp=2 (two ranks on cuda:0 over gloo, each on
+    half of the global batch) with the bucketed sync uncompressed and
+    int8 with error feedback, and ZeRO (dp=1 x fsdp=2) with the per-leaf
+    8-bit AdamW, each against one process on the card (this one) fed the
+    same global batches in two microbatches of the ranks' rows: the
+    losses, and the first step's synced grad norm, which a planted fault (an all-gather that returns the local
+    chunk) must fail; a memory save at dp=2 at step 4, both ranks
+    SIGKILLed after step 5, and a fresh pair restoring it from the
+    saver's shm (this process hosts the saver) whose next losses equal
+    the uninterrupted run's bit for bit; and one rank over NCCL. Three
+    starts of rank processes: the dp=2 jobs, the resume, the NCCL rank."""
+    import tempfile
+
+    from dlrover_tpu_torch.ckpt.saver import AsyncCheckpointSaver
+
+    t0 = time.perf_counter()
+    flat, leaf = "adamw_8bit_flat", "adamw_8bit"
+    # one process on the global batch in two microbatches of the ranks'
+    # rows: the same local grads as the two ranks', so the sync's error
+    # is all that parts the runs
+    ref = {name: _dp_train(torch, dict(name=name, mesh={}, optimizer=opt, steps=n,
+                                       trainer=dict(grad_accum=2)), 0, 1, None)
+           for name, opt, n in (("flat", flat, DP_STEPS), ("leaf", leaf, DP_ZERO_STEPS))}
+    smoke_job = f"smokedp{os.getpid()}"
+    os.environ["DLROVER_TPU_JOB_NAME"] = smoke_job
+    os.environ["DLROVER_TPU_SOCKET_DIR"] = tempfile.mkdtemp(prefix="dlr")
+    ckpt_dir = tempfile.mkdtemp(prefix="dp_ckpt_")
+    AsyncCheckpointSaver.reset()
+    AsyncCheckpointSaver.start_async_saving_ckpt(local_shard_num=2)
+    ck = dict(ckpt_dir=ckpt_dir, comm_overlap=True, save_memory_interval=DP_CKPT_AT,
+              save_storage_interval=1000)
+    # the hook runs before the step's own save: after step 5's loss the
+    # stage of step 4 is committed, then both ranks die
+    two = _dp_spawn("dp2", 2, [
+        dict(kind="probe", name="probe"),
+        dict(kind="train", name="none", mesh=dict(dp=2), optimizer=flat, steps=DP_STEPS,
+             trainer=dict(comm_overlap=True)),
+        dict(kind="train", name="int8", mesh=dict(dp=2), optimizer=flat, steps=DP_STEPS,
+             trainer=dict(comm_overlap=True, grad_compress="int8")),
+        dict(kind="train", name="zero", mesh=dict(fsdp=2), optimizer=leaf, steps=DP_ZERO_STEPS,
+             trainer=dict(comm_overlap=True)),
+        dict(kind="train", name="fault", mesh=dict(dp=2), optimizer=flat, steps=1,
+             trainer=dict(comm_overlap=True), fault="local_all_gather"),
+        dict(kind="train", name="first", mesh=dict(dp=2), optimizer=flat, steps=DP_STEPS,
+             die_after=DP_CKPT_AT + 1, trainer=ck),
+    ], expect_kill=True)
+    refused = sorted({k for r in two for k, v in r["probe"]["ops"].items() if v != "ok"})
+    emit("dp_gloo_cuda", backend=two[0]["probe"]["backend"], ops=two[0]["probe"]["ops"],
+         refused=refused, host_staged=0, ok=not refused)
+    if refused:
+        raise RuntimeError(f"gloo refuses {refused} on CUDA tensors; the sync has no host-staged branch")
+    resumed = _dp_spawn("ckpt_resume", 2, [dict(kind="train", name="resume", mesh=dict(dp=2),
+                                                optimizer=flat, steps=DP_STEPS, trainer=ck)])
+    AsyncCheckpointSaver.reset()
+    nccl = _dp_spawn("nccl", 1, [dict(kind="nccl", name="nccl", port=_free_port())],
+                     backend="")[0]["nccl"]
+
+    fails = []
+    for name, rname, tol in (("none", "flat", LOSS_MATCH_RTOL), ("int8", "flat", DP_INT8_RTOL),
+                             ("zero", "leaf", LOSS_MATCH_RTOL)):
+        want = ref[rname]["losses"]
+        per_rank = [r[name] for r in two]
+        rel = [_rel(r["losses"], want) for r in per_rank]
+        same = per_rank[0]["losses"] == per_rank[1]["losses"]
+        # the first step's synced norm against the one process's: f32
+        # syncs to DP_GNORM_RTOL; int8 within the norm of the ranks' mean
+        # quantization error (synced = exact mean - mean residual, so
+        # the norms differ by at most the mean of the residuals' norms)
+        g_ref = ref[rname]["grad_norms"][0]
+        g_diff = max(abs(r["grad_norms"][0] - g_ref) for r in per_rank)
+        g_tol = DP_GNORM_RTOL * g_ref
+        if name == "int8":
+            g_tol += statistics.mean(r["first_residual_norm"] for r in per_rank)
+        L = 12  # gpt2_small's layers
+        expect_fa = L * len(want)
+        ok = (all(len(r["losses"]) == len(want) for r in per_rank) and max(rel) <= tol and same
+              and g_diff <= g_tol
+              and all(r["grad_sync_path"] == "explicit" for r in per_rank)
+              and all(r["launches"]["fa_fwd"] == expect_fa for r in per_rank))
+        emit("dp_train", run=name, world=2, mesh=dict(dp=2) if name != "zero" else dict(fsdp=2),
+             optimizer=leaf if name == "zero" else flat,
+             batch=DP_B, rows_per_rank=DP_B // 2, seq=DP_T, losses=per_rank[0]["losses"],
+             reference_losses=want, reference_median_step_ms=ref[rname]["median_step_ms"],
+             max_rel_diff=max(rel), tol=tol, ranks_agree=same,
+             first_grad_norm=[r["grad_norms"][0] for r in per_rank],
+             reference_first_grad_norm=g_ref, first_grad_norm_abs_diff=g_diff,
+             first_grad_norm_tol=g_tol,
+             first_residual_norm=[r["first_residual_norm"] for r in per_rank],
+             median_step_ms=[r["median_step_ms"] for r in per_rank],
+             grad_sync_ms=[r["grad_sync_ms"] for r in per_rank],
+             comm_overlap_pct=per_rank[0]["comm_overlap_pct"], buckets=per_rank[0]["buckets"],
+             plan=per_rank[0]["plan"], grad_bytes_raw=per_rank[0]["grad_bytes_raw"],
+             grad_bytes_wire=per_rank[0]["grad_bytes_wire"],
+             residual_norm=[r["residual_norm"] for r in per_rank],
+             launches=[r["launches"] for r in per_rank],
+             collectives=[r["collectives"] for r in per_rank],
+             peak_bytes=[r["peak_bytes"] for r in per_rank],
+             resident_bytes=[r["resident_bytes"] for r in per_rank],
+             reference_peak_bytes=ref[rname]["peak_bytes"],
+             reference_resident_bytes=ref[rname]["resident_bytes"], ok=ok)
+        if not ok:
+            fails.append(name)
+    # the planted fault must fail the first-step norm check
+    g_ref = ref["flat"]["grad_norms"][0]
+    f_diff = max(abs(r["fault"]["grad_norms"][0] - g_ref) for r in two)
+    caught = f_diff > DP_GNORM_RTOL * g_ref
+    emit("dp_fault", fault="all-gather returns the local chunk", run="none", steps=1,
+         first_grad_norm=[r["fault"]["grad_norms"][0] for r in two], reference_first_grad_norm=g_ref,
+         abs_diff=f_diff, tol=DP_GNORM_RTOL * g_ref, caught=caught, ok=caught)
+    if not caught:
+        fails.append("fault")
+    uninterrupted = two[0]["none"]["losses"]
+    ck_ok = (all(r["first"]["losses"][:DP_CKPT_AT] == uninterrupted[:DP_CKPT_AT] for r in two)
+             and all(r["resume"]["restored_step"] == DP_CKPT_AT for r in resumed)
+             and all(r["resume"]["restore_source"] == "memory" for r in resumed)
+             and all(r["resume"]["losses"] == uninterrupted[DP_CKPT_AT:] for r in resumed))
+    emit("dp_ckpt", world=2, saved_at=DP_CKPT_AT, killed="SIGKILL both ranks after step 5",
+         restored=[r["resume"]["restored_step"] for r in resumed],
+         source=[r["resume"]["restore_source"] for r in resumed],
+         resumed_losses=resumed[0]["resume"]["losses"],
+         uninterrupted_losses=uninterrupted[DP_CKPT_AT:], bitwise=ck_ok, ok=ck_ok)
+    if not ck_ok:
+        fails.append("ckpt")
+    n_ok = (nccl["backend"] == "nccl" and nccl["init_elastic_world"] == 1
+            and nccl["trainer_grad_sync_path"] == "gspmd" and len(nccl["trainer_losses"]) == 2
+            and all(math.isfinite(x) for x in nccl["trainer_losses"])
+            and all(v["ok"] for v in nccl["sync"].values()))
+    emit("dp_nccl", world=1, trainer=dict(strategy="dp=1", comm_overlap=True,
+                                          grad_sync_path=nccl["trainer_grad_sync_path"],
+                                          note="dp = 1: the plan resolves to the default path",
+                                          losses=nccl["trainer_losses"]),
+         backend=nccl["backend"], sync=nccl["sync"], ok=n_ok)
+    if not n_ok:
+        fails.append("nccl")
+    emit("dp", seconds=time.perf_counter() - t0, host_staged=0, never_on_a_card=[
+        "NCCL at world size > 1", "two-level plans (a hybrid dp axis) across real nodes"],
+        ok=not fails)
+    if fails:
+        raise RuntimeError(f"the dp phase failed: {fails}")
+
+
 def build_kernels():
     """Every kernel source, built at once: one nvcc for each ``.cu`` and
     g++ for the embedding store's ``kv_store.cc``."""
@@ -1808,6 +2266,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if "--dp-worker" in sys.argv:  # one rank of the dp phase
+        i = sys.argv.index("--dp-worker")
+        dp_worker(sys.argv[i + 1], int(sys.argv[i + 2]))
+        return 0
     from dlrover_tpu_torch.ops import embedding_rows as er
     from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import quantized_optim as qo
@@ -1822,9 +2284,12 @@ def main() -> int:
     build_kernels()
     if "--phase" in sys.argv:  # one phase alone; the contract's lines need a full run
         phase = sys.argv[sys.argv.index("--phase") + 1]
-        if phase not in ("flash_ckpt", "evict"):
+        if phase not in ("flash_ckpt", "evict", "dp"):
             raise SystemExit(f"unknown phase {phase!r}")
-        run_flash_ckpt(torch, phase)
+        if phase == "dp":
+            run_dp(torch)
+        else:
+            run_flash_ckpt(torch, phase)
         emit("timing", total_s=time.perf_counter() - T0)
         return 0
 
@@ -1857,6 +2322,7 @@ def main() -> int:
         raise RuntimeError("adamw_8bit's losses leave adamw_8bit_flat's")
     emb_counts = run_sparse_full(torch, er, profile="--profile" in sys.argv)
     run_sparse_spill(torch)
+    run_dp(torch)
     run_flash_ckpt(torch)
 
     src_fa = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"

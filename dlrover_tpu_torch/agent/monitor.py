@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import threading
 import time
 
 from dlrover_tpu_torch.common.constants import ConfigPath
@@ -57,7 +58,10 @@ def atomic_write_json(path: str, payload, durable: bool = False) -> None:
     d = os.path.dirname(path)
     if d:
         os.makedirs(d, exist_ok=True)
-    tmp = f"{path}.tmp.{os.getpid()}"
+    # a tmp file per thread: the span heartbeat's thread and the train
+    # loop publish the same file, and a shared tmp name lets one's
+    # rename take the other's file away (its rename then raises)
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
     with open(tmp, "w") as f:
         json.dump(payload, f)
         if durable:

@@ -2,7 +2,9 @@
 ``dlrover_tpu/ckpt/sharding.py``).
 
 A state is a dict, nested or flat, whose leaves are tensors (on one
-device) or host values (Python numbers, numpy arrays). Its record paths
+device), runs of a bigger leaf (``BlockLeaf``: a ZeRO shard, recorded
+as blocks of the leaf's own shape) or host values (Python numbers,
+numpy arrays). Its record paths
 are the ``/``-joined key paths with keys sorted, as JAX flattens a dict
 pytree, so a checkpoint reads the same way in both packages. On one
 device every leaf is one record with its full index
@@ -59,6 +61,60 @@ class ShardRecord:
         return tuple(hi - lo for lo, hi in self.index)
 
 
+@dataclass
+class BlockLeaf:
+    """A tensor that holds a run of a bigger leaf's row-major flatten (a
+    ZeRO shard): the leaf's global shape and the run ``[lo, hi)``, whose
+    elements are the tensor's first ``hi - lo`` (any rest is padding and
+    is never recorded). As a state leaf it is recorded, and restored, as
+    the blocks of the leaf's own shape that tile the run
+    (``flat_boxes``), so a reader of either package assembles the leaf
+    from the records of all its owners."""
+
+    tensor: Any
+    global_shape: Tuple[int, ...]
+    lo: int
+    hi: int
+
+    def blocks(self) -> List[Tuple[Index, Any]]:
+        """``(index, view)`` of each block of the run, in order: ``view``
+        is the block's part of the tensor, in the block's shape."""
+        flat = self.tensor.detach().reshape(-1)
+        out, off = [], 0
+        for box in flat_boxes(self.global_shape, self.lo, self.hi):
+            shape = tuple(hi - lo for lo, hi in box)
+            n = int(np.prod(shape, dtype=np.int64))
+            out.append((box, flat[off:off + n].view(shape)))
+            off += n
+        return out
+
+
+def flat_boxes(shape: Tuple[int, ...], lo: int, hi: int) -> List[Index]:
+    """The blocks (indexes in ``shape``) that tile elements ``[lo, hi)``
+    of its row-major flatten, in flatten order: at most two partial rows
+    of each dim around whole rows."""
+    if lo >= hi:
+        return []
+    if not shape:
+        return [()]
+    inner = int(np.prod(shape[1:], dtype=np.int64))
+    rest = full_index(shape[1:])
+    out: List[Index] = []
+    r = lo // inner
+    if lo % inner:  # a partial first row
+        stop = min(hi, (r + 1) * inner)
+        out += [((r, r + 1),) + b for b in flat_boxes(shape[1:], lo - r * inner, stop - r * inner)]
+        r += 1
+        if stop == hi:
+            return out
+    if hi // inner > r:  # whole rows
+        out.append(((r, hi // inner),) + rest)
+        r = hi // inner
+    if hi % inner:  # a partial last row
+        out += [((r, r + 1),) + b for b in flat_boxes(shape[1:], 0, hi - r * inner)]
+    return out
+
+
 def dtype_name(path: str, dtype: torch.dtype) -> str:
     """The numpy name of a tensor dtype. A dtype numpy cannot name
     without ``ml_dtypes`` (bfloat16, the float8s) raises, naming the
@@ -105,25 +161,30 @@ def _unflatten_like(state: Dict, values: Dict[str, Any]) -> Dict:
     return walk("", state)
 
 
-def _record_for(path: str, leaf) -> Tuple[ShardRecord, Any]:
-    """(record without data, source): the live tensor, or a host copy."""
+def _records_for(path: str, leaf) -> List[Tuple[ShardRecord, Any]]:
+    """[(record without data, source)]: the live tensor (a block's view
+    of it), or a host copy."""
     import torch
 
+    if isinstance(leaf, BlockLeaf):
+        dt = dtype_name(path, leaf.tensor.dtype)
+        shape = tuple(leaf.global_shape)
+        return [(ShardRecord(path, shape, dt, box), view) for box, view in leaf.blocks()]
     if isinstance(leaf, torch.Tensor):
         shape = tuple(leaf.shape)
         rec = ShardRecord(path, shape, dtype_name(path, leaf.dtype), full_index(shape))
-        return rec, leaf.detach()
+        return [(rec, leaf.detach())]
     arr = np.array(leaf)  # eager copy: host leaves are small and mutable
     rec = ShardRecord(path, tuple(arr.shape), str(arr.dtype), full_index(arr.shape))
-    return rec, arr
+    return [(rec, arr)]
 
 
 def host_shard_plan(state: Dict) -> List[Tuple[ShardRecord, Any]]:
-    """Each leaf's record (``data`` None) and its source: the live
+    """Each leaf's records (``data`` None) and their sources: the live
     tensor, still on its device, or a host copy of a host leaf taken now
     (the sampler state moves on; the snapshot must be of save time). The
     chunked stager (``ckpt/engine.py``) copies the tensors itself."""
-    return [_record_for(path, leaf) for path, leaf in flatten_state(state)]
+    return [item for path, leaf in flatten_state(state) for item in _records_for(path, leaf)]
 
 
 def host_shard_records(state: Dict) -> List[ShardRecord]:
@@ -146,6 +207,9 @@ def host_shard_index_set(state: Dict) -> set:
 
     out = set()
     for path, leaf in flatten_state(state):
+        if isinstance(leaf, BlockLeaf):
+            out.update((path, box) for box, _ in leaf.blocks())
+            continue
         shape = leaf.shape if isinstance(leaf, torch.Tensor) else np.shape(leaf)
         out.add((path, full_index(shape)))
     return out
@@ -253,6 +317,15 @@ def restore_state(
     with torch.no_grad():
         for path, leaf in flatten_state(target):
             recs = read_records(path)
+            if isinstance(leaf, BlockLeaf):
+                t = leaf.tensor
+                dt = dtype_name(path, t.dtype)
+                _check_records(path, tuple(leaf.global_shape), dt, recs)
+                for box, view in leaf.blocks():
+                    block = assemble_leaf(tuple(leaf.global_shape), dt, box, recs)
+                    (cuda_items if t.device.type == "cuda" else cpu_items).append((view, block))
+                values[path] = leaf
+                continue
             if isinstance(leaf, torch.Tensor):
                 if not leaf.is_contiguous():
                     raise ValueError(f"restore target {path!r} is not contiguous")

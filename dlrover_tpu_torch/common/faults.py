@@ -26,8 +26,11 @@ Kinds: ``enospc`` / ``io_error`` raise ``OSError``; ``delay`` sleeps
 fixed-size sites); ``bit_flip`` flips one seeded bit; ``kill`` is a
 hard process death (``os._exit(137)``, no atexit, no flushes), a
 SIGKILL / OOM-killer / hard-preemption stand-in at sites like
-``node.preempt``. (The JAX package's ``scale`` kind serves a site the
-port does not have yet.) Control kinds fire through
+``node.preempt``; ``scale`` multiplies a deterministic slice of a
+numeric array by ``SCALE_FACTOR`` at :func:`corrupt_array` sites (raw
+bytes have no dtype to scale), and at ``device.sdc`` the train step
+reads it as one lane's gradient scale (``parallel/sdc.py``
+``injection_plan``). Control kinds fire through
 :func:`fire`; data kinds act only where a payload passes through
 :func:`corrupt` / :func:`corrupt_array`. Every triggered fault counts
 into ``obs.metrics`` (``dlrover_faults_triggered_total{site,kind}``).
@@ -54,8 +57,13 @@ ENV_VAR = "DLROVER_TPU_FAULTS"
 # race windows deterministically, not to stall test suites)
 DELAY_S = 0.05
 
-KINDS = ("enospc", "io_error", "delay", "torn_write", "bit_flip", "kill")
-_DATA_KINDS = ("torn_write", "bit_flip")
+KINDS = ("enospc", "io_error", "delay", "torn_write", "bit_flip", "scale", "kill")
+_DATA_KINDS = ("torn_write", "bit_flip", "scale")
+
+# the ``scale`` kind's corruption factor: large enough that a robust
+# z-score over replica peers saturates, small enough to stay finite
+# through a full fp32 backward pass (the point of the kind)
+SCALE_FACTOR = 32.0
 
 # the registered sites — arming a typo'd site is a hard error, so a
 # test can never silently test nothing
@@ -71,6 +79,8 @@ FAULT_SITES = frozenset(
         "rendezvous.join",  # agent's join-rendezvous report
         "prefetch.pull",  # prefetch producer's source pull
         "node.preempt",  # trainer step boundary (preemption arrival)
+        "device.sdc",  # one device silently computing wrong numbers
+        # (``scale`` corrupts that lane's local gradient)
         "embedding.export",  # embedding ckpt bytes → storage (data
         # kinds corrupt the serialized npz/delta payload)
         "embedding.import",  # embedding ckpt read leg (restore)
@@ -227,6 +237,16 @@ class FaultInjector:
         logger.warning(f"fault injected: {site}:{kind}")
 
     # -- firing --------------------------------------------------------
+    def active(self) -> bool:
+        return bool(self._by_site or self._wildcards)
+
+    def specs(self) -> List[FaultSpec]:
+        with self._lock:
+            out = [a.spec for a in self._wildcards]
+            for lst in self._by_site.values():
+                out.extend(a.spec for a in lst)
+            return out
+
     def _armed_for(self, site: str) -> List[_Armed]:
         with self._lock:
             return list(self._by_site.get(site, ())) + list(
@@ -274,6 +294,10 @@ class FaultInjector:
                 if armed.draw():
                     self._raise_or_delay(site, armed)
                 continue
+            if kind == "scale":
+                # raw bytes carry no dtype to scale — the kind only
+                # acts at corrupt_array sites
+                continue
             if not armed.draw():
                 continue
             self._count(site, kind)
@@ -305,6 +329,19 @@ class FaultInjector:
             if not armed.draw():
                 continue
             self._count(site, kind)
+            if kind == "scale":
+                # operate on the TYPED values, not the byte view: the
+                # corruption must stay finite and dtype-shaped
+                typed = np.ascontiguousarray(arr).reshape(-1).copy()
+                if typed.size == 0 or not np.issubdtype(typed.dtype, np.number):
+                    continue
+                span = max(1, typed.size // 8)
+                start = int(armed.uniform() * max(1, typed.size - span)) % typed.size
+                typed[start:start + span] = (
+                    typed[start:start + span] * typed.dtype.type(SCALE_FACTOR)
+                )
+                arr = typed
+                continue
             flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
             flat = flat.copy()
             if flat.size == 0:
@@ -357,6 +394,10 @@ def reset():
     global _env_loaded
     _env_loaded = True  # an explicit reset wins over the env
     _injector.clear()
+
+
+def active() -> bool:
+    return _active
 
 
 def fire(site: str):

@@ -9,6 +9,11 @@ for leaf: shapes must agree exactly and no leaf may be left over.
 ``TrainState`` tree (params, the optimizer's state, the step and
 schedule counts), which is what a checkpoint of either package holds;
 ``state_from_jax_checkpoint`` reads a JAX checkpoint into the port.
+``load_jax_train_state`` / ``jax_train_state`` carry a whole JAX dp or
+dp x fsdp train state to a rank of the port and back: under ZeRO each
+rank holds its block rows of every leaf (the per-leaf 8-bit codes and
+scales included), and the int8 sync's residual moves between the two
+packages' per-bucket layouts element for element.
 Optimizer state maps form for form: ``Adam8FlatState`` to
 ``adamw_8bit_flat`` (the same group layout), ``Adam8State`` to
 ``adamw_8bit``, optax's Adam to ``torch.optim.AdamW``, optax's momentum
@@ -148,12 +153,13 @@ def _sgd_buffers(opt, params):
     return bufs
 
 
-def _inner_tree(inner, model: Transformer) -> Dict[str, Any]:
+def _inner_tree(inner, model: Transformer, params) -> Dict[str, Any]:
     """The optimizer's own state as the JAX package's ``inner_state/0``
-    (the chain ``(optimizer, scale(retune_scale))``'s first element)."""
+    (the chain ``(optimizer, scale(retune_scale))``'s first element);
+    ``params`` are the optimizer's, in the JAX order (the leaves, or
+    under ZeRO their shards)."""
     from dlrover_tpu_torch.ops import quantized_optim as qo
 
-    params = [p for _, p in _param_paths(model)]
     if isinstance(inner, qo.adamw_8bit_flat):  # Adam8FlatState
         return {
             "count": np.asarray(inner.count, np.int32),
@@ -187,32 +193,88 @@ def _inner_tree(inner, model: Transformer) -> Dict[str, Any]:
     )
 
 
-def train_state_tree(state) -> Dict[str, Any]:
+def train_state_tree(state, mesh=None) -> Dict[str, Any]:
     """A port ``TrainState`` as the JAX package's ``TrainState`` tree:
     the same nesting and leaf paths (``params/layers/0/attn/wq``,
     ``opt_state/inner_state/0/mu/0/0``, ...), dtypes and shapes. Tensor
     leaves are the live tensors (a restore fills them in place); the
     host values (step, counts, the learning rate and retune scale of
     ``build_optimizer``'s ``ScheduledOptimizer``) are numpy scalars of
-    the JAX dtypes. The optimizer must come from ``build_optimizer``."""
+    the JAX dtypes. The optimizer must come from ``build_optimizer``.
+
+    Under ZeRO (``state.shards``) the tensors are this rank's shards.
+    With ``mesh``, the tree is what this rank stages: a replicated
+    tensor only on the first rank of its replica set (the data axes, or
+    dp under ZeRO), a shard as a ``BlockLeaf`` holding its run of the
+    JAX leaf's row-major flatten (recorded as blocks of the JAX leaf's
+    shape, so the JAX package's reader assembles the whole leaf from
+    every owner's records; a run wholly in the padding is left out), and
+    the host values on every rank. The residual
+    (``state.grad_residual``) is never part of it."""
     opt = state.opt_state
     if not hasattr(opt, "lr_fn"):
         raise NotImplementedError(
             "checkpointing needs the optimizer of build_optimizer (the "
             "JAX package's inject_hyperparams state)"
         )
-    return {
+    params = state.shards if state.shards is not None else [
+        p for _, p in _param_paths(state.params)
+    ]
+    tree = {
         "step": np.asarray(state.step, np.int32),
-        "params": _by_param(state.params, [p for _, p in _param_paths(state.params)]),
+        "params": _by_param(state.params, params),
         "opt_state": {
             "count": np.asarray(opt.count, np.int32),
             "hyperparams": {
                 "learning_rate": np.asarray(opt.learning_rate, np.float32),
                 "retune_scale": np.asarray(opt.retune_scale, np.float32),
             },
-            "inner_state": {"0": _inner_tree(opt.opt, state.params)},
+            "inner_state": {"0": _inner_tree(opt.opt, state.params, params)},
         },
     }
+    if mesh is None:
+        return tree
+    return _rank_tree(tree, mesh, _param_paths(state.params) if state.shards is not None else None)
+
+
+def replica_group(mesh, zero: bool) -> str:
+    """The mesh group a replicated tensor of the state is shared over:
+    dp under ZeRO (its shards differ over fsdp), else the data axes."""
+    return "dp" if zero else "data"
+
+
+def _rank_tree(tree, mesh, params=None):
+    """``tree`` as this rank stages it (see ``train_state_tree``);
+    ``params`` (the model's ``_param_paths``) under ZeRO."""
+    from dlrover_tpu_torch.ckpt.sharding import BlockLeaf
+
+    zero = params is not None
+    stager = mesh.group_index(replica_group(mesh, zero)) == 0
+    f = mesh.group_index("fsdp")
+
+    def block(path, t):
+        # this rank's run of the JAX leaf's row-major flatten: fsdp equal
+        # runs of the padded flatten, the padding never recorded
+        shape = _jax_shape(path, t, params)
+        n = t.numel()
+        lo, hi = f * n, min((f + 1) * n, int(np.prod(shape)))
+        return BlockLeaf(t, shape, lo, hi) if lo < hi else None
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                w = walk(f"{prefix}/{k}" if prefix else k, v)
+                if w is not None:
+                    out[k] = w
+            return out
+        if isinstance(node, torch.Tensor):
+            if not stager:
+                return None
+            return block(prefix, node) if zero else node
+        return node
+
+    return walk("", tree)
 
 
 def load_train_state_tree(state, tree: Dict[str, Any]) -> None:
@@ -234,6 +296,110 @@ def load_train_state_tree(state, tree: Dict[str, Any]) -> None:
     elif isinstance(inner, torch.optim.AdamW):
         for p in inner.param_groups[0]["params"]:
             inner.state[p]["step"].fill_(float(io["0"]["count"]))
+
+
+# ---------------------------------------------------------------------------
+# a JAX dp or dp x fsdp train state, whole, to this rank and back
+# ---------------------------------------------------------------------------
+def _jax_shape(path: str, t: torch.Tensor, params) -> tuple:
+    """The JAX package's shape of the state leaf at ``path`` whose port
+    tensor (a ZeRO shard) is ``t``: its param's shape, or its 8-bit
+    codes' ``(blocks, 128)`` / scales' ``(blocks, 1)``."""
+    for pp, p in params:
+        for suffix, kind in ((pp, "leaf"), (pp + "/0", "codes"), (pp + "/1", "scales")):
+            if path == suffix or path.endswith("/" + suffix):
+                if kind == "leaf" and t.dim() == 1:
+                    return tuple(p.shape)
+                if kind != "leaf" and t.dim() == 2:
+                    blocks = -(-p.numel() // 128)
+                    return (blocks, 128) if kind == "codes" else (blocks, 1)
+    raise ValueError(f"no JAX leaf for the port's state leaf {path!r}")
+
+
+def load_jax_train_state(state, leaves: Dict[str, np.ndarray], mesh=None, plan=None) -> None:
+    """Fill this rank's ``state`` from a whole JAX ``TrainState``:
+    ``leaves`` maps each of its leaf paths (``params/layers/0/attn/wq``,
+    ``opt_state/inner_state/0/mu/...``, ``step``, ...; the paths of its
+    checkpoint records) to the full numpy array. Under ZeRO each tensor
+    takes its rank's block rows of the leaf's padded row-major flatten
+    (params, the per-leaf 8-bit codes and scales, f32 moments), and the
+    next step gathers the module's params from them; off ZeRO the params
+    fill the module. ``leaves["grad_residual"]``, when given, is
+    the JAX package's per-bucket ``(total, shard_elems)`` residual list,
+    which ``plan``'s layout takes element for element."""
+    from dlrover_tpu_torch.ckpt.sharding import flatten_state
+
+    zero = state.shards is not None
+    F = mesh.config.fsdp if zero else 1
+    f = mesh.group_index("fsdp") if zero else 0
+    with torch.no_grad():
+        if not zero:  # under ZeRO the shards carry the params
+            for pp, p in _param_paths(state.params):
+                p.copy_(torch.from_numpy(np.asarray(leaves["params/" + pp], np.float32)).to(p.dtype))
+        tree = train_state_tree(state)
+        for path, t in flatten_state(tree):
+            a = np.asarray(leaves[path])
+            if not isinstance(t, torch.Tensor):
+                node, parts = tree, path.split("/")
+                for part in parts[:-1]:
+                    node = node[part]
+                node[parts[-1]] = a
+                continue
+            if zero:
+                flat = np.pad(a.reshape(-1), (0, F * t.numel() - a.size))
+                a = flat.reshape((F,) + tuple(t.shape))[f]
+            t.copy_(torch.from_numpy(np.ascontiguousarray(a)).view(t.shape))
+    load_train_state_tree(state, tree)
+    if leaves.get("grad_residual") is not None and plan is not None:
+        from dlrover_tpu_torch.parallel.grad_sync import residual_from_jax
+
+        dev = state.params.jax_ordered_parameters()[0].device
+        state.grad_residual = residual_from_jax(
+            plan, leaves["grad_residual"], mesh.data_index, device=dev
+        )
+
+
+def jax_train_state(state, mesh=None, plan=None) -> Dict[str, np.ndarray]:
+    """The whole JAX ``TrainState`` of a port run, by leaf path (the
+    inverse of ``load_jax_train_state``; every rank of the mesh must
+    call it): under ZeRO each leaf's rows are gathered over fsdp and cut
+    back to the JAX shape, and ``grad_residual``, when the state carries
+    one, is gathered over the data axes into the JAX package's
+    per-bucket ``(total, shard_elems)`` arrays (None without one)."""
+    from dlrover_tpu_torch.ckpt.sharding import flatten_state
+    from dlrover_tpu_torch.parallel.grad_sync import _all_gather, residual_to_jax
+
+    zero = state.shards is not None
+    params = _param_paths(state.params)
+    out: Dict[str, np.ndarray] = {}
+    for path, t in flatten_state(train_state_tree(state)):
+        if not isinstance(t, torch.Tensor):
+            out[path] = np.asarray(t)
+            continue
+        a = t.detach()
+        if zero and mesh.groups["fsdp"] is not None:
+            full, h = _all_gather(a.reshape(-1), mesh.groups["fsdp"])
+            h.wait()
+            shape = _jax_shape(path, t, params)
+            a = full[:int(np.prod(shape))].view(shape)
+        out[path] = a.cpu().numpy().copy()
+    out["grad_residual"] = None
+    if state.grad_residual is not None and plan is not None:
+        rows = []
+        for r in state.grad_residual:
+            g = mesh.groups["data"]
+            if g is None:
+                rows.append(r.detach().reshape(1, -1))
+                continue
+            full, h = _all_gather(r.detach().reshape(-1), g)
+            h.wait()
+            # group rank order is sorted rank order: back to mesh order
+            order = sorted(mesh.ranks["data"])
+            full = full.view(len(order), -1)
+            rows.append(full[[order.index(x) for x in mesh.ranks["data"]]])
+        lanes = [[rows[b][ln].cpu().numpy() for b in range(len(rows))] for ln in range(plan.total)]
+        out["grad_residual"] = residual_to_jax(plan, lanes)
+    return out
 
 
 def _read_checkpoint_records(ckpt_dir: str):

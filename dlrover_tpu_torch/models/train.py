@@ -1,20 +1,51 @@
-"""Single-device training step (counterpart of
-``dlrover_tpu/models/train.py``: ``TrainState``, state init and
-``build_train_step`` with the semantics of its default path,
-``gspmd_grads`` + ``train_step``, on one device; there is no mesh).
+"""The training step (counterpart of ``dlrover_tpu/models/train.py``:
+``TrainState``, state init and ``build_train_step``).
+
+One process drives one device and computes the gradients of its own
+rows of the global batch (``parallel/mesh.batch_sharding``). The step
+has the JAX package's two paths:
+
+- **explicit** (a ``grad_sync`` plan, ``comm_overlap`` on a mesh with a
+  data axis): local gradients, accumulated in f32 across the
+  ``grad_accum`` microbatches with no collective, then ONE bucketed
+  ``sync_grads`` per optimizer step (the JAX package's
+  ``synced_grads``). The error-feedback residual is used only when the
+  plan's resolved mode compresses. With the SDC switch on
+  (``parallel/sdc.py``) the ``device.sdc`` fault's lane scales its
+  local gradient before the sync and the metrics carry the per-lane
+  pre-sync norms (``sdc_device_norms``);
+- **default** (no plan; the JAX package's ``gspmd_grads``): the mean
+  over the data axes per microbatch, one all-reduce of the whole
+  gradient tree each, the un-overlapped baseline the explicit path is
+  measured against. At world size 1 it is the single-device step.
+
+The loss and every metric are global means over the data axes.
+
+ZeRO (a plan of kind ``zero``, dp x fsdp): between steps the optimizer
+and its state hold only this rank's block rows of each leaf
+(``TrainState.shards``, ``BucketPlan.leaf_shard`` elements each, whole
+128-element blocks of the row-major flatten), so the per-leaf 8-bit
+AdamW quantizes the same blocks as on the whole leaf. The full params
+(``TrainState.params``) are gathered over fsdp before each forward
+(``gather_params``) and their storage is released once the backward
+has made the local gradients (``free_params``): between steps, and
+through the sync and the update, a rank holds only its shards. Code
+that reads the module between steps gathers first.
 
 ``tx`` is an optimizer factory: a callable that takes the parameters in
-the JAX flatten order and returns an optimizer with ``step()``
-(``trainer.elastic.trainer.build_optimizer`` makes one, and so does
-``functools.partial`` over any ``torch.optim`` class).
+the JAX flatten order (or, under ZeRO, their shards) and returns an
+optimizer with ``step()`` (``trainer.elastic.trainer.build_optimizer``
+makes one, and so does ``functools.partial`` over any ``torch.optim``
+class).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from dlrover_tpu_torch.models.config import TransformerConfig
 from dlrover_tpu_torch.models.transformer import (
@@ -30,23 +61,92 @@ from dlrover_tpu_torch.utils.device import resolve_device
 class TrainState:
     step: int
     params: Transformer
-    opt_state: Any  # the optimizer bound to ``params``
+    opt_state: Any  # the optimizer bound to ``params`` (or ``shards``)
+    # error-feedback residual of the int8-compressed gradient sync
+    # (parallel/grad_sync.py): this rank's per-bucket (shard_elems,)
+    # f32 rows, carried across steps so quantization noise cancels
+    # instead of biasing the trajectory. None unless attached by
+    # ``grad_sync.ensure_residual``; never checkpointed.
+    grad_residual: Any = None
+    # ZeRO: this rank's block rows of each leaf (1-D, whole blocks), the
+    # tensors the optimizer updates; None off the zero kind
+    shards: Optional[List[torch.Tensor]] = None
 
 
 def init_state(
-    cfg: TransformerConfig, tx: Callable, seed: int = 0, devices=None
+    cfg: TransformerConfig, tx: Callable, seed: int = 0, devices=None,
+    mesh=None, plan=None,
 ) -> TrainState:
     """Params from ``torch.Generator().manual_seed(seed)`` on the device
-    (the card unless ``devices="cpu"``) and the optimizer over them."""
+    (the card unless ``devices="cpu"``) and the optimizer over them (or,
+    on a zero ``plan``, over this rank's shards of them)."""
     device = resolve_device(devices)
     params = init_params(torch.Generator().manual_seed(seed), cfg, device)
-    return state_from_params(params, tx)
+    return state_from_params(params, tx, mesh, plan)
 
 
-def state_from_params(params: Transformer, tx: Callable) -> TrainState:
-    return TrainState(
-        step=0, params=params, opt_state=tx(params.jax_ordered_parameters())
-    )
+def _zero(plan) -> bool:
+    return plan is not None and plan.kind == "zero"
+
+
+def leaf_shards(leaves, mesh, plan) -> List[torch.Tensor]:
+    """This rank's block rows of each leaf (its fsdp index's run of
+    ``plan.leaf_shard(i)`` elements of the padded row-major flatten).
+    Each shard carries its whole leaf's size in ``leaf_numel`` (the
+    8-bit AdamW decides quantization on it, as on the whole leaf)."""
+    f = mesh.group_index("fsdp")
+    out = []
+    for i, p in enumerate(leaves):
+        flat = F.pad(p.detach().reshape(-1), (0, plan.leaf_padded(i) - p.numel()))
+        sh = plan.leaf_shard(i)
+        s = flat[f * sh:(f + 1) * sh].clone()
+        s.leaf_numel = p.numel()
+        out.append(s)
+    return out
+
+
+def state_from_params(params: Transformer, tx: Callable, mesh=None, plan=None) -> TrainState:
+    leaves = params.jax_ordered_parameters()
+    if _zero(plan):
+        shards = leaf_shards(leaves, mesh, plan)
+        state = TrainState(step=0, params=params, opt_state=tx(shards), shards=shards)
+        free_params(state)
+        return state
+    return TrainState(step=0, params=params, opt_state=tx(leaves))
+
+
+def free_params(state: TrainState) -> None:
+    """ZeRO: release the full params' storage; their shapes stay, and
+    ``gather_params`` fills them again."""
+    for p in state.params.jax_ordered_parameters():
+        p.untyped_storage().resize_(0)
+
+
+def gather_params(state: TrainState, mesh, plan) -> None:
+    """ZeRO: the full params from every fsdp rank's shards (one
+    all-gather a bucket over fsdp, issued together), into storage
+    allocated again where ``free_params`` released it."""
+    from dlrover_tpu_torch.parallel.grad_sync import _all_gather, _wait
+
+    leaves = state.params.jax_ordered_parameters()
+    for p in leaves:
+        if p.untyped_storage().nbytes() == 0:
+            p.untyped_storage().resize_(p.numel() * p.element_size())
+    group = mesh.groups["fsdp"]
+    pending = []
+    for b in plan.buckets:
+        chunk = torch.cat([state.shards[i].reshape(-1).float() for i in range(b.start, b.stop)])
+        chunk = F.pad(chunk, (0, b.padded // plan.fsdp - chunk.numel()))
+        pending.append((b, *_all_gather(chunk, group)))
+    _wait([h for _, _, h in pending])
+    with torch.no_grad():
+        for b, full, _ in pending:
+            rows = full.view(plan.fsdp, -1)
+            off = 0
+            for i in range(b.start, b.stop):
+                sh, p = plan.leaf_shard(i), leaves[i]
+                p.copy_(rows[:, off:off + sh].reshape(-1)[:p.numel()].view(p.shape))
+                off += sh
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -54,57 +154,148 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
+def _flat_all_reduce_mean(grads: List[torch.Tensor], group, n: int) -> List[torch.Tensor]:
+    """The mean over the data axes of a whole gradient list: one
+    all-reduce of its concatenation."""
+    from dlrover_tpu_torch.parallel.grad_sync import _all_reduce
+
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    _all_reduce(flat, group).wait()
+    flat /= n
+    out, off = [], 0
+    for g in grads:
+        out.append(flat[off:off + g.numel()].view(g.shape))
+        off += g.numel()
+    return out
+
+
 def build_train_step(
     cfg: TransformerConfig, tx: Callable = None, grad_accum: int = 1,
     before_update: Optional[Callable[[], None]] = None,
+    mesh=None, plan=None,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Tuple[TrainState, Dict]]:
     """``(state, tokens, targets) -> (state, {"loss", "grad_norm"})``,
     updating ``state`` in place (params, optimizer, step count).
+    ``tokens`` / ``targets`` are this rank's rows of the global batch
+    (all of it at world size 1).
 
-    ``grad_accum=K`` splits the batch into K microbatches in order,
-    accumulates their grads in f32 whatever the param dtype, and casts
-    the mean back to the param dtype once before ONE optimizer step.
-    ``tx`` is accepted for the JAX signature; the step uses the
-    optimizer bound in ``state.opt_state``. ``before_update()`` runs
-    after the backward and before the optimizer writes anything (the
-    trainer makes its stream wait there for a checkpoint's copies of
-    the state)."""
+    ``grad_accum=K`` splits the rows into K microbatches in order and
+    accumulates their grads in f32 whatever the param dtype before ONE
+    optimizer step. ``mesh`` (``parallel/mesh.build_mesh``) gives the
+    data axes' groups; ``plan`` (``grad_sync.resolve_plan``) picks the
+    explicit path. ``tx`` is accepted for the JAX signature; the step
+    uses the optimizer bound in ``state.opt_state``. ``before_update()``
+    runs after the gradients are final and before the optimizer writes
+    anything (the trainer makes its stream wait there for a
+    checkpoint's copies of the state)."""
     check_supported(cfg)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if plan is not None and mesh is None:
+        raise ValueError("an explicit gradient-sync plan needs the mesh")
+    data_group = mesh.groups["data"] if mesh is not None else None
+    n_data = mesh.config.dp * mesh.config.fsdp if mesh is not None else 1
 
-    def train_step(state: TrainState, tokens, targets):
-        model = state.params
-        params = model.jax_ordered_parameters()
-        for p in params:
-            p.grad = None
+    def local_grads(model, params, tokens, targets):
+        """(mean loss over this rank's rows, f32-accumulated local grads,
+        or the param-dtype grads at ``grad_accum=1``)."""
         if grad_accum == 1:
             loss = loss_fn(model, tokens, targets, cfg)
-            loss.backward()
-            loss = loss.detach()
+            grads = torch.autograd.grad(loss, params)
+            return loss.detach(), list(grads)
+        B = tokens.shape[0]
+        if B % grad_accum:
+            raise ValueError(f"batch {B} must divide into grad_accum={grad_accum}")
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for x, y in zip(tokens.chunk(grad_accum), targets.chunk(grad_accum)):
+            mb_loss = loss_fn(model, x, y, cfg)
+            grads = torch.autograd.grad(mb_loss, params)
+            torch._foreach_add_(acc, [g.float() for g in grads])
+            loss = loss + mb_loss.detach()
+        return loss / grad_accum, [a / grad_accum for a in acc]
+
+    def default_grads(model, params, tokens, targets):
+        """The mean over the data axes per microbatch (one all-reduce of
+        the whole tree each), f32-accumulated, cast to the param dtype
+        once."""
+        if data_group is None:
+            loss, grads = local_grads(model, params, tokens, targets)
+            return loss, [g.to(p.dtype) for g, p in zip(grads, params)]
+        B = tokens.shape[0]
+        if B % grad_accum:
+            raise ValueError(f"batch {B} must divide into grad_accum={grad_accum}")
+        acc = None
+        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for x, y in zip(tokens.chunk(grad_accum), targets.chunk(grad_accum)):
+            mb_loss = loss_fn(model, x, y, cfg)
+            grads = _flat_all_reduce_mean(
+                list(torch.autograd.grad(mb_loss, params)), data_group, n_data
+            )
+            acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
+            loss = loss + mb_loss.detach()
+        return loss / grad_accum, [(a / grad_accum).to(p.dtype) for a, p in zip(acc, params)]
+
+    def synced_grads(state, model, params, tokens, targets):
+        from dlrover_tpu_torch.parallel import sdc as sdc_mod
+        from dlrover_tpu_torch.parallel.grad_sync import sync_grads
+
+        loss, grads = local_grads(model, params, tokens, targets)
+        if _zero(plan):
+            free_params(state)
+        # residual present => error feedback; gate on the PLAN's
+        # resolved mode, not the request string
+        residual = state.grad_residual if plan.compressed else None
+        if not sdc_mod.enabled():
+            out, new_res, gnorm = sync_grads(grads, mesh, plan, residual=residual)
+            return loss, out, gnorm, new_res, None
+        # the device.sdc fault: lane ``inj.device`` multiplies its LOCAL
+        # gradient by the finite factor from step ``inj.from_step`` on
+        inj = sdc_mod.injection_plan(plan.total)
+        if inj is not None and state.step + 1 >= inj.from_step and mesh.data_index == inj.device:
+            grads = [g * inj.factor for g in grads]
+        out, new_res, gnorm, lanes = sync_grads(
+            grads, mesh, plan, residual=residual, device_norms=True
+        )
+        return loss, out, gnorm, new_res, lanes
+
+    def train_step(state: TrainState, tokens, targets):
+        if _zero(plan):
+            gather_params(state, mesh, plan)
+        model = state.params
+        params = model.jax_ordered_parameters()
+        lanes = None
+        if plan is not None:
+            loss, grads, gnorm, new_res, lanes = synced_grads(
+                state, model, params, tokens, targets
+            )
+            if plan.compressed and state.grad_residual is not None:
+                state.grad_residual = new_res
+            targets_ = state.shards if _zero(plan) else params
         else:
-            B = tokens.shape[0]
-            if B % grad_accum:
-                raise ValueError(
-                    f"batch {B} must divide into grad_accum={grad_accum}"
-                )
-            acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-            for x, y in zip(
-                tokens.chunk(grad_accum), targets.chunk(grad_accum)
-            ):
-                mb_loss = loss_fn(model, x, y, cfg)
-                grads = torch.autograd.grad(mb_loss, params)
-                torch._foreach_add_(acc, [g.float() for g in grads])
-                loss = loss + mb_loss.detach()
-            for p, a in zip(params, acc):
-                p.grad = (a / grad_accum).to(p.dtype)
-            loss = loss / grad_accum
-        gnorm = global_norm(p.grad for p in params)
+            loss, grads = default_grads(model, params, tokens, targets)
+            gnorm = global_norm(grads)
+            targets_ = params
+        for p, g in zip(targets_, grads):
+            p.grad = g.to(p.dtype)
+        if data_group is not None:
+            # the metrics are global means over the data axes
+            from dlrover_tpu_torch.parallel.grad_sync import _all_reduce
+
+            loss = loss.reshape(1).clone()
+            _all_reduce(loss, data_group).wait()
+            loss = (loss / n_data).reshape(())
         if before_update is not None:
             before_update()
         state.opt_state.step()
+        for p in targets_:
+            p.grad = None
         state.step += 1
-        return state, {"loss": loss, "grad_norm": gnorm}
+        metrics = {"loss": loss, "grad_norm": gnorm}
+        if lanes is not None:
+            # SDC tier-1 fence input: each lane's local pre-sync grad
+            # norm, a [plan.total] vector
+            metrics["sdc_device_norms"] = lanes
+        return state, metrics
 
     return train_step

@@ -503,7 +503,10 @@ class adamw_8bit(_Adam8Base):
     128-element block and is updated by one launch of the Triton kernel
     (``adam8_leaf``); smaller leaves keep f32 moments. Numerically the
     same as ``adamw_8bit_flat``: blocks never straddle leaves in either
-    form. ``bits=4`` (``adamw_4bit``) is not ported yet (ROADMAP A4)."""
+    form. ``bits=4`` (``adamw_4bit``) is not ported yet (ROADMAP A4).
+
+    The params may be ZeRO shards (whole blocks of a leaf's row-major
+    flatten): each block is updated as on the whole leaf."""
 
     def __init__(
         self,
@@ -527,7 +530,9 @@ class adamw_8bit(_Adam8Base):
         super().__init__(params, lr, b1, b2, eps, weight_decay, eps_root)
         mu, nu = [], []
         for p in self.param_groups[0]["params"]:
-            if p.numel() < min_quantized_size:
+            # a ZeRO shard (models/train.leaf_shards) decides on its whole
+            # leaf's size, as the JAX package does on the whole leaf
+            if getattr(p, "leaf_numel", p.numel()) < min_quantized_size:
                 mu.append(torch.zeros(p.shape, dtype=torch.float32, device=p.device))
                 nu.append(torch.zeros(p.shape, dtype=torch.float32, device=p.device))
                 continue

@@ -6,10 +6,21 @@ The same entry a user calls on the JAX package::
     ElasticTrainer(model_cfg=gpt2_small(), tx=build_optimizer(...),
                    dataset=..., trainer_cfg=TrainerConfig(...)).train(n)
 
-runs here on one device (the card unless ``devices="cpu"``): the elastic
-sampler and data loader (master-retuned batch size and LR scale), the
-device prefetcher (``prefetch`` batches ahead, ``data/prefetch.py``),
-the step of ``models/train.py``, the LR schedule and retune scale of
+runs here with one process for each device (the card unless
+``devices="cpu"``). ``strategy`` lays the processes of the default
+process group out as a mesh (``accel/strategy.Strategy``; without one,
+``Strategy(mesh=MeshConfig(dp=world_size))``: the search that picks one,
+``auto_accelerate``, is ROADMAP A9): every rank reads the same global
+batch from the elastic sampler and trains on its own rows of it
+(``parallel/mesh.batch_sharding``), and the gradients are synced over
+the data axes: the explicit bucketed sync of ``parallel/grad_sync.py``
+when ``comm_overlap`` or ``grad_compress`` asks for it and the mesh
+qualifies (dp, or dp x fsdp ZeRO with the optimizer on each rank's
+shards), else one all-reduce of the whole gradient tree per microbatch.
+The rest: the elastic sampler and data loader (master-retuned batch
+size and LR scale), the device prefetcher (``prefetch`` batches ahead,
+``data/prefetch.py``), the step of ``models/train.py``, the LR schedule
+and retune scale of
 ``build_optimizer``, metrics at log cadence, the eval loop, and Flash
 Checkpoint (``ckpt_dir``): a shm save every ``save_memory_interval``
 steps whose copies run beside the next step (``chunked_staging``; the
@@ -53,13 +64,19 @@ The worker's side of the control loop, as in the JAX package:
 - early stopping after ``early_stopping_patience`` evals without a
   better eval loss.
 
+Flash Checkpoint at world size N: a replicated leaf is staged once per
+replica set, by the replica set's first rank, and a ZeRO shard by its
+owner with its index in the whole leaf; host values (steps, counts,
+the sampler) by every rank. A restore reads each rank's own records and
+hands the replicated tensors to the rest of the replica set from its
+first rank. The error-feedback residual is never staged.
+
 ``TrainerConfig`` keeps every field and default of the JAX package.
 Knobs whose machinery is not ported yet raise ``NotImplementedError``
 when set away from their default (``_UNPORTED``, with the ROADMAP item
 that ports them). ``speculative_compile`` and ``spec_compile_budget_s``
 are accepted and not honored: they belong to the compile cache
-(ROADMAP A8). The gradient-sync sizes are accepted and not honored
-either (ROADMAP A7).
+(ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -70,13 +87,15 @@ import math
 import os
 import threading
 import time
+import weakref
 from collections import deque
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.accel.strategy import Strategy
 from dlrover_tpu_torch.agent.monitor import (
     last_command_id,
     read_runtime_metrics,
@@ -90,7 +109,12 @@ from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.data.prefetch import DevicePrefetcher, PipelineStats
 from dlrover_tpu_torch.models.config import TransformerConfig
 from dlrover_tpu_torch.models.convert import load_train_state_tree, train_state_tree
-from dlrover_tpu_torch.models.train import build_train_step, init_state
+from dlrover_tpu_torch.models.train import (
+    build_train_step,
+    free_params,
+    gather_params,
+    init_state,
+)
 from dlrover_tpu_torch.models.transformer import forward, token_nll
 from dlrover_tpu_torch.obs.flight_recorder import (
     ProfilerCapture,
@@ -99,6 +123,8 @@ from dlrover_tpu_torch.obs.flight_recorder import (
 from dlrover_tpu_torch.obs.goodput import GoodputLedger, install_default_ledger
 from dlrover_tpu_torch.obs.metrics import default_registry, fold_pipeline_stats
 from dlrover_tpu_torch.obs.trace import SpanHeartbeat, get_tracer, span
+from dlrover_tpu_torch.parallel import grad_sync
+from dlrover_tpu_torch.parallel.mesh import MeshConfig, batch_sharding, build_mesh
 from dlrover_tpu_torch.trainer.elastic.dataloader import ElasticDataLoader
 from dlrover_tpu_torch.trainer.elastic.sampler import (
     ElasticDistributedSampler,
@@ -144,11 +170,11 @@ class TrainerConfig:
     sdc_audit_steps: int = 0
 
 
-# knob -> the ROADMAP item that ports its machinery
+# knob -> the ROADMAP item that ports its machinery. sdc_detect: the
+# JAX trainer escalates a suspect lane to the paired audit probe, and
+# half of that defense is worse than none
 _UNPORTED = {
-    "comm_overlap": "A7 (gradient sync)",
-    "grad_compress": "A7 (gradient sync)",
-    "sdc_detect": "A7 (gradient sync) / A15 (SDC audit)",
+    "sdc_detect": "A15 (SDC audit probe)",
     "moe_rebalance_interval": "A11 (MoE)",
 }
 
@@ -316,6 +342,7 @@ class ElasticTrainer:
         tx,
         dataset,
         trainer_cfg: Optional[TrainerConfig] = None,
+        strategy: Optional[Strategy] = None,
         devices=None,
         collate_fn: Optional[Callable] = None,
         metrics_hook: Optional[Callable[[int, Dict], None]] = None,
@@ -327,11 +354,35 @@ class ElasticTrainer:
         self.cfg = model_cfg
         self._metrics_hook = metrics_hook
         self._setup_telemetry(model_cfg)
-        self.state = init_state(model_cfg, tx, seed=0, devices=self.device)
+        self.strategy = self._resolve_strategy(strategy)
+        self.mesh = build_mesh(self.strategy.mesh, self.device.type)
+        self._grad_sync_plan = grad_sync.resolve_plan(
+            model_cfg, self.strategy, grad_sync.model_leaves(model_cfg)
+        )
+        self.state = init_state(
+            model_cfg, tx, seed=0, devices=self.device, mesh=self.mesh,
+            plan=self._grad_sync_plan,
+        )
+        from dlrover_tpu_torch.ops.quantized_optim import adamw_8bit_flat
+
+        m = self.strategy.mesh
+        if max(m.fsdp, m.tp, m.ep, m.sp, m.pp) > 1 and isinstance(
+            getattr(self.state.opt_state, "opt", None), adamw_8bit_flat
+        ):
+            # the flat optimizer concatenates every big leaf per step:
+            # on a model-sharded mesh that defeats the sharding
+            raise ValueError(
+                "adamw_8bit_flat is for replicated/dp-only states; use "
+                "adamw_8bit (per-leaf) with fsdp/tp/ep/sp/pp sharding"
+            )
         self._step_fn = build_train_step(
             model_cfg, tx, grad_accum=self.tcfg.grad_accum,
-            before_update=self._fence_staging,
+            before_update=self._fence_staging, mesh=self.mesh,
+            plan=self._grad_sync_plan,
         )
+        self._rows: Dict[int, torch.Tensor] = {}
+        self.pipeline_stats = PipelineStats()
+        self._setup_grad_sync()
         self.sampler = ElasticDistributedSampler(len(dataset), shuffle=True)
         self.dataloader = ElasticDataLoader(
             dataset,
@@ -343,7 +394,6 @@ class ElasticTrainer:
         self._collate_fn = collate_fn
         self._applied_lr_scale = 1.0
         self._last_eval: Dict[str, float] = {}
-        self.pipeline_stats = PipelineStats()
         self._prefetcher: Optional[DevicePrefetcher] = None
         self._stager = None
         # one record per save: step, kind, the loop thread's blocking ms,
@@ -390,8 +440,11 @@ class ElasticTrainer:
         )
         if self._span_heartbeat is not None:
             self._span_heartbeat.start()
+        # the process-wide ledger outlives this trainer: it must not keep
+        # the trainer, and its state on the card, alive after close()
+        me = weakref.ref(self)
         self._goodput = install_default_ledger(
-            GoodputLedger(tid_fn=lambda: self._train_tid)
+            GoodputLedger(tid_fn=lambda: getattr(me(), "_train_tid", None))
         )
         self._replay_until_step: Optional[int] = None
         # steps dispatched to the card whose compute span is not booked
@@ -445,19 +498,107 @@ class ElasticTrainer:
     def global_step(self) -> int:
         return self.state.step
 
-    def _to_device(self, x) -> torch.Tensor:
+    # -- data parallelism ------------------------------------------------
+    def _resolve_strategy(self, strategy: Optional[Strategy]) -> Strategy:
+        """The explicit strategy, or dp over the whole process group,
+        with the trainer's grad-sync knobs stamped on when they are set
+        (the knobs then own the sync config, as in the JAX package)."""
+        import torch.distributed as dist
+
+        if self.tcfg.grad_compress == "auto":
+            grad_sync.resolve_auto_compress()  # raises: ROADMAP A9
+        if self.tcfg.grad_bucket_mb == 0:
+            grad_sync.resolve_bucket_bytes(0)  # raises: ROADMAP A9
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        s = strategy or Strategy(mesh=MeshConfig(dp=world))
+        if s.mesh.num_devices != world:
+            raise ValueError(
+                f"strategy mesh {s.mesh.axis_sizes()} needs "
+                f"{s.mesh.num_devices} ranks, the process group has {world}"
+            )
+        names = self._grad_sync_opt_names()
+        if names:
+            s = replace(
+                s, opts=tuple(dict.fromkeys(tuple(s.opts) + names)),
+                comm_overlap=True, grad_bucket_mb=self.tcfg.grad_bucket_mb,
+                grad_topk_density=self.tcfg.grad_topk_density,
+            )
+            if self.tcfg.grad_compress != "none":
+                s = replace(s, grad_compress=self.tcfg.grad_compress)
+        return replace(s, grad_accum=self.tcfg.grad_accum)
+
+    def _grad_sync_opt_names(self) -> tuple:
+        """Named optimizations the trainer's grad-sync knobs translate
+        to (the JAX package's ``accel/opt_lib.py`` names), stamped onto
+        the strategy."""
+        names = ()
+        if self.tcfg.comm_overlap:
+            names += ("comm_overlap",)
+        if self.tcfg.grad_compress == "auto":
+            names += ("grad_compress_auto",)
+        elif self.tcfg.grad_compress != "none":
+            names += ("grad_compress",)
+        return names
+
+    def _setup_grad_sync(self):
+        """Plan visibility: the error-feedback residual when the plan
+        compresses, the plan's wire accounting through PipelineStats,
+        and the timing probe (every rank together; CUDA events on the
+        card)."""
+        plan = self._grad_sync_plan
+        stats = self.pipeline_stats
+        stats.grad_sync_path = "explicit" if plan is not None else "gspmd"
+        grad_sync.export_compress_metrics(plan, self._registry)
+        if plan is None:
+            return
+        grad_sync.ensure_residual(self.state, plan, self.device)
+        stats.grad_bytes_raw = plan.raw_bytes
+        stats.grad_bytes_wire = plan.wire_bytes
+        # the explicit path starts the sync once the backward has made
+        # every local grad and waits for it before the update: nothing
+        # of it is hidden behind compute (the JAX package's analytic
+        # ``estimate_overlap_pct`` describes a bucketed overlap that
+        # this path does not have)
+        stats.comm_overlap_pct = 0.0
+        if plan.two_level:
+            stats.grad_sync_ici_ms, stats.grad_sync_dcn_ms = grad_sync.measure_sync_legs_ms(
+                plan, self.mesh, iters=3, device=self.device
+            )
+            stats.grad_sync_ms = stats.grad_sync_ici_ms + stats.grad_sync_dcn_ms
+        else:
+            stats.grad_sync_ms = stats.grad_sync_ici_ms = grad_sync.measure_sync_ms(
+                plan, self.mesh, iters=3, device=self.device
+            )
+        logger.info(f"grad sync: {plan.describe()}")
+
+    def _local_rows(self, n: int) -> Optional[torch.Tensor]:
+        """This rank's rows of a global batch of ``n`` (None: all)."""
+        if self.mesh.config.dp * self.mesh.config.fsdp == 1:
+            return None
+        if n not in self._rows:
+            self._rows[n] = torch.from_numpy(
+                batch_sharding(self.mesh, n, self.tcfg.grad_accum)
+            )
+        return self._rows[n]
+
+    def _to_device(self, x, local: bool = True) -> torch.Tensor:
+        """A batch array on the device: this rank's rows of it, or all of
+        it (``local=False``, the eval loop's)."""
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
         t = t.long()
+        rows = self._local_rows(t.shape[0]) if local else None
+        if rows is not None:
+            t = t.index_select(0, rows)
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
-    def _device_batch(self, batch):
+    def _device_batch(self, batch, local: bool = True):
         if isinstance(batch, dict):
             bx, by = batch["x"], batch["y"]
         else:  # tuple/list samples from the default collate
             bx, by = batch[0], batch[1]
-        return self._to_device(bx), self._to_device(by)
+        return self._to_device(bx, local), self._to_device(by, local)
 
     # -- eval ----------------------------------------------------------
     def _eval_batches(self, max_batches: int):
@@ -477,10 +618,17 @@ class ElasticTrainer:
             raise ValueError("ElasticTrainer built without eval_dataset")
         max_batches = max_batches or self.tcfg.eval_steps
         losses = []
-        for batch in self._eval_batches(max_batches):
-            x, y = self._device_batch(batch)
-            logits, _ = forward(self.state.params, x, self.cfg)
-            losses.append(float(token_nll(logits, y)))
+        zero = self.state.shards is not None
+        if zero:  # a ZeRO rank holds only its shards between steps
+            gather_params(self.state, self.mesh, self._grad_sync_plan)
+        try:
+            for batch in self._eval_batches(max_batches):
+                x, y = self._device_batch(batch, local=False)
+                logits, _ = forward(self.state.params, x, self.cfg)
+                losses.append(float(token_nll(logits, y)))
+        finally:
+            if zero:
+                free_params(self.state)
         if not losses:
             raise ValueError(
                 f"eval dataset ({len(self._eval_dataset)} rows) yields "
@@ -545,13 +693,15 @@ class ElasticTrainer:
             samp, buffered = self.sampler.state_dict(), 0
         if buffered:
             samp = self._rewound_sampler_state(samp, buffered)
-        return {"train": train_state_tree(self.state), "sampler": samp}
+        mesh = self.mesh if self._world > 1 else None
+        return {"train": train_state_tree(self.state, mesh), "sampler": samp}
 
     def _maybe_restore(self):
         t0 = time.perf_counter()
         step, restored = self._ckptr.load_checkpoint(self._ckpt_state())
         if restored is not None and step >= 0:
             load_train_state_tree(self.state, restored["train"])
+            self._share_restored_state()
             self.sampler.load_state_dict(
                 {k: int(v) for k, v in restored["sampler"].items()}
             )
@@ -577,6 +727,34 @@ class ElasticTrainer:
                         f"replaying lost progress: steps {step}.."
                         f"{prev_step} count as restart_replay"
                     )
+
+    @property
+    def _world(self) -> int:
+        return int(self.mesh.layout.size)
+
+    def _share_restored_state(self):
+        """After a restore at world size N: each replica set's first rank
+        read the replicated tensors (the others staged none), so it hands
+        them to the rest of the set (under ZeRO the next step gathers
+        the full params from the restored shards)."""
+        if self._world == 1:
+            return
+        from dlrover_tpu_torch.ckpt.sharding import flatten_state
+        from dlrover_tpu_torch.models.convert import replica_group
+
+        zero = self.state.shards is not None
+        name = replica_group(self.mesh, zero)
+        group = self.mesh.groups[name]
+        if group is not None:
+            src = self.mesh.ranks[name][0]
+            with torch.no_grad():
+                handles = [
+                    grad_sync.broadcast(t, src, group)
+                    for _, t in flatten_state(train_state_tree(self.state))
+                    if isinstance(t, torch.Tensor)
+                ]
+                for h in handles:
+                    h.wait()
 
     def _note_save(self, step, kind, t0=None, stager=None, ok=True):
         rec = {"step": step, "kind": kind, "ok": bool(ok)}

@@ -32,7 +32,20 @@ its disk persist while the window allows), reports and exits cleanly.
 until such a notice arrives (at most 120 s), so a drill's signal lands
 at a known step.
 
-``--events FILE`` appends one JSON line per event: ``start`` (pid and
+Under ``--nproc-per-node=N`` the N workers train one model, each on its
+rows of the global ``--batch`` (data parallelism over the default
+process group: gloo on the CPU, NCCL on the cards). ``--comm-overlap``
+syncs the gradients with the bucketed sync of
+``dlrover_tpu_torch/parallel/grad_sync.py`` (``--grad-compress
+int8|int8_topk``, ``--grad-bucket-mb``, ``--grad-topk-density``),
+``--fsdp F`` makes the mesh dp = N / F x fsdp = F (ZeRO: each rank
+updates its shard of the optimizer state; with ``adamw_8bit``, not the
+flat form), ``--slices S`` a hybrid dp axis of S slices (the two-level
+sync); without ``--comm-overlap`` the gradients are averaged by one
+all-reduce a microbatch.
+
+``--events FILE`` appends one JSON line per event (each with the
+worker's ``rank``): ``start`` (pid and
 the agent's restart count), ``restored`` (step, source, seconds),
 ``loss`` (step, loss, wall time), ``await_eviction`` (step, wall time),
 ``saves`` (the trainer's save records), ``launches`` (the port's kernel
@@ -119,6 +132,16 @@ def main(argv=None) -> int:
     ap.add_argument("--kill-group", action="store_true",
                     help="with --kill-after-step: kill the launcher's whole process group")
     ap.add_argument("--events", default="")
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--comm-overlap", action="store_true",
+                    help="the explicit bucketed gradient sync (parallel/grad_sync.py)")
+    ap.add_argument("--grad-compress", default="none", choices=["none", "int8", "int8_topk"])
+    ap.add_argument("--grad-bucket-mb", type=int, default=4)
+    ap.add_argument("--grad-topk-density", type=float, default=0.25)
+    ap.add_argument("--fsdp", type=int, default=1,
+                    help="ZeRO degree: the mesh is dp = world / fsdp x fsdp")
+    ap.add_argument("--slices", type=int, default=1,
+                    help="a hybrid dp axis of this many slices (two-level sync)")
     args = ap.parse_args(argv)
     if args.threads:
         torch.set_num_threads(args.threads)
@@ -141,7 +164,7 @@ def main(argv=None) -> int:
 
     def emit(event, **kv):
         if events is not None:
-            events.write(json.dumps({"event": event, **kv}) + "\n")
+            events.write(json.dumps({"event": event, "rank": ctx.process_id, **kv}) + "\n")
             events.flush()
 
     cfg = getattr(mcfg, args.model)()
@@ -177,6 +200,14 @@ def main(argv=None) -> int:
         emit("launches", counts={**fa.launch_counts, **qo.launch_counts},
              layers=cfg.num_layers, groups=len(getattr(getattr(opt, "layout", None), "groups", ())))
 
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig
+
+    world = ctx.num_processes
+    strategy = Strategy(mesh=MeshConfig(
+        dp=world // args.fsdp, fsdp=args.fsdp, slices=args.slices,
+        dcn_axes=("dp",) if args.slices > 1 else (),
+    ))
     fa.reset_launch_counts()
     qo.reset_launch_counts()
     trainer = ElasticTrainer(
@@ -188,8 +219,11 @@ def main(argv=None) -> int:
             save_storage_interval=args.save_storage_interval,
             prefetch=args.prefetch,
             log_interval=args.log_interval or max(args.steps, 1),
+            grad_accum=args.grad_accum, comm_overlap=args.comm_overlap,
+            grad_compress=args.grad_compress, grad_bucket_mb=args.grad_bucket_mb,
+            grad_topk_density=args.grad_topk_density,
         ),
-        devices=args.devices, metrics_hook=hook,
+        strategy=strategy, devices=args.devices, metrics_hook=hook,
     )
     emit("restored", step=trainer.restored_step, source=trainer.restore_source,
          restore_s=trainer.restore_s, t=time.time(), since_start_s=time.time() - T_START)

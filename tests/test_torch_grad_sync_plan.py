@@ -1,0 +1,243 @@
+"""The port's gradient-sync planning against the JAX package's, with no
+processes: the mesh gate over the mesh matrix, the bucket plans of a
+tiny GPT-2 and their byte accounting, the ZeRO layout's padding, the
+same ValueErrors for bad combinations, and the ROADMAP items named by
+what the port does not plan yet."""
+
+import jax
+import numpy as np
+import pytest
+
+from dlrover_tpu.accel.strategy import Strategy as JStrategy
+from dlrover_tpu.models import config as jcfg
+from dlrover_tpu.models.transformer import init_params
+from dlrover_tpu.parallel import grad_sync as jgs
+from dlrover_tpu.parallel.mesh import MeshConfig as JMeshConfig
+from dlrover_tpu_torch.accel.strategy import Strategy
+from dlrover_tpu_torch.models import config as tcfg
+from dlrover_tpu_torch.parallel import grad_sync as tgs
+from dlrover_tpu_torch.parallel.mesh import MeshConfig
+
+# every axis combination of tests/test_mesh_matrix.py and the hybrid
+# sync tests, plus the degenerate ones
+MESHES = [
+    {}, {"dp": 2}, {"dp": 4}, {"dp": 8}, {"fsdp": 2}, {"dp": 2, "fsdp": 2},
+    {"dp": 4, "fsdp": 2}, {"dp": 2, "tp": 2}, {"dp": 2, "sp": 2},
+    {"dp": 2, "tp": 2, "sp": 2}, {"dp": 2, "ep": 2}, {"ep": 2},
+    {"dp": 2, "fsdp": 2, "tp": 2}, {"dp": 2, "fsdp": 2, "tp": 2, "sp": 2},
+    {"dp": 2, "fsdp": 2, "sp": 2}, {"pp": 2, "dp": 4}, {"pp": 2},
+    {"pp": 2, "ep": 2, "dp": 2}, {"pp": 2, "tp": 2, "fsdp": 2, "dp": 2},
+    {"ep": 2, "tp": 2, "dp": 2}, {"ep": 2, "fsdp": 2, "dp": 2}, {"tp": 2},
+]
+
+
+def _as(x):
+    """A dataclass's fields (the two packages' classes never compare
+    equal themselves)."""
+    return None if x is None else dict(vars(x))
+
+
+def _buckets(plan):
+    return [_as(b) for b in plan.buckets]
+
+
+@pytest.mark.parametrize("sizes", MESHES, ids=lambda s: "x".join(f"{k}{v}" for k, v in s.items()) or "one")
+def test_the_gate_matches_the_jax_package(sizes):
+    assert _as(tgs.resolve_sync_mode(sizes)) == _as(jgs.resolve_sync_mode(sizes))
+    assert tgs.fallback_reason(sizes) == jgs.fallback_reason(sizes)
+
+
+def _leaves():
+    """The tiny GPT-2's leaves: the JAX shapes tree and the port's
+    leaves in the JAX order."""
+    jc = jcfg.tiny(rope=False, rmsnorm=False, swiglu=False, tie_embeddings=True)
+    tc = tcfg.tiny(rope=False, rmsnorm=False, swiglu=False, tie_embeddings=True)
+    shapes = jax.eval_shape(lambda: init_params(jax.random.PRNGKey(0), jc))
+    return shapes, tgs.model_leaves(tc)
+
+
+def _bytes(plan):
+    return dict(
+        raw=plan.raw_bytes, wire=plan.wire_bytes,
+        explicit=plan.explicit_wire_bytes(), gspmd=plan.gspmd_allreduce_bytes(),
+        dcn_flat=plan.dcn_bytes_flat(), dcn_2level=plan.dcn_bytes_twolevel(),
+        dcn_sparse=plan.dcn_bytes_sparse(), density=plan.dcn_density,
+        num=plan.num_buckets,
+    )
+
+
+DP_PLANS = [
+    dict(dp=4, slices=1, compress="none"), dict(dp=4, slices=1, compress="int8"),
+    dict(dp=4, slices=2, compress="none"), dict(dp=4, slices=2, compress="int8"),
+    dict(dp=4, slices=2, compress="int8_topk", topk_density=0.25),
+    dict(dp=4, slices=2, compress="int8_topk", topk_density=1.0),
+    dict(dp=2, slices=1, compress="none"), dict(dp=3, slices=1, compress="int8"),
+]
+
+
+@pytest.mark.parametrize("kw", DP_PLANS, ids=lambda k: "-".join(str(v) for v in k.values()))
+@pytest.mark.parametrize("bucket_bytes", [4096, 1 << 20])
+def test_dp_plans_account_as_the_jax_package(kw, bucket_bytes):
+    shapes, leaves = _leaves()
+    j = jgs.plan_buckets(shapes, bucket_bytes=bucket_bytes, **kw)
+    t = tgs.plan_buckets(leaves, bucket_bytes=bucket_bytes, **kw)
+    assert _buckets(t) == _buckets(j)
+    assert t.leaf_shapes == j.leaf_shapes and t.leaf_dtypes == j.leaf_dtypes
+    assert _bytes(t) == _bytes(j)
+    assert [t.shard_elems(b) for b in t.buckets] == [j.shard_elems(b) for b in j.buckets]
+    assert [t.topk_blocks(b) for b in t.buckets] == [j.topk_blocks(b) for b in j.buckets]
+    assert t.describe() == j.describe()
+
+
+@pytest.mark.parametrize("dp,fsdp,slices,compress", [
+    (1, 2, 1, "none"), (2, 2, 1, "none"), (2, 2, 1, "int8"), (4, 2, 2, "int8"),
+    (4, 2, 2, "int8_topk"),
+])
+def test_zero_plans_differ_only_by_the_block_padding(dp, fsdp, slices, compress):
+    """The same leaf grouping as the JAX package's zero plan. The port
+    pads each leaf to ``fsdp * 128`` (whole 8-bit AdamW blocks, split
+    evenly over fsdp) and each rank's chunk of the bucket to a multiple
+    of dp, so a bucket of leaves n_i holds
+
+        padded = fsdp * ceil(sum_i ceil(n_i / (fsdp*128)) * 128 / dp) * dp
+
+    elements where the JAX package's holds ceil(sum_i n_i / (dp*fsdp))
+    * dp * fsdp; every byte count is the JAX formula on that padded."""
+    shapes, leaves = _leaves()
+    kw = dict(dp=dp, fsdp=fsdp, slices=slices, compress=compress, bucket_bytes=8192,
+              topk_density=0.25)
+    j = jgs.plan_buckets(shapes, **kw)
+    t = tgs.plan_buckets(leaves, kind="zero", leaf_block=128, **kw)
+    assert [(b.start, b.stop, b.elems, b.raw_bytes) for b in t.buckets] == [
+        (b.start, b.stop, b.elems, b.raw_bytes) for b in j.buckets]
+    for b in t.buckets:
+        rows = sum(-(-int(np.prod(t.leaf_shapes[i])) // (fsdp * 128)) * 128
+                   for i in range(b.start, b.stop))
+        assert b.padded == fsdp * (-(-rows // dp) * dp)
+        assert b.padded >= b.elems and b.padded % (dp * fsdp) == 0
+    # the JAX formulas, evaluated on the port's padding
+    same = jgs.BucketPlan(**{**j.__dict__, "buckets": t.buckets})
+    assert _bytes(t) == _bytes(same)
+    assert t.raw_bytes == j.raw_bytes
+
+
+def test_resolve_plan_matches_for_dp_and_zero():
+    jc, tc = jcfg.tiny(num_layers=1), tcfg.tiny(num_layers=1)
+    for mesh, comp in ((dict(dp=4), "int8"), (dict(dp=4, dcn_axes=("dp",), slices=2), "int8_topk"),
+                       (dict(dp=2), "none")):
+        j = jgs.resolve_plan(jc, JStrategy(mesh=JMeshConfig(**mesh), comm_overlap=True,
+                                           grad_compress=comp, grad_bucket_mb=1))
+        t = tgs.resolve_plan(tc, Strategy(mesh=MeshConfig(**mesh), comm_overlap=True,
+                                          grad_compress=comp, grad_bucket_mb=1))
+        assert _buckets(t) == _buckets(j) and _bytes(t) == _bytes(j) and t.compress == j.compress
+    # no data axis: both keep the default schedule
+    assert tgs.resolve_plan(tc, Strategy(comm_overlap=True)) is None
+    assert jgs.resolve_plan(jc, JStrategy(comm_overlap=True)) is None
+    # the requested mode only on the strategy's opt names
+    assert tgs.resolve_plan(tc, Strategy(mesh=MeshConfig(dp=2))) is None
+
+
+@pytest.mark.parametrize("kw", [
+    dict(dp=4, compress="int4"), dict(dp=0), dict(dp=4, fsdp=0), dict(dp=4, slices=3),
+    dict(dp=4, compress="int8_topk"), dict(dp=4, slices=2, compress="int8_topk", topk_density=0.0),
+    dict(dp=4, slices=2, compress="int8_topk", topk_block=0),
+    dict(dp=2, fsdp=2, auto_axes=("tp",)), dict(dp=2, kind="3d", tp=1),
+])
+def test_bad_combinations_raise_the_same_value_errors(kw):
+    shapes, leaves = _leaves()
+    with pytest.raises(ValueError) as je:
+        jgs.plan_buckets(shapes, **kw)
+    with pytest.raises(ValueError) as te:
+        tgs.plan_buckets(leaves, **kw)
+    assert str(te.value) == str(je.value)
+
+
+@pytest.mark.parametrize("sizes,item", [
+    (dict(dp=2, tp=2), "A10"), (dict(dp=2, sp=2), "A10"), (dict(dp=2, fsdp=2, tp=2), "A10"),
+    (dict(dp=2, ep=2), "A11"), (dict(pp=2, dp=2), "A11"),
+])
+def test_model_sharded_plans_name_their_roadmap_item(sizes, item):
+    s = Strategy(mesh=MeshConfig(**sizes), comm_overlap=True)
+    with pytest.raises(NotImplementedError, match=item):
+        tgs.resolve_plan(tcfg.tiny(num_layers=1), s)
+
+
+def test_link_model_knobs_name_a9():
+    tc = tcfg.tiny(num_layers=1)
+    for s in (Strategy(mesh=MeshConfig(dp=2), comm_overlap=True, grad_compress="auto"),
+              Strategy(mesh=MeshConfig(dp=2), comm_overlap=True, grad_bucket_mb=0)):
+        with pytest.raises(NotImplementedError, match="A9"):
+            tgs.resolve_plan(tc, s)
+    for fn in (tgs.comm_time_per_device_s, tgs.comm_time_legs_s):
+        with pytest.raises(NotImplementedError, match="A9"):
+            fn(1e6, Strategy(mesh=MeshConfig(dp=2)))
+
+
+@pytest.mark.parametrize("mesh", [dict(dp=4), dict(dp=2, fsdp=2), dict(dp=2, tp=2), dict(pp=2, dp=2),
+                                  dict(dp=4, dcn_axes=("dp",), slices=2)])
+@pytest.mark.parametrize("comp", ["none", "int8"])
+def test_comm_bytes_and_overlap_estimate_match(mesh, comp):
+    for overlap in (False, True):
+        t = Strategy(mesh=MeshConfig(**mesh), comm_overlap=overlap, grad_compress=comp)
+        j = JStrategy(mesh=JMeshConfig(**mesh), comm_overlap=overlap, grad_compress=comp)
+        assert tgs.comm_bytes_per_device(3e6, t) == jgs.comm_bytes_per_device(3e6, j)
+        assert tgs.estimate_overlap_pct(t) == jgs.estimate_overlap_pct(j)
+
+
+def test_compress_gauges_match():
+    from dlrover_tpu.obs.metrics import MetricsRegistry as JReg
+    from dlrover_tpu_torch.obs.metrics import MetricsRegistry as TReg
+
+    shapes, leaves = _leaves()
+    kw = dict(dp=4, slices=2, compress="int8_topk", topk_density=0.25, bucket_bytes=4096)
+    for plan_j, plan_t in ((jgs.plan_buckets(shapes, **kw), tgs.plan_buckets(leaves, **kw)), (None, None)):
+        rj, rt = JReg(), TReg()
+        jgs.export_compress_metrics(plan_j, rj)
+        tgs.export_compress_metrics(plan_t, rt)
+        assert rt.scalars() == rj.scalars()
+
+
+def test_strategy_is_the_jax_package_s():
+    s = Strategy(mesh=MeshConfig(dp=4, dcn_axes=("dp",), slices=2), comm_overlap=True,
+                 grad_compress="int8_topk", grad_bucket_mb=8, grad_accum=2)
+    j = JStrategy.from_json(s.to_json())
+    assert j.to_json() == s.to_json() and Strategy.from_json(j.to_json()) == s
+    assert s.describe() == j.describe()
+    assert s.resolved_grad_compress() == j.resolved_grad_compress()
+    assert s.mesh.dp_slices() == j.mesh.dp_slices() == 2
+
+
+@pytest.mark.parametrize("kw", [
+    dict(prefetch_hits=3, prefetch_misses=1, grad_sync_ms=2.5, comm_overlap_pct=70.0,
+         grad_bytes_wire=25_000, grad_bytes_raw=100_000, grad_sync_path="explicit"),
+    dict(grad_sync_ms=3.25, grad_sync_ici_ms=1.0, grad_sync_dcn_ms=2.25, grad_bytes_raw=1 << 20,
+         grad_bytes_wire=1 << 18, comm_overlap_pct=70.0, grad_sync_path="explicit"),
+    dict(grad_sync_path="gspmd"), {},
+])
+def test_pipeline_stats_grad_sync_fields_match_the_jax_package(kw):
+    """The grad-sync fields of the port's ``PipelineStats`` (as
+    ``tests/test_grad_sync.py::TestPipelineStatsGradSync`` holds the JAX
+    package's): the same values in ``as_dict``, the same grad-sync part
+    of ``summary``, and the same gauges folded into a registry."""
+    import json
+
+    from dlrover_tpu.accel.profiler import PipelineStats as JStats
+    from dlrover_tpu.obs.metrics import MetricsRegistry as JReg, fold_pipeline_stats as jfold
+    from dlrover_tpu_torch.data.prefetch import PipelineStats as TStats
+    from dlrover_tpu_torch.obs.metrics import MetricsRegistry as TReg, fold_pipeline_stats as tfold
+
+    j, t = JStats(**kw), TStats(**kw)
+    keys = ("grad_sync_path", "grad_sync_explicit", "grad_sync_ms", "grad_sync_ici_ms",
+            "grad_sync_dcn_ms", "comm_overlap_pct", "grad_bytes_wire", "grad_bytes_raw",
+            "grad_bytes_wire_vs_raw")
+    assert {k: t.as_dict()[k] for k in keys} == {k: j.as_dict()[k] for k in keys}
+    json.dumps(t.as_dict())
+    tail = lambda s: s[s.index(", grad sync"):] if ", grad sync" in s else ""  # noqa: E731
+    assert tail(t.summary()) == tail(j.summary())
+    jr, tr = JReg(), TReg()
+    jfold(j, jr)
+    tfold(t, tr)
+    js, ts = jr.scalars(), tr.scalars()
+    for k in keys:
+        name = "dlrover_pipeline_" + k
+        assert (name in ts) == (name in js) and ts.get(name) == js.get(name)

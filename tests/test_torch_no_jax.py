@@ -103,6 +103,17 @@ CONTROL_PLANE = {
     "dlrover_tpu_torch.utils.env",
 }
 
+# data parallelism: the mesh, the gradient sync, the SDC fence and the
+# strategy (ROADMAP A7)
+DATA_PARALLEL = {
+    "dlrover_tpu_torch.accel",
+    "dlrover_tpu_torch.accel.strategy",
+    "dlrover_tpu_torch.parallel",
+    "dlrover_tpu_torch.parallel.grad_sync",
+    "dlrover_tpu_torch.parallel.mesh",
+    "dlrover_tpu_torch.parallel.sdc",
+}
+
 
 def test_port_imports_with_jax_and_the_jax_package_blocked():
     p = subprocess.run(
@@ -121,6 +132,26 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert CKPT_SLICE <= names, sorted(CKPT_SLICE - names)
     assert CONTROL_PLANE <= names, sorted(CONTROL_PLANE - names)
     assert WORKER_LOOP <= names, sorted(WORKER_LOOP - names)
+    assert DATA_PARALLEL <= names, sorted(DATA_PARALLEL - names)
+
+
+def test_data_parallel_modules_and_the_rank_worker_import_without_jax():
+    """The data-parallel modules by name, and the rank processes of the
+    multi-rank tests (``tests/torch_dist_worker.py``), with JAX and the
+    JAX package blocked."""
+    probe = _PROBE.split("import dlrover_tpu_torch\n")[0] + "\n".join(
+        f"importlib.import_module({m!r})" for m in sorted(DATA_PARALLEL)
+    ) + (
+        "\nsys.path.insert(0, 'tests')\nimportlib.import_module('torch_dist_worker')"
+        "\nleaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)"
+        "\nassert not leaked, leaked\n"
+    )
+    p = subprocess.run(
+        [sys.executable, "-c", probe],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert p.returncode == 0, p.stderr[-3000:]
 
 
 def test_probe_really_blocks():

@@ -58,10 +58,10 @@ def saver(job):
     yield AsyncCheckpointSaver.start_async_saving_ckpt(local_shard_num=1)
 
 
-def _wait(pred, timeout=30.0):
+def _wait(pred, timeout=30.0, what="timed out"):
     deadline = time.time() + timeout
     while not pred():
-        assert time.time() < deadline, "timed out"
+        assert time.time() < deadline, what
         time.sleep(0.05)
 
 
@@ -69,7 +69,11 @@ def _drive(pkg, ckpt_dir):
     """Stage each of ``EVENTS`` into a fresh saver of package ``pkg``
     (``dlrover_tpu`` or ``dlrover_tpu_torch``) as a trainer does: take
     the shard lock, write shm, send the event; wait until the saver
-    hands the lock back. Returns the steps committed on disk."""
+    hands the lock back. Each step's commit runs on a thread of its own
+    and publishes to the history in the order the threads get there, so
+    the next step is staged only once this one is committed: the
+    history's order is then the staging order in both packages. Returns
+    the steps committed on disk."""
     import importlib
 
     saver_mod = importlib.import_module(f"{pkg}.ckpt.saver")
@@ -93,6 +97,9 @@ def _drive(pkg, ckpt_dir):
             queue.put(saver_mod.SaveEvent(
                 step=step, checkpoint_dir=ckpt_dir, local_rank=0,
                 global_shard_id=0, global_shard_num=1, sync=sync))
+            _wait(lambda: saver_mod.read_tracker(
+                storage.PosixDiskStorage(), ckpt_dir) >= step,
+                what=f"{pkg}: step {step} never committed")
         last = EVENTS[-1][0]
         _wait(lambda: saver_mod.read_tracker(storage.PosixDiskStorage(), ckpt_dir) == last)
         return saver_mod.known_committed_steps(storage.PosixDiskStorage(), ckpt_dir)

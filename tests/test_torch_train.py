@@ -143,7 +143,7 @@ def test_trainer_runs_on_cpu_in_the_jax_sampler_order():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("comm_overlap", True), ("grad_compress", "int8"), ("sdc_detect", True),
+    ("grad_compress", "auto"), ("grad_bucket_mb", 0), ("sdc_detect", True),
     ("moe_rebalance_interval", 5),
 ])
 def test_unported_knob_raises(knob, value):

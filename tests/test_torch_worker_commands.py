@@ -56,6 +56,12 @@ def files(tmp_path, monkeypatch):
     monkeypatch.setenv("DLROVER_TPU_RUNTIME_METRICS_PATH", str(tmp_path / "metrics.json"))
     monkeypatch.setenv("DLROVER_TPU_FLIGHT_DIR", str(tmp_path / "flight"))
     monkeypatch.setenv("DLROVER_TPU_JOB_NAME", f"cmd{uuid.uuid4().hex[:8]}")
+    # a process-wide recorder of this test's own: its dump rate limit
+    # (one bundle per MIN_DUMP_INTERVAL_S) must not carry an earlier
+    # test's dump into this one
+    from dlrover_tpu_torch.obs import flight_recorder
+
+    monkeypatch.setattr(flight_recorder, "_default", None)
     return tmp_path
 
 

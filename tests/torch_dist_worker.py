@@ -1,0 +1,317 @@
+"""Rank processes for the port's multi-rank CPU tests (gloo over
+``tcp://127.0.0.1``): ``run_ranks`` starts ``world`` of them on one job
+and returns each rank's result. A rank imports torch and the port,
+never JAX.
+
+    python tests/torch_dist_worker.py JOB RANK WORLD PORT OUT_DIR ARGS_FILE
+
+Jobs:
+
+- ``sync``: ``grad_sync.sync_grads`` over every case of ``args`` — the
+  per-rank gradients are the rank's lane of one seeded numpy array per
+  leaf and step; returns the synced leaves, the residual rows, the grad
+  norm and the per-lane norms of every step;
+- ``train``: ``ElasticTrainer`` runs of a tiny GPT-2 (``args`` per run:
+  trainer config, strategy, steps, optimizer); returns the losses, the
+  collectives counted per step, the restored step and the final params;
+- ``step``: ``models.train.build_train_step`` from a whole JAX train
+  state (``models/convert.load_jax_train_state``) on the rank's rows of
+  given global batches; returns the loss and grad norm of each step,
+  the whole train state at the end, in the JAX layout
+  (``convert.jax_train_state``), and the checkpoint records the rank
+  stages at the end.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import pickle
+import shutil
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+import uuid
+
+import numpy as np
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def job_env() -> dict:
+    """A checkpoint job of its own: a fresh job name and socket dir (the
+    shm segments and the saver's sockets are named by them), so that no
+    saver of another test, in this process or another, serves it."""
+    return {"DLROVER_TPU_JOB_NAME": f"t{uuid.uuid4().hex[:10]}",
+            # unix socket paths must stay short
+            "DLROVER_TPU_SOCKET_DIR": tempfile.mkdtemp(prefix="dlr")}
+
+
+@contextlib.contextmanager
+def hosted_saver(local_shard_num: int):
+    """The port's checkpoint saver hosted in this process, as the agent
+    hosts it, for a job of its own; yields that job's environment, to be
+    passed to ``run_ranks``."""
+    from dlrover_tpu_torch.ckpt.saver import AsyncCheckpointSaver
+
+    env = job_env()
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    AsyncCheckpointSaver.reset()
+    try:
+        AsyncCheckpointSaver.start_async_saving_ckpt(local_shard_num=local_shard_num)
+        yield env
+    finally:
+        AsyncCheckpointSaver.reset()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(env["DLROVER_TPU_SOCKET_DIR"], ignore_errors=True)
+
+
+def run_ranks(job: str, world: int, args, tmp_dir: str, timeout: float = 600.0, env=None):
+    """Start ``world`` ranks of ``job`` and return their results in rank
+    order; a rank that fails raises with its output. Without a job name
+    in ``env`` the ranks get a job of their own (``job_env``)."""
+    os.makedirs(tmp_dir, exist_ok=True)
+    own = None
+    if not (env or {}).get("DLROVER_TPU_JOB_NAME"):
+        own = job_env()
+        env = {**own, **(env or {})}
+    args_file = os.path.join(tmp_dir, "args.pkl")
+    with open(args_file, "wb") as f:
+        pickle.dump(args, f)
+    port = free_port()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    e = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+         "OMP_NUM_THREADS": "1", **(env or {})}
+    procs = [
+        subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), job, str(r), str(world), str(port),
+             tmp_dir, args_file],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=e,
+        )
+        for r in range(world)
+    ]
+    deadline = time.time() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(deadline - time.time(), 1))[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        if own is not None:
+            shutil.rmtree(own["DLROVER_TPU_SOCKET_DIR"], ignore_errors=True)
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise RuntimeError(f"rank {r} of {job} exited {p.returncode}:\n{outs[r][-6000:]}")
+    res = []
+    for r in range(world):
+        with open(os.path.join(tmp_dir, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the sync job
+# ---------------------------------------------------------------------------
+def case_grads(leaf_shapes, total, seed, step):
+    """Every lane's local gradient of every leaf: one seeded array a
+    leaf, lanes on the lead axis."""
+    rng = np.random.default_rng([seed, step])
+    return [rng.standard_normal((total,) + tuple(s)).astype(np.float32) for s in leaf_shapes]
+
+
+def job_sync(rank, world, cases):
+    import torch
+
+    from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.parallel import grad_sync as gs
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    leaves = gs.model_leaves(tcfg.tiny(**cases["model"]))
+    out = {}
+    for name, c in cases["cases"].items():
+        mesh = build_mesh(MeshConfig(**c["mesh"]))
+        plan = gs.plan_buckets(leaves, **c["plan"])
+        res = gs.zero_residual(plan)
+        lane = mesh.data_index
+        steps = []
+        gs.reset_counts()
+        for step in range(c["steps"]):
+            grads = case_grads(plan.leaf_shapes, plan.total, c["seed"], step)
+            local = [torch.from_numpy(g[lane]) for g in grads]
+            synced, res, gnorm, lanes = gs.sync_grads(
+                local, mesh, plan, residual=res if plan.compressed else None, device_norms=True
+            )
+            steps.append(dict(
+                synced=[s.numpy().copy() for s in synced],
+                residual=None if res is None else [r.numpy().copy() for r in res],
+                gnorm=float(gnorm), lanes=lanes.numpy().copy(),
+            ))
+        out[name] = dict(lane=lane, steps=steps, issued=dict(gs.issued))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the trainer job
+# ---------------------------------------------------------------------------
+class Tokens:
+    """``n`` rows of ``seq + 1`` seeded token ids."""
+
+    def __init__(self, n=64, seq=16, vocab=256, seed=0):
+        self.data = np.random.default_rng(seed).integers(0, vocab, (n, seq + 1)).astype(np.int32)
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, i):
+        row = self.data[i]
+        return {"x": row[:-1], "y": row[1:]}
+
+
+def job_train(rank, world, runs):
+    import torch
+
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.models.convert import params_to_numpy
+    from dlrover_tpu_torch.models.train import gather_params
+    from dlrover_tpu_torch.parallel import grad_sync as gs
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig
+    from dlrover_tpu_torch.trainer.elastic import trainer as tt
+
+    out = {}
+    for name, r in runs.items():
+        cfg = tcfg.tiny(**r.get("model", {}))
+        strategy = Strategy(mesh=MeshConfig(**r["mesh"]), **r.get("strategy", {})) \
+            if "mesh" in r else None
+        tcfg_kw = dict(batch_size=r.get("batch", 8), seq_len=16, log_interval=1000,
+                       report_metrics=False, prefetch=0, **r.get("trainer", {}))
+        losses, issued = [], []
+
+        def hook(step, m, losses=losses, issued=issued):
+            if "loss" in m:
+                losses.append(float(m["loss"]))
+                issued.append(dict(gs.issued))
+                gs.reset_counts()
+
+        tx = tt.build_optimizer(r.get("optimizer", "sgd"), lr=r.get("lr", 0.1), **r.get("opt_kw", {}))
+        tr = tt.ElasticTrainer(cfg, tx, Tokens(seed=r.get("data_seed", 0)),
+                               tt.TrainerConfig(**tcfg_kw), devices="cpu",
+                               metrics_hook=hook, strategy=strategy,
+                               eval_dataset=Tokens(n=16, seed=5) if r.get("eval") else None)
+        gs.reset_counts()
+        tr.train(r["steps"])
+        tr.wait_for_checkpoint()
+        extra = {}
+        if r.get("eval"):
+            extra["eval_loss"] = tr.evaluate(2)["eval_loss"]
+        if tr.state.shards is not None:
+            # ZeRO keeps only shards between steps (and after an eval)
+            extra["params_freed"] = all(p.untyped_storage().nbytes() == 0
+                                        for p in tr.state.params.jax_ordered_parameters())
+            gather_params(tr.state, tr.mesh, tr._grad_sync_plan)
+        out[name] = dict(**extra,
+            losses=losses, issued=issued, restored=tr.restored_step, source=tr.restore_source,
+            params=params_to_numpy(tr.state.params),
+            plan=None if tr._grad_sync_plan is None else tr._grad_sync_plan.num_buckets,
+            stats=tr.pipeline_stats.as_dict(),
+        )
+        tr.close()
+        torch.distributed.barrier()
+    return out
+
+
+def job_step(rank, world, runs):
+    """The port's ``build_train_step`` from JAX weights, on this rank's
+    rows of each global batch."""
+    import torch
+
+    from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.models import train as ttrain
+    from dlrover_tpu_torch.ckpt.sharding import host_shard_records
+    from dlrover_tpu_torch.models.convert import (
+        jax_train_state,
+        load_jax_train_state,
+        params_from_jax,
+        train_state_tree,
+    )
+    from dlrover_tpu_torch.parallel import grad_sync as gs
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, batch_sharding, build_mesh
+    from dlrover_tpu_torch.trainer.elastic import trainer as tt
+
+    from dlrover_tpu_torch.common import faults
+    from dlrover_tpu_torch.parallel import sdc
+
+    out = {}
+    for name, r in runs.items():
+        sdc.set_enabled(bool(r.get("sdc")))
+        faults.reset()
+        if r.get("sdc"):
+            faults.configure(r["sdc"])
+        cfg = tcfg.tiny(**r.get("model", {}))
+        mesh = build_mesh(MeshConfig(**r["mesh"]))
+        plan = gs.plan_for_mesh(cfg, mesh, r["compress"], r.get("bucket_mb", 1),
+                                params_shape=gs.model_leaves(cfg))
+        tx = tt.build_optimizer(r["optimizer"], lr=r["lr"], **r.get("opt_kw", {}))
+        state = ttrain.state_from_params(params_from_jax(r["params"], cfg), tx, mesh, plan)
+        gs.ensure_residual(state, plan)
+        # the JAX run's whole train state after its first step(s)
+        load_jax_train_state(state, r["jax_state"], mesh, plan)
+        step = ttrain.build_train_step(cfg, tx, grad_accum=r.get("grad_accum", 1),
+                                       mesh=mesh, plan=plan)
+        metrics, lanes = [], []
+        for x, y in r["batches"]:
+            rows = batch_sharding(mesh, x.shape[0], r.get("grad_accum", 1))
+            state, m = step(state, torch.from_numpy(x[rows]).long(), torch.from_numpy(y[rows]).long())
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            if "sdc_device_norms" in m:
+                lanes.append(m["sdc_device_norms"].numpy().copy())
+        # what this rank stages for a checkpoint, as host records
+        records = [(rec.path, rec.global_shape, rec.dtype, rec.index, rec.data)
+                   for rec in host_shard_records(train_state_tree(state, mesh))]
+        out[name] = dict(
+            metrics=metrics, state=jax_train_state(state, mesh, plan), lane=mesh.data_index,
+            buckets=plan.num_buckets, kind=plan.kind, lanes=lanes, records=records,
+        )
+    return out
+
+
+JOBS = {"sync": job_sync, "train": job_train, "step": job_step}
+
+
+def main():
+    job, rank, world, port, out_dir, args_file = sys.argv[1:7]
+    rank, world = int(rank), int(world)
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    with open(args_file, "rb") as f:
+        args = pickle.load(f)
+    os.environ.update({"DLROVER_TPU_PROCESS_ID": str(rank), "DLROVER_TPU_NUM_PROCESSES": str(world),
+                       "DLROVER_TPU_LOCAL_RANK": str(rank)})
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        res = JOBS[job](rank, world, args)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    main()
