@@ -16,8 +16,11 @@ scales included), and the int8 sync's residual moves between the two
 packages' per-bucket layouts element for element.
 Optimizer state maps form for form: ``Adam8FlatState`` to
 ``adamw_8bit_flat`` (the same group layout), ``Adam8State`` to
-``adamw_8bit``, optax's Adam to ``torch.optim.AdamW``, optax's momentum
-trace to ``torch.optim.SGD``'s buffers.
+``adamw_8bit`` (its 4-bit form's nibble-packed first moment included),
+``AGDState`` to ``ops/optimizers.agd``, optax's Adam to
+``torch.optim.AdamW``, optax's momentum trace to ``torch.optim.SGD``'s
+buffers. Params and state convert in either layer layout (a list of
+layers, or ``scan_layers``'s stacked leaves).
 """
 
 from __future__ import annotations
@@ -47,11 +50,16 @@ def _count_leaves(tree) -> int:
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: TransformerConfig, device=None) -> Transformer:
-    """The JAX param pytree (numpy leaves, layers as a list) -> the
-    port's ``Transformer`` on ``device`` (default the CPU)."""
-    if not isinstance(np_tree.get("layers"), (list, tuple)):
-        raise NotImplementedError(
-            "stacked (scan_layers) params are not ported yet (ROADMAP A2)"
+    """The JAX param pytree (numpy leaves; layers as a list, or stacked
+    ``[L, ...]`` leaves under ``cfg.scan_layers``) -> the port's
+    ``Transformer`` on ``device`` (default the CPU). ``stack_layer_params``
+    / ``unstack_layer_params`` (``models/transformer.py``) move a tree
+    between the two layouts."""
+    stacked = isinstance(np_tree.get("layers"), dict)
+    if stacked != cfg.scan_layers:
+        raise ValueError(
+            f"the tree's layers are {'stacked' if stacked else 'a list'}, "
+            f"the config's scan_layers={cfg.scan_layers}"
         )
     model = Transformer(cfg, device=device)
     n = 0
@@ -122,11 +130,13 @@ def _by_param(model: Transformer, leaves) -> Dict[str, Any]:
     )
 
 
-def _q8_tree(q, column_scales: bool):
-    # the JAX per-leaf Quantized8 keeps [nblocks, 1] scales: a view, so a
-    # restore into it fills the optimizer's own [nblocks] tensor
+def _q_tree(q, column_scales: bool):
+    """A ``Quantized8`` / ``Quantized4`` as the JAX pytree node's children
+    (codes or packed nibbles, scales). The JAX per-leaf form keeps
+    ``[nblocks, 1]`` scales: a view, so a restore into it fills the
+    optimizer's own ``[nblocks]`` tensor."""
     scales = q.scales.view(-1, 1) if column_scales else q.scales
-    return {"0": q.codes, "1": scales}
+    return {"0": q.packed if hasattr(q, "packed") else q.codes, "1": scales}
 
 
 def _torch_adam_state(opt, params):
@@ -159,12 +169,13 @@ def _inner_tree(inner, model: Transformer, params) -> Dict[str, Any]:
     ``params`` are the optimizer's, in the JAX order (the leaves, or
     under ZeRO their shards)."""
     from dlrover_tpu_torch.ops import quantized_optim as qo
+    from dlrover_tpu_torch.ops.optimizers import agd
 
     if isinstance(inner, qo.adamw_8bit_flat):  # Adam8FlatState
         return {
             "count": np.asarray(inner.count, np.int32),
-            "mu": {str(g): _q8_tree(q, False) for g, q in enumerate(inner.mu)},
-            "nu": {str(g): _q8_tree(q, False) for g, q in enumerate(inner.nu)},
+            "mu": {str(g): _q_tree(q, False) for g, q in enumerate(inner.mu)},
+            "nu": {str(g): _q_tree(q, False) for g, q in enumerate(inner.nu)},
             "mu_small": inner.mu_small,
             "nu_small": inner.nu_small,
         }
@@ -173,10 +184,21 @@ def _inner_tree(inner, model: Transformer, params) -> Dict[str, Any]:
 
         def moments(ms):
             return _by_param(model, [
-                _q8_tree(m, True) if isinstance(m, qo.Quantized8) else m for m in ms
+                _q_tree(m, True) if isinstance(m, (qo.Quantized8, qo.Quantized4)) else m
+                for m in ms
             ])
 
         return {"count": np.asarray(st.count, np.int32), "mu": moments(st.mu), "nu": moments(st.nu)}
+    if isinstance(inner, agd):  # AGDState
+        states = [inner.state[p] for p in params]
+        tree = {
+            "count": np.asarray(inner.count, np.int32),
+            "exp_avg": _by_param(model, [s["exp_avg"] for s in states]),
+            "exp_avg_sq": _by_param(model, [s["exp_avg_sq"] for s in states]),
+        }
+        if inner.amsgrad:
+            tree["max_exp_avg_sq"] = _by_param(model, [s["max_exp_avg_sq"] for s in states])
+        return tree
     if isinstance(inner, torch.optim.AdamW):  # chain(scale_by_adam, ...)
         states = _torch_adam_state(inner, params)
         return {"0": {
@@ -282,6 +304,7 @@ def load_train_state_tree(state, tree: Dict[str, Any]) -> None:
     filled in place, so this sets the host values (step, counts, the
     learning rate and retune scale)."""
     from dlrover_tpu_torch.ops import quantized_optim as qo
+    from dlrover_tpu_torch.ops.optimizers import agd
 
     opt, o = state.opt_state, tree["opt_state"]
     state.step = int(tree["step"])
@@ -293,6 +316,8 @@ def load_train_state_tree(state, tree: Dict[str, Any]) -> None:
         inner.count = int(io["count"])
     elif isinstance(inner, qo.adamw_8bit):
         inner.adam_state.count = int(io["count"])
+    elif isinstance(inner, agd):
+        inner.count = int(io["count"])
     elif isinstance(inner, torch.optim.AdamW):
         for p in inner.param_groups[0]["params"]:
             inner.state[p]["step"].fill_(float(io["0"]["count"]))
@@ -312,7 +337,8 @@ def _jax_shape(path: str, t: torch.Tensor, params) -> tuple:
                     return tuple(p.shape)
                 if kind != "leaf" and t.dim() == 2:
                     blocks = -(-p.numel() // 128)
-                    return (blocks, 128) if kind == "codes" else (blocks, 1)
+                    # codes [blocks, 128], 4-bit packed nibbles [blocks, 64]
+                    return (blocks, t.shape[1]) if kind == "codes" else (blocks, 1)
     raise ValueError(f"no JAX leaf for the port's state leaf {path!r}")
 
 

@@ -21,6 +21,13 @@ has the JAX package's two paths:
 
 The loss and every metric are global means over the data axes.
 
+Micro-batch rebalance (``batch_pad``): the trainer appends
+``batch_pad`` zero rows to each global batch (``pad_batch_rows``) and
+the step weighs the rows of the loss (``pad_row_weights``: the pads 0,
+the real rows ``padded / real``), so the mean over the padded batch, and
+the mean of the ranks' means, is the mean over the real rows. It needs
+``grad_accum=1`` and a dense model, as in the JAX package.
+
 ZeRO (a plan of kind ``zero``, dp x fsdp): between steps the optimizer
 and its state hold only this rank's block rows of each leaf
 (``TrainState.shards``, ``BucketPlan.leaf_shard`` elements each, whole
@@ -44,6 +51,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -149,6 +157,29 @@ def gather_params(state: TrainState, mesh, plan) -> None:
                 off += sh
 
 
+def pad_row_weights(n_real: int, n_padded: int) -> np.ndarray:
+    """Loss row-weights for a zero-padded batch (micro-batch rebalance):
+    real rows weigh ``n_padded / n_real`` and pad rows 0, so the plain
+    mean over the padded batch equals the mean over the real rows, and so
+    does the mean of the data ranks' means (the scale is uniform)."""
+    if not 0 < n_real <= n_padded:
+        raise ValueError(f"need 0 < n_real <= n_padded, got {n_real}/{n_padded}")
+    w = np.zeros((n_padded,), np.float32)
+    w[:n_real] = n_padded / float(n_real)
+    return w
+
+
+def pad_batch_rows(x, n_padded: int) -> np.ndarray:
+    """Zero-pad a ``[B, ...]`` host batch to ``n_padded`` rows (the
+    trainer's collate step under ``batch_pad``; ``pad_row_weights`` zero
+    the pads out of the loss)."""
+    x = np.asarray(x)
+    if x.shape[0] >= n_padded:
+        return x
+    pad = np.zeros((n_padded - x.shape[0],) + x.shape[1:], x.dtype)
+    return np.concatenate([x, pad], axis=0)
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor (optax.global_norm)."""
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
@@ -172,7 +203,7 @@ def _flat_all_reduce_mean(grads: List[torch.Tensor], group, n: int) -> List[torc
 def build_train_step(
     cfg: TransformerConfig, tx: Callable = None, grad_accum: int = 1,
     before_update: Optional[Callable[[], None]] = None,
-    mesh=None, plan=None,
+    mesh=None, plan=None, batch_pad: int = 0,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Tuple[TrainState, Dict]]:
     """``(state, tokens, targets) -> (state, {"loss", "grad_norm"})``,
     updating ``state`` in place (params, optimizer, step count).
@@ -187,7 +218,17 @@ def build_train_step(
     uses the optimizer bound in ``state.opt_state``. ``before_update()``
     runs after the gradients are final and before the optimizer writes
     anything (the trainer makes its stream wait there for a
-    checkpoint's copies of the state)."""
+    checkpoint's copies of the state). ``batch_pad``: the last
+    ``batch_pad`` rows of the global batch are padding and weigh 0 in
+    the loss (``pad_row_weights``)."""
+    if batch_pad and grad_accum > 1:
+        raise ValueError("batch_pad (micro-batch rebalance) requires grad_accum=1")
+    if batch_pad and cfg.num_experts:
+        # the router's aux losses would see the pad tokens
+        raise ValueError(
+            "batch_pad is not supported for MoE models: the gating "
+            "aux losses would see the pad tokens"
+        )
     check_supported(cfg)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -196,11 +237,24 @@ def build_train_step(
     data_group = mesh.groups["data"] if mesh is not None else None
     n_data = mesh.config.dp * mesh.config.fsdp if mesh is not None else 1
 
+    def row_weights(tokens):
+        """This rank's rows' loss weights under ``batch_pad`` (None
+        unpadded): its rows of the global batch's ``pad_row_weights``."""
+        if not batch_pad:
+            return None
+        n = tokens.shape[0] * n_data
+        w = pad_row_weights(n - batch_pad, n)
+        if n_data > 1:
+            from dlrover_tpu_torch.parallel.mesh import batch_sharding
+
+            w = w[batch_sharding(mesh, n)]
+        return torch.from_numpy(w).to(tokens.device)
+
     def local_grads(model, params, tokens, targets):
         """(mean loss over this rank's rows, f32-accumulated local grads,
         or the param-dtype grads at ``grad_accum=1``)."""
         if grad_accum == 1:
-            loss = loss_fn(model, tokens, targets, cfg)
+            loss = loss_fn(model, tokens, targets, cfg, row_weights=row_weights(tokens))
             grads = torch.autograd.grad(loss, params)
             return loss.detach(), list(grads)
         B = tokens.shape[0]
@@ -228,7 +282,7 @@ def build_train_step(
         acc = None
         loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for x, y in zip(tokens.chunk(grad_accum), targets.chunk(grad_accum)):
-            mb_loss = loss_fn(model, x, y, cfg)
+            mb_loss = loss_fn(model, x, y, cfg, row_weights=row_weights(x))
             grads = _flat_all_reduce_mean(
                 list(torch.autograd.grad(mb_loss, params)), data_group, n_data
             )

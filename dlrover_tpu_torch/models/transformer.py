@@ -9,18 +9,30 @@ names: params in ``cfg.param_dtype``, matmuls in ``cfg.dtype``,
 normalization and softmax in f32, and attention through the flash
 kernels on ``[B,H,T,D]`` straight from the projection einsums.
 
+``cfg.scan_layers`` keeps the layers stacked, as the JAX package's
+``stack_layer_params`` does: one ``[L, ...]`` parameter a layer leaf
+(``layers.attn.wq [L,D,H,K]``). The forward unbinds each stacked leaf
+into per-layer views once, so the backward stacks the layers' grads
+into the stacked parameter's grad in one operation. ``cfg.remat`` runs
+each block under ``torch.utils.checkpoint`` (non-reentrant), the
+counterpart of ``jax.checkpoint(block)``: the backward recomputes the
+block from its input, attention kernels included, on the same inputs.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 item: MoE layers (A11), sequence parallelism over a mesh (A10),
-``remat`` and ``scan_layers`` (A2), ``int8_mlp`` (A12).
+``int8_mlp`` (A12), the KV-cache decode paths (A14).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from types import SimpleNamespace
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dlrover_tpu_torch.models.config import TransformerConfig
 from dlrover_tpu_torch.ops.flash_attention import flash_attention
@@ -41,10 +53,6 @@ def check_supported(cfg: TransformerConfig, mesh=None) -> None:
         raise NotImplementedError(
             "meshes / sequence parallelism are not ported yet (ROADMAP A10)"
         )
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet (ROADMAP A2)")
-    if cfg.scan_layers:
-        raise NotImplementedError("scan_layers is not ported yet (ROADMAP A2)")
     if cfg.int8_mlp:
         raise NotImplementedError("int8_mlp is not ported yet (ROADMAP A12)")
 
@@ -86,6 +94,41 @@ class _Layer(nn.Module):
             )
 
 
+_LAYER_PARTS = ("attn_norm", "mlp_norm", "attn", "mlp")
+
+
+class _StackedLayers(nn.Module):
+    """The ``scan_layers`` storage: each layer leaf stacked into one
+    ``[L, ...]`` parameter, under the list layout's names without the
+    layer index (``attn.wq``)."""
+
+    def __init__(self, layers: List[_Layer]):
+        super().__init__()
+        for part in _LAYER_PARTS:
+            setattr(self, part, nn.ParameterDict({
+                k: nn.Parameter(torch.stack([getattr(l, part)[k].detach() for l in layers]))
+                for k in getattr(layers[0], part)
+            }))
+
+
+def layer_views(layers) -> list:
+    """The blocks' parameters in order: the ``_Layer`` modules of the
+    list layout, or per-layer views of the stacked leaves under the
+    attributes ``_Layer`` has (one ``unbind`` a leaf, so the backward
+    builds each stacked grad in one ``stack``)."""
+    if isinstance(layers, nn.ModuleList):
+        return list(layers)
+    unbound = {
+        part: {k: p.unbind(0) for k, p in getattr(layers, part).items()}
+        for part in _LAYER_PARTS
+    }
+    L = len(next(iter(unbound["attn"].values())))
+    return [
+        SimpleNamespace(**{part: {k: v[i] for k, v in d.items()} for part, d in unbound.items()})
+        for i in range(L)
+    ]
+
+
 class Transformer(nn.Module):
     """The parameter tree (see the module docstring); the model runs
     through the free function ``forward``."""
@@ -123,14 +166,15 @@ class Transformer(nn.Module):
             self.embed["positions"] = make("dense", (cfg.max_seq_len, d), d)
         if not cfg.tie_embeddings:
             self.lm_head = make("dense", (d, cfg.vocab_size), d)
-        self.layers = nn.ModuleList(
-            [_Layer(cfg, make) for _ in range(cfg.num_layers)]
-        )
+        # drawn layer by layer in both layouts: a stacked model holds the
+        # list layout's weights of the same seed
+        layers = [_Layer(cfg, make) for _ in range(cfg.num_layers)]
+        self.layers = _StackedLayers(layers) if cfg.scan_layers else nn.ModuleList(layers)
 
     def jax_ordered_parameters(self):
         """Parameters in the JAX package's pytree flatten order (dict
-        keys sorted, layers in order) — the leaf order of the flat
-        optimizer's layout."""
+        keys sorted, layers in order; stacked leaves as the stacked
+        tree's keys) — the leaf order of the flat optimizer's layout."""
 
         def key(item):
             return tuple(
@@ -147,6 +191,80 @@ def init_params(
     ``init_params(key, cfg)``): dense ``N(0, 1/fan_in)``, norm scales 1,
     biases 0."""
     return Transformer(cfg, generator=generator, device=device)
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of congruent nested dicts."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def stack_layer_params(layers: list) -> Dict[str, Any]:
+    """[L homogeneous layer dicts] -> one tree of ``[L, ...]`` leaves (the
+    ``cfg.scan_layers`` layout); numpy or torch leaves."""
+
+    def stack(*xs):
+        return torch.stack(xs) if isinstance(xs[0], torch.Tensor) else np.stack(xs)
+
+    return _tree_map(stack, *layers)
+
+
+def unstack_layer_params(stacked: Dict[str, Any]) -> list:
+    """Inverse of ``stack_layer_params``."""
+    leaf = stacked
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return [_tree_map(lambda x: x[i], stacked) for i in range(leaf.shape[0])]
+
+
+def logical_axes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """A tree congruent with the JAX package's params (and with
+    ``convert.params_to_numpy``) holding each leaf's logical axis names,
+    as the JAX ``logical_axes`` gives them."""
+    if cfg.num_experts:
+        raise NotImplementedError("MoE layers are not ported yet (ROADMAP A11)")
+    axes: Dict[str, Any] = {
+        "embed": {"tokens": ("vocab", "embed")},
+        "final_norm": {"scale": ("norm",)},
+    }
+    if not cfg.rmsnorm:
+        axes["final_norm"]["bias"] = ("norm",)
+    if not cfg.rope:
+        axes["embed"]["positions"] = (None, "embed")
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    layer = {
+        "attn_norm": {"scale": ("norm",)},
+        "mlp_norm": {"scale": ("norm",)},
+        "attn": {
+            "wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed"),
+        },
+    }
+    if not cfg.rmsnorm:
+        layer["attn_norm"]["bias"] = ("norm",)
+        layer["mlp_norm"]["bias"] = ("norm",)
+    if cfg.swiglu:
+        layer["mlp"] = {
+            "w_gate": ("embed", "mlp"),
+            "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed"),
+        }
+    else:
+        layer["mlp"] = {
+            "w_up": ("embed", "mlp"),
+            "b_up": ("mlp",),
+            "w_down": ("mlp", "embed"),
+            "b_down": ("norm",),
+        }
+    if cfg.scan_layers:
+        axes["layers"] = _tree_map(lambda t: ("layer_stack",) + t, layer)
+    else:
+        axes["layers"] = [_tree_map(lambda t: t, layer) for _ in range(cfg.num_layers)]
+    return axes
 
 
 # ---------------------------------------------------------------------------
@@ -249,12 +367,17 @@ def lm_head(params: Transformer, x: torch.Tensor, cfg: TransformerConfig):
     return logits
 
 
-def token_nll(logits: torch.Tensor, targets: torch.Tensor):
+def token_nll(logits: torch.Tensor, targets: torch.Tensor, row_weights=None):
     """Mean next-token negative log-likelihood, as
-    ``logsumexp(logits) - logits[target]``."""
+    ``logsumexp(logits) - logits[target]``. ``row_weights`` ([B]; see
+    ``models/train.pad_row_weights``) weighs each row's tokens in the
+    mean: padded rows weigh 0."""
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, targets[..., None].long())[..., 0]
-    return (lse - tgt).mean()
+    nll = lse - tgt
+    if row_weights is not None:
+        return (row_weights[:, None].to(nll.dtype) * nll).mean()
+    return nll.mean()
 
 
 def forward(
@@ -269,9 +392,15 @@ def forward(
     B, T = tokens.shape
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(T, device=tokens.device).expand(B, T)
-    for layer in params.layers:
-        x = _attention_block(x, layer, cfg, positions)
-        x = _mlp_block(x, layer, cfg)
+
+    def block(x, layer):
+        return _mlp_block(_attention_block(x, layer, cfg, positions), layer, cfg)
+
+    for layer in layer_views(params.layers):
+        if cfg.remat:
+            x = checkpoint(block, x, layer, use_reentrant=False)
+        else:
+            x = block(x, layer)
     return lm_head(params, x, cfg), _zero_aux(x.device)
 
 
@@ -281,7 +410,9 @@ def loss_fn(
     targets: torch.Tensor,
     cfg: TransformerConfig,
     mesh=None,
+    row_weights=None,
 ):
-    """Mean NLL (the dense model's MoE aux losses are zero)."""
+    """Mean NLL (the dense model's MoE aux losses are zero), weighted by
+    row with ``row_weights``."""
     logits, _ = forward(params, tokens, cfg, mesh)
-    return token_nll(logits, targets)
+    return token_nll(logits, targets, row_weights)

@@ -26,7 +26,11 @@ imported only inside its launcher.
 
 The plain PyTorch version (``_adam8_update_plain``) is the CPU path and
 the kernel's oracle; both round half to even and give sign(0) = 0; the
-plain version divides truly, as the JAX math does. The kernel's moments
+plain version divides truly, as the JAX math does. The 4-bit form
+(``adamw_8bit(bits=4)`` / ``adamw_4bit``: a nibble-packed first moment,
+an int8 second moment) has no Pallas kernel in the JAX package, which
+runs it in jnp; here it runs in PyTorch (``_adam4_update_plain``) on
+every device. The kernel's moments
 and delta equal it to the rounding of one operation; its requantize may
 move a code by 1 where ``sqrt(|x| / scale) 127`` lies within a few ulp
 of a half (about 2 in a million codes on an H100, in chip_smoke.py's
@@ -113,6 +117,48 @@ def dequantize_8bit(q: Quantized8):
     )
 
 
+# -- 4-bit (nibble-packed) state: the first moment of ``adamw_8bit(bits=4)``
+@dataclass
+class Quantized4:
+    """Blockwise sqrt-map quantized tensor at 4 bits, two codes a byte
+    (code ``2j`` in the low nibble of byte ``j``, ``2j+1`` in the high
+    one). Signed codes lie in [-7, 7] and are stored as code + 8;
+    unsigned in [0, 15]. ``quantize_4bit``: ``scales [nblocks, 1]``;
+    the per-leaf optimizer's state: ``scales [nblocks]``."""
+
+    packed: torch.Tensor  # uint8 [nblocks, BLOCK // 2]
+    scales: torch.Tensor  # f32
+    shape: Tuple[int, ...]
+    signed: bool
+
+
+def _quant_block_math4(x, signed):
+    """x [rows, BLOCK] f32 -> (uint8 packed [rows, BLOCK // 2], scales
+    [rows, 1]): the 8-bit sqrt map at qmax 7 (signed, stored + 8) or 15."""
+    c, scale = _sqrt_map_quant(x, signed, 7.0 if signed else 15.0)
+    if signed:
+        c = c + 8.0  # [1, 15]
+    src = c.to(torch.uint8)
+    return src[:, 0::2] | (src[:, 1::2] << 4), scale
+
+
+def _dequant_block_math4(packed, scales, signed):
+    c = torch.stack([packed & 0xF, (packed >> 4) & 0xF], dim=-1)
+    c = c.reshape(packed.shape[0], -1).float()
+    if signed:
+        return _sqrt_map_dequant(c - 8.0, scales, 7.0)
+    return _sqrt_map_dequant(c, scales, 15.0)
+
+
+def quantize_4bit(x, signed: bool = True) -> Quantized4:
+    packed, scales = _quant_block_math4(_to_blocks(x.float()), signed)
+    return Quantized4(packed, scales, tuple(x.shape), signed)
+
+
+def dequantize_4bit(q: Quantized4):
+    return _from_blocks(_dequant_block_math4(q.packed, q.scales, q.signed), q.shape)
+
+
 # -- "wide" scale layout (the flat path): the scale of codes row r lives
 # at [r // 128, r % 128]
 def _quant_block_math_wide(x, signed):
@@ -155,6 +201,28 @@ def _adam8_update_plain(g_blocks, mq, vq, scalars, b1, b2, classic_eps=True):
         codes, s = _sqrt_map_quant(x, signed, 127.0)
         q.codes.copy_(codes.to(torch.int8))
         q.scales.view(R, 1).copy_(s)
+    return delta.to(g_blocks.dtype)
+
+
+def _adam4_update_plain(g_blocks, mq, vq, scalars, b1, b2, classic_eps=True):
+    """The 4-bit form's update (the JAX ``_adam4_update_jnp``): a
+    nibble-packed first moment and an int8 second moment, updated in
+    place; returns the delta in g's dtype. The JAX package runs this
+    form in jnp only (no Pallas kernel), on every device; so does the
+    port, in PyTorch."""
+    lrA, invbc2, eps = scalars
+    R = g_blocks.shape[0]
+    m = _dequant_block_math4(mq.packed, mq.scales.view(R, 1), True)
+    v = _sqrt_map_dequant(vq.codes.float(), vq.scales.view(R, 1), 127.0)
+    m_new, v_new, delta = _adam8_block_math(
+        g_blocks.float(), m, v, lrA, invbc2, eps, b1, b2, classic_eps
+    )
+    packed, ms = _quant_block_math4(m_new, True)
+    mq.packed.copy_(packed)
+    mq.scales.view(R, 1).copy_(ms)
+    codes, vs = _sqrt_map_quant(v_new, False, 127.0)
+    vq.codes.copy_(codes.to(torch.int8))
+    vq.scales.view(R, 1).copy_(vs)
     return delta.to(g_blocks.dtype)
 
 
@@ -396,11 +464,15 @@ class _Adam8Base(torch.optim.Optimizer):
         return grads
 
     def _apply(self, leaves, out, lr, group):
+        """``leaves += retune_scale * (out - lr * wd * leaves)``, with
+        ``out`` (the deltas, overwritten) in place: each step's call
+        applies one group's or one leaf's deltas as soon as they exist,
+        so no second param-sized buffer is ever alive."""
         if self.weight_decay:
             wd = float(torch.tensor(lr, dtype=torch.float32) * self.weight_decay)
-            out = torch._foreach_add(out, leaves, alpha=-wd)
+            torch._foreach_add_(out, leaves, alpha=-wd)
         if group["retune_scale"] != 1.0:
-            out = torch._foreach_mul(out, float(group["retune_scale"]))
+            torch._foreach_mul_(out, float(group["retune_scale"]))
         torch._foreach_add_(leaves, out)
 
 
@@ -459,16 +531,23 @@ class adamw_8bit_flat(_Adam8Base):
         self.count += 1
         scalars = self._scalars(lr, self.count)
         lrA, invbc2, _ = scalars
-        out: List[torch.Tensor] = [None] * len(leaves)
         for gi, g in enumerate(self.layout.groups):
+            # each group's delta is applied and freed before the next
+            # group's launch: the step's transients are one group's
+            # packed grads and delta
             gflat = _pack_group(grads, g, grads[g.idx[0]].dtype)
             delta = adam8_update_flat(
                 gflat.view(-1, BLOCK), self.mu[gi], self.nu[gi], scalars,
                 self.b1, self.b2, self.classic,
             ).view(-1)
-            for i, off in zip(g.idx, g.offsets):
-                n = leaves[i].numel()
-                out[i] = delta[off:off + n].view(leaves[i].shape)
+            del gflat
+            self._apply(
+                [leaves[i] for i in g.idx],
+                [delta[off:off + leaves[i].numel()].view(leaves[i].shape)
+                 for i, off in zip(g.idx, g.offsets)],
+                lr, group,
+            )
+            del delta
         if self.layout.small_idx:
             gs = torch.cat(
                 [grads[i].reshape(-1).float() for i in self.layout.small_idx]
@@ -478,32 +557,40 @@ class adamw_8bit_flat(_Adam8Base):
                 self.eps_val, self.b1, self.b2, self.classic,
             )
             self.mu_small, self.nu_small = m_new, v_new
-            for i, off in zip(self.layout.small_idx, self.layout.small_offsets):
-                n = leaves[i].numel()
-                out[i] = ds[off:off + n].view(leaves[i].shape).to(leaves[i].dtype)
-        self._apply(leaves, out, lr, group)
+            self._apply(
+                [leaves[i] for i in self.layout.small_idx],
+                [ds[off:off + leaves[i].numel()].view(leaves[i].shape).to(leaves[i].dtype)
+                 for i, off in zip(self.layout.small_idx, self.layout.small_offsets)],
+                lr, group,
+            )
         return None
 
 
 @dataclass
 class Adam8State:
     """The per-leaf form's state (the JAX ``Adam8State``): the update
-    count and, per leaf, a ``Quantized8`` moment pair (``[R]`` scales)
-    or, under ``min_quantized_size``, an f32 pair."""
+    count and, per leaf, a quantized moment pair (``[R]`` scales:
+    ``Quantized8`` twice, or at ``bits=4`` a ``Quantized4`` first moment
+    and a ``Quantized8`` second) or, under ``min_quantized_size``, an f32
+    pair."""
 
     count: int
-    mu: List[Union[Quantized8, torch.Tensor]]
+    mu: List[Union[Quantized8, Quantized4, torch.Tensor]]
     nu: List[Union[Quantized8, torch.Tensor]]
 
 
 class adamw_8bit(_Adam8Base):
-    """AdamW with per-leaf 8-bit state (the JAX ``adamw_8bit``, its
-    ``bits=8`` form): each leaf of at least ``min_quantized_size``
-    elements keeps its moments as int8 codes with one f32 scale per
-    128-element block and is updated by one launch of the Triton kernel
-    (``adam8_leaf``); smaller leaves keep f32 moments. Numerically the
-    same as ``adamw_8bit_flat``: blocks never straddle leaves in either
-    form. ``bits=4`` (``adamw_4bit``) is not ported yet (ROADMAP A4).
+    """AdamW with per-leaf quantized state (the JAX ``adamw_8bit``):
+    each leaf of at least ``min_quantized_size`` elements keeps its
+    moments in blocks of 128 with one f32 scale a block, smaller leaves
+    keep f32 moments. At ``bits=8`` both moments are int8 codes and each
+    quantized leaf is updated by one launch of the Triton kernel
+    (``adam8_leaf``); numerically the same as ``adamw_8bit_flat``, since
+    blocks never straddle leaves in either form. ``bits=4``
+    (``adamw_4bit``) nibble-packs the first moment (1.5 bytes of state a
+    parameter): the JAX package runs that form in jnp with no Pallas
+    kernel, and the port in PyTorch (``_adam4_update_plain``), on every
+    device.
 
     The params may be ZeRO shards (whole blocks of a leaf's row-major
     flatten): each block is updated as on the whole leaf."""
@@ -520,14 +607,10 @@ class adamw_8bit(_Adam8Base):
         bits: int = 8,
         eps_root: float = 0.0,
     ):
-        if bits == 4:
-            raise NotImplementedError(
-                "adamw_8bit(bits=4): the nibble-packed 4-bit state is not "
-                "ported yet (ROADMAP A4)"
-            )
-        if bits != 8:
+        if bits not in (4, 8):
             raise ValueError(f"bits must be 4 or 8, got {bits}")
         super().__init__(params, lr, b1, b2, eps, weight_decay, eps_root)
+        self.bits = bits
         mu, nu = [], []
         for p in self.param_groups[0]["params"]:
             # a ZeRO shard (models/train.leaf_shards) decides on its whole
@@ -537,15 +620,26 @@ class adamw_8bit(_Adam8Base):
                 nu.append(torch.zeros(p.shape, dtype=torch.float32, device=p.device))
                 continue
             nblocks = -(-p.numel() // BLOCK)
-            for moments, signed in ((mu, True), (nu, False)):
-                moments.append(
-                    Quantized8(
-                        torch.zeros((nblocks, BLOCK), dtype=torch.int8, device=p.device),
-                        torch.zeros((nblocks,), dtype=torch.float32, device=p.device),
-                        tuple(p.shape),
-                        signed,
-                    )
+
+            def q8():
+                return Quantized8(
+                    torch.zeros((nblocks, BLOCK), dtype=torch.int8, device=p.device),
+                    torch.zeros((nblocks,), dtype=torch.float32, device=p.device),
+                    tuple(p.shape), False,
                 )
+
+            if bits == 4:
+                # the code of 0 is 8 in both nibbles (quantize_4bit of zeros)
+                mu.append(Quantized4(
+                    torch.full((nblocks, BLOCK // 2), 0x88, dtype=torch.uint8, device=p.device),
+                    torch.zeros((nblocks,), dtype=torch.float32, device=p.device),
+                    tuple(p.shape), True,
+                ))
+            else:
+                m = q8()
+                m.signed = True
+                mu.append(m)
+            nu.append(q8())
         self.adam_state = Adam8State(0, mu, nu)
 
     @torch.no_grad()
@@ -560,21 +654,32 @@ class adamw_8bit(_Adam8Base):
         st.count += 1
         scalars = self._scalars(lr, st.count)
         lrA, invbc2, _ = scalars
-        out: List[torch.Tensor] = []
         for i, g in enumerate(grads):
             m, v = st.mu[i], st.nu[i]
-            if isinstance(m, Quantized8):
+            if isinstance(m, Quantized4):
+                delta = _adam4_update_plain(
+                    _to_blocks(g.float()), m, v, scalars, self.b1, self.b2,
+                    self.classic,
+                )
+                d = _from_blocks(delta, g.shape).to(g.dtype)
+            elif isinstance(m, Quantized8):
                 delta = adam8_update_leaf(
                     _to_blocks(g.float()), m, v, scalars, self.b1, self.b2,
                     self.classic,
                 )
-                out.append(_from_blocks(delta, g.shape).to(g.dtype))
+                d = _from_blocks(delta, g.shape).to(g.dtype)
             else:
                 # small leaf: plain f32 Adam with the kernel's eps form
                 st.mu[i], st.nu[i], d = _adam8_block_math(
                     g.float(), m, v, lrA, invbc2, self.eps_val, self.b1,
                     self.b2, self.classic,
                 )
-                out.append(d.to(g.dtype))
-        self._apply(leaves, out, lr, group)
+                d = d.to(g.dtype)
+            self._apply([leaves[i]], [d], lr, group)
         return None
+
+
+def adamw_4bit(params, **kwargs) -> adamw_8bit:
+    """4-bit AdamW (the JAX ``adamw_4bit``): ``adamw_8bit(bits=4)``, a
+    nibble-packed first moment and an int8 second moment."""
+    return adamw_8bit(params, bits=4, **kwargs)

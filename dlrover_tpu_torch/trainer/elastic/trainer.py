@@ -31,6 +31,13 @@ steps (a stage still open at such a step yields to it), the
 best eval's checkpoint under ``ckpt_dir/best`` (``save_best``), and a
 restore from shm or storage at construction.
 
+The strategy's ``remat`` (or its ``remat`` opt) is stamped on the
+model's config, as the JAX accel pins it (without a strategy the
+config's own ``remat`` stands), and its ``batch_pad`` appends that
+many zero rows to every global batch before the rank split, which the
+step weighs 0 in the loss (the eval batch is trimmed instead, to the
+rows the data ranks divide, as in the JAX trainer).
+
 ``donation_aware``: the JAX trainer stops donating state buffers while
 a save reads them. Here the optimizer updates the state in place, so
 the step's stream waits for the save's device copies before the
@@ -280,6 +287,7 @@ class ScheduledOptimizer:
 
 _ADAM_KW = {"b1", "b2", "eps"}
 _SGD_KW = {"momentum", "nesterov"}
+_AGD_KW = {"b1", "b2", "delta", "amsgrad", "clip"}
 
 
 def build_optimizer(
@@ -294,25 +302,30 @@ def build_optimizer(
     """Optimizer factory + LR schedule, retune-compatible. Returns a
     callable ``params -> ScheduledOptimizer``. Weight decay is decoupled
     for the adaptive optimizers and L2-into-update for sgd, as in the
-    JAX package; ``retune_scale`` multiplies the update."""
+    JAX package; ``retune_scale`` multiplies the update. The names are
+    the JAX package's (``agd`` is ``ops/optimizers.agd``; the 8-bit
+    forms take ``bits=4``), plus ``adamw_4bit``, the port's name for
+    ``adamw_8bit`` with ``bits=4`` (the JAX ``adamw_4bit`` transform)."""
     lr_fn = lr_schedule(lr, schedule, warmup_steps, total_steps)
-    if name == "agd":
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (ROADMAP A4)"
-        )
-    if name not in ("adamw", "adam", "sgd", "adamw_8bit", "adamw_8bit_flat"):
+    if name not in (
+        "adamw", "adam", "sgd", "agd", "adamw_8bit", "adamw_8bit_flat", "adamw_4bit"
+    ):
         raise ValueError(f"unknown optimizer {name!r}")
-    allowed = {"adamw": _ADAM_KW, "adam": _ADAM_KW, "sgd": _SGD_KW}.get(name)
+    allowed = {"adamw": _ADAM_KW, "adam": _ADAM_KW, "sgd": _SGD_KW, "agd": _AGD_KW}.get(name)
     if allowed is not None and set(kwargs) - allowed:
         raise TypeError(f"{name}: unsupported arguments {sorted(set(kwargs) - allowed)}")
     lr0 = float(lr_fn(0))
 
     def make(params):
-        if name in ("adamw_8bit", "adamw_8bit_flat"):
+        if name in ("adamw_8bit", "adamw_8bit_flat", "adamw_4bit"):
             from dlrover_tpu_torch.ops import quantized_optim
 
             cls = getattr(quantized_optim, name)
-            opt = cls(params, lr0, weight_decay=weight_decay, **kwargs)
+            opt = cls(params, lr=lr0, weight_decay=weight_decay, **kwargs)
+        elif name == "agd":
+            from dlrover_tpu_torch.ops.optimizers import agd
+
+            opt = agd(params, lr0, weight_decay=weight_decay, **kwargs)
         elif name in ("adamw", "adam"):
             # the JAX "adam" chains add_decayed_weights after the Adam
             # direction: decoupled decay, i.e. AdamW
@@ -355,6 +368,9 @@ class ElasticTrainer:
         self._metrics_hook = metrics_hook
         self._setup_telemetry(model_cfg)
         self.strategy = self._resolve_strategy(strategy)
+        # the strategy's remat reaches the model, as the JAX accel pins it
+        s = self.strategy
+        model_cfg = self.cfg = replace(model_cfg, remat=s.remat or "remat" in s.opts)
         self.mesh = build_mesh(self.strategy.mesh, self.device.type)
         self._grad_sync_plan = grad_sync.resolve_plan(
             model_cfg, self.strategy, grad_sync.model_leaves(model_cfg)
@@ -378,7 +394,7 @@ class ElasticTrainer:
         self._step_fn = build_train_step(
             model_cfg, tx, grad_accum=self.tcfg.grad_accum,
             before_update=self._fence_staging, mesh=self.mesh,
-            plan=self._grad_sync_plan,
+            plan=self._grad_sync_plan, batch_pad=self.strategy.batch_pad,
         )
         self._rows: Dict[int, torch.Tensor] = {}
         self.pipeline_stats = PipelineStats()
@@ -510,7 +526,7 @@ class ElasticTrainer:
         if self.tcfg.grad_bucket_mb == 0:
             grad_sync.resolve_bucket_bytes(0)  # raises: ROADMAP A9
         world = dist.get_world_size() if dist.is_initialized() else 1
-        s = strategy or Strategy(mesh=MeshConfig(dp=world))
+        s = strategy or Strategy(mesh=MeshConfig(dp=world), remat=self.cfg.remat)
         if s.mesh.num_devices != world:
             raise ValueError(
                 f"strategy mesh {s.mesh.axis_sizes()} needs "
@@ -598,6 +614,22 @@ class ElasticTrainer:
             bx, by = batch["x"], batch["y"]
         else:  # tuple/list samples from the default collate
             bx, by = batch[0], batch[1]
+        pad = self.strategy.batch_pad
+        if pad and not local:
+            # the eval loss takes no row weights: trim to the largest
+            # row count the data ranks divide, as the JAX trainer does
+            m = self.strategy.mesh
+            n = (int(np.asarray(bx).shape[0]) // max(m.dp * m.fsdp, 1)) * max(m.dp * m.fsdp, 1)
+            if n > 0:
+                bx, by = np.asarray(bx)[:n], np.asarray(by)[:n]
+        elif pad:
+            # micro-batch rebalance: zero rows appended to the global
+            # batch before the rank split; the step's row weights take
+            # them out of the loss
+            from dlrover_tpu_torch.models.train import pad_batch_rows
+
+            n = int(np.asarray(bx).shape[0]) + pad
+            bx, by = pad_batch_rows(bx, n), pad_batch_rows(by, n)
         return self._to_device(bx, local), self._to_device(by, local)
 
     # -- eval ----------------------------------------------------------

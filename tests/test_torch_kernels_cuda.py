@@ -440,3 +440,76 @@ def test_staged_bytes_equal_a_sync_snapshot_while_the_next_step_runs(dev, tmp_pa
     finally:
         engine.close()
         AsyncCheckpointSaver.reset()
+
+
+@pytest.mark.parametrize("scan", [False, True])
+def test_remat_is_bitwise_on_the_card(dev, scan):
+    """Remat off and on, the same weights and batch, bf16 compute through
+    the kernels: the loss and every grad equal to the bit (the recompute
+    runs the same kernels on the same inputs), and the forward kernel
+    launches once more a layer."""
+    from dataclasses import replace
+
+    from dlrover_tpu_torch.models import llama2_7b
+    from dlrover_tpu_torch.models.transformer import init_params, loss_fn
+
+    base = replace(llama2_7b(), num_layers=2, model_dim=256, num_heads=2, num_kv_heads=2,
+                   mlp_dim=512, vocab_size=1024, scan_layers=scan)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randint(0, base.vocab_size, (2, 256), generator=g, device=dev)
+    y = torch.randint(0, base.vocab_size, (2, 256), generator=g, device=dev)
+    out = []
+    for remat in (False, True):
+        cfg = replace(base, remat=remat)
+        model = init_params(torch.Generator().manual_seed(1), cfg, dev)
+        fa.reset_launch_counts()
+        loss = loss_fn(model, x, y, cfg)
+        grads = torch.autograd.grad(loss, model.jax_ordered_parameters())
+        torch.cuda.synchronize()
+        out.append((loss.detach(), grads, dict(fa.launch_counts)))
+    (l0, g0, c0), (l1, g1, c1) = out
+    assert torch.equal(l0, l1)
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+    L = base.num_layers
+    assert c0 == {"fa_fwd": L, "fa_bwd_dkdv": L, "fa_bwd_dq": L}
+    assert c1 == {"fa_fwd": 2 * L, "fa_bwd_dkdv": L, "fa_bwd_dq": L}
+
+
+def test_flat_adamw_step_holds_one_group_of_transients(dev):
+    """The flat 8-bit AdamW's step on the card, with weight decay and a
+    retune scale: beyond the params, grads and state it allocates at most
+    one group's packed grads and delta (each group's delta is applied
+    and freed before the next launch), where the step before that held
+    every group's delta and, for the decay, a second param-sized list.
+    Prints both transients."""
+    import json
+
+    from test_torch_optimizers import _step_before
+
+    def transient(step):
+        g = torch.Generator(device=dev).manual_seed(0)
+        leaves = [torch.nn.Parameter(torch.randn(1024, 1024, device=dev, generator=g) * 0.02)
+                  for _ in range(8)]
+        for p in leaves:
+            p.grad = torch.randn(p.shape, device=dev, generator=g) * 1e-3
+        opt = qo.adamw_8bit_flat(leaves, lr=1e-3, weight_decay=0.01, group_elems=1 << 20)
+        opt.param_groups[0]["retune_scale"] = 0.5
+        assert len(opt.layout.groups) == 8
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(opt)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, opt, leaves
+
+    now, opt, leaves = transient(lambda o: o.step())
+    before, opt_b, leaves_b = transient(_step_before)
+    one_group = opt.layout.groups[0].total * 4
+    params_bytes = sum(p.numel() * 4 for p in leaves)
+    print(json.dumps({"flat_step_transient_bytes": now, "before_bytes": before,
+                      "one_group_bytes": one_group, "params_bytes": params_bytes}))
+    assert now <= 2 * one_group + (1 << 20), (now, one_group)
+    assert before >= params_bytes
+    for a, b in zip(leaves, leaves_b):  # the same updates, bit for bit
+        assert torch.equal(a, b)

@@ -115,6 +115,16 @@ DATA_PARALLEL = {
 }
 
 
+# the model and optimizer leftovers (ROADMAP A2, A4)
+MODEL_LEFTOVERS = {
+    "dlrover_tpu_torch.models.mup",
+    "dlrover_tpu_torch.models.policy",
+    "dlrover_tpu_torch.models.transformer",
+    "dlrover_tpu_torch.ops.optimizers",
+    "dlrover_tpu_torch.ops.quantized_optim",
+}
+
+
 def test_port_imports_with_jax_and_the_jax_package_blocked():
     p = subprocess.run(
         [sys.executable, "-c", _PROBE],
@@ -133,6 +143,7 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert CONTROL_PLANE <= names, sorted(CONTROL_PLANE - names)
     assert WORKER_LOOP <= names, sorted(WORKER_LOOP - names)
     assert DATA_PARALLEL <= names, sorted(DATA_PARALLEL - names)
+    assert MODEL_LEFTOVERS <= names, sorted(MODEL_LEFTOVERS - names)
 
 
 def test_data_parallel_modules_and_the_rank_worker_import_without_jax():

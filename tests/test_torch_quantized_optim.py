@@ -326,8 +326,8 @@ def test_requantize_by_row_factor_stays_within_one_code(sqrt_ulps):
         assert (diff > 0).float().mean().item() <= 1e-3
 
 
-def test_four_bit_form_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A4"):
-        tq.adamw_8bit([torch.nn.Parameter(torch.zeros(3))], bits=4)
+def test_per_leaf_form_refuses_both_eps_forms_and_other_bits():
     with pytest.raises(ValueError):
         tq.adamw_8bit([torch.nn.Parameter(torch.zeros(3))], eps=1e-8, eps_root=1e-8)
+    with pytest.raises(ValueError, match="bits"):
+        tq.adamw_8bit([torch.nn.Parameter(torch.zeros(3))], bits=3)

@@ -72,8 +72,11 @@ def _drive(pkg, ckpt_dir):
     hands the lock back. Each step's commit runs on a thread of its own
     and publishes to the history in the order the threads get there, so
     the next step is staged only once this one is committed: the
-    history's order is then the staging order in both packages. Returns
-    the steps committed on disk."""
+    history's order is then the staging order in both packages. A step
+    counts as committed once the history holds it: a commit writes the
+    tracker first and the history after it, so a tracker that names the
+    step may still come with a history that lacks it. Returns the steps
+    committed on disk."""
     import importlib
 
     saver_mod = importlib.import_module(f"{pkg}.ckpt.saver")
@@ -97,8 +100,8 @@ def _drive(pkg, ckpt_dir):
             queue.put(saver_mod.SaveEvent(
                 step=step, checkpoint_dir=ckpt_dir, local_rank=0,
                 global_shard_id=0, global_shard_num=1, sync=sync))
-            _wait(lambda: saver_mod.read_tracker(
-                storage.PosixDiskStorage(), ckpt_dir) >= step,
+            _wait(lambda: step in saver_mod.known_committed_steps(
+                storage.PosixDiskStorage(), ckpt_dir),
                 what=f"{pkg}: step {step} never committed")
         last = EVENTS[-1][0]
         _wait(lambda: saver_mod.read_tracker(storage.PosixDiskStorage(), ckpt_dir) == last)
@@ -116,6 +119,22 @@ def test_port_commits_the_same_steps_as_the_jax_package(job, tmp_path):
     assert got["dlrover_tpu_torch"] == got["dlrover_tpu"]
     # every staged step, memory saves included
     assert sorted(got["dlrover_tpu"]) == [s for s, _ in EVENTS]
+
+
+def test_a_commit_slow_to_write_its_history_is_waited_for(job, tmp_path, monkeypatch):
+    """Between a commit's tracker write and its history write a loaded
+    host can stall; the drive must still see every staged step (it once
+    read the history in that window and missed the last step)."""
+    from dlrover_tpu_torch.ckpt import saver as saver_mod
+
+    write = saver_mod._write_history
+
+    def slow(*args, **kw):
+        time.sleep(0.3)
+        return write(*args, **kw)
+
+    monkeypatch.setattr(saver_mod, "_write_history", slow)
+    assert _drive("dlrover_tpu_torch", str(tmp_path / "ck")) == [s for s, _ in EVENTS]
 
 
 def _state(seed):

@@ -193,14 +193,11 @@ def test_trainer_config_keeps_the_jax_fields_and_defaults():
     assert t == j
 
 
-@pytest.mark.parametrize("name", ["agd", "adamw_8bit"])
-def test_unported_optimizers_raise(name):
-    """agd is not ported; adamw_8bit is, all but its 4-bit form."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if name == "agd":
-            ttrainer.build_optimizer(name)
-        else:
-            ttrainer.build_optimizer(name, bits=4)([torch.nn.Parameter(torch.zeros(3))])
+def test_unknown_optimizer_names_and_arguments_are_refused():
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        ttrainer.build_optimizer("lion")
+    with pytest.raises(TypeError, match="unsupported"):
+        ttrainer.build_optimizer("agd", eps=1e-8)
 
 
 def test_three_steps_match_jax_per_leaf_adamw_8bit():

@@ -93,8 +93,6 @@ def test_init_params_shapes_match_jax():
     "override,item",
     [
         (dict(num_experts=4), "A11"),
-        (dict(remat=True), "A2"),
-        (dict(scan_layers=True), "A2"),
         (dict(int8_mlp=True), "A12"),
     ],
 )
