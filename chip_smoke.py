@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlrover_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama]
+    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama|accel|peak_memory]
 
 (``--profile`` adds a torch.profiler window of a few more steps to the
 per-leaf gpt2_small path and to the full-size sparse path; ``--phase
 flash_ckpt`` builds the kernels and runs that phase alone, ``--phase
 evict`` its uninterrupted run and the eviction drill alone, ``--phase
 dp`` the data-parallel phase alone, ``--phase llama`` the Llama-2-7B
-phase alone, without the contract's closing lines. ``--dp-worker SPEC
-RANK`` is one rank of the dp phase and ``--llama-worker OUT`` the llama
-phase's full model, each started by its phase.)
+phase alone, ``--phase accel`` the strategy-search phase alone, without
+the contract's closing lines; ``--phase peak_memory`` holds the static
+peak model to the card, a phase the full run does not take.
+``--dp-worker SPEC RANK`` is one rank of the dp phase, ``--llama-worker
+OUT [--search-only]`` the llama phase's full model (its search first),
+``--accel-worker OUT`` the accel phase's link model and offload and
+``--peak-worker OUT CASE`` one case of the peak_memory phase, each
+started by its phase.)
 
 1. device: the card's name, power limit and count; builds the CUDA
    kernels from the checkout's sources (one nvcc for each ``.cu``, and
@@ -29,7 +34,11 @@ phase's full model, each started by its phase.)
 3. paths, each driven with the launch counts set to 0 just before it and
    read just after:
    - ``llama``, run before item 2 (the full model needs the card nearly
-     to itself):
+     to itself): first ``auto_accelerate`` for Llama-2-7B with the
+     card's memory as the budget (the plain candidate refused by the
+     static memory gate, the remat one timed on a state drawn on the
+     card and picked; its static peak within ``STATIC_PEAK_RTOL`` of the
+     measured one), then, with that winner as the trainer's strategy,
      Llama-2-7B at full width and depth (32 x 4096, 32 heads of 128,
      SwiGLU 11008, vocab 32000, untied head), f32 params, bf16 compute,
      remat, ``adamw_8bit_flat``, batch 1 x seq 4096, 6 steps under
@@ -44,7 +53,9 @@ phase's full model, each started by its phase.)
      list layout and on ``scan_layers`` (losses within
      ``LOSS_MATCH_RTOL``), then with ``agd`` and with ``adamw_4bit``;
    - ``ElasticTrainer(gpt2_small(), build_optimizer("adamw_8bit_flat"),
-     ...).train(10)`` at batch 8 x seq 1024, plus one small model's loss
+     ...).train(10)`` at batch 8 x seq 1024 (no strategy: the trainer's
+     search picks one; its launches on a line of their own, the step
+     auditor's budget, drift and alarms after the run), plus one small model's loss
      on the card against the plain CPU path from the same weights; then
      3 steps and 3 under torch.profiler, the goodput ledger's
      ``productive_compute`` a step against the profiled device time
@@ -77,6 +88,18 @@ phase's full model, each started by its phase.)
      run's bit for bit; one rank on NCCL (``init_elastic`` and a trainer
      whose ``comm_overlap`` resolves to the default path at dp=1, then
      ``sync_grads`` on the lone-rank NCCL group);
+   - ``accel``: the link model probed on the card (pinned H2D / D2H
+     rates, the link between cards unprobed at world size 1, a second
+     call from the cache touching no card) and gpt2_xl with AdamW at 4
+     x 1024, 3 steps resident and with ``Strategy(offload_opt=True)``
+     (bitwise, the state in pinned host memory, the peak lower by at
+     least ``OFFLOAD_SAVING_SHARE`` of the state, either static peak
+     within ``PEAK_CAL_RTOL`` of its measured one), in a process of its
+     own; beside it the Llama-2-7B search (in the llama worker), the
+     two-rank search (an ``accel`` job in the dp phase's first start:
+     the link model on the dp group, ``grad_compress="auto"`` and
+     ``grad_bucket_mb=0`` resolved from it, ``agree_strategy`` through a
+     master of this process) and the slice's auditor;
    - ``flash_ckpt``: Flash Checkpoint under ``ElasticTrainer`` on
      gpt2_small (``examples/train_gpt2_torch.py`` workers): an
      uninterrupted run twice beside a saver in this process; then the
@@ -729,11 +752,19 @@ def run_slice(torch, fa, qo, opt="adamw_8bit_flat", profile=False):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
 
+    fa.reset_launch_counts()
+    qo.reset_launch_counts()
+    # no strategy: the trainer searches, as a user's does
     trainer = ElasticTrainer(
         gpt2_small(), build_optimizer(opt, lr=3e-4),
         RandomTokens(seq=T), TrainerConfig(batch_size=B, seq_len=T),
         metrics_hook=hook,
     )
+    best = trainer.accel.reports[0]
+    emit("slice_search", model="gpt2_small", optimizer=opt, strategy=trainer.strategy.describe(),
+         picked_is_the_world_1_candidate=trainer.strategy == picked_strategy(gpt2_small()),
+         measured_step_s=best.step_s, est_step_s=best.est_step_s, search_s=trainer.accel.search_s,
+         launches={**fa.launch_counts, **qo.launch_counts})
     inner = trainer.state.opt_state.opt
     if opt == "adamw_8bit_flat":  # one launch a packed group a step
         expect_opt = {"adam8_flat": len(inner.layout.groups) * steps, "adam8_leaf": 0}
@@ -765,6 +796,7 @@ def run_slice(torch, fa, qo, opt="adamw_8bit_flat", profile=False):
          max_memory_allocated_bytes=peak, ok=ok)
     if not ok:
         raise RuntimeError("the slice's training run failed its checks")
+    audit = audit_line(trainer, f"gpt2_small {opt}, {steps} steps") if opt == "adamw_8bit_flat" else None
     if opt == "adamw_8bit_flat":
         ledger_vs_profile(torch, trainer, steps, med * 1e3)
     elif profile:
@@ -773,7 +805,7 @@ def run_slice(torch, fa, qo, opt="adamw_8bit_flat", profile=False):
     trainer.close()
     del trainer, inner
     torch.cuda.empty_cache()
-    return counts, losses[:steps]  # not the profiled steps' losses
+    return counts, losses[:steps], audit  # not the profiled steps' losses
 
 
 # ---------------------------------------------------------------------------
@@ -804,8 +836,20 @@ def step_flops(cfg, T, remat):
     return model, hw
 
 
-def _trainer_run(torch, fa, qo, cfg, opt, steps, data, batch, inspect=None, keep=False):
-    """``ElasticTrainer(cfg, build_optimizer(opt), data, ...).train(steps)``
+def picked_strategy(cfg):
+    """The strategy the trainer's search picks at world size 1 (its one
+    candidate, dp=1 in the config's dtype, with the config's remat as an
+    optimization): phases that check something other than the search
+    pass it, the reference's ``load_strategy`` path."""
+    from dlrover_tpu_torch.accel.strategy import Strategy
+
+    return Strategy(dtype=cfg.dtype, opts=("remat",) if cfg.remat else ())
+
+
+def _trainer_run(torch, fa, qo, cfg, opt, steps, data, batch, inspect=None, keep=False,
+                 strategy=None):
+    """``ElasticTrainer(cfg, build_optimizer(opt), data, strategy=...)
+    .train(steps)`` (``strategy``: ``picked_strategy(cfg)`` unless given)
     with every launch count set to 0 just before and read just after;
     returns the losses, grad norms, launch counts, median step ms (the
     first step, with its warm-up, left out), the run's own peak bytes
@@ -830,7 +874,7 @@ def _trainer_run(torch, fa, qo, cfg, opt, steps, data, batch, inspect=None, keep
     trainer = ElasticTrainer(
         cfg, build_optimizer(opt, lr=3e-4), data,
         TrainerConfig(batch_size=batch, seq_len=data.data.shape[1] - 1),
-        metrics_hook=hook,
+        metrics_hook=hook, strategy=strategy or picked_strategy(cfg),
     )
     init_s = time.perf_counter() - t0
     torch.cuda.synchronize()
@@ -866,24 +910,90 @@ def _flat_groups(trainer):
     return {"groups": len(trainer.state.opt_state.opt.layout.groups)}
 
 
-def llama_worker(out_path, profile=False):
+def static_cost(cfg, opt, batch, seq, strategy):
+    """``dry_runner.compiled_cost`` of ``strategy`` on one card with the
+    card's memory as the budget: the static tier the search's memory
+    gate reads (nothing is allocated)."""
+    import torch
+
+    from dlrover_tpu_torch.accel.dry_runner import compiled_cost
+    from dlrover_tpu_torch.trainer.elastic.trainer import build_optimizer
+
+    budget = torch.cuda.get_device_properties(0).total_memory
+    return compiled_cost(strategy, cfg, build_optimizer(opt, lr=3e-4), batch, seq, 1, budget)
+
+
+def llama_search(torch, fa, qo, cfg):
+    """``auto_accelerate`` for Llama-2-7B at full width and depth (batch
+    1 x ``LLAMA_SEQ``, ``adamw_8bit_flat``) with the card's memory as the
+    budget: the plain candidate's static figure first (no allocation),
+    then the search, which must refuse it by the static gate, retry with
+    remat and time the remat candidate (a state drawn on the card); the
+    timed run's peak beside the remat candidate's static figure."""
+    from dlrover_tpu_torch.accel import auto_accelerate
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.trainer.elastic.trainer import build_optimizer
+
+    tx = build_optimizer("adamw_8bit_flat", lr=3e-4)
+    budget = torch.cuda.get_device_properties(0).total_memory
+    plain = static_cost(cfg, "adamw_8bit_flat", 1, LLAMA_SEQ, picked_strategy(cfg))
+    remat = static_cost(cfg, "adamw_8bit_flat", 1, LLAMA_SEQ,
+                        Strategy(dtype=cfg.dtype, opts=("remat",)))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    qo.reset_launch_counts()
+    t0 = time.perf_counter()
+    acc = auto_accelerate(cfg, tx, 1, LLAMA_SEQ, device="cuda", hbm_budget=budget)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    measured_peak = torch.cuda.max_memory_allocated() - base
+    best = acc.reports[0]
+    return dict(
+        budget_bytes=budget, plain_static_bytes=plain.mem_bytes, plain_fits=plain.fits,
+        plain_ok=plain.ok, remat_static_bytes=remat.mem_bytes, remat_fits=remat.fits,
+        remat_est_step_s=remat.est_step_s, measured_peak_bytes=measured_peak,
+        static_vs_measured=remat.mem_bytes / measured_peak - 1 if measured_peak else None,
+        winner=acc.strategy.to_json(), winner_describe=acc.strategy.describe(),
+        winner_remat=acc.cfg.remat, measured_step_s=best.step_s, est_step_s=best.est_step_s,
+        est_source=best.est_source, reports=[
+            dict(strategy=r.strategy.describe(), ok=r.ok, fits=r.fits, mem_bytes=r.mem_bytes,
+                 step_s=r.step_s, error=r.error) for r in acc.reports],
+        search_s=acc.search_s, wall_s=wall, launches={**fa.launch_counts, **qo.launch_counts})
+
+
+def llama_worker(out_path, profile=False, search_only=False):
     """Llama-2-7B at full width and depth (``chip_smoke.py --llama-worker
     OUT``, started by the llama phase with the allocator's expandable
-    segments): f32 params, bf16 compute, remat, ``adamw_8bit_flat``,
-    batch 1 x seq 4096, random weights from seed 0 (drawn on the CPU by
-    the port's ``init_params`` and moved), ``LLAMA_STEPS`` steps under
-    ``ElasticTrainer``. Writes its result to OUT."""
+    segments): first ``llama_search`` (the strategy search with the
+    card's memory as the budget), then ``ElasticTrainer`` with the
+    search's winner as its explicit strategy: f32 params, bf16 compute,
+    remat, ``adamw_8bit_flat``, batch 1 x seq 4096, random weights from
+    seed 0 (drawn on the CPU by the port's ``init_params`` and moved),
+    ``LLAMA_STEPS`` steps (``search_only``: no trainer). Writes its result
+    to OUT."""
     import torch
-    from dataclasses import replace
 
+    from dlrover_tpu_torch.accel.strategy import Strategy
     from dlrover_tpu_torch.models import llama2_7b
     from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import quantized_optim as qo
 
-    cfg = replace(llama2_7b(), remat=True)
+    search = llama_search(torch, fa, qo, llama2_7b())
+    gc.collect()
+    torch.cuda.empty_cache()
+    if search_only:
+        with open(out_path, "w") as f:
+            json.dump(dict(search=search), f)
+        return
+    cfg = llama2_7b()
     data = RandomTokens(n=64, seq=LLAMA_SEQ, vocab=cfg.vocab_size)
     res, trainer = _trainer_run(torch, fa, qo, cfg, "adamw_8bit_flat", LLAMA_STEPS, data, 1,
-                                _flat_groups, keep=True)
+                                _flat_groups, keep=True,
+                                strategy=Strategy.from_json(search["winner"]))
+    res["search"] = search
+    res["trainer_remat"] = trainer.cfg.remat
     inner = trainer.state.opt_state.opt
     groups = res["groups"]
     n_params = sum(p.numel() for p in trainer.state.params.jax_ordered_parameters())
@@ -904,11 +1014,50 @@ def llama_worker(out_path, profile=False):
     trainer.close()
 
 
+def _worker(torch, flag, label, extra=(), timeout=900):
+    """This script with ``flag OUT`` in a process of its own (a fresh
+    allocator with expandable segments); returns its JSON result and
+    wall seconds, and prints its JSON lines."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(tempfile.mkdtemp(prefix=f"{label}_"), "result.json")
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    cmd = [sys.executable, os.path.abspath(__file__), flag, out, *extra]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise RuntimeError(f"{label} worker exited {p.returncode}:\n{p.stdout[-3000:]}\n{p.stderr[-6000:]}")
+    for line in p.stdout.splitlines():  # the worker's own lines
+        if line.startswith("{"):
+            print(line, flush=True)
+    with open(out) as f:
+        return json.load(f), wall
+
+
+def check_llama_search(search, trainer_remat=True):
+    """The Llama-2-7B search's line: the plain candidate refused by the
+    static gate, the remat winner timed, its static peak within
+    ``STATIC_PEAK_RTOL`` of the timed run's measured peak."""
+    ok = (search["plain_ok"] and search["plain_fits"] is False and search["remat_fits"] is True
+          and search["winner_remat"] and trainer_remat
+          and search["measured_step_s"] is not None
+          and search["measured_peak_bytes"] < search["budget_bytes"]
+          and abs(search["static_vs_measured"]) <= STATIC_PEAK_RTOL)
+    emit("accel_llama_search", model="llama2_7b", batch=1, seq=LLAMA_SEQ,
+         optimizer="adamw_8bit_flat", **search, static_peak_rtol=STATIC_PEAK_RTOL,
+         trainer_remat=trainer_remat, card=card_line(), ok=ok)
+    if not ok:
+        raise RuntimeError("the Llama-2-7B search did not refuse plain, time remat and pick it")
+    return search
+
+
 def run_llama_full(torch, profile=False):
     """The full model in a process of its own (a fresh allocator, with
     expandable segments: at ~70 GB of 80 fragmentation matters), its
-    checks here."""
-    import tempfile
+    checks here; the search's line first."""
     from dataclasses import replace
 
     from dlrover_tpu_torch.models import llama2_7b
@@ -916,20 +1065,8 @@ def run_llama_full(torch, profile=False):
     gc.collect()
     torch.cuda.empty_cache()
     parent = dict(allocated=torch.cuda.memory_allocated(), reserved=torch.cuda.memory_reserved())
-    out = os.path.join(tempfile.mkdtemp(prefix="llama_"), "result.json")
-    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
-    cmd = [sys.executable, os.path.abspath(__file__), "--llama-worker", out]
-    t0 = time.perf_counter()
-    p = subprocess.run(cmd + (["--profile"] if profile else []), env=env,
-                       capture_output=True, text=True, timeout=900)
-    wall = time.perf_counter() - t0
-    if p.returncode != 0:
-        raise RuntimeError(f"llama2_7b worker exited {p.returncode}:\n{p.stdout[-3000:]}\n{p.stderr[-6000:]}")
-    for line in p.stdout.splitlines():  # the worker's profile line
-        if line.startswith("{"):
-            print(line, flush=True)
-    with open(out) as f:
-        r = json.load(f)
+    r, wall = _worker(torch, "--llama-worker", "llama", ["--profile"] if profile else [])
+    check_llama_search(r["search"], r["trainer_remat"])
     cfg = replace(llama2_7b(), remat=True)
     med = r["median_step_ms"] / 1e3
     model_flops, hw_flops = step_flops(cfg, LLAMA_SEQ, remat=True)
@@ -958,6 +1095,7 @@ def run_llama_full(torch, profile=False):
     emit("llama2_7b", **res)
     if not ok:
         raise RuntimeError("llama2_7b's training run failed its checks")
+    res["search"] = r["search"]
     return res
 
 
@@ -1059,6 +1197,291 @@ def run_llama(torch, fa, qo, profile=False):
     small = run_small_variants(torch, fa, qo)
     emit("llama", seconds=time.perf_counter() - t0, ok=True)
     return dict(full=full, remat=remat, small=small, adam8_group=group)
+
+
+# ---------------------------------------------------------------------------
+# the accel phase: the link model, offload, the searches, the auditor
+# ---------------------------------------------------------------------------
+STATIC_PEAK_RTOL = 0.02  # the remat winner's static peak against its timed run's
+PEAK_CAL_RTOL = 0.05  # any other run's static peak against its measured one
+OFFLOAD_SAVING_SHARE = 0.8  # the peak falls by at least this share of the state
+OFFLOAD_STEPS = 3
+OFFLOAD_BATCH = 4  # gpt2_xl at 4 x 1024
+
+
+def link_model_check(torch):
+    """``probe_link_model`` on the card, into a cache dir of its own:
+    the measured pinned host-to-card and card-to-host rates, the link
+    between cards left unprobed at world size 1 (flagged), the cache
+    written; then a second call that reads the cache and touches no
+    device (the timing functions are made to fail)."""
+    import tempfile
+
+    from dlrover_tpu_torch.parallel import topology
+
+    d = tempfile.mkdtemp(prefix="linkmodel_")
+    topology.reset_link_model()
+    t0 = time.perf_counter()
+    first = topology.probe_link_model(devices="cuda", cache_dir=d)
+    first_s = time.perf_counter() - t0
+    written = os.path.exists(topology.cache_path(first.fingerprint, d))
+
+    def touched(*a, **k):
+        raise RuntimeError("a cached probe touched the card")
+
+    saved = topology._time_host_link, topology._time_allreduce
+    topology._time_host_link = topology._time_allreduce = touched
+    try:
+        t0 = time.perf_counter()
+        second = topology.probe_link_model(devices="cuda", cache_dir=d)
+        second_s = time.perf_counter() - t0
+    finally:
+        topology._time_host_link, topology._time_allreduce = saved
+    topology.note_fallback_use(first)
+    res = dict(model=json.loads(first.to_json()), first_call_s=first_s, second_call_s=second_s,
+               cache_written=written, cache_hit=second.to_json() == first.to_json(),
+               h2d_gbps=first.host_h2d_gbps, d2h_gbps=first.host_d2h_gbps,
+               intra_node_probed=bool(first.ici_axis_gbps), unprobed_flagged=topology._FALLBACK_WARNED)
+    res["ok"] = (first.source == "measured-host" and not first.ici_axis_gbps and written
+                 and res["cache_hit"] and first.host_h2d_gbps > 0 and first.host_d2h_gbps > 0
+                 and res["unprobed_flagged"])
+    return res
+
+
+def offload_run(torch, fa, qo):
+    """gpt2_xl with ``adamw`` (f32 moments, ~12.5 GB) at
+    ``OFFLOAD_BATCH`` x 1024, ``OFFLOAD_STEPS`` steps resident and
+    offloaded (``Strategy(offload_opt=True)``) from the same weights and
+    batches: losses and params bitwise, the state in pinned host memory,
+    the offloaded peak lower by at least ``OFFLOAD_SAVING_SHARE`` of the
+    state's bytes, both step times and the bytes a step streams."""
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.models import gpt2_xl
+
+    cfg = gpt2_xl()
+    data = RandomTokens(n=64, seq=1024, vocab=cfg.vocab_size)
+
+    def inspect(trainer):
+        inner = trainer.state.opt_state.opt
+        io = getattr(inner, "offload", None)
+        tensors = [t for st in inner.state.values() for k, t in st.items() if k != "step"]
+        return dict(
+            state_bytes=sum(t.numel() * t.element_size() for t in tensors),
+            state_pinned=all(t.device.type == "cpu" and t.is_pinned() for t in tensors),
+            slot_bytes=io.slot_bytes if io else 0,
+            streamed_bytes_per_step=io.bytes_streamed / max(io.updates, 1) if io else 0,
+            units=len(io.units) if io else 0)
+
+    static = {off: static_cost(cfg, "adamw", OFFLOAD_BATCH, 1024,
+                               Strategy(dtype=cfg.dtype, offload_opt=off)).mem_bytes
+              for off in (False, True)}
+    res, trainer = _trainer_run(torch, fa, qo, cfg, "adamw", OFFLOAD_STEPS, data, OFFLOAD_BATCH,
+                                inspect, keep=True, strategy=Strategy(dtype=cfg.dtype))
+    params = [p.detach().clone() for p in trainer.state.params.jax_ordered_parameters()]
+    trainer.close()
+    del trainer
+    off, trainer = _trainer_run(torch, fa, qo, cfg, "adamw", OFFLOAD_STEPS, data, OFFLOAD_BATCH,
+                                inspect, keep=True,
+                                strategy=Strategy(dtype=cfg.dtype, offload_opt=True))
+    bitwise = all(torch.equal(a, b) for a, b in zip(params, trainer.state.params.jax_ordered_parameters()))
+    trainer.close()
+    del trainer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    saving = res["peak_bytes"] - off["peak_bytes"]
+    out = dict(model="gpt2_xl", optimizer="adamw", batch=OFFLOAD_BATCH, seq=1024,
+               steps=OFFLOAD_STEPS, losses=res["losses"], offload_losses=off["losses"],
+               bitwise=bitwise and res["losses"] == off["losses"],
+               state_bytes=res["state_bytes"], offload_state_pinned=off["state_pinned"],
+               resident_state_pinned=res["state_pinned"],
+               peak_bytes=res["peak_bytes"], offload_peak_bytes=off["peak_bytes"],
+               peak_saving_bytes=saving, peak_saving_share=saving / res["state_bytes"],
+               static_peak_bytes=static[False], offload_static_peak_bytes=static[True],
+               static_vs_measured=static[False] / res["peak_bytes"] - 1,
+               offload_static_vs_measured=static[True] / off["peak_bytes"] - 1,
+               static_rtol=PEAK_CAL_RTOL,
+               slot_bytes=off["slot_bytes"], units=off["units"],
+               streamed_bytes_per_step=off["streamed_bytes_per_step"],
+               median_step_ms=res["median_step_ms"], offload_median_step_ms=off["median_step_ms"],
+               launches=res["launches"], offload_launches=off["launches"])
+    out["ok"] = (out["bitwise"] and out["offload_state_pinned"]
+                 and out["peak_saving_share"] >= OFFLOAD_SAVING_SHARE
+                 and abs(out["static_vs_measured"]) <= PEAK_CAL_RTOL
+                 and abs(out["offload_static_vs_measured"]) <= PEAK_CAL_RTOL
+                 and all(math.isfinite(x) for x in out["losses"]))
+    return out
+
+
+def accel_worker(out_path):
+    """The accel phase's own process (``chip_smoke.py --accel-worker
+    OUT``): the link model, then offload at full width."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import quantized_optim as qo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    link = link_model_check(torch)
+    offload = offload_run(torch, fa, qo)
+    with open(out_path, "w") as f:
+        json.dump(dict(link=link, offload=offload), f)
+
+
+def audit_line(trainer, label):
+    """The step auditor of a trainer's run: the per-component budget,
+    the drift factors and the alarms (a healthy run raises none)."""
+    aud = trainer._auditor
+    aud.collect()
+    res = dict(run=label, steps_audited=aud.steps_audited, budget=aud.budget().as_dict(),
+               drift_factors=aud.drift_factors(), alarms=aud.alarms_total(),
+               alarm_components=aud.alarm_components())
+    res["ok"] = aud.steps_audited > 0 and not any(res["alarms"].values())
+    emit("accel_audit", **res, card=card_line())
+    if not res["ok"]:
+        raise RuntimeError(f"the step auditor raised an alarm on a healthy run: {res['alarms']}")
+    return res
+
+
+def run_accel(torch, llama_search_res=None, dp_accel=None, audit=None):
+    """The accel phase: the link model and offload (a process of its
+    own), beside the Llama-2-7B search (``llama_search``, in the llama
+    worker), the two-rank search (``_dp_accel``, in the dp phase's first
+    start) and the auditor of the gpt2_small slice; run alone
+    (``--phase accel``) it starts each of those itself."""
+    t0 = time.perf_counter()
+    r, wall = _worker(torch, "--accel-worker", "accel")
+    link, off = r["link"], r["offload"]
+    emit("accel_link_model", **link, card=card_line())
+    emit("accel_offload", **off, card=card_line())
+    if llama_search_res is None:
+        s, _ = _worker(torch, "--llama-worker", "llama_search", ["--search-only"])
+        llama_search_res = check_llama_search(s["search"])
+    if dp_accel is None:
+        jobs = [_dp_accel_job()]
+        master = with_master(jobs)
+        try:
+            dp_accel = check_dp_accel(_dp_spawn("accel", 2, jobs))
+        finally:
+            master.stop()
+    if audit is None:
+        audit = audit_run(torch)
+    ok = link["ok"] and off["ok"]
+    emit("accel", seconds=time.perf_counter() - t0, worker_wall_s=wall,
+         link_ok=link["ok"], offload_ok=off["ok"], llama_winner=llama_search_res["winner_describe"],
+         dp_winner=dp_accel["winner"], audit_alarms=audit["alarms"], card=card_line(), ok=ok)
+    if not ok:
+        raise RuntimeError("the accel phase failed its checks (link model or offload)")
+
+
+def audit_run(torch):
+    """gpt2_small, 8 steps under the trainer's own search, for the
+    auditor's line (``--phase accel`` alone)."""
+    from dlrover_tpu_torch.models import gpt2_small
+    from dlrover_tpu_torch.trainer.elastic.trainer import (
+        ElasticTrainer, TrainerConfig, build_optimizer,
+    )
+
+    trainer = ElasticTrainer(gpt2_small(), build_optimizer("adamw_8bit_flat", lr=3e-4),
+                             RandomTokens(seq=1024), TrainerConfig(batch_size=8, seq_len=1024))
+    trainer.train(8)
+    res = audit_line(trainer, "gpt2_small adamw_8bit_flat, 8 steps")
+    trainer.close()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the peak_memory phase: the static peak model against the card
+# ---------------------------------------------------------------------------
+PEAK_STEPS = 2  # after one warm-up step
+# name -> (model, layers or None, remat, optimizer, batch, seq). Llama-2
+# width at 4, 8 and 16 layers and gpt2 without remat, 4 layers with it,
+# and Llama-2-7B without remat, which the static gate refuses and the
+# card cannot hold. (Llama-2-7B with remat is the accel phase's search,
+# gpt2_xl with its state offloaded the accel phase's offload run.)
+PEAK_CASES = {
+    "llama_w4": ("llama2_7b", 4, False, "adamw_8bit_flat", 1, LLAMA_SEQ),
+    "llama_w4_remat": ("llama2_7b", 4, True, "adamw_8bit_flat", 1, LLAMA_SEQ),
+    "llama_w8": ("llama2_7b", 8, False, "adamw_8bit_flat", 1, LLAMA_SEQ),
+    "llama_w16": ("llama2_7b", 16, False, "adamw_8bit_flat", 1, LLAMA_SEQ),
+    "llama_32": ("llama2_7b", None, False, "adamw_8bit_flat", 1, LLAMA_SEQ),
+    "gpt2_small": ("gpt2_small", None, False, "adamw_8bit_flat", 8, 1024),
+    "gpt2_xl_adamw": ("gpt2_xl", None, False, "adamw", 4, 1024),
+}
+
+
+def peak_worker(case, out_path):
+    """One case of the peak_memory phase (``chip_smoke.py --peak-worker
+    OUT CASE``, a process of its own): the static figure, then the state
+    of ``dry_runner._build`` drawn on the card from a device generator,
+    one warm-up step and ``PEAK_STEPS`` steps of one seeded batch, and
+    the peak ``max_memory_allocated`` over them above what was allocated
+    before the state. Running out of memory is a result (``oom``)."""
+    from dataclasses import replace
+
+    import torch
+
+    from dlrover_tpu_torch import models
+    from dlrover_tpu_torch.accel import dry_runner
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.trainer.elastic.trainer import build_optimizer
+
+    model, layers, remat, opt, batch, seq = PEAK_CASES[case]
+    cfg = getattr(models, model)()
+    if layers:
+        cfg = replace(cfg, num_layers=layers)
+    strategy = Strategy(dtype=cfg.dtype, opts=("remat",) if remat else ())
+    cost = static_cost(cfg, opt, batch, seq, strategy)
+    res = dict(case=case, model=model, layers=cfg.num_layers, remat=remat, optimizer=opt,
+               batch=batch, seq=seq, static_bytes=cost.mem_bytes, fits=cost.fits,
+               budget_bytes=torch.cuda.get_device_properties(0).total_memory, oom=False)
+    _, _, step_fn, init_fn, make_batch, _ = dry_runner._build(
+        strategy, cfg, build_optimizer(opt, lr=3e-4), "cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    try:
+        state = init_fn(0, device_generator=True)
+        x, y = make_batch(batch, seq)
+        for _ in range(PEAK_STEPS + 1):
+            state, m = step_fn(state, x, y)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        res.update(oom=True, error=str(e)[:300])
+    res.update(peak_bytes=torch.cuda.max_memory_allocated() - base, losses=losses)
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def run_peak_memory(torch):
+    """The peak_memory phase (``--phase peak_memory``; not part of the
+    full run): each of ``PEAK_CASES`` in a process of its own (a fresh
+    allocator with expandable segments). A case that fits the static
+    gate must run, its static peak within ``PEAK_CAL_RTOL`` of the
+    measured one; a case the gate refuses must run out of the card's
+    memory."""
+    t0 = time.perf_counter()
+    ok_all = True
+    for case in PEAK_CASES:
+        r, wall = _worker(torch, "--peak-worker", f"peak_{case}", [case])
+        if r["fits"] is True:
+            rel = r["static_bytes"] / r["peak_bytes"] - 1
+            ok = not r["oom"] and abs(rel) <= PEAK_CAL_RTOL and all(
+                math.isfinite(x) for x in r["losses"])
+        else:
+            rel = None
+            ok = r["fits"] is False and r["oom"]
+        ok_all = ok_all and ok
+        emit("peak_memory_case", **r, static_vs_measured=rel, rtol=PEAK_CAL_RTOL, wall_s=wall,
+             card=card_line(), ok=ok)
+    emit("peak_memory", cases=len(PEAK_CASES), seconds=time.perf_counter() - t0,
+         card=card_line(), ok=ok_all)
+    if not ok_all:
+        raise RuntimeError("the static peak model disagrees with the card")
 
 
 # ---------------------------------------------------------------------------
@@ -2118,7 +2541,8 @@ def dp_worker(spec_path, rank):
                                 rank=rank, world_size=world)
     out = {}
     for job in spec["jobs"]:
-        fn = {"probe": _dp_probe, "train": _dp_train, "nccl": _dp_nccl}[job["kind"]]
+        fn = {"probe": _dp_probe, "train": _dp_train, "nccl": _dp_nccl,
+              "accel": _dp_accel}[job["kind"]]
         if job.get("die_after"):  # the hook writes what ran before it dies
             job["prior"] = out
         out[job["name"]] = fn(torch, job, rank, world, spec_path)
@@ -2329,6 +2753,112 @@ def _dp_nccl(torch, job, rank, world, spec_path):
                 trainer_grad_sync_path=path, backend=backend, sync=out)
 
 
+def _dp_accel_job():
+    """The two-rank search's job; the master its ``agree_strategy`` goes
+    through is the caller's (``with_master``)."""
+    import tempfile
+
+    return dict(kind="accel", name="accel", cache_dir=tempfile.mkdtemp(prefix="dp_links_"))
+
+
+def _dp_accel(torch, job, rank, world, spec_path):
+    """The multi-rank search (a job of ``--dp-worker``): the link model
+    probed on the ranks' dp group (gloo's all-reduce of CUDA tensors);
+    ``grad_compress="auto"`` and ``grad_bucket_mb=0`` resolved from it;
+    then ``agree_strategy`` over gpt2_small's candidates at batch 8 x
+    1024 with the per-leaf 8-bit AdamW, through the master (rank 0's
+    winner published in its KV store and adopted by the other rank)."""
+    from dlrover_tpu_torch.accel import accelerate as acc_mod
+    from dlrover_tpu_torch.accel.dry_runner import _mesh_for
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.models import gpt2_small
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import quantized_optim as qo
+    from dlrover_tpu_torch.parallel import grad_sync, topology
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig
+    from dlrover_tpu_torch.trainer.elastic.trainer import build_optimizer
+
+    topology.reset_link_model()
+    mesh = _mesh_for(MeshConfig(dp=world), "cuda")
+    t0 = time.perf_counter()
+    model = topology.probe_link_model(devices="cuda", mesh=mesh, force=True,
+                                      cache_dir=job["cache_dir"])
+    probe_s = time.perf_counter() - t0
+    cfg = gpt2_small()
+    plan = grad_sync.resolve_plan(cfg, Strategy(mesh=MeshConfig(dp=world), comm_overlap=True,
+                                                grad_compress="auto", grad_bucket_mb=0))
+    captured = {}
+    real = acc_mod.auto_accelerate
+
+    def capture(*a, **k):
+        captured["result"] = real(*a, **k)
+        return captured["result"]
+
+    acc_mod.auto_accelerate = capture
+    client = MasterClient(job["master"], node_id=rank)
+    fa.reset_launch_counts()
+    qo.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        strategy = acc_mod.agree_strategy(
+            client, cfg, build_optimizer("adamw_8bit", lr=3e-4, min_quantized_size=4096),
+            DP_B, DP_T, device="cuda", max_timed=2)
+    finally:
+        acc_mod.auto_accelerate = real
+        client.close()
+    wall = time.perf_counter() - t0
+    res = captured["result"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        link=json.loads(model.to_json()), probe_s=probe_s,
+        auto_compress=grad_sync.resolve_auto_compress(link_model=model),
+        auto_bucket_bytes=grad_sync.resolve_bucket_bytes(0, dp=world, link_model=model),
+        plan=plan.describe(), plan_compress=plan.compress, plan_buckets=plan.num_buckets,
+        strategy=strategy.to_json(), describe=strategy.describe(),
+        own_pick=res.strategy.to_json(), search_s=res.search_s, wall_s=wall,
+        reports=[dict(strategy=r.strategy.describe(), ok=r.ok, fits=r.fits, mem_bytes=r.mem_bytes,
+                      step_s=r.step_s, est_step_s=r.est_step_s, error=r.error)
+                 for r in res.reports],
+        launches={**fa.launch_counts, **qo.launch_counts})
+
+
+def with_master(jobs):
+    """A local master serving the jobs' ``agree_strategy`` (its address
+    in each accel job); returns the master, to be stopped."""
+    from dlrover_tpu_torch.master.local_master import start_local_master
+
+    master = start_local_master()
+    for j in jobs:
+        if j["kind"] == "accel":
+            j["master"] = master.addr
+    return master
+
+
+def check_dp_accel(ranks):
+    """The two-rank search's line: one strategy on both ranks (rank 0's,
+    through the master), the link model probed on the dp group, the
+    auto knobs' choices, every candidate the port can build timed."""
+    a = [r["accel"] for r in ranks]
+    timed = [r for r in a[0]["reports"] if r["ok"] and r["step_s"] is not None]
+    ok = (a[0]["strategy"] == a[1]["strategy"] == a[0]["own_pick"] == a[1]["own_pick"]
+          and a[0]["link"]["source"] == "measured" and len(timed) >= 2
+          and {r["strategy"].split("/")[0] for r in timed} >= {"dp2", "fsdp2"}
+          and all(not r["ok"] and "ROADMAP" in (r["error"] or "") for r in a[0]["reports"]
+                  if r["strategy"].startswith("pp")))
+    emit("accel_dp_search", world=2, backend="gloo", model="gpt2_small", batch=DP_B, seq=DP_T,
+         optimizer="adamw_8bit", winner=a[0]["describe"], strategies=[x["strategy"] for x in a],
+         link=a[0]["link"], probe_s=[x["probe_s"] for x in a], auto_compress=a[0]["auto_compress"],
+         auto_bucket_bytes=a[0]["auto_bucket_bytes"], plan=a[0]["plan"],
+         plan_compress=a[0]["plan_compress"], reports=a[0]["reports"],
+         search_s=[x["search_s"] for x in a], wall_s=[x["wall_s"] for x in a],
+         launches=[x["launches"] for x in a], card=card_line(), ok=ok)
+    if not ok:
+        raise RuntimeError("the two ranks' search failed its checks")
+    return dict(winner=a[0]["describe"])
+
+
 def _dp_spawn(label, world, jobs, backend="gloo", timeout=900.0, expect_kill=False):
     """Start ``world`` ranks of ``jobs`` (this script, ``--dp-worker``)
     and return each rank's results; a rank that fails raises with its
@@ -2399,6 +2929,10 @@ def run_dp(torch):
     AsyncCheckpointSaver.start_async_saving_ckpt(local_shard_num=2)
     ck = dict(ckpt_dir=ckpt_dir, comm_overlap=True, save_memory_interval=DP_CKPT_AT,
               save_storage_interval=1000)
+    # the accel phase's two-rank search rides this start, through a
+    # master of this process
+    accel_job = _dp_accel_job()
+    master = with_master([accel_job])
     # the hook runs before the step's own save: after step 5's loss the
     # stage of step 4 is committed, then both ranks die
     two = _dp_spawn("dp2", 2, [
@@ -2411,9 +2945,12 @@ def run_dp(torch):
              trainer=dict(comm_overlap=True)),
         dict(kind="train", name="fault", mesh=dict(dp=2), optimizer=flat, steps=1,
              trainer=dict(comm_overlap=True), fault="local_all_gather"),
+        accel_job,
         dict(kind="train", name="first", mesh=dict(dp=2), optimizer=flat, steps=DP_STEPS,
              die_after=DP_CKPT_AT + 1, trainer=ck),
     ], expect_kill=True)
+    master.stop()
+    dp_accel = check_dp_accel(two)
     refused = sorted({k for r in two for k, v in r["probe"]["ops"].items() if v != "ok"})
     emit("dp_gloo_cuda", backend=two[0]["probe"]["backend"], ops=two[0]["probe"]["ops"],
          refused=refused, host_staged=0, ok=not refused)
@@ -2507,6 +3044,7 @@ def run_dp(torch):
         ok=not fails)
     if fails:
         raise RuntimeError(f"the dp phase failed: {fails}")
+    return dp_accel
 
 
 def build_kernels():
@@ -2567,12 +3105,26 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if not os.environ.get("DLROVER_TPU_TOPOLOGY_CACHE"):
+        # the link-model and drift caches of every process this run
+        # starts, under the run's temp dir
+        import tempfile
+
+        os.environ["DLROVER_TPU_TOPOLOGY_CACHE"] = tempfile.mkdtemp(prefix="dlr_topology_")
     if "--dp-worker" in sys.argv:  # one rank of the dp phase
         i = sys.argv.index("--dp-worker")
         dp_worker(sys.argv[i + 1], int(sys.argv[i + 2]))
         return 0
     if "--llama-worker" in sys.argv:  # the llama phase's full model
-        llama_worker(sys.argv[sys.argv.index("--llama-worker") + 1], "--profile" in sys.argv)
+        llama_worker(sys.argv[sys.argv.index("--llama-worker") + 1], "--profile" in sys.argv,
+                     "--search-only" in sys.argv)
+        return 0
+    if "--accel-worker" in sys.argv:  # the accel phase's link model and offload
+        accel_worker(sys.argv[sys.argv.index("--accel-worker") + 1])
+        return 0
+    if "--peak-worker" in sys.argv:  # one case of the peak_memory phase
+        i = sys.argv.index("--peak-worker")
+        peak_worker(sys.argv[i + 2], sys.argv[i + 1])
         return 0
     from dlrover_tpu_torch.ops import embedding_rows as er
     from dlrover_tpu_torch.ops import flash_attention as fa
@@ -2588,10 +3140,14 @@ def main() -> int:
     build_kernels()
     if "--phase" in sys.argv:  # one phase alone; the contract's lines need a full run
         phase = sys.argv[sys.argv.index("--phase") + 1]
-        if phase not in ("flash_ckpt", "evict", "dp", "llama"):
+        if phase not in ("flash_ckpt", "evict", "dp", "llama", "accel", "peak_memory"):
             raise SystemExit(f"unknown phase {phase!r}")
         if phase == "dp":
             run_dp(torch)
+        elif phase == "accel":
+            run_accel(torch)
+        elif phase == "peak_memory":
+            run_peak_memory(torch)
         elif phase == "llama":
             run_llama(torch, fa, qo, profile="--profile" in sys.argv)
         else:
@@ -2619,8 +3175,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     small_model_agrees(torch)
-    counts, flat_losses = run_slice(torch, fa, qo, profile="--profile" in sys.argv)
-    leaf_counts, leaf_losses = run_slice(torch, fa, qo, opt="adamw_8bit")
+    counts, flat_losses, audit = run_slice(torch, fa, qo, profile="--profile" in sys.argv)
+    leaf_counts, leaf_losses, _ = run_slice(torch, fa, qo, opt="adamw_8bit")
     rel = [abs(a - b) / abs(b) for a, b in zip(leaf_losses, flat_losses)]
     ok = len(rel) == len(flat_losses) and max(rel) <= LOSS_MATCH_RTOL
     emit("adamw_8bit_vs_flat", max_rel_diff=max(rel), tol=LOSS_MATCH_RTOL,
@@ -2629,7 +3185,8 @@ def main() -> int:
         raise RuntimeError("adamw_8bit's losses leave adamw_8bit_flat's")
     emb_counts = run_sparse_full(torch, er, profile="--profile" in sys.argv)
     run_sparse_spill(torch)
-    run_dp(torch)
+    dp_accel = run_dp(torch)
+    run_accel(torch, llama["full"]["search"], dp_accel, audit)
     run_flash_ckpt(torch)
 
     src_fa = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"

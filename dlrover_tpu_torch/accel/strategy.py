@@ -1,7 +1,6 @@
 """Strategy = the complete recipe for turning a model config into a
 sharded train step (a copy of ``dlrover_tpu/accel/strategy.py``, which
-imports no JAX; the search that picks one, ``auto_accelerate``, is
-ROADMAP A9).
+imports no JAX; the search that picks one is ``accel/accelerate.py``).
 
 Parity: atorch ``Strategy`` (auto/strategy.py) is an ordered list of
 (optimization_name, config, tunable) module transforms. Here the whole

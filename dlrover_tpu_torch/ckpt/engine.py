@@ -88,7 +88,7 @@ def _no_link_arbitration(priority, stripe_min_bytes):
     if priority is not None or stripe_min_bytes is not None:
         raise NotImplementedError(
             "host-link priorities and multi-rail striping of checkpoint "
-            "staging are not ported yet (ROADMAP A9)"
+            "staging are not ported yet (ROADMAP A9b)"
         )
 
 
@@ -159,9 +159,10 @@ class ChunkedStager:
     def _place(self):
         """Every byte of the plan into the segment: CUDA tensors by
         copies on the engine's side stream that start when the compute
-        stream reaches this point; host leaves and CPU tensors by a
-        memcpy now (nothing orders a CPU tensor's next update after a
-        later copy)."""
+        stream reaches this point; host leaves and CPU tensors (the
+        host-offloaded optimizer state among them: no card-to-host copy)
+        by a memcpy now (nothing orders a CPU tensor's next update after
+        a later copy)."""
         shm = self._engine._shm
         dst = shm.host_tensor()
         cuda = [(i, src) for i, (_, src) in enumerate(self._plan) if _is_cuda(src)]
@@ -180,6 +181,11 @@ class ChunkedStager:
                     )
             self.copy_done = torch.cuda.Event(enable_timing=True)
             self.copy_done.record(stream)
+        # host-offloaded optimizer state: no card-to-host copy, but the
+        # last update's copies home must have landed
+        from dlrover_tpu_torch.ops.host_offload import settle_host_sources
+
+        settle_host_sources(src for _, src in self._plan)
         for i, (_, src) in enumerate(self._plan):
             m = self._metas[i]
             if _is_cuda(src) or m.nbytes == 0:
@@ -487,7 +493,7 @@ class CheckpointEngine:
         holds the shard lock (skipped, never blocked on). Without a
         saver the stager copies to the host now and writes to storage at
         commit. ``priority`` / ``stripe_min_bytes`` (link arbitration)
-        raise: not ported yet (ROADMAP A9)."""
+        raise: not ported yet (ROADMAP A9b)."""
         _no_link_arbitration(priority, stripe_min_bytes)
         if self._agent_mode:
             if not self._try_lock(step):

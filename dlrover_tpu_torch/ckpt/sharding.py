@@ -192,8 +192,12 @@ def host_shard_records(state: Dict) -> List[ShardRecord]:
     device tensor is copied to the host and waited for)."""
     import torch
 
+    from dlrover_tpu_torch.ops.host_offload import settle_host_sources
+
+    plan = host_shard_plan(state)
+    settle_host_sources(src for _, src in plan)  # offloaded state's copies home
     records = []
-    for rec, src in host_shard_plan(state):
+    for rec, src in plan:
         if isinstance(src, torch.Tensor):
             src = src.to("cpu", copy=True).contiguous().numpy()
         rec.data = src

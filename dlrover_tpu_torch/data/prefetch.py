@@ -24,96 +24,18 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from dataclasses import asdict, dataclass
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Iterator, Optional, Tuple
 
 import torch
 
 from dlrover_tpu_torch.common import faults
+from dlrover_tpu_torch.accel.profiler import PipelineStats  # noqa: F401  (defined there, as in the JAX package)
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.obs.trace import span
 
 # buffer entry kinds: ("batch", host, device, event) | ("perr", host, exc)
 # (placement failed; host kept so reprime can retry) | ("err", exc)
 # (source raised) | ("end",)
-
-
-@dataclass
-class PipelineStats:
-    """Counters of the overlapped host-device pipeline (what the port
-    uses of the JAX package's ``accel.profiler.PipelineStats``): the
-    prefetcher's hits and waits, the checkpoint stager's work and the
-    gradient sync's plan and probe."""
-
-    prefetch_hits: int = 0
-    prefetch_misses: int = 0
-    prefetch_reprimes: int = 0
-    prefetch_wait_s: float = 0.0  # time the consumer blocked on misses
-    stage_chunks: int = 0
-    stage_bytes: int = 0
-    stage_backlog_bytes: int = 0  # bytes still to stage (last observed)
-    stage_block_s: float = 0.0  # loop-thread seconds in advance()
-    stage_commits: int = 0
-    fenced_steps: int = 0  # optimizer steps that waited for a staging copy
-    # -- the gradient sync (parallel/grad_sync.py) ----------------------
-    # "explicit" (the bucketed sync) or "gspmd" (the default schedule:
-    # one all-reduce of the whole tree per microbatch); "" until a
-    # trainer resolves the plan
-    grad_sync_path: str = ""
-    # standalone time of one bucketed sync (its roofline) and its
-    # per-link split (slice-local legs vs the cross-slice all-reduce)
-    grad_sync_ms: float = 0.0
-    grad_sync_ici_ms: float = 0.0
-    grad_sync_dcn_ms: float = 0.0
-    # the analytic share of sync wire time hidden behind compute (None
-    # until a plan is active)
-    comm_overlap_pct: Optional[float] = None
-    # wire bytes one sync moves vs the uncompressed sync's
-    grad_bytes_wire: int = 0
-    grad_bytes_raw: int = 0
-
-    @property
-    def grad_bytes_wire_vs_raw(self) -> Optional[list]:
-        if not self.grad_bytes_raw:
-            return None
-        return [self.grad_bytes_wire, self.grad_bytes_raw]
-
-    def as_dict(self) -> Dict[str, Any]:
-        d = asdict(self)
-        for k in ("grad_sync_ms", "grad_sync_ici_ms", "grad_sync_dcn_ms"):
-            d[k] = round(d[k], 3)
-        # numeric twin for the metrics registry (fold_pipeline_stats
-        # skips strings): 1 = explicit, 0 = default, None = unresolved
-        d["grad_sync_explicit"] = (
-            None if not self.grad_sync_path else int(self.grad_sync_path == "explicit")
-        )
-        d["grad_bytes_wire_vs_raw"] = self.grad_bytes_wire_vs_raw
-        return d
-
-    def summary(self) -> str:
-        legs = (
-            f" [{self.grad_sync_ici_ms:.1f} ici / {self.grad_sync_dcn_ms:.1f} dcn]"
-            if self.grad_sync_dcn_ms
-            else ""
-        )
-        path = f" [{self.grad_sync_path}]" if self.grad_sync_path else ""
-        gsync = (
-            f", grad sync{path} {self.grad_sync_ms:.1f} ms standalone{legs} "
-            f"({'-' if self.comm_overlap_pct is None else self.comm_overlap_pct}"
-            f"% overlapped, {self.grad_bytes_wire >> 10} KiB wire vs "
-            f"{self.grad_bytes_raw >> 10} KiB raw per sync)"
-            if self.grad_bytes_raw
-            else (f", grad sync{path}" if self.grad_sync_path else "")
-        )
-        n = self.prefetch_hits + self.prefetch_misses
-        ov = round(100.0 * self.prefetch_hits / n, 2) if n else None
-        return (
-            f"prefetch {self.prefetch_hits}h/{self.prefetch_misses}m"
-            f" ({'-' if ov is None else ov}% overlap), "
-            f"staged {self.stage_bytes >> 20} MiB in {self.stage_chunks} "
-            f"chunks ({self.stage_block_s * 1e3:.1f} ms on critical "
-            f"path, {self.stage_commits} commits){gsync}"
-        )
 
 
 def _tensors(obj):

@@ -107,6 +107,12 @@ def is_moe_layer(cfg: TransformerConfig, i: int) -> bool:
     )
 
 
+def num_moe_layers(cfg: TransformerConfig) -> int:
+    return sum(
+        1 for i in range(cfg.num_layers) if is_moe_layer(cfg, i)
+    )
+
+
 def tiny(**overrides) -> TransformerConfig:
     """Test config: small every-feature model."""
     cfg = TransformerConfig(

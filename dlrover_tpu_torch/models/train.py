@@ -83,14 +83,19 @@ class TrainState:
 
 def init_state(
     cfg: TransformerConfig, tx: Callable, seed: int = 0, devices=None,
-    mesh=None, plan=None,
+    mesh=None, plan=None, offload_opt_state: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> TrainState:
-    """Params from ``torch.Generator().manual_seed(seed)`` on the device
-    (the card unless ``devices="cpu"``) and the optimizer over them (or,
-    on a zero ``plan``, over this rank's shards of them)."""
+    """Params from ``torch.Generator().manual_seed(seed)`` (or the given
+    ``generator``, which draws on its own device) on the device (the card
+    unless ``devices="cpu"``) and the optimizer over them (or, on a zero
+    ``plan``, over this rank's shards of them). ``offload_opt_state``:
+    the optimizer state in pinned host memory between steps
+    (``ops/host_offload.py``; a numeric no-op on the CPU)."""
     device = resolve_device(devices)
-    params = init_params(torch.Generator().manual_seed(seed), cfg, device)
-    return state_from_params(params, tx, mesh, plan)
+    gen = generator if generator is not None else torch.Generator().manual_seed(seed)
+    params = init_params(gen, cfg, device)
+    return state_from_params(params, tx, mesh, plan, offload_opt_state)
 
 
 def _zero(plan) -> bool:
@@ -113,14 +118,21 @@ def leaf_shards(leaves, mesh, plan) -> List[torch.Tensor]:
     return out
 
 
-def state_from_params(params: Transformer, tx: Callable, mesh=None, plan=None) -> TrainState:
+def state_from_params(
+    params: Transformer, tx: Callable, mesh=None, plan=None, offload_opt_state: bool = False,
+) -> TrainState:
     leaves = params.jax_ordered_parameters()
     if _zero(plan):
         shards = leaf_shards(leaves, mesh, plan)
         state = TrainState(step=0, params=params, opt_state=tx(shards), shards=shards)
         free_params(state)
-        return state
-    return TrainState(step=0, params=params, opt_state=tx(leaves))
+    else:
+        state = TrainState(step=0, params=params, opt_state=tx(leaves))
+    if offload_opt_state:
+        from dlrover_tpu_torch.ops.host_offload import offload_optimizer
+
+        offload_optimizer(state.opt_state, leaves[0].device if leaves else None)
+    return state
 
 
 def free_params(state: TrainState) -> None:

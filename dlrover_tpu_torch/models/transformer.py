@@ -145,10 +145,11 @@ class Transformer(nn.Module):
         pd = _torch_dtype(cfg.param_dtype)
 
         def make(kind, shape, fan_in=None):
-            # drawn on the CPU from the explicit generator, then moved:
-            # the same seed gives the same weights on every device
+            # drawn from the explicit generator on its own device (the
+            # CPU's: the same seed gives the same weights on every
+            # device), then moved
             if kind == "dense" and generator is not None:
-                w = torch.randn(shape, generator=generator) * fan_in**-0.5
+                w = torch.randn(shape, generator=generator, device=generator.device) * fan_in**-0.5
             elif kind == "ones":
                 w = torch.ones(shape)
             else:

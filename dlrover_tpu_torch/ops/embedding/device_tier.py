@@ -38,7 +38,7 @@ authoritative and the host copy is stale; ``flush()`` (checkpoint
 cadence) and spills write it back. ``export_state`` flushes first so a
 checkpoint can never lose device-only training.
 
-Not ported yet (ROADMAP A9, A6): link arbitration of the two host legs
+Not ported yet (ROADMAP A9b, A6): link arbitration of the two host legs
 through a transfer scheduler (it orders transfers, never changes a
 row), LinkModel pricing of the host leg, and gauge publishing from
 ``export_metrics``.
@@ -170,7 +170,7 @@ class EmbeddingTierStats:
 
     def as_dict(self) -> Dict[str, float]:
         # emb_host_leg_ms (the LinkModel-priced host leg) waits for the
-        # link model (ROADMAP A9)
+        # host-link arbiter (ROADMAP A9b)
         return {
             "emb_gather_hit_pct": round(self.hit_pct, 3),
             "emb_faults": float(self.faults),
@@ -457,7 +457,7 @@ class DeviceSparseEmbedding:
         if spill_stripe_min_bytes is not None:
             raise NotImplementedError(
                 "spill_stripe_min_bytes: striping spills across host "
-                "rails is not ported yet (ROADMAP A9)"
+                "rails is not ported yet (ROADMAP A9b)"
             )
         self.host = host
         self.table_name = table_name

@@ -519,6 +519,9 @@ class adamw_8bit_flat(_Adam8Base):
         dev = leaves[0].device if leaves else torch.device("cpu")
         self.mu_small = torch.zeros(self.layout.small_total, device=dev)
         self.nu_small = torch.zeros(self.layout.small_total, device=dev)
+        # ops/host_offload.HostStream when the state lives on the host
+        # (offload_opt): each group's moments are streamed in and out
+        self.offload = None
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -531,16 +534,26 @@ class adamw_8bit_flat(_Adam8Base):
         self.count += 1
         scalars = self._scalars(lr, self.count)
         lrA, invbc2, _ = scalars
+        io = self.offload
+        if io is not None:
+            io.begin()
         for gi, g in enumerate(self.layout.groups):
             # each group's delta is applied and freed before the next
             # group's launch: the step's transients are one group's
             # packed grads and delta
+            mq, vq = self.mu[gi], self.nu[gi]
+            if io is not None:
+                mc, ms, vc, vs = io.fetch(gi)
+                mq = Quantized8(mc, ms, mq.shape, mq.signed)
+                vq = Quantized8(vc, vs, vq.shape, vq.signed)
             gflat = _pack_group(grads, g, grads[g.idx[0]].dtype)
             delta = adam8_update_flat(
-                gflat.view(-1, BLOCK), self.mu[gi], self.nu[gi], scalars,
+                gflat.view(-1, BLOCK), mq, vq, scalars,
                 self.b1, self.b2, self.classic,
             ).view(-1)
             del gflat
+            if io is not None:
+                io.store(gi)
             self._apply(
                 [leaves[i] for i in g.idx],
                 [delta[off:off + leaves[i].numel()].view(leaves[i].shape)
@@ -552,17 +565,27 @@ class adamw_8bit_flat(_Adam8Base):
             gs = torch.cat(
                 [grads[i].reshape(-1).float() for i in self.layout.small_idx]
             )
+            m_small, v_small = self.mu_small, self.nu_small
+            if io is not None:
+                m_small, v_small = io.fetch(len(self.layout.groups))
             m_new, v_new, ds = _adam8_block_math(
-                gs, self.mu_small, self.nu_small, lrA, invbc2,
+                gs, m_small, v_small, lrA, invbc2,
                 self.eps_val, self.b1, self.b2, self.classic,
             )
-            self.mu_small, self.nu_small = m_new, v_new
+            if io is None:
+                self.mu_small, self.nu_small = m_new, v_new
+            else:
+                m_small.copy_(m_new)
+                v_small.copy_(v_new)
+                io.store(len(self.layout.groups))
             self._apply(
                 [leaves[i] for i in self.layout.small_idx],
                 [ds[off:off + leaves[i].numel()].view(leaves[i].shape).to(leaves[i].dtype)
                  for i, off in zip(self.layout.small_idx, self.layout.small_offsets)],
                 lr, group,
             )
+        if io is not None:
+            io.end()
         return None
 
 

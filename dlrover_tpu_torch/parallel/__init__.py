@@ -1,10 +1,20 @@
 """Data parallelism on ``torch.distributed`` (the port of
 ``dlrover_tpu/parallel``): the named-axis mesh over the ranks
-(``mesh.py``), the bucketed gradient sync (``grad_sync.py``) and the
-SDC detector's per-lane fence (``sdc.py``). Tensor, sequence, expert
-and pipeline parallelism are ROADMAP A10 / A11."""
+(``mesh.py``), the bucketed gradient sync (``grad_sync.py``), the
+measured link-cost model (``topology.py``) and the SDC detector's
+per-lane fence (``sdc.py``). Tensor, sequence, expert and pipeline
+parallelism are ROADMAP A10 / A11."""
 
+from dlrover_tpu_torch.parallel.grad_sync import (  # noqa: F401
+    BucketPlan,
+    plan_buckets,
+)
 from dlrover_tpu_torch.parallel.mesh import (  # noqa: F401
     MeshConfig,
     build_mesh,
+)
+from dlrover_tpu_torch.parallel.topology import (  # noqa: F401
+    LinkModel,
+    get_link_model,
+    probe_link_model,
 )

@@ -39,11 +39,14 @@ takes every one of them on CUDA tensors in the card's torch: the
 ``dp`` phase of ``chip_smoke.py`` probes it), and on CPU tensors over
 gloo.
 
+``grad_compress="auto"`` (``resolve_auto_compress``) and
+``grad_bucket_mb=0`` (``resolve_bucket_bytes``) resolve from the
+measured ``LinkModel`` of ``parallel/topology.py`` (observed rail rates
+folded in), and ``comm_time_per_device_s`` / ``comm_time_legs_s`` price
+a sync's wire time per link from it, as in the JAX package.
+
 What raises instead, naming the ROADMAP item that brings it: plans of
-kind ``tp``, ``ep`` and ``3d`` (A10 / A11), ``pp`` (A11),
-``grad_compress="auto"`` and ``grad_bucket_mb=0`` (A9: both need the
-measured ``LinkModel`` of ``parallel/topology.py``), and the link-time
-pricing ``comm_time_per_device_s`` / ``comm_time_legs_s`` (A9).
+kind ``tp``, ``ep`` and ``3d`` (A10 / A11), ``pp`` (A11).
 """
 
 from __future__ import annotations
@@ -54,7 +57,6 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-_A9 = "ROADMAP A9 (strategy search and the measured LinkModel)"
 _A10 = "ROADMAP A10 (tensor / sequence parallelism)"
 _A11 = "ROADMAP A11 (MoE and pipeline parallelism)"
 _KIND_ITEM = {"tp": _A10, "3d": _A10, "ep": _A11, "pp": _A11}
@@ -789,12 +791,43 @@ def note_gspmd_fallback(axis_sizes: dict, reason: str = "") -> None:
     )
 
 
-def resolve_auto_compress(*args, **kwargs) -> str:
-    """``grad_compress="auto"`` picks a mode from the measured ICI:DCN
-    ratio of ``parallel/topology.LinkModel``: ROADMAP A9."""
-    raise NotImplementedError(
-        f'grad_compress="auto" needs the measured link model ({_A9})'
-    )
+def resolve_auto_compress(
+    slices: int = 1,
+    whole_dcn: bool = False,
+    auto_axes: Tuple[str, ...] = (),
+    link_model=None,
+) -> str:
+    """Concrete compression mode for ``grad_compress="auto"``: pick
+    none / int8 / int8+topk for the dp sync from the measured ICI:DCN
+    bandwidth ratio (observed rail rates fold into the model, so the
+    policy tracks what the links actually deliver):
+
+    - model-sharded plans (``auto_axes``): "none" — the residual gate
+      (``supports_auto_axis_residual_shardings``) owns that decision;
+    - hybrid dp axis (``slices > 1``): the DCN shard leg exists —
+      sparsify it (int8+topk) when DCN is severely outmatched
+      (ratio >= ``AUTO_TOPK_RATIO``), quantize it at
+      ``AUTO_INT8_RATIO``, ship fp32 near parity;
+    - a dp axis WHOLE on DCN (``whole_dcn``): the flat ring rides DCN
+      end to end — int8 compresses the whole ring (there is no
+      two-level shard to sparsify);
+    - pure-ICI meshes: "none" (wire is cheap; EF noise is not free).
+    """
+    from dlrover_tpu_torch.parallel import topology
+
+    if auto_axes:
+        return "none"
+    model = link_model or topology.get_link_model()
+    ratio = model.ici_gbps / max(model.dcn_gbps, 1e-9)
+    if slices > 1:
+        if ratio >= AUTO_TOPK_RATIO:
+            return "int8_topk"
+        if ratio >= AUTO_INT8_RATIO:
+            return "int8"
+        return "none"
+    if whole_dcn and ratio >= AUTO_INT8_RATIO:
+        return "int8"
+    return "none"
 
 
 def resolve_bucket_bytes(
@@ -806,14 +839,37 @@ def resolve_bucket_bytes(
     fsdp: int = 1,
     topk_density: float = 1.0,
 ) -> int:
-    """Bucket-size target in bytes: ``grad_bucket_mb > 0`` MiB. ``0``
-    ("auto": size each bucket by its wire time on the measured link)
-    is ROADMAP A9."""
+    """Bucket-size target in bytes. ``grad_bucket_mb > 0`` is the
+    explicit global knob (historical behavior). ``0`` means **auto**:
+    size each bucket so its wire time on the link it actually crosses
+    is ~``topology.BUCKET_TARGET_COMM_MS`` — the DCN leg for two-level
+    plans (a bucket's cross-slice payload is ``1/(fsdp * dp_ici)`` of
+    its elements, ``1/4`` again under int8, so the full-bucket target
+    scales back up by those factors), the ICI ring otherwise."""
     if grad_bucket_mb > 0:
         return grad_bucket_mb << 20
-    raise NotImplementedError(
-        f"grad_bucket_mb=0 (auto-sized buckets) needs the measured link "
-        f"model ({_A9})"
+    from dlrover_tpu_torch.parallel import topology
+
+    model = link_model or topology.get_link_model()
+    topology.note_fallback_use(model)
+    if slices > 1:
+        dcn_payload = topology.bucket_bytes_for(model, "dcn")
+        scale = float((dp // slices) * fsdp)
+        if compress == "int8":
+            scale *= 4  # the DCN shard ships int8, the target is fp32
+        elif compress == "int8_topk":
+            # the DCN shard ships k/nblk blocks of int8 (+indices) —
+            # the full-bucket target scales back up by the inverse
+            density = max(float(topk_density), 1e-3)
+            scale *= 4.0 / (
+                density * (1.0 + _INDEX_BYTES / float(TOPK_BLOCK))
+            )
+        b = dcn_payload * scale
+    else:
+        b = topology.bucket_bytes_for(model, "ici")
+    return max(
+        topology._BUCKET_MIN_BYTES,
+        min(topology._BUCKET_MAX_BYTES, int(b)),
     )
 
 
@@ -838,7 +894,11 @@ def _plan_for_mode(
     if params_shape is None:
         params_shape = model_leaves(cfg)
     if grad_compress == "auto":
-        grad_compress = resolve_auto_compress()
+        grad_compress = resolve_auto_compress(
+            slices=slices,
+            whole_dcn=whole_dcn,
+            auto_axes=mode.auto_axes,
+        )
     slices = slices if 1 < slices < mode.dp else 1
     if grad_compress == "int8_topk" and slices <= 1:
         # no cross-slice DCN leg to sparsify — quantization still pays
@@ -1417,8 +1477,8 @@ def comm_bytes_per_device(
     """Per-device wire bytes of ONE gradient sync under ``strategy``
     (ring all-reduce factor 2(N-1)/N over the data axes; int8
     compression scales the payload by its wire ratio) — the JAX
-    package's pricing, for every mesh kind. ``compress="auto"`` needs
-    the measured link model (ROADMAP A9)."""
+    package's pricing, for every mesh kind; ``compress="auto"``
+    resolves from the measured link model."""
     m = strategy.mesh
     n = m.dp * m.fsdp
     if n <= 1:
@@ -1431,7 +1491,12 @@ def comm_bytes_per_device(
     if compress is None:
         compress = strategy.resolved_grad_compress()
     if compress == "auto":
-        compress = resolve_auto_compress()
+        slices = m.dp_slices()
+        compress = resolve_auto_compress(
+            slices=slices,
+            whole_dcn=("dp" in m.dcn_axes and slices <= 1),
+            auto_axes=mode.auto_axes if mode else (),
+        )
     if explicit and mode.kind in ("tp", "ep"):
         ring = 2.0 * (mode.dp - 1) / mode.dp
         return ring * payload / mode.model_shard  # never compressed
@@ -1454,16 +1519,203 @@ def comm_bytes_per_device(
     return ring * payload * c
 
 
-def comm_time_per_device_s(*args, **kwargs):
-    """Wire time priced per link from the measured ``LinkModel``:
-    ROADMAP A9."""
-    raise NotImplementedError(f"comm_time_per_device_s needs {_A9}")
+def comm_time_per_device_s(
+    n_param_bytes: float,
+    strategy,
+    link_model=None,
+    grad_itemsize: int = 4,
+    compress: Optional[str] = None,
+) -> float:
+    """Seconds of gradient-sync wire time per device per sync — the
+    sum of the per-interconnect split :func:`comm_time_legs_s` prices.
+    Priced per link from the measured ``topology.LinkModel`` instead
+    of one flat ICI constant:
+
+    - hybrid dp axis (``dp_slices() > 1``, explicit two-level path):
+      the slice-local RS + AG legs ride ICI at the ring factor over
+      the per-slice degree, and only the ``1/dp_ici`` shard crosses
+      DCN (int8-compressed when the plan compresses);
+    - a data axis listed whole in ``dcn_axes``: the flat ring rides
+      DCN end to end (the honest worst case the two-level schedule
+      exists to beat);
+    - otherwise: the flat ring at the measured ICI rate.
+
+    - dp x fsdp (explicit ZeRO path): the fsdp reduce-scatter (no
+      gather twin) rides ICI at that axis's measured rate, then the
+      dp legs — flat, compressed, or two-level — ride the ``1/fsdp``
+      chunk;
+    - dp x tp/sp and dp x ep (explicit paths): the bucketed dp
+      all-reduce moves grads that are already ``1/model_shard``
+      per device (tp; ep's dense-majority payload bills whole);
+    - dp x fsdp x tp (explicit 3d path): the ZeRO legs on the
+      tp-local (``1/model_shard``) payload;
+    - pp x dp: each device's 1/pp stage share rides the dp legs,
+      under either schedule (the explicit path's win — the bubble
+      overlap — is the dry-runner's exposure credit, not a wire
+      discount).
+
+    Per-collective latency (one ring's worth of hops) is added from
+    the model so tiny syncs don't price as free."""
+    ici_s, dcn_s = comm_time_legs_s(
+        n_param_bytes,
+        strategy,
+        link_model=link_model,
+        grad_itemsize=grad_itemsize,
+        compress=compress,
+    )
+    return ici_s + dcn_s
 
 
-def comm_time_legs_s(*args, **kwargs):
-    """(ici_s, dcn_s) priced per link from the measured ``LinkModel``:
-    ROADMAP A9."""
-    raise NotImplementedError(f"comm_time_legs_s needs {_A9}")
+def comm_time_legs_s(
+    n_param_bytes: float,
+    strategy,
+    link_model=None,
+    grad_itemsize: int = 4,
+    compress: Optional[str] = None,
+) -> Tuple[float, float]:
+    """``(ici_s, dcn_s)`` — :func:`comm_time_per_device_s` itemized by
+    the interconnect each leg rides. The step auditor's budget side
+    (``obs.audit.StepBudget``) prices ``ici_sync`` and ``dcn_sync``
+    separately from this split, so a drifted or regressed sync
+    attributes to the link that actually moved the bytes instead of to
+    "comm"."""
+    from dlrover_tpu_torch.parallel import topology
+
+    m = strategy.mesh
+    n = m.dp * m.fsdp
+    if n <= 1:
+        return 0.0, 0.0
+    model = link_model or topology.get_link_model()
+    topology.note_fallback_use(model)
+    payload = float(n_param_bytes)
+    if m.pp > 1:
+        payload /= m.pp  # stage-sharded grads under either schedule
+    slices = m.dp_slices()
+    if compress is None:
+        compress = strategy.resolved_grad_compress()
+    if compress == "auto":
+        sizes0 = m.axis_sizes()
+        mode0 = resolve_sync_mode(sizes0)
+        compress = resolve_auto_compress(
+            slices=slices,
+            whole_dcn=("dp" in m.dcn_axes and slices <= 1),
+            auto_axes=mode0.auto_axes if mode0 else (),
+            link_model=model,
+        )
+    if compress == "int8_topk" and slices <= 1:
+        compress = "int8"  # plan construction downgrades the same way
+    if compress == "int8":
+        c = _INT8_BYTES / float(grad_itemsize)
+    elif compress == "int8_topk":
+        # the DCN shard ships k/nblk int8 blocks plus indices — the
+        # compressed-leg byte factor scales by the requested density
+        density = max(
+            float(
+                getattr(
+                    strategy, "grad_topk_density", AUTO_TOPK_DENSITY
+                )
+            ),
+            1e-3,
+        )
+        c = (
+            density
+            * (_INT8_BYTES + _INDEX_BYTES / float(TOPK_BLOCK))
+            / float(grad_itemsize)
+        )
+    else:
+        c = 1.0
+    # same gate as the step builder: the explicit schedule only runs
+    # when comm_overlap resolved on AND the mesh qualifies
+    # (resolve_sync_mode) — a comm_overlap=False hybrid mesh runs
+    # GSPMD's monolithic all-reduce and must be billed as the flat
+    # ring over DCN (the honest worst case), not the cheap two-level
+    # cost it never gets
+    mode = resolve_sync_mode(m.axis_sizes())
+    explicit = mode is not None and strategy.resolved_comm_overlap()
+
+    def _axis_rate(axis: str):
+        """(sec/byte, latency, rides_dcn) of one collective over
+        ``axis`` — an axis listed WHOLE in dcn_axes rides DCN (the
+        hybrid dp case, dp_slices() > 1, is handled by the two-level
+        split below, not here), everything else its measured ICI
+        rate."""
+        whole_dcn = axis in m.dcn_axes and not (
+            axis == "dp" and slices > 1
+        )
+        if whole_dcn:
+            return model.sec_per_dcn_byte(), model.dcn_lat_s, True
+        return model.sec_per_axis_byte(axis), model.ici_lat_s, False
+
+    def _dp_legs(chunk: float, dp: int) -> Tuple[float, float]:
+        """(ici_s, dcn_s) of the dp-axis sync of a per-device
+        ``chunk``."""
+        if dp <= 1:
+            return 0.0, 0.0
+        if slices > 1:
+            per = dp // slices
+            # ICI legs stay full precision; only the DCN shard
+            # compresses
+            return (
+                2.0 * (per - 1) / per * chunk
+                * model.sec_per_axis_byte("dp")
+                + 2 * per * model.ici_lat_s,
+                2.0 * (slices - 1) / slices * (chunk / per) * c
+                * model.sec_per_dcn_byte()
+                + 2 * slices * model.dcn_lat_s,
+            )
+        rate, lat, dcn = _axis_rate("dp")
+        t = 2.0 * (dp - 1) / dp * chunk * c * rate + 2 * dp * lat
+        return (0.0, t) if dcn else (t, 0.0)
+
+    if explicit and mode.kind in ("zero", "3d"):
+        F = mode.fsdp
+        if mode.kind == "3d":
+            payload /= mode.model_shard  # tp-local buckets
+            c = 1.0  # 3d plans never compress
+        rate, lat, dcn = _axis_rate("fsdp")
+        fsdp_s = (F - 1) / F * payload * rate + F * lat
+        dp_ici, dp_dcn = _dp_legs(payload / F, mode.dp)
+        if dcn:
+            return dp_ici, fsdp_s + dp_dcn
+        return fsdp_s + dp_ici, dp_dcn
+    if explicit and mode.kind in ("tp", "ep"):
+        # tp/ep plans never compress and sync with one flat psum per
+        # bucket over the WHOLE dp axis — if dp spans DCN anywhere
+        # (whole-axis or hybrid), that ring crosses it and must be
+        # billed at DCN rate (there is no two-level split on these
+        # paths; plans force slices=1)
+        dp = mode.dp
+        if "dp" in m.dcn_axes:
+            rate, lat, dcn = (
+                model.sec_per_dcn_byte(), model.dcn_lat_s, True,
+            )
+        else:
+            rate, lat, dcn = _axis_rate("dp")
+        # ep modes carry model_shard=1 (dense-majority payload whole)
+        t = (
+            2.0 * (dp - 1) / dp * (payload / mode.model_shard) * rate
+            + 2 * dp * lat
+        )
+        return (0.0, t) if dcn else (t, 0.0)
+    if explicit and mode.kind == "pp":
+        # per-stage dp legs on the stage share (flat or two-level;
+        # payload is already /pp above), never compressed
+        c = 1.0
+        return _dp_legs(payload, mode.dp)
+    if explicit and slices > 1:
+        return _dp_legs(payload, mode.dp)
+    ring = 2.0 * (n - 1) / n
+    crosses_dcn = any(a in m.dcn_axes for a in ("dp", "fsdp"))
+    sec_per_byte = (
+        model.sec_per_dcn_byte()
+        if crosses_dcn
+        else model.sec_per_ici_byte()
+    )
+    lat = model.dcn_lat_s if crosses_dcn else model.ici_lat_s
+    if explicit:
+        payload *= c  # flat explicit path compresses the whole ring
+    t = ring * payload * sec_per_byte + 2 * n * lat
+    return (0.0, t) if crosses_dcn else (t, 0.0)
 
 
 def estimate_overlap_pct(strategy) -> Optional[float]:

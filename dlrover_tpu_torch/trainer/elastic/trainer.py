@@ -8,10 +8,14 @@ The same entry a user calls on the JAX package::
 
 runs here with one process for each device (the card unless
 ``devices="cpu"``). ``strategy`` lays the processes of the default
-process group out as a mesh (``accel/strategy.Strategy``; without one,
-``Strategy(mesh=MeshConfig(dp=world_size))``: the search that picks one,
-``auto_accelerate``, is ROADMAP A9): every rank reads the same global
-batch from the elastic sampler and trains on its own rows of it
+process group out as a mesh (``accel/strategy.Strategy``). Without one
+the trainer searches, as the JAX trainer does: ``auto_accelerate``
+(``accel/accelerate.py``) times the candidates of the world size (a warm-up
+and 3 steps each of a state of its own) and the ranks adopt rank 0's
+winner; ``self.accel`` holds the result and its dry-run reports. With
+``Strategy(offload_opt=True)`` the optimizer state lives in pinned host
+memory between steps (``ops/host_offload.py``). Every rank reads the
+same global batch from the elastic sampler and trains on its own rows of it
 (``parallel/mesh.batch_sharding``), and the gradients are synced over
 the data axes: the explicit bucketed sync of ``parallel/grad_sync.py``
 when ``comm_overlap`` or ``grad_compress`` asks for it and the mesh
@@ -96,12 +100,13 @@ import threading
 import time
 import weakref
 from collections import deque
-from dataclasses import dataclass, fields, replace
+from dataclasses import dataclass, fields
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.accel.accelerate import AccelerateResult, auto_accelerate
 from dlrover_tpu_torch.accel.strategy import Strategy
 from dlrover_tpu_torch.agent.monitor import (
     last_command_id,
@@ -116,13 +121,14 @@ from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.data.prefetch import DevicePrefetcher, PipelineStats
 from dlrover_tpu_torch.models.config import TransformerConfig
 from dlrover_tpu_torch.models.convert import load_train_state_tree, train_state_tree
-from dlrover_tpu_torch.models.train import (
-    build_train_step,
-    free_params,
-    gather_params,
-    init_state,
-)
+from dlrover_tpu_torch.models.train import free_params, gather_params
 from dlrover_tpu_torch.models.transformer import forward, token_nll
+from dlrover_tpu_torch.obs.audit import (
+    StepAuditor,
+    StepBudget,
+    install_default_auditor,
+    load_audit_calibration,
+)
 from dlrover_tpu_torch.obs.flight_recorder import (
     ProfilerCapture,
     default_recorder,
@@ -131,7 +137,7 @@ from dlrover_tpu_torch.obs.goodput import GoodputLedger, install_default_ledger
 from dlrover_tpu_torch.obs.metrics import default_registry, fold_pipeline_stats
 from dlrover_tpu_torch.obs.trace import SpanHeartbeat, get_tracer, span
 from dlrover_tpu_torch.parallel import grad_sync
-from dlrover_tpu_torch.parallel.mesh import MeshConfig, batch_sharding, build_mesh
+from dlrover_tpu_torch.parallel.mesh import batch_sharding
 from dlrover_tpu_torch.trainer.elastic.dataloader import ElasticDataLoader
 from dlrover_tpu_torch.trainer.elastic.sampler import (
     ElasticDistributedSampler,
@@ -176,6 +182,10 @@ class TrainerConfig:
     sdc_suspect_sigma: float = 6.0
     sdc_audit_steps: int = 0
 
+
+# the longest a disk save waits for the saver to finish persisting an
+# older step (the engine's own wait for the disk commit)
+STORAGE_SAVE_WAIT_S = 600.0
 
 # knob -> the ROADMAP item that ports its machinery. sdc_detect: the
 # JAX trainer escalates a suspect lane to the paired audit probe, and
@@ -342,6 +352,10 @@ def build_optimizer(
             )
         return ScheduledOptimizer(opt, lr_fn)
 
+    # what the dry runner's static memory estimate reads
+    # (accel/dry_runner._opt_state_bytes)
+    make.opt_name = name
+    make.opt_kwargs = dict(kwargs)
     return make
 
 
@@ -367,18 +381,14 @@ class ElasticTrainer:
         self.cfg = model_cfg
         self._metrics_hook = metrics_hook
         self._setup_telemetry(model_cfg)
-        self.strategy = self._resolve_strategy(strategy)
-        # the strategy's remat reaches the model, as the JAX accel pins it
-        s = self.strategy
-        model_cfg = self.cfg = replace(model_cfg, remat=s.remat or "remat" in s.opts)
-        self.mesh = build_mesh(self.strategy.mesh, self.device.type)
-        self._grad_sync_plan = grad_sync.resolve_plan(
-            model_cfg, self.strategy, grad_sync.model_leaves(model_cfg)
-        )
-        self.state = init_state(
-            model_cfg, tx, seed=0, devices=self.device, mesh=self.mesh,
-            plan=self._grad_sync_plan,
-        )
+        # the search (or the pinned strategy) and the winner's step; the
+        # strategy's remat reaches the model, as the JAX accel pins it
+        self.accel: AccelerateResult = self._accelerate(model_cfg, tx, strategy)
+        self.strategy = self.accel.strategy
+        model_cfg = self.cfg = self.accel.cfg
+        self.mesh = self.accel.mesh
+        self._grad_sync_plan = self.accel.plan
+        self.state = self.accel.init_fn(0)
         from dlrover_tpu_torch.ops.quantized_optim import adamw_8bit_flat
 
         m = self.strategy.mesh
@@ -391,14 +401,16 @@ class ElasticTrainer:
                 "adamw_8bit_flat is for replicated/dp-only states; use "
                 "adamw_8bit (per-leaf) with fsdp/tp/ep/sp/pp sharding"
             )
-        self._step_fn = build_train_step(
-            model_cfg, tx, grad_accum=self.tcfg.grad_accum,
-            before_update=self._fence_staging, mesh=self.mesh,
-            plan=self._grad_sync_plan, batch_pad=self.strategy.batch_pad,
-        )
+        self._step_fn = self.accel.step_fn
         self._rows: Dict[int, torch.Tensor] = {}
         self.pipeline_stats = PipelineStats()
+        # measured link-cost model (parallel/topology.py): probed once
+        # per device fingerprint (warm restarts hit the JSON cache)
+        self._link_fp: Optional[str] = None
+        self._setup_link_model()
         self._setup_grad_sync()
+        self._audit_cal_loaded = False
+        self._setup_audit_budget()
         self.sampler = ElasticDistributedSampler(len(dataset), shuffle=True)
         self.dataloader = ElasticDataLoader(
             dataset,
@@ -462,6 +474,18 @@ class ElasticTrainer:
         self._goodput = install_default_ledger(
             GoodputLedger(tid_fn=lambda: getattr(me(), "_train_tid", None))
         )
+        # step-budget auditor (obs/audit.py): reconciles the priced
+        # per-component StepBudget against the span stream each step —
+        # drift reprices, sustained regressions alarm with the component
+        # named and a flight bundle captured
+        self._auditor = install_default_auditor(
+            StepAuditor(
+                tid_fn=lambda: getattr(me(), "_train_tid", None),
+                on_alarm=lambda c, r, d: me() is not None and me()._on_audit_alarm(c, r, d),
+            )
+        )
+        # spans of an earlier trainer of this process are not this one's
+        self._auditor.skip_to_now()
         self._replay_until_step: Optional[int] = None
         # steps dispatched to the card whose compute span is not booked
         # yet: (begin event, end event, host ns at dispatch, span depth)
@@ -515,33 +539,41 @@ class ElasticTrainer:
         return self.state.step
 
     # -- data parallelism ------------------------------------------------
-    def _resolve_strategy(self, strategy: Optional[Strategy]) -> Strategy:
-        """The explicit strategy, or dp over the whole process group,
-        with the trainer's grad-sync knobs stamped on when they are set
-        (the knobs then own the sync config, as in the JAX package)."""
+    def _accelerate(self, model_cfg, tx, strategy: Optional[Strategy]) -> AccelerateResult:
+        """``auto_accelerate`` as the JAX trainer calls it: the explicit
+        strategy (the ``load_strategy`` path), or a search over the
+        process group's ranks, with the trainer's grad-sync knobs as
+        named optimizations and, when they are set, their bucket size
+        (the knobs then own the sync config). The port also stamps the
+        knobs' fields (``_grad_sync_fields``: ``int8_topk`` and its
+        density, which the names alone do not carry), and a search keeps
+        the config's own remat (as a ``remat`` optimization)."""
         import torch.distributed as dist
 
-        if self.tcfg.grad_compress == "auto":
-            grad_sync.resolve_auto_compress()  # raises: ROADMAP A9
-        if self.tcfg.grad_bucket_mb == 0:
-            grad_sync.resolve_bucket_bytes(0)  # raises: ROADMAP A9
         world = dist.get_world_size() if dist.is_initialized() else 1
-        s = strategy or Strategy(mesh=MeshConfig(dp=world), remat=self.cfg.remat)
-        if s.mesh.num_devices != world:
+        if strategy is not None and strategy.mesh.num_devices != world:
             raise ValueError(
-                f"strategy mesh {s.mesh.axis_sizes()} needs "
-                f"{s.mesh.num_devices} ranks, the process group has {world}"
+                f"strategy mesh {strategy.mesh.axis_sizes()} needs "
+                f"{strategy.mesh.num_devices} ranks, the process group has {world}"
             )
         names = self._grad_sync_opt_names()
-        if names:
-            s = replace(
-                s, opts=tuple(dict.fromkeys(tuple(s.opts) + names)),
-                comm_overlap=True, grad_bucket_mb=self.tcfg.grad_bucket_mb,
-                grad_topk_density=self.tcfg.grad_topk_density,
-            )
-            if self.tcfg.grad_compress != "none":
-                s = replace(s, grad_compress=self.tcfg.grad_compress)
-        return replace(s, grad_accum=self.tcfg.grad_accum)
+        opts = names + (("remat",) if strategy is None and model_cfg.remat else ())
+        return auto_accelerate(
+            model_cfg, tx, strategy=strategy, optimizations=opts,
+            batch=self.tcfg.batch_size, seq=self.tcfg.seq_len, device=self.device,
+            donate=False, grad_accum=self.tcfg.grad_accum,
+            grad_bucket_mb=self.tcfg.grad_bucket_mb if names else None,
+            stamp=self._grad_sync_fields(), before_update=self._fence_staging,
+        )
+
+    def _grad_sync_fields(self) -> dict:
+        """The grad-sync knobs' Strategy fields when the knobs are set."""
+        if not self._grad_sync_opt_names():
+            return {}
+        out = dict(comm_overlap=True, grad_topk_density=self.tcfg.grad_topk_density)
+        if self.tcfg.grad_compress != "none":
+            out["grad_compress"] = self.tcfg.grad_compress
+        return out
 
     def _grad_sync_opt_names(self) -> tuple:
         """Named optimizations the trainer's grad-sync knobs translate
@@ -586,6 +618,99 @@ class ElasticTrainer:
                 plan, self.mesh, iters=3, device=self.device
             )
         logger.info(f"grad sync: {plan.describe()}")
+
+    # -- measured link-cost model (parallel/topology.py) ----------------
+    def _setup_link_model(self):
+        """Probe (or reuse) the per-link bandwidth model for the current
+        world (every rank together: the probe's all-reduces run on the
+        mesh's groups). The probe runs only when the device fingerprint
+        changed; a warm restart reuses the persisted cache without
+        touching the card. (The JAX trainer also calibrates its transfer
+        scheduler here: ROADMAP A9b.)"""
+        from dlrover_tpu_torch.parallel import topology
+
+        try:
+            fp = topology.device_fingerprint(self.device)
+            if fp == self._link_fp:
+                logger.info(
+                    f"link model: device fingerprint unchanged ({fp}),"
+                    f" keeping the current probe"
+                )
+                return
+            model = topology.probe_link_model(devices=self.device, mesh=self.mesh)
+            self._link_fp = fp
+            topology.export_link_metrics(model, self._registry)
+        except Exception as e:  # the probe must never kill training
+            logger.warning(f"link-model probe failed: {e!r}")
+
+    # -- step-budget audit (obs/audit.py) -------------------------------
+    def _setup_audit_budget(self):
+        """Assemble the per-component :class:`StepBudget` for the
+        current world and hand it to the auditor: the sync legs priced
+        from the link model (``comm_time_legs_s``), the host term 0.0
+        until the transfer scheduler lands (ROADMAP A9b). Components the
+        trainer cannot price cheaply (compute, data_wait) stay 0.0 — the
+        auditor adopts their warmup-mean observation as the budget."""
+        from dlrover_tpu_torch.parallel.grad_sync import (
+            OVERLAP_HIDDEN_FRACTION,
+            comm_time_legs_s,
+        )
+
+        try:
+            if not self._audit_cal_loaded and self._link_fp:
+                # warm restart on the same hardware: start from the
+                # persisted per-component drift instead of re-learning
+                cal = load_audit_calibration(self._link_fp)
+                if cal is not None:
+                    self._auditor.apply_calibration(cal)
+                self._audit_cal_loaded = True
+            budget = StepBudget()
+            param_bytes = 0
+            itemsize = 4
+            for p in self.state.params.jax_ordered_parameters():
+                param_bytes += p.numel() * p.element_size()
+                itemsize = p.element_size()
+            ici_s, dcn_s = comm_time_legs_s(
+                param_bytes, self.strategy, grad_itemsize=itemsize
+            )
+            # the JAX package bills the explicit path's exposed share;
+            # its analytic hidden fraction is the pricing side's figure
+            exposed = (
+                1.0 - OVERLAP_HIDDEN_FRACTION
+                if self._grad_sync_plan is not None
+                else 1.0
+            )
+            budget.set_component("ici_sync", ici_s * exposed, "priced")
+            budget.set_component("dcn_sync", dcn_s * exposed, "priced")
+            budget.set_component("host_xfer", 0.0, "priced")
+            self._auditor.set_budget(budget)
+            # the sync legs run inside the step (no per-step spans):
+            # the probe-measured times are the standing observation
+            stats = self.pipeline_stats
+            if stats.grad_sync_ici_ms:
+                self._auditor.set_measured(
+                    "ici_sync", stats.grad_sync_ici_ms / 1e3 * exposed
+                )
+            if stats.grad_sync_dcn_ms:
+                self._auditor.set_measured(
+                    "dcn_sync", stats.grad_sync_dcn_ms / 1e3 * exposed
+                )
+        except Exception as e:
+            logger.warning(f"audit budget assembly failed: {e!r}")
+
+    def _on_audit_alarm(self, component: str, ratio: float, detail: str):
+        """Sustained regression: capture forensics at the moment the
+        detector fires, and leave a breadcrumb in the recorder's event
+        log so later dumps carry the attribution too."""
+        self._flight.note_event("audit_regression", detail)
+        self._flight.dump(
+            "audit_regression",
+            extra={
+                "component": component,
+                "ratio": round(ratio, 3),
+                "detail": detail,
+            },
+        )
 
     def _local_rows(self, n: int) -> Optional[torch.Tensor]:
         """This rank's rows of a global batch of ``n`` (None: all)."""
@@ -866,6 +991,11 @@ class ElasticTrainer:
             # abort it (nobody saw it — metadata is still invalid) so
             # the shard lock is free for this one
             self._abort_stager()
+            # a saver still persisting an older step (the port's saver
+            # persists every staged step) is waited for: a disk save
+            # skipped on one rank leaves the others waiting for its
+            # commit
+            self._ckptr.engine.wait_saver_idle(STORAGE_SAVE_WAIT_S)
             self.save(StorageType.DISK)
         elif step % self.tcfg.save_memory_interval == 0:
             if not self.tcfg.chunked_staging:
@@ -970,7 +1100,7 @@ class ElasticTrainer:
         for first, within the window (the port's saver persists every
         staged step, so it is busy more often than the JAX package's).
         The engine takes no link ``priority``: the transfer scheduler is
-        ROADMAP A9."""
+        ROADMAP A9b."""
         # a half-staged OLDER step holds the shard lock; nobody saw it
         self._abort_stager()
         t0 = time.perf_counter()
@@ -1248,10 +1378,9 @@ class ElasticTrainer:
     def _report_metrics(self, step: int, scalars: Dict[str, float]):
         """Publish at log cadence: the training scalars and the whole
         registry through ONE file (the agent forwards every float in it
-        to the master's collector). PipelineStats and the goodput ledger
-        fold into the registry here, and the master's commands are
-        polled. (The JAX package's ``dlrover_audit_*`` leg waits for its
-        step auditor's link model, ROADMAP A9.)"""
+        to the master's collector). PipelineStats, the goodput ledger
+        and the step auditor's ``dlrover_audit_*`` series fold into the
+        registry here, and the master's commands are polled."""
         if self._step_time_n:
             scalars["step_time_ms"] = round(
                 1e3 * self._step_time_sum / self._step_time_n, 3
@@ -1267,6 +1396,13 @@ class ElasticTrainer:
         # ledger closes the window at "now"
         self._book_compute(wait=True)
         self._goodput.export(self._registry)
+        # budget reconciliation rides the same cadence: audit every step
+        # completed since the last report, publish the dlrover_audit_*
+        # series and rate-limited-persist the drift snapshot beside the
+        # link-model cache so a warm restart starts repriced
+        self._auditor.export(self._registry)
+        if self._link_fp:
+            self._auditor.persist(fingerprint=self._link_fp)
         self._poll_worker_commands()
         if self.tcfg.report_metrics:
             report_runtime_metrics(
@@ -1479,6 +1615,10 @@ class ElasticTrainer:
         if self._span_heartbeat is not None:
             self._span_heartbeat.stop()
             self._span_heartbeat = None
+        # final drift snapshot, bypassing the rate limit — short jobs
+        # still leave a calibration for the next run on this hardware
+        if self._link_fp:
+            self._auditor.persist(fingerprint=self._link_fp, force=True)
         self._flight.stop_watchdog()
         self._profiler_capture.abort()
         self._close_prefetcher()

@@ -110,9 +110,9 @@ def test_kernel_modes_are_refused():
 
 
 def test_unported_options_raise():
-    """Spill striping raises (ROADMAP A9); ``export_metrics`` publishes
+    """Spill striping raises (ROADMAP A9b); ``export_metrics`` publishes
     its gauges into the registry it is given (ported), still without the
-    link model's host-leg price (A9)."""
+    arbiter's host-leg price (A9b)."""
     from dlrover_tpu_torch.obs.metrics import MetricsRegistry
 
     with pytest.raises(NotImplementedError, match="A9"):

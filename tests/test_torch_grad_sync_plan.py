@@ -162,15 +162,109 @@ def test_model_sharded_plans_name_their_roadmap_item(sizes, item):
         tgs.resolve_plan(tcfg.tiny(num_layers=1), s)
 
 
-def test_link_model_knobs_name_a9():
-    tc = tcfg.tiny(num_layers=1)
-    for s in (Strategy(mesh=MeshConfig(dp=2), comm_overlap=True, grad_compress="auto"),
-              Strategy(mesh=MeshConfig(dp=2), comm_overlap=True, grad_bucket_mb=0)):
-        with pytest.raises(NotImplementedError, match="A9"):
-            tgs.resolve_plan(tc, s)
-    for fn in (tgs.comm_time_per_device_s, tgs.comm_time_legs_s):
-        with pytest.raises(NotImplementedError, match="A9"):
-            fn(1e6, Strategy(mesh=MeshConfig(dp=2)))
+# one fixed link model for both packages (the field names and values are
+# the JAX package's fallback, so either package's pricing reads the same
+# numbers), and a near-parity one that keeps compression off
+LINK_KW = [
+    dict(ici_gbps=90.0, dcn_gbps=12.5, host_d2h_gbps=8.0, host_h2d_gbps=8.0, ici_lat_s=1e-6,
+         dcn_lat_s=5e-5, host_lat_s=1e-5, ici_axis_gbps=(("fsdp", 45.0),), source="measured",
+         fingerprint="fixed-a"),
+    dict(ici_gbps=60.0, dcn_gbps=40.0, host_d2h_gbps=20.0, host_h2d_gbps=25.0, ici_lat_s=2e-6,
+         dcn_lat_s=2e-5, host_lat_s=1e-5, source="measured", fingerprint="fixed-b"),
+]
+# relative tolerance of the priced seconds (the same float expressions in
+# both packages: only summation order could part them)
+PRICE_RTOL = 1e-12
+
+
+@pytest.fixture(params=range(len(LINK_KW)), ids=["ratio7.2", "ratio1.5"])
+def links(request):
+    """The same LinkModel installed as the process-current model of both
+    packages (every pricing call without an explicit model reads it)."""
+    from dlrover_tpu.parallel import topology as jtop
+    from dlrover_tpu_torch.parallel import topology as ttop
+
+    kw = LINK_KW[request.param]
+    jm, tm = jtop.LinkModel(**kw), ttop.LinkModel(**kw)
+    # a model an earlier test of this process probed for the device's
+    # fingerprint (or rail rates it observed) would win over the
+    # installed one
+    for top in (jtop, ttop):
+        top.reset_link_model()
+        top.reset_rail_rates()
+    jtop.set_link_model(jm)
+    ttop.set_link_model(tm)
+    yield jm, tm
+    jtop.reset_link_model()
+    ttop.reset_link_model()
+
+
+def test_link_model_knobs_name_a9(links):
+    """``grad_compress="auto"`` and ``grad_bucket_mb=0`` and the link-time
+    pricing no longer raise (they waited for ROADMAP A9): the plans they
+    resolve and the seconds priced equal the JAX package's under the
+    same link model."""
+    jc = jcfg.tiny(rope=False, rmsnorm=False, swiglu=False, tie_embeddings=True)
+    tc = tcfg.tiny(rope=False, rmsnorm=False, swiglu=False, tie_embeddings=True)
+    shapes, leaves = _leaves()
+    for mesh in (dict(dp=2), dict(dp=4, dcn_axes=("dp",), slices=2), dict(dp=4, dcn_axes=("dp",))):
+        for kw in (dict(grad_compress="auto"), dict(grad_bucket_mb=0),
+                   dict(grad_compress="auto", grad_bucket_mb=0)):
+            t = Strategy(mesh=MeshConfig(**mesh), comm_overlap=True, **kw)
+            j = JStrategy(mesh=JMeshConfig(**mesh), comm_overlap=True, **kw)
+            pt, pj = tgs.resolve_plan(tc, t, leaves), jgs.resolve_plan(jc, j, shapes)
+            assert _bytes(pt) == _bytes(pj) and _buckets(pt) == _buckets(pj)
+            for fn in ("comm_time_per_device_s", "comm_time_legs_s"):
+                np.testing.assert_allclose(getattr(tgs, fn)(1e6, t), getattr(jgs, fn)(1e6, j),
+                                           rtol=PRICE_RTOL)
+
+
+@pytest.mark.parametrize("slices,whole_dcn,auto_axes", [
+    (1, False, ()), (2, False, ()), (4, False, ()), (1, True, ()), (2, False, ("tp",)),
+])
+def test_resolve_auto_compress_matches(links, slices, whole_dcn, auto_axes):
+    jm, tm = links
+    kw = dict(slices=slices, whole_dcn=whole_dcn, auto_axes=auto_axes)
+    assert tgs.resolve_auto_compress(**kw) == jgs.resolve_auto_compress(**kw)
+    assert tgs.resolve_auto_compress(link_model=tm, **kw) == jgs.resolve_auto_compress(
+        link_model=jm, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(dp=2), dict(dp=8, slices=2), dict(dp=8, slices=2, compress="int8"),
+    dict(dp=8, slices=4, compress="int8_topk", topk_density=0.25), dict(dp=4, slices=2, fsdp=2),
+    dict(dp=64, slices=2, compress="int8"),
+])
+def test_auto_bucket_bytes_match(links, kw):
+    """``resolve_bucket_bytes(0)``: sized by ``topology.bucket_bytes_for``
+    on the link each bucket crosses, as in the JAX package."""
+    assert tgs.resolve_bucket_bytes(0, **kw) == jgs.resolve_bucket_bytes(0, **kw)
+    assert tgs.resolve_bucket_bytes(8, **kw) == jgs.resolve_bucket_bytes(8, **kw) == 8 << 20
+
+
+@pytest.mark.parametrize("mesh", [
+    dict(dp=4), dict(dp=2, fsdp=2), dict(dp=2, tp=2), dict(pp=2, dp=2), dict(dp=2, ep=2),
+    dict(dp=4, dcn_axes=("dp",), slices=2), dict(dp=4, dcn_axes=("dp",)),
+    dict(dp=2, fsdp=2, dcn_axes=("fsdp",)), dict(dp=2, fsdp=2, tp=2), dict(dp=8, fsdp=2, slices=4, dcn_axes=("dp",)),
+])
+@pytest.mark.parametrize("comp", ["none", "int8", "int8_topk", "auto"])
+def test_comm_time_matches(links, mesh, comp):
+    """``comm_time_per_device_s`` / ``comm_time_legs_s`` (and the bytes)
+    equal the JAX package's on the same strategies and link model,
+    within ``PRICE_RTOL``."""
+    jm, tm = links
+    for overlap in (False, True):
+        t = Strategy(mesh=MeshConfig(**mesh), comm_overlap=overlap, grad_compress=comp)
+        j = JStrategy(mesh=JMeshConfig(**mesh), comm_overlap=overlap, grad_compress=comp)
+        for itemsize in (2, 4):
+            np.testing.assert_allclose(
+                tgs.comm_time_legs_s(3e6, t, grad_itemsize=itemsize),
+                jgs.comm_time_legs_s(3e6, j, grad_itemsize=itemsize), rtol=PRICE_RTOL)
+            np.testing.assert_allclose(
+                tgs.comm_time_per_device_s(3e6, t, link_model=tm, grad_itemsize=itemsize),
+                jgs.comm_time_per_device_s(3e6, j, link_model=jm, grad_itemsize=itemsize),
+                rtol=PRICE_RTOL)
+        assert tgs.comm_bytes_per_device(3e6, t) == jgs.comm_bytes_per_device(3e6, j)
 
 
 @pytest.mark.parametrize("mesh", [dict(dp=4), dict(dp=2, fsdp=2), dict(dp=2, tp=2), dict(pp=2, dp=2),

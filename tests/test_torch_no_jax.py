@@ -125,6 +125,21 @@ MODEL_LEFTOVERS = {
 }
 
 
+# the strategy search, the link model, the step auditor and offload
+# (ROADMAP A9)
+STRATEGY_SEARCH = {
+    "dlrover_tpu_torch.accel.accelerate",
+    "dlrover_tpu_torch.accel.bayes",
+    "dlrover_tpu_torch.accel.candidates",
+    "dlrover_tpu_torch.accel.dry_runner",
+    "dlrover_tpu_torch.accel.opt_lib",
+    "dlrover_tpu_torch.accel.profiler",
+    "dlrover_tpu_torch.obs.audit",
+    "dlrover_tpu_torch.ops.host_offload",
+    "dlrover_tpu_torch.parallel.topology",
+}
+
+
 def test_port_imports_with_jax_and_the_jax_package_blocked():
     p = subprocess.run(
         [sys.executable, "-c", _PROBE],
@@ -144,14 +159,16 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert WORKER_LOOP <= names, sorted(WORKER_LOOP - names)
     assert DATA_PARALLEL <= names, sorted(DATA_PARALLEL - names)
     assert MODEL_LEFTOVERS <= names, sorted(MODEL_LEFTOVERS - names)
+    assert STRATEGY_SEARCH <= names, sorted(STRATEGY_SEARCH - names)
 
 
 def test_data_parallel_modules_and_the_rank_worker_import_without_jax():
-    """The data-parallel modules by name, and the rank processes of the
-    multi-rank tests (``tests/torch_dist_worker.py``), with JAX and the
-    JAX package blocked."""
+    """The data-parallel and strategy-search modules by name, and the
+    rank processes of the multi-rank tests
+    (``tests/torch_dist_worker.py``), with JAX and the JAX package
+    blocked."""
     probe = _PROBE.split("import dlrover_tpu_torch\n")[0] + "\n".join(
-        f"importlib.import_module({m!r})" for m in sorted(DATA_PARALLEL)
+        f"importlib.import_module({m!r})" for m in sorted(DATA_PARALLEL | STRATEGY_SEARCH)
     ) + (
         "\nsys.path.insert(0, 'tests')\nimportlib.import_module('torch_dist_worker')"
         "\nleaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)"

@@ -143,13 +143,30 @@ def test_trainer_runs_on_cpu_in_the_jax_sampler_order():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("grad_compress", "auto"), ("grad_bucket_mb", 0), ("sdc_detect", True),
-    ("moe_rebalance_interval", 5),
+    ("sdc_detect", True), ("moe_rebalance_interval", 5),
 ])
 def test_unported_knob_raises(knob, value):
     tc = ttrainer.TrainerConfig(**{knob: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrainer.ElasticTrainer(tcfg.tiny(), ttrainer.build_optimizer("sgd"), _Tokens(), tc, devices="cpu")
+
+
+@pytest.mark.parametrize("knob,value", [("grad_compress", "auto"), ("grad_bucket_mb", 0)])
+def test_link_model_knobs_are_honored(knob, value):
+    """``grad_compress="auto"`` and ``grad_bucket_mb=0`` (which raised
+    until the link model was ported) build a trainer that trains; the
+    search's strategy carries the knob (the bucket size, as in the JAX
+    trainer, once a sync knob owns the sync config)."""
+    tc = ttrainer.TrainerConfig(batch_size=4, seq_len=16, report_metrics=False,
+                                comm_overlap=knob == "grad_bucket_mb", **{knob: value})
+    tr = ttrainer.ElasticTrainer(tcfg.tiny(), ttrainer.build_optimizer("sgd"), _Tokens(), tc,
+                                 devices="cpu")
+    assert tr.train(2).step == 2
+    if knob == "grad_compress":
+        assert "grad_compress_auto" in tr.strategy.opts and tr.strategy.grad_compress == "auto"
+    else:
+        assert tr.strategy.grad_bucket_mb == 0
+    tr.close()
 
 
 @pytest.mark.parametrize("save_best", [False, True])

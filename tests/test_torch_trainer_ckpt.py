@@ -117,3 +117,36 @@ def test_resume_from_shm_and_from_disk_is_bitwise(job, tmp_path):
     assert on_disk >= 6 and (r["step"], r["source"]) == (on_disk, "storage")
     assert c == {s: u[s] for s in range(on_disk + 1, 13)}
 
+
+
+def test_disk_save_waits_for_a_busy_saver(job, tmp_path):
+    """A disk save that finds the saver still persisting an older step
+    (it holds the shard lock; the port's saver persists every staged
+    step) waits for it instead of being skipped: on several ranks one
+    rank's skipped save would leave the others waiting for the step's
+    commit."""
+    import threading
+
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig
+    from dlrover_tpu_torch.trainer.elastic import trainer as tt
+
+    import torch_dist_worker as tdw
+
+    tr = tt.ElasticTrainer(
+        tcfg.tiny(), tt.build_optimizer("adamw", lr=1e-2), tdw.Tokens(),
+        tt.TrainerConfig(batch_size=4, seq_len=16, report_metrics=False, prefetch=0,
+                         ckpt_dir=str(tmp_path / "ck"), save_memory_interval=1000,
+                         save_storage_interval=2),
+        strategy=Strategy(mesh=MeshConfig(dp=1)), devices="cpu",
+    )
+    lock = tr._ckptr.engine._lock
+    assert lock.acquire(blocking=False)  # the saver's hold while it persists
+    release = threading.Timer(0.5, lock.force_release)
+    release.start()
+    tr.train(2)
+    release.join()
+    assert [(s["step"], s["kind"], s["ok"]) for s in tr.save_log] == [(2, "storage", True)]
+    assert read_tracker(PosixDiskStorage(), str(tmp_path / "ck")) == 2
+    tr.close()

@@ -211,7 +211,7 @@ def test_export_metrics_publishes_the_jax_gauges():
         emb.join_spills()  # the drains count a spill once it has landed
     jr, tr = JaxRegistry(), MetricsRegistry()
     js, ts = j.export_metrics(registry=jr), t.export_metrics(registry=tr)
-    # the JAX tier's host-leg price waits for the link model (ROADMAP A9)
+    # the JAX tier's host-leg price waits for the host-link arbiter (ROADMAP A9b)
     skip = {"emb_host_leg_ms", "emb_scatter_lag_ms"}
     assert {k: v for k, v in ts.items() if k not in skip} == {
         k: v for k, v in js.items() if k not in skip}

@@ -12,8 +12,13 @@ Jobs:
   leaf and step; returns the synced leaves, the residual rows, the grad
   norm and the per-lane norms of every step;
 - ``train``: ``ElasticTrainer`` runs of a tiny GPT-2 (``args`` per run:
-  trainer config, strategy, steps, optimizer); returns the losses, the
-  collectives counted per step, the restored step and the final params;
+  trainer config, strategy, steps, optimizer; without a mesh the run
+  takes dp over the world, ``search`` leaves the strategy to the
+  trainer's search and ``strategy_of`` takes the one an earlier run
+  picked); returns the losses, the collectives counted per step, the
+  restored step, the final params and the strategy with the search's
+  reports;
+- ``accel``: ``auto_accelerate`` cases (``accel_case``) on the ranks;
 - ``step``: ``models.train.build_train_step`` from a whole JAX train
   state (``models/convert.load_jax_train_state``) on the rank's rows of
   given global batches; returns the loss and grad norm of each step,
@@ -194,8 +199,14 @@ def job_train(rank, world, runs):
     out = {}
     for name, r in runs.items():
         cfg = tcfg.tiny(**r.get("model", {}))
-        strategy = Strategy(mesh=MeshConfig(**r["mesh"]), **r.get("strategy", {})) \
-            if "mesh" in r else None
+        if "mesh" in r:
+            strategy = Strategy(mesh=MeshConfig(**r["mesh"]), **r.get("strategy", {}))
+        elif r.get("search"):  # the trainer's own search (auto_accelerate)
+            strategy = None
+        elif r.get("strategy_of"):  # the strategy an earlier run's search picked
+            strategy = Strategy.from_json(out[r["strategy_of"]]["strategy"])
+        else:  # dp over the world, what the trainer took before it searched
+            strategy = Strategy(mesh=MeshConfig(dp=world))
         tcfg_kw = dict(batch_size=r.get("batch", 8), seq_len=16, log_interval=1000,
                        report_metrics=False, prefetch=0, **r.get("trainer", {}))
         losses, issued = [], []
@@ -226,7 +237,9 @@ def job_train(rank, world, runs):
             losses=losses, issued=issued, restored=tr.restored_step, source=tr.restore_source,
             params=params_to_numpy(tr.state.params),
             plan=None if tr._grad_sync_plan is None else tr._grad_sync_plan.num_buckets,
-            stats=tr.pipeline_stats.as_dict(),
+            stats=tr.pipeline_stats.as_dict(), strategy=tr.strategy.to_json(),
+            searched=[(rep.strategy.to_json(), rep.ok, rep.step_s is not None)
+                      for rep in tr.accel.reports],
         )
         tr.close()
         torch.distributed.barrier()
@@ -288,7 +301,65 @@ def job_step(rank, world, runs):
     return out
 
 
-JOBS = {"sync": job_sync, "train": job_train, "step": job_step}
+# ---------------------------------------------------------------------------
+# the strategy-search job
+# ---------------------------------------------------------------------------
+def accel_case(c: dict) -> dict:
+    """One ``auto_accelerate`` case of the port on the process group's
+    ranks (``c``: the model's overrides, batch, seq, the pinned strategy
+    as JSON or None, optimizations, grad_accum, hbm_budget,
+    max_candidates, max_timed, whether to register the
+    ``test_add_layers`` optimization, whether to take one step); returns
+    the strategy, the config's layers / remat and the reports, or the
+    error's type and message."""
+    from dataclasses import replace as dc_replace
+
+    import torch
+
+    from dlrover_tpu_torch.accel import auto_accelerate
+    from dlrover_tpu_torch.accel.opt_lib import register_optimization
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.trainer.elastic import trainer as tt
+
+    if c.get("register_add_layers"):
+        register_optimization(
+            "test_add_layers", lambda cf, s: (dc_replace(cf, num_layers=cf.num_layers + 2), s))
+    try:
+        res = auto_accelerate(
+            tcfg.tiny(**c.get("model", {})), tt.build_optimizer("adamw", lr=1e-3), c["batch"],
+            c["seq"], device="cpu",
+            strategy=Strategy.from_json(c["strategy"]) if c.get("strategy") else None,
+            optimizations=tuple(c.get("optimizations", ())), grad_accum=c.get("grad_accum", 1),
+            hbm_budget=c.get("hbm_budget"), max_candidates=c.get("max_candidates", 16),
+            max_timed=c.get("max_timed", 3),
+        )
+    except Exception as e:
+        return dict(error=type(e).__name__, msg=str(e))
+    out = dict(strategy=res.strategy.to_json(), describe=res.strategy.describe(),
+               num_layers=res.cfg.num_layers, remat=res.cfg.remat,
+               reports=[(r.strategy.to_json(), r.ok, r.fits, r.mem_bytes, r.step_s is not None)
+                        for r in res.reports])
+    if c.get("step"):
+        state = res.init_fn(0)
+        rng = np.random.default_rng(0)
+        x = rng.integers(0, 256, (c["batch"], c["seq"])).astype(np.int64)
+        from dlrover_tpu_torch.parallel.mesh import batch_sharding
+
+        m = res.strategy.mesh
+        if m.dp * m.fsdp > 1:
+            x = x[batch_sharding(res.mesh, c["batch"], res.strategy.grad_accum)]
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        _, metrics = res.step_fn(state, t, t)
+        out["loss"] = float(metrics["loss"])
+    return out
+
+
+def job_accel(rank, world, cases):
+    return {name: accel_case(c) for name, c in cases.items()}
+
+
+JOBS = {"sync": job_sync, "train": job_train, "step": job_step, "accel": job_accel}
 
 
 def main():
