@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlrover_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama|accel|peak_memory]
+    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama|accel|peak_memory|resize]
 
 (``--profile`` adds a torch.profiler window of a few more steps to the
 per-leaf gpt2_small path and to the full-size sparse path; ``--phase
 flash_ckpt`` builds the kernels and runs that phase alone, ``--phase
 evict`` its uninterrupted run and the eviction drill alone, ``--phase
 dp`` the data-parallel phase alone, ``--phase llama`` the Llama-2-7B
-phase alone, ``--phase accel`` the strategy-search phase alone, without
+phase alone, ``--phase accel`` the strategy-search phase alone,
+``--phase resize`` the elastic-resize phase alone, without
 the contract's closing lines; ``--phase peak_memory`` holds the static
 peak model to the card, a phase the full run does not take.
 ``--dp-worker SPEC RANK`` is one rank of the dp phase, ``--llama-worker
 OUT [--search-only]`` the llama phase's full model (its search first),
 ``--accel-worker OUT`` the accel phase's link model and offload and
 ``--peak-worker OUT CASE`` one case of the peak_memory phase, each
-started by its phase.)
+started by its phase; the resize phase's C3 runs are ``--dp-worker``
+jobs.)
 
 1. device: the card's name, power limit and count; builds the CUDA
    kernels from the checkout's sources (one nvcc for each ``.cu``, and
@@ -123,6 +125,24 @@ started by its phase.)
      communicator, at world size 1) before its worker resumes step 7 (an
      ``eviction`` line); then the staging routes timed against each
      other, and gpt2_xl's state when ``/dev/shm`` holds it;
+   - ``resize``: two ``--nnodes=1:2`` launchers (node 0 hosts the
+     master, node 1 joins it; a socket dir and a shm node rank each, as
+     two hosts have) train gpt2_small at dp=2 over gloo on the one card
+     with ``adamw_8bit_flat``; node 1's worker kills its launcher's
+     group after step 6 (the memory save of step 4 on disk); node 0's
+     agent relaunches its worker at world 1, which derives its strategy
+     from the staged one (from the strategy cache, filled by the world-2
+     worker's speculative derivation), restores step 4 from its shm and
+     trains on, saves to disk at step 8 and holds; node 1 starts again,
+     and both restart at world 2 and restore step 8 from storage. Each
+     landing's state digests as the staged one did; a ``resize`` line a
+     transition splits the time from the death or the join to the first
+     loss (detection, rendezvous with its lastcall window, worker start,
+     strategy, restore, first step) beside ``last_resize`` and the pids
+     holding the card. Then C3: Llama-2 width, 4 layers, 1 x 4096 a
+     rank, two gloo ranks, dp=2 then ZeRO dp=1 x fsdp=2 (``resize_c3``:
+     the peaks, the static figures within ``PEAK_CAL_RTOL``, the losses
+     bitwise, the saving against what PERF.md reckoned);
 4. a ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -2542,7 +2562,7 @@ def dp_worker(spec_path, rank):
     out = {}
     for job in spec["jobs"]:
         fn = {"probe": _dp_probe, "train": _dp_train, "nccl": _dp_nccl,
-              "accel": _dp_accel}[job["kind"]]
+              "accel": _dp_accel, "c3": _dp_c3}[job["kind"]]
         if job.get("die_after"):  # the hook writes what ran before it dies
             job["prior"] = out
         out[job["name"]] = fn(torch, job, rank, world, spec_path)
@@ -3047,6 +3067,387 @@ def run_dp(torch):
     return dp_accel
 
 
+# -- the resize phase (ROADMAP A8, C3) -------------------------------------------
+C3_LAYERS = 4  # Llama-2 width (ATorch's Llama-2 throughput config), 4 layers
+C3_SEQ = 4096  # batch 1 x 4096 a rank
+C3_STEPS = 3
+C3_PARAMS_SAVING_SHARE = 0.9  # of the params saving PERF.md reckoned before the run
+RESIZE_LASTCALL_S = 5.0  # --rdzv-waiting-timeout of the drill's launchers (its default)
+RESIZE_SAVE_AT = 4  # the memory save world 2 makes before node 1 dies
+RESIZE_KILL_AFTER = 6  # node 1's worker kills its launcher's group after this step
+RESIZE_DISK_AT = 8  # the world-1 worker's disk save before the grow
+RESIZE_HOLD_AFTER = 9  # the world-1 worker holds here until the grow
+RESIZE_STEPS = 12
+RESIZE_LAUNCHER_ARGS = []  # a CPU rehearsal adds --device-spec cpu
+RESIZE_RUN = ["--model", "gpt2_small", "--steps", str(RESIZE_STEPS), "--batch", "8", "--seq", "1024",
+              "--prefetch", "2", "--save-memory-interval", str(RESIZE_SAVE_AT),
+              "--save-storage-interval", str(RESIZE_DISK_AT), "--log-interval", "4",
+              "--comm-overlap", "--derive-strategy",
+              "--digest-steps", f"{RESIZE_SAVE_AT},{RESIZE_DISK_AT}", "--scale-candidates", "1,2",
+              "--kill-after-step", str(RESIZE_KILL_AFTER), "--kill-group", "--kill-rank", "1",
+              "--hold-at-world", "1", "--hold-after-step", str(RESIZE_HOLD_AFTER)]
+
+
+def _dp_c3(torch, job, rank, world, spec_path):
+    """ZeRO's params sharded through the step (C3) against dp=2 on the
+    card: Llama-2 width at ``C3_LAYERS`` layers, 1 x ``C3_SEQ`` a rank,
+    per-leaf ``adamw_8bit``, ``C3_STEPS`` steps of seeded batches, the
+    weights from a seeded generator on the card (the same on every rank
+    and in both runs). Returns the losses, the peak over the steps and
+    the resident bytes (this job's own), and the static figure."""
+    from dataclasses import replace
+
+    from dlrover_tpu_torch.accel.accelerate import auto_accelerate
+    from dlrover_tpu_torch.accel.dry_runner import _apply_strategy, static_peak_bytes
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.models import llama2_7b
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import quantized_optim as qo
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, batch_sharding
+    from dlrover_tpu_torch.trainer.elastic.trainer import build_optimizer
+
+    cfg = replace(llama2_7b(), num_layers=C3_LAYERS)
+    tx = build_optimizer("adamw_8bit", lr=3e-4, min_quantized_size=4096)
+    strategy = Strategy(mesh=MeshConfig(**job["mesh"]), comm_overlap=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    res = auto_accelerate(cfg, tx, world, C3_SEQ, device="cuda", strategy=strategy, donate=False)
+    state = res.init_fn(0, device_generator=True)
+    cfg2, applied = _apply_strategy(res.strategy, cfg)
+    static = static_peak_bytes(cfg2, applied, tx, world, C3_SEQ)
+    torch.cuda.synchronize()
+    resident0 = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    if job.get("trace"):
+        torch.cuda.memory._record_memory_history(max_entries=200000)
+    rng = np.random.default_rng(0)
+    rows = batch_sharding(res.mesh, world)
+    losses, step_ms = [], []
+    fa.reset_launch_counts()
+    qo.reset_launch_counts()
+    for _ in range(C3_STEPS):
+        x = rng.integers(0, cfg.vocab_size, (world, C3_SEQ + 1)).astype(np.int64)[rows]
+        t = torch.from_numpy(x).cuda()
+        t0 = time.perf_counter()
+        _, m = res.step_fn(state, t[:, :-1].contiguous(), t[:, 1:].contiguous())
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    live_at_peak = None
+    if job.get("trace"):
+        live_at_peak = _live_at_peak(torch.cuda.memory._snapshot())
+        torch.cuda.memory._record_memory_history(enabled=None)
+    out = dict(live_at_peak=live_at_peak, losses=losses, step_ms=step_ms,
+               peak_bytes=torch.cuda.max_memory_allocated() - base,
+               resident_bytes=torch.cuda.memory_allocated() - base, resident_before=resident0,
+               static_bytes=static, zero=state.shards is not None,
+               largest_unit_bytes=state.units.largest_unit_bytes() if state.units else None,
+               launches={**fa.launch_counts, **qo.launch_counts})
+    del state, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _live_at_peak(snapshot, top=14):
+    """From an allocator history (``torch.cuda.memory._snapshot()``):
+    the blocks allocated at the moment the recorded allocations peaked,
+    summed by the innermost frame of this repository's code that
+    allocated them (bytes, count), largest first."""
+    events = [e for dev in snapshot["device_traces"] for e in dev]
+    live, total, best, best_live = {}, 0, -1, {}
+    for e in events:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+            total += e["size"]
+        elif e["action"] in ("free_requested", "free_completed") and e["addr"] in live:
+            total -= live.pop(e["addr"])["size"]
+        if total > best:
+            best, best_live = total, dict(live)
+
+    def site(e):
+        for f in e.get("frames", []):
+            if "dlrover_tpu_torch" in f["filename"] or "chip_smoke" in f["filename"]:
+                return f"{f['filename'].split('/repo/')[-1]}:{f['line']} {f['name']}"
+        return "other"
+
+    groups = {}
+    for e in best_live.values():
+        g = groups.setdefault(site(e), [0, 0])
+        g[0] += e["size"]
+        g[1] += 1
+    return dict(recorded_peak_bytes=best, sites=sorted(
+        ([k, v[0], v[1]] for k, v in groups.items()), key=lambda x: -x[1])[:top])
+
+
+def run_c3(torch, trace=False):
+    """C3 on the card: two gloo ranks at Llama-2 width, dp=2 then ZeRO
+    dp=1 x fsdp=2 (one start, the runs in order). The ZeRO peak must sit
+    below dp=2's by half the 8-bit state plus ``C3_PARAMS_SAVING_SHARE``
+    of the reckoned params saving, each static figure within
+    ``PEAK_CAL_RTOL`` of its peak, the losses bitwise. ``trace``
+    (``--phase c3``) records the allocator's history and prints what was
+    live at each run's peak (``_live_at_peak``)."""
+    from dataclasses import replace
+
+    from dlrover_tpu_torch.accel.dry_runner import _opt_state_bytes
+    from dlrover_tpu_torch.models import llama2_7b
+    from dlrover_tpu_torch.parallel import grad_sync
+    from dlrover_tpu_torch.trainer.elastic.trainer import build_optimizer
+
+    # what PERF.md reckoned before the run: half the 8-bit state, and half
+    # the f32 params less the largest unit gathered at once (one block)
+    cfg = replace(llama2_7b(), num_layers=C3_LAYERS)
+    leaves = grad_sync.model_leaves(cfg)
+    params = sum(p.numel() for p in leaves)
+    block = (params - 2 * cfg.vocab_size * cfg.model_dim) / C3_LAYERS
+    state_half = _opt_state_bytes(
+        build_optimizer("adamw_8bit", lr=3e-4, min_quantized_size=4096), leaves)[0] / 2
+    reckoned = 4.0 * params / 2 - 4.0 * block
+    ranks = _dp_spawn("c3", 2, [dict(kind="c3", name="dp2", mesh=dict(dp=2), trace=trace),
+                                dict(kind="c3", name="zero", mesh=dict(fsdp=2), trace=trace)])
+    dp2, zero = ranks[0]["dp2"], ranks[0]["zero"]
+    if trace:
+        emit("resize_c3_trace", dp2=dp2["live_at_peak"], zero=zero["live_at_peak"])
+    saving = dp2["peak_bytes"] - zero["peak_bytes"]
+    want = state_half + C3_PARAMS_SAVING_SHARE * reckoned
+    rel = {k: r["static_bytes"] / r["peak_bytes"] - 1 for k, r in (("dp2", dp2), ("zero", zero))}
+    bitwise = all(r["dp2"]["losses"] == r["zero"]["losses"] for r in ranks) and (
+        ranks[0]["zero"]["losses"] == ranks[1]["zero"]["losses"])
+    ok = (bitwise and saving >= want and all(abs(v) <= PEAK_CAL_RTOL for v in rel.values())
+          and all(math.isfinite(x) for x in dp2["losses"]))
+    emit("resize_c3", model=f"llama2_7b width, {C3_LAYERS} layers", batch_per_rank=f"1 x {C3_SEQ}",
+         optimizer="adamw_8bit", world=2, backend="gloo", steps=C3_STEPS,
+         losses=dict(dp2=dp2["losses"], zero=zero["losses"]), bitwise=bitwise,
+         peak_bytes=[[r["dp2"]["peak_bytes"], r["zero"]["peak_bytes"]] for r in ranks],
+         resident_bytes=dict(dp2=dp2["resident_bytes"], zero=zero["resident_bytes"]),
+         static_bytes=dict(dp2=dp2["static_bytes"], zero=zero["static_bytes"]),
+         static_vs_peak=rel, tol=PEAK_CAL_RTOL, saving_bytes=saving, want_saving_bytes=want,
+         reckoned_state_half_bytes=state_half, reckoned_params_saving_bytes=reckoned,
+         largest_unit_bytes=zero["largest_unit_bytes"],
+         step_ms=dict(dp2=dp2["step_ms"], zero=zero["step_ms"]),
+         launches=dict(dp2=dp2["launches"], zero=zero["launches"]), card=card_line(), ok=ok)
+    if not ok:
+        raise RuntimeError("C3: the ZeRO peak, its static figure or its losses failed")
+    return dict(saving_bytes=saving, static_vs_peak=rel)
+
+
+def resize_launcher(label, node, job, ckpt_dir, evdir, cache_dir, master_addr=""):
+    """One node of the resize drill: a ``--nnodes=1:2`` launcher in a
+    session of its own, with a socket dir and a shm node rank of its
+    own (two nodes on one host), its workers joining over gloo."""
+    import tempfile
+
+    ev = os.path.join(evdir, f"{label}.jsonl")
+    log_path = os.path.join(evdir, f"{label}.launcher.log")
+    log = open(log_path, "w")
+    env = {**os.environ, **run_files(evdir, label), "PYTHONPATH": REPO,
+           "DLROVER_TPU_NODE_RANK": str(node),
+           "DLROVER_TPU_SOCKET_DIR": tempfile.mkdtemp(prefix="dlr"),
+           "DLROVER_TPU_DIST_BACKEND": "gloo", "DLROVER_TPU_COMPILE_CACHE": cache_dir}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dlrover_tpu_torch.trainer.run", "--nnodes=1:2",
+         "--nproc-per-node=1", f"--node-rank={node}", "--monitor-interval=0.5",
+         f"--rdzv-waiting-timeout={RESIZE_LASTCALL_S}", f"--job-name={job}",
+         f"--log-dir={os.path.join(evdir, label + '_workers')}", *RESIZE_LAUNCHER_ARGS,
+         *([f"--master-addr={master_addr}"] if master_addr else []),
+         CKPT_WORKER, *RESIZE_RUN, "--ckpt-dir", ckpt_dir, "--events", ev],
+        cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+    )
+    return dict(label=label, proc=proc, ev=ev, log_path=log_path, log=log, t0=time.time(),
+                holders=CardHolders(proc.pid))
+
+
+def _finish_launcher(n, timeout):
+    try:
+        n["rc"] = n["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        n["rc"] = "timeout"
+    try:  # nothing of the group may outlive the run
+        os.killpg(n["proc"].pid, 9)
+    except ProcessLookupError:
+        pass
+    n["proc"].wait()
+    n["cards"] = n["holders"].stop()
+    n["log"].close()
+    with open(n["log_path"]) as f:
+        n["text"] = f.read()
+    n["lines"] = launcher_log(n["text"])
+    n["events"] = []
+    if os.path.exists(n["ev"]):
+        with open(n["ev"]) as f:
+            n["events"] = [json.loads(line) for line in f]
+    return n
+
+
+def _incarnations(events):
+    """A node's workers in order: each from its ``start`` event to the
+    next, with its restored event, digests, losses and kill."""
+    out = []
+    for e in events:
+        if e["event"] == "start":
+            out.append(dict(start=e, restored=None, digests={}, losses={}, loss_t={}, kill=None,
+                            warm={}))
+        elif out:
+            w = out[-1]
+            if e["event"] == "warm":
+                w["warm"] = e
+            elif e["event"] == "restored":
+                w["restored"] = e
+            elif e["event"] == "digest":
+                w["digests"][e["step"]] = e["crc"]
+            elif e["event"] == "loss":
+                w["losses"][e["step"]] = e["loss"]
+                w["loss_t"][e["step"]] = e["t"]
+            elif e["event"] == "kill":
+                w["kill"] = e
+    return out
+
+
+def _transition(label, t_cause, cause, n0_lines, landed, staged_digest, want_step, want_source,
+                cause_log):
+    """One transition's line: the time from ``cause`` (a node's death or
+    join) to the first loss at the new world, split by the launcher's
+    log and the landed worker's events."""
+    def after(fragment):
+        return next((t for t, msg in n0_lines if fragment in msg and t >= t_cause - 0.5), None)
+
+    r = landed["restored"] or {}
+    lr = r.get("last_resize") or {}
+    t_detect = after(cause_log)
+    t_rdzv = next((t for t, msg in n0_lines if "joined round" in msg and t_detect is not None
+                   and t >= t_detect), None)
+    steps = sorted(landed["loss_t"])
+    t_first = landed["loss_t"][steps[0]] if steps else None
+    ctor_start = r["t"] - lr.get("downtime_ms", 0) / 1e3 if r else None
+    ok = (bool(r) and r.get("step") == want_step and r.get("source") == want_source
+          and r.get("digest") == staged_digest and staged_digest is not None
+          and len(steps) > 0 and all(math.isfinite(x) for x in landed["losses"].values())
+          and lr.get("compile_cache_hit") is True)
+    rec = dict(
+        transition=label, cause=cause, lastcall_window_s=RESIZE_LASTCALL_S,
+        cause_to_first_loss_s=None if t_first is None else t_first - t_cause,
+        detection_s=None if t_detect is None else t_detect - t_cause,
+        rendezvous_s=None if t_rdzv is None or t_detect is None else t_rdzv - t_detect,
+        worker_start_s=None if ctor_start is None or t_rdzv is None else ctor_start - t_rdzv,
+        import_s=landed["start"].get("import_s"),
+        cuda_context_s=landed["warm"].get("cuda_context_s"),
+        kernel_load_s=landed["warm"].get("kernel_load_s"),
+        strategy_ms=lr.get("build_ms"), compile_cache_hit=lr.get("compile_cache_hit"),
+        state_init_ms=lr.get("state_init_ms"), setup_ms=lr.get("setup_ms"),
+        restore_ms=lr.get("restore_ms"), restore_source=r.get("source"),
+        first_step_s=None if t_first is None or not r else t_first - r["t"],
+        restored_step=r.get("step"), want_step=want_step, world=r.get("world"),
+        strategy=r.get("strategy"), digest=r.get("digest"), staged_digest=staged_digest,
+        losses=landed["losses"],
+        last_resize={k: v for k, v in lr.items() if k != "fallback_paths"},
+        fallback_leaves=len(lr.get("fallback_paths") or []), ok=ok)
+    return rec
+
+
+def run_resize_drill(torch):
+    """Shrink 2 -> 1 and grow 1 -> 2 through the launcher: two
+    ``--nnodes=1:2`` launchers (node 0 hosts the master), gpt2_small at
+    dp=2 over gloo on the one card. World 2 saves to memory at step
+    ``RESIZE_SAVE_AT``; node 1's worker kills its launcher's group after
+    ``RESIZE_KILL_AFTER`` (once that save is on disk); node 0's agent
+    relaunches its worker at world 1, which derives its strategy (a
+    cache hit: world 2 derived it speculatively), restores the step from
+    its shm, trains on, saves to disk at ``RESIZE_DISK_AT`` and holds
+    after ``RESIZE_HOLD_AFTER``; node 1 starts again, and on the
+    membership change both restart at world 2 and restore that step
+    from storage. Each landing's restored state must digest as the
+    staged one did."""
+    import tempfile
+
+    from dlrover_tpu_torch.ckpt.shm_handler import shard_shm_name
+
+    t_phase = time.perf_counter()
+    evdir = tempfile.mkdtemp(prefix="resize_")
+    ckpt_dir = tempfile.mkdtemp(prefix="resize_ckpt_")
+    cache_dir = tempfile.mkdtemp(prefix="resize_cc_")
+    job = f"smokerz{os.getpid()}"
+    nodes = []
+    try:
+        n0 = resize_launcher("rz_n0", 0, job, ckpt_dir, evdir, cache_dir)
+        nodes.append(n0)
+        addr, deadline = "", time.time() + 60
+        while not addr and time.time() < deadline and n0["proc"].poll() is None:
+            with open(n0["log_path"]) as f:
+                m = re.search(r"spawned local master at (\S+)", f.read())
+            addr = m.group(1) if m else ""
+            time.sleep(0.1)
+        if not addr:
+            raise RuntimeError("the drill's master did not start")
+        n1 = resize_launcher("rz_n1", 1, job, ckpt_dir, evdir, cache_dir, addr)
+        nodes.append(n1)
+        _finish_launcher(n1, 300)  # its worker kills the group
+        hold = wait_for_event(n0["ev"], "hold", n0["proc"], timeout=300)
+        if hold is None:
+            raise RuntimeError("the world-1 worker never reached its hold")
+        # the dead node's agent left its segment in /dev/shm
+        os.environ.update(DLROVER_TPU_JOB_NAME=job, DLROVER_TPU_NODE_RANK="1")
+        try:
+            seg = "/dev/shm/" + shard_shm_name(0)
+            if os.path.exists(seg):
+                os.unlink(seg)
+        finally:
+            os.environ.pop("DLROVER_TPU_NODE_RANK", None)
+        t_join = time.time()
+        n1b = resize_launcher("rz_n1b", 1, job, ckpt_dir, evdir, cache_dir, addr)
+        nodes.append(n1b)
+        _finish_launcher(n1b, 400)
+        _finish_launcher(n0, 120)
+    finally:
+        for n in nodes:
+            if "rc" not in n:
+                _finish_launcher(n, 1)
+    a0, b, c = (_incarnations(n0["events"]) + [None, None, None])[:3]
+    a1 = (_incarnations(n1["events"]) or [None])[0]
+    d = (_incarnations(n1b["events"]) or [None])[0]
+    if None in (a0, a1, b, c, d):
+        for n in nodes:
+            print(f"--- {n['label']} rc={n['rc']}\n{n['text'][-4000:]}", flush=True)
+        raise RuntimeError("the drill's incarnations are missing")
+    kill = a1["kill"]
+    staged4 = a0["digests"].get(RESIZE_SAVE_AT)
+    staged8 = b["digests"].get(RESIZE_DISK_AT)
+    shrink = _transition("2->1", kill["t"] if kill else t_join, "node 1 SIGKILLed (launcher group)",
+                         n0["lines"], b, staged4, RESIZE_SAVE_AT, "memory", "worker failure")
+    grow = [_transition("1->2", t_join, "node 1 joins again", n0["lines"], w, staged8,
+                        RESIZE_DISK_AT, "storage", "membership change") for w in (c, d)]
+    digests_agree = a0["digests"].get(RESIZE_SAVE_AT) == a1["digests"].get(RESIZE_SAVE_AT)
+    for rec in [shrink] + grow:
+        emit("resize", **rec, card_holders={n["label"]: n["cards"] for n in nodes},
+             launcher_rc={n["label"]: n["rc"] for n in nodes}, card=card_line())
+    ok = (shrink["ok"] and all(g["ok"] for g in grow) and digests_agree and kill is not None
+          and n0["rc"] == 0 and n1b["rc"] == 0
+          and not any(n["cards"]["control_plane_holds_card"] for n in nodes))
+    if not ok:
+        for n in nodes:
+            print(f"--- {n['label']} rc={n['rc']}\n{n['text'][-3000:]}", flush=True)
+    return dict(ok=ok, seconds=time.perf_counter() - t_phase,
+                shrink_s=shrink["cause_to_first_loss_s"],
+                grow_s=[g["cause_to_first_loss_s"] for g in grow])
+
+
+def run_resize(torch):
+    """The resize phase (``--phase resize``, and in the full run after the
+    flash_ckpt phase): the drill's shrink and grow, then C3."""
+    t0 = time.perf_counter()
+    drill = run_resize_drill(torch)
+    c3 = run_c3(torch)
+    emit("resize_phase", seconds=time.perf_counter() - t0, drill=drill, c3=c3,
+         never_on_a_card=["NCCL at world size > 1", "a resize across real nodes",
+                          "ranks left idle by a degraded world (CPU tests only)",
+                          "the micro-batch rebalance at a changed world (CPU tests only)",
+                          "the master's scale candidates reaching the trainer"],
+         ok=drill["ok"])
+    if not drill["ok"]:
+        raise RuntimeError("the resize drill failed its checks")
+
+
 def build_kernels():
     """Every kernel source, built at once: one nvcc for each ``.cu`` and
     g++ for the embedding store's ``kv_store.cc``."""
@@ -3140,10 +3541,15 @@ def main() -> int:
     build_kernels()
     if "--phase" in sys.argv:  # one phase alone; the contract's lines need a full run
         phase = sys.argv[sys.argv.index("--phase") + 1]
-        if phase not in ("flash_ckpt", "evict", "dp", "llama", "accel", "peak_memory"):
+        if phase not in ("flash_ckpt", "evict", "dp", "llama", "accel", "peak_memory", "resize",
+                         "c3"):
             raise SystemExit(f"unknown phase {phase!r}")
         if phase == "dp":
             run_dp(torch)
+        elif phase == "resize":
+            run_resize(torch)
+        elif phase == "c3":  # C3 alone, with the allocator's history at each peak
+            run_c3(torch, trace=True)
         elif phase == "accel":
             run_accel(torch)
         elif phase == "peak_memory":
@@ -3188,6 +3594,7 @@ def main() -> int:
     dp_accel = run_dp(torch)
     run_accel(torch, llama["full"]["search"], dp_accel, audit)
     run_flash_ckpt(torch)
+    run_resize(torch)
 
     src_fa = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"
     fa_tpu = "dlrover_tpu/ops/flash_attention.py"

@@ -347,12 +347,23 @@ def static_peak_bytes(
     tokens and a compute dtype of ``ab`` bytes:
 
     - resident: the params ``P`` and the optimizer state ``S``
-      (``_opt_state_bytes``; 1/fsdp of it under ZeRO; under
+      (``_opt_state_bytes``; 1/fsdp of it on an fsdp mesh; under
       ``offload_opt`` none of it, but the two slots of the double
-      buffer);
+      buffer). Under ZeRO (fsdp with the explicit sync) the params are
+      1/fsdp too, and the backward phase adds the unit
+      (``models/train.ZeroUnits``) its backward gathers again: the
+      largest block (the stacked blocks under ``scan_layers``) under
+      remat, which recomputes it, or when the params are no wider than
+      the compute dtype, so the graph saved their storage; else only
+      the norm scales, priced 0 (the weights were saved as casts);
     - the optimizer phase: the grads ``G`` (the param dtype; plus f32
-      accumulators under ``grad_accum``) and the update's transient
-      ``T``;
+      accumulators under ``grad_accum``; under ZeRO this rank's shards
+      of them) and the update's transient ``T``;
+    - with the explicit bucketed sync (``comm_overlap`` on a mesh with
+      data axes), the sync phase: the local grads ``G``, the f32 sums it
+      returns (the whole tree, or under ZeRO this rank's 1/fsdp of it)
+      and one bucket in flight (its f32 flat and the backend's copy of
+      it: gloo's reduce-scatter copies its input);
     - the backward phase (its start): what the forward saved and the lm
       head's backward. A block saves, a token: its two norms' f32
       tensors (RMSNorm ``x`` and ``y``: 8 B a dim; LayerNorm also
@@ -367,7 +378,7 @@ def static_peak_bytes(
       every block's saved set is live; with remat the blocks' inputs
       and one block's recompute.
 
-    The peak is the resident state plus the larger phase. Held against
+    The peak is the resident state plus the largest phase. Held against
     the measured peaks on an H100 80GB HBM3 at 700 W (``chip_smoke.py
     --phase peak_memory`` and its accel phase): -0.5 % to +4.4 % without
     remat (Llama-2 width at 4, 8 and 16 layers, gpt2_small, gpt2_xl with
@@ -392,6 +403,10 @@ def static_peak_bytes(
     pb = torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size()
     state, trans, unit = _opt_state_bytes(tx, leaves)
     state /= max(m.fsdp, 1)
+    zero = m.fsdp > 1 and strategy.resolved_comm_overlap()
+    plan = None
+    if shards > 1 and strategy.resolved_comm_overlap():
+        plan = grad_sync.resolve_plan(cfg, strategy, leaves)
     if strategy.offload_opt:
         state, trans = 0.0, trans + 2.0 * unit
     grads = p_bytes + (4.0 * n_params if ga > 1 else 0.0)
@@ -412,7 +427,18 @@ def static_peak_bytes(
         live = L * tok * D * ab + a_block + head
     else:
         live = L * a_block + head
-    return p_bytes + state + max(grads + trans, live)
+    sync = 0.0
+    if plan is not None:
+        bucket = 4.0 * max(b.padded for b in plan.buckets)
+        sync = grads + 4.0 * n_params / (m.fsdp if zero else 1) + 2.0 * bucket
+    if zero:
+        regathered = 0.0
+        if cfg.remat or pb <= ab:
+            blocks = block_params * (L if cfg.scan_layers else 1)
+            regathered = pb * max(blocks, V * D if pb <= ab else 0)
+        shard = p_bytes / m.fsdp
+        return shard + state + max(shard + trans, sync, live + regathered)
+    return p_bytes + state + max(grads + trans, sync, live)
 
 
 # -- the estimate tiers --------------------------------------------------------

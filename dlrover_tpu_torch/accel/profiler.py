@@ -80,6 +80,21 @@ class PipelineStats:
     stage_block_s: float = 0.0  # loop-thread seconds in advance()
     stage_commits: int = 0
     fenced_steps: int = 0  # optimizer steps that waited for a staging copy
+    # -- elastic resize (accel/compile_cache.py, the restart's landing) --
+    compile_cache_hits: int = 0
+    compile_cache_misses: int = 0
+    # state remapped without a host trip (none in the port: a resize
+    # lands in the restore) / read back from shm or storage
+    reshard_bytes_device: int = 0
+    reshard_bytes_host: int = 0
+    resize_count: int = 0
+    resize_downtime_ms: float = 0.0  # the last resize's downtime
+    # ranks left idle by the last resize's degradation (a world the
+    # batch does not divide over; also the dlrover_resize_idle_ranks
+    # gauge) and the zero-weight pad rows of its micro-batch rebalance
+    # (dlrover_resize_mb_pad)
+    resize_idle_ranks: int = 0
+    resize_mb_pad: int = 0
     # -- the gradient sync (parallel/grad_sync.py) ----------------------
     # "explicit" (the bucketed sync) or "gspmd" (the default schedule:
     # one all-reduce of the whole tree per microbatch); "" until a
@@ -103,8 +118,18 @@ class PipelineStats:
             return None
         return [self.grad_bytes_wire, self.grad_bytes_raw]
 
+    @property
+    def compile_cache_hit_pct(self) -> Optional[float]:
+        n = self.compile_cache_hits + self.compile_cache_misses
+        if not n:
+            return None
+        return round(100.0 * self.compile_cache_hits / n, 2)
+
     def as_dict(self) -> Dict[str, Any]:
         d = asdict(self)
+        d["compile_cache_hit_pct"] = self.compile_cache_hit_pct
+        d["reshard_bytes_device_vs_host"] = [self.reshard_bytes_device, self.reshard_bytes_host]
+        d["resize_downtime_ms"] = round(d["resize_downtime_ms"], 2)
         for k in ("grad_sync_ms", "grad_sync_ici_ms", "grad_sync_dcn_ms"):
             d[k] = round(d[k], 3)
         # numeric twin for the metrics registry (fold_pipeline_stats

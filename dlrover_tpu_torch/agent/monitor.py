@@ -70,14 +70,23 @@ def atomic_write_json(path: str, payload, durable: bool = False) -> None:
     os.replace(tmp, path)
 
 
+# the train process's writers of the metrics file (the loop's reports
+# and the span heartbeat's read-modify-write) take turns: a heartbeat
+# that read the file before a report must not write back over it (a
+# process's last report, the eviction drain's, has no later write to
+# repair the file)
+METRICS_FILE_LOCK = threading.Lock()
+
+
 def report_runtime_metrics(step: int, path: str = "", **extra) -> None:
     """Train-proc side: atomically publish the latest global step (plus
     optional metrics like loss/tpu stats) for the agent's
     TrainingMonitor."""
     path = path or _metrics_path()
-    atomic_write_json(
-        path, {"global_step": int(step), "timestamp": time.time(), **extra}
-    )
+    with METRICS_FILE_LOCK:
+        atomic_write_json(
+            path, {"global_step": int(step), "timestamp": time.time(), **extra}
+        )
 
 
 def read_runtime_metrics(path: str = "") -> dict:

@@ -70,6 +70,10 @@ from dlrover_tpu_torch.obs.trace import span
 CRC_THREADS = 4
 
 
+# what an idle rank proposes for the shm step: agreement ignores it
+_IDLE_PROPOSAL = -2
+
+
 def _env_int(name: str, default: int) -> int:
     try:
         return int(os.getenv(name, default))
@@ -306,6 +310,7 @@ class ChunkedStager:
                         "checkpoint_dir": self.checkpoint_dir,
                         "global_shard_id": self._engine.global_shard_id,
                         "global_shard_num": self._engine.global_shard_num,
+                        "step_meta": dict(self._engine.step_meta),
                     },
                 )
         except BaseException as e:
@@ -417,6 +422,13 @@ class CheckpointEngine:
         self._streams: Dict[torch.device, torch.cuda.Stream] = {}
         # "memory" or "storage": where the last load came from
         self.last_load_source: Optional[str] = None
+        # what every save carries beside its records (the trainer's
+        # strategy and world: ``step_meta`` of the saver's extras and of
+        # the done files), and what the last load's step carried
+        self.step_meta: Dict[str, Any] = {}
+        self.last_load_meta: Dict[str, Any] = {}
+        # bytes of records the last load read back
+        self.last_load_bytes = 0
         if self._agent_mode:
             self._shm = ShmHandler(self.local_rank, create=False)
             self._queue = SharedQueue(saver_mod.CKPT_EVENT_QUEUE)
@@ -609,7 +621,7 @@ class CheckpointEngine:
                 )
                 payload = saver_mod.build_shard_payload(
                     step, self.global_shard_id, self.global_shard_num,
-                    records, {},
+                    records, {"step_meta": dict(self.step_meta)},
                 )
                 saver_mod.write_shard_and_done(
                     self.storage, checkpoint_dir, step, payload
@@ -648,8 +660,29 @@ class CheckpointEngine:
             self.storage, checkpoint_dir, repair=repair, deep=repair
         )
 
+    def peek_step_meta(self, checkpoint_dir: str) -> Tuple[int, Dict[str, Any]]:
+        """``(step, step_meta)`` of the newest step this process can see
+        without reading any record: its shm segment's (when it holds this
+        directory's state) or the tracker's step on storage, by its done
+        files; ``(-1, {})`` when there is neither. Reads no bytes of
+        state and takes part in no collective."""
+        best: Tuple[int, Dict[str, Any]] = (-1, {})
+        if self._agent_mode and self._shm is not None:
+            try:
+                meta = self._shm.metadata()
+                extra = meta.get("extra", {})
+                if meta.get("valid") and extra.get("checkpoint_dir") == checkpoint_dir:
+                    best = (int(meta["step"]), dict(extra.get("step_meta") or {}))
+            except Exception as e:  # a dead segment is no checkpoint
+                logger.info(f"shm metadata unreadable: {e!r}")
+        step = self.latest_step(checkpoint_dir)
+        if step > best[0]:
+            best = (step, saver_mod.read_step_meta(self.storage, checkpoint_dir, step))
+        return best
+
     def load(
-        self, target: Any, checkpoint_dir: str, prefer_memory: bool = True
+        self, target: Any, checkpoint_dir: str, prefer_memory: bool = True,
+        idle: bool = False,
     ) -> Tuple[int, Optional[Any]]:
         """Restore into ``target`` (its tensors are filled in place).
         Prefers shm when every process holds the same usable step of
@@ -662,12 +695,23 @@ class CheckpointEngine:
         segment downgrades to storage), and the storage step comes from
         ``latest_verified_step`` — a torn, bit-flipped or partial newest
         step is quarantined and the newest older step that verifies is
-        restored. ``last_load_source`` says which was used."""
+        restored. ``last_load_source`` says which was used.
+
+        ``idle``: a rank of the process group outside the mesh (a
+        resize that left it idle) takes part in the agreements and
+        restores nothing: it proposes no shm step of its own, so the
+        mesh's ranks choose as they would without it."""
         self.last_load_source = None
+        self.last_load_meta = {}
+        self.last_load_bytes = 0
         committed = self._agree_committed(
             self.latest_verified_step(checkpoint_dir)
         )
+        if idle:
+            self._all_processes_agree(_IDLE_PROPOSAL)
+            return -1, None
         candidate = -1
+        shm_meta: Dict[str, Any] = {}
         records = []
         got_lock = False
         if prefer_memory and self._agent_mode and self._shm is not None:
@@ -691,6 +735,7 @@ class CheckpointEngine:
                         and self._shm_covers(records, target)
                     ):
                         candidate = shm_step
+                        shm_meta = dict(extra.get("step_meta") or {})
                 except (LookupError, ValueError) as e:
                     logger.warning(f"shm checkpoint unusable: {e!r}")
                     candidate = -1
@@ -706,6 +751,8 @@ class CheckpointEngine:
                     )
                     logger.info(f"restored step {candidate} from memory")
                     self.last_load_source = "memory"
+                    self.last_load_meta = shm_meta
+                    self.last_load_bytes = sum(r.nbytes for r in records)
                     return candidate, state
                 except (LookupError, ValueError) as e:
                     logger.warning(
@@ -728,6 +775,7 @@ class CheckpointEngine:
         state = self._load_from_storage(target, checkpoint_dir, committed)
         logger.info(f"restored step {committed} from storage")
         self.last_load_source = "storage"
+        self.last_load_meta = saver_mod.read_step_meta(self.storage, checkpoint_dir, committed)
         return committed, state
 
     @staticmethod
@@ -758,9 +806,10 @@ class CheckpointEngine:
         return agreed
 
     def _all_processes_agree(self, candidate: int) -> bool:
-        """True iff every process proposes the same shm step."""
+        """True iff every process proposes the same shm step (an idle
+        rank's proposal counts for none)."""
         steps = self._gather_steps(candidate)
-        return steps is None or len(set(steps)) == 1
+        return steps is None or len(set(steps) - {_IDLE_PROPOSAL}) == 1
 
     def _shm_covers(self, records, target) -> bool:
         """shm restore is only safe when the target's records match what
@@ -790,6 +839,7 @@ class CheckpointEngine:
                     data=m["data"],
                 )
                 by_path.setdefault(rec.path, []).append(rec)
+                self.last_load_bytes += rec.nbytes
         return restore_state(target, lambda p: by_path.get(p, []))
 
     def _filter_needed_shards(self, sdir, files, target):

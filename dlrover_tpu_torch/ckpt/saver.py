@@ -218,16 +218,33 @@ def write_shard_and_done(
     done = os.path.join(
         step_dir(checkpoint_dir, step), DONE_DIR, f"{gid}.done"
     )
-    storage.write(
-        json.dumps(
-            {
-                "global_shard_num": payload["global_shard_num"],
-                "crc32": crc,
-                "nbytes": nbytes,
-            }
-        ),
-        done,
-    )
+    record = {
+        "global_shard_num": payload["global_shard_num"],
+        "crc32": crc,
+        "nbytes": nbytes,
+    }
+    step_meta = (payload.get("extra") or {}).get("step_meta")
+    if step_meta:
+        # what the writer ran under (read_step_meta): small, and read
+        # without the shard's bytes
+        record["step_meta"] = step_meta
+    storage.write(json.dumps(record), done)
+
+
+def read_step_meta(storage, checkpoint_dir: str, step: int) -> Dict:
+    """The ``step_meta`` a persisted step's writers recorded in their
+    done files (the first that has one), ``{}`` when none did."""
+    ddir = os.path.join(step_dir(checkpoint_dir, step), DONE_DIR)
+    try:
+        names = sorted(storage.listdir(ddir))
+    except OSError:
+        return {}
+    for name in names:
+        if name.endswith(".done"):
+            meta = parse_done(storage.read(os.path.join(ddir, name))).get("step_meta")
+            if meta:
+                return dict(meta)
+    return {}
 
 
 def verify_step_dir(
@@ -725,10 +742,21 @@ class AsyncCheckpointSaver:
                 st.global_shard_num = ev.global_shard_num
                 st.first_seen = st.first_seen or now
                 st.ranks.add(ev.local_rank)
+                for older, ost in self._steps.items():
+                    if older < ev.step and ev.local_rank not in ost.ranks:
+                        # this rank moved on (its stage of the older step
+                        # was aborted): that step cannot complete, and
+                        # waiting out the straggler window would hold the
+                        # other ranks' shard locks, and their next saves
+                        ost.first_seen = now - self.straggler_timeout - 1.0
             # persist any step that is complete (or timed out waiting)
             for step in sorted(list(self._steps)):
                 st = self._steps[step]
-                complete = len(st.ranks) >= self.local_shard_num
+                # a world smaller than the node (a resize's, or one that
+                # left ranks idle) stages fewer shards than it hosts
+                complete = len(st.ranks) >= min(
+                    self.local_shard_num, st.global_shard_num or self.local_shard_num
+                )
                 expired = now - st.first_seen > self.straggler_timeout
                 if complete or expired:
                     if expired and not complete:

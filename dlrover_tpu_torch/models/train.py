@@ -32,12 +32,20 @@ ZeRO (a plan of kind ``zero``, dp x fsdp): between steps the optimizer
 and its state hold only this rank's block rows of each leaf
 (``TrainState.shards``, ``BucketPlan.leaf_shard`` elements each, whole
 128-element blocks of the row-major flatten), so the per-leaf 8-bit
-AdamW quantizes the same blocks as on the whole leaf. The full params
-(``TrainState.params``) are gathered over fsdp before each forward
-(``gather_params``) and their storage is released once the backward
-has made the local gradients (``free_params``): between steps, and
-through the sync and the update, a rank holds only its shards. Code
-that reads the module between steps gathers first.
+AdamW quantizes the same blocks as on the whole leaf. The module's
+params (``TrainState.params``) hold no storage: the step gathers them
+over fsdp a unit at a time (``ZeroUnits``; a unit is the embedding, one
+block, or the head, and under ``scan_layers`` all the stacked blocks,
+since a stacked leaf's shard runs across layers) just before the unit
+runs and frees them right after, in the forward and again in the
+backward (a remat block is recomputed there; otherwise the backward
+gathers only the params whose own storage the unit's graph saved: all
+of them in the f32 compute of the CPU, the f32 norm scales alone under
+the card's bf16 casts). So at any point a rank holds its shards and at
+most one unit's full params. The gradients stay whole and are
+reduce-scattered by the bucketed sync after the backward (which
+consumes them bucket by bucket). ``evaluate`` runs the same units;
+``gather_params`` fills the whole module for code that reads it.
 
 ``tx`` is an optimizer factory: a callable that takes the parameters in
 the JAX flatten order (or, under ZeRO, their shards) and returns an
@@ -79,6 +87,8 @@ class TrainState:
     # ZeRO: this rank's block rows of each leaf (1-D, whole blocks), the
     # tensors the optimizer updates; None off the zero kind
     shards: Optional[List[torch.Tensor]] = None
+    # ZeRO: the per-unit gather the forward runs under (``ZeroUnits``)
+    units: Any = None
 
 
 def init_state(
@@ -125,6 +135,7 @@ def state_from_params(
     if _zero(plan):
         shards = leaf_shards(leaves, mesh, plan)
         state = TrainState(step=0, params=params, opt_state=tx(shards), shards=shards)
+        state.units = ZeroUnits(state, mesh, plan)
         free_params(state)
     else:
         state = TrainState(step=0, params=params, opt_state=tx(leaves))
@@ -142,31 +153,138 @@ def free_params(state: TrainState) -> None:
         p.untyped_storage().resize_(0)
 
 
-def gather_params(state: TrainState, mesh, plan) -> None:
-    """ZeRO: the full params from every fsdp rank's shards (one
-    all-gather a bucket over fsdp, issued together), into storage
-    allocated again where ``free_params`` released it."""
-    from dlrover_tpu_torch.parallel.grad_sync import _all_gather, _wait
+def _gather_leaves(state: TrainState, group, plan, idx: List[int]) -> None:
+    """Leaves ``idx`` (in order) of the module, allocated where
+    ``free_params`` released them and filled from every fsdp rank's
+    shards by one all-gather over fsdp. The copies go through ``.data``:
+    a saved tensor of the autograd graph that shares a param's storage
+    sees the same bytes again, at the version it saved."""
+    from dlrover_tpu_torch.parallel.grad_sync import _all_gather
 
     leaves = state.params.jax_ordered_parameters()
-    for p in leaves:
+    for i in idx:
+        p = leaves[i]
         if p.untyped_storage().nbytes() == 0:
             p.untyped_storage().resize_(p.numel() * p.element_size())
+    chunk = torch.cat([state.shards[i].reshape(-1).float() for i in idx])
+    full, h = _all_gather(chunk, group)
+    h.wait()
+    rows = full.view(plan.fsdp, -1)
+    off = 0
+    for i in idx:
+        sh, p = plan.leaf_shard(i), leaves[i]
+        p.data.copy_(rows[:, off:off + sh].reshape(-1)[:p.numel()].view(p.shape))
+        off += sh
+
+
+def gather_params(state: TrainState, mesh, plan) -> None:
+    """ZeRO: the whole module from every fsdp rank's shards (one
+    all-gather a bucket over fsdp), for code that reads it between
+    steps; ``free_params`` releases it again."""
     group = mesh.groups["fsdp"]
-    pending = []
     for b in plan.buckets:
-        chunk = torch.cat([state.shards[i].reshape(-1).float() for i in range(b.start, b.stop)])
-        chunk = F.pad(chunk, (0, b.padded // plan.fsdp - chunk.numel()))
-        pending.append((b, *_all_gather(chunk, group)))
-    _wait([h for _, _, h in pending])
-    with torch.no_grad():
-        for b, full, _ in pending:
-            rows = full.view(plan.fsdp, -1)
-            off = 0
-            for i in range(b.start, b.stop):
-                sh, p = plan.leaf_shard(i), leaves[i]
-                p.copy_(rows[:, off:off + sh].reshape(-1)[:p.numel()].view(p.shape))
-                off += sh
+        _gather_leaves(state, group, plan, list(range(b.start, b.stop)))
+
+
+class ZeroUnits:
+    """ZeRO's per-unit gather, the ``gather`` of ``transformer.forward``:
+    a unit's params (``transformer.unit_parameters``) are gathered over
+    fsdp just before it runs and freed right after. With autograd on
+    (``_GatheredUnit``) the unit's own graph is kept aside and the
+    backward gathers the unit again only if that graph saved its params'
+    storage (those params only), or, for a remat block
+    (``recompute``), to rebuild it."""
+
+    def __init__(self, state: TrainState, mesh, plan):
+        self.state, self.plan = state, plan
+        self.group = mesh.groups["fsdp"]
+        leaves = state.params.jax_ordered_parameters()
+        index = {id(p): i for i, p in enumerate(leaves)}
+        from dlrover_tpu_torch.models.transformer import unit_parameters
+
+        # key -> (leaf indices, their params), in leaf order
+        self.units = {}
+        for key, ps in unit_parameters(state.params).items():
+            pairs = sorted((index[id(p)], p) for p in ps)
+            self.units[key] = ([i for i, _ in pairs], [p for _, p in pairs])
+
+    def gather(self, key, only=None) -> None:
+        """Gather unit ``key`` (``only``: just those of its leaf
+        indices)."""
+        idx = self.units[key][0] if only is None else sorted(only)
+        if idx:
+            _gather_leaves(self.state, self.group, self.plan, idx)
+
+    def free(self, key) -> None:
+        for p in self.units[key][1]:
+            p.untyped_storage().resize_(0)
+
+    def largest_unit_bytes(self) -> int:
+        return max(sum(p.numel() * p.element_size() for p in ps) for _, ps in self.units.values())
+
+    def __call__(self, key, fn, x, recompute=False):
+        if not torch.is_grad_enabled():
+            self.gather(key)
+            try:
+                return fn(x)
+            finally:
+                self.free(key)
+        return _GatheredUnit.apply(self, key, fn, recompute, x, *self.units[key][1])
+
+
+class _GatheredUnit(torch.autograd.Function):
+    """One unit of the forward under ``ZeroUnits``: its params in the
+    outer graph only as inputs (their grads come from the unit's own
+    graph, or its recompute), so the outer graph holds none of them."""
+
+    @staticmethod
+    def forward(ctx, units, key, fn, recompute, x, *params):
+        ctx.units, ctx.key, ctx.fn, ctx.recompute = units, key, fn, recompute
+        units.gather(key)
+        try:
+            if recompute:
+                ctx.save_for_backward(x)
+                return fn(x)  # autograd is off in here
+            leaf = dict(zip(units.units[key][0], params))
+            ptrs = {p.untyped_storage().data_ptr(): i for i, p in leaf.items()}
+            ctx.saved_leaves = set()
+
+            def pack(t):
+                i = ptrs.get(t.untyped_storage().data_ptr())
+                if i is not None:
+                    ctx.saved_leaves.add(i)
+                return t
+
+            with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                xi = x.detach().requires_grad_(x.requires_grad)
+                out = fn(xi)
+            ctx.inner = (xi, out)
+            return out.detach()
+        finally:
+            units.free(key)
+
+    @staticmethod
+    def backward(ctx, g):
+        units, key = ctx.units, ctx.key
+        params = units.units[key][1]
+        if ctx.recompute:
+            (x,) = ctx.saved_tensors
+            units.gather(key)
+            with torch.enable_grad():
+                xi = x.detach().requires_grad_(x.requires_grad)
+                out = ctx.fn(xi)
+        else:
+            (xi, out), ctx.inner = ctx.inner, None
+            # only the params whose own storage the graph saved (on the
+            # card the weights are saved as their bf16 casts)
+            units.gather(key, ctx.saved_leaves)
+        try:
+            wrt = ([xi] if xi.requires_grad else []) + list(params)
+            grads = list(torch.autograd.grad(out, wrt, g, allow_unused=True))
+        finally:
+            units.free(key)
+        gx = grads.pop(0) if xi.requires_grad else None
+        return (None, None, None, None, gx, *grads)
 
 
 def pad_row_weights(n_real: int, n_padded: int) -> np.ndarray:
@@ -262,11 +380,13 @@ def build_train_step(
             w = w[batch_sharding(mesh, n)]
         return torch.from_numpy(w).to(tokens.device)
 
-    def local_grads(model, params, tokens, targets):
+    def local_grads(model, params, tokens, targets, units=None):
         """(mean loss over this rank's rows, f32-accumulated local grads,
-        or the param-dtype grads at ``grad_accum=1``)."""
+        or the param-dtype grads at ``grad_accum=1``); ``units``: ZeRO's
+        per-unit gather."""
         if grad_accum == 1:
-            loss = loss_fn(model, tokens, targets, cfg, row_weights=row_weights(tokens))
+            loss = loss_fn(model, tokens, targets, cfg, row_weights=row_weights(tokens),
+                           gather=units)
             grads = torch.autograd.grad(loss, params)
             return loss.detach(), list(grads)
         B = tokens.shape[0]
@@ -275,7 +395,7 @@ def build_train_step(
         acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for x, y in zip(tokens.chunk(grad_accum), targets.chunk(grad_accum)):
-            mb_loss = loss_fn(model, x, y, cfg)
+            mb_loss = loss_fn(model, x, y, cfg, gather=units)
             grads = torch.autograd.grad(mb_loss, params)
             torch._foreach_add_(acc, [g.float() for g in grads])
             loss = loss + mb_loss.detach()
@@ -306,14 +426,13 @@ def build_train_step(
         from dlrover_tpu_torch.parallel import sdc as sdc_mod
         from dlrover_tpu_torch.parallel.grad_sync import sync_grads
 
-        loss, grads = local_grads(model, params, tokens, targets)
-        if _zero(plan):
-            free_params(state)
+        loss, grads = local_grads(model, params, tokens, targets, state.units)
         # residual present => error feedback; gate on the PLAN's
         # resolved mode, not the request string
         residual = state.grad_residual if plan.compressed else None
         if not sdc_mod.enabled():
-            out, new_res, gnorm = sync_grads(grads, mesh, plan, residual=residual)
+            # the sync consumes the local grads bucket by bucket
+            out, new_res, gnorm = sync_grads(grads, mesh, plan, residual=residual, consume=True)
             return loss, out, gnorm, new_res, None
         # the device.sdc fault: lane ``inj.device`` multiplies its LOCAL
         # gradient by the finite factor from step ``inj.from_step`` on
@@ -326,8 +445,6 @@ def build_train_step(
         return loss, out, gnorm, new_res, lanes
 
     def train_step(state: TrainState, tokens, targets):
-        if _zero(plan):
-            gather_params(state, mesh, plan)
         model = state.params
         params = model.jax_ordered_parameters()
         lanes = None

@@ -18,6 +18,11 @@ each block under ``torch.utils.checkpoint`` (non-reentrant), the
 counterpart of ``jax.checkpoint(block)``: the backward recomputes the
 block from its input, attention kernels included, on the same inputs.
 
+``forward(..., gather=...)`` runs the model as units (the embedding,
+each block, the head; the stacked blocks as one under ``scan_layers``)
+so that ZeRO can hold a unit's full params only while it runs
+(``models/train.ZeroUnits``, ``unit_parameters``).
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 item: MoE layers (A11), sequence parallelism over a mesh (A10),
 ``int8_mlp`` (A12), the KV-cache decode paths (A14).
@@ -381,28 +386,67 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor, row_weights=None):
     return nll.mean()
 
 
+def _run_unit(key, fn, x, recompute=False):
+    """The model's own parameters: run the unit as it is."""
+    return fn(x)
+
+
 def forward(
     params: Transformer,
     tokens: torch.Tensor,
     cfg: TransformerConfig,
     mesh=None,
+    gather=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens [B,T] -> (logits [B,T,vocab] f32, aux dict of zeros — the
-    dense model has no MoE losses)."""
+    dense model has no MoE losses).
+
+    The model runs as units: the embedding (``"embed"``), each block
+    (``("layer", i)``; under ``scan_layers`` all of them, ``"layers"``:
+    a stacked leaf is one parameter) and the head (``"head"``).
+    ``gather(key, fn, x, recompute)`` runs ``fn(x)`` with that unit's
+    parameters in place (ZeRO's per-unit gather, ``models/train.
+    ZeroUnits``; ``recompute``: the unit is a remat block, rebuilt in
+    the backward)."""
     check_supported(cfg, mesh)
+    run = gather or _run_unit
     B, T = tokens.shape
-    x = embed_tokens(params, tokens, cfg)
+    x = run("embed", lambda t: embed_tokens(params, t, cfg), tokens)
     positions = torch.arange(T, device=tokens.device).expand(B, T)
 
     def block(x, layer):
         return _mlp_block(_attention_block(x, layer, cfg, positions), layer, cfg)
 
-    for layer in layer_views(params.layers):
-        if cfg.remat:
-            x = checkpoint(block, x, layer, use_reentrant=False)
-        else:
-            x = block(x, layer)
-    return lm_head(params, x, cfg), _zero_aux(x.device)
+    def blocks(x, layers):
+        for layer in layers:
+            if cfg.remat:
+                x = checkpoint(block, x, layer, use_reentrant=False)
+            else:
+                x = block(x, layer)
+        return x
+
+    if gather is None or cfg.scan_layers:
+        x = run("layers", lambda x: blocks(x, layer_views(params.layers)), x)
+    else:
+        # a remat block is its own recompute: the gather rebuilds it
+        for i, layer in enumerate(params.layers):
+            x = run(("layer", i), lambda x, layer=layer: block(x, layer), x, cfg.remat)
+    return run("head", lambda x: lm_head(params, x, cfg), x), _zero_aux(x.device)
+
+
+def unit_parameters(params: Transformer) -> Dict[Any, List[torch.nn.Parameter]]:
+    """The parameters each unit of ``forward`` reads, by its key (the
+    tied head reads the embedding's table)."""
+    units: Dict[Any, List[torch.nn.Parameter]] = {"embed": list(params.embed.values())}
+    if isinstance(params.layers, nn.ModuleList):
+        for i, layer in enumerate(params.layers):
+            units[("layer", i)] = list(layer.parameters())
+    else:
+        units["layers"] = list(params.layers.parameters())
+    head = list(params.final_norm.values())
+    head.append(params.embed["tokens"] if params.cfg.tie_embeddings else params.lm_head)
+    units["head"] = head
+    return units
 
 
 def loss_fn(
@@ -412,8 +456,9 @@ def loss_fn(
     cfg: TransformerConfig,
     mesh=None,
     row_weights=None,
+    gather=None,
 ):
     """Mean NLL (the dense model's MoE aux losses are zero), weighted by
-    row with ``row_weights``."""
-    logits, _ = forward(params, tokens, cfg, mesh)
+    row with ``row_weights``; ``gather`` as in ``forward``."""
+    logits, _ = forward(params, tokens, cfg, mesh, gather)
     return token_nll(logits, targets, row_weights)

@@ -500,25 +500,22 @@ class SpanHeartbeat:
         self._thread: Optional[threading.Thread] = None
 
     def publish_once(self):
-        """One read-modify-write of the metrics file (benign last-write
-        race with the trainer's own reports: the next write of either
-        side repairs the file)."""
-        from dlrover_tpu_torch.agent.monitor import (
-            _metrics_path,
-            atomic_write_json,
-            read_runtime_metrics,
-        )
+        """One read-modify-write of the metrics file, under the lock the
+        trainer's own reports take (``agent.monitor.METRICS_FILE_LOCK``),
+        so it never writes back over a report made after its read."""
+        from dlrover_tpu_torch.agent import monitor
 
-        path = self._path or _metrics_path()
-        payload = read_runtime_metrics(path)
+        path = self._path or monitor._metrics_path()
         tid = self._tid_fn() if self._tid_fn is not None else None
         open_span = self._tracer.last_open_span(tid=tid)
-        payload["open_span"] = open_span[0] if open_span else ""
-        payload["open_span_elapsed_s"] = (
-            round(open_span[1], 3) if open_span else 0.0
-        )
-        payload["span_heartbeat_ts"] = time.time()
-        atomic_write_json(path, payload)
+        with monitor.METRICS_FILE_LOCK:
+            payload = monitor.read_runtime_metrics(path)
+            payload["open_span"] = open_span[0] if open_span else ""
+            payload["open_span_elapsed_s"] = (
+                round(open_span[1], 3) if open_span else 0.0
+            )
+            payload["span_heartbeat_ts"] = time.time()
+            monitor.atomic_write_json(path, payload)
 
     def _run(self):
         while not self._stop.wait(self._interval):

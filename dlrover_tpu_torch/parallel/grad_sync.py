@@ -1167,11 +1167,18 @@ def _dp_leg_flat(xs, residual, mesh, plan: BucketPlan):
     if group is None:
         summed = payload
     else:
-        parts = [_reduce_scatter(p, group) for p in payload]
-        _wait([h for _, h in parts])
-        gathered = [_all_gather(o, group) for o, _ in parts]
-        _wait([h for _, h in gathered])
-        summed = [o for o, _ in gathered]
+        # a bucket's reduce-scatter and all-gather are waited for before
+        # the next bucket's are issued: the backend's buffers (gloo's
+        # reduce-scatter copies its whole input) and the scattered chunk
+        # live for one bucket at a time, and on a stream-ordered backend
+        # the host does not block
+        summed = []
+        for p in payload:
+            o, h = _reduce_scatter(p, group)
+            h.wait()
+            g, h = _all_gather(o, group)
+            h.wait()
+            summed.append(g)
     if scales is not None:
         summed = [s_.float() * sc for s_, sc in zip(summed, scales)]
     return summed, new_res
@@ -1225,15 +1232,23 @@ def _sync_buckets(flats, residual, mesh, plan: BucketPlan, legs: str = "all"):
 
     xs = flats
     if plan.zero and mesh.groups["fsdp"] is not None:
-        parts = [_reduce_scatter(f, mesh.groups["fsdp"]) for f in flats]
-        _wait([h for _, h in parts])
-        xs = [o for o, _ in parts]
+        # one bucket in flight at a time (see _dp_leg_flat); each flat is
+        # dropped once scattered
+        xs = []
+        for i, f in enumerate(flats):
+            o, h = _reduce_scatter(f, mesh.groups["fsdp"])
+            h.wait()
+            xs.append(o)
+            flats[i] = None
     residual = list(residual) if residual is not None else [None] * len(xs)
     if plan.two_level:
         full, new_res = _dp_leg_2level(xs, residual, mesh, plan, legs)
     else:
         full, new_res = _dp_leg_flat(xs, residual, mesh, plan)
-    means = [f / plan.total for f in full]
+    # the sums are this function's own tensors once a collective or the
+    # quantizer made them: divided in place (the same quotients)
+    owned = plan.zero or plan.compressed or mesh.groups.get("dp") is not None
+    means = [f.div_(plan.total) if owned else f / plan.total for f in full]
     sumsq = torch.stack([(m * m).sum() for m in means]).sum() if means else None
     return means, new_res, sumsq
 
@@ -1245,9 +1260,16 @@ def sync_grads(
     residual: Optional[Tuple] = None,
     _legs: str = "all",
     device_norms: bool = False,
+    consume: bool = False,
 ):
     """Bucketed sync of this rank's local grads -> (synced grads, new
     residual tuple or None, global grad norm).
+
+    ``consume=True`` clears ``local_grads`` (a list) leaf by leaf as
+    each bucket is flattened, so that a grad whose flat is a copy (every
+    ZeRO bucket, every bucket of several leaves) is freed before the
+    next bucket's copy is made. The buckets' collectives run one bucket
+    at a time.
 
     ``local_grads``: this rank's unsynchronized grads, one per leaf in
     the plan's order (full leaf shapes). ``residual``: this rank's
@@ -1269,7 +1291,14 @@ def sync_grads(
     if plan.kind in _KIND_ITEM:
         raise _not_ported(plan.kind)
     ef = plan.compressed and residual is not None
-    flats = [_bucket_flat(local_grads, b, plan) for b in plan.buckets]
+    flats = []
+    for b in plan.buckets:
+        flats.append(_bucket_flat(local_grads, b, plan))
+        if consume:
+            # the flat holds the bucket's grads now (a copy, or a view
+            # that keeps their storage): the caller's references go
+            for i in range(b.start, b.stop):
+                local_grads[i] = None
     local_ss = None
     if device_norms:
         # pre-sync: this rank's own numbers, before any collective

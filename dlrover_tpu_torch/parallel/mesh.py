@@ -166,28 +166,40 @@ class Mesh:
         """This rank's position in ``ranks[name]`` (mesh order)."""
         return self.ranks[name].index(self.rank)
 
+    @property
+    def idle(self) -> bool:
+        """True on a rank of the process group outside the mesh (a
+        resize that degraded to fewer ranks than the world): it has no
+        coordinates and no group."""
+        return self.rank >= self.layout.size
+
 
 def build_mesh(config: MeshConfig, device_type: str = "cpu") -> Mesh:
-    """The mesh over the default process group (or over one process when
-    none is initialized and ``config`` has one device). Every rank must
-    call this, in the same order, with the same config: each group is
-    made by all ranks (``new_group`` is collective)."""
+    """The mesh over the first ``num_devices`` ranks of the default
+    process group (or over one process when none is initialized and
+    ``config`` has one device). Every rank must call this, in the same
+    order, with the same config: each group is made by all ranks
+    (``new_group`` is collective), those outside the mesh too, which get
+    an ``idle`` mesh (the ranks a resize leaves idle when the batch does
+    not divide over the world). A mesh larger than the world raises."""
     import torch
     import torch.distributed as dist
 
     layout = rank_layout(config)
     n = layout.size
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if n != world:
+    if n > world:
         raise ValueError(
             f"mesh {config.axis_sizes()} needs {n} ranks, the process "
             f"group has {world}"
         )
     rank = dist.get_rank() if dist.is_initialized() else 0
-    where = np.argwhere(layout == rank)[0]
-    coords = {a: int(c) for a, c in zip(AXIS_ORDER, where)}
+    coords = {}
+    if rank < n:
+        where = np.argwhere(layout == rank)[0]
+        coords = {a: int(c) for a, c in zip(AXIS_ORDER, where)}
     mesh = Mesh(config=config, rank=rank, layout=layout, coords=coords)
-    if dist.is_initialized():
+    if dist.is_initialized() and not mesh.idle:
         from torch.distributed.device_mesh import DeviceMesh
 
         # the layout alone: the sync's groups are made below, only for
@@ -208,10 +220,10 @@ def build_mesh(config: MeshConfig, device_type: str = "cpu") -> Mesh:
             dcn += [[run[s * per + j] for s in range(S)] for j in range(per)]
         runs["ici"], runs["dcn"] = ici, dcn
     for name, lists in runs.items():
-        mine = next(r for r in lists if rank in r)
+        mine = next((r for r in lists if rank in r), [])
         mesh.ranks[name] = mine
         mesh.groups[name] = None
-        if len(mine) > 1 and dist.is_initialized():
+        if len(lists[0]) > 1 and dist.is_initialized():
             # every rank makes every group of the axis, in one order
             for r in lists:
                 g = dist.new_group(sorted(r))

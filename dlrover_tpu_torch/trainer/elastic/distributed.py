@@ -10,15 +10,20 @@ The master owns coordinator assignment and restart, which is the
 elasticity seam (SURVEY.md §5 "Distributed communication backend").
 
 ``DLROVER_TPU_DEVICE_SPEC`` is ``cpu`` (gloo, the tests' backend) or
-``cuda`` / empty (NCCL on the card). The JAX package also points JAX's
-persistent compilation cache at a job-stable directory here; the port's
-counterpart, a cache of compiled steps or CUDA graphs, is ROADMAP A8.
+``cuda`` / empty (NCCL on the card). ``DLROVER_TPU_DIST_BACKEND`` names
+the backend explicitly (``gloo`` puts several ranks on one card, which
+NCCL refuses); nothing picks it but the caller. As the JAX package
+points JAX's persistent compilation cache at a job-stable directory
+here, ``enable_compile_cache`` points the port's counterparts there:
+the nvcc build directory, Triton's kernel cache and the strategy cache
+(``accel/compile_cache.py``).
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import tempfile
 from dataclasses import dataclass
 
 import torch
@@ -68,18 +73,51 @@ def elastic_context() -> ElasticContext:
     )
 
 
+COMPILE_CACHE_ENV = "DLROVER_TPU_COMPILE_CACHE"
+BACKEND_ENV = "DLROVER_TPU_DIST_BACKEND"
+
+
+def enable_compile_cache(cache_dir: str = "") -> str:
+    """Point what a worker builds before its first step at a job-stable
+    directory: ``$DLROVER_TPU_COMPILE_CACHE``, else ``cache_dir``, else
+    ``$TMPDIR/dlrover_tpu_torch/compile_cache``; ``off`` disables it.
+    Under it: ``nvcc/`` (``ops/_build.py``'s libraries,
+    ``DLROVER_TPU_KERNEL_BUILD_DIR``), ``triton/`` (``TRITON_CACHE_DIR``)
+    and ``strategy/`` (``DLROVER_TPU_STRATEGY_CACHE``, the disk layer of
+    ``accel/compile_cache.CompileCache``; not the JAX package's
+    ``DLROVER_TPU_AOT_CACHE``, whose executables a process that also
+    runs JAX trainers must not share). A variable the caller set already
+    stands. Returns the directory, "" when disabled."""
+    env = os.getenv(COMPILE_CACHE_ENV, "")
+    if env == "off":
+        return ""
+    cache_dir = env or cache_dir or os.path.join(
+        tempfile.gettempdir(), "dlrover_tpu_torch", "compile_cache"
+    )
+    os.makedirs(cache_dir, exist_ok=True)
+    for var, sub in (
+        ("DLROVER_TPU_KERNEL_BUILD_DIR", "nvcc"),
+        ("TRITON_CACHE_DIR", "triton"),
+        ("DLROVER_TPU_STRATEGY_CACHE", "strategy"),
+    ):
+        os.environ.setdefault(var, os.path.join(cache_dir, sub))
+    return cache_dir
+
+
 def init_elastic(
     timeout_secs: int = 300, device_spec: str = ""
 ) -> ElasticContext:
     """Take the local rank's card and join the process group.
 
     Safe to call for single-process jobs: at world size 1 no process
-    group is made, as in the JAX package. Unless the device spec
+    group is made, as in the JAX package. The compile cache is enabled
+    first (``enable_compile_cache``). Unless the device spec
     (``device_spec``, else ``DLROVER_TPU_DEVICE_SPEC``) names the CPU,
     the local rank's card becomes the current device first, and a host
     without a card raises. A relaunched worker calls this again with the
     world the agent re-assigned.
     """
+    enable_compile_cache()
     ctx = elastic_context()
     if device_spec:
         ctx.device_spec = configure_devices(device_spec)
@@ -92,7 +130,7 @@ def init_elastic(
             )
         torch.cuda.set_device(ctx.local_rank)
     if ctx.is_distributed and not torch.distributed.is_initialized():
-        backend = "gloo" if spec == "cpu" else "nccl"
+        backend = os.getenv(BACKEND_ENV, "") or ("gloo" if spec == "cpu" else "nccl")
         logger.info(
             f"init_process_group({backend}, tcp://{ctx.coordinator_addr}, "
             f"rank={ctx.process_id}, world_size={ctx.num_processes})"

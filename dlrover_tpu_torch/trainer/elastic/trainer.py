@@ -82,16 +82,61 @@ the sampler) by every rank. A restore reads each rank's own records and
 hands the replicated tensors to the rest of the replica set from its
 first rank. The error-feedback residual is never staged.
 
+Elastic resize, through the restart path. One process drives one card
+and a torch process group cannot lose or gain a rank in place, so a
+resize is a restart: the agent relaunches the workers into the new world
+(``agent/training_agent.py``), and the constructor lands there, as the
+JAX ``resize`` does for a multi-process job:
+
+- every save carries the strategy that staged it (``step_meta`` of the
+  checkpoint engine: the shm extras and the done files, never a leaf of
+  the train tree); the constructor reads it back (``_peek_staged``: each
+  rank's shm and the storage tracker, the newest over the ranks);
+- the strategy: the caller's pinned one, else the staged one, each as it
+  is when its mesh has the world's ranks, else carried to them by the
+  JAX package's ``_strategy_for`` (exact fit, else the largest mesh with
+  the surplus ranks idle against the micro-batch rebalance, priced by
+  ``price_rebalance_options`` and calibrated by the measured step time:
+  this incarnation's, else the previous one's from the runtime-metrics
+  file); with neither,
+  a search. Derived strategies come from the job-stable strategy cache
+  (``accel/compile_cache.py``) when an earlier incarnation, or the
+  speculative derivation of the master's predicted worlds
+  (``update_scale_candidates``; ``speculative_compile``,
+  ``spec_compile_budget_s``), derived them; rank 0's is broadcast;
+- the restore takes the JAX engine's rule (shm where this rank's segment
+  holds exactly its new records and every rank agrees, else the agreed
+  storage step), the replica sets hand the replicated tensors on
+  whatever world staged them, and the error-feedback residual starts
+  fresh;
+- landing at a world or mesh other than the staging one is booked as the
+  JAX resize books it (spans ``resize_build`` and ``resize_reshard``,
+  the ``dlrover_resize_idle_ranks`` / ``dlrover_resize_mb_pad`` gauges,
+  ``PipelineStats``' resize counters) and reported in ``last_resize``,
+  the JAX ``resize``'s dict; ``resize(n)`` at another world raises
+  ``NotImplementedError`` naming the restart path.
+
+Idle ranks. When the derivation degrades (e.g. world 3 at batch 8 with
+``mb_rebalance=False``: dp=2), the mesh covers the first ranks and the
+rest are idle (``self.idle``). An idle rank builds no step and holds no
+state or shard; it still makes every collective of the default group
+the mesh's ranks make: the staged-strategy gather and the strategy
+broadcast, the mesh's ``new_group`` calls, the link model's broadcasts,
+and the restore's agreements (its shm proposal counts for none). The
+checkpoint has the mesh's ranks as its shards. Its ``train()`` returns
+when the mesh's ranks finish theirs: every rank meets at one barrier of
+the default group at the end of each ``train`` call while idle ranks
+exist. A later restart (a membership change) re-derives the world.
+
 ``TrainerConfig`` keeps every field and default of the JAX package.
 Knobs whose machinery is not ported yet raise ``NotImplementedError``
 when set away from their default (``_UNPORTED``, with the ROADMAP item
-that ports them). ``speculative_compile`` and ``spec_compile_budget_s``
-are accepted and not honored: they belong to the compile cache
-(ROADMAP A8).
+that ports them).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -100,13 +145,15 @@ import threading
 import time
 import weakref
 from collections import deque
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace as dc_replace
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from dlrover_tpu_torch.accel.accelerate import AccelerateResult, auto_accelerate
+from dlrover_tpu_torch.accel.compile_cache import CompileCache, CompileTask, SpeculativeCompiler
+from dlrover_tpu_torch.accel.profiler import PipelineStats
 from dlrover_tpu_torch.accel.strategy import Strategy
 from dlrover_tpu_torch.agent.monitor import (
     last_command_id,
@@ -118,10 +165,9 @@ from dlrover_tpu_torch.ckpt.checkpointer import FlashCheckpointer, StorageType
 from dlrover_tpu_torch.common import faults, storage
 from dlrover_tpu_torch.common.constants import NodeEnv, TrainerEnv
 from dlrover_tpu_torch.common.log import default_logger as logger
-from dlrover_tpu_torch.data.prefetch import DevicePrefetcher, PipelineStats
+from dlrover_tpu_torch.data.prefetch import DevicePrefetcher
 from dlrover_tpu_torch.models.config import TransformerConfig
 from dlrover_tpu_torch.models.convert import load_train_state_tree, train_state_tree
-from dlrover_tpu_torch.models.train import free_params, gather_params
 from dlrover_tpu_torch.models.transformer import forward, token_nll
 from dlrover_tpu_torch.obs.audit import (
     StepAuditor,
@@ -375,24 +421,42 @@ class ElasticTrainer:
         metrics_hook: Optional[Callable[[int, Dict], None]] = None,
         eval_dataset=None,
     ):
+        t_start = time.perf_counter()
         self.tcfg = trainer_cfg or TrainerConfig()
         _check_unported(self.tcfg)
         self.device = resolve_device(devices)
-        self.cfg = model_cfg
+        self.cfg = self._model_cfg = model_cfg
+        self._tx = tx
         self._metrics_hook = metrics_hook
+        self.pipeline_stats = PipelineStats()
         self._setup_telemetry(model_cfg)
-        # the search (or the pinned strategy) and the winner's step; the
-        # strategy's remat reaches the model, as the JAX accel pins it
+        # the strategy cache (accel/compile_cache.py) and its speculative
+        # filler for the master's predicted worlds
+        self._compile_cache = CompileCache(stats=self.pipeline_stats)
+        self._spec_compiler = None
+        self._last_candidates: Optional[List[int]] = None
+        self._ckptr: Optional[FlashCheckpointer] = None
+        if self.tcfg.ckpt_dir:
+            self._ckptr = FlashCheckpointer(self.tcfg.ckpt_dir)
+        # the JAX resize's report, set when this incarnation landed at a
+        # world other than the one that staged its checkpoint
+        self.last_resize: Optional[Dict] = None
+        # the strategy (derived, searched or pinned) and the winner's
+        # step; the strategy's remat reaches the model, as the JAX accel
+        # pins it. A rank outside the mesh builds no step
         self.accel: AccelerateResult = self._accelerate(model_cfg, tx, strategy)
         self.strategy = self.accel.strategy
         model_cfg = self.cfg = self.accel.cfg
         self.mesh = self.accel.mesh
+        self.idle = self.mesh.idle
         self._grad_sync_plan = self.accel.plan
-        self.state = self.accel.init_fn(0)
+        t_init = time.perf_counter()
+        self.state = None if self.idle else self.accel.init_fn(0)
+        self._init_ms = (time.perf_counter() - t_init) * 1e3
         from dlrover_tpu_torch.ops.quantized_optim import adamw_8bit_flat
 
         m = self.strategy.mesh
-        if max(m.fsdp, m.tp, m.ep, m.sp, m.pp) > 1 and isinstance(
+        if not self.idle and max(m.fsdp, m.tp, m.ep, m.sp, m.pp) > 1 and isinstance(
             getattr(self.state.opt_state, "opt", None), adamw_8bit_flat
         ):
             # the flat optimizer concatenates every big leaf per step:
@@ -403,14 +467,16 @@ class ElasticTrainer:
             )
         self._step_fn = self.accel.step_fn
         self._rows: Dict[int, torch.Tensor] = {}
-        self.pipeline_stats = PipelineStats()
         # measured link-cost model (parallel/topology.py): probed once
         # per device fingerprint (warm restarts hit the JSON cache)
         self._link_fp: Optional[str] = None
+        t_setup = time.perf_counter()
         self._setup_link_model()
-        self._setup_grad_sync()
         self._audit_cal_loaded = False
-        self._setup_audit_budget()
+        if not self.idle:
+            self._setup_grad_sync()
+            self._setup_audit_budget()
+        self._setup_ms = (time.perf_counter() - t_setup) * 1e3
         self.sampler = ElasticDistributedSampler(len(dataset), shuffle=True)
         self.dataloader = ElasticDataLoader(
             dataset,
@@ -433,18 +499,26 @@ class ElasticTrainer:
         self.restored_step = -1
         self.restore_source: Optional[str] = None
         self.restore_s: Optional[float] = None
-        self._ckptr: Optional[FlashCheckpointer] = None
         self._best_ckptr: Optional[FlashCheckpointer] = None
         # the best PERSISTED eval loss survives restarts via a sidecar
         self._best_eval_loss = float("inf")
         self._last_best_save = 0.0
-        if self.tcfg.ckpt_dir:
-            self._ckptr = FlashCheckpointer(self.tcfg.ckpt_dir)
-            self._maybe_restore()
-            if self.tcfg.save_best:
+        if self._ckptr is not None:
+            engine = self._ckptr.engine
+            # the mesh's ranks are the checkpoint's shards (an idle rank
+            # stages nothing), and every save carries what staged it
+            engine.global_shard_num = int(self.mesh.layout.size)
+            engine.step_meta = {
+                "strategy": self.strategy.to_json(), "world": self._process_world,
+            }
+            with span("resize_reshard") if self._resizing else contextlib.nullcontext():
+                self._maybe_restore()
+            if self.tcfg.save_best and not self.idle:
                 self._best_dir = os.path.join(self.tcfg.ckpt_dir, "best")
                 self._best_ckptr = FlashCheckpointer(self._best_dir)
                 self._best_eval_loss = self._load_best_sidecar()
+        if self._resizing:
+            self._land_resize(t_start)
 
     def _setup_telemetry(self, model_cfg):
         """The registry and step-time histogram, the span heartbeat, the
@@ -536,35 +610,434 @@ class ElasticTrainer:
 
     @property
     def global_step(self) -> int:
-        return self.state.step
+        # an idle rank has no state: the step it restored agreement on
+        return self.state.step if self.state is not None else self.restored_step
 
     # -- data parallelism ------------------------------------------------
-    def _accelerate(self, model_cfg, tx, strategy: Optional[Strategy]) -> AccelerateResult:
-        """``auto_accelerate`` as the JAX trainer calls it: the explicit
-        strategy (the ``load_strategy`` path), or a search over the
-        process group's ranks, with the trainer's grad-sync knobs as
-        named optimizations and, when they are set, their bucket size
-        (the knobs then own the sync config). The port also stamps the
-        knobs' fields (``_grad_sync_fields``: ``int8_topk`` and its
-        density, which the names alone do not carry), and a search keeps
-        the config's own remat (as a ``remat`` optimization)."""
+    @property
+    def _process_world(self) -> int:
         import torch.distributed as dist
 
-        world = dist.get_world_size() if dist.is_initialized() else 1
-        if strategy is not None and strategy.mesh.num_devices != world:
-            raise ValueError(
-                f"strategy mesh {strategy.mesh.axis_sizes()} needs "
-                f"{strategy.mesh.num_devices} ranks, the process group has {world}"
-            )
-        names = self._grad_sync_opt_names()
-        opts = names + (("remat",) if strategy is None and model_cfg.remat else ())
-        return auto_accelerate(
-            model_cfg, tx, strategy=strategy, optimizations=opts,
-            batch=self.tcfg.batch_size, seq=self.tcfg.seq_len, device=self.device,
-            donate=False, grad_accum=self.tcfg.grad_accum,
-            grad_bucket_mb=self.tcfg.grad_bucket_mb if names else None,
-            stamp=self._grad_sync_fields(), before_update=self._fence_staging,
+        return dist.get_world_size() if dist.is_initialized() else 1
+
+    def _accelerate(self, model_cfg, tx, strategy: Optional[Strategy]) -> AccelerateResult:
+        """``auto_accelerate`` as the JAX trainer calls it, on a strategy
+        chosen in this order: the caller's pinned one, else the one that
+        staged the checkpoint about to be restored (``step_meta``), each
+        as it is when its mesh has this process group's ranks, else
+        carried to them by ``_strategy_for`` (the JAX resize's
+        derivation, through the strategy cache); else a search over the
+        process group's ranks. The trainer's grad-sync
+        knobs are named optimizations and, when they are set, their
+        bucket size (the knobs then own the sync config). The port also
+        stamps the knobs' fields (``_grad_sync_fields``: ``int8_topk``
+        and its density, which the names alone do not carry), and a
+        search keeps the config's own remat (as a ``remat``
+        optimization). A derivation that degrades to fewer ranks than
+        the world leaves the last ranks idle: they make the mesh's
+        groups with the rest (``new_group`` is collective) and build no
+        step."""
+        import torch.distributed as dist
+
+        from dlrover_tpu_torch.accel.accelerate import _rank0_choice
+        from dlrover_tpu_torch.accel.dry_runner import _apply_strategy, _mesh_for
+
+        world = self._process_world
+        self._staged = self._peek_staged()
+        base = strategy
+        if base is None and self._staged.get("strategy"):
+            base = Strategy.from_json(self._staged["strategy"])
+        self._resizing = bool(self._staged.get("strategy")) and (
+            self._staged.get("world") != world
+            or base.mesh != Strategy.from_json(self._staged["strategy"]).mesh
         )
+        self._cache_hit: Optional[bool] = None
+        self._build_ms = 0.0
+        t0 = time.perf_counter()
+        with span("resize_build") if self._resizing else contextlib.nullcontext():
+            if base is not None and base.mesh.num_devices == world:
+                strategy = base  # it fits this world as it is
+            elif base is not None:
+                strategy, self._cache_hit = self._derive_strategy(base, world)
+                strategy = _rank0_choice(strategy)
+                self._note_resize_gauges(strategy, world)
+            names = self._grad_sync_opt_names()
+            rank = dist.get_rank() if dist.is_initialized() else 0
+            if strategy is not None and rank >= strategy.mesh.num_devices:
+                # an idle rank: the mesh's groups, nothing more
+                cfg, applied = _apply_strategy(strategy, model_cfg)
+                result = AccelerateResult(
+                    strategy=strategy, cfg=cfg, mesh=_mesh_for(applied.mesh, self.device.type),
+                    step_fn=None, init_fn=None, reports=[],
+                )
+            else:
+                opts = names + (("remat",) if strategy is None and model_cfg.remat else ())
+                result = auto_accelerate(
+                    model_cfg, tx, strategy=strategy, optimizations=opts,
+                    batch=self.tcfg.batch_size, seq=self.tcfg.seq_len, device=self.device,
+                    donate=False, grad_accum=self.tcfg.grad_accum,
+                    grad_bucket_mb=self.tcfg.grad_bucket_mb if names else None,
+                    stamp=self._grad_sync_fields(), before_update=self._fence_staging,
+                )
+        self._build_ms = (time.perf_counter() - t0) * 1e3
+        return result
+
+    def _peek_staged(self) -> Dict:
+        """What staged the newest checkpoint any rank can see
+        (``step_meta`` with its ``step``; ``{}`` without one): each rank
+        peeks its own shm segment and the storage tracker, and every
+        rank takes the newest (one all-gather over the default group)."""
+        if self._ckptr is None:
+            return {}
+        import torch.distributed as dist
+
+        mine = self._ckptr.engine.peek_step_meta(self._ckptr.checkpoint_dir)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            seen: List = [None] * dist.get_world_size()
+            dist.all_gather_object(seen, mine)
+            mine = max(seen, key=lambda x: x[0])
+        step, meta = mine
+        return dict(meta, step=step) if step >= 0 and meta else {}
+
+    def _strategy_key(self, base: Strategy, n: int) -> str:
+        """The strategy cache's key of ``base`` carried to ``n`` ranks:
+        everything ``_strategy_for`` reads."""
+        from dlrover_tpu_torch.accel.compile_cache import fingerprint
+
+        t = self.tcfg
+        return fingerprint(
+            "strategy", base.to_json(), int(n), repr(self._model_cfg),
+            t.batch_size, t.seq_len, t.grad_accum, t.mb_rebalance,
+        )
+
+    def _derive_strategy(self, base: Strategy, n: int):
+        """``(strategy, cache hit)``: ``base`` carried to ``n`` ranks by
+        ``_strategy_for``, from the strategy cache when an earlier
+        incarnation (or the speculative filler) derived it."""
+        from types import SimpleNamespace
+
+        # the derivation reads the live strategy, as the JAX resize does
+        self.accel = SimpleNamespace(strategy=base)
+        self._prev_step_s = self._previous_step_s()
+        js, hit = self._compile_cache.get_or_compile(
+            self._strategy_key(base, n), lambda: self._strategy_for(n).to_json()
+        )
+        return Strategy.from_json(js), hit
+
+    def _previous_step_s(self) -> Optional[float]:
+        """The previous incarnation's mean step time (its runtime-metrics
+        file), which calibrates the rebalance's pricing."""
+        if not self.tcfg.report_metrics:
+            return None
+        ms = read_runtime_metrics().get("step_time_ms")
+        try:
+            return float(ms) / 1e3 if ms else None
+        except (TypeError, ValueError):
+            return None
+
+    def _note_resize_gauges(self, strategy: Strategy, world: int) -> None:
+        """The JAX resize's idle-rank and pad gauges and logs."""
+        idle_ranks = world - strategy.mesh.num_devices
+        if idle_ranks:
+            logger.warning(
+                f"resize: degrading to {strategy.mesh.num_devices} of {world} "
+                f"devices ({strategy.mesh.axis_sizes()}), leaving {idle_ranks} "
+                f"rank(s) idle"
+            )
+        if strategy.batch_pad:
+            logger.info(
+                f"resize: micro-batch rebalance active — batch padded by "
+                f"{strategy.batch_pad} zero-weight rows so "
+                f"{strategy.mesh.axis_sizes()} uses every rank (resize_idle_ranks=0)"
+            )
+        self.pipeline_stats.resize_idle_ranks = idle_ranks
+        self.pipeline_stats.resize_mb_pad = strategy.batch_pad
+        self._registry.gauge(
+            "dlrover_resize_idle_ranks", "devices left idle by resize degradation"
+        ).set(float(idle_ranks))
+        self._registry.gauge(
+            "dlrover_resize_mb_pad", "zero-weight pad rows/step of the micro-batch rebalance"
+        ).set(float(strategy.batch_pad))
+
+    # -- elastic resize, through the restart path ------------------------
+    def _strategy_for_exact(self, n_devices: int) -> Optional[Strategy]:
+        """Strategy using EXACTLY ``n_devices``, or None (the JAX
+        package's, on ``self.accel.strategy``): the model-parallel axes
+        keep their sizes and the data axes (dp, fsdp) absorb the delta;
+        when the current shape cannot scale, full candidate
+        enumeration."""
+        s = self.accel.strategy
+        m = s.mesh
+        fixed = m.tp * m.sp * m.ep * m.pp
+        if n_devices <= 0:
+            return None
+        if n_devices % fixed == 0:
+            rem = n_devices // fixed
+            if m.fsdp == 1:
+                dp, fsdp = rem, 1
+            elif m.dp == 1:
+                dp, fsdp = 1, rem
+            else:
+                # mixed split: keep as much fsdp (the memory win) as
+                # divides the remainder
+                fsdp = min(m.fsdp, rem)
+                while rem % fsdp:
+                    fsdp -= 1
+                dp = rem // fsdp
+            unit = self.tcfg.batch_size // max(self.tcfg.grad_accum, 1)
+            if unit % (dp * fsdp) == 0:
+                return dc_replace(s, mesh=dc_replace(m, dp=dp, fsdp=fsdp))
+        from dlrover_tpu_torch.accel.candidates import candidate_strategies
+
+        cands = [
+            c
+            for c in candidate_strategies(
+                self._model_cfg, n_devices, self.tcfg.batch_size, self.tcfg.seq_len,
+                grad_accum=self.tcfg.grad_accum,
+            )
+            if c.mesh.pp == 1
+        ]
+        if not cands:
+            return None
+        return dc_replace(
+            cands[0], dtype=s.dtype, remat=s.remat, opts=s.opts, offload_opt=s.offload_opt,
+            # field-carried grad-sync knobs survive the fallback too
+            comm_overlap=s.comm_overlap, grad_compress=s.grad_compress,
+            grad_bucket_mb=s.grad_bucket_mb, grad_topk_density=s.grad_topk_density,
+        )
+
+    def _rebalanced_strategy_for(self, n_devices: int) -> Optional[Strategy]:
+        """Micro-batch-rebalanced strategy using ALL ``n_devices`` on an
+        indivisible count (the JAX package's): the data axes absorb the
+        delta and ``batch_pad`` zero-weight rows make the batch divide.
+        None when the count divides (the exact path owns it), the model
+        axes don't divide ``n_devices``, ``mb_rebalance`` is off, or the
+        trainer runs grad_accum (pads would multiply across
+        microbatches)."""
+        if not self.tcfg.mb_rebalance or self.tcfg.grad_accum > 1:
+            return None
+        if self._model_cfg.num_experts:
+            return None
+        s = self.accel.strategy
+        m = s.mesh
+        fixed = m.tp * m.sp * m.ep * m.pp
+        if n_devices <= 0 or n_devices % fixed or m.pp > 1:
+            return None
+        rem = n_devices // fixed
+        if m.fsdp == 1:
+            dp, fsdp = rem, 1
+        elif m.dp == 1:
+            dp, fsdp = 1, rem
+        else:
+            fsdp = min(m.fsdp, rem)
+            while rem % fsdp:
+                fsdp -= 1
+            dp = rem // fsdp
+        shards = dp * fsdp
+        pad = (-self.tcfg.batch_size) % shards
+        if pad == 0:
+            return None
+        return dc_replace(s, mesh=dc_replace(m, dp=dp, fsdp=fsdp), batch_pad=pad)
+
+    def _strategy_for(self, n_devices: int) -> Strategy:
+        """Strategy for a resized world, degrading gracefully (the JAX
+        package's): on a count the batch does not divide, the dry
+        runner prices (a) the largest valid mesh <= ``n_devices`` with
+        the surplus ranks idle against (b) the micro-batch rebalance
+        over every rank, and the cheaper wins; its row term is
+        calibrated by the measured step (this incarnation's, else the
+        previous one's from the runtime-metrics file,
+        ``_prev_step_s``). Raises ValueError when no count down to 1
+        admits a mesh."""
+        for n in range(n_devices, 0, -1):
+            s = self._strategy_for_exact(n)
+            if s is None:
+                continue
+            if s.batch_pad:
+                s = dc_replace(s, batch_pad=0)
+            if n < n_devices:
+                reb = self._rebalanced_strategy_for(n_devices)
+                if reb is not None:
+                    from dlrover_tpu_torch.accel import dry_runner
+
+                    # this incarnation's measured step, else the last one's
+                    n_steps = getattr(self, "_step_time_n", 0)
+                    measured = (
+                        self._step_time_sum / n_steps if n_steps
+                        else getattr(self, "_prev_step_s", None)
+                    )
+                    idle_s, reb_s = dry_runner.price_rebalance_options(
+                        self._model_cfg, self.tcfg.batch_size, self.tcfg.seq_len, s, reb,
+                        measured_step_s=measured, current_strategy=self.accel.strategy,
+                    )
+                    if reb_s < idle_s:
+                        logger.info(
+                            f"micro-batch rebalance: padding the batch by "
+                            f"{reb.batch_pad} rows to use all {n_devices} devices "
+                            f"({reb.mesh.axis_sizes()}, est {reb_s * 1e3:.2f} "
+                            f"ms/step) instead of idling {n_devices - n} rank(s) "
+                            f"(est {idle_s * 1e3:.2f} ms/step)"
+                        )
+                        return reb
+                    logger.info(
+                        f"micro-batch rebalance priced out (pad {reb.batch_pad} "
+                        f"rows, est {reb_s * 1e3:.2f} ms/step vs idle "
+                        f"{idle_s * 1e3:.2f}); degrading instead"
+                    )
+                logger.info(
+                    f"no valid mesh factorization uses all {n_devices} devices "
+                    f"at batch={self.tcfg.batch_size}; degrading to "
+                    f"{s.mesh.axis_sizes()} on {n} devices"
+                )
+            return s
+        raise ValueError(
+            f"no valid mesh factorization for any count <= {n_devices} "
+            f"devices at batch={self.tcfg.batch_size}, "
+            f"seq={self.tcfg.seq_len}: the resize target must let "
+            f"dp*fsdp divide the batch or satisfy the model's "
+            f"axis-divisibility rules"
+        )
+
+    def _land_resize(self, t_start: float) -> None:
+        """The restart's landing in a changed world, booked as the JAX
+        resize books it: ``resize_build`` (the strategy and
+        ``auto_accelerate``) and ``resize_reshard`` (the restore) were
+        spans; here the counters and ``last_resize``, the JAX resize's
+        return dict. Every leaf came from the host restore (shm or
+        storage): ``fallback_paths`` lists them all, and
+        ``reshard_bytes_device`` is 0."""
+        from dlrover_tpu_torch.ckpt.sharding import BlockLeaf, flatten_state
+
+        downtime_ms = (time.perf_counter() - t_start) * 1e3
+        engine = self._ckptr.engine
+        paths = [] if self.idle else [
+            p for p, t in flatten_state(self._ckpt_state())
+            if isinstance(t, (torch.Tensor, BlockLeaf))
+        ]
+        self.pipeline_stats.resize_count += 1
+        self.pipeline_stats.resize_downtime_ms = downtime_ms
+        self.pipeline_stats.reshard_bytes_host = engine.last_load_bytes
+        staged = Strategy.from_json(self._staged["strategy"])
+        self.last_resize = {
+            "downtime_ms": downtime_ms,
+            "compile_cache_hit": self._cache_hit,
+            "reshard_bytes_device": 0,
+            "reshard_bytes_host": engine.last_load_bytes,
+            "fallback_paths": paths,
+            "mesh": self.strategy.mesh.axis_sizes(),
+            # the port's own keys: where it came from and how
+            "from_world": self._staged.get("world"),
+            "from_mesh": staged.mesh.axis_sizes(),
+            "world": self._process_world,
+            "idle": self.idle,
+            "idle_ranks": self.pipeline_stats.resize_idle_ranks,
+            "mb_pad": self.strategy.batch_pad,
+            "restored_step": self.restored_step,
+            "source": self.restore_source,
+            # the landing's parts: the strategy and auto_accelerate, the
+            # state's init, the link model and sync probe, the restore
+            "build_ms": self._build_ms,
+            "state_init_ms": self._init_ms,
+            "setup_ms": self._setup_ms,
+            "restore_ms": None if self.restore_s is None else self.restore_s * 1e3,
+        }
+        logger.info(
+            f"resized from {self._staged.get('world')} to {self._process_world} "
+            f"ranks as {self.strategy.describe()} in {downtime_ms:.0f} ms "
+            f"(strategy cache {'hit' if self._cache_hit else 'miss'}, step "
+            f"{self.restored_step} from {self.restore_source}"
+            f"{', idle' if self.idle else ''})"
+        )
+
+    def resize(self, n_devices: Optional[int] = None, devices=None,
+               strategy: Optional[Strategy] = None) -> Dict:
+        """The JAX resize's entry. The port runs one card a process, and
+        a torch process group cannot lose or gain a rank in place: a
+        resize is a restart. The agent relaunches the workers into the
+        new world, and each one's constructor lands there (derives the
+        strategy, restores the staged step, ``last_resize``). So this
+        returns that landing's report for the current world, and raises
+        ``NotImplementedError`` for any other."""
+        if devices is not None or strategy is not None or (
+            n_devices is not None and n_devices != self._process_world
+        ):
+            raise NotImplementedError(
+                f"resize to {n_devices if n_devices is not None else devices} "
+                f"in place: a torch process group cannot change size in place, "
+                f"so the port resizes through the restart path (the agent "
+                f"relaunches the workers into the new world and the trainer "
+                f"restores the staged step there; ElasticTrainer.last_resize)"
+            )
+        return dict(self.last_resize or {})
+
+    # -- speculative derivation of the predicted worlds ------------------
+    def _staging_active(self) -> bool:
+        return self._stager is not None or any(
+            c is not None and c.staging_in_flight() for c in (self._ckptr, self._best_ckptr)
+        )
+
+    def update_scale_candidates(self, device_counts) -> int:
+        """Derive and cache, on a background thread, the strategy of each
+        likely next world (the JAX package's speculative pre-lower), so
+        that a relaunch into it is a strategy-cache hit; on the card the
+        kernel libraries are loaded into the job-stable build directory
+        too. Worlds that cannot form a mesh are skipped with a log.
+        Returns the number of candidates submitted."""
+        if not self.tcfg.speculative_compile or self.idle:
+            return 0
+        world = self._process_world
+        tasks, seen = [], set()
+        for n in device_counts:
+            n = int(n)
+            if n <= 0 or n in seen or n == world:
+                continue
+            seen.add(n)
+            try:
+                self._strategy_for(n)
+            except ValueError as e:
+                logger.info(f"speculative compile: skipping {n}-device candidate ({e})")
+                continue
+            tasks.append(CompileTask(
+                label=f"world{n}", key=self._strategy_key(self.strategy, n),
+                build=lambda n=n: self._speculative_build(n),
+            ))
+        if not tasks:
+            return 0
+        if self._spec_compiler is None:
+            self._spec_compiler = SpeculativeCompiler(
+                self._compile_cache, pause_fn=self._staging_active,
+                budget_s=self.tcfg.spec_compile_budget_s,
+            )
+        self._spec_compiler.submit(tasks)
+        logger.info(f"speculative compile: {len(tasks)} candidate worlds queued ({sorted(seen)})")
+        return len(tasks)
+
+    def _speculative_build(self, n: int) -> str:
+        """One predicted world: its strategy (JSON, the cached artifact)
+        and, on the card, the kernel libraries in the build directory."""
+        js = self._strategy_for(n).to_json()
+        if self.device.type == "cuda":
+            from dlrover_tpu_torch.ops import _build
+
+            _build.load_library("flash_attention")
+        return js
+
+    def _poll_scale_candidates(self):
+        """The master's predicted next worker counts, from the
+        paral-config file (the agent mirrors the master's
+        ``candidate_worker_counts`` there), queued for speculative
+        derivation at this node's processes per worker."""
+        if not self.tcfg.speculative_compile or self.idle:
+            return
+        from dlrover_tpu_torch.trainer.elastic.dataloader import read_paral_config
+
+        counts = read_paral_config().get("candidate_worker_counts") or []
+        counts = [int(c) for c in counts if isinstance(c, (int, float)) and c > 0]
+        if not counts or counts == self._last_candidates:
+            return
+        self._last_candidates = counts
+        per_worker = max(1, int(os.getenv("DLROVER_TPU_LOCAL_WORLD_SIZE", "1") or 1))
+        self.update_scale_candidates([c * per_worker for c in counts])
 
     def _grad_sync_fields(self) -> dict:
         """The grad-sync knobs' Strategy fields when the knobs are set."""
@@ -775,17 +1248,11 @@ class ElasticTrainer:
             raise ValueError("ElasticTrainer built without eval_dataset")
         max_batches = max_batches or self.tcfg.eval_steps
         losses = []
-        zero = self.state.shards is not None
-        if zero:  # a ZeRO rank holds only its shards between steps
-            gather_params(self.state, self.mesh, self._grad_sync_plan)
-        try:
-            for batch in self._eval_batches(max_batches):
-                x, y = self._device_batch(batch, local=False)
-                logits, _ = forward(self.state.params, x, self.cfg)
-                losses.append(float(token_nll(logits, y)))
-        finally:
-            if zero:
-                free_params(self.state)
+        for batch in self._eval_batches(max_batches):
+            x, y = self._device_batch(batch, local=False)
+            # a ZeRO rank gathers a unit at a time from its shards
+            logits, _ = forward(self.state.params, x, self.cfg, gather=self.state.units)
+            losses.append(float(token_nll(logits, y)))
         if not losses:
             raise ValueError(
                 f"eval dataset ({len(self._eval_dataset)} rows) yields "
@@ -855,6 +1322,10 @@ class ElasticTrainer:
 
     def _maybe_restore(self):
         t0 = time.perf_counter()
+        if self.idle:
+            # no state: only the agreements the mesh's ranks make
+            self._ckptr.engine.load({}, self._ckptr.checkpoint_dir, idle=True)
+            return
         step, restored = self._ckptr.load_checkpoint(self._ckpt_state())
         if restored is not None and step >= 0:
             load_train_state_tree(self.state, restored["train"])
@@ -891,9 +1362,11 @@ class ElasticTrainer:
 
     def _share_restored_state(self):
         """After a restore at world size N: each replica set's first rank
-        read the replicated tensors (the others staged none), so it hands
-        them to the rest of the set (under ZeRO the next step gathers
-        the full params from the restored shards)."""
+        read the replicated tensors (its target holds them, whatever
+        world staged them: the records carry global indices), so it
+        hands them to the rest of the set, which need not have existed
+        when the state was staged (under ZeRO the step gathers the
+        params from the restored shards)."""
         if self._world == 1:
             return
         from dlrover_tpu_torch.ckpt.sharding import flatten_state
@@ -1463,6 +1936,12 @@ class ElasticTrainer:
         """Run up to ``num_steps`` optimizer steps (across epochs); stops
         early on an eviction notice (after its drain) or on early
         stopping."""
+        if self.idle:
+            # a rank the resize left idle: back when the mesh's ranks
+            # finish (their closing barrier)
+            logger.info("idle rank: waiting for the mesh's ranks to finish")
+            self._mesh_ranks_done()
+            return None
         t0 = time.time()
         start_step = self.global_step
         # hang attribution and the ledger read THIS thread's spans (the
@@ -1474,7 +1953,9 @@ class ElasticTrainer:
         self._run_best_eval_loss = float("inf")
         self._evals_since_best = 0
         try:
-            return self._train_loop(num_steps, t0, start_step)
+            out = self._train_loop(num_steps, t0, start_step)
+            self._mesh_ranks_done()
+            return out
         except BaseException as e:
             # the black box dumps BEFORE the exception unwinds past the
             # trainer, forced past the rate limit: this is the evidence
@@ -1492,10 +1973,22 @@ class ElasticTrainer:
                 # failure; the stage is already aborted (lock released)
                 logger.error(f"final stage commit failed: {e!r}")
 
+    def _mesh_ranks_done(self):
+        """With idle ranks in the process group, every rank meets at one
+        barrier of the default group when a ``train`` call ends: the
+        idle ranks return from theirs then."""
+        import torch.distributed as dist
+
+        if dist.is_initialized() and int(self.mesh.layout.size) < dist.get_world_size():
+            dist.barrier()
+
     def _train_loop(self, num_steps: int, t0: float, start_step: int):
         while self.global_step < num_steps and not self.eviction_pending:
             self.dataloader.load_config()  # master-retuned batch size
             self._apply_lr_scale(self.dataloader.lr_scale)
+            # master-predicted next worlds: their strategies derived and
+            # cached in the background
+            self._poll_scale_candidates()
             batches = iter(self._epoch_batches(num_steps))
             while True:
                 # the step boundary is the preemption arrival point:
@@ -1623,6 +2116,9 @@ class ElasticTrainer:
         self._profiler_capture.abort()
         self._close_prefetcher()
         self._abort_stager()
+        if self._spec_compiler is not None:
+            self._spec_compiler.close()
+            self._spec_compiler = None
         for ckptr in (self._ckptr, self._best_ckptr):
             if ckptr is not None:
                 ckptr.engine.close()

@@ -46,7 +46,11 @@ all-reduce a microbatch.
 
 ``--events FILE`` appends one JSON line per event (each with the
 worker's ``rank``): ``start`` (pid and
-the agent's restart count), ``restored`` (step, source, seconds),
+the agent's restart count), ``warm`` (on the card: the CUDA context's
+and the kernel library's load seconds), ``restored`` (step, source, seconds, the
+world, the strategy, the trainer's ``last_resize`` and, with
+``--digest-steps``, the restored state's digest), ``digest`` (a crc32 of
+the whole state in the JAX layout after each of ``--digest-steps``),
 ``loss`` (step, loss, wall time), ``await_eviction`` (step, wall time),
 ``saves`` (the trainer's save records), ``launches`` (the port's kernel
 launch counts), ``telemetry`` (the goodput report, the eviction drain's
@@ -59,6 +63,22 @@ agent relaunched (restart count above 0) is not killed again. With
 that save to disk, then kills its whole process group, led by the
 launcher (start the launcher in a session of its own): the launcher, its
 master and agent die with the worker, a stand-in for a node that dies.
+``--kill-rank R`` lets only rank R die so.
+
+Elastic resize: with ``--nnodes=MIN:MAX`` the launchers of several nodes
+(the first hosting the master, the others joining it with
+``--master-addr``) restart their workers on a membership change, and a
+relaunched worker lands in the new world. ``--derive-strategy`` pins no
+strategy over a staged checkpoint: the trainer carries the one that
+staged it to the new world (``ElasticTrainer.last_resize``).
+``DLROVER_TPU_DIST_BACKEND=gloo`` puts several ranks on one card.
+``--scale-candidates 1,2`` hands the trainer likely next worker counts,
+as the master's prediction does through the paral-config file: their
+strategies are derived in the background into the job-stable strategy
+cache, so a relaunch into one of those worlds is a
+``compile_cache_hit``. ``--hold-at-world N --hold-after-step K`` holds a
+worker of world N after step K's loss until a membership change stops
+it (at most 120 s), so a drill's join lands at a known step.
 """
 
 from __future__ import annotations
@@ -91,10 +111,10 @@ class RandomTokens:
         return {"x": row[:-1], "y": row[1:]}
 
 
-def kill_launcher_group(ckpt_dir, save_log, timeout=300.0):
+def kill_launcher_group(ckpt_dir, save_log, timeout=300.0, before=None):
     """SIGKILL this worker's process group once the newest save it made
-    is committed on disk; refuses unless the group's leader is the
-    port's launcher."""
+    is committed on disk (``before()`` runs just before the kill);
+    refuses unless the group's leader is the port's launcher."""
     from dlrover_tpu_torch.ckpt.saver import read_tracker
     from dlrover_tpu_torch.common.storage import PosixDiskStorage
 
@@ -107,7 +127,33 @@ def kill_launcher_group(ckpt_dir, save_log, timeout=300.0):
     deadline = time.time() + timeout
     while read_tracker(PosixDiskStorage(), ckpt_dir) < newest and time.time() < deadline:
         time.sleep(0.05)
+    if before is not None:
+        before()
     os.killpg(pgid, signal.SIGKILL)
+
+
+def staged_step(ckpt_dir) -> int:
+    """The newest step committed to ``ckpt_dir`` (-1: none)."""
+    from dlrover_tpu_torch.ckpt.saver import read_tracker
+    from dlrover_tpu_torch.common.storage import PosixDiskStorage
+
+    return read_tracker(PosixDiskStorage(), ckpt_dir)
+
+
+def state_digest(trainer) -> int:
+    """crc32 over the whole train state in the JAX layout, leaf by leaf
+    in path order (under ZeRO gathered over fsdp: every rank must call
+    it), so the same state digests alike at any world."""
+    import zlib
+
+    from dlrover_tpu_torch.models.convert import jax_train_state
+
+    leaves = jax_train_state(trainer.state, trainer.mesh, trainer._grad_sync_plan)
+    crc = 0
+    for path in sorted(k for k in leaves if k != "grad_residual"):
+        crc = zlib.crc32(path.encode(), crc)
+        crc = zlib.crc32(np.ascontiguousarray(leaves[path]).tobytes(), crc)
+    return crc
 
 
 def main(argv=None) -> int:
@@ -131,6 +177,19 @@ def main(argv=None) -> int:
     ap.add_argument("--kill-after-step", type=int, default=0)
     ap.add_argument("--kill-group", action="store_true",
                     help="with --kill-after-step: kill the launcher's whole process group")
+    ap.add_argument("--kill-rank", type=int, default=-1,
+                    help="with --kill-after-step: only this rank dies (-1: every rank)")
+    ap.add_argument("--derive-strategy", action="store_true",
+                    help="over a staged checkpoint, pin no strategy: the trainer carries "
+                    "the one that staged it to this world")
+    ap.add_argument("--digest-steps", default="",
+                    help="comma-separated steps after which to emit the state's digest")
+    ap.add_argument("--scale-candidates", default="",
+                    help="comma-separated worker counts handed to the trainer's "
+                    "update_scale_candidates, as the master's prediction would be")
+    ap.add_argument("--hold-at-world", type=int, default=0,
+                    help="a worker of this world holds after --hold-after-step's loss")
+    ap.add_argument("--hold-after-step", type=int, default=0)
     ap.add_argument("--events", default="")
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--comm-overlap", action="store_true",
@@ -143,6 +202,7 @@ def main(argv=None) -> int:
     ap.add_argument("--slices", type=int, default=1,
                     help="a hybrid dp axis of this many slices (two-level sync)")
     args = ap.parse_args(argv)
+    digest_steps = {int(x) for x in args.digest_steps.split(",") if x}
     if args.threads:
         torch.set_num_threads(args.threads)
 
@@ -175,6 +235,18 @@ def main(argv=None) -> int:
         if args.optimizer == "adamw_8bit_flat":
             kw["group_elems"] = 8192
     emit("start", pid=os.getpid(), restart=ctx.restart_count, t0=T_START, import_s=time.time() - T_START)
+    if args.devices != "cpu":
+        # what a (re)started worker spends before its trainer: the CUDA
+        # context, then the kernel library from the build directory
+        t1 = time.time()
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.time()
+        from dlrover_tpu_torch.ops import _build
+
+        _build.load_library("flash_attention")
+        emit("warm", cuda_context_s=t2 - t1, kernel_load_s=time.time() - t2,
+             kernel_build_dir=str(_build.build_dir_in_use()))
     trainer = None
 
     def hook(step, metrics):
@@ -187,12 +259,22 @@ def main(argv=None) -> int:
             deadline = time.time() + 120.0
             while not trainer.eviction_pending and time.time() < deadline:
                 time.sleep(0.01)
-        if step == args.kill_after_step and ctx.restart_count == 0:
+        if step in digest_steps:
+            emit("digest", step=step, crc=state_digest(trainer))
+        if step == args.hold_after_step and world == args.hold_at_world:
+            # until a membership change stops this worker (at most 120 s)
+            emit("hold", step=step, t=time.time())
+            deadline = time.time() + 120.0
+            while time.time() < deadline:
+                time.sleep(0.05)
+        if (step == args.kill_after_step and ctx.restart_count == 0
+                and args.kill_rank in (-1, ctx.process_id)):
             trainer.wait_for_checkpoint()
             emit("saves", log=trainer.save_log)
             emit_launches()
             if args.kill_group:
-                kill_launcher_group(args.ckpt_dir, trainer.save_log)
+                kill_launcher_group(args.ckpt_dir, trainer.save_log,
+                                    before=lambda: emit("kill", step=step, t=time.time()))
             os.kill(os.getpid(), signal.SIGKILL)
 
     def emit_launches():
@@ -208,6 +290,8 @@ def main(argv=None) -> int:
         dp=world // args.fsdp, fsdp=args.fsdp, slices=args.slices,
         dcn_axes=("dp",) if args.slices > 1 else (),
     ))
+    if args.derive_strategy and args.ckpt_dir and staged_step(args.ckpt_dir) >= 0:
+        strategy = None
     fa.reset_launch_counts()
     qo.reset_launch_counts()
     trainer = ElasticTrainer(
@@ -226,7 +310,14 @@ def main(argv=None) -> int:
         strategy=strategy, devices=args.devices, metrics_hook=hook,
     )
     emit("restored", step=trainer.restored_step, source=trainer.restore_source,
-         restore_s=trainer.restore_s, t=time.time(), since_start_s=time.time() - T_START)
+         restore_s=trainer.restore_s, t=time.time(), since_start_s=time.time() - T_START,
+         world=world, strategy=trainer.strategy.describe(), last_resize=trainer.last_resize,
+         digest=state_digest(trainer) if args.digest_steps and trainer.restored_step >= 0
+         else None)
+    if args.scale_candidates:
+        n = trainer.update_scale_candidates(
+            [int(x) * ctx.local_world_size for x in args.scale_candidates.split(",")])
+        emit("scale_candidates", queued=n)
     trainer.train(args.steps)
     emit("saves", log=trainer.save_log)
     emit_launches()

@@ -394,8 +394,17 @@ def test_adamw_8bit_flat_on_a_sharded_mesh_is_a_value_error():
                                  tdw.Tokens(), ttrainer.TrainerConfig(report_metrics=False),
                                  strategy=Strategy(mesh=MeshConfig()), devices="cpu")
     tr.close()
-    # ... a model-sharded one needs ranks it does not have
-    with pytest.raises(ValueError, match="needs 2 ranks"):
-        ttrainer.ElasticTrainer(tcfg.tiny(), ttrainer.build_optimizer("adamw_8bit_flat"),
-                                tdw.Tokens(), ttrainer.TrainerConfig(report_metrics=False),
-                                strategy=Strategy(mesh=MeshConfig(fsdp=2)), devices="cpu")
+    # ... a pinned fsdp=2 strategy is carried to the one rank there is
+    # (the resize's derivation), so it trains unsharded ...
+    tr = ttrainer.ElasticTrainer(tcfg.tiny(), ttrainer.build_optimizer("adamw_8bit_flat"),
+                                 tdw.Tokens(), ttrainer.TrainerConfig(report_metrics=False),
+                                 strategy=Strategy(mesh=MeshConfig(fsdp=2)), devices="cpu")
+    assert tr.strategy.mesh.fsdp == 1
+    tr.close()
+    # ... and the flat optimizer on a model-sharded mesh is refused
+    # where such a mesh is built
+    from dlrover_tpu_torch.accel.dry_runner import _check_unported
+
+    with pytest.raises(ValueError, match="adamw_8bit_flat is for replicated"):
+        _check_unported(Strategy(mesh=MeshConfig(fsdp=2)), tcfg.tiny(),
+                        ttrainer.build_optimizer("adamw_8bit_flat"))

@@ -256,6 +256,8 @@ class TestDevice:
 
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         monkeypatch.delenv("DLROVER_TPU_DEVICE_SPEC", raising=False)
+        # in this process: no compile-cache variables for later tests
+        monkeypatch.setenv("DLROVER_TPU_COMPILE_CACHE", "off")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device(None)
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -275,6 +277,8 @@ class TestDevice:
                      "DLROVER_TPU_COORDINATOR_ADDR": "10.0.0.1:2345"}.items():
             monkeypatch.setenv(k, v)
         monkeypatch.delenv("DLROVER_TPU_DEVICE_SPEC", raising=False)
+        # in this process: no compile-cache variables for later tests
+        monkeypatch.setenv("DLROVER_TPU_COMPILE_CACHE", "off")
         ctx = distributed.init_elastic(timeout_secs=7)
         assert calls[0] == ("set", 1)
         kind, backend, kw = calls[1]

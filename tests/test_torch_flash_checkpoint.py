@@ -229,6 +229,29 @@ class TestEngineWithSaver:
         eng._lock.force_release()
         eng.close()
 
+    def test_a_rank_that_moved_on_frees_the_older_step(self, job, tmp_path, monkeypatch):
+        """Two local ranks: rank 0 staged step 2, rank 1 aborted its stage
+        of step 2 and staged step 4. Step 2 cannot complete, so the saver
+        gives it up at once (well inside its 120 s straggler window) and
+        hands rank 0's shard lock back for its next save."""
+        AsyncCheckpointSaver.start_async_saving_ckpt(local_shard_num=2)
+        d = str(tmp_path)
+        engines = []
+        for r in (0, 1):
+            monkeypatch.setenv("DLROVER_TPU_LOCAL_RANK", str(r))
+            engines.append(CheckpointEngine())
+        for eng, step, r in ((engines[0], 2, 0), (engines[1], 4, 1)):
+            assert eng._lock.acquire(blocking=False)
+            eng._shm.save_records(step, host_shard_records({"w": np.arange(4.0)}),
+                                  {"checkpoint_dir": d, "global_shard_id": r,
+                                   "global_shard_num": 2})
+            eng._queue.put(SaveEvent(step=step, checkpoint_dir=d, local_rank=r,
+                                     global_shard_id=r, global_shard_num=2))
+        _wait(lambda: engines[0]._lock.acquire(blocking=False), timeout=20)
+        engines[0]._lock.force_release()
+        for eng in engines:
+            eng.close()
+
     def test_reset_shared_memory_frees_orphaned_locks(self, saver):
         eng = CheckpointEngine()
         assert eng._lock.acquire(blocking=False)

@@ -140,6 +140,17 @@ STRATEGY_SEARCH = {
 }
 
 
+# elastic resize through the restart path and ZeRO's per-unit gather
+# (ROADMAP A8, C3)
+RESIZE = {
+    "dlrover_tpu_torch.accel.compile_cache",
+    "dlrover_tpu_torch.models.train",
+    "dlrover_tpu_torch.ops._build",
+    "dlrover_tpu_torch.trainer.elastic.distributed",
+    "dlrover_tpu_torch.trainer.elastic.trainer",
+}
+
+
 def test_port_imports_with_jax_and_the_jax_package_blocked():
     p = subprocess.run(
         [sys.executable, "-c", _PROBE],
@@ -160,15 +171,16 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert DATA_PARALLEL <= names, sorted(DATA_PARALLEL - names)
     assert MODEL_LEFTOVERS <= names, sorted(MODEL_LEFTOVERS - names)
     assert STRATEGY_SEARCH <= names, sorted(STRATEGY_SEARCH - names)
+    assert RESIZE <= names, sorted(RESIZE - names)
 
 
 def test_data_parallel_modules_and_the_rank_worker_import_without_jax():
-    """The data-parallel and strategy-search modules by name, and the
+    """The data-parallel, strategy-search and resize modules by name, and the
     rank processes of the multi-rank tests
     (``tests/torch_dist_worker.py``), with JAX and the JAX package
     blocked."""
     probe = _PROBE.split("import dlrover_tpu_torch\n")[0] + "\n".join(
-        f"importlib.import_module({m!r})" for m in sorted(DATA_PARALLEL | STRATEGY_SEARCH)
+        f"importlib.import_module({m!r})" for m in sorted(DATA_PARALLEL | STRATEGY_SEARCH | RESIZE)
     ) + (
         "\nsys.path.insert(0, 'tests')\nimportlib.import_module('torch_dist_worker')"
         "\nleaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)"

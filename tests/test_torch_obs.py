@@ -226,3 +226,32 @@ def test_heartbeat_and_trainer_reports_publish_the_metrics_file_together(tmp_pat
         t.join()
     assert errors == []
     assert read_runtime_metrics(path)["global_step"] >= 0
+
+
+def test_heartbeat_never_writes_back_over_a_later_report(tmp_path, monkeypatch):
+    """A heartbeat that read the metrics file before the trainer's last
+    report (the eviction drain's) must not write its stale copy over
+    it: the report waits for the heartbeat's read-modify-write."""
+    import time
+
+    from dlrover_tpu_torch.agent import monitor
+
+    path = str(tmp_path / "m.json")
+    monitor.report_runtime_metrics(6, path=path, eviction_pending=1.0)
+    hb = ttrace.SpanHeartbeat(ttrace.SpanTracer(enabled=True), path=path, interval=60.0)
+    read = monitor.read_runtime_metrics
+    got_read = threading.Event()
+
+    def slow_read(p=""):
+        out = read(p)
+        got_read.set()
+        time.sleep(0.3)  # the trainer's last report lands meanwhile
+        return out
+
+    monkeypatch.setattr(monitor, "read_runtime_metrics", slow_read)
+    t = threading.Thread(target=hb.publish_once)
+    t.start()
+    assert got_read.wait(10)
+    monitor.report_runtime_metrics(7, path=path, eviction_pending=1.0, eviction_drain_ms=2883.9)
+    t.join()
+    assert read(path)["eviction_drain_ms"] == 2883.9 and read(path)["global_step"] == 7

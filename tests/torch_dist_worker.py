@@ -19,6 +19,10 @@ Jobs:
   restored step, the final params and the strategy with the search's
   reports;
 - ``accel``: ``auto_accelerate`` cases (``accel_case``) on the ranks;
+- ``resize``: checkpoints staged at this world or landed at it from
+  another (``resize_case``);
+- ``units``: ZeRO's per-unit gather watched op by op (``units_case``);
+- ``zero_peak``: on the card, ZeRO's peak against its static figure;
 - ``step``: ``models.train.build_train_step`` from a whole JAX train
   state (``models/convert.load_jax_train_state``) on the rank's rows of
   given global batches; returns the loss and grad norm of each step,
@@ -359,7 +363,192 @@ def job_accel(rank, world, cases):
     return {name: accel_case(c) for name, c in cases.items()}
 
 
-JOBS = {"sync": job_sync, "train": job_train, "step": job_step, "accel": job_accel}
+# ---------------------------------------------------------------------------
+# the resize job: checkpoints staged at one world, landed at another
+# ---------------------------------------------------------------------------
+RESIZE_OPT = dict(name="adamw_8bit", lr=1e-3, min_quantized_size=512)
+
+
+def _resize_trainer(c, world, ckpt_dir="", strategy=None, metrics_hook=None):
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig
+    from dlrover_tpu_torch.trainer.elastic import trainer as tt
+
+    if strategy is None and c.get("mesh") is not None:
+        strategy = Strategy(mesh=MeshConfig(**c["mesh"]), comm_overlap=True)
+    kw = dict(batch_size=c.get("batch", 8), seq_len=16, log_interval=1000,
+              report_metrics=False, prefetch=0, comm_overlap=True, ckpt_dir=ckpt_dir,
+              save_memory_interval=1000, save_storage_interval=1000, **c.get("trainer", {}))
+    opt = dict(RESIZE_OPT)
+    tx = tt.build_optimizer(opt.pop("name"), **opt)
+    return tt.ElasticTrainer(tcfg.tiny(), tx, Tokens(), tt.TrainerConfig(**kw), devices="cpu",
+                             strategy=strategy, metrics_hook=metrics_hook)
+
+
+def _losses_hook():
+    losses = []
+
+    def hook(step, m):
+        if "loss" in m:
+            losses.append(float(m["loss"]))
+
+    return losses, hook
+
+
+def resize_case(c, rank, world):
+    """One case of the resize job (``c["kind"]``):
+
+    - ``stage``: a trainer at this world trains ``steps``, makes a disk
+      save there (through the job's saver when ``shm``, else with no
+      saver: a synchronous write) and returns the staged state (the
+      JAX layout, gathered), its sampler state and, with ``more``, the
+      losses of that many further steps;
+    - ``land``: a trainer built at this world over the staged checkpoint
+      (its strategy derived from the staged one, or ``mesh`` pinned)
+      returns what it restored, from where, ``last_resize``, its
+      strategy and the losses of ``more`` steps; with ``staged`` also
+      those of a fresh trainer of the same strategy given that state
+      (``convert.load_jax_train_state``) and the sampler's position."""
+    from dlrover_tpu_torch.accel import dry_runner
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.ckpt.checkpointer import StorageType
+    from dlrover_tpu_torch.models.convert import jax_train_state, load_jax_train_state
+
+    job = os.environ["DLROVER_TPU_JOB_NAME"]
+    if not c.get("shm"):
+        # a job no saver serves: every save is a synchronous disk write
+        os.environ["DLROVER_TPU_JOB_NAME"] = job + "disk"
+    real_price = dry_runner.price_rebalance_options
+    if c.get("force_rebalance"):
+        dry_runner.price_rebalance_options = lambda *a, **k: (1.0, 0.0)
+    try:
+        losses, hook = _losses_hook()
+        tr = _resize_trainer(c, world, c["ckpt_dir"], metrics_hook=hook)
+    finally:
+        os.environ["DLROVER_TPU_JOB_NAME"] = job
+        dry_runner.price_rebalance_options = real_price
+    out = dict(strategy=tr.strategy.to_json(), idle=tr.idle, restored=tr.restored_step,
+               source=tr.restore_source, last_resize=tr.last_resize,
+               shard_num=tr._ckptr.engine.global_shard_num,
+               stats={k: v for k, v in tr.pipeline_stats.as_dict().items()
+                      if k.startswith(("resize", "reshard", "compile_cache"))})
+    if c["kind"] == "stage":
+        tr.train(c["steps"])
+        tr.save(StorageType.DISK)
+        out.update(state=jax_train_state(tr.state, tr.mesh, tr._grad_sync_plan),
+                   sampler=tr.sampler.state_dict(), step=tr.global_step)
+        del losses[:]
+        if c.get("more"):
+            tr.train(c["steps"] + c["more"])
+        out["losses"] = list(losses)
+        tr.close()
+        return out
+    if not tr.idle:
+        out["state"] = jax_train_state(tr.state, tr.mesh, tr._grad_sync_plan)
+        out["sampler"] = tr.sampler.state_dict()
+    tr.train(tr.global_step + c["more"] if not tr.idle else 0)
+    out["losses"] = list(losses)
+    tr.close()
+    if c.get("staged") is not None:
+        # a fresh trainer of the landed strategy, given the staged state
+        losses, hook = _losses_hook()
+        fresh = _resize_trainer(c, world, strategy=Strategy.from_json(out["strategy"]),
+                                metrics_hook=hook)
+        load_jax_train_state(fresh.state, c["staged"]["state"], fresh.mesh,
+                             fresh._grad_sync_plan)
+        fresh.sampler.load_state_dict(c["staged"]["sampler"])
+        fresh.train(fresh.global_step + c["more"])
+        out["fresh_losses"] = list(losses)
+        fresh.close()
+    return out
+
+
+def units_case(c):
+    """ZeRO's per-unit gather under a watch: a ZeRO dp=1 x fsdp=2 state
+    of a tiny model (``c["model"]``'s overrides), ``c["steps"]`` steps,
+    a ``TorchDispatchMode`` reading every param's storage at each op of
+    the forward and the backward. Returns the ops at which the allocated
+    params were not within one unit, the most leaves allocated at once,
+    the gathers by unit and the losses."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.accel.accelerate import auto_accelerate
+    from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.models import train as ttrain
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig
+    from dlrover_tpu_torch.trainer.elastic import trainer as tt
+
+    cfg = tcfg.tiny(**c.get("model", {}))
+    tx = tt.build_optimizer("adamw_8bit", lr=1e-3, min_quantized_size=512)
+    res = auto_accelerate(cfg, tx, 8, 16, device="cpu",
+                          strategy=Strategy(mesh=MeshConfig(fsdp=2), comm_overlap=True))
+    state = res.init_fn(0)
+    units = state.units
+    leaves = state.params.jax_ordered_parameters()
+    unit_sets = [set(idx) for idx, _ in units.units.values()]
+    bad, most, gathers = [], 0, {}
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            nonlocal most
+            live = {i for i, p in enumerate(leaves) if p.untyped_storage().nbytes() > 0}
+            most = max(most, len(live))
+            if live and not any(live <= u for u in unit_sets):
+                bad.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    real_gather = units.gather
+
+    def counted(key, only=None):
+        gathers[str(key)] = gathers.get(str(key), 0) + 1
+        return real_gather(key, only)
+
+    units.gather = counted
+    rng = np.random.default_rng(0)
+    losses = []
+    for _ in range(c.get("steps", 2)):
+        x = rng.integers(0, cfg.vocab_size, (8, 16)).astype(np.int64)
+        rows = x[4 * res.mesh.data_index:4 * (res.mesh.data_index + 1)]
+        t = torch.from_numpy(np.ascontiguousarray(rows))
+        with Watch():
+            _, m = res.step_fn(state, t, t)
+        losses.append(float(m["loss"]))
+    freed = all(p.untyped_storage().nbytes() == 0 for p in leaves)
+    return dict(bad=bad, most=most, gathers=gathers, losses=losses, freed=freed,
+                unit_leaves=max(len(u) for u in unit_sets), leaves=len(leaves),
+                units=sorted(str(k) for k in units.units))
+
+
+def job_units(rank, world, cases):
+    return {name: units_case(c) for name, c in cases.items()}
+
+
+def job_zero_peak(rank, world, cases):
+    """ZeRO's peak on the card against its static figure: the resize
+    phase's C3 run of ``chip_smoke.py`` (``_dp_c3``) for each case."""
+    import torch
+
+    import chip_smoke
+
+    torch.cuda.set_device(0)
+    return {name: chip_smoke._dp_c3(torch, c, rank, world, None) for name, c in cases.items()}
+
+
+def job_resize(rank, world, cases):
+    import torch
+
+    out = {}
+    for name, c in cases.items():
+        out[name] = resize_case(c, rank, world)
+        torch.distributed.barrier()
+    return out
+
+
+JOBS = {"sync": job_sync, "train": job_train, "step": job_step, "accel": job_accel,
+        "resize": job_resize, "units": job_units, "zero_peak": job_zero_peak}
 
 
 def main():
