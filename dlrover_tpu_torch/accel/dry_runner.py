@@ -166,13 +166,13 @@ def _check_unported(strategy: Strategy, cfg: TransformerConfig, tx) -> None:
             raise NotImplementedError(
                 f"the {name} pipeline schedule is not ported yet (ROADMAP A11)"
             )
-    if m.tp > 1 or m.sp > 1:
+    if m.tp > 1:
         raise NotImplementedError(
-            "tensor / sequence parallel meshes are not ported yet (ROADMAP A10)"
+            "tensor parallel meshes are not ported yet (ROADMAP A10, its tp half)"
         )
     if m.ep > 1:
         raise NotImplementedError("expert parallel meshes are not ported yet (ROADMAP A11)")
-    check_supported(cfg)
+    check_supported(cfg, m)
     if getattr(tx, "opt_name", None) == "adamw_8bit_flat" and m.fsdp > 1:
         # the flat optimizer concatenates every big leaf per step: on a
         # model-sharded mesh that defeats the sharding
@@ -333,6 +333,18 @@ def _opt_state_bytes(tx, leaves) -> Tuple[float, float, float]:
     return 8.0 * n, 4.0 * n, unit
 
 
+def _sp_buffers(cfg: TransformerConfig, tok: int, ab: int) -> float:
+    """One layer's in-flight bytes of the sequence-parallel scheme, for a
+    rank's ``tok`` tokens: the ring's backward holds a key/value hop
+    (sent and received) and the travelling f32 dk / dv (sent and
+    received) beside its f32 dq; Ulysses holds the all-to-alls' copies
+    of q, k, v and the output, in and out."""
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    if cfg.sp_scheme == "ulysses":
+        return 2.0 * tok * (2 * q + 2 * kv) * ab
+    return 2.0 * 2 * tok * kv * ab + 2.0 * 2 * tok * kv * 4 + tok * q * 4.0
+
+
 def static_peak_bytes(
     cfg: TransformerConfig,
     strategy: Strategy,
@@ -378,6 +390,10 @@ def static_peak_bytes(
       every block's saved set is live; with remat the blocks' inputs
       and one block's recompute.
 
+    Under sequence parallelism a rank holds 1/sp of each row's tokens,
+    and the backward phase adds one layer's in-flight buffers of the
+    scheme (``_sp_buffers``).
+
     The peak is the resident state plus the largest phase. Held against
     the measured peaks on an H100 80GB HBM3 at 700 W (``chip_smoke.py
     --phase peak_memory`` and its accel phase): -0.5 % to +4.4 % without
@@ -396,7 +412,8 @@ def static_peak_bytes(
     shards = max(m.dp * m.fsdp, 1)
     rows = max((batch + strategy.batch_pad) // shards, 1)
     ga = max(strategy.grad_accum, 1)
-    tok = max(rows // ga, 1) * seq
+    sp = max(m.sp, 1)
+    tok = max(rows // ga, 1) * seq // sp
     p_bytes = float(sum(p.numel() * p.element_size() for p in leaves))
     n_params = float(sum(p.numel() for p in leaves))
     ab = 2 if cfg.dtype in ("bfloat16", "float16") else 4
@@ -427,6 +444,8 @@ def static_peak_bytes(
         live = L * tok * D * ab + a_block + head
     else:
         live = L * a_block + head
+    if sp > 1:
+        live += _sp_buffers(cfg, tok, ab)
     sync = 0.0
     if plan is not None:
         bucket = 4.0 * max(b.padded for b in plan.buckets)

@@ -7,9 +7,8 @@ transforms; ``accel/dry_runner._build`` then raises on the result,
 naming the ROADMAP item, as ``models/transformer.check_supported``
 does: ``int8_mlp`` (A12), ``1f1b`` / ``interleaved`` (pipeline, A11).
 ``sp_auto`` reads the sequence-parallel scheme table
-(``parallel/sp_select.py``, A10): on a strategy without an sp axis it
-is the JAX package's no-op, on one with an sp axis it raises naming
-A10.
+(``parallel/sp_select.py``, measured on the H100): on a strategy
+without an sp axis it is the JAX package's no-op.
 
 Parity: atorch's optimization registry (auto/opt_lib/
 optimization_library.py:39-58 — 14 named, composable optimizations:
@@ -180,12 +179,11 @@ register_optimization(
 
 
 def _apply_sp_auto(cfg, s):
+    from dlrover_tpu_torch.parallel.sp_select import pick_sp_scheme
+
     if s.mesh.sp <= 1:
         return cfg, s
-    raise NotImplementedError(
-        "sp_auto reads the sequence-parallel scheme table "
-        "(parallel/sp_select.py), not ported yet (ROADMAP A10)"
-    )
+    return dc_replace(cfg, sp_scheme=pick_sp_scheme(cfg.max_seq_len)), s
 
 
 # sequence-parallel candidates carry this by default: the scheme is

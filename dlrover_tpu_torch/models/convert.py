@@ -261,8 +261,11 @@ def train_state_tree(state, mesh=None) -> Dict[str, Any]:
 
 def replica_group(mesh, zero: bool) -> str:
     """The mesh group a replicated tensor of the state is shared over:
-    dp under ZeRO (its shards differ over fsdp), else the data axes."""
-    return "dp" if zero else "data"
+    dp under ZeRO (its shards differ over fsdp), else the data axes,
+    and with them sp (sequence parallelism shards no state)."""
+    if zero:
+        return "dp"
+    return "replica" if mesh.config.sp > 1 else "data"
 
 
 def _rank_tree(tree, mesh, params=None):

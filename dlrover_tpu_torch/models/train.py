@@ -21,6 +21,19 @@ has the JAX package's two paths:
 
 The loss and every metric are global means over the data axes.
 
+Sequence parallelism (a mesh with ``sp > 1``): the step takes this
+rank's rows at their full length and keeps its block of each row
+(``mesh.sequence_sharding``, tokens and targets alike); the model runs
+the ring or Ulysses over the ``sp`` group. The loss is the global token
+mean: each rank's mean over its block, over ``sp``, summed over the sp
+group, so the logged loss is the same number on every rank. sp shards
+no parameter, so the gradients are summed over the sp group: on the
+explicit path by the plan (kind ``tp`` with ``auto_axes=("sp",)``, the
+sp sum before the dp legs), on the default path by the data mean's own
+all-reduce, run over the ``replica`` group (dp x fsdp x sp) and divided
+by dp x fsdp: one collective a microbatch sums over sp and averages over
+the data axes at once. The loss is reduced the same way.
+
 Micro-batch rebalance (``batch_pad``): the trainer appends
 ``batch_pad`` zero rows to each global batch (``pad_batch_rows``) and
 the step weighs the rows of the loss (``pad_row_weights``: the pads 0,
@@ -359,13 +372,33 @@ def build_train_step(
             "batch_pad is not supported for MoE models: the gating "
             "aux losses would see the pad tokens"
         )
-    check_supported(cfg)
+    check_supported(cfg, mesh)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if plan is not None and mesh is None:
         raise ValueError("an explicit gradient-sync plan needs the mesh")
     data_group = mesh.groups["data"] if mesh is not None else None
     n_data = mesh.config.dp * mesh.config.fsdp if mesh is not None else 1
+    sp = mesh.config.sp if mesh is not None else 1
+    # the default path's reduction (and the loss's): with sp the replica
+    # group, whose sum is the sp sum and the data sum in one collective
+    sync_group = mesh.groups["replica"] if sp > 1 else data_group
+    model_mesh = mesh if sp > 1 else None
+
+    def seq_block(tokens, targets):
+        """This rank's block of each row under sequence parallelism."""
+        if sp == 1:
+            return tokens, targets
+        from dlrover_tpu_torch.parallel.mesh import sequence_sharding
+
+        block = sequence_sharding(mesh, tokens.shape[1])
+        return tokens[:, block], targets[:, block]
+
+    def loss_of(model, tokens, targets, row_w=None, units=None):
+        """The rank's loss: over sp, its block's mean divided by sp (the
+        sp sum of these is the mean over the whole rows)."""
+        loss = loss_fn(model, tokens, targets, cfg, model_mesh, row_weights=row_w, gather=units)
+        return loss / sp if sp > 1 else loss
 
     def row_weights(tokens):
         """This rank's rows' loss weights under ``batch_pad`` (None
@@ -385,8 +418,7 @@ def build_train_step(
         or the param-dtype grads at ``grad_accum=1``); ``units``: ZeRO's
         per-unit gather."""
         if grad_accum == 1:
-            loss = loss_fn(model, tokens, targets, cfg, row_weights=row_weights(tokens),
-                           gather=units)
+            loss = loss_of(model, tokens, targets, row_weights(tokens), units)
             grads = torch.autograd.grad(loss, params)
             return loss.detach(), list(grads)
         B = tokens.shape[0]
@@ -395,7 +427,7 @@ def build_train_step(
         acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for x, y in zip(tokens.chunk(grad_accum), targets.chunk(grad_accum)):
-            mb_loss = loss_fn(model, x, y, cfg, gather=units)
+            mb_loss = loss_of(model, x, y, units=units)
             grads = torch.autograd.grad(mb_loss, params)
             torch._foreach_add_(acc, [g.float() for g in grads])
             loss = loss + mb_loss.detach()
@@ -407,6 +439,8 @@ def build_train_step(
         once."""
         if data_group is None:
             loss, grads = local_grads(model, params, tokens, targets)
+            if sync_group is not None:  # sp alone (it shards no param): the sp sum
+                grads = _flat_all_reduce_mean(grads, sync_group, 1)
             return loss, [g.to(p.dtype) for g, p in zip(grads, params)]
         B = tokens.shape[0]
         if B % grad_accum:
@@ -414,9 +448,9 @@ def build_train_step(
         acc = None
         loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for x, y in zip(tokens.chunk(grad_accum), targets.chunk(grad_accum)):
-            mb_loss = loss_fn(model, x, y, cfg, row_weights=row_weights(x))
+            mb_loss = loss_of(model, x, y, row_weights(x))
             grads = _flat_all_reduce_mean(
-                list(torch.autograd.grad(mb_loss, params)), data_group, n_data
+                list(torch.autograd.grad(mb_loss, params)), sync_group, n_data
             )
             acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
             loss = loss + mb_loss.detach()
@@ -447,6 +481,7 @@ def build_train_step(
     def train_step(state: TrainState, tokens, targets):
         model = state.params
         params = model.jax_ordered_parameters()
+        tokens, targets = seq_block(tokens, targets)
         lanes = None
         if plan is not None:
             loss, grads, gnorm, new_res, lanes = synced_grads(
@@ -461,12 +496,13 @@ def build_train_step(
             targets_ = params
         for p, g in zip(targets_, grads):
             p.grad = g.to(p.dtype)
-        if data_group is not None:
-            # the metrics are global means over the data axes
+        if sync_group is not None:
+            # the metrics are global means over the data axes (under sp
+            # the blocks' shares of the rows' mean, summed over sp too)
             from dlrover_tpu_torch.parallel.grad_sync import _all_reduce
 
             loss = loss.reshape(1).clone()
-            _all_reduce(loss, data_group).wait()
+            _all_reduce(loss, sync_group).wait()
             loss = (loss / n_data).reshape(())
         if before_update is not None:
             before_update()

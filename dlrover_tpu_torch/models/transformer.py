@@ -23,9 +23,17 @@ each block, the head; the stacked blocks as one under ``scan_layers``)
 so that ZeRO can hold a unit's full params only while it runs
 (``models/train.ZeroUnits``, ``unit_parameters``).
 
+Sequence parallelism (a mesh with ``sp > 1``; ``parallel/mesh``): each
+rank runs the model on its block of the sequence
+(``mesh.sequence_sharding``). Attention takes the ``bthd`` projections
+and runs the ring or Ulysses (``cfg.sp_scheme``, with the JAX
+``ValueError`` for an unknown one) over the ``sp`` group; RoPE rotates,
+and the learned position table is read, at the block's global positions.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: MoE layers (A11), sequence parallelism over a mesh (A10),
-``int8_mlp`` (A12), the KV-cache decode paths (A14).
+item: MoE layers (A11), tensor parallelism and fsdp x sp (A10), expert
+and pipeline parallelism (A11), ``int8_mlp`` (A12), the KV-cache decode
+paths (A14).
 """
 
 from __future__ import annotations
@@ -51,15 +59,31 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: TransformerConfig, mesh=None) -> None:
-    """Raise for the configuration switches the port does not run yet."""
+    """Raise for the configuration switches the port does not run yet.
+    ``mesh``: a ``parallel/mesh.Mesh`` or its ``MeshConfig``; data axes
+    and sp run, a tp, ep or pp axis raises naming its ROADMAP item."""
     if cfg.num_experts:
         raise NotImplementedError("MoE layers are not ported yet (ROADMAP A11)")
     if mesh is not None:
-        raise NotImplementedError(
-            "meshes / sequence parallelism are not ported yet (ROADMAP A10)"
-        )
+        m = getattr(mesh, "config", mesh)
+        if m.tp > 1:
+            raise NotImplementedError(
+                "tensor parallelism is not ported yet (ROADMAP A10, its tp half)"
+            )
+        if m.ep > 1 or m.pp > 1:
+            raise NotImplementedError(
+                "expert / pipeline parallelism is not ported yet (ROADMAP A11)"
+            )
+        if m.sp > 1 and m.fsdp > 1:
+            raise NotImplementedError(
+                "fsdp x sp without tp is not ported yet (ROADMAP A10, its tp half)"
+            )
     if cfg.int8_mlp:
         raise NotImplementedError("int8_mlp is not ported yet (ROADMAP A12)")
+
+
+def _sp(mesh) -> int:
+    return getattr(getattr(mesh, "config", mesh), "sp", 1) if mesh is not None else 1
 
 
 class _Layer(nn.Module):
@@ -309,21 +333,42 @@ def _causal_attention(q, k, v, layout: str = "bthd"):
     return flash_attention(q, k, v, causal=True, layout=layout)
 
 
-def _attention_block(x, layer, cfg: TransformerConfig, positions):
-    """The ``bhtd`` (no sequence parallelism) branch of the JAX block."""
+def _attention_block(x, layer, cfg: TransformerConfig, positions, mesh=None):
+    """The JAX block: without sequence parallelism the kernel-native
+    ``bhtd`` projections; under sp (this rank's block of the sequence)
+    ``bthd`` and the ring or Ulysses over the mesh's sp group."""
     h = _norm(x, layer.attn_norm, cfg)
     a = layer.attn
-    q = torch.einsum("btd,dhk->bhtk", h, a["wq"].to(h.dtype))
-    k = torch.einsum("btd,dhk->bhtk", h, a["wk"].to(h.dtype))
-    v = torch.einsum("btd,dhk->bhtk", h, a["wv"].to(h.dtype))
+    sp = _sp(mesh) > 1
+    layout = "bthd" if sp else "bhtd"
+    proj = "btd,dhk->bthk" if sp else "btd,dhk->bhtk"
+    q = torch.einsum(proj, h, a["wq"].to(h.dtype))
+    k = torch.einsum(proj, h, a["wk"].to(h.dtype))
+    v = torch.einsum(proj, h, a["wv"].to(h.dtype))
     if cfg.rope:
-        q = _rope(q, positions, cfg.rope_theta, "bhtd")
-        k = _rope(k, positions, cfg.rope_theta, "bhtd")
+        q = _rope(q, positions, cfg.rope_theta, layout)
+        k = _rope(k, positions, cfg.rope_theta, layout)
     if cfg.mup_attn_scale is not None:
         # muP 1/d attention folded into q: the kernels keep 1/sqrt(d)
         q = q * (cfg.mup_attn_scale * cfg.head_dim**0.5)
-    o = _causal_attention(q, k, v, layout="bhtd")
-    return x + torch.einsum("bhtk,hkd->btd", o, a["wo"].to(o.dtype))
+    if not sp:
+        o = _causal_attention(q, k, v, layout="bhtd")
+    elif cfg.sp_scheme == "ulysses":
+        from dlrover_tpu_torch.parallel.ulysses import ulysses_self_attention
+
+        o = ulysses_self_attention(q, k, v, mesh, causal=True)
+    elif cfg.sp_scheme == "ring":
+        from dlrover_tpu_torch.parallel.ring_attention import ring_self_attention
+
+        o = ring_self_attention(q, k, v, mesh, causal=True)
+    else:
+        # a typo silently running the other scheme would make every
+        # comparison between them quietly wrong
+        raise ValueError(
+            f"unknown sp_scheme {cfg.sp_scheme!r} (expected 'ring' or 'ulysses')"
+        )
+    out = "bthk,hkd->btd" if sp else "bhtk,hkd->btd"
+    return x + torch.einsum(out, o, a["wo"].to(o.dtype))
 
 
 def _zero_aux(device=None) -> Dict[str, torch.Tensor]:
@@ -349,13 +394,16 @@ def _mlp_block(x, layer, cfg: TransformerConfig):
     return x + out
 
 
-def embed_tokens(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig):
-    """tokens [B,T] -> residual stream [B,T,D] (token + learned positions)."""
+def embed_tokens(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
+                 offset: int = 0):
+    """tokens [B,T] -> residual stream [B,T,D] (token + learned positions;
+    ``offset``: the global position of the block's first token, under
+    sequence parallelism)."""
     dt = _torch_dtype(cfg.dtype)
     T = tokens.shape[-1]
     x = F.embedding(tokens, params.embed["tokens"].to(dt))
     if not cfg.rope:
-        x = x + params.embed["positions"].to(dt)[:T][None]
+        x = x + params.embed["positions"].to(dt)[offset:offset + T][None]
     return x
 
 
@@ -407,15 +455,20 @@ def forward(
     ``gather(key, fn, x, recompute)`` runs ``fn(x)`` with that unit's
     parameters in place (ZeRO's per-unit gather, ``models/train.
     ZeroUnits``; ``recompute``: the unit is a remat block, rebuilt in
-    the backward)."""
+    the backward).
+
+    Under sequence parallelism (``mesh`` with sp > 1) ``tokens`` is this
+    rank's block of each row (``mesh.sequence_sharding``), at global
+    positions ``sp index x T`` on; the logits are the block's."""
     check_supported(cfg, mesh)
     run = gather or _run_unit
     B, T = tokens.shape
-    x = run("embed", lambda t: embed_tokens(params, t, cfg), tokens)
-    positions = torch.arange(T, device=tokens.device).expand(B, T)
+    offset = T * mesh.coords.get("sp", 0) if _sp(mesh) > 1 else 0
+    x = run("embed", lambda t: embed_tokens(params, t, cfg, offset), tokens)
+    positions = (offset + torch.arange(T, device=tokens.device)).expand(B, T)
 
     def block(x, layer):
-        return _mlp_block(_attention_block(x, layer, cfg, positions), layer, cfg)
+        return _mlp_block(_attention_block(x, layer, cfg, positions, mesh), layer, cfg)
 
     def blocks(x, layers):
         for layer in layers:

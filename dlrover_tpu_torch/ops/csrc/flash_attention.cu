@@ -46,6 +46,22 @@
 //     that is no longer read) as 16-byte stores; dk/dv in f32 go straight
 //     from registers (a quad writes one 32-byte sector).
 //
+// Declared masks (the port of the Pallas kernels' mask_fn, _mask_for_block
+// at :65): per query row, the visible keys are an interval [lo, hi) of
+// global key positions (int32 lo / hi of the call's rows, one row of them
+// for the batch or one a batch row, shared by every head). A causal mask,
+// a GLM prefix, a sliding window, packed documents and rows that see
+// nothing are all of this form. The tiles are classified from per-64-row
+// tables built outside the kernels (min lo, max lo, min hi, max hi of each
+// query tile; for dk/dv each key block's first and last query tile with a
+// visible pair): a tile with no visible pair is skipped (not loaded when
+// the whole block skips it), a tile where every pair is visible runs
+// unmasked, and only a tile between tests each element against its row's
+// lo and hi, which each thread keeps in registers (forward and dq: its two
+// rows; dk/dv: the query tile's lo and hi beside its lse and delta in the
+// ring). Without intervals the causal or unmasked code is compiled as
+// before (a separate instantiation).
+//
 // Numerics follow the Pallas kernels: NEG_INF = -1e30 is finite, rows
 // with no visible key give o = 0 and lse = NEG_INF, p and ds are rounded
 // to bf16 before each product that consumes them, and in the backward
@@ -66,6 +82,8 @@
 typedef __nv_bfloat16 bf16;
 
 #define NEG_INF (-1e30f)
+// an empty row's lo and hi in the tile tables (so that it widens no range)
+#define IV_FAR 0x3fffffff
 #define LOG2E 1.4426950408889634f
 #define LN2 0.6931471805599453f
 
@@ -319,20 +337,56 @@ __device__ __forceinline__ void store_tile_f32(const float (&acc)[D / 2], float*
 // and the number of key tiles any of its rows sees. Each role works it out for
 // itself after the split, so that nothing but the barriers' addresses
 // lives across setmaxnreg.
+template <bool IV>
 struct FwdBlock {
-  int bh, kv_bh, q0, nk;
+  int bh, kv_bh, q0, j0, nk;  // key tiles [j0, nk)
   __device__ __forceinline__ FwdBlock(int H, int Hkv, int Tq, int Tk, int causal, int q_off,
-                                      int k_off) {
+                                      int k_off, const int* qstat, int iv_b) {
     bh = blockIdx.x;
     kv_bh = (bh / H) * Hkv + (bh % H) / (H / Hkv);
     // late query tiles see the most keys: they go first
-    q0 = (causal ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.y) * FWD_BM;
+    q0 = ((causal || IV) ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.y) * FWD_BM;
+    j0 = 0;
     nk = Tk / FWD_BN;
-    if (causal) {
+    if constexpr (IV) {
+      // the key tiles between the block's least lo and greatest hi
+      const int* st = qstat + ((size_t)(iv_b ? bh / H : 0) * (Tq / 64) + q0 / 64) * 4;
+      int lo = st[0], hi = st[3];
+      if (q0 + 64 < Tq) {
+        lo = min(lo, st[4]);
+        hi = max(hi, st[7]);
+      }
+      j0 = min(nk, max(0, floordiv(lo - k_off, FWD_BN)));
+      nk = max(j0, min(nk, floordiv(hi - k_off + FWD_BN - 1, FWD_BN)));
+    } else if (causal) {
       const int lim = q_off + min(q0 + FWD_BM, Tq) - 1 - k_off;
       nk = lim < 0 ? 0 : min(nk, lim / FWD_BN + 1);
     }
   }
+};
+
+// a warpgroup's view of its 64 query rows under intervals: the tile's
+// table entry (min lo, max lo, min hi, max hi) and, per thread, the lo and
+// hi of its rows g and g + 8 relative to key 0 of the call
+struct RowIntervals {
+  int lo_min, lo_max, hi_min, hi_max, lo0, hi0, lo1, hi1;
+  __device__ __forceinline__ void load(const int* lo, const int* hi, const int* qstat, int bh,
+                                       int H, int Tq, int row0, int row, int k_off, int iv_b) {
+    const size_t b = iv_b ? (size_t)(bh / H) : 0;
+    const int* st = qstat + (b * (Tq / 64) + row0 / 64) * 4;
+    lo_min = st[0] - k_off;
+    lo_max = st[1] - k_off;
+    hi_min = st[2] - k_off;
+    hi_max = st[3] - k_off;
+    const size_t r = b * Tq + row;
+    lo0 = lo[r] - k_off;
+    hi0 = hi[r] - k_off;
+    lo1 = lo[r + 8] - k_off;
+    hi1 = hi[r + 8] - k_off;
+  }
+  // key tile [c0, c0 + 64) of the call: any pair visible / every pair visible
+  __device__ __forceinline__ bool any(int c0) const { return c0 + 64 > lo_min && c0 < hi_max; }
+  __device__ __forceinline__ bool all(int c0) const { return lo_max <= c0 && c0 + 64 <= hi_min; }
 };
 
 template <int D>
@@ -343,13 +397,15 @@ constexpr size_t fwd_smem_bytes() {
          + 8 * (1 + 2 * FWD_STAGES);                 // mbarriers
 }
 
-template <int D>
+template <int D, bool IV>
 __global__ void __launch_bounds__(FA_THREADS, 1)
 fa_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
               const __grid_constant__ CUtensorMap map_k,
               const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
               float* __restrict__ lse, int H, int Hkv, int Tq, int Tk,
-              float scale_log2, int causal, int q_off, int k_off) {
+              float scale_log2, int causal, int q_off, int k_off,
+              const int* __restrict__ iv_lo, const int* __restrict__ iv_hi,
+              const int* __restrict__ qstat, int iv_b) {
   constexpr int SUB = D / 64;
   constexpr uint32_t Q_BYTES = FWD_BM * D * 2, KV_BYTES = FWD_BN * D * 2;
   constexpr uint32_t Q_SUB = FWD_BM * 128, KV_SUB = FWD_BN * 128;
@@ -376,13 +432,13 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---- producer ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (tid == 2 * WG) {
-      const FwdBlock blk(H, Hkv, Tq, Tk, causal, q_off, k_off);
-      const int bh = blk.bh, q0 = blk.q0, nk = blk.nk;
+      const FwdBlock<IV> blk(H, Hkv, Tq, Tk, causal, q_off, k_off, qstat, iv_b);
+      const int bh = blk.bh, q0 = blk.q0, j0 = blk.j0, nk = blk.nk;
       mbar_expect_tx(bar_q, Q_BYTES);
       for (int s = 0; s < SUB; ++s) tma_load(sQ + s * Q_SUB, &map_q, bar_q, s * 64, q0, bh);
-      for (int j = 0; j < nk; ++j) {
-        const int st = j % FWD_STAGES;
-        mbar_wait(bar_empty + 8 * st, ((j / FWD_STAGES) & 1) ^ 1);
+      for (int j = j0; j < nk; ++j) {
+        const int st = (j - j0) % FWD_STAGES;
+        mbar_wait(bar_empty + 8 * st, (((j - j0) / FWD_STAGES) & 1) ^ 1);
         const uint32_t full = bar_full + 8 * st, sK = sKV + st * 2 * KV_BYTES;
         mbar_expect_tx(full, 2 * KV_BYTES);
         for (int s = 0; s < SUB; ++s) {
@@ -394,15 +450,19 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   } else {
     // ---- consumers: 64 query rows each ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
-    const FwdBlock blk(H, Hkv, Tq, Tk, causal, q_off, k_off);
-    const int bh = blk.bh, q0 = blk.q0, nk = blk.nk;
+    const FwdBlock<IV> blk(H, Hkv, Tq, Tk, causal, q_off, k_off, qstat, iv_b);
+    const int bh = blk.bh, q0 = blk.q0, j0 = blk.j0, nk = blk.nk;
     const int warp = (tid % WG) / 32, lane = tid % 32;
     const int g = lane >> 2, t = lane & 3;
     const int qw0 = q0 + 64 * wg;        // first row of this warpgroup
     const int qpos = q_off + qw0 - k_off;  // its position relative to key 0
     // tiles this warpgroup sees at all, and those it sees without a mask
     int nk_wg = qw0 < Tq ? nk : 0, n_full = nk_wg;
-    if (causal && nk_wg > 0) {
+    RowIntervals iv;
+    if constexpr (IV) {
+      if (qw0 < Tq)
+        iv.load(iv_lo, iv_hi, qstat, bh, H, Tq, qw0, qw0 + 16 * warp + g, k_off, iv_b);
+    } else if (causal && nk_wg > 0) {
       nk_wg = qpos + 63 < 0 ? 0 : min(nk, (qpos + 63) / FWD_BN + 1);
       n_full = min(nk_wg, max(0, floordiv(qpos - FWD_BN + 1, FWD_BN) + 1));
     }
@@ -413,10 +473,18 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // rows g and g + 8, log2 domain
 
     mbar_wait(bar_q, 0);
-    for (int j = 0; j < nk; ++j) {
-      const int st = j % FWD_STAGES;
-      mbar_wait(bar_full + 8 * st, (j / FWD_STAGES) & 1);
-      if (j < nk_wg) {
+    for (int j = j0; j < nk; ++j) {
+      const int st = (j - j0) % FWD_STAGES;
+      mbar_wait(bar_full + 8 * st, ((j - j0) / FWD_STAGES) & 1);
+      bool run, masked;
+      if constexpr (IV) {
+        run = qw0 < Tq && iv.any(j * FWD_BN);
+        masked = !iv.all(j * FWD_BN);
+      } else {
+        run = j < nk_wg;
+        masked = j >= n_full;
+      }
+      if (run) {
         const uint32_t sK = sKV + st * 2 * KV_BYTES;
         float s[32];
         wgmma_fence();
@@ -427,12 +495,24 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 
 #pragma unroll
         for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
-        if (j >= n_full) {  // the diagonal crosses this tile
-          const int d0 = qpos + 16 * warp + g - j * FWD_BN - 2 * t;  // row g; row g + 8: d0 + 8
+        if (masked) {  // the diagonal (or an interval's end) crosses this tile
+          if constexpr (IV) {
+            // key column c of this thread is visible to row g iff a0 <= c < b0
+            const int base = j * FWD_BN + 2 * t;
+            const int a0 = iv.lo0 - base, b0 = iv.hi0 - base;
+            const int a1 = iv.lo1 - base, b1 = iv.hi1 - base;
 #pragma unroll
-          for (int i = 0; i < 32; ++i) {
-            const int c = 8 * (i / 4) + (i & 1);
-            if (d0 + ((i & 2) ? 8 : 0) < c) s[i] = NEG_INF;
+            for (int i = 0; i < 32; ++i) {
+              const int c = 8 * (i / 4) + (i & 1);
+              if (c < ((i & 2) ? a1 : a0) || c >= ((i & 2) ? b1 : b0)) s[i] = NEG_INF;
+            }
+          } else {
+            const int d0 = qpos + 16 * warp + g - j * FWD_BN - 2 * t;  // row g; row g + 8: d0 + 8
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+              const int c = 8 * (i / 4) + (i & 1);
+              if (d0 + ((i & 2) ? 8 : 0) < c) s[i] = NEG_INF;
+            }
           }
         }
         float mx0 = NEG_INF, mx1 = NEG_INF;
@@ -509,21 +589,31 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 // where a dk/dv block works (as FwdBlock): its (batch, q head), first key
 // row, and the query tiles it walks: from the first with a row at or past
 // the block's first key to the last
+template <bool IV>
 struct DkvBlock {
   int bh, kv_bh, k0, i_start, n_it;
-  __device__ __forceinline__ DkvBlock(int H, int Hkv, int Tq, int causal, int q_off, int k_off) {
+  __device__ __forceinline__ DkvBlock(int H, int Hkv, int Tq, int causal, int q_off, int k_off,
+                                      const int* kblk, int iv_b) {
     bh = blockIdx.x;
     kv_bh = (bh / H) * Hkv + (bh % H) / (H / Hkv);
     k0 = blockIdx.y * DKV_BN;  // early key tiles see the most queries: they go first
     const int nq = Tq / DKV_BM;
-    i_start = causal ? min(nq, max(0, floordiv(k_off + k0 - q_off, DKV_BM))) : 0;
-    n_it = nq - i_start;
+    if constexpr (IV) {
+      // the first and past-the-last query tile with a pair visible to
+      // this block's keys (from the tables)
+      const int* r = kblk + ((size_t)(iv_b ? bh / H : 0) * gridDim.y + blockIdx.y) * 2;
+      i_start = r[0];
+      n_it = r[1] - r[0];
+    } else {
+      i_start = causal ? min(nq, max(0, floordiv(k_off + k0 - q_off, DKV_BM))) : 0;
+      n_it = nq - i_start;
+    }
   }
 };
 
 template <int D>
 __host__ __device__ constexpr uint32_t dkv_stage_bytes() {
-  return 2 * DKV_BM * D * 2 + 1024;  // Q, dO, then lse and delta (256 bytes each)
+  return 2 * DKV_BM * D * 2 + 1024;  // Q, dO, then lse, delta, lo and hi (256 bytes each)
 }
 
 template <int D>
@@ -532,7 +622,7 @@ constexpr size_t dkv_smem_bytes() {
          8 * (1 + 2 * DKV_STAGES);
 }
 
-template <int D, typename OutT>
+template <int D, typename OutT, bool IV>
 __global__ void __launch_bounds__(FA_THREADS, 1)
 fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
@@ -540,7 +630,9 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_do,
                    const float* __restrict__ lse, const float* __restrict__ delta,
                    OutT* __restrict__ dk, OutT* __restrict__ dv, int H, int Hkv,
-                   int Tq, int Tk, float scale, int causal, int q_off, int k_off) {
+                   int Tq, int Tk, float scale, int causal, int q_off, int k_off,
+                   const int* __restrict__ iv_lo, const int* __restrict__ iv_hi,
+                   const int* __restrict__ qstat, const int* __restrict__ kblk, int iv_b) {
   constexpr int SUB = D / 64;
   constexpr uint32_t KV_BYTES = DKV_BN * D * 2, KV_SUB = DKV_BN * 128;
   constexpr uint32_t QD_BYTES = DKV_BM * D * 2, QD_SUB = DKV_BM * 128;
@@ -568,7 +660,7 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---- producer ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (tid == 2 * WG) {
-      const DkvBlock blk(H, Hkv, Tq, causal, q_off, k_off);
+      const DkvBlock<IV> blk(H, Hkv, Tq, causal, q_off, k_off, kblk, iv_b);
       const int bh = blk.bh, k0 = blk.k0, i_start = blk.i_start, n_it = blk.n_it;
       mbar_expect_tx(bar_kv, 2 * KV_BYTES);
       for (int s = 0; s < SUB; ++s) {
@@ -577,23 +669,28 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       const float* lse_g = lse + (size_t)bh * Tq;
       const float* delta_g = delta + (size_t)bh * Tq;
+      const size_t iv_row = IV ? (iv_b ? (size_t)(bh / H) : 0) * Tq : 0;
       for (int it = 0; it < n_it; ++it) {
         const int st = it % DKV_STAGES, q0 = (i_start + it) * DKV_BM;
         mbar_wait(bar_empty + 8 * st, ((it / DKV_STAGES) & 1) ^ 1);
         const uint32_t full = bar_full + 8 * st, sQ = sRing + st * STAGE;
-        mbar_expect_tx(full, 2 * QD_BYTES + 512);
+        mbar_expect_tx(full, 2 * QD_BYTES + (IV ? 1024 : 512));
         for (int s = 0; s < SUB; ++s) {
           tma_load(sQ + s * QD_SUB, &map_q, full, s * 64, q0, bh);
           tma_load(sQ + QD_BYTES + s * QD_SUB, &map_do, full, s * 64, q0, bh);
         }
         bulk_load(sQ + 2 * QD_BYTES, lse_g + q0, 256, full);
         bulk_load(sQ + 2 * QD_BYTES + 256, delta_g + q0, 256, full);
+        if constexpr (IV) {
+          bulk_load(sQ + 2 * QD_BYTES + 512, iv_lo + iv_row + q0, 256, full);
+          bulk_load(sQ + 2 * QD_BYTES + 768, iv_hi + iv_row + q0, 256, full);
+        }
       }
     }
   } else {
     // ---- consumers: 64 key rows each ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
-    const DkvBlock blk(H, Hkv, Tq, causal, q_off, k_off);
+    const DkvBlock<IV> blk(H, Hkv, Tq, causal, q_off, k_off, kblk, iv_b);
     const int bh = blk.bh, k0 = blk.k0, i_start = blk.i_start, n_it = blk.n_it;
     const int warp = (tid % WG) / 32, lane = tid % 32;
     const int g = lane >> 2, t = lane & 3;
@@ -604,10 +701,14 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     // the first query tile that sees this warpgroup's keys (none if they lie
     // past Tk), and the tile from which on every row sees every one of them
     int i_first = valid ? i_start : INT_MAX, i_full = 0;
-    if (causal && valid) {
+    if (!IV && causal && valid) {
       i_first = max(i_start, floordiv(kpos, DKV_BM));
       i_full = floordiv(kpos + 63 + DKV_BM - 1, DKV_BM);
     }
+    // under intervals: the first query tile of this batch row in the
+    // tables (an int, not a pointer: dk/dv at head_dim 128 has no
+    // register to spare)
+    const int qst_row = IV ? (iv_b ? bh / H : 0) * (Tq / DKV_BM) : 0;
 
     float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
@@ -618,10 +719,46 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int it = 0; it < n_it; ++it) {
       const int st = it % DKV_STAGES, qi = i_start + it;
       mbar_wait(bar_full + 8 * st, (it / DKV_STAGES) & 1);
-      if (qi >= i_first) {
+      bool run, masked;
+      if constexpr (IV) {
+        // the query tile's (min lo, max lo, min hi, max hi) against this
+        // warpgroup's keys [k_off + kw0, + 64)
+        const int4 q4 = *reinterpret_cast<const int4*>(qstat + 4 * (qst_row + qi));
+        const int kg = k_off + kw0;
+        run = valid && q4.x < kg + 64 && q4.w > kg;
+        masked = !(q4.y <= kg && kg + 64 <= q4.z);
+      } else {
+        run = qi >= i_first;
+        masked = qi < i_full;
+      }
+      if (run) {
         const uint32_t sQ = sRing + st * STAGE, sdO = sQ + QD_BYTES;
         // lse, then delta, of this lane's first query column
         const float* stat = reinterpret_cast<const float*>(gK + (sQ + 2 * QD_BYTES - sK)) + 2 * t;
+        // under intervals, on a partial tile: which of this lane's 32
+        // (key row, query column) pairs are visible, one bit each (bit
+        // 4 j + e: column 8 j + (e & 1) + 2 t, row g + (e & 2 ? 8 : 0)),
+        // worked out from the stage's lo and hi before the products, so
+        // that one register carries the mask through them
+        uint32_t vbits = 0xffffffffu;
+        if constexpr (IV) {
+          if (masked) {
+            const int* ilo = reinterpret_cast<const int*>(stat + 128);
+            const int key0 = k_off + kw0 + 16 * warp + g;
+            vbits = 0u;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int2 lo = *reinterpret_cast<const int2*>(ilo + 8 * j);
+              const int2 hi = *reinterpret_cast<const int2*>(ilo + 64 + 8 * j);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int key = key0 + ((e & 2) ? 8 : 0);
+                const bool in = key >= ((e & 1) ? lo.y : lo.x) && key < ((e & 1) ? hi.y : hi.x);
+                vbits |= (uint32_t)in << (4 * j + e);
+              }
+            }
+          }
+        }
         const uint32_t sKw = sK + 64 * wg * 128, sVw = sV + 64 * wg * 128;
         float s[32], dp[32];
         wgmma_fence();
@@ -637,8 +774,7 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
         // p (dp - delta) scale; both rounded to bf16 for their products,
         // eight columns at a time, so that the scores' registers are freed
         // as the packed ones fill. Query column c sees key row g iff c >=
-        // d0 (row g + 8: d0 + 8).
-        const bool masked = qi < i_full;
+        // d0 (row g + 8: d0 + 8); under intervals iff its bit of vbits is set.
         const int d0 = dbase - qi * DKV_BM;
         uint32_t p[16], ds[16];
 #pragma unroll
@@ -649,8 +785,13 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float lq = (e & 1) ? l.y : l.x;
-            const bool vis = lq > NEG_INF * 0.5f &&
-                             !(masked && 8 * j + (e & 1) < d0 + ((e & 2) ? 8 : 0));
+            bool cut;
+            if constexpr (IV) {
+              cut = !((vbits >> (4 * j + e)) & 1u);
+            } else {
+              cut = 8 * j + (e & 1) < d0 + ((e & 2) ? 8 : 0);
+            }
+            const bool vis = lq > NEG_INF * 0.5f && !(masked && cut);
             pv[e] = vis ? fast_exp2(s[4 * j + e] * scale_log2 - lq * LOG2E) : 0.f;
             dsv[e] = pv[e] * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x)) * scale;
           }
@@ -706,7 +847,7 @@ constexpr size_t dq_smem_bytes() {
          + 8 * (1 + 2 * DQ_STAGES);                 // mbarriers
 }
 
-template <int D>
+template <int D, bool IV>
 __global__ void __launch_bounds__(FA_THREADS, 1)
 fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
@@ -714,7 +855,8 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_do,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  bf16* __restrict__ dq, int H, int Hkv, int Tq, int Tk, float scale,
-                 int causal, int q_off, int k_off) {
+                 int causal, int q_off, int k_off, const int* __restrict__ iv_lo,
+                 const int* __restrict__ iv_hi, const int* __restrict__ qstat, int iv_b) {
   constexpr int SUB = D / 64;
   constexpr uint32_t Q_BYTES = FWD_BM * D * 2, KV_BYTES = FWD_BN * D * 2;
   constexpr uint32_t Q_SUB = FWD_BM * 128, KV_SUB = FWD_BN * 128;
@@ -741,16 +883,16 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---- producer ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (tid == 2 * WG) {
-      const FwdBlock blk(H, Hkv, Tq, Tk, causal, q_off, k_off);
-      const int bh = blk.bh, q0 = blk.q0, nk = blk.nk;
+      const FwdBlock<IV> blk(H, Hkv, Tq, Tk, causal, q_off, k_off, qstat, iv_b);
+      const int bh = blk.bh, q0 = blk.q0, j0 = blk.j0, nk = blk.nk;
       mbar_expect_tx(bar_q, 2 * Q_BYTES);
       for (int s = 0; s < SUB; ++s) {
         tma_load(sQ + s * Q_SUB, &map_q, bar_q, s * 64, q0, bh);
         tma_load(sdO + s * Q_SUB, &map_do, bar_q, s * 64, q0, bh);
       }
-      for (int j = 0; j < nk; ++j) {
-        const int st = j % DQ_STAGES;
-        mbar_wait(bar_empty + 8 * st, ((j / DQ_STAGES) & 1) ^ 1);
+      for (int j = j0; j < nk; ++j) {
+        const int st = (j - j0) % DQ_STAGES;
+        mbar_wait(bar_empty + 8 * st, (((j - j0) / DQ_STAGES) & 1) ^ 1);
         const uint32_t full = bar_full + 8 * st, sK = sKV + st * 2 * KV_BYTES;
         mbar_expect_tx(full, 2 * KV_BYTES);
         for (int s = 0; s < SUB; ++s) {
@@ -762,14 +904,18 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   } else {
     // ---- consumers: 64 query rows each ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
-    const FwdBlock blk(H, Hkv, Tq, Tk, causal, q_off, k_off);
-    const int bh = blk.bh, q0 = blk.q0, nk = blk.nk;
+    const FwdBlock<IV> blk(H, Hkv, Tq, Tk, causal, q_off, k_off, qstat, iv_b);
+    const int bh = blk.bh, q0 = blk.q0, j0 = blk.j0, nk = blk.nk;
     const int warp = (tid % WG) / 32, lane = tid % 32;
     const int g = lane >> 2, t = lane & 3;
     const int qw0 = q0 + 64 * wg;          // first row of this warpgroup
     const int qpos = q_off + qw0 - k_off;  // its position relative to key 0
     int nk_wg = qw0 < Tq ? nk : 0, n_full = nk_wg;  // as in the forward
-    if (causal && nk_wg > 0) {
+    RowIntervals iv;
+    if constexpr (IV) {
+      if (qw0 < Tq)
+        iv.load(iv_lo, iv_hi, qstat, bh, H, Tq, qw0, qw0 + 16 * warp + g, k_off, iv_b);
+    } else if (causal && nk_wg > 0) {
       nk_wg = qpos + 63 < 0 ? 0 : min(nk, (qpos + 63) / FWD_BN + 1);
       n_full = min(nk_wg, max(0, floordiv(qpos - FWD_BN + 1, FWD_BN) + 1));
     }
@@ -792,10 +938,18 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
 
     mbar_wait(bar_q, 0);
-    for (int j = 0; j < nk; ++j) {
-      const int st = j % DQ_STAGES;
-      mbar_wait(bar_full + 8 * st, (j / DQ_STAGES) & 1);
-      if (j < nk_wg) {
+    for (int j = j0; j < nk; ++j) {
+      const int st = (j - j0) % DQ_STAGES;
+      mbar_wait(bar_full + 8 * st, ((j - j0) / DQ_STAGES) & 1);
+      bool run, masked;
+      if constexpr (IV) {
+        run = qw0 < Tq && iv.any(j * FWD_BN);
+        masked = !iv.all(j * FWD_BN);
+      } else {
+        run = j < nk_wg;
+        masked = j >= n_full;
+      }
+      if (run) {
         const uint32_t sK = sKV + st * 2 * KV_BYTES;
         float s[32], dp[32];
         wgmma_fence();
@@ -810,8 +964,11 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
         // delta) scale, rounded to bf16 for its product, eight columns at
         // a time. Key column c is visible to row g iff c <= d0 (row g + 8:
         // d0 + 8); the mask is tested only on tiles the diagonal crosses.
-        const bool masked = j >= n_full;
+        // Under intervals column c is visible to row g iff a0 <= c < b0.
         const int d0 = qpos + 16 * warp + g - j * FWD_BN - 2 * t;
+        const int base = j * FWD_BN + 2 * t;
+        const int a0 = IV ? iv.lo0 - base : 0, b0 = IV ? iv.hi0 - base : 0;
+        const int a1 = IV ? iv.lo1 - base : 0, b1 = IV ? iv.hi1 - base : 0;
         uint32_t ds[16];
 #pragma unroll
         for (int i = 0; i < 32; i += 4) {
@@ -819,8 +976,13 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const bool hi = e & 2;
+            const int c = 8 * (i / 4) + (e & 1);
             float x = s[i + e] * scale_log2 - (hi ? lq1 : lq0);
-            if (masked && d0 + (hi ? 8 : 0) < 8 * (i / 4) + (e & 1)) x = NEG_INF;
+            if constexpr (IV) {
+              if (masked && (c < (hi ? a1 : a0) || c >= (hi ? b1 : b0))) x = NEG_INF;
+            } else {
+              if (masked && d0 + (hi ? 8 : 0) < c) x = NEG_INF;
+            }
             dsv[e] = fast_exp2(x) * (dp[i + e] - (hi ? dl1 : dl0)) * scale;
           }
           ds[i / 2] = pack_bf16(dsv[0], dsv[1]);
@@ -882,11 +1044,11 @@ static int make_map(CUtensorMap* map, const void* ptr, int BH, int T, int D, int
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
 }
 
-template <int D>
+template <int D, bool IV>
 static int launch_fwd(const void* q, const void* k, const void* v, void* o,
                       void* lse, int B, int H, int Hkv, int Tq, int Tk,
-                      float scale, int causal, int q_off, int k_off,
-                      cudaStream_t stream) {
+                      float scale, int causal, int q_off, int k_off, const int* lo,
+                      const int* hi, const int* qstat, int iv_b, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   int e;
   if ((e = make_map(&mq, q, B * H, Tq, D, FWD_BM))) return e;
@@ -894,19 +1056,21 @@ static int launch_fwd(const void* q, const void* k, const void* v, void* o,
   if ((e = make_map(&mv, v, B * Hkv, Tk, D, FWD_BN))) return e;
   const size_t smem = fwd_smem_bytes<D>();
   cudaError_t ce = cudaFuncSetAttribute(
-      fa_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_fwd_kernel<D, IV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (ce != cudaSuccess) return (int)ce;
   dim3 grid(B * H, (Tq + FWD_BM - 1) / FWD_BM);
-  fa_fwd_kernel<D><<<grid, FA_THREADS, smem, stream>>>(
-      mq, mk, mv, (bf16*)o, (float*)lse, H, Hkv, Tq, Tk, scale * LOG2E, causal, q_off, k_off);
+  fa_fwd_kernel<D, IV><<<grid, FA_THREADS, smem, stream>>>(
+      mq, mk, mv, (bf16*)o, (float*)lse, H, Hkv, Tq, Tk, scale * LOG2E, causal, q_off, k_off,
+      lo, hi, qstat, iv_b);
   return (int)cudaGetLastError();
 }
 
-template <int D, typename OutT>
+template <int D, typename OutT, bool IV>
 static int launch_dkdv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int H, int Hkv, int Tq,
-                       int Tk, float scale, int causal, int q_off, int k_off,
+                       int Tk, float scale, int causal, int q_off, int k_off, const int* lo,
+                       const int* hi, const int* qstat, const int* kblk, int iv_b,
                        cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mdo;
   int e;
@@ -916,21 +1080,21 @@ static int launch_dkdv(const void* q, const void* k, const void* v,
   if ((e = make_map(&mdo, dout, B * H, Tq, D, DKV_BM))) return e;
   const size_t smem = dkv_smem_bytes<D>();
   cudaError_t ce = cudaFuncSetAttribute(
-      fa_bwd_dkdv_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_bwd_dkdv_kernel<D, OutT, IV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (ce != cudaSuccess) return (int)ce;
   dim3 grid(B * H, (Tk + DKV_BN - 1) / DKV_BN);
-  fa_bwd_dkdv_kernel<D, OutT><<<grid, FA_THREADS, smem, stream>>>(
+  fa_bwd_dkdv_kernel<D, OutT, IV><<<grid, FA_THREADS, smem, stream>>>(
       mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (OutT*)dk, (OutT*)dv, H, Hkv,
-      Tq, Tk, scale, causal, q_off, k_off);
+      Tq, Tk, scale, causal, q_off, k_off, lo, hi, qstat, kblk, iv_b);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool IV>
 static int launch_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int B, int H, int Hkv, int Tq, int Tk,
-                     float scale, int causal, int q_off, int k_off,
-                     cudaStream_t stream) {
+                     float scale, int causal, int q_off, int k_off, const int* lo,
+                     const int* hi, const int* qstat, int iv_b, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mdo;
   int e;
   if ((e = make_map(&mq, q, B * H, Tq, D, FWD_BM))) return e;
@@ -939,25 +1103,33 @@ static int launch_dq(const void* q, const void* k, const void* v,
   if ((e = make_map(&mdo, dout, B * H, Tq, D, FWD_BM))) return e;
   const size_t smem = dq_smem_bytes<D>();
   cudaError_t ce = cudaFuncSetAttribute(
-      fa_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_bwd_dq_kernel<D, IV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (ce != cudaSuccess) return (int)ce;
   dim3 grid(B * H, (Tq + FWD_BM - 1) / FWD_BM);
-  fa_bwd_dq_kernel<D><<<grid, FA_THREADS, smem, stream>>>(
+  fa_bwd_dq_kernel<D, IV><<<grid, FA_THREADS, smem, stream>>>(
       mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (bf16*)dq, H, Hkv, Tq, Tk,
-      scale, causal, q_off, k_off);
+      scale, causal, q_off, k_off, lo, hi, qstat, iv_b);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
+// lo / hi / qstat (and kblk for dk/dv): the interval tables of
+// flash_attention.py (_interval_tables), or null for the causal / unmasked
+// kernels; iv_b: 1 if the tables hold one row a batch row, 0 if one for all
 int fa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int H, int Hkv, int Tq, int Tk, int D, float scale,
-           int causal, int q_off, int k_off, void* stream) {
+           int causal, int q_off, int k_off, const int* lo, const int* hi,
+           const int* qstat, int iv_b, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64)
-    return launch_fwd<64>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, scale, causal, q_off, k_off, s);
-  if (D == 128)
-    return launch_fwd<128>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, scale, causal, q_off, k_off, s);
+#define FA_FWD(DIM, IV)                                                                  \
+  return launch_fwd<DIM, IV>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, scale, causal, q_off, k_off, \
+                             lo, hi, qstat, iv_b, s)
+  if (D == 64 && lo) FA_FWD(64, true);
+  if (D == 64) FA_FWD(64, false);
+  if (D == 128 && lo) FA_FWD(128, true);
+  if (D == 128) FA_FWD(128, false);
+#undef FA_FWD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -965,15 +1137,20 @@ int fa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 int fa_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dk, void* dv, int B,
                 int H, int Hkv, int Tq, int Tk, int D, float scale, int causal,
-                int q_off, int k_off, int out_bf16, void* stream) {
+                int q_off, int k_off, int out_bf16, const int* lo, const int* hi,
+                const int* qstat, const int* kblk, int iv_b, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define FA_DKDV(DIM, T)                                                        \
-  return launch_dkdv<DIM, T>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Tq, \
-                             Tk, scale, causal, q_off, k_off, s)
-  if (D == 64 && out_bf16) FA_DKDV(64, bf16);
-  if (D == 64) FA_DKDV(64, float);
-  if (D == 128 && out_bf16) FA_DKDV(128, bf16);
-  if (D == 128) FA_DKDV(128, float);
+#define FA_DKDV(DIM, T, IV)                                                           \
+  return launch_dkdv<DIM, T, IV>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Tq, Tk, \
+                                 scale, causal, q_off, k_off, lo, hi, qstat, kblk, iv_b, s)
+#define FA_DKDV_IV(DIM, T) \
+  if (lo) FA_DKDV(DIM, T, true); \
+  FA_DKDV(DIM, T, false)
+  if (D == 64 && out_bf16) { FA_DKDV_IV(64, bf16); }
+  if (D == 64) { FA_DKDV_IV(64, float); }
+  if (D == 128 && out_bf16) { FA_DKDV_IV(128, bf16); }
+  if (D == 128) { FA_DKDV_IV(128, float); }
+#undef FA_DKDV_IV
 #undef FA_DKDV
   return (int)cudaErrorInvalidValue;
 }
@@ -981,14 +1158,17 @@ int fa_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
 int fa_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int H,
               int Hkv, int Tq, int Tk, int D, float scale, int causal,
-              int q_off, int k_off, void* stream) {
+              int q_off, int k_off, const int* lo, const int* hi, const int* qstat,
+              int iv_b, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64)
-    return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Tq, Tk,
-                         scale, causal, q_off, k_off, s);
-  if (D == 128)
-    return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Tq, Tk,
-                          scale, causal, q_off, k_off, s);
+#define FA_DQ(DIM, IV)                                                                      \
+  return launch_dq<DIM, IV>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Tq, Tk, scale, causal, \
+                            q_off, k_off, lo, hi, qstat, iv_b, s)
+  if (D == 64 && lo) FA_DQ(64, true);
+  if (D == 64) FA_DQ(64, false);
+  if (D == 128 && lo) FA_DQ(128, true);
+  if (D == 128) FA_DQ(128, false);
+#undef FA_DQ
   return (int)cudaErrorInvalidValue;
 }
 

@@ -28,6 +28,7 @@
 #include <cstdio>
 #include <cstring>
 #include <mutex>
+#include <unistd.h>  // ftruncate, fileno
 #include <string>
 #include <unordered_map>
 #include <vector>
@@ -650,6 +651,16 @@ int64_t kv_delete_before_timestamp(void* h, int64_t ts_limit) {
 // Concurrency contract: the embedding wrapper's tier lock (tiered.py
 // _RWLock) serializes tier MOVES against gathers; within that contract
 // the cold store needs only its own mutex for file/index access.
+//
+// Failed writes (this copy's repair of the reference's log): the log is
+// unbuffered and each record is one write, so the bytes on disk are what
+// the writes reported. An append that fails (a short write: ENOSPC, a
+// file-size limit) cuts the log back to where the record began, so the
+// next append never lands after a torn record; a log that cannot be cut
+// marks the store failed, and it refuses every later append. An eviction
+// that fails in any bucket rolls the whole call back (the log, the index
+// and the max seq): every row of the call stays hot, and the same seq can
+// run again.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -674,20 +685,44 @@ struct ColdStore {
   std::FILE* f = nullptr;
   int64_t row_floats = 0;
   int64_t max_seq = 0;
+  bool failed = false;  // the log could not be cut back after a failed write
   std::unordered_map<int64_t, ColdEnt> index;
+  std::vector<char> rec;  // one record's bytes, written at once
 };
+
+int64_t cold_end(ColdStore* c) {
+  std::fseek(c->f, 0, SEEK_END);
+  return static_cast<int64_t>(std::ftell(c->f));
+}
+
+// Cut the log back to `size` bytes; false (and the store failed) if it
+// cannot be cut.
+bool cold_truncate(ColdStore* c, int64_t size) {
+  std::clearerr(c->f);
+  if (ftruncate(fileno(c->f), static_cast<off_t>(size)) != 0) {
+    c->failed = true;
+    return false;
+  }
+  std::fseek(c->f, static_cast<long>(size), SEEK_SET);
+  return true;
+}
 
 bool cold_append(ColdStore* c, const ColdRecHeader& hdr,
                  const float* row) {
-  std::fseek(c->f, 0, SEEK_END);
-  if (std::fwrite(&hdr, sizeof(hdr), 1, c->f) != 1) return false;
+  if (c->failed) return false;
+  const int64_t start = cold_end(c);
+  const size_t payload_bytes =
+      hdr.kind == 1 ? sizeof(float) * static_cast<size_t>(c->row_floats) : 0;
+  c->rec.resize(sizeof(hdr) + payload_bytes);
+  std::memcpy(c->rec.data(), &hdr, sizeof(hdr));
+  if (payload_bytes) std::memcpy(c->rec.data() + sizeof(hdr), row, payload_bytes);
+  if (std::fwrite(c->rec.data(), 1, c->rec.size(), c->f) != c->rec.size()) {
+    cold_truncate(c, start);  // no torn record stays in the log
+    return false;
+  }
   if (hdr.kind == 1) {
-    int64_t payload = std::ftell(c->f);
-    if (std::fwrite(row, sizeof(float),
-                    static_cast<size_t>(c->row_floats),
-                    c->f) != static_cast<size_t>(c->row_floats))
-      return false;
-    c->index[hdr.key] = ColdEnt{payload, hdr.freq, hdr.ts, hdr.seq};
+    c->index[hdr.key] =
+        ColdEnt{start + static_cast<int64_t>(sizeof(hdr)), hdr.freq, hdr.ts, hdr.seq};
   } else {
     c->index.erase(hdr.key);
   }
@@ -706,6 +741,9 @@ void* cold_open(const char* path, int64_t row_floats) {
   std::FILE* f = std::fopen(path, "r+b");
   if (!f) f = std::fopen(path, "w+b");
   if (!f) return nullptr;
+  // unbuffered: a record's bytes reach the file in its own write, so a
+  // failed write is seen (and cut back) at that record
+  std::setvbuf(f, nullptr, _IONBF, 0);
   ColdStore* c = new ColdStore();
   c->f = f;
   c->row_floats = row_floats;
@@ -757,29 +795,45 @@ int64_t cold_max_seq(void* h) {
 
 // Move every hot row last touched before ts_limit into the cold log,
 // stamped with eviction sequence `seq`. Returns the number moved (or
-// -1 on a write error; rows stay hot on failure).
+// -1 on a write error; then no row of the call left the hot store, the
+// log, its index and max seq are as before the call, and the same seq
+// can run again). Every bucket is held for the call: the rows are
+// written first and leave the hot store only once all are in the log.
 int64_t kv_evict_to_cold(void* hot_h, void* cold_h, int64_t ts_limit,
                          int64_t seq) {
   Store* s = static_cast<Store*>(hot_h);
   ColdStore* c = static_cast<ColdStore*>(cold_h);
-  int64_t moved = 0;
   std::lock_guard<std::mutex> cg(c->mu);
+  if (c->failed) return -1;
+  std::vector<std::unique_lock<std::mutex>> held;
+  held.reserve(kNumBuckets);
+  for (auto& b : s->buckets) held.emplace_back(b.mu);
+  const int64_t start = cold_end(c);
+  const int64_t max_seq = c->max_seq;
+  // (bucket, key) of each row written, and the index entry it replaced
+  std::vector<std::pair<Bucket*, int64_t>> rows;
+  std::vector<std::pair<int64_t, ColdEnt>> replaced;
+  std::vector<int64_t> added;
   for (auto& b : s->buckets) {
-    std::lock_guard<std::mutex> g(b.mu);
-    for (auto it = b.map.begin(); it != b.map.end();) {
-      if (it->second.ts >= ts_limit) {
-        ++it;
-        continue;
+    for (auto& kv : b.map) {
+      if (kv.second.ts >= ts_limit) continue;
+      auto old = c->index.find(kv.first);
+      if (old != c->index.end()) replaced.emplace_back(*old);
+      else added.push_back(kv.first);
+      ColdRecHeader hdr{kv.first, kv.second.freq, kv.second.ts, seq, 1};
+      if (!cold_append(c, hdr, kv.second.data.data())) {
+        // roll the call back: the log to its start, the index, max seq
+        if (!c->failed) cold_truncate(c, start);
+        for (int64_t k : added) c->index.erase(k);
+        for (auto& e : replaced) c->index[e.first] = e.second;
+        c->max_seq = max_seq;
+        return -1;
       }
-      ColdRecHeader hdr{it->first, it->second.freq, it->second.ts, seq,
-                        1};
-      if (!cold_append(c, hdr, it->second.data.data())) return -1;
-      it = b.map.erase(it);
-      ++moved;
+      rows.emplace_back(&b, kv.first);
     }
   }
-  std::fflush(c->f);
-  return moved;
+  for (auto& r : rows) r.first->map.erase(r.second);
+  return static_cast<int64_t>(rows.size());
 }
 
 // Fault keys present in the cold tier back into the hot store (values
@@ -816,7 +870,6 @@ int64_t kv_fault_from_cold(void* hot_h, void* cold_h,
     if (!cold_append(c, tomb, nullptr)) return -1;
     ++moved;
   }
-  std::fflush(c->f);
   return moved;
 }
 

@@ -22,12 +22,25 @@ reduction outside the kernels, as in the JAX code. The backward
 kernels write bf16 gradients, except dk/dv under GQA: those are written
 in f32 per query head and each group is summed outside the kernel.
 
+Masks: the JAX package's kernels take any ``mask_fn(q_pos, k_pos)``. A
+Python callable cannot enter a CUDA kernel, so the kernels take one
+declared family, ``KeyIntervals``: per query row the visible keys are
+``[lo, hi)`` at global positions (causal, a GLM prefix, a sliding
+window, packed documents, rows that see nothing). It is also callable as
+``(q_pos, k_pos) -> bool``, so the plain version, and the JAX package in
+the tests, run the same mask as a function.
+
 Dispatch is by device: a tensor on the CPU takes the plain PyTorch
 version (``flash_attention_reference`` forward, ``_bwd_plain``
-backward); a CUDA tensor takes the kernels or raises
-``NotImplementedError`` for what they do not take (a ``mask_fn``, a
-dtype other than bf16, head_dim other than 64/128, a length not a
-multiple of 64). Nothing falls back from the card to the plain path.
+backward), with any ``mask_fn``; a CUDA tensor takes the kernels or
+raises ``NotImplementedError`` for what they do not take (a ``mask_fn``
+that is not a ``KeyIntervals``, a dtype other than bf16, head_dim other
+than 64/128, a length not a multiple of 64). Nothing falls back from
+the card to the plain path.
+
+``merge_partials`` and ``flash_attention_fwd_chunked`` are the JAX
+module's online-softmax merge and its tiled long-sequence forward (each
+tile one ``fa_fwd`` launch on the card, the merges plain f32 algebra).
 
 Layouts are the JAX entry's: ``bthd`` (``[B, T, H, D]``, the default)
 or the kernel-native ``bhtd``.
@@ -36,8 +49,9 @@ or the kernel-native ``bhtd``.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30  # finite stand-in for -inf, as in the JAX package
@@ -57,11 +71,15 @@ MaskFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 launch_counts: Dict[str, int] = {"fa_fwd": 0, "fa_bwd_dkdv": 0, "fa_bwd_dq": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# each entry ends with the interval tables (null pointers without
+# intervals), whether they hold one row a batch row, and the stream
 _SIGNATURES = {
-    "fa_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _I, _P],
-    "fa_bwd_dkdv": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _I, _P],
-    "fa_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _I, _P],
+    "fa_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _I] + [_P] * 3 + [_I, _P],
+    "fa_bwd_dkdv": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _I] + [_P] * 4 + [_I, _P],
+    "fa_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _I] + [_P] * 3 + [_I, _P],
 }
+# an empty row's lo and hi in the tile tables (IV_FAR of the source)
+_IV_FAR = 0x3FFFFFFF
 
 
 def reset_launch_counts() -> None:
@@ -80,13 +98,199 @@ def _lib():
     return lib
 
 
+# ---------------------------------------------------------------------------
+# the declared mask family
+# ---------------------------------------------------------------------------
+class KeyIntervals:
+    """Per query row ``q``, the visible keys are ``[lo(q), hi(q))`` at
+    global positions: ``lo`` and ``hi`` int32 ``[B or 1, T]`` over the
+    rows ``0 .. T-1`` (one row for the whole batch, or one a batch row;
+    every head shares them). Rows with ``hi <= lo`` see nothing (their
+    output is 0 and their lse NEG_INF). The constructors give the masks
+    of the family; ``without_rows`` empties rows of any of them.
+
+    Callable as ``(q_pos, k_pos) -> bool`` (1-D position vectors, as the
+    ring and Ulysses hand a mask, or ``[Tq,1]`` / ``[1,Tk]``, as the
+    kernels do): on torch tensors by looking up ``lo`` / ``hi``
+    (``[B, Tq, Tk]`` for per-batch intervals), on other arrays (numpy,
+    JAX) by the constructor's own expression in the positions, so the
+    JAX package can run the same mask."""
+
+    def __init__(self, lo, hi, expr: Optional[Callable] = None, name: str = "intervals"):
+        lo = torch.as_tensor(np.asarray(lo), dtype=torch.int32)
+        hi = torch.as_tensor(np.asarray(hi), dtype=torch.int32)
+        lo, hi = (x[None] if x.dim() == 1 else x for x in (lo, hi))
+        if lo.shape != hi.shape or lo.dim() != 2:
+            raise ValueError(f"lo {tuple(lo.shape)} and hi {tuple(hi.shape)} must be [B, T]")
+        self.lo, self.hi = lo.contiguous(), hi.contiguous()
+        self._expr, self.name = expr, name
+        self._cache: Dict = {}
+
+    @property
+    def T(self) -> int:
+        return self.lo.shape[1]
+
+    @property
+    def batch(self) -> int:
+        return self.lo.shape[0]
+
+    # -- the family --------------------------------------------------------
+    @classmethod
+    def causal(cls, T: int) -> "KeyIntervals":
+        q = np.arange(T)
+        return cls(np.zeros(T), q + 1, lambda q, k: k <= q, "causal")
+
+    @classmethod
+    def prefix(cls, T: int, P: int) -> "KeyIntervals":
+        """The GLM mask: causal, and every row sees the first ``P`` keys
+        (``hi = max(q + 1, P)``)."""
+        q = np.arange(T)
+        return cls(np.zeros(T), np.maximum(q + 1, P),
+                   lambda q, k: (k <= q) | (k < P), f"prefix{P}")
+
+    @classmethod
+    def window(cls, T: int, w: int) -> "KeyIntervals":
+        """Causal sliding window of ``w`` keys (``lo = q - w + 1``)."""
+        q = np.arange(T)
+        return cls(np.maximum(q - w + 1, 0), q + 1,
+                   lambda q, k: (k <= q) & (k > q - w), f"window{w}")
+
+    @classmethod
+    def documents(cls, doc_ids) -> "KeyIntervals":
+        """Packed documents, causal within each: ``doc_ids`` ``[B or 1,
+        T]`` (or ``[T]``) labels each position's document, documents
+        contiguous; ``lo`` is the first position of the row's
+        document."""
+        ids = np.asarray(doc_ids)
+        ids = ids[None] if ids.ndim == 1 else ids
+        T = ids.shape[1]
+        lo = np.zeros(ids.shape, np.int64)
+        starts_of = []
+        for b in range(ids.shape[0]):
+            starts = np.concatenate([[0], np.flatnonzero(np.diff(ids[b])) + 1])
+            lo[b] = starts[np.searchsorted(starts, np.arange(T), side="right") - 1]
+            starts_of.append([int(x) for x in starts])
+        expr = None
+        if ids.shape[0] == 1:
+            st = starts_of[0]
+
+            def expr(q, k):
+                # the row's document start, from comparisons alone
+                first = 0
+                for a, b in zip(st[:-1], st[1:]):
+                    first = first + (q >= b) * (b - a)
+                return (k >= first) & (k <= q)
+
+        return cls(lo, np.arange(T)[None] + 1 + 0 * lo, expr, "documents")
+
+    def without_rows(self, rows: Sequence[int]) -> "KeyIntervals":
+        """The same mask with the query ``rows`` seeing no key."""
+        rows = [int(r) for r in rows]
+        lo, hi = self.lo.clone(), self.hi.clone()
+        hi[:, rows] = lo[:, rows]
+        expr = None
+        if self._expr is not None:
+            base = self._expr
+
+            def expr(q, k):
+                keep = base(q, k)
+                for r in rows:
+                    keep = keep & (q != r)
+                return keep
+
+        return KeyIntervals(lo, hi, expr, f"{self.name}-empty{len(rows)}")
+
+    # -- as a mask function ------------------------------------------------
+    def __call__(self, q_pos, k_pos):
+        if getattr(q_pos, "ndim", 2) == 1:
+            q_pos, k_pos = q_pos[:, None], k_pos[None, :]
+        if isinstance(q_pos, torch.Tensor):
+            idx = q_pos.reshape(-1).long().cpu()
+            lo = self.lo[:, idx].to(q_pos.device)[..., None]
+            hi = self.hi[:, idx].to(q_pos.device)[..., None]
+            m = (k_pos.reshape(1, 1, -1) >= lo) & (k_pos.reshape(1, 1, -1) < hi)
+            return m[0] if self.batch == 1 else m
+        if self._expr is not None:
+            return self._expr(q_pos, k_pos)
+        qi = np.asarray(q_pos).reshape(-1)
+        k = np.asarray(k_pos).reshape(1, 1, -1)
+        m = (k >= self.lo.numpy()[:, qi, None]) & (k < self.hi.numpy()[:, qi, None])
+        return m[0] if self.batch == 1 else m
+
+    # -- what the kernels and the drivers read ------------------------------
+    def check_rows(self, B: int, q_offset: int, Tq: int) -> None:
+        if self.batch not in (1, B):
+            raise ValueError(f"intervals of batch {self.batch} for a batch of {B}")
+        if q_offset < 0 or q_offset + Tq > self.T:
+            raise ValueError(
+                f"query rows [{q_offset}, {q_offset + Tq}) outside the intervals' "
+                f"{self.T} rows"
+            )
+
+    def visible(self, q_offset: int, Tq: int, k_offset: int, Tk: int) -> np.ndarray:
+        """Visible keys of each row ``[batch, Tq]``, counted on the host."""
+        lo = self.lo[:, q_offset:q_offset + Tq].numpy().astype(np.int64)
+        hi = self.hi[:, q_offset:q_offset + Tq].numpy().astype(np.int64)
+        return np.clip(np.minimum(hi, k_offset + Tk) - np.maximum(lo, k_offset), 0, None)
+
+    def any_visible(self, q_offset: int, Tq: int, k_offset: int, Tk: int) -> bool:
+        return bool(self.visible(q_offset, Tq, k_offset, Tk).any())
+
+    def tables(self, device, q_offset: int, Tq: int, k_offset: int, Tk: int):
+        """(lo, hi, qstat, kblk) of the call's rows on ``device`` (cached):
+        ``lo`` / ``hi`` ``[Bi, Tq]``; ``qstat [Bi, Tq/64, 4]`` each 64-row
+        tile's (min lo, max lo, min hi, max hi), empty rows counted as
+        ``lo = +IV_FAR``, ``hi = -IV_FAR``; ``kblk [Bi, ceil(Tk/128), 2]``
+        each 128-key block's first and past-the-last query tile with a
+        visible pair (both 0 if none)."""
+        key = (str(device), q_offset, Tq, k_offset, Tk)
+        hit = self._cache.get(key)
+        if hit is not None:
+            return hit
+        lo = self.lo[:, q_offset:q_offset + Tq]
+        hi = self.hi[:, q_offset:q_offset + Tq]
+        empty = hi <= lo
+        los = torch.where(empty, _IV_FAR, lo).view(self.batch, -1, _TILE)
+        his = torch.where(empty, -_IV_FAR, hi).view(self.batch, -1, _TILE)
+        qstat = torch.stack(
+            [los.amin(-1), los.amax(-1), his.amin(-1), his.amax(-1)], -1
+        ).int()
+        kstart = k_offset + DKV_BLOCK_K * torch.arange(-(-Tk // DKV_BLOCK_K))
+        kend = torch.clamp(kstart + DKV_BLOCK_K, max=k_offset + Tk)
+        vis = (qstat[..., 0:1] < kend) & (qstat[..., 3:4] > kstart)  # [Bi, nQ, nKB]
+        nq = vis.shape[1]
+        seen = vis.any(1)
+        first = vis.int().argmax(1)
+        last = nq - vis.flip(1).int().argmax(1)
+        kblk = torch.stack(
+            [torch.where(seen, first, 0), torch.where(seen, last, 0)], -1
+        ).int()
+        out = tuple(
+            t.contiguous().to(device) for t in (lo, hi, qstat, kblk)
+        )
+        self._cache[key] = out
+        return out
+
+    def __repr__(self) -> str:
+        return f"KeyIntervals({self.name}, batch={self.batch}, T={self.T})"
+
+
 def _mask_for_block(q_pos, k_pos, causal, mask_fn):
-    """[Tq,1] x [1,Tk] positions -> bool mask or None (= all visible)."""
+    """[Tq,1] x [1,Tk] positions -> bool mask ([Tq,Tk], or [B,Tq,Tk] for
+    per-batch intervals) or None (= all visible)."""
     if mask_fn is not None:
         return mask_fn(q_pos, k_pos)
     if causal:
         return q_pos >= k_pos
     return None
+
+
+def _apply_mask(s, mask):
+    """Scores ``[B,H,Tq,Tk]`` with the masked pairs at NEG_INF."""
+    if mask is None:
+        return s
+    m = mask[:, None] if mask.dim() == 3 else mask[None, None]
+    return torch.where(m, s, NEG_INF)
 
 
 def _swap(x, layout):
@@ -125,9 +329,7 @@ def flash_attention_reference(
     Tq, Tk = q.shape[1], k.shape[1]
     q_pos = (q_offset + torch.arange(Tq, device=q.device))[:, None]
     k_pos = (k_offset + torch.arange(Tk, device=q.device))[None, :]
-    mask = _mask_for_block(q_pos, k_pos, causal, mask_fn)
-    if mask is not None:
-        s = torch.where(mask[None, None], s, NEG_INF)
+    s = _apply_mask(s, _mask_for_block(q_pos, k_pos, causal, mask_fn))
     m = s.amax(-1, keepdim=True)
     m_safe = m.clamp_min(NEG_INF)
     p = torch.exp(s - m_safe)
@@ -156,9 +358,7 @@ def _bwd_plain(qt, kt, vt, dot, lse, delta, scale, causal, mask_fn,
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
     q_pos = (q_offset + torch.arange(Tq, device=qt.device))[:, None]
     k_pos = (k_offset + torch.arange(Tk, device=qt.device))[None, :]
-    mask = _mask_for_block(q_pos, k_pos, causal, mask_fn)
-    if mask is not None:
-        s = torch.where(mask[None, None], s, NEG_INF)
+    s = _apply_mask(s, _mask_for_block(q_pos, k_pos, causal, mask_fn))
     lse4 = lse[..., None]
     p = torch.where(lse4 > NEG_INF * 0.5, torch.exp(s - lse4), 0.0)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
@@ -176,10 +376,13 @@ def _bwd_plain(qt, kt, vt, dot, lse, delta, scale, causal, mask_fn,
 # kernel wrappers ([B,H,T,D] contiguous bf16 on one CUDA device)
 # ---------------------------------------------------------------------------
 def _check_cuda(q, k, v, mask_fn, q_offset, k_offset):
-    if mask_fn is not None:
+    if mask_fn is not None and not isinstance(mask_fn, KeyIntervals):
         raise NotImplementedError(
-            "mask_fn on CUDA: the kernels take causal or no mask only "
-            "(ROADMAP A3); run a custom mask on the CPU reference"
+            "mask_fn on CUDA must be a KeyIntervals: the kernels take one "
+            "declared mask family, per query row the visible keys [lo, hi) "
+            "at global positions (causal, prefix, sliding window, packed "
+            f"documents, rows that see nothing); got {mask_fn!r}. Run any "
+            "other mask on the CPU reference"
         )
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
@@ -203,6 +406,18 @@ def _check_cuda(q, k, v, mask_fn, q_offset, k_offset):
         raise ValueError(f"{Hkv} kv heads do not divide {H} heads")
     if not (isinstance(q_offset, int) and isinstance(k_offset, int)):
         raise NotImplementedError("the kernels take int offsets only")
+    if mask_fn is not None:
+        mask_fn.check_rows(B, q_offset, Tq)
+
+
+def _iv_args(iv, device, q_offset, Tq, k_offset, Tk, dkv=False):
+    """The C entries' interval arguments: pointers to the tables (null
+    without intervals) and whether they hold a row a batch row."""
+    if iv is None:
+        return (None,) * (4 if dkv else 3) + (0,)
+    lo, hi, qstat, kblk = iv.tables(device, q_offset, Tq, k_offset, Tk)
+    ptrs = (lo, hi, qstat, kblk) if dkv else (lo, hi, qstat)
+    return tuple(_ptr(t) for t in ptrs) + (int(iv.batch > 1),)
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -216,19 +431,20 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _fwd_cuda(qt, kt, vt, scale, causal, q_offset, k_offset):
+def _fwd_cuda(qt, kt, vt, scale, causal, q_offset, k_offset, iv=None):
     qt, kt, vt = (_dense(x) for x in (qt, kt, vt))
     B, H, Tq, D = qt.shape
     Hkv, Tk = kt.shape[1], kt.shape[2]
     o = torch.empty_like(qt)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=qt.device)
     lib = _lib()
+    ivargs = _iv_args(iv, qt.device, q_offset, Tq, k_offset, Tk)
     with torch.cuda.device(qt.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fa_fwd(
             _ptr(qt), _ptr(kt), _ptr(vt), _ptr(o), _ptr(lse),
             B, H, Hkv, Tq, Tk, D, float(scale), int(causal),
-            q_offset, k_offset, stream,
+            q_offset, k_offset, *ivargs, stream,
         )
     if err:
         raise RuntimeError(f"fa_fwd launch failed: CUDA error {err}")
@@ -237,11 +453,11 @@ def _fwd_cuda(qt, kt, vt, scale, causal, q_offset, k_offset):
 
 
 def _bwd_launch(name, outs, qt, kt, vt, dot, lse, delta, scale, causal,
-                q_offset, k_offset):
+                q_offset, k_offset, iv=None):
     """One backward kernel (``fa_bwd_dkdv`` writes ``outs = (dk, dv)``
     per q head, bf16 or f32; ``fa_bwd_dq`` writes ``outs = (dq,)``, bf16)
     on contiguous, 16-byte aligned ``[B,H,T,D]`` inputs, f32
-    ``lse``/``delta [B,H,Tq]``."""
+    ``lse``/``delta [B,H,Tq]``; ``iv`` a ``KeyIntervals`` or None."""
     B, H, Tq, D = qt.shape
     Hkv, Tk = kt.shape[1], kt.shape[2]
     out_bf16 = outs[0].dtype == torch.bfloat16
@@ -249,20 +465,21 @@ def _bwd_launch(name, outs, qt, kt, vt, dot, lse, delta, scale, causal,
         raise ValueError("fa_bwd_dq writes bf16")
     flag = (int(out_bf16),) if name == "fa_bwd_dkdv" else ()
     fn = getattr(_lib(), name)
+    ivargs = _iv_args(iv, qt.device, q_offset, Tq, k_offset, Tk, name == "fa_bwd_dkdv")
     with torch.cuda.device(qt.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             _ptr(qt), _ptr(kt), _ptr(vt), _ptr(dot), _ptr(lse), _ptr(delta),
             *(_ptr(o) for o in outs),
             B, H, Hkv, Tq, Tk, D, float(scale), int(causal),
-            q_offset, k_offset, *flag, stream,
+            q_offset, k_offset, *flag, *ivargs, stream,
         )
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
 
 
-def _bwd_cuda(qt, kt, vt, ot, lse, dot, scale, causal, q_offset, k_offset):
+def _bwd_cuda(qt, kt, vt, ot, lse, dot, scale, causal, q_offset, k_offset, iv=None):
     qt, kt, vt, dot = (_dense(x) for x in (qt, kt, vt, dot))
     lse = _dense(lse.float())
     B, H, Tq, D = qt.shape
@@ -275,7 +492,7 @@ def _bwd_cuda(qt, kt, vt, ot, lse, dot, scale, causal, q_offset, k_offset):
     dk = torch.empty((B, H, Tk, D), dtype=gdt, device=qt.device)
     dv = torch.empty_like(dk)
     dq = torch.empty_like(qt)
-    args = (qt, kt, vt, dot, lse, delta, scale, causal, q_offset, k_offset)
+    args = (qt, kt, vt, dot, lse, delta, scale, causal, q_offset, k_offset, iv)
     _bwd_launch("fa_bwd_dkdv", (dk, dv), *args)
     _bwd_launch("fa_bwd_dq", (dq,), *args)
     return dq, dk, dv
@@ -301,7 +518,7 @@ def flash_attention_fwd(
     qt, kt, vt = (_swap(x, layout) for x in (q, k, v))
     if q.device.type == "cuda":
         _check_cuda(qt, kt, vt, mask_fn, q_offset, k_offset)
-        ot, lse = _fwd_cuda(qt, kt, vt, scale, causal, q_offset, k_offset)
+        ot, lse = _fwd_cuda(qt, kt, vt, scale, causal, q_offset, k_offset, mask_fn)
         return _swap(ot, layout), lse
     o, lse = flash_attention_reference(
         *(x.transpose(1, 2) for x in (qt, kt, vt)),
@@ -333,7 +550,7 @@ def flash_attention_bwd(
     if q.device.type == "cuda":
         _check_cuda(qt, kt, vt, mask_fn, q_offset, k_offset)
         dq, dk, dv = _bwd_cuda(
-            qt, kt, vt, ot, lse, dot, scale, causal, q_offset, k_offset
+            qt, kt, vt, ot, lse, dot, scale, causal, q_offset, k_offset, mask_fn
         )
     else:
         delta = (dot.float() * ot.float()).sum(-1)
@@ -359,24 +576,24 @@ class _FlashAttention(torch.autograd.Function):
     runs the plain versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, q_offset, k_offset, layout):
+    def forward(ctx, q, k, v, causal, sm_scale, q_offset, k_offset, layout, mask_fn=None):
         o, lse = flash_attention_fwd(
-            q, k, v, causal=causal, sm_scale=sm_scale,
+            q, k, v, causal=causal, sm_scale=sm_scale, mask_fn=mask_fn,
             q_offset=q_offset, k_offset=k_offset, layout=layout,
         )
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (causal, sm_scale, q_offset, k_offset, layout)
+        ctx.args = (causal, sm_scale, q_offset, k_offset, layout, mask_fn)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, sm_scale, q_offset, k_offset, layout = ctx.args
+        causal, sm_scale, q_offset, k_offset, layout, mask_fn = ctx.args
         dq, dk, dv = flash_attention_bwd(
-            q, k, v, o, lse, do, causal=causal, sm_scale=sm_scale,
+            q, k, v, o, lse, do, causal=causal, sm_scale=sm_scale, mask_fn=mask_fn,
             q_offset=q_offset, k_offset=k_offset, layout=layout,
         )
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -396,8 +613,10 @@ def flash_attention(
     ``[B,H,T,D]`` with ``layout="bhtd"``), differentiable.
 
     ``return_residuals`` returns the raw forward ``(o, lse)`` (callers
-    own the gradient, as the JAX entry). A ``mask_fn`` runs the
-    materialized reference on the CPU and raises on CUDA."""
+    own the gradient, as the JAX entry). A ``KeyIntervals`` mask runs the
+    kernels on CUDA (the plain versions on the CPU); any other
+    ``mask_fn`` runs the materialized reference on the CPU and raises on
+    CUDA."""
     if layout not in ("bthd", "bhtd"):
         raise ValueError(f"unknown layout {layout!r}")
     if return_residuals:
@@ -405,7 +624,7 @@ def flash_attention(
             q, k, v, causal=causal, sm_scale=sm_scale, mask_fn=mask_fn,
             q_offset=q_offset, k_offset=k_offset, layout=layout,
         )
-    if mask_fn is not None:
+    if mask_fn is not None and not isinstance(mask_fn, KeyIntervals):
         if q.device.type == "cuda":
             _check_cuda(q, k, v, mask_fn, q_offset, k_offset)  # raises
         if layout == "bhtd":
@@ -417,5 +636,84 @@ def flash_attention(
         )
         return o if layout == "bthd" else o.transpose(1, 2)
     return _FlashAttention.apply(
-        q, k, v, causal, sm_scale, q_offset, k_offset, layout
+        q, k, v, causal, sm_scale, q_offset, k_offset, layout, mask_fn
     )
+
+
+# ---------------------------------------------------------------------------
+# partial results: the merge and the tiled long-sequence forward
+# ---------------------------------------------------------------------------
+# the JAX module's fused-kernel limit, its chunked driver's default tile
+_CHUNK = 1024
+
+
+def merge_partials(o_a, lse_a, o_b, lse_b):
+    """Online-softmax merge of two partial attention results over the
+    same queries and different keys (the JAX ``merge_partials``): ``o``
+    ``[B,T,H,D]`` f32 normalized, ``lse`` ``[B,H,T]`` f32. Plain tensor
+    algebra, shared by the ring's hops and the chunked forward."""
+    lse_new = torch.logaddexp(lse_a, lse_b)
+    w_a = torch.exp(lse_a - lse_new).transpose(1, 2)[..., None]
+    w_b = torch.exp(lse_b - lse_new).transpose(1, 2)[..., None]
+    return o_a * w_a + o_b * w_b, lse_new
+
+
+def _tile_visible(causal, mask_fn, q_offset, Tq, k_offset, Tk) -> bool:
+    """Whether a (query, key) tile has a visible pair, decided on the
+    host: the causal diagonal, or the intervals' counts."""
+    if isinstance(mask_fn, KeyIntervals):
+        return mask_fn.any_visible(q_offset, Tq, k_offset, Tk)
+    if mask_fn is None and causal:
+        return q_offset + Tq - 1 >= k_offset
+    return True
+
+
+def flash_attention_fwd_chunked(
+    q,
+    k,
+    v,
+    *,
+    causal: bool = True,
+    sm_scale=None,
+    mask_fn: Optional[MaskFn] = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+    chunk: int = _CHUNK,
+):
+    """Long-sequence forward as ``[chunk x chunk]`` tile calls of
+    ``flash_attention_fwd`` (on the card, one ``fa_fwd`` launch each)
+    merged by ``merge_partials`` (the JAX ``flash_attention_fwd_chunked``,
+    ``[B,T,H,D]``). Tiles with no visible pair are skipped: above the
+    causal diagonal, as the JAX driver skips them, and under
+    ``KeyIntervals`` wherever no row sees the tile's keys. Returns
+    ``(o, lse [B,H,Tq])``."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    if Tq % chunk or Tk % chunk or chunk % 8:
+        raise ValueError(f"Tq={Tq}/Tk={Tk} must divide into 8-aligned chunk={chunk}")
+    if not isinstance(q_offset, int) or not isinstance(k_offset, int):
+        raise ValueError("the chunked driver needs int offsets (tile skipping is decided on the host)")
+    o_parts, lse_parts = [], []
+    for i in range(Tq // chunk):
+        qi = q[:, i * chunk:(i + 1) * chunk]
+        o_acc = lse_acc = None
+        for j in range(Tk // chunk):
+            qo, ko = q_offset + i * chunk, k_offset + j * chunk
+            if not _tile_visible(causal, mask_fn, qo, chunk, ko, chunk):
+                continue
+            o_j, lse_j = flash_attention_fwd(
+                qi, k[:, j * chunk:(j + 1) * chunk], v[:, j * chunk:(j + 1) * chunk],
+                causal=causal, sm_scale=sm_scale, mask_fn=mask_fn,
+                q_offset=qo, k_offset=ko,
+            )
+            o_j = o_j.float()
+            if o_acc is None:
+                o_acc, lse_acc = o_j, lse_j
+            else:
+                o_acc, lse_acc = merge_partials(o_acc, lse_acc, o_j, lse_j)
+        if o_acc is None:  # no key visible to any row of the tile
+            o_acc = torch.zeros((B, chunk, H, D), dtype=torch.float32, device=q.device)
+            lse_acc = torch.full((B, H, chunk), NEG_INF, dtype=torch.float32, device=q.device)
+        o_parts.append(o_acc)
+        lse_parts.append(lse_acc)
+    return torch.cat(o_parts, 1).to(q.dtype), torch.cat(lse_parts, 2)

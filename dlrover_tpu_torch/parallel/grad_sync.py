@@ -16,15 +16,23 @@ leg's group and waited for before the next leg reads it:
 
 - **flat dp** (``_dp_leg_flat``): a reduce-scatter and an all-gather a
   bucket. int8: one shared scale a bucket (a MAX all-reduce of the
-  local absmax over the data axes), int8 codes summed in int32,
-  dequantized, and the local quantization error carried in the
-  error-feedback residual;
+  local absmax over the data axes); the int8 codes cross the wire as
+  int8 (``_sum_codes``: an all-to-all hands each rank its chunk of every
+  rank's codes, summed locally in int32, and the summed chunk is
+  all-gathered as int16, |sum| <= 127 x n fitting int16 up to n = 258
+  ranks, int32 above; the int16 sums travel as their bytes, since
+  neither gloo nor NCCL has an int16 collective), dequantized, and the
+  local quantization error carried in the error-feedback residual.
+  Integer sums are exact, so the sums are bitwise what an int32
+  reduce-scatter gave;
 - **two-level** (``_dp_leg_2level``, a hybrid dp axis of ``slices``):
   a slice-local reduce-scatter, a cross-slice all-reduce of the shard
   on the stripe groups, a slice-local all-gather. int8 runs on the
-  cross-slice leg; ``int8_topk`` ships only the top-k blocks of the
-  shard (``TOPK_BLOCK`` elements each, k fixed by the shard's length),
-  the rest rides the residual;
+  cross-slice leg (``_sum_codes`` over the stripe group);
+  ``int8_topk`` quantizes only the top-k blocks of the shard
+  (``TOPK_BLOCK`` elements each, k fixed by the shard's length; the
+  codes of the other blocks are 0 and ship as such), the rest rides the
+  residual;
 - **ZeRO** (``zero``, dp x fsdp): a reduce-scatter over fsdp into this
   rank's shard, then the dp legs above on the 1/fsdp chunk; there is no
   all-gather over fsdp. The port lays a zero bucket out rank-major by
@@ -32,12 +40,24 @@ leg's group and waited for before the next leg reads it:
   so that a rank's shard is its rows of every leaf, which the per-leaf
   8-bit AdamW updates as the JAX package updates the whole leaf, block
   for block. The JAX package's zero bucket is its leaves back to back;
-  the two differ only by that per-leaf block padding.
+  the two differ only by that per-leaf block padding;
+- **sequence parallelism** (kind ``tp`` with ``auto_axes=("sp",)`` and
+  ``model_shard=1``, dp x sp): sp shards no parameter, so every rank's
+  gradient is a partial sum over its sequence block. Each bucket is
+  first summed over the ``sp`` group (an all-reduce), then takes the dp
+  legs above (flat; int8 on them as on a dp plan). A mesh with sp and
+  no dp resolves to no plan, as in the JAX package, and the train
+  step's default path makes the same sp sum.
 
 The collectives run on CUDA tensors on NCCL and on gloo alike (gloo
 takes every one of them on CUDA tensors in the card's torch: the
 ``dp`` phase of ``chip_smoke.py`` probes it), and on CPU tensors over
 gloo.
+
+``BucketPlan.wire_bytes`` prices the compressed legs as they ship (the
+int8 codes, plus the all-gather of their int16 sums, which the JAX
+package's count leaves out; ``int8_topk`` as the dense int8 shard it
+ships); every other byte count is the JAX package's.
 
 ``grad_compress="auto"`` (``resolve_auto_compress``) and
 ``grad_bucket_mb=0`` (``resolve_bucket_bytes``) resolve from the
@@ -46,7 +66,8 @@ folded in), and ``comm_time_per_device_s`` / ``comm_time_legs_s`` price
 a sync's wire time per link from it, as in the JAX package.
 
 What raises instead, naming the ROADMAP item that brings it: plans of
-kind ``tp``, ``ep`` and ``3d`` (A10 / A11), ``pp`` (A11).
+kind ``tp`` over a tp axis (``model_shard > 1``) and ``3d`` (A10),
+``ep`` and ``pp`` (A11).
 """
 
 from __future__ import annotations
@@ -84,6 +105,13 @@ def _not_ported(kind: str) -> NotImplementedError:
     )
 
 
+def _check_ported(kind: str, model_shard: int = 1) -> None:
+    """Raise for the plan kinds the port has no sync for; the ``tp``
+    kind of a dp x sp mesh (no axis shards params) it has."""
+    if kind in _KIND_ITEM and not (kind == "tp" and model_shard == 1):
+        raise _not_ported(kind)
+
+
 # assumed fraction of sync wire time hidden behind backward compute
 # once the sync is bucketed (used by the dry-runner's comm-cost term
 # and reported as the analytic ``comm_overlap_pct`` on backends where
@@ -95,6 +123,15 @@ OVERLAP_HIDDEN_FRACTION = 0.7
 # int8 payload: 1 byte/element + one fp32 scale per bucket
 _INT8_BYTES = 1
 _SCALE_BYTES = 4
+# the all-gather of summed int8 codes ships int16 while |sum| <= 127 x n
+# fits it (n <= 258 ranks summing), int32 above
+_CODE_SUM_MAX_RANKS = 32767 // 127
+
+
+def code_sum_dtype_bytes(n: int) -> int:
+    """Bytes an element of the all-gathered sum of ``n`` ranks' int8
+    codes: 2 (int16) up to 258 ranks, 4 (int32) above."""
+    return 2 if n <= _CODE_SUM_MAX_RANKS else 4
 
 # block top-k sparsification of the DCN shard leg (``int8_topk``):
 # the slice-local shard is scored in fixed-size blocks and only the
@@ -429,34 +466,36 @@ class BucketPlan:
         return sum(b.raw_bytes for b in self.buckets)
 
     @property
+    def code_ranks(self) -> int:
+        """Ranks whose int8 codes one sum adds: the stripe group's
+        (``slices``) on two-level plans, else the dp group's."""
+        return self.slices if self.two_level else self.dp
+
+    def code_gather_bytes(self, bucket: Bucket) -> int:
+        """Bytes of the summed codes one rank hands the all-gather: its
+        chunk of the quantized shard, int16 (int32 above 258 ranks)."""
+        n = max(self.code_ranks, 1)
+        return self.shard_elems(bucket) // n * code_sum_dtype_bytes(n)
+
+    @property
     def wire_bytes(self) -> int:
         """Wire bytes of one sync on THIS plan's path (payload
         accounting — the ratio against ``raw_bytes`` is the
         compression win; ``explicit_wire_bytes`` is the ring-adjusted
-        per-device twin)."""
-        if self.sparse:
-            # only the k shipped blocks cross DCN (int8 values + one
-            # int32 index each); the outer fp32 legs bill at padded x 4
+        per-device twin). The compressed legs are priced as they ship:
+        the int8 shard into the all-to-all, one rank's chunk of its
+        int16 sums into the all-gather (``code_gather_bytes``, not in
+        the JAX package's count) and the scale; ``int8_topk`` ships
+        its shard dense (the unshipped blocks as zero codes), where the
+        JAX package prices the k blocks and their indices. The outer
+        fp32 legs (two-level, ZeRO) bill at padded x 4."""
+        if self.compressed:
+            outer = 4 if (self.two_level or self.zero) else 0
             return sum(
-                b.padded * 4
-                + self.topk_blocks(b)[1]
-                * (self.topk_block * _INT8_BYTES + _INDEX_BYTES)
+                b.padded * outer
+                + self.shard_elems(b) * _INT8_BYTES
+                + self.code_gather_bytes(b)
                 + _SCALE_BYTES
-                for b in self.buckets
-            )
-        if self.compress == "int8":
-            if self.two_level or self.zero:
-                # only the innermost quantized leg ships int8 (the
-                # DCN shard / the dp legs' fsdp chunk); the outer
-                # fp32 legs bill at padded x 4
-                return sum(
-                    b.padded * 4
-                    + self.shard_elems(b) * _INT8_BYTES
-                    + _SCALE_BYTES
-                    for b in self.buckets
-                )
-            return sum(
-                b.padded * _INT8_BYTES + _SCALE_BYTES
                 for b in self.buckets
             )
         return self.raw_bytes
@@ -655,8 +694,9 @@ def plan_buckets(
     bucket; the plan never splits a leaf. ``fsdp > 1`` plans the ZeRO
     schedule (padding covers the fsdp scatter too); ``leaf_block > 0``
     pads each leaf to fsdp x whole blocks instead (the port's ZeRO
-    layout, ``BucketPlan.leaf_block``). Model-sharded plans
-    (``auto_axes``, kind ``3d``) are ROADMAP A10 / A11."""
+    layout, ``BucketPlan.leaf_block``). A dp x sp plan (``auto_axes=
+    ("sp",)``, ``model_shard=1``) plans as dp; model-sharded plans (a tp
+    or ep axis, kind ``3d``) are ROADMAP A10 / A11."""
     if compress not in _COMPRESS_MODES:
         raise ValueError(
             f"unknown grad compression {compress!r} "
@@ -694,9 +734,8 @@ def plan_buckets(
             "must be the tp-LOCAL shards — use resolve_plan/"
             "plan_for_mesh, not plan_buckets directly)"
         )
-    if kind in _KIND_ITEM:
-        raise _not_ported(kind)
-    if auto_axes:
+    _check_ported(kind or ("tp" if auto_axes else ""), model_shard)
+    if auto_axes and tuple(auto_axes) != ("sp",):
         raise _not_ported("tp")
     shapes, dtypes = _leaf_meta(leaves)
     buckets: List[Bucket] = []
@@ -889,8 +928,7 @@ def _plan_for_mode(
     params_shape=None, slices: int = 1,
     topk_density: float = AUTO_TOPK_DENSITY, whole_dcn: bool = False,
 ) -> BucketPlan:
-    if mode.kind in _KIND_ITEM:
-        raise _not_ported(mode.kind)
+    _check_ported(mode.kind, mode.model_shard)
     if params_shape is None:
         params_shape = model_leaves(cfg)
     if grad_compress == "auto":
@@ -899,6 +937,10 @@ def _plan_for_mode(
             whole_dcn=whole_dcn,
             auto_axes=mode.auto_axes,
         )
+    if mode.kind == "tp":
+        # the sp sum and flat dp legs (the JAX tp path's one flat psum
+        # a bucket): no DCN shard leg
+        slices = 1
     slices = slices if 1 < slices < mode.dp else 1
     if grad_compress == "int8_topk" and slices <= 1:
         # no cross-slice DCN leg to sparsify — quantization still pays
@@ -914,6 +956,8 @@ def _plan_for_mode(
         compress=grad_compress,
         slices=slices,
         fsdp=mode.fsdp,
+        auto_axes=mode.auto_axes,
+        model_shard=mode.model_shard,
         kind=mode.kind,
         topk_density=topk_density,
         topk_block=TOPK_BLOCK,
@@ -976,8 +1020,7 @@ def resolve_plan(
     if mode is None:
         note_gspmd_fallback(sizes)
         return None
-    if mode.kind in _KIND_ITEM:
-        raise _not_ported(mode.kind)
+    _check_ported(mode.kind, mode.model_shard)
     slices = strategy.mesh.dp_slices()
     return _plan_for_mode(
         cfg,
@@ -996,7 +1039,7 @@ def resolve_plan(
 # -- collectives ------------------------------------------------------------
 
 # every collective issued, by kind (tests count them per step)
-issued = {"reduce_scatter": 0, "all_gather": 0, "all_reduce": 0}
+issued = {"reduce_scatter": 0, "all_to_all": 0, "all_gather": 0, "all_reduce": 0}
 
 
 def reset_counts() -> None:
@@ -1025,6 +1068,42 @@ def _all_gather(inp, group):
     out = torch.empty(inp.numel() * n, dtype=inp.dtype, device=inp.device)
     issued["all_gather"] += 1
     return out, dist.all_gather_into_tensor(out, inp, group=group, async_op=True)
+
+
+def _all_to_all(inp, group):
+    """(this rank's chunk of every group member's ``inp``, in group rank
+    order, handle): chunk j of ``inp`` goes to group rank j."""
+    import torch
+    import torch.distributed as dist
+
+    out = torch.empty_like(inp)
+    issued["all_to_all"] += 1
+    return out, dist.all_to_all_single(out, inp, group=group, async_op=True)
+
+
+def _sum_codes(q, group):
+    """The group's sum of int8 code vectors ``q`` (int16, or int32 above
+    258 ranks), on the wire as they are: an all-to-all hands this rank
+    chunk r of every rank's codes, summed here in int32, and the summed
+    chunks are all-gathered. Integer sums are exact: bitwise what an
+    int32 reduce-scatter and all-gather of the same codes give."""
+    import torch
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    got, h = _all_to_all(q, group)
+    h.wait()
+    chunk = got.view(n, -1).sum(0, dtype=torch.int32)
+    del got
+    if code_sum_dtype_bytes(n) == 4:
+        full, h = _all_gather(chunk, group)
+        h.wait()
+        return full
+    # int16 sums travel as their bytes: neither gloo nor NCCL has an
+    # int16 collective
+    full, h = _all_gather(chunk.to(torch.int16).view(torch.uint8), group)
+    h.wait()
+    return full.view(torch.int16)
 
 
 def _all_reduce(t, group, op=None):
@@ -1161,11 +1240,15 @@ def _dp_leg_flat(xs, residual, mesh, plan: BucketPlan):
         payload = []
         for i, (v, s) in enumerate(zip(xx, scales)):
             q, new_res[i] = _quantize(v, s)
-            payload.append(q.int())
+            payload.append(q)
     else:
         payload, scales = xs, None
     if group is None:
         summed = payload
+    elif scales is not None:
+        # the codes ship as int8, their sums as int16 (one bucket in
+        # flight, as below)
+        summed = [_sum_codes(p, group) for p in payload]
     else:
         # a bucket's reduce-scatter and all-gather are waited for before
         # the next bucket's are issued: the backend's buffers (gloo's
@@ -1209,12 +1292,12 @@ def _dp_leg_2level(xs, residual, mesh, plan: BucketPlan, legs: str = "all"):
         else:
             xx_m = xx
         scales = _shared_scales(xx_m, mesh, plan)
-        payload = []
+        totals = []
         for i, (v, vm, s) in enumerate(zip(xx, xx_m, scales)):
             q, new_res[i] = _quantize(vm, s, rest=v)
-            payload.append(q.int())
-        _wait([_all_reduce(p, dcn) for p in payload])
-        totals = [p.float() * s for p, s in zip(payload, scales)]
+            # int8 codes over the stripe group, their sums as int16
+            summed = _sum_codes(q, dcn) if dcn is not None else q
+            totals.append(summed.float() * s)
     else:
         totals = shards
         _wait([_all_reduce(t, dcn) for t in totals])
@@ -1231,6 +1314,11 @@ def _sync_buckets(flats, residual, mesh, plan: BucketPlan, legs: str = "all"):
     import torch
 
     xs = flats
+    if plan.kind == "tp" and mesh.groups.get("sp") is not None:
+        # sequence parallelism: each rank's grads are a partial sum over
+        # its sequence block; the sp sum comes first, a bucket at a time
+        for f in flats:
+            _all_reduce(f, mesh.groups["sp"]).wait()
     if plan.zero and mesh.groups["fsdp"] is not None:
         # one bucket in flight at a time (see _dp_leg_flat); each flat is
         # dropped once scattered
@@ -1288,8 +1376,7 @@ def sync_grads(
     import torch
     import torch.distributed as dist
 
-    if plan.kind in _KIND_ITEM:
-        raise _not_ported(plan.kind)
+    _check_ported(plan.kind, plan.model_shard)
     ef = plan.compressed and residual is not None
     flats = []
     for b in plan.buckets:

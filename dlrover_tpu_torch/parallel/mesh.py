@@ -10,6 +10,10 @@ makes the process groups the gradient sync runs on:
 
 - ``dp``, ``fsdp`` and ``data`` (dp x fsdp, the axes a global batch is
   split over);
+- ``sp``: the ranks that share a row and split its sequence (the ring's
+  hops and Ulysses' all-to-alls run on it, and the gradients are summed
+  over it: sp shards no parameter), and with sp the ``replica`` group
+  (dp x fsdp x sp: the ranks that hold one copy of the state);
 - for a hybrid dp axis (``dp_slices() > 1``) the slice-local groups
   (``ici``: one slice's run of ``dp / slices`` dp ranks) and the
   cross-slice stripe groups (``dcn``: the ranks of one intra-slice
@@ -22,8 +26,9 @@ slice-major (coordinate ``slice * (dp / slices) + j``).
 
 ``batch_sharding`` returns the rows of a global batch a rank owns: its
 ``data`` coordinate's contiguous block, as ``P(("dp", "fsdp"))`` lays
-the batch dim on the JAX mesh. sp, tp, ep and pp groups come with
-ROADMAP A10 / A11.
+the batch dim on the JAX mesh; ``sequence_sharding`` its block of a
+row's positions, as ``P(("dp", "fsdp"), "sp")`` lays the sequence dim.
+tp, ep and pp groups come with ROADMAP A10 / A11.
 """
 
 from __future__ import annotations
@@ -209,7 +214,10 @@ def build_mesh(config: MeshConfig, device_type: str = "cpu") -> Mesh:
             device_type, torch.as_tensor(layout), mesh_dim_names=AXIS_ORDER,
             _init_backend=False,
         )
-    wanted = {"dp": ("dp",), "fsdp": ("fsdp",), "data": ("dp", "fsdp")}
+    wanted = {"dp": ("dp",), "fsdp": ("fsdp",), "data": ("dp", "fsdp"), "sp": ("sp",)}
+    if config.sp > 1:
+        # the ranks that hold one replica of the state under sp
+        wanted["replica"] = ("dp", "fsdp", "sp")
     runs = {name: _axis_runs(layout, axes) for name, axes in wanted.items()}
     S = config.dp_slices()
     if S > 1:
@@ -258,6 +266,19 @@ def batch_sharding(mesh: Mesh, global_rows: int, microbatches: int = 1) -> np.nd
         np.arange(k * mb + i * per, k * mb + (i + 1) * per)
         for k in range(microbatches)
     ])
+
+
+def sequence_sharding(mesh: Mesh, seq_len: int) -> slice:
+    """The positions of a row this rank holds: the ``sp``-th of ``sp``
+    equal contiguous blocks of ``seq_len``, as ``P(("dp", "fsdp"), "sp")``
+    lays the sequence dim on the JAX mesh (``sp`` shares every row of
+    its data rank's rows)."""
+    sp = mesh.config.sp
+    if seq_len % sp:
+        raise ValueError(f"sequence length {seq_len} does not divide over sp={sp}")
+    per = seq_len // sp
+    i = mesh.coords.get("sp", 0)
+    return slice(i * per, (i + 1) * per)
 
 
 def process_axis_index(mesh: Mesh, axis: str) -> int:

@@ -111,9 +111,12 @@ def test_registered_optimizations_apply_the_same():
             tc, ts = topt.apply_optimizations(t, Strategy(mesh=MeshConfig(**mesh)), (name, name))
             assert dataclasses.asdict(tc) == dataclasses.asdict(jc), name
             assert ts.to_json() == js.to_json(), name
-    # sp_auto on an sp axis reads the sp scheme table, not ported yet
-    with pytest.raises(NotImplementedError, match="A10"):
-        topt.apply_optimizations(t, Strategy(mesh=MeshConfig(dp=2, sp=2)), ("sp_auto",))
+    # sp_auto on an sp axis reads the port's sp scheme table (measured
+    # on the H100, not the JAX package's)
+    from dlrover_tpu_torch.parallel.sp_select import pick_sp_scheme
+
+    tc, _ = topt.apply_optimizations(t, Strategy(mesh=MeshConfig(dp=2, sp=2)), ("sp_auto",))
+    assert tc.sp_scheme == pick_sp_scheme(t.max_seq_len)
 
 
 @pytest.mark.parametrize("name,kw", [

@@ -116,10 +116,10 @@ def test_grad_accum_issues_one_sync_a_step(train_runs):
     nb = two[0]["explicit_ga2"]["plan"]
     for step in two[0]["explicit_ga2"]["issued"]:
         # the buckets' reduce-scatter + all-gather once, and the loss mean
-        assert step == dict(reduce_scatter=nb, all_gather=nb, all_reduce=1)
+        assert step == dict(reduce_scatter=nb, all_to_all=0, all_gather=nb, all_reduce=1)
     for step in two[0]["default_ga2"]["issued"]:
         # the default path: the whole tree a microbatch, and the loss mean
-        assert step == dict(reduce_scatter=0, all_gather=0, all_reduce=3)
+        assert step == dict(reduce_scatter=0, all_to_all=0, all_gather=0, all_reduce=3)
 
 
 def _leaves(tree):

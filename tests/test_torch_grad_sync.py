@@ -145,17 +145,80 @@ def test_residual_is_the_jax_residual_bitwise(ranks, name):
 
 def test_collectives_per_bucket(ranks):
     """One reduce-scatter and one all-gather a bucket on the flat dp leg
-    (int8 adds one MAX all-reduce a bucket), none over fsdp but its
-    reduce-scatter on ZeRO."""
+    (int8: an all-to-all of the codes in place of the reduce-scatter, and
+    one MAX all-reduce a bucket), none over fsdp but its reduce-scatter
+    on ZeRO."""
     nb = {n: tgs.plan_buckets(tgs.model_leaves(tcfg.tiny(**MODEL)), **c["plan"]).num_buckets
           for n, c in CASES.items()}
     r0 = ranks[0]
     # device_norms adds one all-gather of the lane norms a step; ZeRO
     # one all-reduce of the chunk's sum of squares
-    assert r0["dp_none"]["issued"] == dict(reduce_scatter=nb["dp_none"],
+    assert r0["dp_none"]["issued"] == dict(reduce_scatter=nb["dp_none"], all_to_all=0,
                                            all_gather=nb["dp_none"] + 1, all_reduce=0)
-    assert r0["dp_int8"]["issued"] == dict(reduce_scatter=2 * nb["dp_int8"],
+    # int8: the codes' all-to-all in place of the reduce-scatter
+    assert r0["dp_int8"]["issued"] == dict(reduce_scatter=0, all_to_all=2 * nb["dp_int8"],
                                            all_gather=2 * nb["dp_int8"] + 2,
                                            all_reduce=2 * nb["dp_int8"])
     z = nb["zero_none"]
-    assert r0["zero_none"]["issued"] == dict(reduce_scatter=2 * z, all_gather=z + 1, all_reduce=1)
+    assert r0["zero_none"]["issued"] == dict(reduce_scatter=2 * z, all_to_all=0, all_gather=z + 1,
+                                             all_reduce=1)
+
+
+# -- the int8 codes' wire ----------------------------------------------------
+WIRE_CASES = {
+    2: {"flat_dp2": dict(mesh=dict(dp=2), plan=dict(dp=2, compress="int8", bucket_bytes=4096))},
+    3: {"flat_dp3": dict(mesh=dict(dp=3), plan=dict(dp=3, compress="int8", bucket_bytes=4096))},
+    4: {"flat_dp4": dict(mesh=dict(dp=4), plan=dict(dp=4, compress="int8", bucket_bytes=4096)),
+        "2level_dp4": dict(mesh=TWO, plan=dict(dp=4, slices=2, compress="int8", bucket_bytes=4096)),
+        "2level_topk": dict(mesh=TWO, plan=dict(dp=4, slices=2, compress="int8_topk",
+                                                topk_density=0.25, topk_block=64,
+                                                bucket_bytes=16384))},
+}
+
+
+@pytest.fixture(scope="module")
+def wire_ranks(tmp_path_factory):
+    out = {}
+    for world, cases in WIRE_CASES.items():
+        for i, c in enumerate(cases.values()):
+            c["seed"] = 200 + 10 * world + i
+        res = tdw.run_ranks("wire", world, {"model": MODEL, "cases": cases},
+                            str(tmp_path_factory.mktemp(f"wire{world}")))
+        for name in cases:
+            out[name] = [r[name] for r in res]
+    return out
+
+
+@pytest.mark.parametrize("name", [n for c in WIRE_CASES.values() for n in c])
+def test_int8_codes_cross_the_wire_as_int8_and_sum_bitwise(wire_ranks, name):
+    """The codes ship as int8 (an all-to-all), their sums as int16 (an
+    all-gather of their bytes), and the synced grads, the residual and the norm are
+    bitwise those of the int32 wire the codes had before. The bytes of
+    the compressed legs' inputs are what ``BucketPlan.wire_bytes``
+    prices (the outer f32 legs of a two-level plan at padded x 4)."""
+    for r in wire_ranks[name]:
+        new, old = r["runs"]["int8_wire"], r["runs"]["int32_wire"]
+        for a, b in zip(new["synced"], old["synced"]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(new["residual"], old["residual"]):
+            np.testing.assert_array_equal(a, b)
+        assert new["gnorm"] == old["gnorm"]
+        codes = [w for w in new["wire"] if w[0] == "all_to_all_single"]
+        # the int16 sums travel as their bytes
+        sums = [w for w in new["wire"] if w[0] == "all_gather_into_tensor" and w[1] == "uint8"]
+        scales = [w for w in new["wire"] if w[0] == "all_reduce"]
+        assert codes and all(w[1] == "int8" for w in codes)
+        assert len(sums) == len(codes) == len(scales) == len(r["padded"])
+        assert not [w for w in new["wire"] if w[1] == "int32"]
+        outer = sum(4 * p for p in r["padded"]) if name.startswith("2level") else 0
+        assert outer + sum(w[2] for w in codes + sums + scales) == r["wire_bytes"]
+        # the int32 wire shipped 4 bytes a code
+        assert sum(w[2] for w in old["wire"] if w[1] == "int32") == 4 * sum(w[2] for w in codes)
+
+
+def test_code_sums_widen_to_int32_past_258_ranks():
+    assert tgs.code_sum_dtype_bytes(2) == 2 and tgs.code_sum_dtype_bytes(258) == 2
+    assert tgs.code_sum_dtype_bytes(259) == 4
+    plan = tgs.plan_buckets(tgs.model_leaves(tcfg.tiny(**MODEL)), dp=260, compress="int8",
+                            bucket_bytes=1 << 20)
+    assert all(plan.code_gather_bytes(b) == b.padded // 260 * 4 for b in plan.buckets)

@@ -4,6 +4,10 @@ on the card. Marked ``cuda``; on a host without a card every test skips
 
 Run on the card:  python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 
+Attention runs causal, unmasked, at offsets, and under each declared
+mask (``KeyIntervals``: a GLM prefix, a sliding window, packed documents,
+rows that see nothing).
+
 Tolerances: attention outputs and gradients within 0.2 of the plain f32
 result's rms in every 64-row tile (the kernels' tile; bf16 inputs and
 outputs, p and ds rounded to bf16 before their products), lse within
@@ -84,19 +88,53 @@ def test_attention_kernels_lengths_and_offsets(dev, Tq, Tk, q_off, k_off, causal
     _check_attention(dev, 1, 4, 2, Tq, Tk, 64, q_off, k_off, causal)
 
 
-def _check_attention(dev, B, H, Hkv, Tq, Tk, D, q_off, k_off, causal):
+def _masks(T, B):
+    """The ``KeyIntervals`` families over ``T`` rows (documents one layout
+    a batch row)."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    docs = np.stack([np.searchsorted(np.sort(rng.choice(np.arange(1, T), 3, replace=False)),
+                                     np.arange(T), side="right") for _ in range(B)])
+    return {
+        "prefix": fa.KeyIntervals.prefix(T, T // 3 + 5),
+        "window": fa.KeyIntervals.window(T, 72),
+        "documents": fa.KeyIntervals.documents(docs),
+        "empty_rows": fa.KeyIntervals.prefix(T, T // 3).without_rows(range(T // 2, T // 2 + 80)),
+    }
+
+
+@pytest.mark.parametrize("family", ["prefix", "window", "documents", "empty_rows"])
+@pytest.mark.parametrize(
+    "B,H,Hkv,T,D,q_off,k_off",
+    [
+        (2, 4, 4, 256, 64, 0, 0),
+        (1, 8, 2, 384, 128, 0, 0),  # GQA: dk / dv in f32 per query head
+        (2, 4, 4, 256, 128, 256, 0),  # a ring hop: rows 256-511 against keys 0-255
+        (2, 4, 4, 256, 64, 256, 256),  # the hop's own block
+    ],
+)
+def test_masked_attention_kernels_match_plain(dev, family, B, H, Hkv, T, D, q_off, k_off):
+    """Each kernel under each declared mask against the plain version
+    running the same mask as a function."""
+    mask = _masks(T + max(q_off, k_off), B)[family]
+    _check_attention(dev, B, H, Hkv, T, T, D, q_off, k_off, True, mask)
+
+
+def _check_attention(dev, B, H, Hkv, Tq, Tk, D, q_off, k_off, causal, mask=None):
     g = torch.Generator(device=dev).manual_seed(0)
     q, do = (torch.randn((B, H, Tq, D), generator=g, device=dev, dtype=torch.bfloat16) for _ in range(2))
     k, v = (torch.randn((B, Hkv, Tk, D), generator=g, device=dev, dtype=torch.bfloat16) for _ in range(2))
     fa.reset_launch_counts()
-    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off, layout="bhtd")
+    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off, layout="bhtd", mask_fn=mask)
     o, lse = fa.flash_attention_fwd(q, k, v, **kw)
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     assert fa.launch_counts == {"fa_fwd": 1, "fa_bwd_dkdv": 1, "fa_bwd_dq": 1}
     leaves = [x.float().transpose(1, 2).requires_grad_() for x in (q, k, v)]
     o_ref, lse_ref = fa.flash_attention_reference(
-        *leaves, causal=causal, q_offset=q_off, k_offset=k_off, return_residuals=True
+        *leaves, causal=causal, q_offset=q_off, k_offset=k_off, return_residuals=True,
+        mask_fn=mask,
     )
     refs = torch.autograd.grad(o_ref, leaves, do.float().transpose(1, 2))
     assert _tile_err(o, o_ref.detach().transpose(1, 2)) <= ATTN_TOL
@@ -152,8 +190,9 @@ def test_autograd_op_counts_one_launch_each(dev):
 
 
 def test_cuda_refuses_mask_fn(dev):
+    """A callable that is no ``KeyIntervals`` raises on the card."""
     x = torch.zeros((1, 2, 128, 64), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="KeyIntervals"):
         fa.flash_attention(x, x, x, mask_fn=lambda a, b: a >= b, layout="bhtd")
 
 

@@ -151,6 +151,16 @@ RESIZE = {
 }
 
 
+# sequence parallelism: the schemes, the scheme table, the mesh's sp group
+SEQUENCE_PARALLEL = {
+    "dlrover_tpu_torch.parallel.ring_attention",
+    "dlrover_tpu_torch.parallel.ulysses",
+    "dlrover_tpu_torch.parallel.sp_select",
+    "dlrover_tpu_torch.parallel.mesh",
+    "dlrover_tpu_torch.ops.flash_attention",
+}
+
+
 def test_port_imports_with_jax_and_the_jax_package_blocked():
     p = subprocess.run(
         [sys.executable, "-c", _PROBE],
@@ -172,15 +182,18 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert MODEL_LEFTOVERS <= names, sorted(MODEL_LEFTOVERS - names)
     assert STRATEGY_SEARCH <= names, sorted(STRATEGY_SEARCH - names)
     assert RESIZE <= names, sorted(RESIZE - names)
+    assert SEQUENCE_PARALLEL <= names, sorted(SEQUENCE_PARALLEL - names)
 
 
 def test_data_parallel_modules_and_the_rank_worker_import_without_jax():
-    """The data-parallel, strategy-search and resize modules by name, and the
+    """The data-parallel, strategy-search, resize and sequence-parallel
+    modules by name, and the
     rank processes of the multi-rank tests
     (``tests/torch_dist_worker.py``), with JAX and the JAX package
     blocked."""
     probe = _PROBE.split("import dlrover_tpu_torch\n")[0] + "\n".join(
-        f"importlib.import_module({m!r})" for m in sorted(DATA_PARALLEL | STRATEGY_SEARCH | RESIZE)
+        f"importlib.import_module({m!r})"
+        for m in sorted(DATA_PARALLEL | STRATEGY_SEARCH | RESIZE | SEQUENCE_PARALLEL)
     ) + (
         "\nsys.path.insert(0, 'tests')\nimportlib.import_module('torch_dist_worker')"
         "\nleaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)"

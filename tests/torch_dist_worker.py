@@ -22,6 +22,10 @@ Jobs:
 - ``resize``: checkpoints staged at this world or landed at it from
   another (``resize_case``);
 - ``units``: ZeRO's per-unit gather watched op by op (``units_case``);
+- ``wire``: the int8 sync (``job_wire``) with every collective's input
+  recorded (kind, dtype, bytes), and the same sync with the codes summed
+  by an int32 all-reduce, the wire they had before;
+- ``sp``: sequence-parallel attention and train steps (``job_sp``);
 - ``zero_peak``: on the card, ZeRO's peak against its static figure;
 - ``step``: ``models.train.build_train_step`` from a whole JAX train
   state (``models/convert.load_jax_train_state``) on the rank's rows of
@@ -169,6 +173,155 @@ def job_sync(rank, world, cases):
                 gnorm=float(gnorm), lanes=lanes.numpy().copy(),
             ))
         out[name] = dict(lane=lane, steps=steps, issued=dict(gs.issued))
+    return out
+
+
+def job_wire(rank, world, cases):
+    import torch
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.parallel import grad_sync as gs
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    leaves = gs.model_leaves(tcfg.tiny(**cases["model"]))
+    wire = []
+    real = {n: getattr(dist, n) for n in ("all_to_all_single", "all_gather_into_tensor",
+                                         "all_reduce", "reduce_scatter_tensor")}
+
+    def recording(name):
+        def fn(*a, **kw):
+            inp = a[1] if name != "all_reduce" else a[0]
+            wire.append((name, str(inp.dtype).removeprefix("torch."),
+                         inp.numel() * inp.element_size()))
+            return real[name](*a, **kw)
+        return fn
+
+    def int32_wire(q, group):  # the codes' sums as they were shipped before
+        t = q.int()
+        dist.all_reduce(t, group=group)
+        return t
+
+    out = {}
+    for name, c in cases["cases"].items():
+        mesh = build_mesh(MeshConfig(**c["mesh"]))
+        plan = gs.plan_buckets(leaves, **c["plan"])
+        grads = case_grads(plan.leaf_shapes, plan.total, c["seed"], 0)
+        local = [torch.from_numpy(g[mesh.data_index]) for g in grads]
+        runs = {}
+        for how in ("int8_wire", "int32_wire"):
+            res = gs.zero_residual(plan)
+            del wire[:]
+            for n in real:
+                setattr(dist, n, recording(n))
+            if how == "int32_wire":
+                gs._sum_codes, new = int32_wire, gs._sum_codes
+            try:
+                synced, res, gnorm = gs.sync_grads(list(local), mesh, plan, residual=res)
+            finally:
+                for n, f in real.items():
+                    setattr(dist, n, f)
+                if how == "int32_wire":
+                    gs._sum_codes = new
+            runs[how] = dict(synced=[x.numpy().copy() for x in synced],
+                             residual=[r.numpy().copy() for r in res], gnorm=float(gnorm),
+                             wire=list(wire))
+        out[name] = dict(runs=runs, wire_bytes=plan.wire_bytes, raw=plan.raw_bytes,
+                         padded=[b.padded for b in plan.buckets])
+    return out
+
+
+def _mask_of(spec):
+    """A ``KeyIntervals`` from its picklable spec (name, args)."""
+    if spec is None:
+        return None
+    from dlrover_tpu_torch.ops.flash_attention import KeyIntervals
+
+    name, args = spec
+    if name == "prefix_empty":
+        T, P, rows = args
+        return KeyIntervals.prefix(T, P).without_rows(rows)
+    return getattr(KeyIntervals, name)(*args)
+
+
+def job_sp(rank, world, cases):
+    """Sequence-parallel attention on this rank's rows and sequence block
+    (``cases["attn"]``: ring, plain and kernel, and Ulysses, forward and
+    backward against a given cotangent), and train steps of a tiny model
+    from JAX weights (``cases["train"]``: ``build_train_step`` on the
+    rank's rows; the step cuts the sequence block)."""
+    import torch
+
+    from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.models import train as ttrain
+    from dlrover_tpu_torch.models.convert import params_from_jax, params_to_numpy
+    from dlrover_tpu_torch.models.transformer import forward
+    from dlrover_tpu_torch.parallel import grad_sync as gs
+    from dlrover_tpu_torch.parallel.mesh import (
+        MeshConfig, batch_sharding, build_mesh, sequence_sharding,
+    )
+    from dlrover_tpu_torch.parallel.ring_attention import (
+        _Ring, ring_attention_local, ring_flash_attention_local,
+    )
+    from dlrover_tpu_torch.parallel.ulysses import ulysses_self_attention
+    from dlrover_tpu_torch.trainer.elastic import trainer as tt
+
+    out = {"attn": {}, "train": {}}
+    meshes = {}
+
+    def mesh_of(m):
+        key = tuple(sorted(m.items()))
+        if key not in meshes:
+            meshes[key] = build_mesh(MeshConfig(**m))
+        return meshes[key]
+
+    for name, c in cases.get("attn", {}).items():
+        mesh = mesh_of(c["mesh"])
+        q, k, v, w = (torch.from_numpy(x) for x in c["inputs"])
+        rows = batch_sharding(mesh, q.shape[0])
+        blk = sequence_sharding(mesh, q.shape[1])
+        mask = _mask_of(c.get("mask"))
+        res = {"rows": rows.tolist(), "block": (blk.start, blk.stop)}
+        ring = _Ring.of(mesh)
+        for how, fn, on in (("ring_plain", ring_attention_local, ring),
+                            ("ring_kernel", ring_flash_attention_local, ring),
+                            ("ulysses", ulysses_self_attention, mesh)):
+            if how not in c["schemes"]:
+                continue
+            ql, kl, vl = (x[rows][:, blk].clone().requires_grad_() for x in (q, k, v))
+            try:
+                o = fn(ql, kl, vl, on, causal=c["causal"], mask_fn=mask)
+            except ValueError as e:
+                res[how] = {"error": str(e)}
+                continue
+            (o * w[rows][:, blk]).sum().backward()
+            res[how] = {"o": o.detach().numpy(), "dq": ql.grad.numpy(), "dk": kl.grad.numpy(),
+                        "dv": vl.grad.numpy()}
+        out["attn"][name] = res
+    for name, r in cases.get("train", {}).items():
+        cfg = tcfg.tiny(**r["model"])
+        mesh = mesh_of(r["mesh"])
+        model = params_from_jax(r["params"], cfg)
+        x = torch.from_numpy(r["tokens"]).long()
+        rows = batch_sharding(mesh, x.shape[0])
+        blk = sequence_sharding(mesh, x.shape[1])
+        with torch.no_grad():
+            logits, _ = forward(model, x[rows][:, blk], cfg, mesh)
+        res = {"rows": rows.tolist(), "block": (blk.start, blk.stop), "logits": logits.numpy()}
+        if r.get("step"):
+            plan = None
+            if r.get("comm_overlap"):
+                plan = gs.plan_for_mesh(cfg, mesh, "none", 1, params_shape=gs.model_leaves(cfg))
+            tx = tt.build_optimizer("sgd", lr=r["lr"])
+            state = ttrain.state_from_params(model, tx, mesh, plan)
+            step = ttrain.build_train_step(cfg, tx, mesh=mesh, plan=plan)
+            y = torch.from_numpy(r["targets"]).long()
+            gs.reset_counts()
+            state, m = step(state, x[rows], y[rows])
+            res.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                       issued=dict(gs.issued),
+                       params=params_to_numpy(state.params), kind=None if plan is None else plan.kind)
+        out["train"][name] = res
     return out
 
 
@@ -548,7 +701,8 @@ def job_resize(rank, world, cases):
 
 
 JOBS = {"sync": job_sync, "train": job_train, "step": job_step, "accel": job_accel,
-        "resize": job_resize, "units": job_units, "zero_peak": job_zero_peak}
+        "resize": job_resize, "units": job_units, "zero_peak": job_zero_peak,
+        "wire": job_wire, "sp": job_sp}
 
 
 def main():
