@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlrover_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama|accel|peak_memory|resize|sp]
+    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama|accel|peak_memory|resize|sp|tp]
 
 (``--profile`` adds a torch.profiler window of a few more steps to the
 per-leaf gpt2_small path and to the full-size sparse path; ``--phase
@@ -10,8 +10,9 @@ evict`` its uninterrupted run and the eviction drill alone, ``--phase
 dp`` the data-parallel phase alone, ``--phase llama`` the Llama-2-7B
 phase alone, ``--phase accel`` the strategy-search phase alone,
 ``--phase resize`` the elastic-resize phase alone, ``--phase sp`` the
-sequence-parallel phase alone (at 4 layers and 3 steps), without
-the contract's closing lines; ``--phase peak_memory`` holds the static
+sequence-parallel phase alone and ``--phase tp`` the tensor-parallel
+one (each at 4 layers and 3 steps), without the contract's closing
+lines; ``--phase peak_memory`` holds the static
 peak model to the card, a phase the full run does not take.
 ``--dp-worker SPEC RANK`` is one rank of the dp phase, ``--llama-worker
 OUT [--search-only]`` the llama phase's full model (its search first),
@@ -161,7 +162,20 @@ jobs.)
      ms, each rank's peak, the sp transport's ms a step, the kernels'
      launches a step), and a ring with its remote hop dropped that the
      two gates must refuse; last, the ``sp_select`` table's device
-     times.
+     times;
+   - ``tp`` (after sp; alone with ``--phase tp`` at 4 layers x 3 steps,
+     in the full run at 2 x 2): the per-leaf 8-bit AdamW's kernel at a
+     tp-local leaf's shape (w_gate's box at tp = 2); then
+     ``ElasticTrainer`` at Llama-2 width, 1 x 4096 tokens, bf16, remat,
+     ``adamw_8bit``: one process at tp = 1 beside two gloo ranks on the
+     one card at tp = 2, the same seeded weights and data, tp = 2's
+     losses within ``TP_LOSS_TOL`` of tp = 1's, the first step's
+     gradients (gathered to whole leaves) within ``TP_GRAD_TOL`` and
+     each rank's peak within ``PEAK_CAL_RTOL`` of ``static_peak_bytes``
+     (``tp_train``: losses, step ms, peaks, the tp all-reduces' number
+     and host ms a step, the launches a step); then one step in the
+     same ranks with layer 0's ``copy_to_tp`` stripped of its backward
+     all-reduce, which the two gates together must refuse.
 4. a ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -580,19 +594,20 @@ def check_adam8(torch, qo, cfg, label="B6 adam8_flat gpt2_small group"):
         packed_total=total)
 
 
-def check_adam8_leaf(torch, qo, cfg):
+def check_adam8_leaf(torch, qo, cfg, shape=None, label="B7 adam8_leaf gpt2_small wte"):
     """B7, the per-leaf route, on gpt2_small's ``wte`` leaf: 50257 x 768
     = 301,542 rows of 128, no multiple of the 8-row tile, with ``[R]``
-    scales."""
-    R = cfg.vocab_size * cfg.model_dim // qo.BLOCK
+    scales; or on a leaf of ``shape``."""
+    shape = shape or (cfg.vocab_size, cfg.model_dim)
+    R = int(np.prod(shape)) // qo.BLOCK
 
     def per_row(x, signed):
         c, s = qo._sqrt_map_quant(x, signed, 127.0)
         return c.to(torch.int8), s.view(R).contiguous()
 
     return adam8_contract(
-        torch, qo, "B7 adam8_leaf gpt2_small wte", R, per_row, "adam8_leaf", 2,
-        rows=R, tile_rows=qo._TILE_ROWS, tail_rows=R % qo._TILE_ROWS)
+        torch, qo, label, R, per_row, "adam8_leaf", 2,
+        rows=R, tile_rows=qo._TILE_ROWS, tail_rows=R % qo._TILE_ROWS, leaf_shape=list(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -2601,7 +2616,7 @@ def dp_worker(spec_path, rank):
     out = {}
     for job in spec["jobs"]:
         fn = {"probe": _dp_probe, "train": _dp_train, "nccl": _dp_nccl,
-              "accel": _dp_accel, "c3": _dp_c3, "sp": _dp_sp}[job["kind"]]
+              "accel": _dp_accel, "c3": _dp_c3, "sp": _dp_sp, "tp": _dp_tp}[job["kind"]]
         if job.get("die_after"):  # the hook writes what ran before it dies
             job["prior"] = out
         out[job["name"]] = fn(torch, job, rank, world, spec_path)
@@ -3655,14 +3670,14 @@ def sp_path_shapes(heads=32, sp=2, seq=SP_SEQ):
             ("sp path sp=1", heads, seq, 0, 0)]
 
 
-def _grad_prints(torch, params):
+def _grad_prints(torch, grads):
     """Each gradient tensor's norm and its dot products with
     ``SP_PROJ`` seeded normal vectors: two runs' prints give an
     estimate of each tensor's ``|g_a - g_b| / |g_b|`` (``_grad_err``)
     without moving the gradients off the card."""
     out = []
-    for i, p in enumerate(params):
-        g = p.grad.float().reshape(-1)
+    for i, g in enumerate(grads):
+        g = g.float().reshape(-1)
         gen = torch.Generator(device=g.device).manual_seed(7919 * i + 1)
         proj = [float(torch.dot(g, torch.randn(g.numel(), generator=gen, device=g.device)))
                 for _ in range(SP_PROJ)]
@@ -3748,7 +3763,8 @@ def _dp_sp(torch, job, rank, world, spec_path):
 
     def step_and_print():
         if not prints:
-            prints.extend(_grad_prints(torch, trainer.state.params.jax_ordered_parameters()))
+            prints.extend(_grad_prints(
+                torch, [p.grad for p in trainer.state.params.jax_ordered_parameters()]))
         return real_step()
 
     opt.step = step_and_print
@@ -3898,6 +3914,228 @@ def run_sp(torch, fa, full=False):
     return dict(masks=masks, runs=runs, table=table)
 
 
+TP_SEQ = 4096  # batch 1 x 4096 tokens
+TP_RUNS = {"phase": (4, 3), "full": (2, 2)}  # (layers, steps): --phase tp, the full run
+# tp = 2's losses against tp = 1's, absolute, and the first step's
+# gradients, gathered to whole leaves, against tp = 1's (``_grad_err``).
+# On the H100 80GB HBM3 at 700 W, 4 layers x 3 steps: the sound run's
+# first loss 5.6e-4 off tp = 1's (bf16 partial sums, each rounded once
+# before the tp sum where tp = 1's GEMM rounds the whole sum once), its
+# third 1.48e-2 off: from the second update on, the 8-bit AdamW's
+# early steps (about lr x sign(g) an element) turn bf16 rounding into a
+# different trajectory, as they do between bf16 and f32 runs of one
+# layout (PERF.md). Its gradients 0.029 off (0.020 at 2 layers x 2
+# steps); the control (layer 0's ``copy_to_tp`` without its backward
+# sum) 0.87 off (0.66), its loss the sound run's (the forward is
+# unchanged). So the loss gate sits 2x above the sound spread and
+# refuses only gross errors; the gradient gate 3.4x above the sound run
+# and 6.6x below the fault refuses the control.
+TP_LOSS_TOL = 3e-2
+TP_GRAD_TOL = 0.1
+# one tp-local leaf the per-leaf 8-bit AdamW updates on the tp path:
+# w_gate's box at Llama-2 width, tp = 2
+TP_ADAM_SHAPE = (4096, 5504)
+
+
+def _dp_tp(torch, job, rank, world, spec_path):
+    """``ElasticTrainer`` at Llama-2 width (d 4096, 32 heads of 128, kv
+    32, ffn 11008, vocab 32000), ``job["layers"]`` layers, batch 1 x
+    ``TP_SEQ``, bf16, remat, per-leaf ``adamw_8bit``, on a mesh of
+    ``job["tp"]`` tensor-parallel ranks; the weights from the trainer's
+    seeded CPU generator (tp = 1's weights, each rank keeping its boxes).
+    Returns the losses, step ms, this rank's peak beside its static
+    figure, the tp all-reduces' number and host ms a step, the first
+    step's gradient prints of the whole leaves (gathered over tp) and the
+    kernels' launches a step. ``job["fault"] == "drop_copy_bwd"``: the
+    gates' control, planted here only: in layer 0's attention
+    ``copy_to_tp`` loses its backward all-reduce (its forward is the
+    identity either way)."""
+    from dataclasses import replace
+
+    from dlrover_tpu_torch.accel.dry_runner import _apply_strategy, static_peak_bytes
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.models import llama2_7b
+    from dlrover_tpu_torch.models import transformer as tfm
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import quantized_optim as qo
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig
+    from dlrover_tpu_torch.parallel.sharding_rules import gather_tp, leaf_tp_dims
+    from dlrover_tpu_torch.trainer.elastic.trainer import (
+        ElasticTrainer, TrainerConfig, build_optimizer,
+    )
+
+    cfg = replace(llama2_7b(), num_layers=job["layers"], max_seq_len=TP_SEQ)
+    tx = build_optimizer("adamw_8bit", lr=3e-4, min_quantized_size=4096)
+    strategy = Strategy(mesh=MeshConfig(tp=job["tp"]), remat=True, opts=("bf16",))
+    losses, stamps = [], []
+
+    def hook(step, metrics):
+        if "loss" in metrics:
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    trainer = ElasticTrainer(
+        cfg, tx, RandomTokens(n=8, seq=TP_SEQ, vocab=cfg.vocab_size),
+        TrainerConfig(batch_size=1, seq_len=TP_SEQ, report_metrics=False, log_interval=1),
+        strategy=strategy, metrics_hook=hook,
+    )
+    cfg2, applied = _apply_strategy(trainer.strategy, cfg)
+    static = static_peak_bytes(cfg2, applied, tx, 1, TP_SEQ)
+    mesh = trainer.mesh
+    dims = leaf_tp_dims(cfg2, job["tp"]) if job["tp"] > 1 else None
+    real_block = tfm._attention_block
+    first = trainer.state.params.layers[0]
+    if job.get("fault") == "drop_copy_bwd":
+        def faulty_block(x, layer, cfg, positions, mesh=None):
+            if layer is not first:
+                return real_block(x, layer, cfg, positions, mesh)
+            real_copy = tfm.copy_to_tp
+            tfm.copy_to_tp = lambda h, group: h  # the forward's identity, no backward sum
+            try:
+                return real_block(x, layer, cfg, positions, mesh)
+            finally:
+                tfm.copy_to_tp = real_copy
+
+        tfm._attention_block = faulty_block
+    # the first step's gradients, gathered to whole leaves just before
+    # its update; the peak is read around the gathering (its transient
+    # copies are not the step's)
+    opt, prints, peaks = trainer.state.opt_state, [], []
+    real_step = opt.step
+
+    def step_and_print():
+        if not prints:
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+            params = trainer.state.params.jax_ordered_parameters()
+            grads = [p.grad if dims is None or d is None else
+                     gather_tp(p.grad.float(), d, mesh.groups["tp"])
+                     for p, d in zip(params, dims or [None] * len(params))]
+            prints.extend(_grad_prints(torch, grads))
+            del grads
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if job.get("trace"):  # from here on: the step's own allocations
+                torch.cuda.memory._record_memory_history(max_entries=200000)
+        return real_step()
+
+    opt.step = step_and_print
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    qo.reset_launch_counts()
+    tfm.reset_tp_comm()
+    t0 = time.perf_counter()
+    try:
+        trainer.train(job["steps"])
+    finally:
+        tfm._attention_block = real_block
+        opt.step = real_step
+    torch.cuda.synchronize()
+    peaks.append(torch.cuda.max_memory_allocated() - base)
+    live_at_peak = None
+    if job.get("trace"):
+        live_at_peak = _live_at_peak(torch.cuda.memory._snapshot())
+        torch.cuda.memory._record_memory_history(enabled=None)
+    steps = job["steps"]
+    res = dict(
+        live_at_peak=live_at_peak, resident_bytes=torch.cuda.memory_allocated() - base,
+        tp=job["tp"], layers=job["layers"], fault=job.get("fault"), losses=losses,
+        grad_prints=prints, step_ms=[x * 1e3 for x in np.diff([t0] + stamps)],
+        peak_bytes=max(peaks), peaks_before_and_after_prints=peaks, static_peak_bytes=static,
+        static_vs_measured=static / max(peaks) - 1,
+        tp_allreduces_per_step=tfm.tp_comm["calls"] / steps,
+        tp_allreduce_ms_per_step=tfm.tp_comm["ms"] / steps,
+        backend=None if mesh.groups.get("tp") is None else
+        torch.distributed.get_backend(mesh.groups["tp"]),
+        launches_per_step={k: v / steps for k, v in {**fa.launch_counts, **qo.launch_counts}.items()},
+        launches={**fa.launch_counts, **qo.launch_counts},
+    )
+    trainer.close()
+    del trainer, opt, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_tp(torch, qo, full=False):
+    """The tp phase (``--phase tp``, and in the full run at fewer layers
+    and steps, after sp): ``adam8_leaf`` against its plain version at a
+    tp-local leaf's shape (``TP_ADAM_SHAPE``), then Llama-2 width
+    training at 1 x ``TP_SEQ`` tokens, one process at tp = 1 beside two
+    gloo ranks on the one card at tp = 2 (the same seeded weights and
+    data): tp = 2's losses within ``TP_LOSS_TOL`` of tp = 1's and the
+    first step's whole-leaf gradients within ``TP_GRAD_TOL``, each
+    rank's peak within ``PEAK_CAL_RTOL`` of ``static_peak_bytes``; then,
+    in the same two ranks, one step with a planted fault (layer 0's
+    ``copy_to_tp`` without its backward all-reduce) that the two gates
+    together must refuse."""
+    t0 = time.perf_counter()
+    adam, _ = check_adam8_leaf(torch, qo, None, TP_ADAM_SHAPE,
+                               "B7 adam8_leaf tp-local w_gate (tp=2)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers, steps = TP_RUNS["full" if full else "phase"]
+    job = dict(kind="tp", layers=layers, steps=steps)
+    free_before = torch.cuda.mem_get_info()[0]
+    # ``--phase tp`` records what is live at each run's peak
+    one = _dp_start("tp1", 1, [dict(job, name="tp1", tp=1, trace=not full)], backend=None)
+    two = _dp_start("tp2", 2, [dict(job, name="tp2", tp=2, trace=not full),
+                               dict(job, name="tp2_drop_copy_bwd", tp=2, steps=1,
+                                    fault="drop_copy_bwd")])
+    try:
+        one = one()[0]["tp1"]
+    finally:
+        two = two()
+    ref = one.pop("grad_prints")
+    runs = {"tp1": one}
+    checks = {}
+    for name in ("tp2", "tp2_drop_copy_bwd"):
+        per_rank = [r[name] for r in two]
+        prints = [r.pop("grad_prints") for r in per_rank]
+        runs[name] = per_rank
+        want = 1 if name != "tp2" else steps
+        diff = max(abs(a - b) for r in per_rank for a, b in zip(r["losses"], one["losses"]))
+        grad_err, worst = _grad_err(prints[0], ref)
+        same = all(r["losses"] == per_rank[0]["losses"] for r in per_rank)
+        finite = all(np.isfinite(r["losses"]).all() and len(r["losses"]) == want for r in per_rank)
+        launched = all(r["launches"].get(k, 0) > 0 for r in per_rank
+                       for k in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkdv", "adam8_leaf"))
+        peaks_ok = all(abs(r["static_vs_measured"]) <= PEAK_CAL_RTOL for r in per_rank)
+        passes = diff <= TP_LOSS_TOL and grad_err <= TP_GRAD_TOL
+        checks[name] = dict(max_abs_loss_diff_vs_tp1=diff, tol=TP_LOSS_TOL,
+                            first_loss_diff_vs_tp1=abs(per_rank[0]["losses"][0] - one["losses"][0]),
+                            first_step_grad_rel_err_vs_tp1=grad_err, worst_tensor=worst,
+                            grad_tol=TP_GRAD_TOL, ranks_agree=same,
+                            ranks_grads_agree=prints[1] == prints[0], passes_gates=passes,
+                            peaks_within_static=peaks_ok,
+                            ok=finite and same and launched and passes and peaks_ok)
+    fault = checks.pop("tp2_drop_copy_bwd")
+    fault["ok"] = not fault["passes_gates"]
+    fault["loss_gate_alone_refuses"] = fault["max_abs_loss_diff_vs_tp1"] > TP_LOSS_TOL
+    first_ok = abs(one["losses"][0] - float(np.log(32000))) <= 1.0
+    one_peak_ok = abs(one["static_vs_measured"]) <= PEAK_CAL_RTOL
+    same_launches = all(r["launches_per_step"] == one["launches_per_step"] for r in runs["tp2"])
+    ok = (first_ok and one_peak_ok and same_launches and all(c["ok"] for c in checks.values())
+          and fault["ok"] and adam["ok"])
+    emit("tp_train", seconds=time.perf_counter() - t0, seq=TP_SEQ, layers=layers, steps=steps,
+         runs=runs, checks=checks, planted_fault=fault, peak_cal_rtol=PEAK_CAL_RTOL,
+         tp1_peak_within_static=one_peak_ok, launches_as_tp1=same_launches,
+         card_free_bytes_before_runs=free_before, tp1_beside_the_pair=True,
+         first_loss_near_ln_vocab=first_ok, adam8_leaf_tp_local=adam,
+         transport="gloo all_reduce of CUDA tensors in f32, staged by gloo through pinned host "
+                   "memory (two ranks share the one card)",
+         never_on_a_card=["tp over NCCL", "tp > 2", "dp x tp", "sp x tp", "3d (dp x fsdp x tp)"],
+         ok=ok)
+    if not ok:
+        raise RuntimeError(f"the tp runs failed their checks: {checks}, the control: {fault}")
+    return dict(runs=runs, adam=adam)
+
+
 def build_kernels():
     """Every kernel source, built at once: one nvcc for each ``.cu`` and
     g++ for the embedding store's ``kv_store.cc``."""
@@ -3992,12 +4230,14 @@ def main() -> int:
     if "--phase" in sys.argv:  # one phase alone; the contract's lines need a full run
         phase = sys.argv[sys.argv.index("--phase") + 1]
         if phase not in ("flash_ckpt", "evict", "dp", "llama", "accel", "peak_memory", "resize",
-                         "c3", "sp"):
+                         "c3", "sp", "tp"):
             raise SystemExit(f"unknown phase {phase!r}")
         if phase == "dp":
             run_dp(torch)
         elif phase == "sp":
             run_sp(torch, fa)
+        elif phase == "tp":
+            run_tp(torch, qo)
         elif phase == "resize":
             run_resize(torch)
         elif phase == "c3":  # C3 alone, with the allocator's history at each peak
@@ -4048,6 +4288,7 @@ def main() -> int:
     run_flash_ckpt(torch)
     run_resize(torch)
     sp = run_sp(torch, fa, full=True)
+    tp = run_tp(torch, qo, full=True)
 
     src_fa = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"
     fa_tpu = "dlrover_tpu/ops/flash_attention.py"
@@ -4071,6 +4312,7 @@ def main() -> int:
             masked={fam: {shape: d[name] for shape, d in by.items()}
                     for fam, by in sp["masks"].items()},
             sp_ring_launches_per_step=sp["runs"]["ring"][0]["launches_per_step"][name],
+            tp2_launches_per_step=tp["runs"]["tp2"][0]["launches_per_step"][name],
         ))
     src_qo, qo_tpu = "dlrover_tpu_torch/ops/quantized_optim.py", "dlrover_tpu/ops/quantized_optim.py"
     for name, replaces, res, abs_err, n in (
@@ -4083,6 +4325,9 @@ def main() -> int:
             ms=res["ms"], plain_ms=res["plain_ms"],
             bound_ms=res["bound_ms"], bound_by=res["bound_by"], library_ms=None,
             llama2_7b_launches_per_step=llama["full"]["launches_per_step"][name],
+            tp2_launches_per_step=tp["runs"]["tp2"][0]["launches_per_step"].get(name, 0),
+            **({"tp_local_w_gate": {k: tp["adam"][k] for k in ("ms", "plain_ms", "bound_ms")}}
+               if name == "adam8_leaf" else {}),
         ))
     emb_tpu = "dlrover_tpu/ops/embedding/device_tier.py"
     for name, line in (("emb_gather", 139), ("emb_scatter", 162)):

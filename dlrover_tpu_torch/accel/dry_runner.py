@@ -166,14 +166,10 @@ def _check_unported(strategy: Strategy, cfg: TransformerConfig, tx) -> None:
             raise NotImplementedError(
                 f"the {name} pipeline schedule is not ported yet (ROADMAP A11)"
             )
-    if m.tp > 1:
-        raise NotImplementedError(
-            "tensor parallel meshes are not ported yet (ROADMAP A10, its tp half)"
-        )
     if m.ep > 1:
         raise NotImplementedError("expert parallel meshes are not ported yet (ROADMAP A11)")
     check_supported(cfg, m)
-    if getattr(tx, "opt_name", None) == "adamw_8bit_flat" and m.fsdp > 1:
+    if getattr(tx, "opt_name", None) == "adamw_8bit_flat" and (m.fsdp > 1 or m.tp > 1):
         # the flat optimizer concatenates every big leaf per step: on a
         # model-sharded mesh that defeats the sharding
         raise ValueError(
@@ -296,7 +292,11 @@ def _opt_state_bytes(tx, leaves) -> Tuple[float, float, float]:
       below; the step holds one packed group's grads and delta (8 B an
       element of the largest group);
     - ``adamw_8bit`` (``bits=4``: a nibble first moment) per leaf; its
-      transient is one leaf's f32 grad, delta and moments;
+      transient is one leaf's f32 delta (the kernel updates the moments
+      in place), and for a leaf narrower than f32 its f32 grad and the
+      delta's cast (an H100 80GB HBM3 at 700 W, Llama-2 width x 4,
+      tp = 1: the step's peak held the grads and the embedding's 524 MB
+      delta, ``chip_smoke.py --phase tp``'s allocator trace);
     - ``sgd``: a momentum buffer when momentum is set."""
     from dlrover_tpu_torch.ops.host_offload import UNIT_BYTES
     from dlrover_tpu_torch.ops.quantized_optim import BLOCK
@@ -324,8 +324,9 @@ def _opt_state_bytes(tx, leaves) -> Tuple[float, float, float]:
             return state, trans, max(per_elem * largest, 8.0 * small)
         q = [s for s in sizes if s >= minq]
         state = sum(-(-s // BLOCK) * BLOCK * per_elem for s in q) + 8.0 * small
-        # one leaf's f32 grad blocks, delta and cast delta
-        return state, 16.0 * big, per_elem * big
+        # one leaf's f32 delta; a narrower leaf's f32 grad and cast delta
+        pb = leaves[0].element_size() if len(leaves) else 4
+        return state, (4.0 + (4.0 + pb if pb < 4 else 0.0)) * big, per_elem * big
     if name == "sgd":
         state = 4.0 * n if kw.get("momentum") else 0.0
         return state, 0.0, 4.0 * big
@@ -376,6 +377,12 @@ def static_peak_bytes(
       returns (the whole tree, or under ZeRO this rank's 1/fsdp of it)
       and one bucket in flight (its f32 flat and the backend's copy of
       it: gloo's reduce-scatter copies its input);
+    - under remat, the backward's end: the grads of every leaf beside
+      the first block's recompute, which stops after its attention (the
+      non-reentrant checkpoint's early stop): the attention norm's two
+      f32 tensors (16 B a dim), the normed input and its copy, q, k, v
+      and the output, q and k after RoPE, and under tp the tp sum's
+      result (the same trace: the grads and 424 MB of those at tp = 2);
     - the backward phase (its start): what the forward saved and the lm
       head's backward. A block saves, a token: its two norms' f32
       tensors (RMSNorm ``x`` and ``y``: 8 B a dim; LayerNorm also
@@ -387,12 +394,25 @@ def static_peak_bytes(
       logits in ``ab`` and five f32 logits-sized tensors (the f32
       logits, the logsumexp's and the gather's grads, their sum, the
       logsumexp's work tensor) and its weight's f32 grad. Without remat
-      every block's saved set is live; with remat the blocks' inputs
-      and one block's recompute.
+      every block's saved set is live beside the head's; with remat the
+      blocks' inputs and the larger of the head's backward and one
+      block's recompute beside the head's f32 weight grad (the same
+      trace: Llama-2 width x 2, tp = 1, peaked at the update, 7.32 GB,
+      where the two summed priced 8.82).
 
     Under sequence parallelism a rank holds 1/sp of each row's tokens,
     and the backward phase adds one layer's in-flight buffers of the
     scheme (``_sp_buffers``).
+
+    Under tensor parallelism a rank holds its tp-local leaves (1/tp of
+    each split leaf: ``parallel/sharding_rules``), and with them the
+    grads and the optimizer state of its boxes (under 3d the fsdp
+    division on top); its block activations are those of H/tp heads and
+    F/tp MLP columns, and a vocab split over tp holds the logits of
+    V/tp: the ``ab`` logits and two f32 ones (the saved f32 logits and
+    the vocab-parallel loss's softmax grad, ``_VocabParallelNLL``) with
+    the local head's f32 grad. Each tp collective adds its f32 copy of
+    the rank's ``tok x D`` and the cast back.
 
     The peak is the resident state plus the largest phase. Held against
     the measured peaks on an H100 80GB HBM3 at 700 W (``chip_smoke.py
@@ -409,6 +429,11 @@ def static_peak_bytes(
     if leaves is None:
         leaves = grad_sync.model_leaves(cfg)
     m = strategy.mesh
+    tp = max(m.tp, 1)
+    plan_leaves = leaves
+    if tp > 1:
+        # the rank's own leaves: its boxes of the split ones
+        leaves = grad_sync.model_leaves(cfg, m)
     shards = max(m.dp * m.fsdp, 1)
     rows = max((batch + strategy.batch_pad) // shards, 1)
     ga = max(strategy.grad_accum, 1)
@@ -423,12 +448,15 @@ def static_peak_bytes(
     zero = m.fsdp > 1 and strategy.resolved_comm_overlap()
     plan = None
     if shards > 1 and strategy.resolved_comm_overlap():
-        plan = grad_sync.resolve_plan(cfg, strategy, leaves)
+        plan = grad_sync.resolve_plan(cfg, strategy, plan_leaves)
     if strategy.offload_opt:
         state, trans = 0.0, trans + 2.0 * unit
     grads = p_bytes + (4.0 * n_params if ga > 1 else 0.0)
-    D, F, L, V = cfg.model_dim, cfg.ffn_dim, cfg.num_layers, cfg.vocab_size
-    q, kv = cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    D, F, L, V = cfg.model_dim, cfg.ffn_dim // tp, cfg.num_layers, cfg.vocab_size
+    q, kv = cfg.num_heads * cfg.head_dim // tp, cfg.kv_heads * cfg.head_dim // tp
+    split_vocab = tp > 1 and V % tp == 0
+    if split_vocab:
+        V //= tp
     head_params = V * D * (1 if cfg.tie_embeddings else 2)
     block_params = (n_params - head_params) / max(L, 1)
     per_tok = (
@@ -439,16 +467,24 @@ def static_peak_bytes(
         + ab * F * (4 if cfg.swiglu else 2)
     )
     a_block = tok * per_tok + (block_params * ab if pb > ab else 0.0)
-    head = tok * V * (ab + 5 * 4) + V * D * 4
+    head = tok * V * (ab + (2 if split_vocab else 5) * 4) + V * D * 4
     if cfg.remat:
-        live = L * tok * D * ab + a_block + head
+        live = L * tok * D * ab + max(a_block + V * D * 4, head)
     else:
         live = L * a_block + head
     if sp > 1:
         live += _sp_buffers(cfg, tok, ab)
+    if tp > 1:
+        live += tok * D * (4 + ab)
+    bwd_end = 0.0
+    if cfg.remat:
+        bwd_end = grads + tok * (
+            16 * D + 2 * ab * D + ab * (2 * q + 2 * kv)
+            + (ab * (q + kv) if cfg.rope else 0) + (ab * D if tp > 1 else 0)
+        )
     sync = 0.0
     if plan is not None:
-        bucket = 4.0 * max(b.padded for b in plan.buckets)
+        bucket = 4.0 * max(plan.local_padded(b) for b in plan.buckets)
         sync = grads + 4.0 * n_params / (m.fsdp if zero else 1) + 2.0 * bucket
     if zero:
         regathered = 0.0
@@ -457,7 +493,7 @@ def static_peak_bytes(
             regathered = pb * max(blocks, V * D if pb <= ab else 0)
         shard = p_bytes / m.fsdp
         return shard + state + max(shard + trans, sync, live + regathered)
-    return p_bytes + state + max(grads + trans, sync, live)
+    return p_bytes + state + max(grads + trans, sync, live, bwd_end)
 
 
 # -- the estimate tiers --------------------------------------------------------
@@ -611,15 +647,44 @@ def _comm_estimate(
     report.comm_dcn_s += one_dcn_s * syncs * exposed_frac
 
 
+def _tp_comm_estimate(report: DryRunReport, cfg: TransformerConfig, batch, seq) -> None:
+    """The tp collectives of the model (the JAX package's GSPMD fuses
+    them into its matmuls, and its dry runner prices none): per layer two
+    all-reduces in the forward, two in the backward, and under remat one
+    more in the recompute (the attention's: the non-reentrant checkpoint
+    stops recomputing at the last tensor the backward saved, before the
+    MLP's sum); one more each way around a vocab split over tp. Each carries this rank's microbatch of tokens x
+    D in f32 (the dtype ``models/transformer._tp_sum`` reduces in) over
+    the tp group's link (``topology``), at the ring factor plus one
+    ring's latency, and none of it is hidden."""
+    m = report.strategy.mesh
+    if m.tp <= 1:
+        return
+    from dlrover_tpu_torch.parallel import topology
+
+    model = topology.get_link_model()
+    topology.note_fallback_use(model)
+    ga = max(report.strategy.grad_accum, 1)
+    tok = batch * seq / float(max(m.dp * m.fsdp * m.sp, 1) * ga)
+    n = cfg.num_layers * (5 if cfg.remat else 4) + (2 if cfg.vocab_size % m.tp == 0 else 0)
+    wire = 2.0 * (m.tp - 1) / m.tp * tok * cfg.model_dim * 4.0
+    t = n * ga * (wire * model.sec_per_axis_byte("tp") + 2 * m.tp * model.ici_lat_s)
+    report.comm_bytes_per_device += n * ga * wire
+    report.comm_exposed_s += t
+    report.comm_ici_s += t
+
+
 def _finalize_estimate(
     report: DryRunReport, cfg: TransformerConfig, batch, seq, devices
 ) -> None:
     """Price a report: the analytic flops/bytes (the port has no
     compiler cost analysis, so the JAX package's XLA tier and its
-    plausibility gate do not apply), the comm term, and the host term
+    plausibility gate do not apply), the comm terms (the gradient sync,
+    and the tp collectives, ``_tp_comm_estimate``), and the host term
     (0.0 until ROADMAP A9b)."""
     _analytic_estimate(report, cfg, batch, seq, devices)
     _comm_estimate(report, cfg, batch, seq, devices)
+    _tp_comm_estimate(report, cfg, batch, seq)
     report.host_exposed_s = 0.0
     report.host_hidden_measured = False
     report.est_step_s = (

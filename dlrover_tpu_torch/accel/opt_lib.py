@@ -118,15 +118,14 @@ register_optimization(
     lambda cfg, s: (cfg, dc_replace(s, offload_opt=True)),
 )
 # overlap-scheduled gradient sync (parallel/grad_sync.py): bucketed
-# per-bucket collectives under shard_map — RS+AG on pure-dp meshes,
-# ZeRO reduce-scatter into the fsdp shard layout on dp x fsdp, the
-# bucketed dp sync under the GSPMD tp submesh on dp x tp/sp — XLA
-# gets independent collectives it can overlap with backward compute,
-# and grad_accum syncs once per optimizer step instead of per
-# microbatch. The JAX package's mesh matrix: pp x dp (per-stage
-# sync into the pipeline bubble), dp x ep (fully-manual region with
-# the MoE all-to-alls) and 3D dp x fsdp x tp all take the explicit
-# path too. Tunable: auto_accelerate's candidate stamping may apply
+# per-bucket collectives — RS+AG on pure-dp meshes, ZeRO
+# reduce-scatter into the fsdp shard layout on dp x fsdp, the
+# bucketed dp sync of each tp coordinate's boxes on dp x tp/sp, ZeRO
+# on the tp-local leaves on 3D dp x fsdp x tp — and grad_accum syncs
+# once per optimizer step instead of per microbatch. The JAX
+# package's mesh matrix also takes pp x dp (per-stage sync into the
+# pipeline bubble) and dp x ep (the MoE all-to-alls) on the explicit
+# path (ROADMAP A11 here). Tunable: auto_accelerate's candidate stamping may apply
 # it across the whole candidate list; the remaining exotica (pp/ep
 # composed with other model axes) fall back to the GSPMD default
 # schedule inside the step builders with a once-per-mesh log naming

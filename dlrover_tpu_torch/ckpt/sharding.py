@@ -69,22 +69,43 @@ class BlockLeaf:
     is never recorded). As a state leaf it is recorded, and restored, as
     the blocks of the leaf's own shape that tile the run
     (``flat_boxes``), so a reader of either package assembles the leaf
-    from the records of all its owners."""
+    from the records of all its owners.
+
+    ``place``: the leaf is itself one box of the checkpoint's leaf (a
+    tensor-parallel rank's box of a split leaf, whole or ZeRO-sharded):
+    ``(record shape, box)``, the box's index in the record leaf, with
+    one more leading dim than ``global_shape`` when the record stacks
+    the tp ranks' leaves. Every block is recorded at its place there."""
 
     tensor: Any
     global_shape: Tuple[int, ...]
     lo: int
     hi: int
+    place: Optional[Tuple[Tuple[int, ...], Index]] = None
+
+    @property
+    def record_shape(self) -> Tuple[int, ...]:
+        return tuple(self.place[0]) if self.place is not None else tuple(self.global_shape)
+
+    def _placed(self, box: Index) -> Index:
+        if self.place is None:
+            return box
+        where = self.place[1]
+        lead = len(where) - len(box)
+        return tuple(where[:lead]) + tuple(
+            (lo + w[0], hi + w[0]) for (lo, hi), w in zip(box, where[lead:])
+        )
 
     def blocks(self) -> List[Tuple[Index, Any]]:
         """``(index, view)`` of each block of the run, in order: ``view``
-        is the block's part of the tensor, in the block's shape."""
+        is the block's part of the tensor, in the block's shape, and the
+        index its place in the record leaf."""
         flat = self.tensor.detach().reshape(-1)
         out, off = [], 0
         for box in flat_boxes(self.global_shape, self.lo, self.hi):
             shape = tuple(hi - lo for lo, hi in box)
             n = int(np.prod(shape, dtype=np.int64))
-            out.append((box, flat[off:off + n].view(shape)))
+            out.append((self._placed(box), flat[off:off + n].view(shape)))
             off += n
         return out
 
@@ -168,7 +189,7 @@ def _records_for(path: str, leaf) -> List[Tuple[ShardRecord, Any]]:
 
     if isinstance(leaf, BlockLeaf):
         dt = dtype_name(path, leaf.tensor.dtype)
-        shape = tuple(leaf.global_shape)
+        shape = leaf.record_shape
         return [(ShardRecord(path, shape, dt, box), view) for box, view in leaf.blocks()]
     if isinstance(leaf, torch.Tensor):
         shape = tuple(leaf.shape)
@@ -323,10 +344,12 @@ def restore_state(
             recs = read_records(path)
             if isinstance(leaf, BlockLeaf):
                 t = leaf.tensor
+                if not t.is_contiguous():
+                    raise ValueError(f"restore target {path!r} is not contiguous")
                 dt = dtype_name(path, t.dtype)
-                _check_records(path, tuple(leaf.global_shape), dt, recs)
+                _check_records(path, leaf.record_shape, dt, recs)
                 for box, view in leaf.blocks():
-                    block = assemble_leaf(tuple(leaf.global_shape), dt, box, recs)
+                    block = assemble_leaf(leaf.record_shape, dt, box, recs)
                     (cuda_items if t.device.type == "cuda" else cpu_items).append((view, block))
                 values[path] = leaf
                 continue

@@ -14,6 +14,12 @@ dp x fsdp train state to a rank of the port and back: under ZeRO each
 rank holds its block rows of every leaf (the per-leaf 8-bit codes and
 scales included), and the int8 sync's residual moves between the two
 packages' per-bucket layouts element for element.
+Under tensor parallelism (a mesh with tp > 1) a rank holds its tp box
+of each split leaf (``parallel/sharding_rules``): ``params_from_jax``
+cuts the boxes, ``params_to_numpy`` and ``jax_train_state`` gather them
+back to whole leaves (the per-leaf 8-bit codes and scales, quantized in
+each box's own blocks, come back stacked ``[tp, ...]``), and a rank
+stages a split leaf's tensors as their boxes of the whole leaf.
 Optimizer state maps form for form: ``Adam8FlatState`` to
 ``adamw_8bit_flat`` (the same group layout), ``Adam8State`` to
 ``adamw_8bit`` (its 4-bit form's nibble-packed first moment included),
@@ -49,23 +55,36 @@ def _count_leaves(tree) -> int:
     return 1
 
 
-def params_from_jax(np_tree: Dict[str, Any], cfg: TransformerConfig, device=None) -> Transformer:
+def _tp_names(cfg: TransformerConfig, mesh):
+    """(tp, coordinate, group, each parameter's tp dim by name)."""
+    from dlrover_tpu_torch.parallel.sharding_rules import tp_dims, tp_of
+
+    tp, coord, group = tp_of(mesh)
+    return tp, coord, group, (tp_dims(cfg, tp) if tp > 1 else {})
+
+
+def params_from_jax(np_tree: Dict[str, Any], cfg: TransformerConfig, device=None,
+                    mesh=None) -> Transformer:
     """The JAX param pytree (numpy leaves; layers as a list, or stacked
     ``[L, ...]`` leaves under ``cfg.scan_layers``) -> the port's
-    ``Transformer`` on ``device`` (default the CPU). ``stack_layer_params``
-    / ``unstack_layer_params`` (``models/transformer.py``) move a tree
+    ``Transformer`` on ``device`` (default the CPU); with a ``mesh`` of
+    tp > 1 this rank's tp boxes of the leaves. ``stack_layer_params`` /
+    ``unstack_layer_params`` (``models/transformer.py``) move a tree
     between the two layouts."""
+    from dlrover_tpu_torch.parallel.sharding_rules import local_shard
+
     stacked = isinstance(np_tree.get("layers"), dict)
     if stacked != cfg.scan_layers:
         raise ValueError(
             f"the tree's layers are {'stacked' if stacked else 'a list'}, "
             f"the config's scan_layers={cfg.scan_layers}"
         )
-    model = Transformer(cfg, device=device)
+    model = Transformer(cfg, device=device, mesh=mesh)
+    tp, coord, _, dims = _tp_names(cfg, mesh)
     n = 0
     with torch.no_grad():
         for name, p in model.named_parameters():
-            arr = np.asarray(_lookup(np_tree, name))
+            arr = local_shard(np.asarray(_lookup(np_tree, name)), dims.get(name), tp, coord)
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(
                     f"{name}: JAX leaf {arr.shape} vs port {tuple(p.shape)}"
@@ -79,11 +98,16 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: TransformerConfig, device=None
     return model
 
 
-def params_to_numpy(model: Transformer) -> Dict[str, Any]:
+def params_to_numpy(model: Transformer, mesh=None) -> Dict[str, Any]:
     """The port's parameters as the JAX-structured tree of f32 numpy
-    arrays (the inverse of ``params_from_jax``)."""
+    arrays (the inverse of ``params_from_jax``); with a ``mesh`` of tp >
+    1 the whole leaves, gathered over tp (every tp rank must call)."""
+    from dlrover_tpu_torch.parallel.sharding_rules import gather_tp
+
+    _, _, group, dims = _tp_names(model.cfg, mesh)
     tree: Dict[str, Any] = {}
     for name, p in model.named_parameters():
+        p = gather_tp(p, dims.get(name), group)
         parts = name.split(".")
         node = tree
         for i, part in enumerate(parts[:-1]):
@@ -231,8 +255,12 @@ def train_state_tree(state, mesh=None) -> Dict[str, Any]:
     JAX leaf's row-major flatten (recorded as blocks of the JAX leaf's
     shape, so the JAX package's reader assembles the whole leaf from
     every owner's records; a run wholly in the padding is left out), and
-    the host values on every rank. The residual
-    (``state.grad_residual``) is never part of it."""
+    the host values on every rank. Under tp a split leaf's tensor (or
+    its ZeRO shard) is recorded as its box of the whole leaf, its 8-bit
+    codes and scales as row ``tp coordinate`` of a ``[tp, ...]`` stack
+    (they are the box's own blocks: a restore needs the same tp), and a
+    leaf every tp rank holds whole is staged by tp coordinate 0 alone.
+    The residual (``state.grad_residual``) is never part of it."""
     opt = state.opt_state
     if not hasattr(opt, "lr_fn"):
         raise NotImplementedError(
@@ -256,7 +284,7 @@ def train_state_tree(state, mesh=None) -> Dict[str, Any]:
     }
     if mesh is None:
         return tree
-    return _rank_tree(tree, mesh, _param_paths(state.params) if state.shards is not None else None)
+    return _rank_tree(tree, mesh, state.params, state.shards is not None)
 
 
 def replica_group(mesh, zero: bool) -> str:
@@ -268,14 +296,61 @@ def replica_group(mesh, zero: bool) -> str:
     return "replica" if mesh.config.sp > 1 else "data"
 
 
-def _rank_tree(tree, mesh, params=None):
-    """``tree`` as this rank stages it (see ``train_state_tree``);
-    ``params`` (the model's ``_param_paths``) under ZeRO."""
-    from dlrover_tpu_torch.ckpt.sharding import BlockLeaf
+def _tp_parts(model: Transformer, mesh):
+    """(tp, coordinate, group, ``[(param path, its tp dim)]``; the list
+    empty at tp 1)."""
+    tp, coord, group, dims = _tp_names(model.cfg, mesh)
+    parts = [(pp, dims.get(pp.replace("/", "."))) for pp, _ in _param_paths(model)] if tp > 1 else []
+    return tp, coord, group, parts
 
-    zero = params is not None
+
+def _tp_part(path: str, parts):
+    """How the state tensor at ``path`` splits over tp: ``("box", dim)``
+    for a split leaf's param or a tensor of its shape (f32 moments,
+    traces), ``("stack", dim)`` for a split leaf's 8-bit codes or
+    scales (quantized in the box's own blocks), None for a tensor every
+    tp rank holds whole."""
+    for pp, d in parts:
+        if path.endswith("/" + pp):
+            return None if d is None else ("box", d)
+        if path.endswith(("/" + pp + "/0", "/" + pp + "/1")):
+            return None if d is None else ("stack", d)
+    return None
+
+
+def tp_whole_tensors(state, mesh) -> list:
+    """The tensors of ``train_state_tree(state)`` every tp rank holds
+    whole (tp coordinate 0 stages them; a restore hands them on over the
+    tp group). Empty at tp 1."""
+    from dlrover_tpu_torch.ckpt.sharding import flatten_state
+
+    tp, _, _, parts = _tp_parts(state.params, mesh)
+    if tp == 1:
+        return []
+    return [t for path, t in flatten_state(train_state_tree(state))
+            if isinstance(t, torch.Tensor) and _tp_part(path, parts) is None]
+
+
+def _rank_tree(tree, mesh, model: Transformer, zero: bool):
+    """``tree`` as this rank stages it (see ``train_state_tree``)."""
+    from dlrover_tpu_torch.ckpt.sharding import BlockLeaf, full_index
+    from dlrover_tpu_torch.parallel.sharding_rules import tp_box
+
+    params = _param_paths(model)
+    tp, coord, _, parts = _tp_parts(model, mesh)
     stager = mesh.group_index(replica_group(mesh, zero)) == 0
     f = mesh.group_index("fsdp")
+
+    def place(path, shape):
+        """(record shape, box) of a tp-local leaf of ``shape``, or None."""
+        part = _tp_part(path, parts)
+        if part is None:
+            return None
+        kind, d = part
+        if kind == "stack":
+            return (tp,) + tuple(shape), ((coord, coord + 1),) + full_index(shape)
+        whole = tuple(n * tp if i == d else n for i, n in enumerate(shape))
+        return whole, tp_box(whole, d, tp, coord)
 
     def block(path, t):
         # this rank's run of the JAX leaf's row-major flatten: fsdp equal
@@ -283,7 +358,15 @@ def _rank_tree(tree, mesh, params=None):
         shape = _jax_shape(path, t, params)
         n = t.numel()
         lo, hi = f * n, min((f + 1) * n, int(np.prod(shape)))
-        return BlockLeaf(t, shape, lo, hi) if lo < hi else None
+        return BlockLeaf(t, shape, lo, hi, place(path, shape)) if lo < hi else None
+
+    def leaf(path, t):
+        if coord and _tp_part(path, parts) is None:
+            return None  # whole on every tp rank: tp coordinate 0 stages it
+        if zero:
+            return block(path, t)
+        where = place(path, tuple(t.shape))
+        return t if where is None else BlockLeaf(t, tuple(t.shape), 0, t.numel(), where)
 
     def walk(prefix, node):
         if isinstance(node, dict):
@@ -294,9 +377,7 @@ def _rank_tree(tree, mesh, params=None):
                     out[k] = w
             return out
         if isinstance(node, torch.Tensor):
-            if not stager:
-                return None
-            return block(prefix, node) if zero else node
+            return leaf(prefix, node) if stager else None
         return node
 
     return walk("", tree)
@@ -357,14 +438,19 @@ def load_jax_train_state(state, leaves: Dict[str, np.ndarray], mesh=None, plan=N
     the JAX package's per-bucket ``(total, shard_elems)`` residual list,
     which ``plan``'s layout takes element for element."""
     from dlrover_tpu_torch.ckpt.sharding import flatten_state
+    from dlrover_tpu_torch.parallel.sharding_rules import local_shard
 
     zero = state.shards is not None
     F = mesh.config.fsdp if zero else 1
     f = mesh.group_index("fsdp") if zero else 0
+    tp, coord, _, tp_parts = _tp_parts(state.params, mesh)
     with torch.no_grad():
         if not zero:  # under ZeRO the shards carry the params
             for pp, p in _param_paths(state.params):
-                p.copy_(torch.from_numpy(np.asarray(leaves["params/" + pp], np.float32)).to(p.dtype))
+                part = _tp_part("params/" + pp, tp_parts)
+                a = local_shard(np.asarray(leaves["params/" + pp], np.float32),
+                                part and part[1], tp, coord)
+                p.copy_(torch.from_numpy(np.ascontiguousarray(a)).to(p.dtype))
         tree = train_state_tree(state)
         for path, t in flatten_state(tree):
             a = np.asarray(leaves[path])
@@ -374,6 +460,14 @@ def load_jax_train_state(state, leaves: Dict[str, np.ndarray], mesh=None, plan=N
                     node = node[part]
                 node[parts[-1]] = a
                 continue
+            tp_part = _tp_part(path, tp_parts)
+            if tp_part is not None:
+                if tp_part[0] == "stack":
+                    raise NotImplementedError(
+                        f"{path}: the JAX package's 8-bit state quantizes the whole "
+                        f"leaf; a tp rank's codes are its box's own blocks"
+                    )
+                a = np.ascontiguousarray(local_shard(a, tp_part[1], tp, coord))
             if zero:
                 flat = np.pad(a.reshape(-1), (0, F * t.numel() - a.size))
                 a = flat.reshape((F,) + tuple(t.shape))[f]
@@ -398,8 +492,11 @@ def jax_train_state(state, mesh=None, plan=None) -> Dict[str, np.ndarray]:
     from dlrover_tpu_torch.ckpt.sharding import flatten_state
     from dlrover_tpu_torch.parallel.grad_sync import _all_gather, residual_to_jax
 
+    from dlrover_tpu_torch.parallel.sharding_rules import gather_tp
+
     zero = state.shards is not None
     params = _param_paths(state.params)
+    tp, _, group, parts = _tp_parts(state.params, mesh)
     out: Dict[str, np.ndarray] = {}
     for path, t in flatten_state(train_state_tree(state)):
         if not isinstance(t, torch.Tensor):
@@ -411,6 +508,11 @@ def jax_train_state(state, mesh=None, plan=None) -> Dict[str, np.ndarray]:
             h.wait()
             shape = _jax_shape(path, t, params)
             a = full[:int(np.prod(shape))].view(shape)
+        part = _tp_part(path, parts)
+        if part is not None:
+            # a box joined along its dim; 8-bit state stacked [tp, ...]
+            a = gather_tp(a, part[1], group) if part[0] == "box" else \
+                gather_tp(a[None], 0, group)
         out[path] = a.cpu().numpy().copy()
     out["grad_residual"] = None
     if state.grad_residual is not None and plan is not None:

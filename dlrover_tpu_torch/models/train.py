@@ -34,6 +34,24 @@ all-reduce, run over the ``replica`` group (dp x fsdp x sp) and divided
 by dp x fsdp: one collective a microbatch sums over sp and averages over
 the data axes at once. The loss is reduced the same way.
 
+Tensor parallelism (a mesh with ``tp > 1``; ``models/transformer``'s
+Megatron layout): each tp rank holds its box of every split leaf and
+runs the same rows; the loss is the same number on every tp rank, so it
+is reduced over each tp coordinate's own data (or replica) group alone.
+The grads of a split leaf are the rank's box of the global gradient and
+those of a whole leaf are equal on every tp rank, so the sync runs per
+tp coordinate: the default path's all-reduce over that coordinate's
+data (or replica) group, the explicit plans of kind ``tp`` (dp x tp:
+the dp legs on the rank's tp-local buckets) and ``3d`` (dp x fsdp x tp:
+ZeRO on the tp-local leaves). ``grad_norm`` is the global norm of the
+whole tree, as in the JAX package: the squares of the split leaves
+summed over tp, the whole leaves counted once. Under the per-leaf 8-bit
+AdamW each tp-local leaf is quantized in its own 128-element blocks
+where the JAX package quantizes the whole leaf in its blocks (the
+codes of a split leaf's box differ from the JAX codes of those
+elements: a block can straddle two boxes there), as ZeRO's per-leaf
+block padding departs.
+
 Micro-batch rebalance (``batch_pad``): the trainer appends
 ``batch_pad`` zero rows to each global batch (``pad_batch_rows``) and
 the step weighs the rows of the loss (``pad_row_weights``: the pads 0,
@@ -117,26 +135,28 @@ def init_state(
     (``ops/host_offload.py``; a numeric no-op on the CPU)."""
     device = resolve_device(devices)
     gen = generator if generator is not None else torch.Generator().manual_seed(seed)
-    params = init_params(gen, cfg, device)
+    params = init_params(gen, cfg, device, mesh)
     return state_from_params(params, tx, mesh, plan, offload_opt_state)
 
 
 def _zero(plan) -> bool:
-    return plan is not None and plan.kind == "zero"
+    """ZeRO's layout: the zero kind, and the 3d kind on tp-local leaves."""
+    return plan is not None and plan.kind in ("zero", "3d")
 
 
 def leaf_shards(leaves, mesh, plan) -> List[torch.Tensor]:
     """This rank's block rows of each leaf (its fsdp index's run of
     ``plan.leaf_shard(i)`` elements of the padded row-major flatten).
     Each shard carries its whole leaf's size in ``leaf_numel`` (the
-    8-bit AdamW decides quantization on it, as on the whole leaf)."""
+    8-bit AdamW decides quantization on it, as on the whole leaf; under
+    3d the global leaf's, which a tp-local param carries)."""
     f = mesh.group_index("fsdp")
     out = []
     for i, p in enumerate(leaves):
         flat = F.pad(p.detach().reshape(-1), (0, plan.leaf_padded(i) - p.numel()))
         sh = plan.leaf_shard(i)
         s = flat[f * sh:(f + 1) * sh].clone()
-        s.leaf_numel = p.numel()
+        s.leaf_numel = getattr(p, "leaf_numel", p.numel())
         out.append(s)
     return out
 
@@ -380,10 +400,17 @@ def build_train_step(
     data_group = mesh.groups["data"] if mesh is not None else None
     n_data = mesh.config.dp * mesh.config.fsdp if mesh is not None else 1
     sp = mesh.config.sp if mesh is not None else 1
-    # the default path's reduction (and the loss's): with sp the replica
-    # group, whose sum is the sp sum and the data sum in one collective
+    tp = mesh.config.tp if mesh is not None else 1
+    # the default path's reduction (and the loss's), each tp
+    # coordinate's own: with sp the replica group, whose sum is the sp
+    # sum and the data sum in one collective
     sync_group = mesh.groups["replica"] if sp > 1 else data_group
-    model_mesh = mesh if sp > 1 else None
+    model_mesh = mesh if sp > 1 or tp > 1 else None
+    tp_dims = None
+    if tp > 1:
+        from dlrover_tpu_torch.parallel.sharding_rules import leaf_tp_dims
+
+        tp_dims = leaf_tp_dims(cfg, tp)
 
     def seq_block(tokens, targets):
         """This rank's block of each row under sequence parallelism."""
@@ -492,7 +519,12 @@ def build_train_step(
             targets_ = state.shards if _zero(plan) else params
         else:
             loss, grads = default_grads(model, params, tokens, targets)
-            gnorm = global_norm(grads)
+            if tp_dims is None:
+                gnorm = global_norm(grads)
+            else:
+                from dlrover_tpu_torch.parallel.grad_sync import tp_grad_norm
+
+                gnorm = tp_grad_norm(grads, tp_dims, mesh.groups["tp"])
             targets_ = params
         for p, g in zip(targets_, grads):
             p.grad = g.to(p.dtype)

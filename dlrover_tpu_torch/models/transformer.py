@@ -30,10 +30,28 @@ and runs the ring or Ulysses (``cfg.sp_scheme``, with the JAX
 ``ValueError`` for an unknown one) over the ``sp`` group; RoPE rotates,
 and the learned position table is read, at the block's global positions.
 
+Tensor parallelism (a mesh with ``tp > 1``) is the Megatron layout GSPMD
+derives from the JAX package's rule table (``parallel/sharding_rules``):
+each tp rank holds its box of every leaf the table splits (``wq [D,
+H/tp, K]``, ``wk`` / ``wv [D, kvh/tp, K]``, ``wo [H/tp, K, D]``,
+``w_gate`` / ``w_up [D, F/tp]``, ``b_up [F/tp]``, ``w_down [F/tp, D]``,
+and when tp divides the vocab the embedding's rows and the head's
+columns), and the rest whole. A block's normed input enters its local
+heads or MLP columns through ``copy_to_tp`` (identity forward, the tp sum
+backward), and the partial sum of ``wo`` or ``w_down`` leaves through
+``reduce_from_tp`` (the tp sum forward, identity backward) before
+``b_down`` and the residual add. A split embedding reads its rows
+(zeros for tokens outside them) and sums over tp; a split head makes
+the rank's logits ``[B, T, V/tp]`` and the loss is the vocab-parallel
+``lse - tgt`` (``token_nll``), the same number on every tp rank. The
+attention kernels, the ring and Ulysses run on the rank's local heads.
+A replicated leaf's gradient is the same on every tp rank by
+construction: every collective of the backward leaves the residual
+stream's gradient whole and equal on all of them.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: MoE layers (A11), tensor parallelism and fsdp x sp (A10), expert
-and pipeline parallelism (A11), ``int8_mlp`` (A12), the KV-cache decode
-paths (A14).
+item: MoE layers, expert and pipeline parallelism (A11), ``int8_mlp``
+(A12), the KV-cache decode paths (A14).
 """
 
 from __future__ import annotations
@@ -49,6 +67,15 @@ from torch.utils.checkpoint import checkpoint
 
 from dlrover_tpu_torch.models.config import TransformerConfig
 from dlrover_tpu_torch.ops.flash_attention import flash_attention
+from dlrover_tpu_torch.parallel.sharding_rules import (
+    check_tp,
+    jax_order,
+    list_layout,
+    local_shape,
+    local_shard,
+    tp_dims,
+    tp_of,
+)
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -60,24 +87,20 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 def check_supported(cfg: TransformerConfig, mesh=None) -> None:
     """Raise for the configuration switches the port does not run yet.
-    ``mesh``: a ``parallel/mesh.Mesh`` or its ``MeshConfig``; data axes
-    and sp run, a tp, ep or pp axis raises naming its ROADMAP item."""
+    ``mesh``: a ``parallel/mesh.Mesh`` or its ``MeshConfig``; the data
+    axes, sp and tp run, an ep or pp axis raises naming its ROADMAP
+    item, and a tp degree that does not divide the heads, the kv heads
+    or the MLP width raises ``ValueError``."""
     if cfg.num_experts:
         raise NotImplementedError("MoE layers are not ported yet (ROADMAP A11)")
     if mesh is not None:
         m = getattr(mesh, "config", mesh)
-        if m.tp > 1:
-            raise NotImplementedError(
-                "tensor parallelism is not ported yet (ROADMAP A10, its tp half)"
-            )
         if m.ep > 1 or m.pp > 1:
             raise NotImplementedError(
                 "expert / pipeline parallelism is not ported yet (ROADMAP A11)"
             )
-        if m.sp > 1 and m.fsdp > 1:
-            raise NotImplementedError(
-                "fsdp x sp without tp is not ported yet (ROADMAP A10, its tp half)"
-            )
+        if m.tp > 1:
+            check_tp(cfg, m.tp)
     if cfg.int8_mlp:
         raise NotImplementedError("int8_mlp is not ported yet (ROADMAP A12)")
 
@@ -87,40 +110,40 @@ def _sp(mesh) -> int:
 
 
 class _Layer(nn.Module):
-    def __init__(self, cfg: TransformerConfig, make):
+    def __init__(self, cfg: TransformerConfig, make, prefix: str):
         super().__init__()
         d, h, kvh, hd = cfg.model_dim, cfg.num_heads, cfg.kv_heads, cfg.head_dim
         f = cfg.ffn_dim
-        self.attn_norm = nn.ParameterDict({"scale": make("ones", (d,))})
-        self.mlp_norm = nn.ParameterDict({"scale": make("ones", (d,))})
+
+        def group(part, specs):
+            # each leaf made under its parameter name (``make`` cuts a
+            # tp rank's box by it)
+            return nn.ParameterDict({k: make(f"{prefix}{part}.{k}", *v) for k, v in specs.items()})
+
+        norm = {"scale": ("ones", (d,))}
         if not cfg.rmsnorm:
-            self.attn_norm["bias"] = make("zeros", (d,))
-            self.mlp_norm["bias"] = make("zeros", (d,))
-        self.attn = nn.ParameterDict(
-            {
-                "wq": make("dense", (d, h, hd), d),
-                "wk": make("dense", (d, kvh, hd), d),
-                "wv": make("dense", (d, kvh, hd), d),
-                "wo": make("dense", (h, hd, d), h * hd),
-            }
-        )
+            norm["bias"] = ("zeros", (d,))
+        self.attn_norm = group("attn_norm", norm)
+        self.mlp_norm = group("mlp_norm", norm)
+        self.attn = group("attn", {
+            "wq": ("dense", (d, h, hd), d),
+            "wk": ("dense", (d, kvh, hd), d),
+            "wv": ("dense", (d, kvh, hd), d),
+            "wo": ("dense", (h, hd, d), h * hd),
+        })
         if cfg.swiglu:
-            self.mlp = nn.ParameterDict(
-                {
-                    "w_gate": make("dense", (d, f), d),
-                    "w_up": make("dense", (d, f), d),
-                    "w_down": make("dense", (f, d), f),
-                }
-            )
+            self.mlp = group("mlp", {
+                "w_gate": ("dense", (d, f), d),
+                "w_up": ("dense", (d, f), d),
+                "w_down": ("dense", (f, d), f),
+            })
         else:
-            self.mlp = nn.ParameterDict(
-                {
-                    "w_up": make("dense", (d, f), d),
-                    "b_up": make("zeros", (f,)),
-                    "w_down": make("dense", (f, d), f),
-                    "b_down": make("zeros", (d,)),
-                }
-            )
+            self.mlp = group("mlp", {
+                "w_up": ("dense", (d, f), d),
+                "b_up": ("zeros", (f,)),
+                "w_down": ("dense", (f, d), f),
+                "b_down": ("zeros", (d,)),
+            })
 
 
 _LAYER_PARTS = ("attn_norm", "mlp_norm", "attn", "mlp")
@@ -160,45 +183,62 @@ def layer_views(layers) -> list:
 
 class Transformer(nn.Module):
     """The parameter tree (see the module docstring); the model runs
-    through the free function ``forward``."""
+    through the free function ``forward``. With a ``mesh`` of tp > 1 (a
+    ``parallel/mesh.Mesh``, or a ``MeshConfig`` for coordinate 0's
+    shapes) each leaf the rules split is this rank's box of it; the
+    generator still draws every whole leaf, so the weights are tp = 1's
+    of the same seed."""
 
     def __init__(
         self,
         cfg: TransformerConfig,
         generator: Optional[torch.Generator] = None,
         device=None,
+        mesh=None,
     ):
         super().__init__()
-        check_supported(cfg)
+        check_supported(cfg, mesh)
         self.cfg = cfg
         pd = _torch_dtype(cfg.param_dtype)
+        tp, coord, _ = tp_of(mesh)
+        # each leaf's tp dim, by its list-layout name (the names the
+        # leaves are drawn under)
+        dims = tp_dims(list_layout(cfg), tp) if tp > 1 else {}
 
-        def make(kind, shape, fan_in=None):
-            # drawn from the explicit generator on its own device (the
-            # CPU's: the same seed gives the same weights on every
-            # device), then moved
+        def make(name, kind, shape, fan_in=None):
+            # drawn whole from the explicit generator on its own device
+            # (the CPU's: the same seed gives the same weights on every
+            # device), cut to this rank's box, then moved
+            dim = dims.get(name)
             if kind == "dense" and generator is not None:
                 w = torch.randn(shape, generator=generator, device=generator.device) * fan_in**-0.5
+                if dim is not None:
+                    # a copy of the box alone: the whole leaf is freed
+                    w = local_shard(w, dim, tp, coord).clone(memory_format=torch.contiguous_format)
             elif kind == "ones":
-                w = torch.ones(shape)
+                w = torch.ones(local_shape(shape, dim, tp))
             else:
-                w = torch.zeros(shape)
-            return nn.Parameter(w.to(device=device, dtype=pd))
+                w = torch.zeros(local_shape(shape, dim, tp))
+            p = nn.Parameter(w.to(device=device, dtype=pd))
+            if dim is not None:
+                # the 8-bit AdamW decides quantization on the whole leaf
+                p.leaf_numel = int(np.prod(shape))
+            return p
 
         d = cfg.model_dim
         self.embed = nn.ParameterDict(
-            {"tokens": make("dense", (cfg.vocab_size, d), d)}
+            {"tokens": make("embed.tokens", "dense", (cfg.vocab_size, d), d)}
         )
-        self.final_norm = nn.ParameterDict({"scale": make("ones", (d,))})
+        self.final_norm = nn.ParameterDict({"scale": make("final_norm.scale", "ones", (d,))})
         if not cfg.rmsnorm:
-            self.final_norm["bias"] = make("zeros", (d,))
+            self.final_norm["bias"] = make("final_norm.bias", "zeros", (d,))
         if not cfg.rope:
-            self.embed["positions"] = make("dense", (cfg.max_seq_len, d), d)
+            self.embed["positions"] = make("embed.positions", "dense", (cfg.max_seq_len, d), d)
         if not cfg.tie_embeddings:
-            self.lm_head = make("dense", (d, cfg.vocab_size), d)
+            self.lm_head = make("lm_head", "dense", (d, cfg.vocab_size), d)
         # drawn layer by layer in both layouts: a stacked model holds the
         # list layout's weights of the same seed
-        layers = [_Layer(cfg, make) for _ in range(cfg.num_layers)]
+        layers = [_Layer(cfg, make, f"layers.{i}.") for i in range(cfg.num_layers)]
         self.layers = _StackedLayers(layers) if cfg.scan_layers else nn.ModuleList(layers)
 
     def jax_ordered_parameters(self):
@@ -206,21 +246,17 @@ class Transformer(nn.Module):
         keys sorted, layers in order; stacked leaves as the stacked
         tree's keys) — the leaf order of the flat optimizer's layout."""
 
-        def key(item):
-            return tuple(
-                int(p) if p.isdigit() else p for p in item[0].split(".")
-            )
-
-        return [p for _, p in sorted(self.named_parameters(), key=key)]
+        named = dict(self.named_parameters())
+        return [named[n] for n in jax_order(named)]
 
 
 def init_params(
-    generator: torch.Generator, cfg: TransformerConfig, device=None
+    generator: torch.Generator, cfg: TransformerConfig, device=None, mesh=None
 ) -> Transformer:
     """Random weights from an explicit generator (the port of
     ``init_params(key, cfg)``): dense ``N(0, 1/fan_in)``, norm scales 1,
-    biases 0."""
-    return Transformer(cfg, generator=generator, device=device)
+    biases 0; under tp this rank's boxes of them."""
+    return Transformer(cfg, generator=generator, device=device, mesh=mesh)
 
 
 def _tree_map(fn, *trees):
@@ -333,11 +369,137 @@ def _causal_attention(q, k, v, layout: str = "bthd"):
     return flash_attention(q, k, v, causal=True, layout=layout)
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: the collectives over the tp group
+# ---------------------------------------------------------------------------
+# the tp all-reduces' number and host ms (on the card the queue is
+# drained before and after each; read by the tp phase of chip_smoke.py)
+tp_comm = {"calls": 0, "ms": 0.0}
+
+
+def reset_tp_comm() -> None:
+    tp_comm.update(calls=0, ms=0.0)
+
+
+def _tp_sum(t: torch.Tensor, group, op=None) -> torch.Tensor:
+    """``t`` reduced over the tp group (a sum unless ``op``), as a new
+    tensor of ``t``'s dtype. The reduction runs in f32 whatever ``t``'s
+    dtype (two bf16 partial sums round once, as one bf16 add rounds).
+    Over gloo a CUDA tensor's all-reduce is staged by gloo itself
+    through host memory (its CUDA work copies the tensor to a pinned
+    host buffer and back): that is the card's tp transport when two
+    ranks share one card, the tensors never leave the card otherwise."""
+    import time
+
+    import torch.distributed as dist
+
+    buf = t.detach().to(torch.float32, copy=True)
+    cuda = buf.device.type == "cuda"
+    if cuda:
+        torch.cuda.current_stream().synchronize()
+    t0 = time.perf_counter()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM if op is None else op, group=group)
+    if cuda:
+        torch.cuda.current_stream().synchronize()
+    tp_comm["ms"] += (time.perf_counter() - t0) * 1e3
+    tp_comm["calls"] += 1
+    return buf if t.dtype == torch.float32 else buf.to(t.dtype)
+
+
+class _CopyToTp(torch.autograd.Function):
+    """Identity forward, the tp sum backward: the input of the local
+    heads or MLP columns, whose gradients are each rank's share."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tp_sum(g, ctx.group), None
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    """The tp sum forward, identity backward: a row-parallel matmul's
+    partial sums."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _tp_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _CopyToTp.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _ReduceFromTp.apply(x, group)
+
+
+def _tp_group(mesh):
+    """The tp group of a mesh with tp > 1, else None."""
+    tp, _, group = tp_of(mesh)
+    return group if tp > 1 else None
+
+
+def vocab_split(cfg: TransformerConfig, mesh) -> Optional[Tuple[int, Any]]:
+    """``(first row, tp group)`` of this rank's vocab block when tp > 1
+    divides the vocab, else None (the table and the head whole on every
+    tp rank)."""
+    tp, coord, group = tp_of(mesh)
+    if tp == 1 or group is None or cfg.vocab_size % tp:
+        return None
+    return coord * (cfg.vocab_size // tp), group
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token ``lse - logits[target]`` over a vocab split on tp:
+    ``logits [B,T,V/tp]`` (f32) are this rank's columns ``[lo, lo +
+    V/tp)``. The max and the sum of exponentials are reduced over tp and
+    the target's logit comes from the one rank that holds it (a sum of
+    it and zeros), so the result is the same number on every tp rank.
+    The backward is the local ``softmax - onehot``: one ``[B,T,V/tp]``
+    f32 tensor, formed in place (the softmax the JAX form's backward
+    needs, no second one)."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, lo, group):
+        import torch.distributed as dist
+
+        V = logits.shape[-1]
+        local = targets.long() - lo
+        inside = (local >= 0) & (local < V)
+        idx = local.clamp(0, V - 1)
+        m = _tp_sum(logits.amax(-1), group, dist.ReduceOp.MAX)
+        s = torch.exp(logits - m[..., None]).sum(-1)
+        tgt = logits.gather(-1, idx[..., None])[..., 0] * inside
+        st = _tp_sum(torch.stack([s, tgt]), group)
+        lse = m + torch.log(st[0])
+        ctx.save_for_backward(logits, lse, idx, inside)
+        return lse - st[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, inside = ctx.saved_tensors
+        grad = torch.exp(logits - lse[..., None])
+        grad.scatter_add_(-1, idx[..., None], -inside.to(grad.dtype)[..., None])
+        grad.mul_(g[..., None])
+        return grad, None, None, None
+
+
 def _attention_block(x, layer, cfg: TransformerConfig, positions, mesh=None):
     """The JAX block: without sequence parallelism the kernel-native
     ``bhtd`` projections; under sp (this rank's block of the sequence)
-    ``bthd`` and the ring or Ulysses over the mesh's sp group."""
+    ``bthd`` and the ring or Ulysses over the mesh's sp group. Under tp
+    the rank's local heads, their ``wo`` partial sums reduced over tp."""
     h = _norm(x, layer.attn_norm, cfg)
+    tp_group = _tp_group(mesh)
+    h = copy_to_tp(h, tp_group)
     a = layer.attn
     sp = _sp(mesh) > 1
     layout = "bthd" if sp else "bhtd"
@@ -368,7 +530,7 @@ def _attention_block(x, layer, cfg: TransformerConfig, positions, mesh=None):
             f"unknown sp_scheme {cfg.sp_scheme!r} (expected 'ring' or 'ulysses')"
         )
     out = "bthk,hkd->btd" if sp else "bhtk,hkd->btd"
-    return x + torch.einsum(out, o, a["wo"].to(o.dtype))
+    return x + reduce_from_tp(torch.einsum(out, o, a["wo"].to(o.dtype)), tp_group)
 
 
 def _zero_aux(device=None) -> Dict[str, torch.Tensor]:
@@ -376,8 +538,10 @@ def _zero_aux(device=None) -> Dict[str, torch.Tensor]:
     return {"balance": z, "z": z}
 
 
-def _mlp_block(x, layer, cfg: TransformerConfig):
+def _mlp_block(x, layer, cfg: TransformerConfig, mesh=None):
     h = _norm(x, layer.mlp_norm, cfg)
+    tp_group = _tp_group(mesh)
+    h = copy_to_tp(h, tp_group)
     mlp = layer.mlp
 
     def mm(a, w):
@@ -388,29 +552,43 @@ def _mlp_block(x, layer, cfg: TransformerConfig):
     else:
         # jax.nn.gelu defaults to the tanh approximation
         z = F.gelu(mm(h, mlp["w_up"]) + mlp["b_up"].to(h.dtype), approximate="tanh")
-    out = mm(z, mlp["w_down"])
+    out = reduce_from_tp(mm(z, mlp["w_down"]), tp_group)
     if not cfg.swiglu:
         out = out + mlp["b_down"].to(h.dtype)
     return x + out
 
 
 def embed_tokens(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
-                 offset: int = 0):
+                 offset: int = 0, mesh=None):
     """tokens [B,T] -> residual stream [B,T,D] (token + learned positions;
     ``offset``: the global position of the block's first token, under
-    sequence parallelism)."""
+    sequence parallelism). A vocab split over tp reads this rank's rows
+    (zeros for the tokens outside them) and sums over tp."""
     dt = _torch_dtype(cfg.dtype)
     T = tokens.shape[-1]
-    x = F.embedding(tokens, params.embed["tokens"].to(dt))
+    table = params.embed["tokens"].to(dt)
+    split = vocab_split(cfg, mesh)
+    if split is None:
+        x = F.embedding(tokens, table)
+    else:
+        lo, group = split
+        local = tokens - lo
+        inside = (local >= 0) & (local < table.shape[0])
+        x = F.embedding(local.clamp(0, table.shape[0] - 1), table) * inside[..., None].to(dt)
+        x = reduce_from_tp(x, group)
     if not cfg.rope:
         x = x + params.embed["positions"].to(dt)[offset:offset + T][None]
     return x
 
 
-def lm_head(params: Transformer, x: torch.Tensor, cfg: TransformerConfig):
-    """final residual [B,T,D] -> logits [B,T,vocab] f32 (incl. final norm)."""
+def lm_head(params: Transformer, x: torch.Tensor, cfg: TransformerConfig, mesh=None):
+    """final residual [B,T,D] -> logits [B,T,vocab] f32 (incl. final norm);
+    under a vocab split over tp this rank's ``[B,T,vocab/tp]``."""
     dt = _torch_dtype(cfg.dtype)
     x = _norm(x, params.final_norm, cfg)
+    split = vocab_split(cfg, mesh)
+    if split is not None:
+        x = copy_to_tp(x, split[1])
     if cfg.tie_embeddings:
         logits = x @ params.embed["tokens"].to(dt).t()
     else:
@@ -421,14 +599,19 @@ def lm_head(params: Transformer, x: torch.Tensor, cfg: TransformerConfig):
     return logits
 
 
-def token_nll(logits: torch.Tensor, targets: torch.Tensor, row_weights=None):
+def token_nll(logits: torch.Tensor, targets: torch.Tensor, row_weights=None, split=None):
     """Mean next-token negative log-likelihood, as
     ``logsumexp(logits) - logits[target]``. ``row_weights`` ([B]; see
     ``models/train.pad_row_weights``) weighs each row's tokens in the
-    mean: padded rows weigh 0."""
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, targets[..., None].long())[..., 0]
-    nll = lse - tgt
+    mean: padded rows weigh 0. ``split`` (``vocab_split``): the logits
+    are this rank's vocab block, and the loss is the vocab-parallel one
+    (``_VocabParallelNLL``)."""
+    if split is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, targets[..., None].long())[..., 0]
+        nll = lse - tgt
+    else:
+        nll = _VocabParallelNLL.apply(logits, targets, split[0], split[1])
     if row_weights is not None:
         return (row_weights[:, None].to(nll.dtype) * nll).mean()
     return nll.mean()
@@ -459,16 +642,18 @@ def forward(
 
     Under sequence parallelism (``mesh`` with sp > 1) ``tokens`` is this
     rank's block of each row (``mesh.sequence_sharding``), at global
-    positions ``sp index x T`` on; the logits are the block's."""
+    positions ``sp index x T`` on; the logits are the block's. Under a
+    vocab split over tp (``vocab_split``) they are this rank's vocab
+    block."""
     check_supported(cfg, mesh)
     run = gather or _run_unit
     B, T = tokens.shape
     offset = T * mesh.coords.get("sp", 0) if _sp(mesh) > 1 else 0
-    x = run("embed", lambda t: embed_tokens(params, t, cfg, offset), tokens)
+    x = run("embed", lambda t: embed_tokens(params, t, cfg, offset, mesh), tokens)
     positions = (offset + torch.arange(T, device=tokens.device)).expand(B, T)
 
     def block(x, layer):
-        return _mlp_block(_attention_block(x, layer, cfg, positions, mesh), layer, cfg)
+        return _mlp_block(_attention_block(x, layer, cfg, positions, mesh), layer, cfg, mesh)
 
     def blocks(x, layers):
         for layer in layers:
@@ -484,7 +669,7 @@ def forward(
         # a remat block is its own recompute: the gather rebuilds it
         for i, layer in enumerate(params.layers):
             x = run(("layer", i), lambda x, layer=layer: block(x, layer), x, cfg.remat)
-    return run("head", lambda x: lm_head(params, x, cfg), x), _zero_aux(x.device)
+    return run("head", lambda x: lm_head(params, x, cfg, mesh), x), _zero_aux(x.device)
 
 
 def unit_parameters(params: Transformer) -> Dict[Any, List[torch.nn.Parameter]]:
@@ -512,6 +697,7 @@ def loss_fn(
     gather=None,
 ):
     """Mean NLL (the dense model's MoE aux losses are zero), weighted by
-    row with ``row_weights``; ``gather`` as in ``forward``."""
+    row with ``row_weights``; ``gather`` as in ``forward``. Under tp the
+    same number on every tp rank."""
     logits, _ = forward(params, tokens, cfg, mesh, gather)
-    return token_nll(logits, targets, row_weights)
+    return token_nll(logits, targets, row_weights, vocab_split(cfg, mesh))

@@ -1,9 +1,10 @@
-"""Data parallelism on ``torch.distributed`` (the port of
+"""Parallelism on ``torch.distributed`` (the port of
 ``dlrover_tpu/parallel``): the named-axis mesh over the ranks
 (``mesh.py``), the bucketed gradient sync (``grad_sync.py``), the
-measured link-cost model (``topology.py``) and the SDC detector's
-per-lane fence (``sdc.py``). Tensor, sequence, expert and pipeline
-parallelism are ROADMAP A10 / A11."""
+measured link-cost model (``topology.py``), the SDC detector's per-lane
+fence (``sdc.py``), sequence parallelism (``ring_attention.py``,
+``ulysses.py``) and the tensor-parallel layout (``sharding_rules.py``).
+Expert and pipeline parallelism are ROADMAP A11."""
 
 from dlrover_tpu_torch.parallel.grad_sync import (  # noqa: F401
     BucketPlan,

@@ -47,7 +47,30 @@ leg's group and waited for before the next leg reads it:
   first summed over the ``sp`` group (an all-reduce), then takes the dp
   legs above (flat; int8 on them as on a dp plan). A mesh with sp and
   no dp resolves to no plan, as in the JAX package, and the train
-  step's default path makes the same sp sum.
+  step's default path makes the same sp sum;
+- **tensor parallelism** (kind ``tp`` with ``model_shard = tp > 1``,
+  dp x tp[, sp]): each tp rank holds its box of every split leaf
+  (``parallel/sharding_rules``), so each tp coordinate's dp group syncs
+  that rank's tp-local buckets: the dp legs above (and the sp sum
+  first), over the groups of its coordinate. The plan's buckets and
+  byte counts are the JAX package's, over the global leaves; the port's
+  plan also carries ``tp`` and ``leaf_tp_dims``, from which the sync
+  cuts each bucket's local leaves (``BucketPlan.local_shape``). int8
+  runs on these plans, with one scale a bucket over dp x tp, as the
+  JAX package runs it when its residual probe answers True (it does on
+  the JAX release here; the port has no residual sharding to probe).
+  The JAX tests that pin the opposite are red here for that reason
+  (``test_hybrid_sync.py::TestSyncModeGate::test_tp_plan_forces_
+  compress_off``, ``test_plan_buckets_rejects_bad_combos``;
+  ``test_sparse_sync.py::TestAutoAxisResidualProbe``);
+- **3d** (dp x fsdp x tp[, sp]): ZeRO on the tp-local leaves — the
+  plan's leaves are the tp-local shapes (the JAX ``_localize_tp``) in
+  the port's ZeRO block layout, the reduce-scatter over fsdp and the dp
+  legs run over each tp coordinate's groups. 3d plans never compress
+  (the JAX gate forces ``none``).
+
+Under tp the grad norm is the whole tree's: the split leaves' squares
+summed over tp, the whole leaves' counted once.
 
 The collectives run on CUDA tensors on NCCL and on gloo alike (gloo
 takes every one of them on CUDA tensors in the card's torch: the
@@ -66,8 +89,7 @@ folded in), and ``comm_time_per_device_s`` / ``comm_time_legs_s`` price
 a sync's wire time per link from it, as in the JAX package.
 
 What raises instead, naming the ROADMAP item that brings it: plans of
-kind ``tp`` over a tp axis (``model_shard > 1``) and ``3d`` (A10),
-``ep`` and ``pp`` (A11).
+kind ``ep`` and ``pp`` (A11).
 """
 
 from __future__ import annotations
@@ -78,9 +100,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-_A10 = "ROADMAP A10 (tensor / sequence parallelism)"
 _A11 = "ROADMAP A11 (MoE and pipeline parallelism)"
-_KIND_ITEM = {"tp": _A10, "3d": _A10, "ep": _A11, "pp": _A11}
+_KIND_ITEM = {"ep": _A11, "pp": _A11}
 
 # bytes per element of the dtypes a leaf may carry (numpy cannot name
 # bfloat16 without ml_dtypes)
@@ -105,10 +126,9 @@ def _not_ported(kind: str) -> NotImplementedError:
     )
 
 
-def _check_ported(kind: str, model_shard: int = 1) -> None:
-    """Raise for the plan kinds the port has no sync for; the ``tp``
-    kind of a dp x sp mesh (no axis shards params) it has."""
-    if kind in _KIND_ITEM and not (kind == "tp" and model_shard == 1):
+def _check_ported(kind: str) -> None:
+    """Raise for the plan kinds the port has no sync for."""
+    if kind in _KIND_ITEM:
         raise _not_ported(kind)
 
 
@@ -361,6 +381,35 @@ class BucketPlan:
     # each rank's run padded so the dp legs divide it, so the fsdp
     # reduce-scatter hands each rank exactly the rows it owns
     leaf_block: int = 0
+
+    @property
+    def tp_local(self) -> bool:
+        """True on a ``tp`` plan over a tp axis: the leaf shapes are the
+        global ones (the JAX package's plan) and each rank syncs its
+        tp-local boxes of them."""
+        return self.kind == "tp" and self.tp > 1
+
+    def local_shape(self, i: int) -> Tuple[int, ...]:
+        """Leaf ``i``'s shape on a rank: its tp box on a ``tp_local``
+        plan, else the plan's own (3d plans are planned on the tp-local
+        shapes)."""
+        shape = self.leaf_shapes[i]
+        d = self.leaf_tp_dims[i] if self.tp_local else None
+        return tuple(n // self.tp if j == d else n for j, n in enumerate(shape))
+
+    def local_padded(self, bucket: "Bucket") -> int:
+        """A bucket's length on a rank: ``padded``, or on a ``tp_local``
+        plan its local leaves' elements rounded up to a multiple of dp."""
+        if not self.tp_local:
+            return bucket.padded
+        n = sum(_numel(self.local_shape(i)) for i in range(bucket.start, bucket.stop))
+        return -(-n // self.dp) * self.dp
+
+    def residual_elems(self, bucket: "Bucket") -> int:
+        """Length of a rank's error-feedback residual of ``bucket``: the
+        ``shard_elems`` the byte counts price, or the local bucket on a
+        ``tp_local`` plan."""
+        return self.local_padded(bucket) if self.tp_local else self.shard_elems(bucket)
 
     def leaf_padded(self, i: int) -> int:
         """Leaf ``i``'s length in the bucket layout (its elements, or on
@@ -694,9 +743,8 @@ def plan_buckets(
     bucket; the plan never splits a leaf. ``fsdp > 1`` plans the ZeRO
     schedule (padding covers the fsdp scatter too); ``leaf_block > 0``
     pads each leaf to fsdp x whole blocks instead (the port's ZeRO
-    layout, ``BucketPlan.leaf_block``). A dp x sp plan (``auto_axes=
-    ("sp",)``, ``model_shard=1``) plans as dp; model-sharded plans (a tp
-    or ep axis, kind ``3d``) are ROADMAP A10 / A11."""
+    layout, ``BucketPlan.leaf_block``). Plans over an ep axis are
+    ROADMAP A11."""
     if compress not in _COMPRESS_MODES:
         raise ValueError(
             f"unknown grad compression {compress!r} "
@@ -734,9 +782,7 @@ def plan_buckets(
             "must be the tp-LOCAL shards — use resolve_plan/"
             "plan_for_mesh, not plan_buckets directly)"
         )
-    _check_ported(kind or ("tp" if auto_axes else ""), model_shard)
-    if auto_axes and tuple(auto_axes) != ("sp",):
-        raise _not_ported("tp")
+    _check_ported(kind or ("ep" if "ep" in auto_axes else ""))
     shapes, dtypes = _leaf_meta(leaves)
     buckets: List[Bucket] = []
     start = 0
@@ -825,8 +871,8 @@ def note_gspmd_fallback(axis_sizes: dict, reason: str = "") -> None:
     logger.info(
         f"grad_sync: mesh {sizes or {'dp': 1}} keeps the default "
         f"schedule{' (' + reason + ')' if reason else ''}; the explicit "
-        f"bucketed path supports pure-dp and dp x fsdp meshes here "
-        f"(grad_sync_path=gspmd)"
+        f"bucketed path supports dp, dp x fsdp, dp x tp/sp and "
+        f"dp x fsdp x tp meshes here (grad_sync_path=gspmd)"
     )
 
 
@@ -912,15 +958,48 @@ def resolve_bucket_bytes(
     )
 
 
-def model_leaves(cfg) -> list:
+def model_leaves(cfg, mesh=None) -> list:
     """The model's parameter leaves in the JAX tree order, on the meta
-    device (shapes and dtypes, no storage)."""
+    device (shapes and dtypes, no storage); with a ``mesh`` of tp > 1 a
+    rank's tp-local leaves."""
     import torch
 
     from dlrover_tpu_torch.models.transformer import Transformer
 
     with torch.device("meta"):
-        return Transformer(cfg).jax_ordered_parameters()
+        return Transformer(cfg, mesh=mesh).jax_ordered_parameters()
+
+
+def _localize_axis(params_shape, degree: int, cfg, mesh_axis: str):
+    """``params_shape`` (leaves in the JAX order) with each
+    ``mesh_axis``-sharded leaf dim divided by ``degree`` (a dim the
+    degree does not divide stays whole, as the rules leave it). Returns
+    the local ``(shape, dtype)`` leaves and the per-leaf dims (None for
+    a leaf every rank of the axis holds whole): the JAX package's, by
+    which its fully-manual sync regions bucket in local coordinates."""
+    from dlrover_tpu_torch.parallel.sharding_rules import jax_order, tp_dims
+
+    named = tp_dims(cfg, 1, mesh_axis)
+    dims = [named[n] for n in jax_order(named)]
+    shapes, dtypes = _leaf_meta(params_shape)
+    if len(dims) != len(shapes):
+        raise ValueError(
+            f"logical axes tree ({len(dims)} leaves) does not match the "
+            f"param tree ({len(shapes)} leaves)"
+        )
+    out_leaves, out_dims = [], []
+    for shape, dt, dim in zip(shapes, dtypes, dims):
+        if dim is not None and shape[dim] % degree == 0:
+            shape = tuple(d // degree if i == dim else d for i, d in enumerate(shape))
+            out_dims.append(dim)
+        else:
+            out_dims.append(None)
+        out_leaves.append((shape, dt))
+    return out_leaves, tuple(out_dims)
+
+
+def _localize_tp(params_shape, tp: int, cfg):
+    return _localize_axis(params_shape, tp, cfg, "tp")
 
 
 def _plan_for_mode(
@@ -928,15 +1007,20 @@ def _plan_for_mode(
     params_shape=None, slices: int = 1,
     topk_density: float = AUTO_TOPK_DENSITY, whole_dcn: bool = False,
 ) -> BucketPlan:
-    _check_ported(mode.kind, mode.model_shard)
+    _check_ported(mode.kind)
     if params_shape is None:
         params_shape = model_leaves(cfg)
     if grad_compress == "auto":
         grad_compress = resolve_auto_compress(
-            slices=slices,
+            slices=slices if mode.kind != "tp" else 1,
             whole_dcn=whole_dcn,
             auto_axes=mode.auto_axes,
         )
+    if mode.kind in ("tp", "3d") and grad_compress != "none":
+        # the JAX gate: int8 on the tp kind when its residual probe
+        # answers True (it does on the JAX release here; tp plans have
+        # no DCN shard to sparsify), never on 3d
+        grad_compress = "int8" if mode.kind == "tp" else "none"
     if mode.kind == "tp":
         # the sp sum and flat dp legs (the JAX tp path's one flat psum
         # a bucket): no DCN shard leg
@@ -945,6 +1029,18 @@ def _plan_for_mode(
     if grad_compress == "int8_topk" and slices <= 1:
         # no cross-slice DCN leg to sparsify — quantization still pays
         grad_compress = "int8"
+    kind, tp, model_shard = mode.kind, 1, mode.model_shard
+    leaf_tp_dims: Tuple[Optional[int], ...] = ()
+    if kind == "3d":
+        # planned over each rank's tp-LOCAL leaves, as the JAX package
+        # plans it (model_shard 1: nothing left to divide)
+        tp, model_shard = mode.model_shard, 1
+        params_shape, leaf_tp_dims = _localize_tp(params_shape, tp, cfg)
+    elif kind == "tp" and mode.model_shard > 1:
+        # the JAX plan over the global leaves; the port's sync reads
+        # each rank's boxes of them from these
+        tp = mode.model_shard
+        leaf_tp_dims = _localize_tp(params_shape, tp, cfg)[1]
     return plan_buckets(
         params_shape,
         dp=mode.dp,
@@ -957,11 +1053,13 @@ def _plan_for_mode(
         slices=slices,
         fsdp=mode.fsdp,
         auto_axes=mode.auto_axes,
-        model_shard=mode.model_shard,
-        kind=mode.kind,
+        model_shard=model_shard,
+        kind=kind,
+        tp=tp,
+        leaf_tp_dims=leaf_tp_dims,
         topk_density=topk_density,
         topk_block=TOPK_BLOCK,
-        leaf_block=ZERO_LEAF_BLOCK if mode.kind == "zero" else 0,
+        leaf_block=ZERO_LEAF_BLOCK if kind in ("zero", "3d") else 0,
     )
 
 
@@ -1020,7 +1118,7 @@ def resolve_plan(
     if mode is None:
         note_gspmd_fallback(sizes)
         return None
-    _check_ported(mode.kind, mode.model_shard)
+    _check_ported(mode.kind)
     slices = strategy.mesh.dp_slices()
     return _plan_for_mode(
         cfg,
@@ -1132,7 +1230,8 @@ def _wait(handles):
 
 def _bucket_flat(leaves: Sequence, bucket: Bucket, plan: BucketPlan):
     """One bucket's leaves as one padded f32 vector: back to back (the
-    JAX layout), or rank-major by block rows on ``leaf_block`` plans."""
+    JAX layout; a rank's tp-local leaves on a ``tp_local`` plan), or
+    rank-major by block rows on ``leaf_block`` plans."""
     import torch
     import torch.nn.functional as F
 
@@ -1147,8 +1246,9 @@ def _bucket_flat(leaves: Sequence, bucket: Bucket, plan: BucketPlan):
         return F.pad(laid, (0, chunk - laid.shape[1])).reshape(-1)
     parts = [l.reshape(-1).float() for l in leaves[bucket.start : bucket.stop]]
     flat = torch.cat(parts) if len(parts) > 1 else parts[0]
-    if bucket.padded != bucket.elems:
-        flat = F.pad(flat, (0, bucket.padded - bucket.elems))
+    padded = plan.local_padded(bucket)
+    if padded != flat.numel():
+        flat = F.pad(flat, (0, padded - flat.numel()))
     return flat
 
 
@@ -1166,7 +1266,7 @@ def _unflatten_bucket(flat, bucket: Bucket, plan: BucketPlan):
             n = plan.leaf_shard(i)
             out.append(flat[off : off + n].to(dt))
         else:
-            shape = plan.leaf_shapes[i]
+            shape = plan.local_shape(i)
             n = _numel(shape)
             out.append(flat[off : off + n].reshape(shape).to(dt))
         off += n
@@ -1226,6 +1326,9 @@ def _shared_scales(xs, mesh, plan: BucketPlan):
     group = mesh.groups["data" if plan.zero else "dp"]
     if group is not None:
         _wait([_all_reduce(a, group, dist.ReduceOp.MAX) for a in amax])
+    if plan.tp_local and mesh.groups.get("tp") is not None:
+        # the JAX scale is the whole bucket's: every tp rank's boxes
+        _wait([_all_reduce(a, mesh.groups["tp"], dist.ReduceOp.MAX) for a in amax])
     return [torch.clamp_min(a * (1.0 / 127.0), 1e-20) for a in amax]
 
 
@@ -1314,7 +1417,7 @@ def _sync_buckets(flats, residual, mesh, plan: BucketPlan, legs: str = "all"):
     import torch
 
     xs = flats
-    if plan.kind == "tp" and mesh.groups.get("sp") is not None:
+    if plan.kind in ("tp", "3d") and mesh.groups.get("sp") is not None:
         # sequence parallelism: each rank's grads are a partial sum over
         # its sequence block; the sp sum comes first, a bucket at a time
         for f in flats:
@@ -1376,7 +1479,7 @@ def sync_grads(
     import torch
     import torch.distributed as dist
 
-    _check_ported(plan.kind, plan.model_shard)
+    _check_ported(plan.kind)
     ef = plan.compressed and residual is not None
     flats = []
     for b in plan.buckets:
@@ -1397,13 +1500,17 @@ def sync_grads(
     out: List = []
     for b, m in zip(plan.buckets, means):
         out.extend(_unflatten_bucket(m, b, plan))
-    if sumsq is None:
-        sumsq = torch.zeros((), dtype=torch.float32)
-    if plan.zero and mesh.groups["fsdp"] is not None:
-        # each rank's sum covers its fsdp chunk; the chunks partition
-        # the bucket
-        _wait([_all_reduce(sumsq, mesh.groups["fsdp"])])
-    gnorm = torch.sqrt(sumsq)
+    if plan.tp > 1 and mesh.groups.get("tp") is not None:
+        gnorm = tp_grad_norm(out, plan.leaf_tp_dims, mesh.groups["tp"],
+                             mesh.groups["fsdp"] if plan.zero else None)
+    else:
+        if sumsq is None:
+            sumsq = torch.zeros((), dtype=torch.float32)
+        if plan.zero and mesh.groups["fsdp"] is not None:
+            # each rank's sum covers its fsdp chunk; the chunks partition
+            # the bucket
+            _wait([_all_reduce(sumsq, mesh.groups["fsdp"])])
+        gnorm = torch.sqrt(sumsq)
     res_out = tuple(new_res) if ef else None
     if not device_norms:
         return out, res_out, gnorm
@@ -1420,6 +1527,24 @@ def sync_grads(
     return out, res_out, gnorm, torch.sqrt(lanes)
 
 
+def tp_grad_norm(leaves, dims, tp_group, fsdp_group=None):
+    """The whole tree's grad norm from a rank's tp-local leaves (``dims``:
+    each leaf's tp dim, None for a leaf every tp rank holds whole; with
+    ``fsdp_group``, the leaves are ZeRO shards, whose padding is zero):
+    the squares of the split leaves and of the whole ones, summed over
+    fsdp, then the split ones' over tp, so a whole leaf counts once."""
+    import torch
+
+    ss = torch.zeros(2, dtype=torch.float32, device=leaves[0].device if leaves else None)
+    for l, d in zip(leaves, dims):
+        ss[int(d is None)] += l.float().square().sum()
+    if fsdp_group is not None:
+        _wait([_all_reduce(ss, fsdp_group)])
+    split = ss[:1].clone()
+    _wait([_all_reduce(split, tp_group)])
+    return torch.sqrt(split[0] + ss[1])
+
+
 # -- error-feedback state ---------------------------------------------------
 
 
@@ -1430,7 +1555,7 @@ def zero_residual(plan: BucketPlan, device=None) -> Tuple:
     import torch
 
     return tuple(
-        torch.zeros(plan.shard_elems(b), dtype=torch.float32, device=device)
+        torch.zeros(plan.residual_elems(b), dtype=torch.float32, device=device)
         for b in plan.buckets
     )
 
@@ -1850,8 +1975,8 @@ def _measure_sync(plan: BucketPlan, mesh, iters: int, legs: str, device=None) ->
 
     device = torch.device(device) if device is not None else torch.device("cpu")
     grads = [
-        torch.zeros(shape, dtype=getattr(torch, dt), device=device)
-        for shape, dt in zip(plan.leaf_shapes, plan.leaf_dtypes)
+        torch.zeros(plan.local_shape(i), dtype=getattr(torch, dt), device=device)
+        for i, dt in enumerate(plan.leaf_dtypes)
     ]
     res = zero_residual(plan, device) if plan.compressed else None
     sync_grads(grads, mesh, plan, residual=res, _legs=legs)

@@ -17,7 +17,12 @@ makes the process groups the gradient sync runs on:
 - for a hybrid dp axis (``dp_slices() > 1``) the slice-local groups
   (``ici``: one slice's run of ``dp / slices`` dp ranks) and the
   cross-slice stripe groups (``dcn``: the ranks of one intra-slice
-  position, one per slice).
+  position, one per slice);
+- ``tp``: the ranks that differ only in their tp coordinate (adjacent
+  ranks: tp is the innermost axis), over which the model's tensor-
+  parallel collectives run. Every other group is one per setting of the
+  other axes, so the data, dp, fsdp, sp and replica groups are each tp
+  coordinate's own.
 
 Rank ``r`` is device ``r`` of the JAX mesh built from
 ``range(world_size)``: ``AXIS_ORDER`` row-major, and with DCN axes every
@@ -28,7 +33,7 @@ slice-major (coordinate ``slice * (dp / slices) + j``).
 ``data`` coordinate's contiguous block, as ``P(("dp", "fsdp"))`` lays
 the batch dim on the JAX mesh; ``sequence_sharding`` its block of a
 row's positions, as ``P(("dp", "fsdp"), "sp")`` lays the sequence dim.
-tp, ep and pp groups come with ROADMAP A10 / A11.
+ep and pp groups come with ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -214,7 +219,8 @@ def build_mesh(config: MeshConfig, device_type: str = "cpu") -> Mesh:
             device_type, torch.as_tensor(layout), mesh_dim_names=AXIS_ORDER,
             _init_backend=False,
         )
-    wanted = {"dp": ("dp",), "fsdp": ("fsdp",), "data": ("dp", "fsdp"), "sp": ("sp",)}
+    wanted = {"dp": ("dp",), "fsdp": ("fsdp",), "data": ("dp", "fsdp"), "sp": ("sp",),
+              "tp": ("tp",)}
     if config.sp > 1:
         # the ranks that hold one replica of the state under sp
         wanted["replica"] = ("dp", "fsdp", "sp")

@@ -168,7 +168,7 @@ from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.data.prefetch import DevicePrefetcher
 from dlrover_tpu_torch.models.config import TransformerConfig
 from dlrover_tpu_torch.models.convert import load_train_state_tree, train_state_tree
-from dlrover_tpu_torch.models.transformer import forward, token_nll
+from dlrover_tpu_torch.models.transformer import forward, token_nll, vocab_split
 from dlrover_tpu_torch.obs.audit import (
     StepAuditor,
     StepBudget,
@@ -1248,11 +1248,15 @@ class ElasticTrainer:
             raise ValueError("ElasticTrainer built without eval_dataset")
         max_batches = max_batches or self.tcfg.eval_steps
         losses = []
+        mesh = None
+        if self.strategy.mesh.tp > 1:
+            # every rank runs the whole rows: tp's collectives, no sp cut
+            mesh = dc_replace(self.mesh, config=dc_replace(self.mesh.config, sp=1))
         for batch in self._eval_batches(max_batches):
             x, y = self._device_batch(batch, local=False)
             # a ZeRO rank gathers a unit at a time from its shards
-            logits, _ = forward(self.state.params, x, self.cfg, gather=self.state.units)
-            losses.append(float(token_nll(logits, y)))
+            logits, _ = forward(self.state.params, x, self.cfg, mesh, gather=self.state.units)
+            losses.append(float(token_nll(logits, y, split=vocab_split(self.cfg, mesh))))
         if not losses:
             raise ValueError(
                 f"eval dataset ({len(self._eval_dataset)} rows) yields "
@@ -1366,12 +1370,22 @@ class ElasticTrainer:
         world staged them: the records carry global indices), so it
         hands them to the rest of the set, which need not have existed
         when the state was staged (under ZeRO the step gathers the
-        params from the restored shards)."""
+        params from the restored shards). Under tp, tp coordinate 0
+        alone staged the tensors every tp rank holds whole: each tp group
+        first hands those on from it."""
         if self._world == 1:
             return
         from dlrover_tpu_torch.ckpt.sharding import flatten_state
-        from dlrover_tpu_torch.models.convert import replica_group
+        from dlrover_tpu_torch.models.convert import replica_group, tp_whole_tensors
 
+        tp_group = self.mesh.groups.get("tp")
+        if tp_group is not None:
+            src = self.mesh.ranks["tp"][0]
+            with torch.no_grad():
+                handles = [grad_sync.broadcast(t, src, tp_group)
+                           for t in tp_whole_tensors(self.state, self.mesh)]
+                for h in handles:
+                    h.wait()
         zero = self.state.shards is not None
         name = replica_group(self.mesh, zero)
         group = self.mesh.groups[name]

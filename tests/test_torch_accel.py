@@ -156,7 +156,8 @@ def test_analytic_and_comm_terms_match(links, monkeypatch, mesh, name, kw):
     """``_analytic_estimate`` and ``_comm_estimate`` equal the JAX
     package's (the port's roofline weights set to the JAX package's:
     the pp bubble's credit reads them); ``est_step_s`` from those terms
-    with each package's own weights."""
+    with each package's own weights, and on a tp mesh the port's tp
+    collectives (``_tp_comm_estimate``) on top."""
     j, t = _both(name, **kw)
     n = MeshConfig(**mesh).num_devices
     for strat_kw in (dict(), dict(comm_overlap=True), dict(comm_overlap=True, grad_compress="int8"),
@@ -178,6 +179,13 @@ def test_analytic_and_comm_terms_match(links, monkeypatch, mesh, name, kw):
                 continue  # the bubble's credit reads each package's own weights
             rf = tdr.DryRunReport(strategy=rt.strategy, ok=True)
             tdr._finalize_estimate(rf, c_t, 8, 64, n)
+            # the port prices the tp collectives on top (the JAX package's
+            # GSPMD fuses them and prices none): zero off a tp mesh
+            tp_terms = tdr.DryRunReport(strategy=rt.strategy, ok=True)
+            tdr._tp_comm_estimate(tp_terms, c_t, 8, 64)
+            assert (tp_terms.comm_exposed_s > 0) == (rt.strategy.mesh.tp > 1)
+            for k in ("comm_bytes_per_device", "comm_exposed_s", "comm_ici_s"):
+                setattr(rj, k, getattr(rj, k) + getattr(tp_terms, k))
             np.testing.assert_allclose(_report_terms(rf), _report_terms(rj), rtol=PRICE_RTOL)
             own = max(rj.flops_per_device * tdr._SEC_PER_FLOP, rj.bytes_per_device * tdr._SEC_PER_BYTE)
             np.testing.assert_allclose(rf.est_step_s, own + rj.comm_exposed_s, rtol=PRICE_RTOL)

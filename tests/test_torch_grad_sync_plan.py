@@ -184,7 +184,6 @@ def test_bad_combinations_raise_the_same_value_errors(kw):
 
 
 @pytest.mark.parametrize("sizes,item", [
-    (dict(dp=2, tp=2), "A10"), (dict(dp=2, sp=2, tp=2), "A10"), (dict(dp=2, fsdp=2, tp=2), "A10"),
     (dict(dp=2, ep=2), "A11"), (dict(pp=2, dp=2), "A11"),
 ])
 def test_model_sharded_plans_name_their_roadmap_item(sizes, item):

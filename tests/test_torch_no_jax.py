@@ -161,6 +161,16 @@ SEQUENCE_PARALLEL = {
 }
 
 
+# tensor parallelism: the rule table and the tp layout, the model's tp
+# collectives, the converter's boxes
+TENSOR_PARALLEL = {
+    "dlrover_tpu_torch.parallel.sharding_rules",
+    "dlrover_tpu_torch.models.transformer",
+    "dlrover_tpu_torch.models.convert",
+    "dlrover_tpu_torch.ckpt.sharding",
+}
+
+
 def test_port_imports_with_jax_and_the_jax_package_blocked():
     p = subprocess.run(
         [sys.executable, "-c", _PROBE],
@@ -183,17 +193,19 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert STRATEGY_SEARCH <= names, sorted(STRATEGY_SEARCH - names)
     assert RESIZE <= names, sorted(RESIZE - names)
     assert SEQUENCE_PARALLEL <= names, sorted(SEQUENCE_PARALLEL - names)
+    assert TENSOR_PARALLEL <= names, sorted(TENSOR_PARALLEL - names)
 
 
 def test_data_parallel_modules_and_the_rank_worker_import_without_jax():
-    """The data-parallel, strategy-search, resize and sequence-parallel
-    modules by name, and the
+    """The data-parallel, strategy-search, resize, sequence- and
+    tensor-parallel modules by name, and the
     rank processes of the multi-rank tests
     (``tests/torch_dist_worker.py``), with JAX and the JAX package
     blocked."""
     probe = _PROBE.split("import dlrover_tpu_torch\n")[0] + "\n".join(
         f"importlib.import_module({m!r})"
-        for m in sorted(DATA_PARALLEL | STRATEGY_SEARCH | RESIZE | SEQUENCE_PARALLEL)
+        for m in sorted(DATA_PARALLEL | STRATEGY_SEARCH | RESIZE | SEQUENCE_PARALLEL
+                        | TENSOR_PARALLEL)
     ) + (
         "\nsys.path.insert(0, 'tests')\nimportlib.import_module('torch_dist_worker')"
         "\nleaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)"

@@ -151,7 +151,7 @@ def test_unknown_scheme_raises_the_jax_error():
 
 
 @pytest.mark.parametrize("mesh,item", [
-    (dict(sp=2, tp=2), "A10"), (dict(sp=2, fsdp=2), "A10"), (dict(sp=2, ep=2), "A11"),
+    (dict(sp=2, pp=2), "A11"), (dict(sp=2, ep=2), "A11"),
 ])
 def test_unported_meshes_still_raise(mesh, item):
     from dlrover_tpu_torch.models import config as tcfg
@@ -219,7 +219,8 @@ def test_flash_checkpoint_on_an_sp_mesh_resumes_bitwise(tmp_path):
 def test_static_peak_prices_the_block_and_the_scheme_buffers(scheme):
     """Under sp a rank's activations are those of its 1/sp of the
     tokens, plus one layer's in-flight buffers of the scheme; the dry
-    runner builds an sp strategy (the tp one still raises, A10)."""
+    runner builds an sp strategy, and an sp x tp one (an ep one still
+    raises, A11)."""
     from dlrover_tpu_torch.accel.dry_runner import _check_unported, _sp_buffers, static_peak_bytes
     from dlrover_tpu_torch.accel.strategy import Strategy
     from dlrover_tpu_torch.models import config as tcfg
@@ -234,5 +235,6 @@ def test_static_peak_prices_the_block_and_the_scheme_buffers(scheme):
     assert sp2 < whole
     assert sp2 == pytest.approx(half + _sp_buffers(cfg, 1024, 4))
     _check_unported(Strategy(mesh=MeshConfig(sp=2)), cfg, tx)
-    with pytest.raises(NotImplementedError, match="A10"):
-        _check_unported(Strategy(mesh=MeshConfig(sp=2, tp=2)), cfg, tx)
+    _check_unported(Strategy(mesh=MeshConfig(sp=2, tp=2)), cfg, tx)
+    with pytest.raises(NotImplementedError, match="A11"):
+        _check_unported(Strategy(mesh=MeshConfig(sp=2, ep=2)), cfg, tx)

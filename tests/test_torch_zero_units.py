@@ -83,8 +83,11 @@ def test_static_peak_prices_the_sharded_params_and_the_gathered_unit(dtype, rema
     zero = Strategy(mesh=MeshConfig(fsdp=2), comm_overlap=True)
     # the same mesh on the default path shards nothing but the state
     plain = Strategy(mesh=MeshConfig(fsdp=2))
-    a = static_peak_bytes(cfg, zero, tx, 8, 16, leaves)
-    b = static_peak_bytes(cfg, plain, tx, 8, 16, leaves)
+    # 8 x 64 tokens: enough activations that the backward phase is the
+    # peak with remat too (which prices the head's backward and one
+    # block's recompute as the larger of the two, not their sum)
+    a = static_peak_bytes(cfg, zero, tx, 8, 64, leaves)
+    b = static_peak_bytes(cfg, plain, tx, 8, 64, leaves)
     f32 = dtype == "float32"
     regathered = 4 * max(block if (remat or f32) else 0, V * D if f32 else 0)
     # the backward phase is the peak at these shapes

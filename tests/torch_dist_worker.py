@@ -26,6 +26,9 @@ Jobs:
   recorded (kind, dtype, bytes), and the same sync with the codes summed
   by an int32 all-reduce, the wire they had before;
 - ``sp``: sequence-parallel attention and train steps (``job_sp``);
+- ``tp``: tensor-parallel forwards and train steps (``job_sp``'s) and
+  syncs (``job_tp``);
+- ``multi``: several jobs in one start of the ranks, in order;
 - ``zero_peak``: on the card, ZeRO's peak against its static figure;
 - ``step``: ``models.train.build_train_step`` from a whole JAX train
   state (``models/convert.load_jax_train_state``) on the rank's rows of
@@ -249,14 +252,21 @@ def job_sp(rank, world, cases):
     (``cases["attn"]``: ring, plain and kernel, and Ulysses, forward and
     backward against a given cotangent), and train steps of a tiny model
     from JAX weights (``cases["train"]``: ``build_train_step`` on the
-    rank's rows; the step cuts the sequence block)."""
+    rank's rows; the step cuts the sequence block). On a mesh with tp
+    each rank holds its tp boxes of the weights (``params_from_jax(mesh=
+    )``); the logits come back gathered over tp, a step's params whole,
+    with the step's tp all-reduces and the grads the rank's optimizer
+    got for the leaves every tp rank holds whole; a forward that raises
+    ``ValueError`` returns its message."""
     import torch
 
     from dlrover_tpu_torch.models import config as tcfg
     from dlrover_tpu_torch.models import train as ttrain
+    from dlrover_tpu_torch.models import transformer as tfm
     from dlrover_tpu_torch.models.convert import params_from_jax, params_to_numpy
     from dlrover_tpu_torch.models.transformer import forward
     from dlrover_tpu_torch.parallel import grad_sync as gs
+    from dlrover_tpu_torch.parallel.sharding_rules import gather_tp, leaf_tp_dims
     from dlrover_tpu_torch.parallel.mesh import (
         MeshConfig, batch_sharding, build_mesh, sequence_sharding,
     )
@@ -301,13 +311,20 @@ def job_sp(rank, world, cases):
     for name, r in cases.get("train", {}).items():
         cfg = tcfg.tiny(**r["model"])
         mesh = mesh_of(r["mesh"])
-        model = params_from_jax(r["params"], cfg)
+        model = params_from_jax(r["params"], cfg, mesh=mesh)
         x = torch.from_numpy(r["tokens"]).long()
         rows = batch_sharding(mesh, x.shape[0])
         blk = sequence_sharding(mesh, x.shape[1])
-        with torch.no_grad():
-            logits, _ = forward(model, x[rows][:, blk], cfg, mesh)
-        res = {"rows": rows.tolist(), "block": (blk.start, blk.stop), "logits": logits.numpy()}
+        try:
+            with torch.no_grad():
+                logits, _ = forward(model, x[rows][:, blk], cfg, mesh)
+        except ValueError as e:
+            out["train"][name] = {"error": str(e)}
+            continue
+        if tfm.vocab_split(cfg, mesh) is not None:
+            logits = gather_tp(logits, 2, mesh.groups["tp"])
+        res = {"rows": rows.tolist(), "block": (blk.start, blk.stop), "logits": logits.numpy(),
+               "tp": mesh.coords["tp"]}
         if r.get("step"):
             plan = None
             if r.get("comm_overlap"):
@@ -316,12 +333,76 @@ def job_sp(rank, world, cases):
             state = ttrain.state_from_params(model, tx, mesh, plan)
             step = ttrain.build_train_step(cfg, tx, mesh=mesh, plan=plan)
             y = torch.from_numpy(r["targets"]).long()
+            dims = leaf_tp_dims(cfg, mesh.config.tp)
+            whole = {}
+            real = state.opt_state.step
+
+            def keep_and_step(state=state, whole=whole, dims=dims, real=real):
+                targets = state.shards if state.shards is not None else \
+                    state.params.jax_ordered_parameters()
+                for i, (t, d) in enumerate(zip(targets, dims)):
+                    if d is None:
+                        whole[i] = t.grad.detach().numpy().copy()
+                return real()
+
+            state.opt_state.step = keep_and_step
             gs.reset_counts()
+            tfm.reset_tp_comm()
             state, m = step(state, x[rows], y[rows])
+            if state.shards is not None:
+                ttrain.gather_params(state, mesh, plan)
             res.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-                       issued=dict(gs.issued),
-                       params=params_to_numpy(state.params), kind=None if plan is None else plan.kind)
+                       issued=dict(gs.issued), tp_calls=tfm.tp_comm["calls"], whole_grads=whole,
+                       params=params_to_numpy(state.params, mesh),
+                       kind=None if plan is None else plan.kind)
         out["train"][name] = res
+    return out
+
+
+def job_tp(rank, world, cases):
+    """Tensor parallelism: ``cases["train"]`` as ``job_sp``'s train
+    cases (its tp-aware path), and ``cases["sync"]``:
+    ``grad_sync.sync_grads`` of a plan of kind ``tp`` or ``3d`` over this
+    rank's tp boxes of every lane's seeded gradient (``case_grads`` over
+    the global leaves)."""
+    import torch
+
+    from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.parallel import grad_sync as gs
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from dlrover_tpu_torch.parallel.sharding_rules import leaf_tp_dims, local_shard
+
+    out = {"train": job_sp(rank, world, {"train": cases.get("train", {})})["train"], "sync": {}}
+    for name, c in cases.get("sync", {}).items():
+        cfg = tcfg.tiny(**c["model"])
+        mesh = build_mesh(MeshConfig(**c["mesh"]))
+        plan = gs.plan_for_mesh(cfg, mesh, c["compress"], c.get("bucket_mb", 1),
+                                params_shape=gs.model_leaves(cfg))
+        tp, t = mesh.config.tp, mesh.coords["tp"]
+        dims = leaf_tp_dims(cfg, tp)
+        shapes = [tuple(p.shape) for p in gs.model_leaves(cfg)]
+        grads = case_grads(shapes, plan.total, c["seed"], 0)
+        local = [torch.from_numpy(np.ascontiguousarray(local_shard(g[mesh.data_index], d, tp, t)))
+                 for g, d in zip(grads, dims)]
+        res = gs.zero_residual(plan) if plan.compressed else None
+        synced, _, gnorm = gs.sync_grads(local, mesh, plan, residual=res)
+        out["sync"][name] = dict(
+            lane=mesh.data_index, tp=t, kind=plan.kind, compress=plan.compress,
+            synced=[s.numpy().copy() for s in synced], gnorm=float(gnorm),
+            leaf_shard=[plan.leaf_shard(i) for i in range(len(shapes))] if plan.leaf_block else None,
+        )
+    return out
+
+
+def job_multi(rank, world, parts):
+    """Several jobs in one start of the ranks: ``parts`` a list of
+    ``(job, args)``; returns their results in order."""
+    import torch
+
+    out = []
+    for job, args in parts:
+        out.append(JOBS[job](rank, world, args))
+        torch.distributed.barrier()
     return out
 
 
@@ -392,7 +473,7 @@ def job_train(rank, world, runs):
             gather_params(tr.state, tr.mesh, tr._grad_sync_plan)
         out[name] = dict(**extra,
             losses=losses, issued=issued, restored=tr.restored_step, source=tr.restore_source,
-            params=params_to_numpy(tr.state.params),
+            params=params_to_numpy(tr.state.params, tr.mesh),
             plan=None if tr._grad_sync_plan is None else tr._grad_sync_plan.num_buckets,
             stats=tr.pipeline_stats.as_dict(), strategy=tr.strategy.to_json(),
             searched=[(rep.strategy.to_json(), rep.ok, rep.step_s is not None)
@@ -702,7 +783,7 @@ def job_resize(rank, world, cases):
 
 JOBS = {"sync": job_sync, "train": job_train, "step": job_step, "accel": job_accel,
         "resize": job_resize, "units": job_units, "zero_peak": job_zero_peak,
-        "wire": job_wire, "sp": job_sp}
+        "wire": job_wire, "sp": job_sp, "tp": job_tp, "multi": job_multi}
 
 
 def main():
