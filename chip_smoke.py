@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlrover_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama|accel|peak_memory|resize|sp|tp]
+    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama|accel|peak_memory|resize|sp|tp|ckpt7b [--no-persist]]
 
 (``--profile`` adds a torch.profiler window of a few more steps to the
 per-leaf gpt2_small path and to the full-size sparse path; ``--phase
@@ -221,6 +221,7 @@ ADAM_SCALE_TOL = 1e-6  # relative to the largest scale
 ADAM_DELTA_TOL = 1e-6  # relative to the largest |delta|
 LOSS_MATCH_RTOL = 1e-4  # per step, adamw_8bit against adamw_8bit_flat
 SPILL_STATE_TOL = 1e-5  # card vs CPU host state, of its largest |value|
+EMB_REPEATS = 7  # B8/B9 and their library calls, timed interleaved
 FIRST_LOSS_TOL = 1e-3  # the sparse slice's first loss against ln 2
 
 
@@ -656,12 +657,23 @@ def check_embedding_rows(torch, er):
                         lambda: er.scatter_plain(table, slots, rows),
                         lambda: table.index_copy_(0, sl, rows)),
     }
-    # device times from graph replay; the eager times (one call after
-    # another, host overhead included) beside them
-    t = {name: dict(ms=graph_ms(torch, k), plain_ms=graph_ms(torch, p),
-                    library_ms=graph_ms(torch, lib), bound_ms=b_ms, bound_by=b_by,
-                    eager_ms=[time_ms(torch, f) for f in (k, p, lib)])
-         for name, (k, p, lib) in fns.items()}
+    # device times from graph replay, the kernel and its library call
+    # interleaved ``EMB_REPEATS`` times (their medians and spread); the
+    # eager times (one call after another, host overhead included)
+    # beside them
+    t = {}
+    for name, (k, p, lib) in fns.items():
+        ks, ls = [], []
+        for _ in range(EMB_REPEATS):
+            ks.append(graph_ms(torch, k))
+            ls.append(graph_ms(torch, lib))
+        t[name] = dict(
+            ms=float(statistics.median(ks)), plain_ms=graph_ms(torch, p),
+            library_ms=float(statistics.median(ls)), bound_ms=b_ms, bound_by=b_by,
+            eager_ms=[time_ms(torch, f) for f in (k, p, lib)],
+            ms_repeats=ks, library_ms_repeats=ls,
+            ms_spread=[min(ks), max(ks)], library_ms_spread=[min(ls), max(ls)],
+            slower_than_library_beyond_spread=min(ks) > max(ls))
     emit("kernel_check", label="B8/B9 emb rows, 4 GiB table", table=[cap + 1, rf], n=n,
          gather_bitwise=gather_eq, padded_gather_bitwise=pad_gather_eq,
          scatter_bitwise=scatter_eq, padded_scatter_bitwise=pad_scatter_eq,
@@ -920,14 +932,17 @@ def picked_strategy(cfg):
 
 
 def _trainer_run(torch, fa, qo, cfg, opt, steps, data, batch, inspect=None, keep=False,
-                 strategy=None):
+                 strategy=None, tcfg=None, prepare=None, on_step=None):
     """``ElasticTrainer(cfg, build_optimizer(opt), data, strategy=...)
     .train(steps)`` (``strategy``: ``picked_strategy(cfg)`` unless given)
     with every launch count set to 0 just before and read just after;
     returns the losses, grad norms, launch counts, median step ms (the
     first step, with its warm-up, left out), the run's own peak bytes
     (over what was allocated before its trainer) and ``inspect(trainer)``'s
-    keys, and closes the trainer (``keep``: returns it open as well)."""
+    keys, and closes the trainer (``keep``: returns it open as well).
+    ``tcfg``: more ``TrainerConfig`` fields; ``prepare(trainer)`` runs
+    once the trainer is built, ``on_step(step, loss, trainer)`` after
+    each step's stamp."""
     from dlrover_tpu_torch.trainer.elastic.trainer import (
         ElasticTrainer, TrainerConfig, build_optimizer,
     )
@@ -939,6 +954,8 @@ def _trainer_run(torch, fa, qo, cfg, opt, steps, data, batch, inspect=None, keep
         norms.append(float(metrics["grad_norm"]))
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        if on_step is not None:
+            on_step(step, losses[-1], trainer)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -946,10 +963,12 @@ def _trainer_run(torch, fa, qo, cfg, opt, steps, data, batch, inspect=None, keep
     t0 = time.perf_counter()
     trainer = ElasticTrainer(
         cfg, build_optimizer(opt, lr=3e-4), data,
-        TrainerConfig(batch_size=batch, seq_len=data.data.shape[1] - 1),
+        TrainerConfig(batch_size=batch, seq_len=data.data.shape[1] - 1, **(tcfg or {})),
         metrics_hook=hook, strategy=strategy or picked_strategy(cfg),
     )
     init_s = time.perf_counter() - t0
+    if prepare is not None:
+        prepare(trainer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
@@ -1030,13 +1049,451 @@ def llama_search(torch, fa, qo, cfg):
         static_vs_measured=remat.mem_bytes / measured_peak - 1 if measured_peak else None,
         winner=acc.strategy.to_json(), winner_describe=acc.strategy.describe(),
         winner_remat=acc.cfg.remat, measured_step_s=best.step_s, est_step_s=best.est_step_s,
-        est_source=best.est_source, reports=[
+        est_source=best.est_source, host_exposed_s=best.host_exposed_s,
+        host_hidden_measured=best.host_hidden_measured, reports=[
             dict(strategy=r.strategy.describe(), ok=r.ok, fits=r.fits, mem_bytes=r.mem_bytes,
-                 step_s=r.step_s, error=r.error) for r in acc.reports],
+                 step_s=r.step_s, est_step_s=r.est_step_s, host_exposed_s=r.host_exposed_s,
+                 host_hidden_measured=r.host_hidden_measured, error=r.error)
+            for r in acc.reports],
         search_s=acc.search_s, wall_s=wall, launches={**fa.launch_counts, **qo.launch_counts})
 
 
-def llama_worker(out_path, profile=False, search_only=False):
+# Flash Checkpoint of the Llama-2-7B state (ROADMAP A18)
+CKPT7B_AT = 4  # the memory save's step; step 5's optimizer waits on its copies
+CKPT7B_ALLOC_BOUND = 64 << 20  # what the stage may allocate on the card
+CKPT7B_PERSIST_WAIT_S = 900.0  # --phase ckpt7b: the persist's time limit
+# written before the first run on the card (H100 80GB HBM3, 700 W), from
+# the gpt2_xl stage's 42-51 GB/s and its 6.2 s pin of 9.4 GB
+CKPT7B_PREDICTED = dict(d2h_s=[0.8, 1.0], fence_hold_s=[0.2, 0.4], pin_s=27.0,
+                        crc_s=3.4, restore_h2d_s=1.0)
+
+
+def _state_digest(torch, tensors, chunk=16 << 20):
+    """A digest of tensors on the card, computed there: per tensor, per
+    ``chunk`` bytes, the sum of its bytes and their sum weighted by
+    position (int64, wrapping). Equal states give equal digests; a flipped
+    or moved byte changes one."""
+    out = []
+    for t in tensors:
+        b = t.detach().reshape(-1).view(torch.uint8)
+        s1 = torch.zeros((), dtype=torch.int64, device=b.device)
+        s2 = torch.zeros((), dtype=torch.int64, device=b.device)
+        for lo in range(0, b.numel(), chunk):
+            x = b[lo:lo + chunk].to(torch.int64)
+            s1 += x.sum()
+            x *= torch.arange(lo, lo + x.numel(), device=x.device, dtype=torch.int64) % 65521 + 1
+            s2 += x.sum()
+            del x
+        out.append((int(s1), int(s2)))
+    return out
+
+
+class Ckpt7b:
+    """A memory save of the Llama-2-7B state beside a training step and
+    its restore into the live trainer, through the real paths:
+    ``ElasticTrainer(ckpt_dir=...)`` talks to a saver this process hosts
+    (as ``tests/test_torch_flash_checkpoint.py``'s ``saver`` fixture
+    does), ``_maybe_save`` stages step ``CKPT7B_AT`` (the pinned segment,
+    the side stream's copies, step 5's optimizer fenced, the crcs on
+    ``CRC_THREADS`` threads), ``wait_for_checkpoint`` commits it, and
+    after the run ``_maybe_restore`` (the restart path's restore) puts the
+    staged state back into the trainer that trained on past it. With
+    ``persist`` the saver persists the step as it persists every staged
+    step (``--phase ckpt7b``); without it (the full run) the step counts
+    as persisted and no byte goes to disk."""
+
+    def __init__(self, torch, persist):
+        import resource
+        import tempfile
+
+        from dlrover_tpu_torch.ckpt.saver import AsyncCheckpointSaver
+
+        self.torch = torch
+        self.persist = persist
+        os.environ["DLROVER_TPU_JOB_NAME"] = f"ck7b{os.getpid()}"
+        os.environ["DLROVER_TPU_SOCKET_DIR"] = self.sock = tempfile.mkdtemp(prefix="dlr")
+        self.dir = tempfile.mkdtemp(prefix="ckpt7b_")
+        AsyncCheckpointSaver.reset()
+        self.saver = AsyncCheckpointSaver.start_async_saving_ckpt(local_shard_num=1)
+        if not persist:
+            self.saver._persisted_step = CKPT7B_AT
+        self.df_before = subprocess.run(["df", "-B1", self.dir], capture_output=True,
+                                        text=True).stdout.strip()
+        self.memlock = resource.getrlimit(resource.RLIMIT_MEMLOCK)
+        self.stamps, self.losses, self.begin, self.begins = {}, {}, {}, []
+        self.events, self.dispatch_t = [], []
+        self.median_dev_ms = None
+        self.digest_staged = None
+        self.digest_s = None
+
+    def tcfg(self):
+        return dict(ckpt_dir=self.dir, save_memory_interval=CKPT7B_AT,
+                    save_storage_interval=10 ** 9)
+
+    def prepare(self, trainer):
+        """Wrap the checkpointer's ``begin_chunked_save`` (its wall time
+        on the loop thread, and every byte allocated on the card while
+        it queued the stage: the allocator's cumulative counter) and the
+        trainer's step function (two CUDA events around each step: its
+        device time, the fence's wait before the optimizer included)."""
+        torch, ckptr = self.torch, trainer._ckptr
+        real = ckptr.begin_chunked_save
+        step_fn = trainer._step_fn
+
+        def timed_step(*a, **k):
+            self.dispatch_t.append(time.perf_counter())
+            b, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            b.record()
+            out = step_fn(*a, **k)
+            e.record()
+            self.events.append((b, e))
+            return out
+
+        trainer._step_fn = timed_step
+
+        def begin(*a, **k):
+            stats0 = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+            live0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            st = real(*a, **k)
+            # the compute stream's next command once begin has returned
+            after = torch.cuda.Event(enable_timing=True)
+            after.record()
+            self.begins.append(dict(
+                wall_s=time.perf_counter() - t0, t_end=time.perf_counter(), stager=st,
+                after_event=after,
+                allocated_during_begin=torch.cuda.memory_stats()["allocated_bytes.all.allocated"] - stats0,
+                live_growth=torch.cuda.memory_allocated() - live0,
+                host_mem_available=_meminfo("MemAvailable")))
+            if not self.begin:  # the measured save's
+                self.begin.update(self.begins[0])
+            return st
+
+        ckptr.begin_chunked_save = begin
+
+    def on_step(self, step, loss, trainer):
+        self.stamps.setdefault(step, []).append(time.perf_counter())
+        self.losses.setdefault(step, []).append(loss)
+        if step == CKPT7B_AT and self.digest_staged is None:
+            # the state the save at this step stages (the hook runs
+            # before ``_maybe_save``)
+            t0 = time.perf_counter()
+            self.digest_staged = _state_digest(self.torch, self._tensors(trainer))
+            self.digest_s = time.perf_counter() - t0
+        if step == CKPT7B_AT + 1:  # no other save after it
+            trainer.tcfg.save_memory_interval = 10 ** 9
+
+    @staticmethod
+    def _tensors(trainer):
+        from dlrover_tpu_torch.ckpt.sharding import flatten_state
+
+        return [v for _, v in flatten_state(trainer._ckpt_state()["train"])
+                if hasattr(v, "data_ptr")]
+
+    def _bytes_on_disk(self):
+        n = 0
+        for root, _, files in os.walk(self.dir):
+            for f in files:
+                try:
+                    n += os.path.getsize(os.path.join(root, f))
+                except OSError:
+                    pass
+        return n
+
+    def finish(self, trainer, res):
+        """Commit, wait for the persist (when asked), restore, digest,
+        one step; the ``ckpt_7b`` record."""
+        from dlrover_tpu_torch.parallel import transfer_sched
+
+        torch = self.torch
+        t0 = time.perf_counter()
+        trainer.wait_for_checkpoint()
+        commit_wait_s = time.perf_counter() - t0
+        save = next((s for s in trainer.save_log if s["step"] == CKPT7B_AT), {})
+        persist = dict(asked=self.persist, df_before=self.df_before)
+        if self.persist and save.get("ok"):
+            deadline = time.time() + CKPT7B_PERSIST_WAIT_S
+            while (not any(st == CKPT7B_AT for st, _, _ in self.saver.persist_log)
+                   and time.time() < deadline):
+                time.sleep(0.5)
+            log = [dict(step=st, s=sec, outcome=oc) for st, sec, oc in self.saver.persist_log]
+            persist.update(log=log, bytes_on_disk=self._bytes_on_disk(),
+                           finished=any(x["step"] == CKPT7B_AT for x in log),
+                           ok=any(x["step"] == CKPT7B_AT and x["outcome"] == "ok" for x in log),
+                           waited_s=time.perf_counter() - t0 - commit_wait_s)
+        elif self.persist:
+            persist.update(finished=False, note="no staged step to persist")
+        else:
+            persist.update(finished=False, bytes_on_disk=self._bytes_on_disk(),
+                           note="not in this run: the step counts as persisted "
+                                "(python3 chip_smoke.py --phase ckpt7b persists it)")
+        # the restart path's restore into the trainer that trained past it,
+        # its parts timed: the storage step's verification, the shm read
+        # (with its crc check), the rest (the copies onto the card)
+        engine = trainer._ckptr.engine
+        parts = {"verify_storage_s": 0.0, "shm_read_verify_s": 0.0}
+
+        def timed(name, fn):
+            def call(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    parts[name] += time.perf_counter() - t
+            return call
+
+        engine.latest_verified_step = timed("verify_storage_s", engine.latest_verified_step)
+        engine._shm.load_records = timed("shm_read_verify_s", engine._shm.load_records)
+        step_before = trainer.global_step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._maybe_restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del engine.latest_verified_step, engine._shm.load_records
+        restored = dict(step=trainer.restored_step, source=trainer.restore_source,
+                        bytes=engine.last_load_bytes, restore_s=restore_s,
+                        trainer_restore_s=trainer.restore_s, from_step=step_before, **parts,
+                        copy_onto_card_s=restore_s - sum(parts.values()))
+        digest = _state_digest(torch, self._tensors(trainer))
+        trainer.train(CKPT7B_AT + 1)
+        first_loss_after = self.losses.get(CKPT7B_AT + 1, [None, None])[-1]
+        uninterrupted = res["losses"][CKPT7B_AT] if len(res["losses"]) > CKPT7B_AT else None
+        steps = sorted(self.stamps)
+        t_first = [self.stamps[s][0] for s in steps]
+        step_ms = {s: (t_first[i] - t_first[i - 1]) * 1e3 for i, s in enumerate(steps) if i}
+        # device ms of steps 1..LLAMA_STEPS (the fenced one is CKPT7B_AT + 1),
+        # then the step after the restore
+        dev_ms = [b.elapsed_time(e) for b, e in self.events]
+        fenced = dev_ms[CKPT7B_AT] if len(dev_ms) > CKPT7B_AT else None
+        others = [v for i, v in enumerate(dev_ms[1:LLAMA_STEPS], 1) if i != CKPT7B_AT]
+        median = self.median_dev_ms = float(statistics.median(others)) if others else None
+        begin_ms = self.begin.get("wall_s", 0.0) * 1e3
+        t_end = self.begin.get("t_end")
+        after = [t for t in self.dispatch_t if t_end and t > t_end]
+        # host ms from the end of the stage's begin to the next dispatch
+        gap_ms = (after[0] - t_end) * 1e3 if after else None
+        # the card's timeline from the stage's first copy: its last copy,
+        # the compute stream past begin, the fenced step's two events
+        st = self.begin.get("stager")
+        timeline = {}
+        if st is not None and st._copy_start is not None and len(self.events) > CKPT7B_AT:
+            c0 = st._copy_start
+            b5, e5 = self.events[CKPT7B_AT]
+            timeline = dict(copies_done_ms=c0.elapsed_time(st.copy_done),
+                            compute_past_begin_ms=c0.elapsed_time(self.begin["after_event"]),
+                            fenced_step_begin_ms=c0.elapsed_time(b5),
+                            fenced_step_end_ms=c0.elapsed_time(e5))
+        # the hold on the card's timeline: from the stage's first copy to
+        # the fenced step's end, over a step without a save (a hold before
+        # the step's own first event counts too)
+        fence_hold = (timeline["fenced_step_end_ms"] - median
+                      if timeline and median else None)
+        arb = transfer_sched.get_arbiter().stats()
+        out = dict(
+            model="llama2_7b", state_bytes=save.get("bytes"), save_step=CKPT7B_AT,
+            save_record=save, pin_s=save.get("pin_s"), d2h_ms=save.get("d2h_ms"),
+            d2h_GBps=(save["bytes"] / save["d2h_ms"] / 1e6) if save.get("d2h_ms") else None,
+            crc_s=save.get("crc_s"), crc_threads=_crc_threads(), block_ms=save.get("block_ms"),
+            begin_ms=begin_ms, commit_wait_s=commit_wait_s, digest_s=self.digest_s,
+            host_step_ms=step_ms, device_step_ms=dev_ms, fenced_step_device_ms=fenced,
+            other_steps_device_median_ms=median,
+            fenced_step_device_delta_ms=(fenced - median) if fenced is not None and median else None,
+            fence_hold_ms=fence_hold,
+            fenced_step_host_extra_ms=(step_ms[CKPT7B_AT + 1] - begin_ms - (self.digest_s or 0) * 1e3
+                                       - float(statistics.median(
+                                           [v for k, v in step_ms.items() if k != CKPT7B_AT + 1])))
+            if CKPT7B_AT + 1 in step_ms else None,
+            begin_to_next_dispatch_ms=gap_ms, card_timeline_ms=timeline,
+            fenced_steps=trainer.pipeline_stats.fenced_steps,
+            allocated_during_stage=self.begin.get("allocated_during_begin"),
+            live_growth_during_stage=self.begin.get("live_growth"),
+            alloc_bound=CKPT7B_ALLOC_BOUND, host_mem_available_at_save=self.begin.get("host_mem_available"),
+            memlock_rlimit=list(self.memlock), ckpt_stage_link=arb["streams"].get("ckpt_stage"),
+            arbiter_enabled=arb["enabled"],
+            restored=restored, digest_equal=digest == self.digest_staged,
+            tensors_digested=len(digest), first_loss_after_restore=first_loss_after,
+            uninterrupted_loss=uninterrupted, persist=persist, predicted=CKPT7B_PREDICTED)
+        # each figure against its written prediction (reported, not gated)
+        p = CKPT7B_PREDICTED
+        d2h_s = (save.get("d2h_ms") or 0) / 1e3 or None
+        hold_s = None if fence_hold is None else fence_hold / 1e3
+        out["vs_prediction"] = dict(
+            d2h_s=[d2h_s, p["d2h_s"], d2h_s is not None and p["d2h_s"][0] <= d2h_s <= p["d2h_s"][1]],
+            fence_hold_s=[hold_s, p["fence_hold_s"],
+                          hold_s is not None and p["fence_hold_s"][0] <= hold_s <= p["fence_hold_s"][1]],
+            pin_s=[save.get("pin_s"), p["pin_s"]], crc_s=[save.get("crc_s"), p["crc_s"]],
+            restore_h2d_s=[restored["copy_onto_card_s"], p["restore_h2d_s"]])
+        out["checks"] = dict(
+            staged_and_committed=bool(save.get("ok")) and save.get("kind") == "memory",
+            pinned_not_sync_fallback=save.get("pin_s") is not None,
+            restored_from_memory=(restored["step"], restored["source"]) == (CKPT7B_AT, "memory"),
+            restored_bitwise_by_digest=out["digest_equal"] and self.digest_staged is not None,
+            first_loss_after_restore_equal=first_loss_after is not None
+            and first_loss_after == uninterrupted,
+            alloc_within_64MB=(self.begin.get("allocated_during_begin") or 0) <= CKPT7B_ALLOC_BOUND
+            and bool(self.begin),
+            # the next step's work ran beside the copies: the compute
+            # stream passed begin before the copies' last tenth
+            compute_stream_not_held=bool(timeline)
+            and timeline["compute_past_begin_ms"] < 0.9 * timeline["copies_done_ms"],
+        )
+        out["ok"] = all(out["checks"].values())
+        return out
+
+    def overlap_probe(self, trainer):
+        """Whether a stage's copies hold the compute stream (PERF.md §6-§7),
+        under the trainer's own conditions (its process, allocator and
+        pinned segment), after ``finish``: a second save through the train
+        loop; the trainer's checkpointer's stage called outside the loop
+        right after a scalar's ``item()`` (as the loop reads its metrics)
+        and right after a kernel; the stage's bare copies (no stager, so no
+        tick) right after an ``item()``, without and with one kernel
+        between. Nothing more goes to disk."""
+        self.saver._persisted_step = 10 ** 9
+        out = dict(second_save=self._probe_save(trainer),
+                   stager_after_item=self._probe_stager(trainer, "item"),
+                   stager_after_kernel=self._probe_stager(trainer, "kernel"),
+                   copies_after_item=self._probe_copies(trainer, kernel=False),
+                   copies_after_item_and_kernel=self._probe_copies(trainer, kernel=True))
+        out["held"] = {k: v["held"] for k, v in out.items()}
+        # every stage leaves the compute stream free; the bare copies
+        # show what the stager's tick prevents
+        out["ok"] = not any(out["held"][k] for k in
+                            ("second_save", "stager_after_item", "stager_after_kernel"))
+        return out
+
+    @staticmethod
+    def _held(row):
+        """The compute stream waited for the copies: it passed the point
+        after begin only in the copies' last tenth."""
+        row["held"] = row["compute_past_begin_ms"] >= 0.9 * row["copies_done_ms"]
+        return row
+
+    def _wait_lock(self, engine):
+        deadline = time.time() + 60.0  # the saver gives the shard lock back
+        while not engine._lock.acquire(blocking=False):
+            if time.time() > deadline:
+                raise RuntimeError("the shard lock stayed held after the last save")
+            time.sleep(0.01)
+        engine._lock.force_release()
+
+    def _probe_save(self, trainer):
+        """One save through the train loop at the next step, the step
+        after it fenced."""
+        torch = self.torch
+        self._wait_lock(trainer._ckptr.engine)
+        step0, n_ev, n_begin = trainer.global_step, len(self.events), len(self.begins)
+        trainer.tcfg.save_memory_interval = step0 + 1
+        trainer.train(step0 + 2)
+        trainer.tcfg.save_memory_interval = 10 ** 9
+        trainer.wait_for_checkpoint()
+        torch.cuda.synchronize()
+        b = self.begins[n_begin]
+        st = b["stager"]
+        if st is None or st._copy_start is None:
+            raise RuntimeError(f"the probe's save at step {step0 + 1} staged nothing on the card")
+        c0 = st._copy_start
+        _, e = self.events[n_ev + 1]
+        row = dict(step=step0 + 1, d2h_ms=st.timings.get("d2h_ms"), begin_ms=b["wall_s"] * 1e3,
+                   copies_done_ms=c0.elapsed_time(st.copy_done),
+                   compute_past_begin_ms=c0.elapsed_time(b["after_event"]),
+                   fenced_step_end_ms=c0.elapsed_time(e))
+        row["fence_hold_ms"] = row["fenced_step_end_ms"] - self.median_dev_ms
+        return self._held(row)
+
+    def _probe_stager(self, trainer, before):
+        """The trainer's checkpointer's stage of its state called outside
+        the train loop, right after ``before`` on the compute stream (a
+        scalar's ``item()``, or a kernel), a matmul queued right after it
+        returns."""
+        torch = self.torch
+        self._wait_lock(trainer._ckptr.engine)
+        x = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        if before == "item":
+            (x[0, 0] * 2).float().item()
+        st = trainer._ckptr.begin_chunked_save(trainer.global_step + 100, trainer._ckpt_state(),
+                                               chunk_bytes=trainer.tcfg.stage_chunk_mb << 20)
+        after = torch.cuda.Event(enable_timing=True)
+        after.record()
+        x @ x
+        mm = torch.cuda.Event(enable_timing=True)
+        mm.record()
+        st.commit()
+        torch.cuda.synchronize()
+        c0 = st._copy_start
+        return self._held(dict(before=before, copies_done_ms=c0.elapsed_time(st.copy_done),
+                               compute_past_begin_ms=c0.elapsed_time(after),
+                               matmul_end_ms=c0.elapsed_time(mm)))
+
+    def _probe_copies(self, trainer, kernel):
+        """The stage's device copies alone (every CUDA tensor of the
+        trainer's state into the pinned segment on the engine's side
+        stream, as ``_place`` queues them, but no tick) right after a
+        scalar's ``item()`` on the compute stream, with ``kernel`` one
+        kernel between, a matmul queued on the compute stream right after
+        the copies."""
+        torch = self.torch
+        engine = trainer._ckptr.engine
+        dst = engine._shm.host_tensor()
+        srcs = [t for t in self._tensors(trainer) if t.is_cuda]
+        side = engine._side_stream(srcs[0].device)
+        x = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        (x[0, 0] * 2).float().item()
+        if kernel:
+            x[0, 0] += 0
+        c0 = torch.cuda.Event(enable_timing=True)
+        c0.record()
+        side.wait_event(c0)
+        with torch.cuda.stream(side):
+            off = 0
+            for t in srcs:
+                v = t.reshape(-1).view(torch.uint8)
+                dst[off:off + v.numel()].copy_(v, non_blocking=True)
+                off += v.numel()
+            done = torch.cuda.Event(enable_timing=True)
+            done.record()
+        after = torch.cuda.Event(enable_timing=True)
+        after.record()
+        x @ x
+        mm = torch.cuda.Event(enable_timing=True)
+        mm.record()
+        torch.cuda.synchronize()
+        engine._shm._meta.update({"valid": False})  # its bytes are no checkpoint now
+        return self._held(dict(kernel_between=kernel, copies_done_ms=c0.elapsed_time(done),
+                               compute_past_begin_ms=c0.elapsed_time(after),
+                               matmul_end_ms=c0.elapsed_time(mm)))
+
+    def close(self):
+        import shutil
+
+        from dlrover_tpu_torch.ckpt.saver import AsyncCheckpointSaver
+
+        AsyncCheckpointSaver.reset()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        shutil.rmtree(self.sock, ignore_errors=True)
+
+
+def _meminfo(key):
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith(key + ":"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def _crc_threads():
+    from dlrover_tpu_torch.ckpt.engine import CRC_THREADS
+
+    return CRC_THREADS
+
+
+def llama_worker(out_path, profile=False, search_only=False, persist=False, search=True):
     """Llama-2-7B at full width and depth (``chip_smoke.py --llama-worker
     OUT``, started by the llama phase with the allocator's expandable
     segments): first ``llama_search`` (the strategy search with the
@@ -1053,18 +1510,30 @@ def llama_worker(out_path, profile=False, search_only=False):
     from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import quantized_optim as qo
 
-    search = llama_search(torch, fa, qo, llama2_7b())
+    cfg = llama2_7b()
+    if search:
+        search = llama_search(torch, fa, qo, cfg)
+        winner = Strategy.from_json(search["winner"])
+    else:  # --phase ckpt7b: the search's winner, remat, named
+        search, winner = None, Strategy(dtype=cfg.dtype, opts=("remat",))
     gc.collect()
     torch.cuda.empty_cache()
     if search_only:
         with open(out_path, "w") as f:
             json.dump(dict(search=search), f)
         return
-    cfg = llama2_7b()
     data = RandomTokens(n=64, seq=LLAMA_SEQ, vocab=cfg.vocab_size)
-    res, trainer = _trainer_run(torch, fa, qo, cfg, "adamw_8bit_flat", LLAMA_STEPS, data, 1,
-                                _flat_groups, keep=True,
-                                strategy=Strategy.from_json(search["winner"]))
+    ck = Ckpt7b(torch, persist)
+    try:
+        res, trainer = _trainer_run(torch, fa, qo, cfg, "adamw_8bit_flat", LLAMA_STEPS, data, 1,
+                                    _flat_groups, keep=True, strategy=winner, tcfg=ck.tcfg(),
+                                    prepare=ck.prepare, on_step=ck.on_step)
+        res["ckpt_7b"] = ck.finish(trainer, res)
+        if not search:  # --phase ckpt7b
+            res["stage_overlap"] = ck.overlap_probe(trainer)
+    except BaseException:
+        ck.close()
+        raise
     res["search"] = search
     res["trainer_remat"] = trainer.cfg.remat
     inner = trainer.state.opt_state.opt
@@ -1085,6 +1554,7 @@ def llama_worker(out_path, profile=False, search_only=False):
     with open(out_path, "w") as f:
         json.dump(res, f)
     trainer.close()
+    ck.close()
 
 
 def _worker(torch, flag, label, extra=(), timeout=900):
@@ -1168,8 +1638,40 @@ def run_llama_full(torch, profile=False):
     emit("llama2_7b", **res)
     if not ok:
         raise RuntimeError("llama2_7b's training run failed its checks")
+    ckpt_7b_line(r["ckpt_7b"])
     res["search"] = r["search"]
     return res
+
+
+def ckpt_7b_line(c):
+    """The ``ckpt_7b`` line (``Ckpt7b.finish``'s record), the card beside
+    it; raises when a check failed."""
+    emit("ckpt_7b", **c, card=card_line())
+    if not c["ok"]:
+        raise RuntimeError(f"the 7 B Flash Checkpoint failed: "
+                           f"{[k for k, v in c['checks'].items() if not v]}")
+    return c
+
+
+def run_ckpt7b(torch):
+    """``--phase ckpt7b``: the Llama-2-7B worker without its search (the
+    winner, remat, named) and with the saver persisting the staged step
+    (``CKPT7B_PERSIST_WAIT_S`` at most; not with ``--no-persist``), then
+    the restore, which verifies the persisted step on disk before it
+    reads shm."""
+    persist = "--no-persist" not in sys.argv
+    r, wall = _worker(torch, "--llama-worker", "ckpt7b",
+                      ["--no-search"] + (["--ckpt7b-persist"] if persist else []),
+                      timeout=CKPT7B_PERSIST_WAIT_S + 900)
+    c = dict(r["ckpt_7b"], worker_wall_s=wall, losses=r["losses"],
+             median_step_ms=r["median_step_ms"])
+    ckpt_7b_line(c)
+    # whether a stage's copies hold the compute stream, probed in the
+    # trainer's process after the measured save (``Ckpt7b.overlap_probe``)
+    emit("stage_overlap", **r["stage_overlap"], card=card_line())
+    if not r["stage_overlap"]["ok"]:
+        raise RuntimeError(f"a stage held the compute stream: {r['stage_overlap']['held']}")
+    return c
 
 
 def run_llama_remat_pair(torch, fa, qo):
@@ -1688,7 +2190,16 @@ def run_sparse_spill(torch):
         emb.close()
         return state["keys"][order], state["rows"][order], losses, spills, wall
 
-    k1, r1, l1, s1, w1 = run("cuda")
+    from dlrover_tpu_torch.parallel import transfer_sched
+
+    # the first card run under an arbiter of its own: its streams' record
+    arbiter = transfer_sched.TransferArbiter()
+    transfer_sched.set_arbiter(arbiter)
+    try:
+        k1, r1, l1, s1, w1 = run("cuda")
+    finally:
+        transfer_sched.set_arbiter(None)
+    link = arbiter.stats()
     k2, r2, _, s2, _ = run("cuda")
     k0, r0, l0, _, w0 = run("cpu")
     bitwise = bool(np.array_equal(k1, k2) and np.array_equal(r1, r2))
@@ -1703,6 +2214,7 @@ def run_sparse_spill(torch):
          wall_s_card=w1, wall_s_cpu=w0, ok=ok)
     if not ok:
         raise RuntimeError(f"the spilling tier disagrees with the CPU or with itself: {res}")
+    return link
 
 
 # ---------------------------------------------------------------------------
@@ -1750,6 +2262,7 @@ def read_procs(ev_path):
             first_loss_s=(loss_ev[0]["t"] - start["t0"]) if loss_ev and "t0" in start else None,
             restored=last("restored", {}), saves=last("saves", {}).get("log", []),
             launches=last("launches", {}), telemetry=last("telemetry", {}),
+            arbiter=last("arbiter", {}),
             await_t=last("await_eviction", {}).get("t"), exit_t=last("exit", {}).get("t"),
         )
 
@@ -2223,7 +2736,7 @@ def start_evict(job, ckpt_dir, evdir):
 
     wait = ckpt_launcher(
         "E", job, ckpt_dir, evdir, "--await-eviction-after-step", str(EVICT_AFTER_STEP),
-        background=True, env={"DLROVER_TPU_EVICTION_DEADLINE_S": str(EVICT_GRACE_S)})
+        "--link-holder", background=True, env={"DLROVER_TPU_EVICTION_DEADLINE_S": str(EVICT_GRACE_S)})
     box = {}
 
     def signal_worker():
@@ -2274,9 +2787,15 @@ def evict_result(e, r, u):
                    if "gpu check: " in msg]
     rounds = [(t - r["t0"], msg) for t, msg in r["lines"] if " check round " in msg]
     persisted = ev.get("persisted")
+    arb = ew.get("arbiter", {})
     line = dict(
         card=card_line(), grace_s=EVICT_GRACE_S, signal_after_step=EVICT_AFTER_STEP,
         drain_ms=ev.get("drain_ms"), emergency_stage_ms=ev.get("stage_ms"),
+        # the host link: the emergency save's class and its grant's wait
+        # while the drill's background stream held the card-to-host rail
+        emergency_priority=ev.get("priority"), emergency_grant_wait_ms=ev.get("grant_wait_ms"),
+        background_holder_yields=arb.get("holder_yields"),
+        arbiter_preemptions=arb.get("preemptions"), arbiter_enabled=arb.get("enabled"),
         persist_s=ev.get("persist_s") if persisted else "skipped (floor)",
         committed=ev.get("committed"), drained_step=ev.get("step"),
         sigterm_to_worker_exit_s=(ew["exit_t"] - e["t_sig"])
@@ -2302,6 +2821,9 @@ def evict_result(e, r, u):
         and ev.get("committed") is True,
         "e_losses_bitwise": ew.get("losses") == {s: u.get(s) for s in steps},
         "e_drain_within_grace": (ev.get("drain_ms") or math.inf) < EVICT_GRACE_S * 1e3,
+        "e_emergency_class": ev.get("priority") == "EMERGENCY" and arb.get("scheduling") is True,
+        "e_background_holder_preempted": (arb.get("holder_yields") or 0) >= 1
+        and (arb.get("preemptions") or 0) >= 1,
         "e_exit_before_agent_kill": (line["sigterm_to_worker_exit_s"] or math.inf) < AGENT_KILL_S,
         "e_metrics_file": metrics.get("eviction_pending") == 1.0
         and metrics.get("eviction_grace_s") == EVICT_GRACE_S
@@ -2318,6 +2840,108 @@ def evict_result(e, r, u):
         and r["worker_start_s"] > max(t for t, _ in rounds),
     }
     return line, checks
+
+
+def link_calibration(torch):
+    """The arbiter's hidden-fraction calibration on the card. The
+    trainer's: ``ensure_calibrated`` at its link probe, with the JAX
+    package's default wire (``_sleep_wire``: sleeps stand in for compute
+    and for each chunk), read back from its cache file under the device
+    fingerprint. Beside it, one taken through the API's own ``wire=``
+    with real pinned copies of a stage chunk (64 MiB) for each host rail,
+    compute still a sleep: whether the emulator's figure holds for PCIe.
+    The trainer keeps the first."""
+    from dlrover_tpu_torch.parallel import transfer_sched as ts
+
+    if os.getenv(ts.ENV_CALIBRATE, "1").strip().lower() in ("0", "false", "no", "off"):
+        emit("link_calibration", status="disabled", env=ts.ENV_CALIBRATE, ok=False)
+        raise RuntimeError(f"arbiter calibration disabled by {ts.ENV_CALIBRATE}")
+    fp = ts._current_fingerprint()
+    cal = ts.get_calibration() or ts.ensure_calibrated()
+    on_disk = ts.load_calibration(fp)
+    chunk, compute_s = 64 << 20, 0.02
+    dev = torch.empty(chunk, dtype=torch.uint8, device="cuda")
+    host = torch.empty(chunk, dtype=torch.uint8, pin_memory=True)
+    side = torch.cuda.Stream()
+    copy_s = {"host_d2h": [], "host_h2d": []}
+
+    def wire_for(rail):
+        def wire(seconds):
+            if seconds >= compute_s:  # the compute step
+                time.sleep(seconds)
+                return
+            t0 = time.perf_counter()
+            with torch.cuda.stream(side):
+                if rail == "host_h2d":
+                    dev.copy_(host, non_blocking=True)
+                else:
+                    host.copy_(dev, non_blocking=True)
+            side.synchronize()
+            copy_s[rail].append(time.perf_counter() - t0)
+        return wire
+
+    pcie = {}
+    for rail in ("host_d2h", "host_h2d"):
+        c = ts.calibrate_hidden_fraction(rails=(rail,), compute_s=compute_s, force=True,
+                                         save=False, wire=wire_for(rail))
+        pcie.update(c.hidden_fraction)
+    ts.set_calibration(cal)
+    del dev, host
+    res = dict(
+        fingerprint=fp, cache_file=ts.calibration_path(fp),
+        cache_fingerprint=on_disk.fingerprint if on_disk else None,
+        trainer_wire="_sleep_wire", hidden_fraction=cal.hidden_fraction if cal else None,
+        measured_at=cal.measured_at if cal else None,
+        pcie_wire_hidden_fraction=pcie, pcie_chunk_bytes=chunk, compute="sleep",
+        pcie_copy_ms_median={k: float(statistics.median(v)) * 1e3 for k, v in copy_s.items() if v},
+        pcie_copy_GBps={k: chunk / statistics.median(v) / 1e9 for k, v in copy_s.items() if v},
+        process_keeps="trainer's", card=card_line())
+    res["ok"] = (cal is not None and on_disk is not None and on_disk.fingerprint == fp
+                 and set(cal.hidden_fraction) == {"host_d2h", "host_h2d"}
+                 and set(pcie) == {"host_d2h", "host_h2d"})
+    emit("link_calibration", **res)
+    if not res["ok"]:
+        raise RuntimeError("the arbiter's calibration is missing or was not cached")
+    return res
+
+
+def link_arbiter_line(flash=None, spill=None):
+    """The ``link_arbiter`` line: per stream of the flash_ckpt phase's
+    workers and of the spilling tier, grants, bytes, wait ms (median,
+    max) and yields; preemptions and striped chunks. One host admits one
+    card-to-host and one host-to-card rail, so no stripe runs (two rails
+    of a direction are needed). An arbiter disabled by its switch is
+    reported as disabled and fails the line."""
+    from dlrover_tpu_torch.parallel import transfer_sched as ts
+
+    runs = {**{f"flash_ckpt/{k}": v for k, v in (flash or {}).items()},
+            **({"sparse_spill": spill} if spill else {})}
+    stripes = sum(r.get("stripe_chunks", 0) for st in runs.values()
+                  for r in st.get("rails", {}).values())
+    enabled = bool(runs) and all(st.get("enabled") and st.get("scheduling") for st in runs.values())
+    streams = {k: st.get("streams", {}) for k, st in runs.items()}
+    checks = {"enabled": enabled}
+    if flash:
+        checks["ckpt_stage_granted"] = streams.get("flash_ckpt/U1", {}).get(
+            "ckpt_stage", {}).get("grants", 0) > 0
+        checks["emergency_preempted_background"] = (
+            runs.get("flash_ckpt/E", {}).get("preemptions", 0) >= 1)
+    if spill:
+        sp = streams["sparse_spill"]
+        checks["emb_fault_granted"] = sp.get("emb_fault:t0", {}).get("grants", 0) > 0
+        checks["emb_spill_granted"] = sp.get("emb_spill:t0", {}).get("grants", 0) > 0
+    res = dict(status="scheduling" if enabled else "disabled",
+               local_rails={d: ts.local_rails(d) for d in ("d2h", "h2d")},
+               stripes_ran=stripes > 0, striped_chunks=stripes,
+               why_no_stripe=None if stripes else "one card-to-host rail on this host",
+               streams=streams,
+               preemptions={k: st.get("preemptions") for k, st in runs.items()},
+               forced_grants={k: st.get("forced_grants") for k, st in runs.items()},
+               card=card_line(), checks=checks, ok=all(checks.values()))
+    emit("link_arbiter", **res)
+    if not res["ok"]:
+        raise RuntimeError(f"link_arbiter: {[k for k, v in checks.items() if not v]}")
+    return res
 
 
 def run_flash_ckpt(torch, phase="flash_ckpt"):
@@ -2561,6 +3185,11 @@ def run_flash_ckpt(torch, phase="flash_ckpt"):
         checks=checks, ok=all(checks.values()),
     )
     emit(phase, **res)
+    # the host-link arbiter's record in U1 (beside the smoke's saver) and
+    # in E (the drain's EMERGENCY save against a background stream)
+    e_procs = launched["E"]["procs"]
+    res["arbiter"] = {"U1": runs["U1"].get("arbiter", {}),
+                      "E": e_procs[0].get("arbiter", {}) if e_procs else {}}
     if not res["ok"]:
         for w in runs.values():
             print(w["label"], w["stderr"], file=sys.stderr)
@@ -2901,7 +3530,8 @@ def _dp_accel(torch, job, rank, world, spec_path):
         strategy=strategy.to_json(), describe=strategy.describe(),
         own_pick=res.strategy.to_json(), search_s=res.search_s, wall_s=wall,
         reports=[dict(strategy=r.strategy.describe(), ok=r.ok, fits=r.fits, mem_bytes=r.mem_bytes,
-                      step_s=r.step_s, est_step_s=r.est_step_s, error=r.error)
+                      step_s=r.step_s, est_step_s=r.est_step_s, host_exposed_s=r.host_exposed_s,
+                      host_hidden_measured=r.host_hidden_measured, error=r.error)
                  for r in res.reports],
         launches={**fa.launch_counts, **qo.launch_counts})
 
@@ -4206,7 +4836,8 @@ def main() -> int:
         return 0
     if "--llama-worker" in sys.argv:  # the llama phase's full model
         llama_worker(sys.argv[sys.argv.index("--llama-worker") + 1], "--profile" in sys.argv,
-                     "--search-only" in sys.argv)
+                     "--search-only" in sys.argv, persist="--ckpt7b-persist" in sys.argv,
+                     search="--no-search" not in sys.argv)
         return 0
     if "--accel-worker" in sys.argv:  # the accel phase's link model and offload
         accel_worker(sys.argv[sys.argv.index("--accel-worker") + 1])
@@ -4230,9 +4861,12 @@ def main() -> int:
     if "--phase" in sys.argv:  # one phase alone; the contract's lines need a full run
         phase = sys.argv[sys.argv.index("--phase") + 1]
         if phase not in ("flash_ckpt", "evict", "dp", "llama", "accel", "peak_memory", "resize",
-                         "c3", "sp", "tp"):
+                         "c3", "sp", "tp", "ckpt7b"):
             raise SystemExit(f"unknown phase {phase!r}")
-        if phase == "dp":
+        if phase == "ckpt7b":
+            link_calibration(torch)
+            run_ckpt7b(torch)
+        elif phase == "dp":
             run_dp(torch)
         elif phase == "sp":
             run_sp(torch, fa)
@@ -4249,7 +4883,7 @@ def main() -> int:
         elif phase == "llama":
             run_llama(torch, fa, qo, profile="--profile" in sys.argv)
         else:
-            run_flash_ckpt(torch, phase)
+            link_arbiter_line(flash=run_flash_ckpt(torch, phase)["arbiter"])
         emit("timing", total_s=time.perf_counter() - T0)
         return 0
 
@@ -4274,6 +4908,7 @@ def main() -> int:
 
     small_model_agrees(torch)
     counts, flat_losses, audit = run_slice(torch, fa, qo, profile="--profile" in sys.argv)
+    link_calibration(torch)
     leaf_counts, leaf_losses, _ = run_slice(torch, fa, qo, opt="adamw_8bit")
     rel = [abs(a - b) / abs(b) for a, b in zip(leaf_losses, flat_losses)]
     ok = len(rel) == len(flat_losses) and max(rel) <= LOSS_MATCH_RTOL
@@ -4282,10 +4917,10 @@ def main() -> int:
     if not ok:
         raise RuntimeError("adamw_8bit's losses leave adamw_8bit_flat's")
     emb_counts = run_sparse_full(torch, er, profile="--profile" in sys.argv)
-    run_sparse_spill(torch)
+    spill_link = run_sparse_spill(torch)
     dp_accel = run_dp(torch)
     run_accel(torch, llama["full"]["search"], dp_accel, audit)
-    run_flash_ckpt(torch)
+    link_arbiter_line(flash=run_flash_ckpt(torch)["arbiter"], spill=spill_link)
     run_resize(torch)
     sp = run_sp(torch, fa, full=True)
     tp = run_tp(torch, qo, full=True)

@@ -29,10 +29,11 @@ reports either, so the two tiers are, here:
   a flag) before any goes on.
 
 The roofline weights are the H100 SXM's published peaks, not the JAX
-package's v5p numbers. The host-link term (``host_exposed_s``) reads the
-transfer scheduler in the JAX package; until that lands in the port
-(ROADMAP A9b) it is 0.0 with ``host_hidden_measured=False``, which is
-what the JAX package prices when no stream holds standing demand.
+package's v5p numbers. The host-link term (``host_exposed_s``) is the
+host-link arbiter's aggregate registered demand priced through the link
+model's host leg (``transfer_sched.aggregate_host_exposed_s``), and
+``host_hidden_measured`` says whether its hidden fraction came from a
+calibration (else the documented constant).
 
 ``_build`` returns the port's ``(cfg, mesh, step_fn, init_fn,
 make_batch, abstract_state)``: the mesh of ``parallel/mesh.build_mesh``
@@ -92,8 +93,8 @@ class DryRunReport:
     # comm_exposed_s
     comm_ici_s: float = 0.0
     comm_dcn_s: float = 0.0
-    # exposed seconds of the host-link traffic (0.0 until the transfer
-    # scheduler lands, ROADMAP A9b)
+    # exposed seconds of the host-link traffic (the arbiter's registered
+    # demand, priced), and whether its hidden fraction was measured
     host_exposed_s: float = 0.0
     host_hidden_measured: bool = False
 
@@ -680,13 +681,21 @@ def _finalize_estimate(
     """Price a report: the analytic flops/bytes (the port has no
     compiler cost analysis, so the JAX package's XLA tier and its
     plausibility gate do not apply), the comm terms (the gradient sync,
-    and the tp collectives, ``_tp_comm_estimate``), and the host term
-    (0.0 until ROADMAP A9b)."""
+    and the tp collectives, ``_tp_comm_estimate``), and the host term:
+    the aggregate staging/spill demand priced through the link model's
+    host leg with the arbiter's scheduling credit, so ``est_step_s``
+    sees the overlapped cost of the host link instead of assuming it
+    free (or exclusive)."""
+    from dlrover_tpu_torch.parallel.transfer_sched import (
+        aggregate_host_exposed_s,
+        get_calibration,
+    )
+
     _analytic_estimate(report, cfg, batch, seq, devices)
     _comm_estimate(report, cfg, batch, seq, devices)
     _tp_comm_estimate(report, cfg, batch, seq)
-    report.host_exposed_s = 0.0
-    report.host_hidden_measured = False
+    report.host_exposed_s = aggregate_host_exposed_s()
+    report.host_hidden_measured = get_calibration() is not None
     report.est_step_s = (
         max(
             report.flops_per_device * _SEC_PER_FLOP,

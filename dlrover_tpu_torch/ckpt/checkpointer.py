@@ -50,13 +50,18 @@ class FlashCheckpointer:
             )
         return self.engine.save_to_memory(step, state, self.checkpoint_dir)
 
-    def begin_chunked_save(self, step: int, state: Any, chunk_bytes: int = 64 << 20):
+    def begin_chunked_save(
+        self, step: int, state: Any, chunk_bytes: int = 64 << 20,
+        priority=None,
+    ):
         """Start a save that runs beside the next steps: the returned
         stager's ``advance(budget_s)`` runs between train steps and
         ``commit()`` is the barrier. None = skipped (saver busy). See
-        ``CheckpointEngine.begin_chunked_save``."""
+        ``CheckpointEngine.begin_chunked_save`` (``priority`` = the
+        host-link arbitration class)."""
         return self.engine.begin_chunked_save(
-            step, state, self.checkpoint_dir, chunk_bytes=chunk_bytes
+            step, state, self.checkpoint_dir, chunk_bytes=chunk_bytes,
+            priority=priority,
         )
 
     def staging_in_flight(self) -> bool:

@@ -13,10 +13,14 @@ so a copy that outlived one optimizer step would mix step N with step
 N+1. Between step N's optimizer and step N+1's optimizer the state is
 only read, and the stager is built on that:
 
-- ``begin`` (at step boundary N) records an event on the compute
-  stream; a side stream waits for it and copies every state tensor into
-  the shm segment, which is pinned for the card (``cudaHostRegister``),
-  so the copy lands in shm with no host copy after it;
+- ``begin`` (at step boundary N) launches one tiny kernel on the
+  compute stream (``CheckpointEngine._tick``: after a card-to-host copy
+  such as a loss's ``item()``, that stream's next commands would
+  otherwise wait behind the whole stage on the copy engine) and records
+  an event after it; a side stream waits for that event and copies every
+  state tensor into the shm segment, which is pinned for the card
+  (``cudaHostRegister``), so the copy lands in shm with no host copy
+  after it;
 - step N+1's forward and backward run beside that copy; before its
   optimizer writes anything, the compute stream waits for the copy's
   done event (``copy_fence``; the trainer's ``donation_aware`` step);
@@ -27,12 +31,43 @@ only read, and the stager is built on that:
   notifies the saver (``commit``).
 
 Host leaves (counts, the sampler) and CPU tensors are copied into shm at
-``begin``. The link arbitration and multi-rail striping of the JAX
-package's stager (``parallel/transfer_sched``) are not ported.
+``begin``.
+
+Link arbitration (``parallel/transfer_sched``): the stage is the
+``ckpt_stage`` stream, card-to-host, BACKGROUND unless the caller asks
+for another class (the eviction drain asks for EMERGENCY), with
+``demand_bytes_per_step = chunk_bytes`` while it is live. The JAX
+stager writes chunk by chunk under grants that yield at chunk
+boundaries; here the device copies are queued at ``begin`` and the
+next optimizer waits on their fence, so a grant can only reorder what
+has not been queued yet. The rule kept is the JAX package's: the
+arbiter reorders transfers, never contents.
+
+- The device leg takes ONE grant of the card-to-host rail, before the
+  first copy is queued, and gives it back when ``copy_done`` has passed
+  (on the host side's thread). A higher class that asks meanwhile
+  flags the grant and waits for the leg's end: copies already queued
+  cannot step aside, and splitting them so a waiter could get in
+  between would make the next step's fence wait for that waiter's
+  transfer, a lower class's if aging lifted it.
+- The host-side placement (host leaves, CPU tensors, host-offloaded
+  optimizer state) is torch's copy (on its intra-op threads) from the
+  loop thread, in ``chunk_bytes`` groups. Beside a device leg it rides that leg's grant (the stage
+  holds the rail: asking again would wait for itself). Alone, it takes
+  one grant a group, and a group of one record window of at least
+  ``stripe_min_bytes`` is striped across the local card-to-host rails
+  (``transfer_sched.local_rails``) when two or more admit the stage's
+  class: the chunks land by offset, each chunk's crc32 is folded with
+  ``crc32_combine``, and the record's crc is bitwise the single-rail
+  one. One host has one rail each way, so this runs only where a
+  second rail was registered.
+- Every grant of the stage ignores the compute window: it is the
+  loop thread's own inter-step work.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import threading
@@ -63,6 +98,7 @@ from dlrover_tpu_torch.common.multi_process import (
 )
 from dlrover_tpu_torch.common.storage import CheckpointStorage, PosixDiskStorage
 from dlrover_tpu_torch.obs.trace import span
+from dlrover_tpu_torch.parallel import transfer_sched
 
 
 # threads folding a stage's crc32s (the card's host has 8 cores; the
@@ -86,14 +122,6 @@ def _overlaps(a, b) -> bool:
     if len(a) != len(b):
         return False
     return all(max(alo, blo) < min(ahi, bhi) for (alo, ahi), (blo, bhi) in zip(a, b)) if a else True
-
-
-def _no_link_arbitration(priority, stripe_min_bytes):
-    if priority is not None or stripe_min_bytes is not None:
-        raise NotImplementedError(
-            "host-link priorities and multi-rail striping of checkpoint "
-            "staging are not ported yet (ROADMAP A9b)"
-        )
 
 
 def _is_cuda(src) -> bool:
@@ -124,6 +152,8 @@ class ChunkedStager:
         checkpoint_dir: str,
         sync: bool,
         chunk_bytes: int,
+        priority=None,
+        stripe_min_bytes: Optional[int] = None,
     ):
         t0 = time.perf_counter()
         self._engine = engine
@@ -131,6 +161,36 @@ class ChunkedStager:
         self.checkpoint_dir = checkpoint_dir
         self._sync = sync
         self._chunk_bytes = max(int(chunk_bytes), 1 << 10)
+        # host-link arbitration: see the module's doc
+        self.priority = transfer_sched.Priority(
+            transfer_sched.Priority.BACKGROUND if priority is None else priority
+        )
+        arbiter = transfer_sched.get_arbiter()
+        self._stream = arbiter.register(
+            "ckpt_stage", transfer_sched.Priority.BACKGROUND, direction="d2h"
+        )
+        self._stream.demand_bytes_per_step = self._chunk_bytes
+        self._stripe_min_bytes = (
+            transfer_sched.DEFAULT_STRIPE_MIN_BYTES
+            if stripe_min_bytes is None
+            else max(int(stripe_min_bytes), 1)
+        )
+        self._striper = transfer_sched.StripedTransfer(
+            arbiter,
+            name="ckpt_stage",
+            direction="d2h",
+            priority=self.priority,
+            chunk_bytes=max(self._chunk_bytes // 4, 1 << 16),
+            rails=transfer_sched.local_rails("d2h", self.priority, arbiter),
+            ignore_window=True,
+        )
+        # the device leg's grant (held until copy_done passes), the
+        # seconds spent waiting for grants, and the groups striped
+        self._d2h_grant: Optional[transfer_sched.Grant] = None
+        self.grant_wait_s = 0.0
+        self.stripes = 0
+        # crc32 of each striped window, by (record, offset in record)
+        self._window_crcs: Dict[Tuple[int, int], int] = {}
         self._plan = host_shard_plan(state)
         self._metas = ShmHandler.layout_records([rec for rec, _ in self._plan])
         self.total_bytes = sum(m.nbytes for m in self._metas)
@@ -152,7 +212,13 @@ class ChunkedStager:
         self.block_s = 0.0
         self.timings: Dict[str, float] = {}
         self._engine._shm.begin_save(max(self.total_bytes, 1))
-        self._place()
+        try:
+            self._place()
+        except BaseException:
+            self.wait_copied()
+            self._release_d2h()
+            self._stream.demand_bytes_per_step = 0
+            raise
         self._thread = threading.Thread(
             target=self._host_side, name=f"ckpt-stage-{step}", daemon=True
         )
@@ -160,6 +226,19 @@ class ChunkedStager:
         self.block_s += time.perf_counter() - t0
 
     # -- placement (loop thread, at begin) ------------------------------
+    def _acquire(self, nbytes: int, rail: Optional[str] = None) -> "transfer_sched.Grant":
+        t0 = time.perf_counter()
+        grant = self._stream.transfer(
+            nbytes, priority=self.priority, ignore_window=True, rail=rail
+        )
+        self.grant_wait_s += time.perf_counter() - t0
+        return grant
+
+    def _release_d2h(self) -> None:
+        grant, self._d2h_grant = self._d2h_grant, None
+        if grant is not None:
+            grant.release()
+
     def _place(self):
         """Every byte of the plan into the segment: CUDA tensors by
         copies on the engine's side stream that start when the compute
@@ -172,8 +251,16 @@ class ChunkedStager:
         cuda = [(i, src) for i, (_, src) in enumerate(self._plan) if _is_cuda(src)]
         if cuda:
             device = cuda[0][1].device
+            t_pin = time.perf_counter()
             shm.register_for_device()
+            self.timings["pin_s"] = time.perf_counter() - t_pin
+            # the whole device leg under one grant, taken before the
+            # first copy is queued (the module's doc says why)
+            self._d2h_grant = self._acquire(
+                sum(self._metas[i].nbytes for i, _ in cuda)
+            )
             stream = self._engine._side_stream(device)
+            self._engine._tick(device)
             self._copy_start = torch.cuda.Event(enable_timing=True)
             self._copy_start.record(torch.cuda.current_stream(device))
             stream.wait_event(self._copy_start)
@@ -190,23 +277,86 @@ class ChunkedStager:
         from dlrover_tpu_torch.ops.host_offload import settle_host_sources
 
         settle_host_sources(src for _, src in self._plan)
+        host = []
         for i, (_, src) in enumerate(self._plan):
-            m = self._metas[i]
-            if _is_cuda(src) or m.nbytes == 0:
+            if _is_cuda(src) or self._metas[i].nbytes == 0:
                 continue
             if isinstance(src, torch.Tensor):
-                dst[m.offset:m.offset + m.nbytes].copy_(src.reshape(-1).view(torch.uint8))
+                flat = src.detach().reshape(-1).view(torch.uint8)
             else:
-                dst[m.offset:m.offset + m.nbytes].numpy()[:] = (
-                    np.ascontiguousarray(src).reshape(-1).view(np.uint8)
-                )
+                flat = torch.from_numpy(np.ascontiguousarray(src).reshape(-1).view(np.uint8))
+            host.append((i, flat))
+        for group in self._host_groups(host):
+            nbytes = sum(len(piece) for _, _, piece in group)
+            if self._d2h_grant is not None:
+                # the stage holds the card-to-host rail for its device
+                # leg: its host bytes ride that grant (asking again would
+                # wait for itself until the forced grant), unstriped
+                grant = contextlib.nullcontext()
+            elif len(group) == 1 and self._stripes(nbytes):
+                self._stripe_window(dst, *group[0])
+                continue
+            else:
+                grant = self._acquire(nbytes)
+            with grant:
+                # torch's copy runs on its intra-op threads
+                for i, off, piece in group:
+                    o = self._metas[i].offset + off
+                    dst[o:o + len(piece)].copy_(piece)
+
+    def _host_groups(self, host):
+        """The host-resident records as write groups of at most
+        ``chunk_bytes`` (the JAX stager's grouping): consecutive small
+        records coalesce, a larger record is cut into ``chunk_bytes``
+        windows, each a group of its own. Yields lists of ``(record,
+        offset in record, bytes)``."""
+        group, room = [], self._chunk_bytes
+        for i, flat in host:
+            if len(flat) <= room:
+                group.append((i, 0, flat))
+                room -= len(flat)
+                continue
+            if group:
+                yield group
+                group, room = [], self._chunk_bytes
+            if len(flat) <= room:
+                group.append((i, 0, flat))
+                room -= len(flat)
+                continue
+            for off in range(0, len(flat), self._chunk_bytes):
+                yield [(i, off, flat[off:off + self._chunk_bytes])]
+        if group:
+            yield group
+
+    def _stripes(self, nbytes: int) -> bool:
+        """A single-window group this large rides every local rail that
+        admits the stage's class, when there are two or more."""
+        return nbytes >= self._stripe_min_bytes and len(self._striper.rails()) >= 2
+
+    def _stripe_window(self, dst, i: int, off: int, piece) -> None:
+        """One record window across the rails: the striper's per-chunk
+        grants are its only arbitration, its chunks land by offset, and
+        its crc (``crc32_combine`` of the chunks') is the window's."""
+        base = self._metas[i].offset + off
+
+        def mover(rail, lo, n):
+            dst[base + lo:base + lo + n].copy_(piece[lo:lo + n])
+
+        waited = self._stream.wait_s
+        rep = self._striper.run(mover, payload=piece.numpy())
+        self.grant_wait_s += self._stream.wait_s - waited
+        self._window_crcs[(i, off)] = rep.crc32
+        self.stripes += 1
 
     # -- host side (its own thread) --------------------------------------
     def _host_side(self):
         try:
             t0 = time.perf_counter()
             if self.copy_done is not None:
-                self.copy_done.synchronize()
+                try:
+                    self.copy_done.synchronize()
+                finally:
+                    self._release_d2h()
                 self.timings["d2h_ms"] = self._copy_start.elapsed_time(self.copy_done)
             t1 = self._crc_t0 = time.perf_counter()
             self._plan = None  # the copies are done: drop the live tensors
@@ -231,9 +381,14 @@ class ChunkedStager:
             if self._cancel.is_set():
                 return
             n = min(self._chunk_bytes, m.nbytes - off)
-            view = np.ndarray((n,), dtype=np.uint8, buffer=buf, offset=m.offset + off)
-            crc = zlib.crc32(view, crc)
-            del view
+            striped = self._window_crcs.get((i, off))
+            if striped is not None:
+                # a striped window: its crc came from the chunks
+                crc = transfer_sched.crc32_combine(crc, striped, n)
+            else:
+                view = np.ndarray((n,), dtype=np.uint8, buffer=buf, offset=m.offset + off)
+                crc = zlib.crc32(view, crc)
+                del view
             # the fault point corrupts after the checksum was taken, as
             # in-flight rot would
             self._engine._shm.fault_chunk(m.offset + off, n)
@@ -318,6 +473,7 @@ class ChunkedStager:
             logger.error(f"step {self.step}: staging commit failed: {e!r}")
             raise
         self._finished = True
+        self._stream.demand_bytes_per_step = 0
         if stats is not None:
             stats.stage_commits += 1
         self._engine._queue.put(
@@ -349,8 +505,10 @@ class ChunkedStager:
         self._failed = True
         self._cancel.set()
         self.wait_copied()
+        self._release_d2h()
         self._thread.join()
         self._plan = None
+        self._stream.demand_bytes_per_step = 0
         # force_release, not release: abort may run from a thread other
         # than the acquirer's
         self._engine._lock.force_release()
@@ -420,6 +578,7 @@ class CheckpointEngine:
         # the newest stager of any save (its timings, for the caller)
         self.last_stager = None
         self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self._ticks: Dict[torch.device, torch.Tensor] = {}
         # "memory" or "storage": where the last load came from
         self.last_load_source: Optional[str] = None
         # what every save carries beside its records (the trainer's
@@ -443,6 +602,18 @@ class CheckpointEngine:
             s = self._streams[device] = torch.cuda.Stream(device=device)
         return s
 
+    def _tick(self, device: torch.device) -> None:
+        """One tiny kernel on ``device``'s current stream. After a
+        card-to-host copy (a scalar's ``item()``, as a loop reads its
+        loss), that stream's next commands wait on the copy engine, which
+        then runs the stage's copies first: on the H100 the next step
+        began only when all of them had landed. After a kernel they do
+        not wait."""
+        t = self._ticks.get(device)
+        if t is None:
+            t = self._ticks[device] = torch.zeros(1, dtype=torch.int32, device=device)
+        t.add_(1)
+
     # ------------------------------------------------------------------
     # save
     # ------------------------------------------------------------------
@@ -460,10 +631,14 @@ class CheckpointEngine:
         )
         return False
 
-    def _new_stager(self, step, state, checkpoint_dir, sync, chunk_bytes):
+    def _new_stager(
+        self, step, state, checkpoint_dir, sync, chunk_bytes,
+        priority=None, stripe_min_bytes=None,
+    ):
         try:
             self.last_stager = ChunkedStager(
-                self, step, state, checkpoint_dir, sync, chunk_bytes
+                self, step, state, checkpoint_dir, sync, chunk_bytes,
+                priority=priority, stripe_min_bytes=stripe_min_bytes,
             )
         except BaseException:
             self._lock.force_release()
@@ -504,13 +679,17 @@ class CheckpointEngine:
         whose ``commit()`` is the barrier, or None when the saver still
         holds the shard lock (skipped, never blocked on). Without a
         saver the stager copies to the host now and writes to storage at
-        commit. ``priority`` / ``stripe_min_bytes`` (link arbitration)
-        raise: not ported yet (ROADMAP A9b)."""
-        _no_link_arbitration(priority, stripe_min_bytes)
+        commit. ``priority`` is the stage's host-link class
+        (``transfer_sched.Priority``; the eviction drain passes
+        EMERGENCY), ``stripe_min_bytes`` the multi-rail stripe floor
+        (default ``transfer_sched.DEFAULT_STRIPE_MIN_BYTES``)."""
         if self._agent_mode:
             if not self._try_lock(step):
                 return None
-            stager = self._new_stager(step, state, checkpoint_dir, sync, chunk_bytes)
+            stager = self._new_stager(
+                step, state, checkpoint_dir, sync, chunk_bytes,
+                priority=priority, stripe_min_bytes=stripe_min_bytes,
+            )
         else:
             stager = self.last_stager = _SyncFallbackStager(
                 self, step, state, checkpoint_dir

@@ -149,12 +149,14 @@ def shard_file(checkpoint_dir: str, step: int, global_shard_id: int) -> str:
 
 
 def build_shard_payload(
-    step: int, global_shard_id: int, global_shard_num: int, records, extra
+    step: int, global_shard_id: int, global_shard_num: int, records, extra,
+    crcs: Optional[List[int]] = None,
 ) -> Dict:
     """Single source of truth for the on-disk shard format — the agent path
     and the launcher-less sync path must stay byte-compatible. Each record
     carries a crc32 of its raw bytes so corruption is attributable to a
-    specific leaf slice, not just "the file"."""
+    specific leaf slice, not just "the file". ``crcs``: the records'
+    crc32s when the caller already verified them (the saver's shm read)."""
     return {
         "step": step,
         "global_shard_id": global_shard_id,
@@ -166,9 +168,9 @@ def build_shard_payload(
                 "dtype": r.dtype,
                 "index": r.index,
                 "data": r.data,
-                "crc32": data_crc32(r.data),
+                "crc32": data_crc32(r.data) if crcs is None else int(crcs[i]),
             }
-            for r in records
+            for i, r in enumerate(records)
         ],
         "extra": extra,
     }
@@ -199,13 +201,18 @@ def write_shard_and_done(
 ):
     gid = payload["global_shard_id"]
     path = shard_file(checkpoint_dir, step, gid)
-    blob = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
-    crc, nbytes = zlib.crc32(blob), len(blob)
-    # fault point ckpt.shard_write: corruption applies AFTER the blob's
-    # checksum was taken — modelling bytes that rot past the journaled
+    # fault point ckpt.shard_write: its control kinds fire before the
+    # write
+    faults.fire("ckpt.shard_write")
+    # streamed where the storage can: a shard of a 7 B state is ~41 GB,
+    # and its pickle in memory beside the shm segment would not fit the
+    # host
+    crc, nbytes = storage.write_pickle(payload, path)
+    # its data kinds corrupt the written file AFTER the checksum was
+    # taken — modelling bytes that rot past the journaled
     # tmp+fsync+rename (the done file still advertises the good crc, so
     # load-time verification catches the divergence)
-    storage.write(faults.corrupt("ckpt.shard_write", blob), path)
+    faults.corrupt_file("ckpt.shard_write", path)
     # index sidecar (record metas without data): lets a restarting host
     # read only the shard files that contain its slices instead of the
     # whole checkpoint
@@ -298,6 +305,18 @@ def verify_step_dir(
                     False,
                     f"shard {gid} torn: {have} of {nbytes} bytes",
                 )
+            continue
+        want_crc = m.get("crc32")
+        if want_crc is not None:
+            # read in chunks where the storage can: the shard need not
+            # fit in memory
+            got = storage.file_crc32(path)
+            if got is None:
+                return False, f"shard {gid} file missing"
+            if nbytes is not None and got[1] != int(nbytes):
+                return False, f"shard {gid} torn: {got[1]} of {nbytes} bytes"
+            if got[0] != int(want_crc):
+                return False, f"shard {gid} checksum mismatch"
             continue
         blob = storage.read(path)
         if blob is None:
@@ -970,8 +989,10 @@ class AsyncCheckpointSaver:
         try:
             handler = self._shm_handlers[local_rank]
             try:
+                # zero-copy views, verified: the shard lock is ours until
+                # the finally, and the views are dropped before it
                 shm_step, records, extra = handler.load_records(
-                    verify=True
+                    copy=False, verify=True
                 )
             except LookupError:
                 logger.warning(f"shard {local_rank}: no shm checkpoint")
@@ -987,8 +1008,10 @@ class AsyncCheckpointSaver:
                 release = shm_step < step
                 return "skip", f"shm holds step {shm_step}"
             gid = extra.get("global_shard_id", local_rank)
+            crcs = [m.get("crc32") for m in handler.metadata()["records"]]
             payload = build_shard_payload(
-                step, gid, st.global_shard_num, records, extra
+                step, gid, st.global_shard_num, records, extra,
+                crcs=crcs if None not in crcs else None,
             )
             write_shard_and_done(
                 self.storage, st.checkpoint_dir, step, payload
@@ -998,6 +1021,8 @@ class AsyncCheckpointSaver:
             logger.error(f"shard {local_rank} persist failed: {e!r}")
             return "fail", repr(e)
         finally:
+            # no view into the segment outlives the lock
+            records = payload = None
             if release:
                 lock.force_release()
 

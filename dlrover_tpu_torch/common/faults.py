@@ -32,7 +32,8 @@ bytes have no dtype to scale), and at ``device.sdc`` the train step
 reads it as one lane's gradient scale (``parallel/sdc.py``
 ``injection_plan``). Control kinds fire through
 :func:`fire`; data kinds act only where a payload passes through
-:func:`corrupt` / :func:`corrupt_array`. Every triggered fault counts
+:func:`corrupt` / :func:`corrupt_array`, or a written file through
+:func:`corrupt_file`. Every triggered fault counts
 into ``obs.metrics`` (``dlrover_faults_triggered_total{site,kind}``).
 The inactive fast path is one bool.
 """
@@ -84,6 +85,8 @@ FAULT_SITES = frozenset(
         "embedding.export",  # embedding ckpt bytes → storage (data
         # kinds corrupt the serialized npz/delta payload)
         "embedding.import",  # embedding ckpt read leg (restore)
+        "transfer.stripe",  # one striped chunk move on a rail (the
+        # multi-rail scheduler's per-chunk grant + mover)
     }
 )
 
@@ -302,18 +305,38 @@ class FaultInjector:
                 continue
             self._count(site, kind)
             if kind == "torn_write":
-                # keep at least one byte and strictly fewer than all:
-                # both extremes would be a different failure class
-                frac = 0.1 + 0.8 * armed.uniform()
-                cut = max(1, min(len(blob) - 1, int(len(blob) * frac)))
-                blob = blob[:cut]
+                blob = blob[:_torn_cut(armed, len(blob))]
             elif kind == "bit_flip" and blob:
-                pos = int(armed.uniform() * len(blob)) % len(blob)
-                bit = int(armed.uniform() * 8) % 8
+                pos, bit = _flip_at(armed, len(blob))
                 b = bytearray(blob)
                 b[pos] ^= 1 << bit
                 blob = bytes(b)
         return blob
+
+    def corrupt_file(self, site: str, path: str):
+        """File flavor of :meth:`corrupt` for a payload already written
+        to the local file ``path`` (a streamed write): ``torn_write``
+        truncates the file, ``bit_flip`` flips one bit in place, at the
+        seeded positions :meth:`corrupt` would pick for the same bytes.
+        Control kinds are left to :meth:`fire`, which the site calls
+        before it writes."""
+        for armed in self._armed_for(site):
+            kind = armed.spec.kind
+            if kind not in ("torn_write", "bit_flip") or not armed.draw():
+                continue
+            self._count(site, kind)
+            n = os.path.getsize(path)
+            if kind == "torn_write":
+                os.truncate(path, _torn_cut(armed, n))
+            elif n:
+                pos, bit = _flip_at(armed, n)
+                with open(path, "r+b") as f:
+                    f.seek(pos)
+                    b = f.read(1)[0] ^ (1 << bit)
+                    f.seek(pos)
+                    f.write(bytes([b]))
+                    f.flush()
+                    os.fsync(f.fileno())
 
     def corrupt_array(self, site: str, arr: np.ndarray) -> np.ndarray:
         """Array flavor of :meth:`corrupt` for fixed-size destinations
@@ -355,6 +378,20 @@ class FaultInjector:
                 )
             arr = flat
         return arr
+
+
+def _torn_cut(armed: _Armed, n: int) -> int:
+    """Where ``torn_write`` cuts ``n`` bytes: at least one byte kept and
+    strictly fewer than all (both extremes would be a different failure
+    class)."""
+    frac = 0.1 + 0.8 * armed.uniform()
+    return max(1, min(n - 1, int(n * frac)))
+
+
+def _flip_at(armed: _Armed, n: int):
+    """The byte and the bit ``bit_flip`` flips in ``n`` bytes."""
+    pos = int(armed.uniform() * n) % n
+    return pos, int(armed.uniform() * 8) % 8
 
 
 # -- process-wide singleton --------------------------------------------------
@@ -415,6 +452,14 @@ def corrupt(site: str, blob: bytes) -> bytes:
         return blob
     _load_env_once()
     return _injector.corrupt(site, blob) if _active else blob
+
+
+def corrupt_file(site: str, path: str):
+    if _env_loaded and not _active:
+        return
+    _load_env_once()
+    if _active:
+        _injector.corrupt_file(site, path)
 
 
 def corrupt_array(site: str, arr: np.ndarray) -> np.ndarray:

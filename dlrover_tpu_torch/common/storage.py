@@ -15,8 +15,9 @@ import pickle
 import shutil
 import tempfile
 import threading
+import zlib
 from abc import ABC, abstractmethod
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Tuple
 
 from dlrover_tpu_torch.common.log import default_logger as logger
 
@@ -184,8 +185,40 @@ class CheckpointStorage(ABC):
         data = self.read(path)
         return None if data is None else len(data)
 
+    def write_pickle(self, obj: Any, path: str) -> Tuple[int, int]:
+        """``obj`` pickled into ``path`` (atomically, as ``write``);
+        returns the bytes' crc32 and length. Default pickles in memory —
+        a backend that can stream should override (a 7 B shard is ~41
+        GB)."""
+        blob = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        self.write(blob, path)
+        return zlib.crc32(blob), len(blob)
+
+    def file_crc32(self, path: str) -> Optional[Tuple[int, int]]:
+        """crc32 and length of ``path``; None when absent. Default reads
+        the object whole — a backend that can read in chunks should
+        override."""
+        data = self.read(path)
+        return None if data is None else (zlib.crc32(data), len(data))
+
     def commit(self, step: int, success: bool):
         """Hook run after a step is fully persisted."""
+
+
+class _CrcWriter:
+    """A file's ``write`` that folds the crc32 and length of what
+    passes."""
+
+    def __init__(self, f):
+        self._f = f
+        self.crc = 0
+        self.nbytes = 0
+
+    def write(self, data) -> int:
+        m = memoryview(data)
+        self.crc = zlib.crc32(m, self.crc)
+        self.nbytes += m.nbytes
+        return self._f.write(m)
 
 
 class PosixDiskStorage(CheckpointStorage):
@@ -215,6 +248,47 @@ class PosixDiskStorage(CheckpointStorage):
 
     def write_state_dict(self, state_dict: Any, path: str):
         self.write(pickle.dumps(state_dict, protocol=pickle.HIGHEST_PROTOCOL), path)
+
+    def write_pickle(self, obj: Any, path: str) -> Tuple[int, int]:
+        """``obj`` pickled straight into ``path`` (atomically, as
+        ``write``), never whole in memory: the pickler hands an array's
+        buffer to the file as it is, so a shard of views into shm is
+        written with no host copy. The bytes are ``pickle.dumps``'s.
+        Returns their crc32 and length."""
+        self.safe_makedirs(os.path.dirname(path))
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                out = _CrcWriter(f)
+                pickle.dump(obj, out, protocol=pickle.HIGHEST_PROTOCOL)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+            fsync_dir(os.path.dirname(path))
+        except Exception:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
+        return out.crc, out.nbytes
+
+    def file_crc32(self, path: str, chunk_bytes: int = 64 << 20) -> Optional[Tuple[int, int]]:
+        """crc32 and length of ``path`` read in chunks (None when it is
+        absent): a shard is verified without holding it in memory."""
+        try:
+            f = open(path, "rb", buffering=0)
+        except OSError:
+            return None
+        crc, n = 0, 0
+        buf = bytearray(chunk_bytes)
+        view = memoryview(buf)
+        with f:
+            while True:
+                got = f.readinto(view)
+                if not got:
+                    break
+                crc = zlib.crc32(view[:got], crc)
+                n += got
+        return crc, n
 
     def read(self, path: str) -> Optional[bytes]:
         if not os.path.exists(path):

@@ -28,9 +28,10 @@ meet here:
 In the port the ``compute`` span of a step is closed on a CUDA event
 recorded after the optimizer and read once the card has passed it: it
 holds the step's time on the device's clock, placed on the host's
-clock. The host term (``host_xfer``) is priced 0 until the transfer
-scheduler lands (ROADMAP A9b), as the JAX package prices it when no
-stream holds standing demand.
+clock. The host term (``host_xfer``) is priced by the host-link
+arbiter (``transfer_sched.aggregate_host_exposed_s``: the registered
+streams' standing demand through the link model's host leg, less the
+measured hidden fraction), as in the JAX package.
 
 Drift vs regression — the decision rule (docs/observability.md):
 an observation within ``DRIFT_GATE``× of the drift-corrected budget is

@@ -38,10 +38,21 @@ authoritative and the host copy is stale; ``flush()`` (checkpoint
 cadence) and spills write it back. ``export_state`` flushes first so a
 checkpoint can never lose device-only training.
 
-Not ported yet (ROADMAP A9b, A6): link arbitration of the two host legs
-through a transfer scheduler (it orders transfers, never changes a
-row), LinkModel pricing of the host leg, and gauge publishing from
-``export_metrics``.
+Host-link arbitration (``parallel/transfer_sched``): the fault-in leg
+is the ``emb_fault:<table>`` stream (host-to-card, BACKPRESSURE: a
+consumer waits on it), the spill leg ``emb_spill:<table>``
+(card-to-host, BACKGROUND, BACKPRESSURE while two or more spills are
+queued). Grants wrap whole transfers and order them, never change a
+row. The lock order is always link, then the tier's locks: the fault
+grant is taken outside the tier's lock (after joining a racing spill),
+the drain thread holds no lock when it asks, and the synchronous spill
+(``async_spill=False``) runs under the tier's lock and never waits on
+the link. A spill of at least ``spill_stripe_min_bytes`` leaves its
+card-to-host copy to the drain thread, which stripes it by row ranges
+across the local card-to-host rails when two or more admit it (one
+host has one: ``transfer_sched.local_rails``). Both legs are priced
+through the ``LinkModel`` host leg (``emb_host_leg_ms``), and
+``export_metrics`` refreshes the streams' standing demand.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -58,6 +70,7 @@ from torch.profiler import record_function
 
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.ops import embedding_rows
+from dlrover_tpu_torch.parallel import transfer_sched
 from dlrover_tpu_torch.utils.device import resolve_device
 
 _DEF_HBM_BUDGET = 64 << 20  # 64 MiB of rows unless the caller budgets
@@ -156,6 +169,7 @@ class EmbeddingTierStats:
     spill_bytes: int = 0  # D2H row traffic
     scatter_lag_s: float = 0.0  # enqueue→host-import latency (sum)
     scatter_drains: int = 0
+    host_leg_s: float = 0.0  # LinkModel-priced host-link seconds
 
     @property
     def hit_pct(self) -> float:
@@ -169,8 +183,6 @@ class EmbeddingTierStats:
         return 1e3 * self.scatter_lag_s / self.scatter_drains
 
     def as_dict(self) -> Dict[str, float]:
-        # emb_host_leg_ms (the LinkModel-priced host leg) waits for the
-        # host-link arbiter (ROADMAP A9b)
         return {
             "emb_gather_hit_pct": round(self.hit_pct, 3),
             "emb_faults": float(self.faults),
@@ -178,6 +190,7 @@ class EmbeddingTierStats:
             "emb_spill_rows": float(self.spill_rows),
             "emb_spill_bytes": float(self.spill_bytes),
             "emb_scatter_lag_ms": round(self.scatter_lag_ms, 3),
+            "emb_host_leg_ms": round(1e3 * self.host_leg_s, 3),
         }
 
 
@@ -454,11 +467,6 @@ class DeviceSparseEmbedding:
             raise ValueError(
                 f"{sparse_optimizer} needs num_slots >= {need_slots}"
             )
-        if spill_stripe_min_bytes is not None:
-            raise NotImplementedError(
-                "spill_stripe_min_bytes: striping spills across host "
-                "rails is not ported yet (ROADMAP A9b)"
-            )
         self.host = host
         self.table_name = table_name
         self.hot = DeviceHotTier(
@@ -477,6 +485,23 @@ class DeviceSparseEmbedding:
         self._beta1 = float(beta1)
         self._beta2 = float(beta2)
         self.stats = EmbeddingTierStats()
+        # host-link arbitration: see the module's doc
+        arbiter = transfer_sched.get_arbiter()
+        self._fault_stream = arbiter.register(
+            f"emb_fault:{table_name}",
+            transfer_sched.Priority.BACKPRESSURE,
+            direction="h2d",
+        )
+        self._spill_stream = arbiter.register(
+            f"emb_spill:{table_name}",
+            transfer_sched.Priority.BACKGROUND,
+            direction="d2h",
+        )
+        self._spill_stripe_min_bytes = (
+            transfer_sched.DEFAULT_STRIPE_MIN_BYTES
+            if spill_stripe_min_bytes is None
+            else max(int(spill_stripe_min_bytes), 1)
+        )
         # one lock serializes every table mutation: the pipeline
         # thread's fault-in scatter vs the train thread's grad scatter.
         # The table is mutable in place, so the lock also orders the
@@ -525,22 +550,84 @@ class DeviceSparseEmbedding:
                         int(k) for k in item[1]
                     )
 
-    def _import_spill(self, t_enq: float, ids, host_rows, event, n: int):
-        # the D2H was issued on the table's stream; reading the pinned
-        # buffer before its event completes would return garbage
+    def _spill_rails(self) -> List[str]:
+        return transfer_sched.local_rails(
+            "d2h", transfer_sched.Priority.BACKGROUND, self._spill_stream.arbiter
+        )
+
+    def _import_spill(
+        self, t_enq: float, ids, rows_t, event, n: int,
+        arbitrate: bool = True, striped: bool = False,
+    ):
+        """Land one spill host-side. ``rows_t`` is the pinned host copy
+        behind ``event`` (its D2H already issued), or with ``striped``
+        the device rows themselves behind the gather's event: their
+        card-to-host copy is striped here by row ranges. ``arbitrate``
+        is False on the synchronous path, which runs under the tier's
+        lock and must not wait on the link (link, then tier locks)."""
+        prio = transfer_sched.Priority.BACKGROUND
+        # a deep spill queue is about to stall _allocate (the step
+        # path), so it outranks background checkpoint staging
+        if arbitrate and self._spill_q.qsize() >= 2:
+            prio = transfer_sched.Priority.BACKPRESSURE
+        # the copy was issued on the table's stream (or the gather, when
+        # striped); reading before its event completes returns garbage
         if event is not None:
             event.synchronize()
-        rows = host_rows.numpy()[:n]  # bucket-padded: the tail is filler
-        self.host.import_rows(ids, rows)
+        if striped:
+            rows_host = torch.empty(
+                (n,) + tuple(rows_t.shape[1:]), dtype=rows_t.dtype,
+                pin_memory=rows_t.device.type == "cuda",
+            )
+            striper = transfer_sched.StripedTransfer(
+                self._spill_stream.arbiter,
+                name=self._spill_stream.name,
+                direction="d2h",
+                priority=transfer_sched.Priority.BACKGROUND,
+                rails=self._spill_rails(),
+                ignore_window=True,
+            )
+            rowb = max(1, rows_t[0].numel() * rows_t.element_size())
+            step = max(1, striper.chunk_bytes // rowb)
+            ranges = [
+                ((lo, min(lo + step, n)), (min(lo + step, n) - lo) * rowb)
+                for lo in range(0, n, step)
+            ]
+
+            def stage(rail, rng):
+                rows_host[rng[0]:rng[1]].copy_(rows_t[rng[0]:rng[1]])
+
+            striper.run_items(ranges, stage, priority=prio)
+            rows = rows_host.numpy()
+            self.host.import_rows(ids, rows)
+        else:
+            grant = (
+                self._spill_stream.transfer(int(n * rows_t[0].numel() * 4), priority=prio)
+                if arbitrate
+                else nullcontext()
+            )
+            with grant:
+                rows = rows_t.numpy()[:n]  # bucket-padded: the tail is filler
+                self.host.import_rows(ids, rows)
         self.stats.spill_rows += len(ids)
         self.stats.spill_bytes += rows.nbytes
         self.stats.scatter_lag_s += time.perf_counter() - t_enq
         self.stats.scatter_drains += 1
+        self.stats.host_leg_s += self._price(rows.nbytes, h2d=False)
         with self._lock:
             self._spills_inflight -= 1
             self._pending_spill_ids.difference_update(
                 int(k) for k in ids
             )
+
+    @staticmethod
+    def _price(nbytes: int, h2d: bool) -> float:
+        try:
+            from dlrover_tpu_torch.parallel.topology import price_host_transfer
+
+            return price_host_transfer(nbytes, h2d=h2d)
+        except Exception:
+            return 0.0
 
     def _spill(
         self,
@@ -569,16 +656,29 @@ class DeviceSparseEmbedding:
             dev_rows = self.hot._kernels.gather(
                 self.hot.table, self.hot._padded(d_slots)
             )
-            host_rows, event = _d2h_async(dev_rows)
-            item = (time.perf_counter(), ids[dirty], host_rows, event, n)
+            striped = (
+                self._async_spill
+                and n * self.hot.row_floats * 4 >= self._spill_stripe_min_bytes
+                and len(self._spill_rails()) >= 2
+            )
+            if striped:
+                # the drain stripes the copy: it waits for the gather
+                event = None
+                if dev_rows.device.type == "cuda":
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(dev_rows.device))
+                item = (time.perf_counter(), ids[dirty], dev_rows, event, n)
+            else:
+                host_rows, event = _d2h_async(dev_rows)
+                item = (time.perf_counter(), ids[dirty], host_rows, event, n)
             # bookkeeping BEFORE dispatch: _import_spill decrements /
             # clears on completion either way
             self._spills_inflight += 1
             self._pending_spill_ids.update(int(k) for k in ids[dirty])
             if self._async_spill:
-                self._spill_q.put(item)
+                self._spill_q.put(item + (True, striped))
             else:
-                self._import_spill(*item)
+                self._import_spill(*item, arbitrate=False)
         self.hot.clear_dirty(victim_slots)
 
     # -- prepare / gather / update -------------------------------------
@@ -614,9 +714,13 @@ class DeviceSparseEmbedding:
             if self._spills_racing(missing):
                 # one of these ids was just evicted and its spill has
                 # not landed host-side: reading now would fault the
-                # PRE-spill value back in and lose the victim's training
+                # PRE-spill value back in and lose the victim's training.
+                # Joined BEFORE the link grant: the drain needs the link
+                # to land its import
                 self.join_spills()
-            with record_function("emb_host_rows"):
+            with self._fault_stream.transfer(
+                len(missing) * self.hot.row_floats * 4
+            ), record_function("emb_host_rows"):
                 rows_np = self._host_rows(missing)
             with self._lock, record_function("emb_admit"):
                 if self._gen != gen0 or self._spills_racing(missing):
@@ -655,6 +759,7 @@ class DeviceSparseEmbedding:
                     self.stats.fault_batches += 1
                 self.stats.faults += len(missing)
                 self.stats.fault_bytes += rows_np.nbytes
+                self.stats.host_leg_s += self._price(rows_np.nbytes, h2d=True)
                 self.hot.touch(slots)
                 self.hot.pin(slots)
                 gen = gen0
@@ -859,6 +964,7 @@ class DeviceSparseEmbedding:
                 self.host.import_rows(ids, rows)
                 self.stats.spill_rows += len(ids)
                 self.stats.spill_bytes += rows.nbytes
+                self.stats.host_leg_s += self._price(rows.nbytes, h2d=False)
                 self.hot.clear_dirty(dirty)
         self.join_spills()
         return int(len(dirty))
@@ -936,6 +1042,11 @@ class DeviceSparseEmbedding:
         scalars = self.stats.as_dict()
         scalars["emb_hot_rows"] = float(len(self.hot))
         scalars["emb_hbm_bytes"] = float(self.hot.hbm_bytes)
+        # the arbiter's standing-demand hints (the dry runner prices the
+        # aggregate host traffic from them): bytes per gather so far
+        gathers = max(self.stats.gathers, 1)
+        self._fault_stream.demand_bytes_per_step = self.stats.fault_bytes // gathers
+        self._spill_stream.demand_bytes_per_step = self.stats.spill_bytes // gathers
         for name, value in scalars.items():
             registry.gauge(
                 f"dlrover_embedding_{name[4:]}",

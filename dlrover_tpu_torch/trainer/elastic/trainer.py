@@ -182,7 +182,7 @@ from dlrover_tpu_torch.obs.flight_recorder import (
 from dlrover_tpu_torch.obs.goodput import GoodputLedger, install_default_ledger
 from dlrover_tpu_torch.obs.metrics import default_registry, fold_pipeline_stats
 from dlrover_tpu_torch.obs.trace import SpanHeartbeat, get_tracer, span
-from dlrover_tpu_torch.parallel import grad_sync
+from dlrover_tpu_torch.parallel import grad_sync, transfer_sched
 from dlrover_tpu_torch.parallel.mesh import batch_sharding
 from dlrover_tpu_torch.trainer.elastic.dataloader import ElasticDataLoader
 from dlrover_tpu_torch.trainer.elastic.sampler import (
@@ -1098,8 +1098,9 @@ class ElasticTrainer:
         world (every rank together: the probe's all-reduces run on the
         mesh's groups). The probe runs only when the device fingerprint
         changed; a warm restart reuses the persisted cache without
-        touching the card. (The JAX trainer also calibrates its transfer
-        scheduler here: ROADMAP A9b.)"""
+        touching the card. The arbiter's hidden fraction is calibrated
+        (or reused from its cache) under the same discipline; a failure
+        of either never kills training."""
         from dlrover_tpu_torch.parallel import topology
 
         try:
@@ -1113,6 +1114,9 @@ class ElasticTrainer:
             model = topology.probe_link_model(devices=self.device, mesh=self.mesh)
             self._link_fp = fp
             topology.export_link_metrics(model, self._registry)
+            # the dry runner and the auditor price host traffic from the
+            # measured per-rail hidden fraction, not the constant
+            transfer_sched.ensure_calibrated()
         except Exception as e:  # the probe must never kill training
             logger.warning(f"link-model probe failed: {e!r}")
 
@@ -1120,8 +1124,9 @@ class ElasticTrainer:
     def _setup_audit_budget(self):
         """Assemble the per-component :class:`StepBudget` for the
         current world and hand it to the auditor: the sync legs priced
-        from the link model (``comm_time_legs_s``), the host term 0.0
-        until the transfer scheduler lands (ROADMAP A9b). Components the
+        from the link model (``comm_time_legs_s``), the host term from
+        the arbiter's registered demand (``aggregate_host_exposed_s``).
+        Components the
         trainer cannot price cheaply (compute, data_wait) stay 0.0 — the
         auditor adopts their warmup-mean observation as the budget."""
         from dlrover_tpu_torch.parallel.grad_sync import (
@@ -1155,7 +1160,9 @@ class ElasticTrainer:
             )
             budget.set_component("ici_sync", ici_s * exposed, "priced")
             budget.set_component("dcn_sync", dcn_s * exposed, "priced")
-            budget.set_component("host_xfer", 0.0, "priced")
+            budget.set_component(
+                "host_xfer", transfer_sched.aggregate_host_exposed_s(), "priced"
+            )
             self._auditor.set_budget(budget)
             # the sync legs run inside the step (no per-step spans):
             # the probe-measured times are the standing observation
@@ -1408,6 +1415,12 @@ class ElasticTrainer:
             if "block_ms" not in rec:
                 rec["block_ms"] = stager.block_s * 1e3
             rec.update(bytes=stager.total_bytes, **stager.timings)
+            if hasattr(stager, "priority"):  # the host link's record
+                rec.update(
+                    priority=int(stager.priority),
+                    grant_wait_ms=stager.grant_wait_s * 1e3,
+                    stripes=stager.stripes,
+                )
         self.save_log.append(rec)
 
     def save(self, storage_type: StorageType = StorageType.MEMORY) -> bool:
@@ -1586,8 +1599,8 @@ class ElasticTrainer:
         step stands. A saver still persisting an older step is waited
         for first, within the window (the port's saver persists every
         staged step, so it is busy more often than the JAX package's).
-        The engine takes no link ``priority``: the transfer scheduler is
-        ROADMAP A9b."""
+        The stage asks the host link for EMERGENCY: it preempts a
+        background holder at its next chunk boundary."""
         # a half-staged OLDER step holds the shard lock; nobody saw it
         self._abort_stager()
         t0 = time.perf_counter()
@@ -1596,8 +1609,12 @@ class ElasticTrainer:
             step,
             self._ckpt_state(),
             chunk_bytes=self.tcfg.stage_chunk_mb << 20,
+            priority=transfer_sched.Priority.EMERGENCY,
         )
         committed = False
+        if hasattr(stager, "priority"):
+            self.eviction_report["priority"] = stager.priority.name
+            self.eviction_report["grant_wait_ms"] = stager.grant_wait_s * 1e3
         if stager is None:
             # the saver still holds the lock: the plain memory save
             # skips, never blocks, too
@@ -1648,6 +1665,8 @@ class ElasticTrainer:
         step = self.global_step
         committed = persisted = False
         self._goodput.eviction_begin()
+        # the drain runs no train compute: the arbiter's window closes
+        transfer_sched.note_compute(False)
         try:
             with span("eviction_drain", step=step):
                 self._flight.suppress_watchdog(grace + 60.0)
@@ -1821,14 +1840,25 @@ class ElasticTrainer:
         call itself (the work is done when it returns). On the card the
         call only enqueues, so the span is booked later from two CUDA
         events around the step, once the card has passed the second:
-        no host sync is added to the loop."""
+        no host sync is added to the loop.
+
+        The host-link arbiter's compute window follows the same clock:
+        on the CPU it spans the call; on the card it opens at dispatch
+        and closes when ``_book_compute`` finds no step pending, so
+        background transfers are granted while the card computes, not
+        while the host merely enqueues."""
         if self.device.type != "cuda":
             with span("compute"):
-                return self._step_fn(self.state, x, y)
+                transfer_sched.note_compute(True)
+                try:
+                    return self._step_fn(self.state, x, y)
+                finally:
+                    transfer_sched.note_compute(False)
         stream = torch.cuda.current_stream(self.device)
         begin = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         host_ns = time.monotonic_ns()
+        transfer_sched.note_compute(True)
         begin.record(stream)
         out = self._step_fn(self.state, x, y)
         end.record(stream)
@@ -1842,8 +1872,12 @@ class ElasticTrainer:
         its length is the device time between the step's two events, its
         start the later of the step's dispatch and the previous span's
         end (the card runs one step after another), so each span starts
-        no earlier, and ends no earlier, than the step did on the card."""
+        no earlier, and ends no earlier, than the step did on the card.
+        When no step is left pending the arbiter's compute window
+        closes."""
         tracer = get_tracer()
+        if not self._pending_compute:
+            return
         while self._pending_compute:
             begin, end, host_ns, depth = self._pending_compute[0]
             if wait:
@@ -1855,6 +1889,7 @@ class ElasticTrainer:
             start_ns = max(host_ns, self._device_free_ns)
             self._device_free_ns = start_ns + dur_ns
             tracer.record("compute", start_ns, dur_ns, depth=depth)
+        transfer_sched.note_compute(False)
 
     # -- metrics and master commands -------------------------------------
     def _observe_step_time(self, dt_s: float):
@@ -2067,6 +2102,9 @@ class ElasticTrainer:
                             )
                             step_sp.end()
                             return self._settle()
+                    # the card may have finished the step meanwhile (an
+                    # event query, no sync): the window closes if so
+                    self._book_compute()
                     with span("ckpt_save"):
                         self._maybe_save(step)
                     step_sp.end()
@@ -2130,6 +2168,7 @@ class ElasticTrainer:
         self._profiler_capture.abort()
         self._close_prefetcher()
         self._abort_stager()
+        transfer_sched.note_compute(False)
         if self._spec_compiler is not None:
             self._spec_compiler.close()
             self._spec_compiler = None

@@ -30,7 +30,11 @@ drains the trainer: it finishes the step, saves it to shm (and waits for
 its disk persist while the window allows), reports and exits cleanly.
 ``--await-eviction-after-step K`` holds the loop after step K's loss
 until such a notice arrives (at most 120 s), so a drill's signal lands
-at a known step.
+at a known step. ``--link-holder`` then starts a background stream of
+the host-link arbiter (``drill_bg``, BACKGROUND) that copies 64 MiB
+chunks card-to-host under its grant and gives the grant back at the next
+chunk boundary when a higher class asks, until the drain is over: the
+emergency save's EMERGENCY grant must preempt it.
 
 Under ``--nproc-per-node=N`` the N workers train one model, each on its
 rows of the global ``--batch`` (data parallelism over the default
@@ -53,7 +57,8 @@ world, the strategy, the trainer's ``last_resize`` and, with
 the whole state in the JAX layout after each of ``--digest-steps``),
 ``loss`` (step, loss, wall time), ``await_eviction`` (step, wall time),
 ``saves`` (the trainer's save records), ``launches`` (the port's kernel
-launch counts), ``telemetry`` (the goodput report, the eviction drain's
+launch counts), ``arbiter`` (the host-link arbiter's grants, bytes,
+waits and preemptions by stream), ``telemetry`` (the goodput report, the eviction drain's
 record, profiler captures and flight bundles written) and ``exit``
 (wall time). ``--kill-after-step
 K`` commits the save in flight after step K's loss and then kills the
@@ -156,6 +161,46 @@ def state_digest(trainer) -> int:
     return crc
 
 
+def start_link_holder(device, chunk_bytes=64 << 20):
+    """A BACKGROUND stream of the host-link arbiter holding the
+    card-to-host rail: ``chunk_bytes`` pinned copies, one after another
+    under one grant, given back at the next chunk boundary when a higher
+    class asks (``should_yield``) and asked for again. Returns a
+    function that stops it and returns its yields."""
+    import threading
+
+    from dlrover_tpu_torch.parallel import transfer_sched
+
+    stream = transfer_sched.get_arbiter().register(
+        "drill_bg", transfer_sched.Priority.BACKGROUND, "d2h")
+    src = torch.empty(chunk_bytes, dtype=torch.uint8, device=device)
+    dst = torch.empty(chunk_bytes, dtype=torch.uint8, pin_memory=device.type == "cuda")
+    side = torch.cuda.Stream(device) if device.type == "cuda" else None
+    stop = threading.Event()
+
+    def run():
+        while not stop.is_set():
+            with stream.transfer(chunk_bytes, ignore_window=True) as g:
+                while not stop.is_set() and not g.should_yield():
+                    if side is None:
+                        dst.copy_(src)
+                    else:
+                        with torch.cuda.stream(side):
+                            dst.copy_(src, non_blocking=True)
+                        side.synchronize()
+            time.sleep(0.001)
+
+    t = threading.Thread(target=run, name="link-holder", daemon=True)
+    t.start()
+
+    def finish():
+        stop.set()
+        t.join(timeout=30.0)
+        return stream.yields
+
+    return finish
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", default="gpt2_small", choices=["gpt2_small", "tiny"])
@@ -174,6 +219,9 @@ def main(argv=None) -> int:
     ap.add_argument("--log-interval", type=int, default=0,
                     help="trainer log cadence (0: once, at the last step)")
     ap.add_argument("--await-eviction-after-step", type=int, default=0)
+    ap.add_argument("--link-holder", action="store_true",
+                    help="with --await-eviction-after-step: a background stream holds "
+                    "the card-to-host rail until the drain is over")
     ap.add_argument("--kill-after-step", type=int, default=0)
     ap.add_argument("--kill-group", action="store_true",
                     help="with --kill-after-step: kill the launcher's whole process group")
@@ -248,6 +296,7 @@ def main(argv=None) -> int:
         emit("warm", cuda_context_s=t2 - t1, kernel_load_s=time.time() - t2,
              kernel_build_dir=str(_build.build_dir_in_use()))
     trainer = None
+    holder = []
 
     def hook(step, metrics):
         if "loss" not in metrics:
@@ -255,6 +304,8 @@ def main(argv=None) -> int:
         loss = float(metrics["loss"])  # waits for this step's stream only
         emit("loss", step=step, loss=loss, t=time.time())
         if step == args.await_eviction_after_step and not trainer.evicted:
+            if args.link_holder:
+                holder.append(start_link_holder(trainer.device))
             emit("await_eviction", step=step, t=time.time())
             deadline = time.time() + 120.0
             while not trainer.eviction_pending and time.time() < deadline:
@@ -321,6 +372,10 @@ def main(argv=None) -> int:
     trainer.train(args.steps)
     emit("saves", log=trainer.save_log)
     emit_launches()
+    from dlrover_tpu_torch.parallel import transfer_sched
+
+    emit("arbiter", **transfer_sched.get_arbiter().stats(),
+         holder_yields=holder[0]() if holder else None)
     emit("telemetry", **trainer.forensics())
     trainer.close()
     emit("exit", t=time.time())

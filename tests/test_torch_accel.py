@@ -41,6 +41,7 @@ from dlrover_tpu_torch.accel import profiler as tprof
 from dlrover_tpu_torch.accel.strategy import Strategy
 from dlrover_tpu_torch.models import config as tcfg
 from dlrover_tpu_torch.parallel import topology as ttop
+from dlrover_tpu_torch.parallel import transfer_sched as tts
 from dlrover_tpu_torch.parallel.mesh import MeshConfig
 from dlrover_tpu_torch.trainer.elastic import trainer as ttrainer
 
@@ -70,11 +71,17 @@ def links(monkeypatch, tmp_path):
     ttop.set_link_model(ttop.LinkModel(**LINK))
     jaudit.reset_default_auditor()
     taudit.reset_default_auditor()
+    # no host-link demand or arbiter calibration left by an earlier test
+    # of this process: the host term prices what this test registers
+    tts.reset_calibration()
+    tts.set_arbiter(tts.TransferArbiter())
     yield
     jtop.reset_link_model()
     ttop.reset_link_model()
     jaudit.reset_default_auditor()
     taudit.reset_default_auditor()
+    tts.reset_calibration()
+    tts.set_arbiter(None)
 
 
 def _both(name, **kw):

@@ -110,17 +110,20 @@ def test_kernel_modes_are_refused():
 
 
 def test_unported_options_raise():
-    """Spill striping raises (ROADMAP A9b); ``export_metrics`` publishes
-    its gauges into the registry it is given (ported), still without the
-    arbiter's host-leg price (A9b)."""
+    """The tier has no unported option left: spill striping is accepted
+    (the host-link arbiter is ported), and ``export_metrics`` publishes
+    its gauges into the registry it is given, the arbiter's host-leg
+    price (``emb_host_leg_ms``) among them, as the JAX tier does."""
     from dlrover_tpu_torch.obs.metrics import MetricsRegistry
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        _emb(spill_stripe_min_bytes=1 << 20)
+    _emb(spill_stripe_min_bytes=1 << 20).close()
     emb = _emb()
     reg = MetricsRegistry()
     scalars = emb.export_metrics(registry=reg)
-    assert "emb_host_leg_ms" not in scalars
+    jax_scalars = JaxEmb(JaxHost(2, DIM, num_slots=1, seed=0), capacity=64,
+                         kernel_mode="jnp").export_metrics(registry=MetricsRegistry())
+    assert set(scalars) == set(jax_scalars)
+    assert scalars["emb_host_leg_ms"] == 0.0
     assert reg.scalars()['dlrover_embedding_hot_rows{table="t0"}'] == scalars["emb_hot_rows"]
     emb.close()
 

@@ -340,9 +340,16 @@ class TestChunkedStaging:
         engine.close()
 
     def test_link_arbitration_raises(self, saver, tmp_path):
+        """The stage takes a host-link class and a stripe floor (the
+        arbiter is ported); a class the arbiter does not know raises,
+        and gives the shard lock back."""
         engine = CheckpointEngine()
-        with pytest.raises(NotImplementedError, match="A9"):
-            engine.begin_chunked_save(1, {"w": torch.zeros(2)}, str(tmp_path), stripe_min_bytes=1)
+        with pytest.raises(ValueError):
+            engine.begin_chunked_save(1, {"w": torch.zeros(2)}, str(tmp_path), priority=7)
+        st = engine.begin_chunked_save(
+            1, {"w": torch.zeros(2)}, str(tmp_path), priority=0, stripe_min_bytes=1
+        )
+        assert st is not None and st.commit()
         engine.close()
 
 
@@ -407,6 +414,96 @@ class TestQuarantineAndRollback:
         assert (step, engine.last_load_source) == (5, "storage")
         _assert_state_equal(got, state)
         engine.close()
+
+
+class TestStreamedPersist:
+    def test_streamed_shard_is_the_pickled_one_and_verifies_in_chunks(self, saver, tmp_path):
+        """The saver writes a shard from zero-copy views into shm,
+        pickled straight into the file: the bytes (and the done file's
+        crc and length) are ``pickle.dumps``'s of the copied records,
+        the chunked verification passes, and one flipped byte fails it."""
+        import pickle
+        import zlib
+
+        from dlrover_tpu_torch.ckpt.saver import build_shard_payload, verify_step_dir
+        from dlrover_tpu_torch.common.storage import PosixDiskStorage
+
+        engine = CheckpointEngine()
+        d = str(tmp_path / "ck")
+        assert engine.save_to_storage(2, _state(), d)
+        _, recs, extra = engine._shm.load_records(copy=True)
+        want = pickle.dumps(build_shard_payload(2, 0, 1, recs, extra), protocol=pickle.HIGHEST_PROTOCOL)
+        with open(shard_file(d, 2, 0), "rb") as f:
+            got = f.read()
+        assert got == want
+        storage = PosixDiskStorage()
+        assert storage.file_crc32(shard_file(d, 2, 0), chunk_bytes=1000) == (zlib.crc32(want), len(want))
+        assert verify_step_dir(storage, d, 2) == (True, "ok")
+        with open(shard_file(d, 2, 0), "r+b") as f:
+            f.seek(len(want) // 2)
+            b = f.read(1)
+            f.seek(len(want) // 2)
+            f.write(bytes([b[0] ^ 1]))
+        assert verify_step_dir(storage, d, 2) == (False, "shard 0 checksum mismatch")
+        engine.close()
+
+
+    @pytest.mark.parametrize("kind,reason", [("bit_flip", "checksum mismatch"), ("torn_write", "torn")])
+    def test_shard_write_faults_corrupt_the_streamed_file(self, job, tmp_path, monkeypatch, kind, reason):
+        """``ckpt.shard_write``'s data kinds act on the file the streamed
+        writer wrote (no in-memory pickle while a fault is armed), after
+        its crc was taken, at the positions ``corrupt`` picks for the
+        same bytes; verification then refuses the step."""
+        import pickle
+
+        from dlrover_tpu_torch.ckpt.saver import verify_step_dir
+        from dlrover_tpu_torch.common.storage import PosixDiskStorage
+
+        streamed = []
+        real = PosixDiskStorage.write_pickle
+
+        def spy(self, obj, path):
+            streamed.append(path)
+            return real(self, obj, path)
+
+        monkeypatch.setattr(PosixDiskStorage, "write_pickle", spy)
+        d = str(tmp_path / "ck")
+        faults.configure(f"ckpt.shard_write:{kind}:1.0:7")
+        assert FlashCheckpointer(d).save_checkpoint(3, _state(), StorageType.DISK)
+        faults.reset()
+        assert streamed == [shard_file(d, 3, 0)]
+        ok, why = verify_step_dir(PosixDiskStorage(), d, 3)
+        assert not ok and reason in why
+        # the same bytes through ``corrupt`` with the same seeded spec
+        faults.configure(f"ckpt.shard_write:{kind}:1.0:7")
+        clean = str(tmp_path / "clean")
+        faults.reset()
+        assert FlashCheckpointer(clean).save_checkpoint(3, _state(), StorageType.DISK)
+        with open(shard_file(clean, 3, 0), "rb") as f:
+            good = f.read()
+        faults.configure(f"ckpt.shard_write:{kind}:1.0:7")
+        want = faults.corrupt("ckpt.shard_write", good)
+        faults.reset()
+        with open(shard_file(d, 3, 0), "rb") as f:
+            assert f.read() == want
+
+    def test_a_shard_write_fault_armed_only_by_the_environment_fires(self, job, tmp_path, monkeypatch):
+        """A spec in ``DLROVER_TPU_FAULTS`` that nothing loaded yet still
+        reaches the shard write, and a spec armed at another site leaves
+        the shard intact."""
+        from dlrover_tpu_torch.ckpt.saver import verify_step_dir
+        from dlrover_tpu_torch.common.storage import PosixDiskStorage
+
+        d = str(tmp_path / "ck")
+        faults.reset()
+        monkeypatch.setattr(faults, "_env_loaded", False)
+        monkeypatch.setenv(faults.ENV_VAR, "ckpt.shard_write:bit_flip:1.0")
+        assert FlashCheckpointer(d).save_checkpoint(4, _state(), StorageType.DISK)
+        assert verify_step_dir(PosixDiskStorage(), d, 4) == (False, "shard 0 checksum mismatch")
+        faults.configure("prefetch.pull:delay:1.0")
+        assert FlashCheckpointer(d).save_checkpoint(5, _state(), StorageType.DISK)
+        faults.reset()
+        assert verify_step_dir(PosixDiskStorage(), d, 5) == (True, "ok")
 
 
 class TestAgainstTheJaxPackage:

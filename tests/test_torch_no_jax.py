@@ -171,6 +171,17 @@ TENSOR_PARALLEL = {
 }
 
 
+# the host-link arbiter and its users (ROADMAP A9b)
+LINK_ARBITER = {
+    "dlrover_tpu_torch.parallel.transfer_sched",
+    "dlrover_tpu_torch.ckpt.engine",
+    "dlrover_tpu_torch.ops.embedding.device_tier",
+    "dlrover_tpu_torch.trainer.elastic.trainer",
+    "dlrover_tpu_torch.accel.dry_runner",
+    "dlrover_tpu_torch.obs.audit",
+}
+
+
 def test_port_imports_with_jax_and_the_jax_package_blocked():
     p = subprocess.run(
         [sys.executable, "-c", _PROBE],
@@ -194,18 +205,19 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert RESIZE <= names, sorted(RESIZE - names)
     assert SEQUENCE_PARALLEL <= names, sorted(SEQUENCE_PARALLEL - names)
     assert TENSOR_PARALLEL <= names, sorted(TENSOR_PARALLEL - names)
+    assert LINK_ARBITER <= names, sorted(LINK_ARBITER - names)
 
 
 def test_data_parallel_modules_and_the_rank_worker_import_without_jax():
     """The data-parallel, strategy-search, resize, sequence- and
-    tensor-parallel modules by name, and the
+    tensor-parallel modules and the host-link arbiter's by name, and the
     rank processes of the multi-rank tests
     (``tests/torch_dist_worker.py``), with JAX and the JAX package
     blocked."""
     probe = _PROBE.split("import dlrover_tpu_torch\n")[0] + "\n".join(
         f"importlib.import_module({m!r})"
         for m in sorted(DATA_PARALLEL | STRATEGY_SEARCH | RESIZE | SEQUENCE_PARALLEL
-                        | TENSOR_PARALLEL)
+                        | TENSOR_PARALLEL | LINK_ARBITER)
     ) + (
         "\nsys.path.insert(0, 'tests')\nimportlib.import_module('torch_dist_worker')"
         "\nleaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)"

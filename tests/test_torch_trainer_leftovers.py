@@ -192,7 +192,17 @@ def test_refresh_window_is_booked_as_restart_replay(tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 # export_metrics(registry=...)
 # ---------------------------------------------------------------------------
-def test_export_metrics_publishes_the_jax_gauges():
+def test_export_metrics_publishes_the_jax_gauges(monkeypatch, tmp_path):
+    from dlrover_tpu.parallel import topology as jtop
+    from dlrover_tpu_torch.parallel import topology as ttop
+
+    # one link model in both packages: the host leg's price reads it
+    monkeypatch.setenv("DLROVER_TPU_TOPOLOGY_CACHE", str(tmp_path))
+    link = dict(host_d2h_gbps=20.0, host_h2d_gbps=25.0, host_lat_s=1e-5, source="measured")
+    jtop.set_link_model(jtop.LinkModel(**link))
+    ttop.set_link_model(ttop.LinkModel(**link))
+    monkeypatch.setattr(jtop, "_observed_for", lambda *a, **k: None)
+    monkeypatch.setattr(ttop, "_observed_for", lambda *a, **k: None)
     j = JaxEmb(JaxHost(2, DIM, seed=0), capacity=32, sparse_optimizer="adagrad", lr=0.5,
                kernel_mode="jnp")
     t = DeviceSparseEmbedding(ShardedKvEmbedding(2, DIM, seed=0), capacity=32,
@@ -211,12 +221,15 @@ def test_export_metrics_publishes_the_jax_gauges():
         emb.join_spills()  # the drains count a spill once it has landed
     jr, tr = JaxRegistry(), MetricsRegistry()
     js, ts = j.export_metrics(registry=jr), t.export_metrics(registry=tr)
-    # the JAX tier's host-leg price waits for the host-link arbiter (ROADMAP A9b)
-    skip = {"emb_host_leg_ms", "emb_scatter_lag_ms"}
+    jtop.reset_link_model()
+    ttop.reset_link_model()
+    # the host leg is priced through the one link model (the arbiter is
+    # ported); the scatter lag is wall time
+    skip = {"emb_scatter_lag_ms"}
     assert {k: v for k, v in ts.items() if k not in skip} == {
         k: v for k, v in js.items() if k not in skip}
-    jg = {k for k in jr.scalars() if "host_leg" not in k}
-    assert set(tr.scalars()) == jg
+    assert ts["emb_host_leg_ms"] > 0
+    assert set(tr.scalars()) == set(jr.scalars())
     assert tr.scalars()['dlrover_embedding_spill_rows{table="t0"}'] > 0
     j.close()
     t.close()
