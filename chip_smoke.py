@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlrover_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama|accel|peak_memory|resize|sp|tp|ckpt7b [--no-persist]]
+    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama|accel|peak_memory|resize|sp|tp|ep|ckpt7b [--no-persist]]
 
 (``--profile`` adds a torch.profiler window of a few more steps to the
 per-leaf gpt2_small path and to the full-size sparse path; ``--phase
@@ -10,9 +10,9 @@ evict`` its uninterrupted run and the eviction drill alone, ``--phase
 dp`` the data-parallel phase alone, ``--phase llama`` the Llama-2-7B
 phase alone, ``--phase accel`` the strategy-search phase alone,
 ``--phase resize`` the elastic-resize phase alone, ``--phase sp`` the
-sequence-parallel phase alone and ``--phase tp`` the tensor-parallel
-one (each at 4 layers and 3 steps), without the contract's closing
-lines; ``--phase peak_memory`` holds the static
+sequence-parallel phase alone, ``--phase tp`` the tensor-parallel one
+and ``--phase ep`` the expert-parallel one (each at 4 layers and 3
+steps), without the contract's closing lines; ``--phase peak_memory`` holds the static
 peak model to the card, a phase the full run does not take.
 ``--dp-worker SPEC RANK`` is one rank of the dp phase, ``--llama-worker
 OUT [--search-only]`` the llama phase's full model (its search first),
@@ -144,7 +144,10 @@ jobs.)
      holding the card. Then C3: Llama-2 width, 4 layers, 1 x 4096 a
      rank, two gloo ranks, dp=2 then ZeRO dp=1 x fsdp=2 (``resize_c3``:
      the peaks, the static figures within ``PEAK_CAL_RTOL``, the losses
-     bitwise, the saving against what PERF.md reckoned);
+     bitwise, the saving against what PERF.md reckoned). In the full run
+     the tp and ep processes run beside the drill, their pair then runs
+     C3 at 2 steps (``C3_RUNS``), and the lines say ``timing_grade:
+     false``: the resize timings come from ``--phase resize``;
    - ``sp`` (last; alone with ``--phase sp`` at 4 layers x 3 steps, in
      the full run at 2 x 2): each attention kernel under each declared
      mask (``KeyIntervals``: prefix, window, packed documents a batch
@@ -163,8 +166,8 @@ jobs.)
      launches a step), and a ring with its remote hop dropped that the
      two gates must refuse; last, the ``sp_select`` table's device
      times;
-   - ``tp`` (after sp; alone with ``--phase tp`` at 4 layers x 3 steps,
-     in the full run at 2 x 2): the per-leaf 8-bit AdamW's kernel at a
+   - ``tp`` (alone with ``--phase tp`` at 4 layers x 3 steps; in the
+     full run at 2 x 2, its processes beside the resize phase): the per-leaf 8-bit AdamW's kernel at a
      tp-local leaf's shape (w_gate's box at tp = 2); then
      ``ElasticTrainer`` at Llama-2 width, 1 x 4096 tokens, bf16, remat,
      ``adamw_8bit``: one process at tp = 1 beside two gloo ranks on the
@@ -175,7 +178,25 @@ jobs.)
      (``tp_train``: losses, step ms, peaks, the tp all-reduces' number
      and host ms a step, the launches a step); then one step in the
      same ranks with layer 0's ``copy_to_tp`` stripped of its backward
-     all-reduce, which the two gates together must refuse.
+     all-reduce, which the two gates together must refuse;
+   - ``ep`` (in the full run in tp's three processes, after tp, at 2
+     layers x 2 steps, the processes beside the resize phase; alone with
+     ``--phase ep`` at 4 x 3): the per-leaf
+     8-bit AdamW's kernel at an expert box's shape (w_up's 4 of 8
+     experts); then ``ElasticTrainer`` on a MoE model at Llama-2 width
+     (8 experts, top-2, in every second block, capacity factor 1.25),
+     1 x 4096 tokens, bf16, remat, ``adamw_8bit``: one process at ep = 1
+     beside two gloo ranks on the one card at dp 1 x ep 2, the same
+     seeded weights and data, ep = 2's losses within ``EP_LOSS_TOL`` of
+     ep = 1's, the first step's gradients (the experts gathered to
+     whole leaves) within ``EP_GRAD_TOL``, step 1's per-expert load and
+     drop rate within ``EP_ROUTE_TOL``, 6 all-to-alls a MoE layer a
+     step, each rank's peak within ``PEAK_CAL_RTOL`` of
+     ``static_peak_bytes`` (``ep_train``: losses, step ms, peaks, the
+     all-to-alls' number and host ms a step, the routing, the launches a
+     step); then one step in the same ranks with the first MoE layer's
+     return exchange stripped of its backward, which the two gates
+     together must refuse.
 4. a ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -228,9 +249,15 @@ FIRST_LOSS_TOL = 1e-3  # the sparse slice's first loss against ln 2
 T0 = time.perf_counter()
 
 
+# (phase, t_s) of every line so far: the timing line's ``lines``
+EMITTED = []
+
+
 def emit(phase, **kv):
     """One phase's JSON line; ``t_s``: seconds since the script started."""
-    print(json.dumps({"phase": phase, **kv, "t_s": time.perf_counter() - T0}), flush=True)
+    t = time.perf_counter() - T0
+    EMITTED.append((phase, round(t, 1)))
+    print(json.dumps({"phase": phase, **kv, "t_s": t}), flush=True)
 
 
 def card_line() -> str:
@@ -3770,9 +3797,13 @@ def run_dp(torch):
 
 
 # -- the resize phase (ROADMAP A8, C3) -------------------------------------------
-C3_LAYERS = 4  # Llama-2 width (ATorch's Llama-2 throughput config), 4 layers
+# Llama-2 width (ATorch's Llama-2 throughput config); (layers, steps):
+# --phase resize / c3, and the full run (in the tp / ep pair; the depth
+# stays, as the static figures' gate was calibrated at 4 layers: on the
+# H100 80GB HBM3 at 700 W dp=2's peak after 2 steps read 0.4 % below
+# its peak after 3, ZeRO's the same)
+C3_RUNS = {"phase": (4, 3), "full": (4, 2)}
 C3_SEQ = 4096  # batch 1 x 4096 a rank
-C3_STEPS = 3
 C3_PARAMS_SAVING_SHARE = 0.9  # of the params saving PERF.md reckoned before the run
 RESIZE_LASTCALL_S = 5.0  # --rdzv-waiting-timeout of the drill's launchers (its default)
 RESIZE_SAVE_AT = 4  # the memory save world 2 makes before node 1 dies
@@ -3792,8 +3823,8 @@ RESIZE_RUN = ["--model", "gpt2_small", "--steps", str(RESIZE_STEPS), "--batch", 
 
 def _dp_c3(torch, job, rank, world, spec_path):
     """ZeRO's params sharded through the step (C3) against dp=2 on the
-    card: Llama-2 width at ``C3_LAYERS`` layers, 1 x ``C3_SEQ`` a rank,
-    per-leaf ``adamw_8bit``, ``C3_STEPS`` steps of seeded batches, the
+    card: Llama-2 width at ``job["layers"]`` layers, 1 x ``C3_SEQ`` a rank,
+    per-leaf ``adamw_8bit``, ``job["steps"]`` steps of seeded batches, the
     weights from a seeded generator on the card (the same on every rank
     and in both runs). Returns the losses, the peak over the steps and
     the resident bytes (this job's own), and the static figure."""
@@ -3808,7 +3839,7 @@ def _dp_c3(torch, job, rank, world, spec_path):
     from dlrover_tpu_torch.parallel.mesh import MeshConfig, batch_sharding
     from dlrover_tpu_torch.trainer.elastic.trainer import build_optimizer
 
-    cfg = replace(llama2_7b(), num_layers=C3_LAYERS)
+    cfg = replace(llama2_7b(), num_layers=job["layers"])
     tx = build_optimizer("adamw_8bit", lr=3e-4, min_quantized_size=4096)
     strategy = Strategy(mesh=MeshConfig(**job["mesh"]), comm_overlap=True)
     gc.collect()
@@ -3828,7 +3859,7 @@ def _dp_c3(torch, job, rank, world, spec_path):
     losses, step_ms = [], []
     fa.reset_launch_counts()
     qo.reset_launch_counts()
-    for _ in range(C3_STEPS):
+    for _ in range(job["steps"]):
         x = rng.integers(0, cfg.vocab_size, (world, C3_SEQ + 1)).astype(np.int64)[rows]
         t = torch.from_numpy(x).cuda()
         t0 = time.perf_counter()
@@ -3883,14 +3914,27 @@ def _live_at_peak(snapshot, top=14):
         ([k, v[0], v[1]] for k, v in groups.items()), key=lambda x: -x[1])[:top])
 
 
+def _c3_jobs(full, trace=False):
+    """C3's two runs in order, dp=2 then ZeRO dp=1 x fsdp=2, at
+    ``C3_RUNS``' depth."""
+    layers, steps = C3_RUNS["full" if full else "phase"]
+    job = dict(kind="c3", layers=layers, steps=steps, trace=trace)
+    return [dict(job, name="dp2", mesh=dict(dp=2)), dict(job, name="zero", mesh=dict(fsdp=2))]
+
+
 def run_c3(torch, trace=False):
-    """C3 on the card: two gloo ranks at Llama-2 width, dp=2 then ZeRO
-    dp=1 x fsdp=2 (one start, the runs in order). The ZeRO peak must sit
-    below dp=2's by half the 8-bit state plus ``C3_PARAMS_SAVING_SHARE``
-    of the reckoned params saving, each static figure within
-    ``PEAK_CAL_RTOL`` of its peak, the losses bitwise. ``trace``
-    (``--phase c3``) records the allocator's history and prints what was
-    live at each run's peak (``_live_at_peak``)."""
+    """C3 on the card (``--phase c3`` and ``--phase resize``): two gloo
+    ranks of their own; ``trace`` (``--phase c3``) records the
+    allocator's history and prints what was live at each run's peak
+    (``_live_at_peak``)."""
+    return _c3_line(_dp_spawn("c3", 2, _c3_jobs(False, trace)), False, trace)
+
+
+def _c3_line(ranks, full, trace=False, beside=()):
+    """C3's gates on the two ranks' results: the ZeRO peak must sit below
+    dp=2's by half the 8-bit state plus ``C3_PARAMS_SAVING_SHARE`` of
+    the reckoned params saving, each static figure within
+    ``PEAK_CAL_RTOL`` of its peak, the losses bitwise."""
     from dataclasses import replace
 
     from dlrover_tpu_torch.accel.dry_runner import _opt_state_bytes
@@ -3900,15 +3944,14 @@ def run_c3(torch, trace=False):
 
     # what PERF.md reckoned before the run: half the 8-bit state, and half
     # the f32 params less the largest unit gathered at once (one block)
-    cfg = replace(llama2_7b(), num_layers=C3_LAYERS)
+    layers, steps = C3_RUNS["full" if full else "phase"]
+    cfg = replace(llama2_7b(), num_layers=layers)
     leaves = grad_sync.model_leaves(cfg)
     params = sum(p.numel() for p in leaves)
-    block = (params - 2 * cfg.vocab_size * cfg.model_dim) / C3_LAYERS
+    block = (params - 2 * cfg.vocab_size * cfg.model_dim) / layers
     state_half = _opt_state_bytes(
         build_optimizer("adamw_8bit", lr=3e-4, min_quantized_size=4096), leaves)[0] / 2
     reckoned = 4.0 * params / 2 - 4.0 * block
-    ranks = _dp_spawn("c3", 2, [dict(kind="c3", name="dp2", mesh=dict(dp=2), trace=trace),
-                                dict(kind="c3", name="zero", mesh=dict(fsdp=2), trace=trace)])
     dp2, zero = ranks[0]["dp2"], ranks[0]["zero"]
     if trace:
         emit("resize_c3_trace", dp2=dp2["live_at_peak"], zero=zero["live_at_peak"])
@@ -3919,8 +3962,8 @@ def run_c3(torch, trace=False):
         ranks[0]["zero"]["losses"] == ranks[1]["zero"]["losses"])
     ok = (bitwise and saving >= want and all(abs(v) <= PEAK_CAL_RTOL for v in rel.values())
           and all(math.isfinite(x) for x in dp2["losses"]))
-    emit("resize_c3", model=f"llama2_7b width, {C3_LAYERS} layers", batch_per_rank=f"1 x {C3_SEQ}",
-         optimizer="adamw_8bit", world=2, backend="gloo", steps=C3_STEPS,
+    emit("resize_c3", model=f"llama2_7b width, {layers} layers", batch_per_rank=f"1 x {C3_SEQ}",
+         optimizer="adamw_8bit", world=2, backend="gloo", steps=steps,
          losses=dict(dp2=dp2["losses"], zero=zero["losses"]), bitwise=bitwise,
          peak_bytes=[[r["dp2"]["peak_bytes"], r["zero"]["peak_bytes"]] for r in ranks],
          resident_bytes=dict(dp2=dp2["resident_bytes"], zero=zero["resident_bytes"]),
@@ -3929,7 +3972,8 @@ def run_c3(torch, trace=False):
          reckoned_state_half_bytes=state_half, reckoned_params_saving_bytes=reckoned,
          largest_unit_bytes=zero["largest_unit_bytes"],
          step_ms=dict(dp2=dp2["step_ms"], zero=zero["step_ms"]),
-         launches=dict(dp2=dp2["launches"], zero=zero["launches"]), card=card_line(), ok=ok)
+         launches=dict(dp2=dp2["launches"], zero=zero["launches"]), card=card_line(),
+         timing_grade=not beside, beside=list(beside), ok=ok)
     if not ok:
         raise RuntimeError("C3: the ZeRO peak, its static figure or its losses failed")
     return dict(saving_bytes=saving, static_vs_peak=rel)
@@ -4048,7 +4092,7 @@ def _transition(label, t_cause, cause, n0_lines, landed, staged_digest, want_ste
     return rec
 
 
-def run_resize_drill(torch):
+def run_resize_drill(torch, beside=()):
     """Shrink 2 -> 1 and grow 1 -> 2 through the launcher: two
     ``--nnodes=1:2`` launchers (node 0 hosts the master), gpt2_small at
     dp=2 over gloo on the one card. World 2 saves to memory at step
@@ -4122,7 +4166,8 @@ def run_resize_drill(torch):
     digests_agree = a0["digests"].get(RESIZE_SAVE_AT) == a1["digests"].get(RESIZE_SAVE_AT)
     for rec in [shrink] + grow:
         emit("resize", **rec, card_holders={n["label"]: n["cards"] for n in nodes},
-             launcher_rc={n["label"]: n["rc"] for n in nodes}, card=card_line())
+             launcher_rc={n["label"]: n["rc"] for n in nodes}, card=card_line(),
+             timing_grade=not beside, beside=list(beside))
     ok = (shrink["ok"] and all(g["ok"] for g in grow) and digests_agree and kill is not None
           and n0["rc"] == 0 and n1b["rc"] == 0
           and not any(n["cards"]["control_plane_holds_card"] for n in nodes))
@@ -4134,13 +4179,26 @@ def run_resize_drill(torch):
                 grow_s=[g["cause_to_first_loss_s"] for g in grow])
 
 
-def run_resize(torch):
+def run_resize(torch, side=None):
     """The resize phase (``--phase resize``, and in the full run after the
-    flash_ckpt phase): the drill's shrink and grow, then C3."""
+    flash_ckpt phase): the drill's shrink and grow, then C3. ``side``:
+    the full run's tp / ep processes (``start_tp_ep``), started before
+    the drill, whose pair also runs C3 at ``C3_RUNS``' full depth; the
+    drill's and C3's lines then say that their times are not
+    timing-grade, which only ``--phase resize`` gives. Returns what
+    ``side`` returned."""
     t0 = time.perf_counter()
-    drill = run_resize_drill(torch)
-    c3 = run_c3(torch)
+    beside = ("tp_train", "ep_train", "resize_c3") if side else ()
+    try:
+        drill = run_resize_drill(torch, beside)
+    finally:
+        res = side() if side else None
+    if res:
+        c3 = _c3_line(res.pop("c3"), True, beside=("resize", "tp_train", "ep_train"))
+    else:
+        c3 = run_c3(torch)
     emit("resize_phase", seconds=time.perf_counter() - t0, drill=drill, c3=c3,
+         timing_grade=not beside, beside=list(beside),
          never_on_a_card=["NCCL at world size > 1", "a resize across real nodes",
                           "ranks left idle by a degraded world (CPU tests only)",
                           "the micro-batch rebalance at a changed world (CPU tests only)",
@@ -4148,6 +4206,7 @@ def run_resize(torch):
          ok=drill["ok"])
     if not drill["ok"]:
         raise RuntimeError("the resize drill failed its checks")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4567,19 +4626,51 @@ TP_GRAD_TOL = 0.1
 TP_ADAM_SHAPE = (4096, 5504)
 
 
+# the ep phase: Llama-2-7B's widths with Mixtral-8x7B's routing (8
+# experts, top-2) in every second block, the JAX defaults' capacity
+# factor 1.25, at EP_RUNS' depth
+EP_SEQ = 4096  # batch 1 x 4096 tokens
+EP_RUNS = {"phase": (4, 3), "full": (2, 2)}  # (layers, steps): --phase ep, the full run
+EP_MOE = dict(num_experts=8, moe_top_k=2, moe_every=2, capacity_factor=1.25)
+# ep = 2's losses against ep = 1's, absolute, and the first step's
+# gradients (the experts gathered to whole leaves) against ep = 1's
+# (``_grad_err``). ep = 2 runs ep = 1's products on the same rows: on the
+# H100 80GB HBM3 at 700 W the sound runs read bitwise (losses 0.0 apart,
+# gradients 0.0, at 4 layers x 3 steps and 2 x 2), the control (the
+# first MoE layer's return exchange without its backward) 0.98-1.01. The
+# gradient gate sits at 1e-4, far below the control and above an f32
+# reordering's ~1e-6, so a partial exchange fault (a few misrouted
+# slots, one expert's rows out of order) fails it. The loss gate stays
+# tp's: past the first update the 8-bit AdamW's early steps turn any
+# rounding difference into another trajectory.
+EP_LOSS_TOL = 3e-2
+EP_GRAD_TOL = 1e-4
+# step 1's per-expert load and drop rate against ep = 1's: the first MoE
+# layer's gating sees bitwise ep = 1's input; a later one's input may
+# differ by the expert products' rounding, by a few tokens' routing
+EP_ROUTE_TOL = 4.0 / EP_SEQ
+# one expert box the per-leaf 8-bit AdamW updates on the ep path: w_up's
+# 4 of 8 experts at Llama-2 width, ep = 2
+EP_ADAM_SHAPE = (4, 4096, 11008)
+
+
 def _dp_tp(torch, job, rank, world, spec_path):
     """``ElasticTrainer`` at Llama-2 width (d 4096, 32 heads of 128, kv
     32, ffn 11008, vocab 32000), ``job["layers"]`` layers, batch 1 x
     ``TP_SEQ``, bf16, remat, per-leaf ``adamw_8bit``, on a mesh of
-    ``job["tp"]`` tensor-parallel ranks; the weights from the trainer's
-    seeded CPU generator (tp = 1's weights, each rank keeping its boxes).
-    Returns the losses, step ms, this rank's peak beside its static
-    figure, the tp all-reduces' number and host ms a step, the first
-    step's gradient prints of the whole leaves (gathered over tp) and the
-    kernels' launches a step. ``job["fault"] == "drop_copy_bwd"``: the
-    gates' control, planted here only: in layer 0's attention
-    ``copy_to_tp`` loses its backward all-reduce (its forward is the
-    identity either way)."""
+    ``job["tp"]`` tensor-parallel ranks, or with ``job["ep"]`` of a MoE
+    model (``EP_MOE``) on ``job["ep"]`` expert-parallel ranks; the
+    weights from the trainer's seeded CPU generator (tp = 1's (ep = 1's)
+    weights, each rank keeping its boxes). Returns the losses, step ms,
+    this rank's peak beside its static figure, the tp all-reduces' (the
+    ep all-to-alls') number and host ms a step, the first step's gradient
+    prints of the whole leaves (gathered over tp or ep), a MoE model's
+    routing stats of each step, and the kernels' launches a step.
+    ``job["fault"]``: the gates' control, planted here only:
+    ``drop_copy_bwd``, layer 0's attention ``copy_to_tp`` loses its
+    backward all-reduce (its forward is the identity either way);
+    ``drop_return_bwd``, the first MoE layer's return all-to-all loses
+    its backward exchange (each rank keeps its own gradient rows)."""
     from dataclasses import replace
 
     from dlrover_tpu_torch.accel.dry_runner import _apply_strategy, static_peak_bytes
@@ -4588,20 +4679,30 @@ def _dp_tp(torch, job, rank, world, spec_path):
     from dlrover_tpu_torch.models import transformer as tfm
     from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import quantized_optim as qo
+    from dlrover_tpu_torch.parallel import moe
     from dlrover_tpu_torch.parallel.mesh import MeshConfig
     from dlrover_tpu_torch.parallel.sharding_rules import gather_tp, leaf_tp_dims
     from dlrover_tpu_torch.trainer.elastic.trainer import (
         ElasticTrainer, TrainerConfig, build_optimizer,
     )
 
-    cfg = replace(llama2_7b(), num_layers=job["layers"], max_seq_len=TP_SEQ)
+    ep_run = "ep" in job
+    axis, n = ("ep", job["ep"]) if ep_run else ("tp", job["tp"])
+    seq = EP_SEQ if ep_run else TP_SEQ
+    cfg = replace(llama2_7b(), num_layers=job["layers"], max_seq_len=seq,
+                  **(EP_MOE if ep_run else {}))
     tx = build_optimizer("adamw_8bit", lr=3e-4, min_quantized_size=4096)
-    strategy = Strategy(mesh=MeshConfig(tp=job["tp"]), remat=True, opts=("bf16",))
-    losses, stamps = [], []
+    strategy = Strategy(mesh=MeshConfig(**{axis: n}), remat=True, opts=("bf16",))
+    losses, stamps, routes = [], [], []
 
     def hook(step, metrics):
         if "loss" in metrics:
             losses.append(float(metrics["loss"]))
+            if "moe_expert_load" in metrics:
+                routes.append(dict(load=metrics["moe_expert_load"].tolist(),
+                                   drop_rate=float(metrics["moe_drop_rate"]),
+                                   balance=float(metrics["moe_balance_loss"]),
+                                   z=float(metrics["moe_z_loss"])))
             torch.cuda.synchronize()
             stamps.append(time.perf_counter())
 
@@ -4609,16 +4710,17 @@ def _dp_tp(torch, job, rank, world, spec_path):
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     trainer = ElasticTrainer(
-        cfg, tx, RandomTokens(n=8, seq=TP_SEQ, vocab=cfg.vocab_size),
-        TrainerConfig(batch_size=1, seq_len=TP_SEQ, report_metrics=False, log_interval=1),
+        cfg, tx, RandomTokens(n=8, seq=seq, vocab=cfg.vocab_size),
+        TrainerConfig(batch_size=1, seq_len=seq, report_metrics=False, log_interval=1),
         strategy=strategy, metrics_hook=hook,
     )
     cfg2, applied = _apply_strategy(trainer.strategy, cfg)
-    static = static_peak_bytes(cfg2, applied, tx, 1, TP_SEQ)
+    static = static_peak_bytes(cfg2, applied, tx, 1, seq)
     mesh = trainer.mesh
-    dims = leaf_tp_dims(cfg2, job["tp"]) if job["tp"] > 1 else None
-    real_block = tfm._attention_block
+    dims = leaf_tp_dims(cfg2, n, axis) if n > 1 else None
+    real_block, real_moe = tfm._attention_block, tfm._moe_block
     first = trainer.state.params.layers[0]
+    first_moe = next((l.moe for l in trainer.state.params.layers if hasattr(l, "moe")), None)
     if job.get("fault") == "drop_copy_bwd":
         def faulty_block(x, layer, cfg, positions, mesh=None):
             if layer is not first:
@@ -4631,6 +4733,41 @@ def _dp_tp(torch, job, rank, world, spec_path):
                 tfm.copy_to_tp = real_copy
 
         tfm._attention_block = faulty_block
+    if job.get("fault") == "drop_return_bwd":
+        from dlrover_tpu_torch.parallel.collectives import all_to_all
+
+        class NoBackward(torch.autograd.Function):
+            """The return exchange, its backward the identity."""
+
+            @staticmethod
+            def forward(ctx, x, group):
+                return all_to_all(x.contiguous(), group, moe.comm)
+
+            @staticmethod
+            def backward(ctx, g):
+                return g, None
+
+        def faulty_moe(h, params, cfg, mesh=None):
+            if params is not first_moe:
+                return real_moe(h, params, cfg, mesh)
+            real_a2a, calls = moe._EpAllToAll, []
+
+            class Swap:
+                """The layer's second exchange (the return) without its
+                backward; the forward's and the recompute's alike."""
+
+                @staticmethod
+                def apply(x, group):
+                    calls.append(1)
+                    return (NoBackward if len(calls) == 2 else real_a2a).apply(x, group)
+
+            moe._EpAllToAll = Swap
+            try:
+                return real_moe(h, params, cfg, mesh)
+            finally:
+                moe._EpAllToAll = real_a2a
+
+        tfm._moe_block = faulty_moe
     # the first step's gradients, gathered to whole leaves just before
     # its update; the peak is read around the gathering (its transient
     # copies are not the step's)
@@ -4643,7 +4780,7 @@ def _dp_tp(torch, job, rank, world, spec_path):
             peaks.append(torch.cuda.max_memory_allocated() - base)
             params = trainer.state.params.jax_ordered_parameters()
             grads = [p.grad if dims is None or d is None else
-                     gather_tp(p.grad.float(), d, mesh.groups["tp"])
+                     gather_tp(p.grad.float(), d, mesh.groups[axis])
                      for p, d in zip(params, dims or [None] * len(params))]
             prints.extend(_grad_prints(torch, grads))
             del grads
@@ -4659,11 +4796,12 @@ def _dp_tp(torch, job, rank, world, spec_path):
     fa.reset_launch_counts()
     qo.reset_launch_counts()
     tfm.reset_tp_comm()
+    moe.reset_comm()
     t0 = time.perf_counter()
     try:
         trainer.train(job["steps"])
     finally:
-        tfm._attention_block = real_block
+        tfm._attention_block, tfm._moe_block = real_block, real_moe
         opt.step = real_step
     torch.cuda.synchronize()
     peaks.append(torch.cuda.max_memory_allocated() - base)
@@ -4672,81 +4810,85 @@ def _dp_tp(torch, job, rank, world, spec_path):
         live_at_peak = _live_at_peak(torch.cuda.memory._snapshot())
         torch.cuda.memory._record_memory_history(enabled=None)
     steps = job["steps"]
+    comm = moe.comm if ep_run else tfm.tp_comm
+    what = "ep_alltoalls" if ep_run else "tp_allreduces"
+    group = mesh.groups.get(axis)
     res = dict(
         live_at_peak=live_at_peak, resident_bytes=torch.cuda.memory_allocated() - base,
-        tp=job["tp"], layers=job["layers"], fault=job.get("fault"), losses=losses,
+        layers=job["layers"], fault=job.get("fault"), losses=losses,
         grad_prints=prints, step_ms=[x * 1e3 for x in np.diff([t0] + stamps)],
         peak_bytes=max(peaks), peaks_before_and_after_prints=peaks, static_peak_bytes=static,
         static_vs_measured=static / max(peaks) - 1,
-        tp_allreduces_per_step=tfm.tp_comm["calls"] / steps,
-        tp_allreduce_ms_per_step=tfm.tp_comm["ms"] / steps,
-        backend=None if mesh.groups.get("tp") is None else
-        torch.distributed.get_backend(mesh.groups["tp"]),
+        backend=None if group is None else torch.distributed.get_backend(group),
         launches_per_step={k: v / steps for k, v in {**fa.launch_counts, **qo.launch_counts}.items()},
         launches={**fa.launch_counts, **qo.launch_counts},
+        **{axis: n, f"{what}_per_step": comm["calls"] / steps, f"{what}_ms_per_step": comm["ms"] / steps},
     )
+    if ep_run:
+        res.update(routing=routes, ep_alltoalls_staged=comm["staged"])
     trainer.close()
-    del trainer, opt, first
+    del trainer, opt, first, first_moe
     gc.collect()
     torch.cuda.empty_cache()
     return res
 
 
-def run_tp(torch, qo, full=False):
-    """The tp phase (``--phase tp``, and in the full run at fewer layers
-    and steps, after sp): ``adam8_leaf`` against its plain version at a
-    tp-local leaf's shape (``TP_ADAM_SHAPE``), then Llama-2 width
-    training at 1 x ``TP_SEQ`` tokens, one process at tp = 1 beside two
-    gloo ranks on the one card at tp = 2 (the same seeded weights and
-    data): tp = 2's losses within ``TP_LOSS_TOL`` of tp = 1's and the
-    first step's whole-leaf gradients within ``TP_GRAD_TOL``, each
-    rank's peak within ``PEAK_CAL_RTOL`` of ``static_peak_bytes``; then,
-    in the same two ranks, one step with a planted fault (layer 0's
-    ``copy_to_tp`` without its backward all-reduce) that the two gates
-    together must refuse."""
-    t0 = time.perf_counter()
-    adam, _ = check_adam8_leaf(torch, qo, None, TP_ADAM_SHAPE,
-                               "B7 adam8_leaf tp-local w_gate (tp=2)")
-    gc.collect()
-    torch.cuda.empty_cache()
+def _tp_jobs(full):
     layers, steps = TP_RUNS["full" if full else "phase"]
     job = dict(kind="tp", layers=layers, steps=steps)
-    free_before = torch.cuda.mem_get_info()[0]
     # ``--phase tp`` records what is live at each run's peak
-    one = _dp_start("tp1", 1, [dict(job, name="tp1", tp=1, trace=not full)], backend=None)
-    two = _dp_start("tp2", 2, [dict(job, name="tp2", tp=2, trace=not full),
-                               dict(job, name="tp2_drop_copy_bwd", tp=2, steps=1,
-                                    fault="drop_copy_bwd")])
-    try:
-        one = one()[0]["tp1"]
-    finally:
-        two = two()
+    return ([dict(job, name="tp1", tp=1, trace=not full)],
+            [dict(job, name="tp2", tp=2, trace=not full),
+             dict(job, name="tp2_drop_copy_bwd", tp=2, steps=1, fault="drop_copy_bwd")])
+
+
+def _ep_jobs(full):
+    layers, steps = EP_RUNS["full" if full else "phase"]
+    job = dict(kind="tp", layers=layers, steps=steps)
+    return ([dict(job, name="ep1", ep=1, trace=not full)],
+            [dict(job, name="ep2", ep=2, trace=not full),
+             dict(job, name="ep2_drop_return_bwd", ep=2, steps=1, fault="drop_return_bwd")])
+
+
+def _split_checks(one, two, axis, steps, loss_tol, grad_tol, kernels):
+    """The tp (ep) runs' gates: each two-rank run's losses against the
+    one-process run's within ``loss_tol``, its first step's gradients
+    within ``grad_tol`` (``_grad_err``), the ranks agreeing, the kernels
+    launched, each rank's peak within ``PEAK_CAL_RTOL`` of its static
+    figure; the planted fault's run must fail the two gates together."""
     ref = one.pop("grad_prints")
-    runs = {"tp1": one}
+    runs = {f"{axis}1": one}
     checks = {}
-    for name in ("tp2", "tp2_drop_copy_bwd"):
+    for name in two[0]:
         per_rank = [r[name] for r in two]
         prints = [r.pop("grad_prints") for r in per_rank]
         runs[name] = per_rank
-        want = 1 if name != "tp2" else steps
+        want = 1 if per_rank[0]["fault"] else steps
         diff = max(abs(a - b) for r in per_rank for a, b in zip(r["losses"], one["losses"]))
         grad_err, worst = _grad_err(prints[0], ref)
         same = all(r["losses"] == per_rank[0]["losses"] for r in per_rank)
         finite = all(np.isfinite(r["losses"]).all() and len(r["losses"]) == want for r in per_rank)
-        launched = all(r["launches"].get(k, 0) > 0 for r in per_rank
-                       for k in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkdv", "adam8_leaf"))
+        launched = all(r["launches"].get(k, 0) > 0 for r in per_rank for k in kernels)
         peaks_ok = all(abs(r["static_vs_measured"]) <= PEAK_CAL_RTOL for r in per_rank)
-        passes = diff <= TP_LOSS_TOL and grad_err <= TP_GRAD_TOL
-        checks[name] = dict(max_abs_loss_diff_vs_tp1=diff, tol=TP_LOSS_TOL,
-                            first_loss_diff_vs_tp1=abs(per_rank[0]["losses"][0] - one["losses"][0]),
-                            first_step_grad_rel_err_vs_tp1=grad_err, worst_tensor=worst,
-                            grad_tol=TP_GRAD_TOL, ranks_agree=same,
-                            ranks_grads_agree=prints[1] == prints[0], passes_gates=passes,
-                            peaks_within_static=peaks_ok,
-                            ok=finite and same and launched and passes and peaks_ok)
-    fault = checks.pop("tp2_drop_copy_bwd")
+        passes = diff <= loss_tol and grad_err <= grad_tol
+        checks[name] = {f"max_abs_loss_diff_vs_{axis}1": diff, "tol": loss_tol,
+                        f"first_loss_diff_vs_{axis}1": abs(per_rank[0]["losses"][0]
+                                                          - one["losses"][0]),
+                        f"first_step_grad_rel_err_vs_{axis}1": grad_err, "worst_tensor": worst,
+                        "grad_tol": grad_tol, "ranks_agree": same,
+                        "ranks_grads_agree": prints[1] == prints[0], "passes_gates": passes,
+                        "peaks_within_static": peaks_ok,
+                        "ok": finite and same and launched and passes and peaks_ok}
+    fault = checks.pop(next(n for n in runs if n != f"{axis}1" and runs[n][0]["fault"]))
     fault["ok"] = not fault["passes_gates"]
-    fault["loss_gate_alone_refuses"] = fault["max_abs_loss_diff_vs_tp1"] > TP_LOSS_TOL
+    fault["loss_gate_alone_refuses"] = fault[f"max_abs_loss_diff_vs_{axis}1"] > loss_tol
+    return runs, checks, fault
+
+
+def _tp_line(t0, one, two, adam, free_before, full):
+    layers, steps = TP_RUNS["full" if full else "phase"]
+    runs, checks, fault = _split_checks(one, two, "tp", steps, TP_LOSS_TOL, TP_GRAD_TOL,
+                                        ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkdv", "adam8_leaf"))
     first_ok = abs(one["losses"][0] - float(np.log(32000))) <= 1.0
     one_peak_ok = abs(one["static_vs_measured"]) <= PEAK_CAL_RTOL
     same_launches = all(r["launches_per_step"] == one["launches_per_step"] for r in runs["tp2"])
@@ -4764,6 +4906,141 @@ def run_tp(torch, qo, full=False):
     if not ok:
         raise RuntimeError(f"the tp runs failed their checks: {checks}, the control: {fault}")
     return dict(runs=runs, adam=adam)
+
+
+def _ep_line(t0, one, two, adam, free_before, full):
+    layers, steps = EP_RUNS["full" if full else "phase"]
+    runs, checks, fault = _split_checks(one, two, "ep", steps, EP_LOSS_TOL, EP_GRAD_TOL,
+                                        ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkdv", "adam8_leaf"))
+    first_ok = abs(one["losses"][0] - float(np.log(32000))) <= 1.0
+    one_peak_ok = abs(one["static_vs_measured"]) <= PEAK_CAL_RTOL
+    same_launches = all(r["launches_per_step"] == one["launches_per_step"] for r in runs["ep2"])
+    # step 1's routing: the gating is replicated over ep
+    r1 = one["routing"][0]
+    route_diff = max(max(abs(a - b) for a, b in zip(r["routing"][0]["load"], r1["load"]))
+                     for r in runs["ep2"])
+    drop_diff = max(abs(r["routing"][0]["drop_rate"] - r1["drop_rate"]) for r in runs["ep2"])
+    route_ok = route_diff <= EP_ROUTE_TOL and drop_diff <= EP_ROUTE_TOL
+    # 2 exchanges forward, their 2 transposes, and under remat the
+    # recompute's 2 again: 6 a MoE layer a step
+    from dlrover_tpu_torch.models.config import num_moe_layers
+    from dlrover_tpu_torch.models import llama2_7b
+    from dataclasses import replace
+
+    n_moe = num_moe_layers(replace(llama2_7b(), num_layers=layers, **EP_MOE))
+    a2a_ok = all(r["ep_alltoalls_per_step"] == 6 * n_moe for r in runs["ep2"])
+    ok = (first_ok and one_peak_ok and same_launches and route_ok and a2a_ok
+          and all(c["ok"] for c in checks.values()) and fault["ok"] and adam["ok"])
+    emit("ep_train", seconds=time.perf_counter() - t0, seq=EP_SEQ, layers=layers, steps=steps,
+         moe=EP_MOE, moe_layers=n_moe, runs=runs, checks=checks, planted_fault=fault,
+         peak_cal_rtol=PEAK_CAL_RTOL, ep1_peak_within_static=one_peak_ok,
+         launches_as_ep1=same_launches, step1_load_max_diff_vs_ep1=route_diff,
+         step1_drop_rate_diff_vs_ep1=drop_diff, route_tol=EP_ROUTE_TOL,
+         alltoalls_per_step_expected=6 * n_moe, alltoalls_ok=a2a_ok,
+         card_free_bytes_before_runs=free_before, ep1_beside_the_pair=True,
+         first_loss_near_ln_vocab=first_ok, adam8_leaf_expert_box=adam,
+         transport="gloo all_to_all_single of CUDA tensors, staged by gloo through host memory "
+                   "(two ranks share the one card)",
+         never_on_a_card=["NCCL all-to-all", "ep > 2", "dp > 1 x ep", "ep x fsdp / tp / sp"],
+         ok=ok)
+    if not ok:
+        raise RuntimeError(f"the ep runs failed their checks: {checks}, the control: {fault}")
+    return dict(runs=runs, adam=adam)
+
+
+def _split_runs(torch, label, one_jobs, two_jobs):
+    """One process of ``one_jobs`` beside two gloo ranks of
+    ``two_jobs`` on the one card; each's results by job name."""
+    free_before = torch.cuda.mem_get_info()[0]
+    one = _dp_start(f"{label}1", 1, one_jobs, backend=None)
+    two = _dp_start(f"{label}2", 2, two_jobs)
+    try:
+        one = one()[0]
+    finally:
+        two = two()
+    return one, two, free_before
+
+
+def run_tp(torch, qo, full=False):
+    """The tp phase (``--phase tp``): ``adam8_leaf`` against its plain
+    version at a tp-local leaf's shape (``TP_ADAM_SHAPE``), then Llama-2
+    width training at 1 x ``TP_SEQ`` tokens, one process at tp = 1 beside
+    two gloo ranks on the one card at tp = 2 (the same seeded weights and
+    data): tp = 2's losses within ``TP_LOSS_TOL`` of tp = 1's and the
+    first step's whole-leaf gradients within ``TP_GRAD_TOL``, each
+    rank's peak within ``PEAK_CAL_RTOL`` of ``static_peak_bytes``; then,
+    in the same two ranks, one step with a planted fault (layer 0's
+    ``copy_to_tp`` without its backward all-reduce) that the two gates
+    together must refuse."""
+    t0 = time.perf_counter()
+    adam, _ = check_adam8_leaf(torch, qo, None, TP_ADAM_SHAPE,
+                               "B7 adam8_leaf tp-local w_gate (tp=2)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_jobs, two_jobs = _tp_jobs(full)
+    one, two, free = _split_runs(torch, "tp", one_jobs, two_jobs)
+    return _tp_line(t0, one["tp1"], [{k: v for k, v in r.items()} for r in two], adam, free, full)
+
+
+def run_ep(torch, qo, full=False):
+    """The ep phase (``--phase ep``): ``adam8_leaf`` against its plain
+    version at an expert box's shape (``EP_ADAM_SHAPE``), then a MoE
+    model at Llama-2 width (``EP_MOE``: 8 experts, top-2, every second
+    block) at 1 x ``EP_SEQ`` tokens, one process at ep = 1 beside two
+    gloo ranks on the one card at dp 1 x ep 2 (the same seeded weights
+    and data): ep = 2's losses within ``EP_LOSS_TOL`` of ep = 1's, the
+    first step's whole-leaf gradients within ``EP_GRAD_TOL``, step 1's
+    routing stats within ``EP_ROUTE_TOL``, 6 ep all-to-alls a MoE layer
+    a step (remat), each rank's peak within ``PEAK_CAL_RTOL`` of
+    ``static_peak_bytes``; then, in the same two ranks, one step with
+    the first MoE layer's return exchange stripped of its backward,
+    which the two gates together must refuse."""
+    t0 = time.perf_counter()
+    adam, _ = check_adam8_leaf(torch, qo, None, EP_ADAM_SHAPE,
+                               "B7 adam8_leaf expert box w_up (ep=2)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_jobs, two_jobs = _ep_jobs(full)
+    one, two, free = _split_runs(torch, "ep", one_jobs, two_jobs)
+    return _ep_line(t0, one["ep1"], two, adam, free, full)
+
+
+def start_tp_ep(torch, qo):
+    """The full run's tp and ep phases in the same three processes (one
+    process at tp = 1 then ep = 1, beside a gloo pair at tp = 2 then ep =
+    2, then C3's two runs), at ``TP_RUNS`` / ``EP_RUNS`` / ``C3_RUNS``'
+    full depth: the kernel checks, then the processes started; the
+    returned function waits for them, prints the tp and ep lines and
+    returns ``{"tp", "ep", "c3"}`` (C3's results per rank). The full run
+    starts them before the resize drill, whose launchers mostly wait, so
+    they run side by side (the steps' times are then not timing-grade;
+    ``--phase tp`` / ``--phase ep`` / ``--phase resize`` run alone)."""
+    t0 = time.perf_counter()
+    tp_adam, _ = check_adam8_leaf(torch, qo, None, TP_ADAM_SHAPE,
+                                  "B7 adam8_leaf tp-local w_gate (tp=2)")
+    ep_adam, _ = check_adam8_leaf(torch, qo, None, EP_ADAM_SHAPE,
+                                  "B7 adam8_leaf expert box w_up (ep=2)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp1, tp2 = _tp_jobs(True)
+    ep1, ep2 = _ep_jobs(True)
+    free = torch.cuda.mem_get_info()[0]
+    one = _dp_start("tp_ep1", 1, tp1 + ep1, backend=None)
+    two = _dp_start("tp_ep2", 2, tp2 + ep2 + _c3_jobs(True))
+
+    def finish():
+        try:
+            res1 = one()[0]
+        finally:
+            res2 = two()
+        tp_names, ep_names = [j["name"] for j in tp2], [j["name"] for j in ep2]
+        tp = _tp_line(t0, res1["tp1"], [{k: r[k] for k in tp_names} for r in res2], tp_adam,
+                      free, True)
+        ep = _ep_line(t0, res1["ep1"], [{k: r[k] for k in ep_names} for r in res2], ep_adam,
+                      free, True)
+        return dict(tp=tp, ep=ep, c3=[{k: r[k] for k in ("dp2", "zero")} for r in res2])
+
+    return finish
 
 
 def build_kernels():
@@ -4861,7 +5138,7 @@ def main() -> int:
     if "--phase" in sys.argv:  # one phase alone; the contract's lines need a full run
         phase = sys.argv[sys.argv.index("--phase") + 1]
         if phase not in ("flash_ckpt", "evict", "dp", "llama", "accel", "peak_memory", "resize",
-                         "c3", "sp", "tp", "ckpt7b"):
+                         "c3", "sp", "tp", "ep", "ckpt7b"):
             raise SystemExit(f"unknown phase {phase!r}")
         if phase == "ckpt7b":
             link_calibration(torch)
@@ -4872,6 +5149,8 @@ def main() -> int:
             run_sp(torch, fa)
         elif phase == "tp":
             run_tp(torch, qo)
+        elif phase == "ep":
+            run_ep(torch, qo)
         elif phase == "resize":
             run_resize(torch)
         elif phase == "c3":  # C3 alone, with the allocator's history at each peak
@@ -4921,9 +5200,9 @@ def main() -> int:
     dp_accel = run_dp(torch)
     run_accel(torch, llama["full"]["search"], dp_accel, audit)
     link_arbiter_line(flash=run_flash_ckpt(torch)["arbiter"], spill=spill_link)
-    run_resize(torch)
+    side = run_resize(torch, side=start_tp_ep(torch, qo))
+    tp, ep = side["tp"], side["ep"]
     sp = run_sp(torch, fa, full=True)
-    tp = run_tp(torch, qo, full=True)
 
     src_fa = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"
     fa_tpu = "dlrover_tpu/ops/flash_attention.py"
@@ -4948,6 +5227,7 @@ def main() -> int:
                     for fam, by in sp["masks"].items()},
             sp_ring_launches_per_step=sp["runs"]["ring"][0]["launches_per_step"][name],
             tp2_launches_per_step=tp["runs"]["tp2"][0]["launches_per_step"][name],
+            ep2_launches_per_step=ep["runs"]["ep2"][0]["launches_per_step"][name],
         ))
     src_qo, qo_tpu = "dlrover_tpu_torch/ops/quantized_optim.py", "dlrover_tpu/ops/quantized_optim.py"
     for name, replaces, res, abs_err, n in (
@@ -4961,7 +5241,9 @@ def main() -> int:
             bound_ms=res["bound_ms"], bound_by=res["bound_by"], library_ms=None,
             llama2_7b_launches_per_step=llama["full"]["launches_per_step"][name],
             tp2_launches_per_step=tp["runs"]["tp2"][0]["launches_per_step"].get(name, 0),
-            **({"tp_local_w_gate": {k: tp["adam"][k] for k in ("ms", "plain_ms", "bound_ms")}}
+            ep2_launches_per_step=ep["runs"]["ep2"][0]["launches_per_step"].get(name, 0),
+            **({"tp_local_w_gate": {k: tp["adam"][k] for k in ("ms", "plain_ms", "bound_ms")},
+                "ep_expert_box_w_up": {k: ep["adam"][k] for k in ("ms", "plain_ms", "bound_ms")}}
                if name == "adam8_leaf" else {}),
         ))
     emb_tpu = "dlrover_tpu/ops/embedding/device_tier.py"
@@ -4971,7 +5253,7 @@ def main() -> int:
             replaces=f"{emb_tpu}:{line}", also_replaces=[], launches=emb_counts[name],
             max_abs_err=0.0, **emb_t[name],
         ))
-    emit("timing", total_s=time.perf_counter() - T0)
+    emit("timing", total_s=time.perf_counter() - T0, lines=EMITTED)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

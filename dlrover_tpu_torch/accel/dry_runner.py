@@ -161,16 +161,14 @@ def _check_unported(strategy: Strategy, cfg: TransformerConfig, tx) -> None:
                 "offload_opt is not supported on the pipeline (pp>1) "
                 "path: pipeline state keeps its own on-device layout"
             )
-        raise NotImplementedError("pipeline parallelism (pp > 1) is not ported yet (ROADMAP A11)")
+        raise NotImplementedError("pipeline parallelism (pp > 1) is not ported yet (ROADMAP A11b)")
     for name in ("1f1b", "interleaved"):
         if name in strategy.opts:
             raise NotImplementedError(
-                f"the {name} pipeline schedule is not ported yet (ROADMAP A11)"
+                f"the {name} pipeline schedule is not ported yet (ROADMAP A11b)"
             )
-    if m.ep > 1:
-        raise NotImplementedError("expert parallel meshes are not ported yet (ROADMAP A11)")
     check_supported(cfg, m)
-    if getattr(tx, "opt_name", None) == "adamw_8bit_flat" and (m.fsdp > 1 or m.tp > 1):
+    if getattr(tx, "opt_name", None) == "adamw_8bit_flat" and (m.fsdp > 1 or m.tp > 1 or m.ep > 1):
         # the flat optimizer concatenates every big leaf per step: on a
         # model-sharded mesh that defeats the sharding
         raise ValueError(
@@ -415,12 +413,26 @@ def static_peak_bytes(
     the local head's f32 grad. Each tp collective adds its f32 copy of
     the rank's ``tok x D`` and the cast back.
 
+    A MoE model's expert blocks save, instead of the dense MLP's
+    tensors, the gating and expert buffers in f32 (``_moe_block_bytes``:
+    ``[T, k, E, C]`` routed, ``[T, E, C]`` dispatch and combine, ``[E, C,
+    D]`` expert inputs and outputs, ``[E, C, F]`` pre- and post-activation,
+    the activations' f32 casts), and their backward adds the ``[E, C, F]``
+    activation's two f32 grads; the experts' weights are used in f32 (no
+    cast). Under ep a rank holds its ``E/ep`` experts of each expert leaf
+    (their grads and optimizer state with them), but its expert buffers
+    are ep = 1's (each rank runs ``E/ep`` experts over ``ep x C``
+    slots), and the ep sum of the dense grads adds their f32
+    concatenation to the optimizer phase.
+
     The peak is the resident state plus the largest phase. Held against
     the measured peaks on an H100 80GB HBM3 at 700 W (``chip_smoke.py
     --phase peak_memory`` and its accel phase): -0.5 % to +4.4 % without
     remat (Llama-2 width at 4, 8 and 16 layers, gpt2_small, gpt2_xl with
     AdamW), -0.6 % and -0.1 % under remat (Llama-2 width at 4 and 32
-    layers), -4.6 % for gpt2_xl with its AdamW state offloaded;
+    layers), -4.6 % for gpt2_xl with its AdamW state offloaded, -0.35 %
+    and -0.45 % for a MoE model at Llama-2 width x 4 (2 MoE layers of 8
+    experts, remat) at ep = 1 and a rank of ep = 2 (``--phase ep``);
     Llama-2-7B without remat is priced 85.95 GB and ran out of the
     card's memory."""
     import torch
@@ -432,7 +444,7 @@ def static_peak_bytes(
     m = strategy.mesh
     tp = max(m.tp, 1)
     plan_leaves = leaves
-    if tp > 1:
+    if tp > 1 or m.ep > 1:
         # the rank's own leaves: its boxes of the split ones
         leaves = grad_sync.model_leaves(cfg, m)
     shards = max(m.dp * m.fsdp, 1)
@@ -469,8 +481,24 @@ def static_peak_bytes(
     )
     a_block = tok * per_tok + (block_params * ab if pb > ab else 0.0)
     head = tok * V * (ab + (2 if split_vocab else 5) * 4) + V * D * 4
+    n_moe = 0
+    if cfg.num_experts:
+        from dlrover_tpu_torch.models.config import num_moe_layers
+
+        # the blocks apart: a dense block casts its attention and MLP
+        # weights, an expert block only its attention's
+        n_moe = num_moe_layers(cfg)
+        attn_p = D * (2 * q + 2 * kv)
+        mlp_t = ab * F * (4 if cfg.swiglu else 2)
+        mlp_p = D * F * (3 if cfg.swiglu else 2)
+        a_block = tok * per_tok + ((attn_p + mlp_p) * ab if pb > ab else 0.0)
+        a_moe = (tok * (per_tok - mlp_t) + _moe_block_bytes(cfg, tok, ab)
+                 + (attn_p * ab if pb > ab else 0.0))
     if cfg.remat:
-        live = L * tok * D * ab + max(a_block + V * D * 4, head)
+        biggest = max(a_block, a_moe) if n_moe else a_block
+        live = L * tok * D * ab + max(biggest + V * D * 4, head)
+    elif n_moe:
+        live = (L - n_moe) * a_block + n_moe * a_moe + head
     else:
         live = L * a_block + head
     if sp > 1:
@@ -487,6 +515,13 @@ def static_peak_bytes(
     if plan is not None:
         bucket = 4.0 * max(plan.local_padded(b) for b in plan.buckets)
         sync = grads + 4.0 * n_params / (m.fsdp if zero else 1) + 2.0 * bucket
+    if m.ep > 1:
+        # the dense grads' f32 concatenation the ep sum runs on
+        from dlrover_tpu_torch.parallel.sharding_rules import leaf_tp_dims
+
+        dims = leaf_tp_dims(cfg, m.ep, "ep")
+        dense = sum(p.numel() for p, d in zip(leaves, dims) if d is None)
+        sync = max(sync, grads + 4.0 * dense)
     if zero:
         regathered = 0.0
         if cfg.remat or pb <= ab:
@@ -495,6 +530,23 @@ def static_peak_bytes(
         shard = p_bytes / m.fsdp
         return shard + state + max(shard + trans, sync, live + regathered)
     return p_bytes + state + max(grads + trans, sync, live, bwd_end)
+
+
+def _moe_block_bytes(cfg: TransformerConfig, tok: int, ab: int) -> float:
+    """What one expert block's MLP half holds for its backward, for a
+    rank's ``tok`` tokens (f32, as ``parallel/moe.moe_layer_local``
+    computes): the routed ``[T, k, E, C]`` one-hots, ``dispatch`` and
+    ``combine`` ``[T, E, C]``, the expert inputs and outputs ``[E, C,
+    D]``, the FFN's pre- and post-activation ``[E, C, F]`` with the two
+    f32 grads of its backward, and the activations' f32 casts (two,
+    when ``ab`` < 4)."""
+    E, k, D, F = cfg.num_experts, max(cfg.moe_top_k, 1), cfg.model_dim, cfg.ffn_dim
+    if cfg.capacity_splits:
+        C = max(1, int(max(cfg.capacity_splits)))
+    else:
+        C = max(1, int(cfg.capacity_factor * k * tok / E))
+    return 4.0 * (tok * (k + 2) * E * C + 2 * E * C * D + 4 * E * C * F
+                  + (2 * tok * D if ab < 4 else 0))
 
 
 # -- the estimate tiers --------------------------------------------------------

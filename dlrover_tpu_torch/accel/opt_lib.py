@@ -5,7 +5,7 @@ transforms of ``(TransformerConfig, Strategy)``).
 In the port, names whose machinery is not ported yet still apply as
 transforms; ``accel/dry_runner._build`` then raises on the result,
 naming the ROADMAP item, as ``models/transformer.check_supported``
-does: ``int8_mlp`` (A12), ``1f1b`` / ``interleaved`` (pipeline, A11).
+does: ``int8_mlp`` (A12), ``1f1b`` / ``interleaved`` (pipeline, A11b).
 ``sp_auto`` reads the sequence-parallel scheme table
 (``parallel/sp_select.py``, measured on the H100): on a strategy
 without an sp axis it is the JAX package's no-op.
@@ -121,11 +121,11 @@ register_optimization(
 # per-bucket collectives — RS+AG on pure-dp meshes, ZeRO
 # reduce-scatter into the fsdp shard layout on dp x fsdp, the
 # bucketed dp sync of each tp coordinate's boxes on dp x tp/sp, ZeRO
-# on the tp-local leaves on 3D dp x fsdp x tp — and grad_accum syncs
-# once per optimizer step instead of per microbatch. The JAX
-# package's mesh matrix also takes pp x dp (per-stage sync into the
-# pipeline bubble) and dp x ep (the MoE all-to-alls) on the explicit
-# path (ROADMAP A11 here). Tunable: auto_accelerate's candidate stamping may apply
+# on the tp-local leaves on 3D dp x fsdp x tp, the expert and dense
+# plans of dp x ep — and grad_accum syncs once per optimizer step
+# instead of per microbatch. The JAX package's mesh matrix also takes
+# pp x dp (per-stage sync into the pipeline bubble) on the explicit
+# path (ROADMAP A11b here). Tunable: auto_accelerate's candidate stamping may apply
 # it across the whole candidate list; the remaining exotica (pp/ep
 # composed with other model axes) fall back to the GSPMD default
 # schedule inside the step builders with a once-per-mesh log naming

@@ -95,6 +95,10 @@ class PipelineStats:
     # (dlrover_resize_mb_pad)
     resize_idle_ranks: int = 0
     resize_mb_pad: int = 0
+    # capacity re-splits applied by the MoE rebalancer (the trainer's
+    # moe_rebalance_interval; each one rebuilds the step; also the
+    # dlrover_moe_capacity_resplits gauge)
+    moe_capacity_resplits: int = 0
     # -- the gradient sync (parallel/grad_sync.py) ----------------------
     # "explicit" (the bucketed sync) or "gspmd" (the default schedule:
     # one all-reduce of the whole tree per microbatch); "" until a

@@ -43,7 +43,12 @@ from dlrover_tpu_torch.models.transformer import Transformer
 def _lookup(tree, path):
     node = tree
     for part in path.split("."):
-        node = node[int(part)] if isinstance(node, (list, tuple)) else node[part]
+        if isinstance(node, (list, tuple)) and part.isdigit():
+            node = node[int(part)]
+        elif isinstance(node, dict):
+            node = node[part]
+        else:  # a NamedTuple node (the JAX ``MoEParams``)
+            node = getattr(node, part)
     return node
 
 
@@ -56,11 +61,13 @@ def _count_leaves(tree) -> int:
 
 
 def _tp_names(cfg: TransformerConfig, mesh):
-    """(tp, coordinate, group, each parameter's tp dim by name)."""
-    from dlrover_tpu_torch.parallel.sharding_rules import tp_dims, tp_of
+    """(degree, coordinate, group, each parameter's split dim by name) of
+    the axis that splits the mesh's leaves (tp's, or ep's:
+    ``sharding_rules.split_of``)."""
+    from dlrover_tpu_torch.parallel.sharding_rules import split_of, tp_dims
 
-    tp, coord, group = tp_of(mesh)
-    return tp, coord, group, (tp_dims(cfg, tp) if tp > 1 else {})
+    axis, tp, coord, group = split_of(mesh)
+    return tp, coord, group, (tp_dims(cfg, tp, axis) if tp > 1 else {})
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: TransformerConfig, device=None,
@@ -297,24 +304,36 @@ def replica_group(mesh, zero: bool) -> str:
 
 
 def _tp_parts(model: Transformer, mesh):
-    """(tp, coordinate, group, ``[(param path, its tp dim)]``; the list
-    empty at tp 1)."""
+    """(degree, coordinate, group, ``[(param path, its split dim, its
+    8-bit blocks are rows of the whole leaf's)]``; the list empty at
+    degree 1) of the axis that splits the mesh's leaves."""
+    from dlrover_tpu_torch.ops.quantized_optim import BLOCK
+    from dlrover_tpu_torch.parallel.sharding_rules import split_of
+
     tp, coord, group, dims = _tp_names(model.cfg, mesh)
-    parts = [(pp, dims.get(pp.replace("/", "."))) for pp, _ in _param_paths(model)] if tp > 1 else []
+    ep = split_of(mesh)[0] == "ep"
+    parts = []
+    if tp > 1:
+        for pp, p in _param_paths(model):
+            d = dims.get(pp.replace("/", "."))
+            # an ep rank's experts (a box along dim 0) whose elements
+            # fill whole 128-blocks are a run of the whole leaf's blocks
+            parts.append((pp, d, ep and d == 0 and p.numel() % BLOCK == 0))
     return tp, coord, group, parts
 
 
 def _tp_part(path: str, parts):
-    """How the state tensor at ``path`` splits over tp: ``("box", dim)``
-    for a split leaf's param or a tensor of its shape (f32 moments,
-    traces), ``("stack", dim)`` for a split leaf's 8-bit codes or
-    scales (quantized in the box's own blocks), None for a tensor every
-    tp rank holds whole."""
-    for pp, d in parts:
+    """How the state tensor at ``path`` splits over the axis: ``("box",
+    dim)`` for a split leaf's param or a tensor of its shape (f32
+    moments, traces), and for its 8-bit codes or scales when they are
+    rows of the whole leaf's blocks (``("box", 0)``), else ``("stack",
+    dim)`` (quantized in the box's own blocks), None for a tensor every
+    rank of the axis holds whole."""
+    for pp, d, rows in parts:
         if path.endswith("/" + pp):
             return None if d is None else ("box", d)
         if path.endswith(("/" + pp + "/0", "/" + pp + "/1")):
-            return None if d is None else ("stack", d)
+            return None if d is None else (("box", 0) if rows else ("stack", d))
     return None
 
 

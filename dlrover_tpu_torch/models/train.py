@@ -268,7 +268,9 @@ class ZeroUnits:
 class _GatheredUnit(torch.autograd.Function):
     """One unit of the forward under ``ZeroUnits``: its params in the
     outer graph only as inputs (their grads come from the unit's own
-    graph, or its recompute), so the outer graph holds none of them."""
+    graph, or its recompute), so the outer graph holds none of them. A
+    unit returns a tensor, or a tuple of them (a MoE model's block: the
+    residual stream and its packed aux)."""
 
     @staticmethod
     def forward(ctx, units, key, fn, recompute, x, *params):
@@ -292,12 +294,14 @@ class _GatheredUnit(torch.autograd.Function):
                 xi = x.detach().requires_grad_(x.requires_grad)
                 out = fn(xi)
             ctx.inner = (xi, out)
+            if isinstance(out, tuple):
+                return tuple(o.detach() for o in out)
             return out.detach()
         finally:
             units.free(key)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *g):
         units, key = ctx.units, ctx.key
         params = units.units[key][1]
         if ctx.recompute:
@@ -311,9 +315,13 @@ class _GatheredUnit(torch.autograd.Function):
             # only the params whose own storage the graph saved (on the
             # card the weights are saved as their bf16 casts)
             units.gather(key, ctx.saved_leaves)
+        # the outputs autograd reaches (a dense block's zero aux does not)
+        pairs = [(o, go) for o, go in zip(out if isinstance(out, tuple) else (out,), g)
+                 if o.requires_grad]
         try:
             wrt = ([xi] if xi.requires_grad else []) + list(params)
-            grads = list(torch.autograd.grad(out, wrt, g, allow_unused=True))
+            grads = list(torch.autograd.grad([o for o, _ in pairs], wrt, [go for _, go in pairs],
+                                             allow_unused=True))
         finally:
             units.free(key)
         gx = grads.pop(0) if xi.requires_grad else None
@@ -383,7 +391,29 @@ def build_train_step(
     anything (the trainer makes its stream wait there for a
     checkpoint's copies of the state). ``batch_pad``: the last
     ``batch_pad`` rows of the global batch are padding and weigh 0 in
-    the loss (``pad_row_weights``)."""
+    the loss (``pad_row_weights``).
+
+    A MoE model's loss carries its aux losses (``loss_fn``'s), and the
+    metrics add ``moe_balance_loss``,
+    ``moe_z_loss``, ``moe_expert_load`` (an ``[E]`` vector: consumers
+    that report scalars pop it) and ``moe_drop_rate``, the last two per
+    MoE layer, all means over the data axes and the microbatches.
+
+    Expert parallelism (a mesh with ``ep > 1``; the JAX
+    ``ep_synced_grads``): every ep rank of a data coordinate runs the
+    same rows, with its ``E/ep`` experts, through the MoE layers'
+    all-to-alls. The loss is seeded on ep rank 0 alone (each ep rank
+    computes the same loss through the exchanges: seeding all of them
+    would scale the experts' cotangent by ep) and every ep rank runs the
+    backward, whose transposed exchanges are collectives too; rank 0's
+    backward reaches every rank's experts through them. The grads then
+    go through ``grad_sync.sync_ep_grads``: the dense ones summed over ep
+    (the sum selects rank 0's), then the expert and the dense leaves
+    synced over dp by the ``EPSyncPlan``'s two plans (without a plan: at
+    dp = 1 nothing, else the mean over the data group); ``grad_norm`` is
+    ``sqrt(sum_ep(expert squares) + dense squares)``. Under
+    ``grad_accum`` the microbatches' grads accumulate locally and sync
+    once."""
     if batch_pad and grad_accum > 1:
         raise ValueError("batch_pad (micro-batch rebalance) requires grad_accum=1")
     if batch_pad and cfg.num_experts:
@@ -401,16 +431,32 @@ def build_train_step(
     n_data = mesh.config.dp * mesh.config.fsdp if mesh is not None else 1
     sp = mesh.config.sp if mesh is not None else 1
     tp = mesh.config.tp if mesh is not None else 1
+    ep = mesh.config.ep if mesh is not None else 1
+    moe = bool(cfg.num_experts)
     # the default path's reduction (and the loss's), each tp
     # coordinate's own: with sp the replica group, whose sum is the sp
     # sum and the data sum in one collective
     sync_group = mesh.groups["replica"] if sp > 1 else data_group
-    model_mesh = mesh if sp > 1 or tp > 1 else None
+    model_mesh = mesh if sp > 1 or tp > 1 or ep > 1 else None
     tp_dims = None
     if tp > 1:
         from dlrover_tpu_torch.parallel.sharding_rules import leaf_tp_dims
 
         tp_dims = leaf_tp_dims(cfg, tp)
+    expert_ids = None
+    # the loss's seed on this rank: ep rank 0 alone
+    seed = 1.0
+    if ep > 1:
+        from dlrover_tpu_torch.parallel.sharding_rules import leaf_tp_dims
+
+        expert_ids = [i for i, d in enumerate(leaf_tp_dims(cfg, ep, "ep")) if d is not None]
+        seed = 1.0 if mesh.coords.get("ep", 0) == 0 else 0.0
+    n_moe = 1
+    if moe:
+        from dlrover_tpu_torch.models.config import num_moe_layers
+        from dlrover_tpu_torch.models.transformer import _pack_aux, _unpack_aux
+
+        n_moe = max(num_moe_layers(cfg), 1)
 
     def seq_block(tokens, targets):
         """This rank's block of each row under sequence parallelism."""
@@ -422,10 +468,17 @@ def build_train_step(
         return tokens[:, block], targets[:, block]
 
     def loss_of(model, tokens, targets, row_w=None, units=None):
-        """The rank's loss: over sp, its block's mean divided by sp (the
-        sp sum of these is the mean over the whole rows)."""
-        loss = loss_fn(model, tokens, targets, cfg, model_mesh, row_weights=row_w, gather=units)
-        return loss / sp if sp > 1 else loss
+        """(the rank's loss, its packed MoE aux or None): over sp, its
+        block's mean divided by sp (the sp sum of these is the mean over
+        the whole rows)."""
+        loss, aux = loss_fn(model, tokens, targets, cfg, model_mesh, row_weights=row_w,
+                            gather=units, return_aux=True)
+        aux = _pack_aux(aux).detach() if moe else None
+        return (loss / sp if sp > 1 else loss), aux
+
+    def backward(loss, params):
+        # under ep only rank 0's seed is 1 (every rank runs the backward)
+        return list(torch.autograd.grad(loss * seed if ep > 1 else loss, params))
 
     def row_weights(tokens):
         """This rank's rows' loss weights under ``batch_pad`` (None
@@ -442,59 +495,65 @@ def build_train_step(
 
     def local_grads(model, params, tokens, targets, units=None):
         """(mean loss over this rank's rows, f32-accumulated local grads,
-        or the param-dtype grads at ``grad_accum=1``); ``units``: ZeRO's
-        per-unit gather."""
+        or the param-dtype grads at ``grad_accum=1``, the mean packed MoE
+        aux or None); ``units``: ZeRO's per-unit gather."""
         if grad_accum == 1:
-            loss = loss_of(model, tokens, targets, row_weights(tokens), units)
-            grads = torch.autograd.grad(loss, params)
-            return loss.detach(), list(grads)
+            loss, aux = loss_of(model, tokens, targets, row_weights(tokens), units)
+            return loss.detach(), backward(loss, params), aux
         B = tokens.shape[0]
         if B % grad_accum:
             raise ValueError(f"batch {B} must divide into grad_accum={grad_accum}")
         acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        aux = None
         for x, y in zip(tokens.chunk(grad_accum), targets.chunk(grad_accum)):
-            mb_loss = loss_of(model, x, y, units=units)
-            grads = torch.autograd.grad(mb_loss, params)
-            torch._foreach_add_(acc, [g.float() for g in grads])
+            mb_loss, mb_aux = loss_of(model, x, y, units=units)
+            torch._foreach_add_(acc, [g.float() for g in backward(mb_loss, params)])
             loss = loss + mb_loss.detach()
-        return loss / grad_accum, [a / grad_accum for a in acc]
+            if moe:
+                aux = mb_aux if aux is None else aux + mb_aux
+        return loss / grad_accum, [a / grad_accum for a in acc], \
+            (aux / grad_accum if moe else None)
 
     def default_grads(model, params, tokens, targets):
         """The mean over the data axes per microbatch (one all-reduce of
         the whole tree each), f32-accumulated, cast to the param dtype
         once."""
         if data_group is None:
-            loss, grads = local_grads(model, params, tokens, targets)
+            loss, grads, aux = local_grads(model, params, tokens, targets)
             if sync_group is not None:  # sp alone (it shards no param): the sp sum
                 grads = _flat_all_reduce_mean(grads, sync_group, 1)
-            return loss, [g.to(p.dtype) for g, p in zip(grads, params)]
+            return loss, [g.to(p.dtype) for g, p in zip(grads, params)], aux
         B = tokens.shape[0]
         if B % grad_accum:
             raise ValueError(f"batch {B} must divide into grad_accum={grad_accum}")
         acc = None
+        aux = None
         loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for x, y in zip(tokens.chunk(grad_accum), targets.chunk(grad_accum)):
-            mb_loss = loss_of(model, x, y, row_weights(x))
+            mb_loss, mb_aux = loss_of(model, x, y, row_weights(x))
             grads = _flat_all_reduce_mean(
                 list(torch.autograd.grad(mb_loss, params)), sync_group, n_data
             )
             acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
             loss = loss + mb_loss.detach()
-        return loss / grad_accum, [(a / grad_accum).to(p.dtype) for a, p in zip(acc, params)]
+            if moe:
+                aux = mb_aux if aux is None else aux + mb_aux
+        return loss / grad_accum, [(a / grad_accum).to(p.dtype) for a, p in zip(acc, params)], \
+            (aux / grad_accum if moe else None)
 
     def synced_grads(state, model, params, tokens, targets):
         from dlrover_tpu_torch.parallel import sdc as sdc_mod
         from dlrover_tpu_torch.parallel.grad_sync import sync_grads
 
-        loss, grads = local_grads(model, params, tokens, targets, state.units)
+        loss, grads, aux = local_grads(model, params, tokens, targets, state.units)
         # residual present => error feedback; gate on the PLAN's
         # resolved mode, not the request string
         residual = state.grad_residual if plan.compressed else None
         if not sdc_mod.enabled():
             # the sync consumes the local grads bucket by bucket
             out, new_res, gnorm = sync_grads(grads, mesh, plan, residual=residual, consume=True)
-            return loss, out, gnorm, new_res, None
+            return loss, out, gnorm, new_res, None, aux
         # the device.sdc fault: lane ``inj.device`` multiplies its LOCAL
         # gradient by the finite factor from step ``inj.from_step`` on
         inj = sdc_mod.injection_plan(plan.total)
@@ -503,22 +562,32 @@ def build_train_step(
         out, new_res, gnorm, lanes = sync_grads(
             grads, mesh, plan, residual=residual, device_norms=True
         )
-        return loss, out, gnorm, new_res, lanes
+        return loss, out, gnorm, new_res, lanes, aux
+
+    def ep_grads(model, params, tokens, targets):
+        from dlrover_tpu_torch.parallel.grad_sync import sync_ep_grads
+
+        loss, grads, aux = local_grads(model, params, tokens, targets)
+        grads, gnorm = sync_ep_grads(grads, mesh, plan, expert_ids, n_data)
+        return loss, grads, gnorm, aux
 
     def train_step(state: TrainState, tokens, targets):
         model = state.params
         params = model.jax_ordered_parameters()
         tokens, targets = seq_block(tokens, targets)
         lanes = None
-        if plan is not None:
-            loss, grads, gnorm, new_res, lanes = synced_grads(
+        if ep > 1:
+            loss, grads, gnorm, aux = ep_grads(model, params, tokens, targets)
+            targets_ = params
+        elif plan is not None:
+            loss, grads, gnorm, new_res, lanes, aux = synced_grads(
                 state, model, params, tokens, targets
             )
             if plan.compressed and state.grad_residual is not None:
                 state.grad_residual = new_res
             targets_ = state.shards if _zero(plan) else params
         else:
-            loss, grads = default_grads(model, params, tokens, targets)
+            loss, grads, aux = default_grads(model, params, tokens, targets)
             if tp_dims is None:
                 gnorm = global_norm(grads)
             else:
@@ -530,12 +599,17 @@ def build_train_step(
             p.grad = g.to(p.dtype)
         if sync_group is not None:
             # the metrics are global means over the data axes (under sp
-            # the blocks' shares of the rows' mean, summed over sp too)
+            # the blocks' shares of the rows' mean, summed over sp too;
+            # a MoE model's aux rides in the same all-reduce)
             from dlrover_tpu_torch.parallel.grad_sync import _all_reduce
 
-            loss = loss.reshape(1).clone()
-            _all_reduce(loss, sync_group).wait()
-            loss = (loss / n_data).reshape(())
+            vec = loss.reshape(1).float()
+            vec = torch.cat([vec, aux]) if moe else vec.clone()
+            _all_reduce(vec, sync_group).wait()
+            vec = vec / n_data
+            loss = vec[0]
+            if moe:
+                aux = vec[1:]
         if before_update is not None:
             before_update()
         state.opt_state.step()
@@ -547,6 +621,13 @@ def build_train_step(
             # SDC tier-1 fence input: each lane's local pre-sync grad
             # norm, a [plan.total] vector
             metrics["sdc_device_norms"] = lanes
+        if moe:
+            a = _unpack_aux(aux)
+            metrics["moe_balance_loss"] = a["balance"]
+            metrics["moe_z_loss"] = a["z"]
+            # forward() sums the aux over the blocks: per MoE layer
+            metrics["moe_expert_load"] = a["load"] / n_moe
+            metrics["moe_drop_rate"] = a["drop"] / n_moe
         return state, metrics
 
     return train_step

@@ -49,9 +49,21 @@ A replicated leaf's gradient is the same on every tp rank by
 construction: every collective of the backward leaves the residual
 stream's gradient whole and equal on all of them.
 
+Mixture-of-Experts (``cfg.num_experts``; every ``moe_every``-th block,
+``config.is_moe_layer``): the block's MLP is an expert FFN,
+``layers.{i}.moe`` with the JAX ``MoEParams`` leaves ``gate [D, E]``,
+``w_up [E, D, F]`` and ``w_down [E, F, D]``, run by
+``parallel/moe.moe_layer_local`` on the rank's tokens. Each block
+returns its routing aux beside the residual stream (a dense block of a
+MoE model zeros), ``forward`` sums it over the blocks and ``loss_fn``
+adds ``MOE_AUX_WEIGHT x balance + router_z_weight x z`` to the NLL, as
+the JAX ``loss_fn`` does. On a mesh with ``ep > 1`` each ep rank holds
+its ``E/ep`` experts of every expert leaf (``sharding_rules.split_of``)
+and the layer exchanges its buckets over the ``ep`` group.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: MoE layers, expert and pipeline parallelism (A11), ``int8_mlp``
-(A12), the KV-cache decode paths (A14).
+item: pipeline parallelism (A11b), MoE or ep composed with fsdp x ep,
+tp or sp (A19), ``int8_mlp`` (A12), the KV-cache decode paths (A14).
 """
 
 from __future__ import annotations
@@ -65,7 +77,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dlrover_tpu_torch.models.config import TransformerConfig
+from dlrover_tpu_torch.models.config import TransformerConfig, is_moe_layer
 from dlrover_tpu_torch.ops.flash_attention import flash_attention
 from dlrover_tpu_torch.parallel.sharding_rules import (
     check_tp,
@@ -73,6 +85,7 @@ from dlrover_tpu_torch.parallel.sharding_rules import (
     list_layout,
     local_shape,
     local_shard,
+    split_of,
     tp_dims,
     tp_of,
 )
@@ -88,16 +101,32 @@ def _torch_dtype(name: str) -> torch.dtype:
 def check_supported(cfg: TransformerConfig, mesh=None) -> None:
     """Raise for the configuration switches the port does not run yet.
     ``mesh``: a ``parallel/mesh.Mesh`` or its ``MeshConfig``; the data
-    axes, sp and tp run, an ep or pp axis raises naming its ROADMAP
-    item, and a tp degree that does not divide the heads, the kv heads
-    or the MLP width raises ``ValueError``."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP A11)")
+    axes, sp, tp and ep run, a pp axis raises naming its ROADMAP item, so
+    does MoE or ep composed with fsdp x ep, tp or sp; a tp degree that
+    does not divide the heads, the kv heads or the MLP width, or an ep
+    degree on a dense model or one that does not divide the experts,
+    raises ``ValueError``."""
     if mesh is not None:
         m = getattr(mesh, "config", mesh)
-        if m.ep > 1 or m.pp > 1:
+        if m.pp > 1:
             raise NotImplementedError(
-                "expert / pipeline parallelism is not ported yet (ROADMAP A11)"
+                "pipeline parallelism is not ported yet (ROADMAP A11b)"
+            )
+        others = [a for a in ("fsdp", "tp", "sp") if getattr(m, a) > 1]
+        if m.ep > 1 and others:
+            raise NotImplementedError(
+                f"ep x {' x '.join(others)} is not ported yet (ROADMAP A19)"
+            )
+        if m.ep > 1:
+            if not cfg.num_experts:
+                raise ValueError(f"ep={m.ep} needs a MoE config (num_experts > 0)")
+            if cfg.num_experts % m.ep:
+                raise ValueError(
+                    f"ep={m.ep} does not divide num_experts={cfg.num_experts}"
+                )
+        if cfg.num_experts and (m.tp > 1 or m.sp > 1):
+            raise NotImplementedError(
+                "MoE layers with tp or sp are not ported yet (ROADMAP A19)"
             )
         if m.tp > 1:
             check_tp(cfg, m.tp)
@@ -110,7 +139,7 @@ def _sp(mesh) -> int:
 
 
 class _Layer(nn.Module):
-    def __init__(self, cfg: TransformerConfig, make, prefix: str):
+    def __init__(self, cfg: TransformerConfig, make, prefix: str, index: int = 0):
         super().__init__()
         d, h, kvh, hd = cfg.model_dim, cfg.num_heads, cfg.kv_heads, cfg.head_dim
         f = cfg.ffn_dim
@@ -131,7 +160,15 @@ class _Layer(nn.Module):
             "wv": ("dense", (d, kvh, hd), d),
             "wo": ("dense", (h, hd, d), h * hd),
         })
-        if cfg.swiglu:
+        if is_moe_layer(cfg, index):
+            E = cfg.num_experts
+            # the JAX init_moe_params scales, drawn in MoEParams order
+            self.moe = group("moe", {
+                "gate": ("dense", (d, E), d),
+                "w_up": ("dense", (E, d, f), d),
+                "w_down": ("dense", (E, f, d), f),
+            })
+        elif cfg.swiglu:
             self.mlp = group("mlp", {
                 "w_gate": ("dense", (d, f), d),
                 "w_up": ("dense", (d, f), d),
@@ -147,6 +184,9 @@ class _Layer(nn.Module):
 
 
 _LAYER_PARTS = ("attn_norm", "mlp_norm", "attn", "mlp")
+# The balance loss's weight in ``loss_fn``: the JAX ``loss_fn``'s default,
+# the one value every caller uses.
+MOE_AUX_WEIGHT = 0.01
 
 
 class _StackedLayers(nn.Module):
@@ -183,11 +223,11 @@ def layer_views(layers) -> list:
 
 class Transformer(nn.Module):
     """The parameter tree (see the module docstring); the model runs
-    through the free function ``forward``. With a ``mesh`` of tp > 1 (a
-    ``parallel/mesh.Mesh``, or a ``MeshConfig`` for coordinate 0's
-    shapes) each leaf the rules split is this rank's box of it; the
-    generator still draws every whole leaf, so the weights are tp = 1's
-    of the same seed."""
+    through the free function ``forward``. With a ``mesh`` of tp > 1 or
+    ep > 1 (a ``parallel/mesh.Mesh``, or a ``MeshConfig`` for coordinate
+    0's shapes) each leaf the rules split on that axis is this rank's box
+    of it; the generator still draws every whole leaf, so the weights are
+    tp = 1's (ep = 1's) of the same seed."""
 
     def __init__(
         self,
@@ -200,10 +240,10 @@ class Transformer(nn.Module):
         check_supported(cfg, mesh)
         self.cfg = cfg
         pd = _torch_dtype(cfg.param_dtype)
-        tp, coord, _ = tp_of(mesh)
-        # each leaf's tp dim, by its list-layout name (the names the
-        # leaves are drawn under)
-        dims = tp_dims(list_layout(cfg), tp) if tp > 1 else {}
+        axis, tp, coord, _ = split_of(mesh)
+        # each leaf's dim on the splitting axis (tp's or ep's), by its
+        # list-layout name (the names the leaves are drawn under)
+        dims = tp_dims(list_layout(cfg), tp, axis) if tp > 1 else {}
 
         def make(name, kind, shape, fan_in=None):
             # drawn whole from the explicit generator on its own device
@@ -238,7 +278,7 @@ class Transformer(nn.Module):
             self.lm_head = make("lm_head", "dense", (d, cfg.vocab_size), d)
         # drawn layer by layer in both layouts: a stacked model holds the
         # list layout's weights of the same seed
-        layers = [_Layer(cfg, make, f"layers.{i}.") for i in range(cfg.num_layers)]
+        layers = [_Layer(cfg, make, f"layers.{i}.", i) for i in range(cfg.num_layers)]
         self.layers = _StackedLayers(layers) if cfg.scan_layers else nn.ModuleList(layers)
 
     def jax_ordered_parameters(self):
@@ -288,8 +328,6 @@ def logical_axes(cfg: TransformerConfig) -> Dict[str, Any]:
     """A tree congruent with the JAX package's params (and with
     ``convert.params_to_numpy``) holding each leaf's logical axis names,
     as the JAX ``logical_axes`` gives them."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP A11)")
     axes: Dict[str, Any] = {
         "embed": {"tokens": ("vocab", "embed")},
         "final_norm": {"scale": ("norm",)},
@@ -314,22 +352,33 @@ def logical_axes(cfg: TransformerConfig) -> Dict[str, Any]:
         layer["attn_norm"]["bias"] = ("norm",)
         layer["mlp_norm"]["bias"] = ("norm",)
     if cfg.swiglu:
-        layer["mlp"] = {
+        mlp = {
             "w_gate": ("embed", "mlp"),
             "w_up": ("embed", "mlp"),
             "w_down": ("mlp", "embed"),
         }
     else:
-        layer["mlp"] = {
+        mlp = {
             "w_up": ("embed", "mlp"),
             "b_up": ("mlp",),
             "w_down": ("mlp", "embed"),
             "b_down": ("norm",),
         }
+    moe = {
+        "gate": (None, None),
+        "w_up": ("experts", None, "expert_mlp"),
+        "w_down": ("experts", "expert_mlp", None),
+    }
+
+    def of(i):
+        out = _tree_map(lambda t: t, layer)
+        out["moe" if is_moe_layer(cfg, i) else "mlp"] = dict(moe if is_moe_layer(cfg, i) else mlp)
+        return out
+
     if cfg.scan_layers:
-        axes["layers"] = _tree_map(lambda t: ("layer_stack",) + t, layer)
+        axes["layers"] = _tree_map(lambda t: ("layer_stack",) + t, of(0))
     else:
-        axes["layers"] = [_tree_map(lambda t: t, layer) for _ in range(cfg.num_layers)]
+        axes["layers"] = [of(i) for i in range(cfg.num_layers)]
     return axes
 
 
@@ -533,13 +582,53 @@ def _attention_block(x, layer, cfg: TransformerConfig, positions, mesh=None):
     return x + reduce_from_tp(torch.einsum(out, o, a["wo"].to(o.dtype)), tp_group)
 
 
-def _zero_aux(device=None) -> Dict[str, torch.Tensor]:
+def _zero_aux(cfg: Optional[TransformerConfig] = None, device=None) -> Dict[str, torch.Tensor]:
+    """The aux tree the blocks sum into (the JAX ``_zero_aux``): the
+    balance and z losses, and with a MoE config the per-expert load
+    vector and the drop rate."""
     z = torch.zeros((), dtype=torch.float32, device=device)
-    return {"balance": z, "z": z}
+    aux = {"balance": z, "z": z}
+    if cfg is not None and cfg.num_experts:
+        aux["load"] = torch.zeros((cfg.num_experts,), dtype=torch.float32, device=device)
+        aux["drop"] = z
+    return aux
+
+
+# a MoE model's blocks return their aux as one f32 vector beside the
+# residual stream: [balance, z, drop, load (E)], which the remat
+# checkpoint and ZeRO's unit wrapper carry as a plain tensor output
+def _pack_aux(aux: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return torch.cat([torch.stack([aux["balance"], aux["z"], aux["drop"]]).float(),
+                      aux["load"].float()])
+
+
+def _unpack_aux(v: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return {"balance": v[0], "z": v[1], "drop": v[2], "load": v[3:]}
+
+
+def _moe_block(h, moe, cfg: TransformerConfig, mesh=None):
+    """The expert FFN on the normed ``h [B, T, D]``: the rank's tokens
+    through ``moe_layer_local``, over the mesh's ep group when ep > 1."""
+    from dlrover_tpu_torch.parallel.moe import ep_group_of, moe_layer_local
+
+    B, T, d = h.shape
+    group, ep = ep_group_of(mesh)
+    out, aux = moe_layer_local(
+        dict(moe), h.reshape(B * T, d), group=group, ep=ep,
+        capacity_factor=cfg.capacity_factor, top_k=cfg.moe_top_k,
+        expert_caps=tuple(cfg.capacity_splits) or None,
+    )
+    return out.reshape(B, T, d), aux
 
 
 def _mlp_block(x, layer, cfg: TransformerConfig, mesh=None):
+    """The block's MLP half: ``x`` out, or in a MoE model ``(x, packed
+    aux)`` (zeros for a dense block)."""
     h = _norm(x, layer.mlp_norm, cfg)
+    moe = getattr(layer, "moe", None)
+    if moe is not None:
+        out, aux = _moe_block(h, moe, cfg, mesh)
+        return x + out, _pack_aux(aux)
     tp_group = _tp_group(mesh)
     h = copy_to_tp(h, tp_group)
     mlp = layer.mlp
@@ -555,6 +644,8 @@ def _mlp_block(x, layer, cfg: TransformerConfig, mesh=None):
     out = reduce_from_tp(mm(z, mlp["w_down"]), tp_group)
     if not cfg.swiglu:
         out = out + mlp["b_down"].to(h.dtype)
+    if cfg.num_experts:
+        return x + out, _pack_aux(_zero_aux(cfg, x.device))
     return x + out
 
 
@@ -629,8 +720,9 @@ def forward(
     mesh=None,
     gather=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """tokens [B,T] -> (logits [B,T,vocab] f32, aux dict of zeros — the
-    dense model has no MoE losses).
+    """tokens [B,T] -> (logits [B,T,vocab] f32, aux): the MoE losses and
+    routing stats summed over the blocks (``_zero_aux``: zeros for a
+    dense model).
 
     The model runs as units: the embedding (``"embed"``), each block
     (``("layer", i)``; under ``scan_layers`` all of them, ``"layers"``:
@@ -638,38 +730,56 @@ def forward(
     ``gather(key, fn, x, recompute)`` runs ``fn(x)`` with that unit's
     parameters in place (ZeRO's per-unit gather, ``models/train.
     ZeroUnits``; ``recompute``: the unit is a remat block, rebuilt in
-    the backward).
+    the backward). A MoE model's block units return ``(x, packed aux)``.
 
     Under sequence parallelism (``mesh`` with sp > 1) ``tokens`` is this
     rank's block of each row (``mesh.sequence_sharding``), at global
     positions ``sp index x T`` on; the logits are the block's. Under a
     vocab split over tp (``vocab_split``) they are this rank's vocab
-    block."""
+    block. Under ep every ep rank runs the same tokens."""
     check_supported(cfg, mesh)
     run = gather or _run_unit
+    moe = bool(cfg.num_experts)
     B, T = tokens.shape
     offset = T * mesh.coords.get("sp", 0) if _sp(mesh) > 1 else 0
     x = run("embed", lambda t: embed_tokens(params, t, cfg, offset, mesh), tokens)
     positions = (offset + torch.arange(T, device=tokens.device)).expand(B, T)
+    aux = _pack_aux(_zero_aux(cfg, x.device)) if moe else None
 
     def block(x, layer):
         return _mlp_block(_attention_block(x, layer, cfg, positions, mesh), layer, cfg, mesh)
 
     def blocks(x, layers):
+        total = _pack_aux(_zero_aux(cfg, x.device)) if moe else None
         for layer in layers:
             if cfg.remat:
-                x = checkpoint(block, x, layer, use_reentrant=False)
+                out = checkpoint(block, x, layer, use_reentrant=False)
             else:
-                x = block(x, layer)
-        return x
+                out = block(x, layer)
+            if moe:
+                x, a = out
+                total = total + a
+            else:
+                x = out
+        return (x, total) if moe else x
 
     if gather is None or cfg.scan_layers:
-        x = run("layers", lambda x: blocks(x, layer_views(params.layers)), x)
+        out = run("layers", lambda x: blocks(x, layer_views(params.layers)), x)
+        if moe:
+            x, aux = out
+        else:
+            x = out
     else:
         # a remat block is its own recompute: the gather rebuilds it
         for i, layer in enumerate(params.layers):
-            x = run(("layer", i), lambda x, layer=layer: block(x, layer), x, cfg.remat)
-    return run("head", lambda x: lm_head(params, x, cfg, mesh), x), _zero_aux(x.device)
+            out = run(("layer", i), lambda x, layer=layer: block(x, layer), x, cfg.remat)
+            if moe:
+                x, a = out
+                aux = aux + a
+            else:
+                x = out
+    logits = run("head", lambda x: lm_head(params, x, cfg, mesh), x)
+    return logits, (_unpack_aux(aux) if moe else _zero_aux(device=x.device))
 
 
 def unit_parameters(params: Transformer) -> Dict[Any, List[torch.nn.Parameter]]:
@@ -695,9 +805,15 @@ def loss_fn(
     mesh=None,
     row_weights=None,
     gather=None,
+    return_aux: bool = False,
 ):
-    """Mean NLL (the dense model's MoE aux losses are zero), weighted by
-    row with ``row_weights``; ``gather`` as in ``forward``. Under tp the
-    same number on every tp rank."""
-    logits, _ = forward(params, tokens, cfg, mesh, gather)
-    return token_nll(logits, targets, row_weights, vocab_split(cfg, mesh))
+    """Mean NLL, weighted by row with ``row_weights``, plus a MoE model's
+    aux losses (the balance loss at ``MOE_AUX_WEIGHT``, the router z-loss
+    at ``cfg.router_z_weight``); ``gather`` as in ``forward``.
+    ``return_aux``: ``(loss, aux)``. Under tp the same number on every tp
+    rank."""
+    logits, aux = forward(params, tokens, cfg, mesh, gather)
+    loss = token_nll(logits, targets, row_weights, vocab_split(cfg, mesh))
+    if cfg.num_experts:
+        loss = loss + MOE_AUX_WEIGHT * aux["balance"] + cfg.router_z_weight * aux["z"]
+    return (loss, aux) if return_aux else loss

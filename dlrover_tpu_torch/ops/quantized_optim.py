@@ -699,6 +699,9 @@ class adamw_8bit(_Adam8Base):
                 )
                 d = d.to(g.dtype)
             self._apply([leaves[i]], [d], lr, group)
+            # freed before the next leaf's delta is made (a MoE layer's
+            # w_up and w_down, adjacent, would otherwise both be live)
+            delta = d = None
         return None
 
 

@@ -3,9 +3,11 @@
 (``mesh.py``), the bucketed gradient sync (``grad_sync.py``), the
 measured link-cost model (``topology.py``), the SDC detector's per-lane
 fence (``sdc.py``), sequence parallelism (``ring_attention.py``,
-``ulysses.py``), the tensor-parallel layout (``sharding_rules.py``) and
-the host-link arbiter (``transfer_sched.py``).
-Expert and pipeline parallelism are ROADMAP A11."""
+``ulysses.py``), the tensor- and expert-parallel layouts
+(``sharding_rules.py``), MoE layers over the ep group (``moe.py``, with
+the all-to-all it shares with Ulysses, ``collectives.py``) and the
+host-link arbiter (``transfer_sched.py``). Pipeline parallelism is
+ROADMAP A11b."""
 
 from dlrover_tpu_torch.parallel.grad_sync import (  # noqa: F401
     BucketPlan,

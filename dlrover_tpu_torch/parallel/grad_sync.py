@@ -88,8 +88,18 @@ measured ``LinkModel`` of ``parallel/topology.py`` (observed rail rates
 folded in), and ``comm_time_per_device_s`` / ``comm_time_legs_s`` price
 a sync's wire time per link from it, as in the JAX package.
 
+- **ep** (dp x ep; ``EPSyncPlan``, the JAX split plan): the expert
+  leaves (each ep rank's ``E/ep`` experts, ``expert_leaf_ids`` /
+  ``expert_leaf_dims``) and the dense leaves are bucketed apart
+  (``expert_plan`` over the ep-local shapes, ``dense_plan``), each
+  synced over the rank's dp group by the flat dp legs. The dense grads
+  are first summed over ep by the train step (``models/train.py``:
+  only ep rank 0 seeds the loss, so the sum selects its grads), and
+  the grad norm is ``sqrt(sum_ep(expert squares) + dense squares)``.
+  ep plans never compress (the JAX ``_plan_for_ep`` plans none).
+
 What raises instead, naming the ROADMAP item that brings it: plans of
-kind ``ep`` and ``pp`` (A11).
+kind ``pp`` (A11b).
 """
 
 from __future__ import annotations
@@ -100,8 +110,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-_A11 = "ROADMAP A11 (MoE and pipeline parallelism)"
-_KIND_ITEM = {"ep": _A11, "pp": _A11}
+_KIND_ITEM = {"pp": "ROADMAP A11b (pipeline parallelism)"}
 
 # bytes per element of the dtypes a leaf may carry (numpy cannot name
 # bfloat16 without ml_dtypes)
@@ -743,8 +752,7 @@ def plan_buckets(
     bucket; the plan never splits a leaf. ``fsdp > 1`` plans the ZeRO
     schedule (padding covers the fsdp scatter too); ``leaf_block > 0``
     pads each leaf to fsdp x whole blocks instead (the port's ZeRO
-    layout, ``BucketPlan.leaf_block``). Plans over an ep axis are
-    ROADMAP A11."""
+    layout, ``BucketPlan.leaf_block``)."""
     if compress not in _COMPRESS_MODES:
         raise ValueError(
             f"unknown grad compression {compress!r} "
@@ -782,7 +790,7 @@ def plan_buckets(
             "must be the tp-LOCAL shards — use resolve_plan/"
             "plan_for_mesh, not plan_buckets directly)"
         )
-    _check_ported(kind or ("ep" if "ep" in auto_axes else ""))
+    _check_ported(kind)
     shapes, dtypes = _leaf_meta(leaves)
     buckets: List[Bucket] = []
     start = 0
@@ -1016,6 +1024,10 @@ def _plan_for_mode(
             whole_dcn=whole_dcn,
             auto_axes=mode.auto_axes,
         )
+    if mode.kind == "ep":
+        # the fully-manual (dp, ep) path has its own split plan (ep-local
+        # expert leaves + dense leaves), never compressed
+        return _plan_for_ep(cfg, mode, grad_bucket_mb, params_shape, slices=slices)
     if mode.kind in ("tp", "3d") and grad_compress != "none":
         # the JAX gate: int8 on the tp kind when its residual probe
         # answers True (it does on the JAX release here; tp plans have
@@ -1068,6 +1080,146 @@ def _plan_for_mode(
 ZERO_LEAF_BLOCK = 128
 
 
+@dataclass(frozen=True)
+class EPSyncPlan:
+    """The dp sync of a dp x ep mesh (SyncMode "ep"; the JAX class):
+    ``expert_plan`` buckets the ep-local expert leaves (each rank's
+    ``E/ep`` experts), ``dense_plan`` the leaves every ep rank holds
+    whole; ``expert_leaf_ids`` / ``expert_leaf_dims`` mark which leaves
+    of the JAX flatten order are expert-split, and on which dim. Quacks
+    like a ``BucketPlan`` for the trainer and the cost model."""
+
+    expert_plan: BucketPlan
+    dense_plan: BucketPlan
+    ep: int
+    dp: int
+    expert_leaf_ids: Tuple[int, ...]
+    expert_leaf_dims: Tuple[int, ...]
+    kind: str = "ep"
+    compress: str = "none"
+
+    @property
+    def buckets(self) -> Tuple[Bucket, ...]:
+        return self.expert_plan.buckets + self.dense_plan.buckets
+
+    def local_padded(self, bucket: Bucket) -> int:
+        return bucket.padded
+
+    @property
+    def num_buckets(self) -> int:
+        return self.expert_plan.num_buckets + self.dense_plan.num_buckets
+
+    @property
+    def two_level(self) -> bool:
+        return self.dense_plan.two_level
+
+    @property
+    def slices(self) -> int:
+        return self.dense_plan.slices
+
+    @property
+    def raw_bytes(self) -> int:
+        """Per-rank raw bytes of one sync (1/ep of the expert leaves
+        plus the dense leaves)."""
+        return self.expert_plan.raw_bytes + self.dense_plan.raw_bytes
+
+    @property
+    def wire_bytes(self) -> int:
+        return self.expert_plan.wire_bytes + self.dense_plan.wire_bytes
+
+    def explicit_wire_bytes(self) -> int:
+        return self.expert_plan.explicit_wire_bytes() + self.dense_plan.explicit_wire_bytes()
+
+    def gspmd_allreduce_bytes(self) -> int:
+        return self.expert_plan.gspmd_allreduce_bytes() + self.dense_plan.gspmd_allreduce_bytes()
+
+    def describe(self) -> str:
+        return (
+            f"dp{self.dp} x ep{self.ep} sync: "
+            f"{self.expert_plan.num_buckets} expert buckets "
+            f"(ep-local) + {self.dense_plan.num_buckets} dense, "
+            f"{self.raw_bytes >> 10} KiB raw -> "
+            f"{self.wire_bytes >> 10} KiB wire per device/sync; "
+            f"dispatch/combine all-to-alls inside the manual region"
+        )
+
+
+def _plan_for_ep(cfg, mode: SyncMode, grad_bucket_mb: int, params_shape=None,
+                 slices: int = 1) -> EPSyncPlan:
+    """Split the leaves into the ep-local expert leaves and the dense
+    ones, each bucketed for the dp legs (the JAX ``_plan_for_ep``)."""
+    if params_shape is None:
+        params_shape = model_leaves(cfg)
+    local, dims = _localize_axis(params_shape, mode.ep, cfg, "ep")
+    expert_ids = tuple(i for i, d in enumerate(dims) if d is not None)
+    dense_ids = tuple(i for i in range(len(local)) if i not in set(expert_ids))
+    slices = slices if 1 < slices < mode.dp else 1
+    bucket_bytes = resolve_bucket_bytes(grad_bucket_mb, dp=mode.dp, slices=slices)
+    return EPSyncPlan(
+        expert_plan=plan_buckets([local[i] for i in expert_ids], dp=mode.dp,
+                                 bucket_bytes=bucket_bytes, slices=slices, kind="ep"),
+        dense_plan=plan_buckets([local[i] for i in dense_ids], dp=mode.dp,
+                                bucket_bytes=bucket_bytes, slices=slices, kind="ep"),
+        ep=mode.ep,
+        dp=mode.dp,
+        expert_leaf_ids=expert_ids,
+        expert_leaf_dims=tuple(dims[i] for i in expert_ids),
+    )
+
+
+def sync_ep_grads(grads: Sequence, mesh, plan: Optional[EPSyncPlan], expert_ids: Sequence[int],
+                  n_data: int = 1):
+    """A dp x ep rank's gradients synced: ``grads`` (the JAX flatten
+    order; the leaves ``expert_ids`` are its ep-local experts) whose
+    dense leaves are nonzero on ep rank 0 alone (the loss seed) -> (the
+    synced leaves, the global grad norm). The dense leaves are summed
+    over ep (one all-reduce of their concatenation: the sum selects rank
+    0's), then the expert and the dense leaves take the dp legs of their
+    plans; without a plan and with ``n_data`` > 1, the mean over the
+    data group (one all-reduce of each set). The norm is
+    ``sqrt(sum_ep(expert squares) + dense squares)``."""
+    import torch
+
+    e_ids = list(expert_ids)
+    d_ids = [i for i in range(len(grads)) if i not in set(e_ids)]
+    ep_group = mesh.groups.get("ep")
+
+    def flat_sum(leaves, group, div=1):
+        flat = torch.cat([g.reshape(-1).float() for g in leaves])
+        if group is not None:
+            _all_reduce(flat, group).wait()
+        if div > 1:
+            flat /= div
+        out, off = [], 0
+        for g in leaves:
+            out.append(flat[off:off + g.numel()].view(g.shape))
+            off += g.numel()
+        return out
+
+    dense = flat_sum([grads[i] for i in d_ids], ep_group)
+    expert = [grads[i].float() for i in e_ids]
+    if plan is not None:
+        expert, _, gn_e = sync_grads(expert, mesh, plan.expert_plan)
+        dense, _, gn_d = sync_grads(dense, mesh, plan.dense_plan)
+        ss_e, ss_d = gn_e.square(), gn_d.square()
+    else:
+        if n_data > 1:
+            expert = flat_sum(expert, mesh.groups["data"], n_data)
+            dense = flat_sum(dense, mesh.groups["data"], n_data)
+        # squares summed without a leaf-sized temporary
+        ss_e = sum(torch.linalg.vector_norm(g).square() for g in expert)
+        ss_d = sum(torch.linalg.vector_norm(g).square() for g in dense)
+    ss_e = ss_e.reshape(1).clone()
+    if ep_group is not None:
+        _all_reduce(ss_e, ep_group).wait()
+    out = [None] * len(grads)
+    for i, g in zip(e_ids, expert):
+        out[i] = g.to(grads[i].dtype)
+    for i, g in zip(d_ids, dense):
+        out[i] = g.to(grads[i].dtype)
+    return out, torch.sqrt(ss_e[0] + ss_d)
+
+
 def plan_for_mesh(
     cfg,
     mesh,
@@ -1117,6 +1269,15 @@ def resolve_plan(
     mode = resolve_sync_mode(sizes)
     if mode is None:
         note_gspmd_fallback(sizes)
+        return None
+    if mode.kind == "ep" and strategy.grad_accum > 1:
+        # the JAX gate: the ep region syncs per call, so grad_accum keeps
+        # the default path (the port's accumulates locally, then one sync)
+        note_gspmd_fallback(
+            sizes,
+            reason=f"ep explicit sync with grad_accum={strategy.grad_accum}: "
+            f"the manual region syncs per call",
+        )
         return None
     _check_ported(mode.kind)
     slices = strategy.mesh.dp_slices()
@@ -1973,6 +2134,9 @@ def _measure_sync(plan: BucketPlan, mesh, iters: int, legs: str, device=None) ->
     rank of the mesh must call this together)."""
     import torch
 
+    if isinstance(plan, EPSyncPlan):  # its expert and dense plans, one after the other
+        return sum(_measure_sync(p, mesh, iters, legs, device)
+                   for p in (plan.expert_plan, plan.dense_plan))
     device = torch.device(device) if device is not None else torch.device("cpu")
     grads = [
         torch.zeros(plan.local_shape(i), dtype=getattr(torch, dt), device=device)

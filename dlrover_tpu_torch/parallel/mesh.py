@@ -20,9 +20,12 @@ makes the process groups the gradient sync runs on:
   position, one per slice);
 - ``tp``: the ranks that differ only in their tp coordinate (adjacent
   ranks: tp is the innermost axis), over which the model's tensor-
-  parallel collectives run. Every other group is one per setting of the
-  other axes, so the data, dp, fsdp, sp and replica groups are each tp
-  coordinate's own.
+  parallel collectives run;
+- ``ep``: the ranks that differ only in their ep coordinate, over which
+  the MoE layers' dispatch and return all-to-alls run (each holds
+  ``E/ep`` experts) and the dense gradients are summed. Every other
+  group is one per setting of the other axes, so the data, dp, fsdp, sp
+  and replica groups are each tp (ep) coordinate's own.
 
 Rank ``r`` is device ``r`` of the JAX mesh built from
 ``range(world_size)``: ``AXIS_ORDER`` row-major, and with DCN axes every
@@ -33,7 +36,8 @@ slice-major (coordinate ``slice * (dp / slices) + j``).
 ``data`` coordinate's contiguous block, as ``P(("dp", "fsdp"))`` lays
 the batch dim on the JAX mesh; ``sequence_sharding`` its block of a
 row's positions, as ``P(("dp", "fsdp"), "sp")`` lays the sequence dim.
-ep and pp groups come with ROADMAP A11.
+The ep ranks of one data coordinate hold the same rows. The pp group
+comes with ROADMAP A11b.
 """
 
 from __future__ import annotations
@@ -220,7 +224,7 @@ def build_mesh(config: MeshConfig, device_type: str = "cpu") -> Mesh:
             _init_backend=False,
         )
     wanted = {"dp": ("dp",), "fsdp": ("fsdp",), "data": ("dp", "fsdp"), "sp": ("sp",),
-              "tp": ("tp",)}
+              "tp": ("tp",), "ep": ("ep",)}
     if config.sp > 1:
         # the ranks that hold one replica of the state under sp
         wanted["replica"] = ("dp", "fsdp", "sp")

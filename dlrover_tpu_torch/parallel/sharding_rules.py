@@ -1,5 +1,5 @@
-"""Logical-axis sharding rules and the tensor-parallel layout (the port of
-``dlrover_tpu/parallel/sharding_rules.py``).
+"""Logical-axis sharding rules and the tensor- and expert-parallel
+layouts (the port of ``dlrover_tpu/parallel/sharding_rules.py``).
 
 The rule table is the JAX package's: each parameter carries logical
 axis names (``models/transformer.logical_axes``) and ``default_lm_rules``
@@ -13,6 +13,11 @@ written out in the model (``models/transformer``: ``copy_to_tp``,
 leaf back together. A dim the tp degree does not divide stays whole on
 every tp rank, as the JAX sync's ``_localize_axis`` treats it (gpt2's
 vocab of 50257 at tp = 2: the embedding table and the head are whole).
+
+Expert parallelism uses the same boxes on the ``ep`` axis: "experts"
+maps to ``ep``, so a rank holds experts ``[i E/ep, (i+1) E/ep)`` of each
+expert leaf (dim 0 of ``w_up`` / ``w_down``) and every other leaf whole
+(``split_of`` names the axis that splits a mesh's leaves).
 """
 
 from __future__ import annotations
@@ -118,15 +123,31 @@ def tp_dims(cfg, tp: int, mesh_axis: str = "tp") -> Dict[str, Optional[int]]:
     return out
 
 
+# a MoE layer's leaves are the JAX ``MoEParams`` NamedTuple, which
+# flattens in field order, not sorted
+_MOE_ORDER = {"gate": "0", "w_up": "1", "w_down": "2"}
+
+
+def _order_key(name: str) -> tuple:
+    parts = name.split(".")
+    return tuple(
+        int(p) if p.isdigit() else
+        _MOE_ORDER[p] if i and parts[i - 1] == "moe" and p in _MOE_ORDER else p
+        for i, p in enumerate(parts)
+    )
+
+
 def jax_order(names) -> list:
     """Parameter names in the JAX package's pytree flatten order (dict
-    keys sorted, layers in order): ``Transformer.jax_ordered_parameters``'s."""
-    return sorted(names, key=lambda n: tuple(int(p) if p.isdigit() else p for p in n.split(".")))
+    keys sorted, layers in order, a MoE layer's ``gate``, ``w_up``,
+    ``w_down`` in the ``MoEParams`` field order):
+    ``Transformer.jax_ordered_parameters``'s."""
+    return sorted(names, key=_order_key)
 
 
-def leaf_tp_dims(cfg, tp: int) -> Tuple[Optional[int], ...]:
+def leaf_tp_dims(cfg, tp: int, mesh_axis: str = "tp") -> Tuple[Optional[int], ...]:
     """``tp_dims`` in the JAX flatten order (the gradient leaves')."""
-    dims = tp_dims(cfg, tp)
+    dims = tp_dims(cfg, tp, mesh_axis)
     return tuple(dims[n] for n in jax_order(dims))
 
 
@@ -181,6 +202,25 @@ def tp_of(mesh) -> Tuple[int, int, object]:
     coords = getattr(mesh, "coords", None) or {}
     groups = getattr(mesh, "groups", None) or {}
     return tp, int(coords.get("tp", 0)), groups.get("tp")
+
+
+def split_of(mesh) -> Tuple[str, int, int, object]:
+    """(axis, degree, this rank's coordinate, group) of the mesh axis
+    that splits parameter leaves into per-rank boxes: ``tp`` when tp >
+    1, else ``ep`` when ep > 1 (each ep rank holds ``E/ep`` experts of
+    every expert leaf; the two never compose), else ``("tp", 1, 0,
+    None)``. Takes a ``parallel/mesh.Mesh``, a ``MeshConfig`` (coordinate
+    0, no group) or None."""
+    if mesh is None:
+        return "tp", 1, 0, None
+    m = getattr(mesh, "config", mesh)
+    coords = getattr(mesh, "coords", None) or {}
+    groups = getattr(mesh, "groups", None) or {}
+    for axis in ("tp", "ep"):
+        n = int(getattr(m, axis, 1))
+        if n > 1:
+            return axis, n, int(coords.get(axis, 0)), groups.get(axis)
+    return "tp", 1, 0, None
 
 
 def list_layout(cfg):

@@ -11,8 +11,10 @@ all-to-all brings the output home to ``[B, S/sp, H, D]``. sp must divide
 the local head count (the JAX check and message). GQA kv heads ride
 unexpanded when sp divides them, else they are repeated first.
 
-The all-to-alls are ``all_to_all_single`` on the sp group, each an
-autograd op whose backward is the other all-to-all. Gloo takes them on
+The all-to-alls are ``all_to_all_single`` on the sp group (the helper
+``parallel/collectives.all_to_all`` it shares with the MoE layer,
+counted in this module's ``comm``), each an autograd op whose backward
+is the other all-to-all. Gloo takes them on
 CUDA tensors (the H100 probe of ``chip_smoke.py``'s sp phase); on NCCL
 they go device to device.
 """
@@ -24,17 +26,18 @@ from typing import Optional
 import torch
 
 from dlrover_tpu_torch.ops.flash_attention import KeyIntervals, flash_attention
+from dlrover_tpu_torch.parallel.collectives import all_to_all, new_counter, reset_counter
 from dlrover_tpu_torch.parallel.ring_attention import MaskFn
 
 
 # the all-to-alls' host time (ms; on the card after the queued kernels
 # finished), their number, and how many moved CUDA tensors over gloo
 # (read by the sp phase of chip_smoke.py)
-comm = {"ms": 0.0, "calls": 0, "staged": 0}
+comm = new_counter()
 
 
 def reset_comm() -> None:
-    comm.update(ms=0.0, calls=0, staged=0)
+    reset_counter(comm)
 
 
 def _sp_group(mesh):
@@ -49,31 +52,12 @@ def _sp_group(mesh):
     return mesh.groups.get("sp"), len(ranks)
 
 
-def _a2a(x, group):
-    import time
-
-    import torch.distributed as dist
-
-    out = torch.empty_like(x)
-    cuda = x.device.type == "cuda"
-    if cuda:
-        torch.cuda.current_stream().synchronize()
-    t0 = time.perf_counter()
-    dist.all_to_all_single(out, x, group=group)
-    if cuda:
-        torch.cuda.current_stream().synchronize()
-        comm["staged"] += int(dist.get_backend(group) == "gloo")
-    comm["ms"] += (time.perf_counter() - t0) * 1e3
-    comm["calls"] += 1
-    return out
-
-
 def _seq_to_heads(x, group, sp):
     """``[B, S/sp, h, D]`` -> ``[B, S, h/sp, D]``: head chunk j to rank j,
     the sequence blocks concatenated in rank order."""
     B, Tl, h, D = x.shape
     send = x.reshape(B, Tl, sp, h // sp, D).permute(2, 0, 1, 3, 4).contiguous()
-    got = _a2a(send, group)  # [sp (source = sequence block), B, Tl, h/sp, D]
+    got = all_to_all(send, group, comm)  # [sp (source = sequence block), B, Tl, h/sp, D]
     return got.permute(1, 0, 2, 3, 4).reshape(B, sp * Tl, h // sp, D)
 
 
@@ -81,7 +65,7 @@ def _heads_to_seq(x, group, sp):
     """The inverse: ``[B, S, h/sp, D]`` -> ``[B, S/sp, h, D]``."""
     B, S, hl, D = x.shape
     send = x.reshape(B, sp, S // sp, hl, D).permute(1, 0, 2, 3, 4).contiguous()
-    got = _a2a(send, group)  # [sp (source = head chunk), B, S/sp, h/sp, D]
+    got = all_to_all(send, group, comm)  # [sp (source = head chunk), B, S/sp, h/sp, D]
     return got.permute(1, 2, 0, 3, 4).reshape(B, S // sp, sp * hl, D)
 
 

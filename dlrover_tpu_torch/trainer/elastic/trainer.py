@@ -128,6 +128,16 @@ when the mesh's ranks finish theirs: every rank meets at one barrier of
 the default group at the end of each ``train`` call while idle ranks
 exist. A later restart (a membership change) re-derives the world.
 
+MoE models (``num_experts``) train on every strategy the step runs them
+on (dp, ZeRO, dp x ep; ``adamw_8bit_flat`` is refused on an ep mesh, so
+the per-leaf ``adamw_8bit`` updates each rank's expert boxes). With
+``moe_rebalance_interval`` > 0 the measured per-expert load
+(``moe_expert_load``) feeds a ``CapacityRebalancer`` every that many
+steps; a changed re-split sets ``capacity_splits`` and rebuilds the step
+(the state stays), counted in ``PipelineStats.moe_capacity_resplits``
+and the ``dlrover_moe_capacity_resplits`` gauge. ep keeps its size
+across a resize, as tp and sp do.
+
 ``TrainerConfig`` keeps every field and default of the JAX package.
 Knobs whose machinery is not ported yet raise ``NotImplementedError``
 when set away from their default (``_UNPORTED``, with the ROADMAP item
@@ -238,7 +248,6 @@ STORAGE_SAVE_WAIT_S = 600.0
 # half of that defense is worse than none
 _UNPORTED = {
     "sdc_detect": "A15 (SDC audit probe)",
-    "moe_rebalance_interval": "A11 (MoE)",
 }
 
 
@@ -466,6 +475,18 @@ class ElasticTrainer:
                 "adamw_8bit (per-leaf) with fsdp/tp/ep/sp/pp sharding"
             )
         self._step_fn = self.accel.step_fn
+        # the MoE capacity rebalancer: folds the measured per-expert
+        # routing load into a periodic capacity re-split
+        # (cfg.capacity_splits), each applied one a step rebuild
+        self._moe_rebalancer = None
+        if self._model_cfg.num_experts and self.tcfg.moe_rebalance_interval > 0:
+            from dlrover_tpu_torch.parallel.moe import CapacityRebalancer
+
+            self._moe_rebalancer = CapacityRebalancer(
+                self._model_cfg.num_experts,
+                capacity_factor=self._model_cfg.capacity_factor,
+                top_k=self._model_cfg.moe_top_k,
+            )
         self._rows: Dict[int, torch.Tensor] = {}
         # measured link-cost model (parallel/topology.py): probed once
         # per device fingerprint (warm restarts hit the JSON cache)
@@ -1256,8 +1277,9 @@ class ElasticTrainer:
         max_batches = max_batches or self.tcfg.eval_steps
         losses = []
         mesh = None
-        if self.strategy.mesh.tp > 1:
-            # every rank runs the whole rows: tp's collectives, no sp cut
+        if self.strategy.mesh.tp > 1 or self.strategy.mesh.ep > 1:
+            # every rank runs the whole rows: tp's collectives (ep's
+            # exchanges), no sp cut
             mesh = dc_replace(self.mesh, config=dc_replace(self.mesh.config, sp=1))
         for batch in self._eval_batches(max_batches):
             x, y = self._device_batch(batch, local=False)
@@ -1371,23 +1393,62 @@ class ElasticTrainer:
     def _world(self) -> int:
         return int(self.mesh.layout.size)
 
+    def _maybe_rebalance_experts(self, load) -> bool:
+        """Fold one measured per-expert routing-load vector into the
+        ``CapacityRebalancer``; when the re-split changed, rebuild the
+        step with the new ``cfg.capacity_splits`` (the JAX trainer's
+        recompile; here only the step's static capacities change, the
+        state stays). Returns True when a re-split was applied."""
+        from dataclasses import replace as dc_replace
+
+        reb = self._moe_rebalancer
+        if reb is None:
+            return False
+        if isinstance(load, torch.Tensor):
+            load = load.detach().float().cpu().numpy()
+        reb.observe(np.asarray(load))
+        m = self.strategy.mesh
+        shards = max(m.dp * m.fsdp * m.sp, 1)
+        tokens = max(1, self.tcfg.batch_size * self.tcfg.seq_len // shards)
+        splits = reb.splits(tokens)
+        if tuple(splits) == tuple(self._model_cfg.capacity_splits):
+            return False
+        self._model_cfg = dc_replace(self._model_cfg, capacity_splits=splits)
+        logger.info(
+            f"moe capacity re-split #{self.pipeline_stats.moe_capacity_resplits + 1}: "
+            f"{splits} (load EMA {np.round(reb.load, 3).tolist()}); rebuilding the step"
+        )
+        self.accel = auto_accelerate(
+            self._model_cfg, self._tx, strategy=self.strategy,
+            batch=self.tcfg.batch_size, seq=self.tcfg.seq_len, device=self.device,
+            donate=False, grad_accum=self.tcfg.grad_accum, before_update=self._fence_staging,
+        )
+        self.cfg = self.accel.cfg
+        self._step_fn = self.accel.step_fn
+        self.pipeline_stats.moe_capacity_resplits += 1
+        self._registry.gauge(
+            "dlrover_moe_capacity_resplits", "applied MoE capacity re-splits",
+        ).set(float(self.pipeline_stats.moe_capacity_resplits))
+        return True
+
     def _share_restored_state(self):
         """After a restore at world size N: each replica set's first rank
         read the replicated tensors (its target holds them, whatever
         world staged them: the records carry global indices), so it
         hands them to the rest of the set, which need not have existed
         when the state was staged (under ZeRO the step gathers the
-        params from the restored shards). Under tp, tp coordinate 0
-        alone staged the tensors every tp rank holds whole: each tp group
-        first hands those on from it."""
+        params from the restored shards). Under tp (ep), coordinate 0 of
+        the axis alone staged the tensors every rank of it holds whole:
+        each tp (ep) group first hands those on from it."""
         if self._world == 1:
             return
         from dlrover_tpu_torch.ckpt.sharding import flatten_state
         from dlrover_tpu_torch.models.convert import replica_group, tp_whole_tensors
+        from dlrover_tpu_torch.parallel.sharding_rules import split_of
 
-        tp_group = self.mesh.groups.get("tp")
+        axis, _, _, tp_group = split_of(self.mesh)
         if tp_group is not None:
-            src = self.mesh.ranks["tp"][0]
+            src = self.mesh.ranks[axis][0]
             with torch.no_grad():
                 handles = [grad_sync.broadcast(t, src, tp_group)
                            for t in tp_whole_tensors(self.state, self.mesh)]
@@ -2065,6 +2126,12 @@ class ElasticTrainer:
                     self._advance_stager()
                     if self._metrics_hook is not None:
                         self._metrics_hook(step, metrics)
+                    if (
+                        self._moe_rebalancer is not None
+                        and step % self.tcfg.moe_rebalance_interval == 0
+                        and "moe_expert_load" in metrics
+                    ):
+                        self._maybe_rebalance_experts(metrics["moe_expert_load"])
                     if step % self.tcfg.log_interval == 0:
                         # the loop's only host sync, at log cadence
                         with span("host_sync"):

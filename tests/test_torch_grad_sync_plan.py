@@ -184,7 +184,7 @@ def test_bad_combinations_raise_the_same_value_errors(kw):
 
 
 @pytest.mark.parametrize("sizes,item", [
-    (dict(dp=2, ep=2), "A11"), (dict(pp=2, dp=2), "A11"),
+    (dict(pp=2, dp=4), "A11b"), (dict(pp=2, dp=2), "A11b"),
 ])
 def test_model_sharded_plans_name_their_roadmap_item(sizes, item):
     s = Strategy(mesh=MeshConfig(**sizes), comm_overlap=True)
@@ -365,3 +365,37 @@ def test_pipeline_stats_grad_sync_fields_match_the_jax_package(kw):
     for k in keys:
         name = "dlrover_pipeline_" + k
         assert (name in ts) == (name in js) and ts.get(name) == js.get(name)
+
+
+@pytest.mark.parametrize("sizes", [dict(dp=2, ep=2), dict(dp=4, ep=2), dict(dp=2, ep=4)],
+                         ids=lambda s: "x".join(f"{k}{v}" for k, v in s.items()))
+@pytest.mark.parametrize("bucket_mb", [1, 4])
+def test_ep_plans_split_and_account_as_the_jax_package(sizes, bucket_mb):
+    """A dp x ep mesh's ``EPSyncPlan``: the same expert leaf ids and
+    dims (the ep-local ``w_up`` / ``w_down`` of each MoE layer, dim 0),
+    the same buckets and byte counts of its expert and dense plans, and
+    the same totals and description as the JAX plan; with
+    ``grad_accum`` > 1 neither package plans (the default path)."""
+    kw = dict(num_layers=4, num_experts=4, moe_every=2, moe_top_k=2)
+    jc, tc = jcfg.tiny(**kw), tcfg.tiny(**kw)
+    j = jgs.resolve_plan(jc, JStrategy(mesh=JMeshConfig(**sizes), comm_overlap=True,
+                                       grad_bucket_mb=bucket_mb))
+    t = tgs.resolve_plan(tc, Strategy(mesh=MeshConfig(**sizes), comm_overlap=True,
+                                      grad_bucket_mb=bucket_mb))
+    assert (t.kind, t.ep, t.dp, t.compress) == (j.kind, j.ep, j.dp, j.compress) == (
+        "ep", sizes["ep"], sizes["dp"], "none")
+    assert t.expert_leaf_ids == j.expert_leaf_ids and len(t.expert_leaf_ids) == 4
+    assert t.expert_leaf_dims == j.expert_leaf_dims == (0, 0, 0, 0)
+    for part in ("expert_plan", "dense_plan"):
+        tp_, jp_ = getattr(t, part), getattr(j, part)
+        assert _buckets(tp_) == _buckets(jp_), part
+        assert tp_.leaf_shapes == tuple(tuple(s) for s in jp_.leaf_shapes), part
+        assert _bytes(tp_) == _bytes(jp_) and tp_.wire_bytes == jp_.wire_bytes, part
+    assert (t.raw_bytes, t.wire_bytes, t.num_buckets) == (j.raw_bytes, j.wire_bytes, j.num_buckets)
+    assert t.explicit_wire_bytes() == j.explicit_wire_bytes()
+    assert t.gspmd_allreduce_bytes() == j.gspmd_allreduce_bytes()
+    assert t.describe() == j.describe()
+    ga = dict(mesh=dict(sizes), comm_overlap=True, grad_accum=2)
+    assert tgs.resolve_plan(tc, Strategy(mesh=MeshConfig(**ga.pop("mesh")), **ga)) is None
+    assert jgs.resolve_plan(jc, JStrategy(mesh=JMeshConfig(**sizes), comm_overlap=True,
+                                          grad_accum=2)) is None

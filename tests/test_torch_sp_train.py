@@ -151,7 +151,7 @@ def test_unknown_scheme_raises_the_jax_error():
 
 
 @pytest.mark.parametrize("mesh,item", [
-    (dict(sp=2, pp=2), "A11"), (dict(sp=2, ep=2), "A11"),
+    (dict(sp=2, pp=2), "A11b"), (dict(sp=2, ep=2), "A19"),
 ])
 def test_unported_meshes_still_raise(mesh, item):
     from dlrover_tpu_torch.models import config as tcfg
@@ -219,8 +219,8 @@ def test_flash_checkpoint_on_an_sp_mesh_resumes_bitwise(tmp_path):
 def test_static_peak_prices_the_block_and_the_scheme_buffers(scheme):
     """Under sp a rank's activations are those of its 1/sp of the
     tokens, plus one layer's in-flight buffers of the scheme; the dry
-    runner builds an sp strategy, and an sp x tp one (an ep one still
-    raises, A11)."""
+    runner builds an sp strategy, and an sp x tp one (an sp x ep one
+    still raises, A19)."""
     from dlrover_tpu_torch.accel.dry_runner import _check_unported, _sp_buffers, static_peak_bytes
     from dlrover_tpu_torch.accel.strategy import Strategy
     from dlrover_tpu_torch.models import config as tcfg
@@ -236,5 +236,5 @@ def test_static_peak_prices_the_block_and_the_scheme_buffers(scheme):
     assert sp2 == pytest.approx(half + _sp_buffers(cfg, 1024, 4))
     _check_unported(Strategy(mesh=MeshConfig(sp=2)), cfg, tx)
     _check_unported(Strategy(mesh=MeshConfig(sp=2, tp=2)), cfg, tx)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A19"):
         _check_unported(Strategy(mesh=MeshConfig(sp=2, ep=2)), cfg, tx)

@@ -136,9 +136,12 @@ def test_resolve_plan_plans_tp_and_3d_and_still_names_a11():
     s = Strategy(mesh=MeshConfig(fsdp=2, sp=2), comm_overlap=True)
     assert tgs.resolve_plan(tc, s) is None
     assert "fsdp x sp" in tgs.fallback_reason(s.mesh.axis_sizes())
-    for sizes in (dict(dp=2, ep=2), dict(pp=2, dp=2)):
-        with pytest.raises(NotImplementedError, match="A11"):
-            tgs.resolve_plan(tc, Strategy(mesh=MeshConfig(**sizes), comm_overlap=True))
+    # dp x ep plans its expert and dense leaves apart (tests/test_torch_
+    # grad_sync_plan.py); the pipeline is not ported
+    assert tgs.resolve_plan(tcfg.tiny(num_layers=2, num_experts=4),
+                            Strategy(mesh=MeshConfig(dp=2, ep=2), comm_overlap=True)).kind == "ep"
+    with pytest.raises(NotImplementedError, match="A11b"):
+        tgs.resolve_plan(tc, Strategy(mesh=MeshConfig(pp=2, dp=2), comm_overlap=True))
 
 
 def test_the_rule_table_is_the_jax_package_s():
@@ -198,8 +201,8 @@ def test_what_runs_and_what_still_raises():
                   dict(fsdp=2, sp=2)):
         check_supported(cfg, MeshConfig(**sizes))
         _check_unported(Strategy(mesh=MeshConfig(**sizes)), cfg, tx)
-    for sizes in (dict(ep=2), dict(pp=2, dp=2)):
-        with pytest.raises(NotImplementedError, match="A11"):
+    for sizes, item in ((dict(ep=2, tp=2), "A19"), (dict(pp=2, dp=2), "A11b")):
+        with pytest.raises(NotImplementedError, match=item):
             check_supported(cfg, MeshConfig(**sizes))
     for bad, dim in ((dict(num_heads=6, num_kv_heads=2), "num_heads"),
                      (dict(num_kv_heads=1), "kv_heads"),

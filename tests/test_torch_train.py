@@ -143,7 +143,7 @@ def test_trainer_runs_on_cpu_in_the_jax_sampler_order():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("sdc_detect", True), ("moe_rebalance_interval", 5),
+    ("sdc_detect", True),
 ])
 def test_unported_knob_raises(knob, value):
     tc = ttrainer.TrainerConfig(**{knob: value})

@@ -35,7 +35,11 @@ Jobs:
   given global batches; returns the loss and grad norm of each step,
   the whole train state at the end, in the JAX layout
   (``convert.jax_train_state``), and the checkpoint records the rank
-  stages at the end.
+  stages at the end;
+- ``ep``: MoE models (``job_ep``): ``build_train_step`` from JAX
+  weights on a mesh of dp x ep, dp, fsdp (each rank its ep boxes of the
+  expert leaves), and ``ElasticTrainer`` runs that stage a checkpoint,
+  land one, or re-split the experts' capacity.
 """
 
 from __future__ import annotations
@@ -97,6 +101,12 @@ def run_ranks(job: str, world: int, args, tmp_dir: str, timeout: float = 600.0, 
     """Start ``world`` ranks of ``job`` and return their results in rank
     order; a rank that fails raises with its output. Without a job name
     in ``env`` the ranks get a job of their own (``job_env``)."""
+    return start_ranks(job, world, args, tmp_dir, timeout, env)()
+
+
+def start_ranks(job: str, world: int, args, tmp_dir: str, timeout: float = 600.0, env=None):
+    """``run_ranks`` without waiting: the ranks are started, and the
+    returned function waits for them and returns their results."""
     os.makedirs(tmp_dir, exist_ok=True)
     own = None
     if not (env or {}).get("DLROVER_TPU_JOB_NAME"):
@@ -118,24 +128,28 @@ def run_ranks(job: str, world: int, args, tmp_dir: str, timeout: float = 600.0, 
         for r in range(world)
     ]
     deadline = time.time() + timeout
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=max(deadline - time.time(), 1))[0].decode())
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-        if own is not None:
-            shutil.rmtree(own["DLROVER_TPU_SOCKET_DIR"], ignore_errors=True)
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            raise RuntimeError(f"rank {r} of {job} exited {p.returncode}:\n{outs[r][-6000:]}")
-    res = []
-    for r in range(world):
-        with open(os.path.join(tmp_dir, f"rank{r}.pkl"), "rb") as f:
-            res.append(pickle.load(f))
-    return res
+
+    def wait():
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=max(deadline - time.time(), 1))[0].decode())
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            if own is not None:
+                shutil.rmtree(own["DLROVER_TPU_SOCKET_DIR"], ignore_errors=True)
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {r} of {job} exited {p.returncode}:\n{outs[r][-6000:]}")
+        res = []
+        for r in range(world):
+            with open(os.path.join(tmp_dir, f"rank{r}.pkl"), "rb") as f:
+                res.append(pickle.load(f))
+        return res
+
+    return wait
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +405,130 @@ def job_tp(rank, world, cases):
             synced=[s.numpy().copy() for s in synced], gnorm=float(gnorm),
             leaf_shard=[plan.leaf_shard(i) for i in range(len(shapes))] if plan.leaf_block else None,
         )
+    return out
+
+
+def _ep_step_case(c):
+    """``build_train_step`` of a tiny MoE model from the JAX weights
+    ``c["params"]`` (or, without them, the port's seeded draw) on
+    ``c["mesh"]`` over the rank's rows of ``c["batches"]``, on
+    ``c["device"]`` (the CPU by default): each step's loss, grad norm,
+    MoE metrics and ep all-to-alls; the whole params (gathered over ep)
+    and train state at the end; the plan's kind and expert leaf ids."""
+    import torch
+
+    from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.models import train as ttrain
+    from dlrover_tpu_torch.models.convert import jax_train_state, params_from_jax, params_to_numpy
+    from dlrover_tpu_torch.parallel import grad_sync as gs
+    from dlrover_tpu_torch.parallel import moe
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, batch_sharding, build_mesh
+    from dlrover_tpu_torch.trainer.elastic import trainer as tt
+
+    cfg = tcfg.tiny(**c["model"])
+    mesh = build_mesh(MeshConfig(**c["mesh"]))
+    ga = c.get("grad_accum", 1)
+    plan = None
+    if c.get("comm_overlap"):
+        plan = gs.plan_for_mesh(cfg, mesh, "none", 1, params_shape=gs.model_leaves(cfg))
+    tx = tt.build_optimizer(c["optimizer"], lr=c["lr"], **c.get("opt_kw", {}))
+    dev = torch.device(c.get("device", "cpu"))
+    if "params" in c:
+        model = params_from_jax(c["params"], cfg, device=dev, mesh=mesh)
+    else:
+        from dlrover_tpu_torch.models.transformer import init_params
+
+        model = init_params(torch.Generator().manual_seed(0), cfg, device=dev, mesh=mesh)
+    state = ttrain.state_from_params(model, tx, mesh, plan)
+    step = ttrain.build_train_step(cfg, tx, grad_accum=ga, mesh=mesh, plan=plan)
+    metrics = []
+    for x, y in c["batches"]:
+        rows = batch_sharding(mesh, x.shape[0], ga)
+        moe.reset_comm()
+        state, m = step(state, torch.from_numpy(x[rows]).long().to(dev),
+                        torch.from_numpy(y[rows]).long().to(dev))
+        metrics.append(dict(
+            loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+            load=m["moe_expert_load"].cpu().numpy().copy(), drop=float(m["moe_drop_rate"]),
+            balance=float(m["moe_balance_loss"]), z=float(m["moe_z_loss"]),
+            a2a=moe.comm["calls"]))
+    if state.shards is not None:
+        ttrain.gather_params(state, mesh, plan)
+    return dict(metrics=metrics, params=params_to_numpy(state.params, mesh),
+                state=jax_train_state(state, mesh, plan), kind=getattr(plan, "kind", None),
+                expert_ids=list(getattr(plan, "expert_leaf_ids", ())), ep=mesh.coords["ep"])
+
+
+def _ep_trainer_case(c, rank):
+    """``ElasticTrainer`` on a tiny MoE model and the pinned mesh
+    ``c["mesh"]`` (``c["kind"]``: ``run``, ``stage`` (then a disk save),
+    or ``land`` on the checkpoint in ``c["ckpt_dir"]``): the losses, the
+    re-splits and capacity splits after each step, the MoE metrics, the
+    eval loss and the whole train state (gathered) at the end."""
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.ckpt.checkpointer import StorageType
+    from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.models.convert import jax_train_state, params_to_numpy
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig
+    from dlrover_tpu_torch.trainer.elastic import trainer as tt
+
+    job = os.environ["DLROVER_TPU_JOB_NAME"]
+    # a job no saver serves: every save is a synchronous disk write
+    os.environ["DLROVER_TPU_JOB_NAME"] = job + "disk"
+    steps = []
+
+    def hook(step, m):
+        if "loss" in m:
+            steps.append(dict(step=step, loss=float(m["loss"]),
+                              load=m["moe_expert_load"].numpy().copy(),
+                              drop=float(m["moe_drop_rate"])))
+
+    try:
+        tx = tt.build_optimizer(c.get("optimizer", "adamw_8bit"), lr=c.get("lr", 1e-3),
+                                **c.get("opt_kw", dict(min_quantized_size=512)))
+        kw = dict(batch_size=c.get("batch", 8), seq_len=16, log_interval=1000,
+                  report_metrics=False, prefetch=0, ckpt_dir=c.get("ckpt_dir", ""),
+                  save_memory_interval=1000, save_storage_interval=1000, **c.get("trainer", {}))
+        tr = tt.ElasticTrainer(tcfg.tiny(**c["model"]), tx, Tokens(), tt.TrainerConfig(**kw),
+                               devices="cpu", strategy=Strategy(mesh=MeshConfig(**c["mesh"])),
+                               metrics_hook=hook, eval_dataset=Tokens(n=16, seed=5))
+    finally:
+        os.environ["DLROVER_TPU_JOB_NAME"] = job
+    resplits, splits = [], []
+    real = tr._maybe_rebalance_experts
+
+    def watch(load):
+        applied = real(load)
+        resplits.append((tr.global_step, applied))
+        splits.append(tuple(tr._model_cfg.capacity_splits))
+        return applied
+
+    tr._maybe_rebalance_experts = watch
+    out = dict(restored=tr.restored_step, source=tr.restore_source)
+    tr.train(tr.global_step + c.get("steps", 0))
+    if c["kind"] == "stage":
+        tr.save(StorageType.DISK)
+    out.update(steps=steps, resplits=resplits, splits=splits, eval_loss=tr.evaluate(2)["eval_loss"],
+               stat=tr.pipeline_stats.moe_capacity_resplits,
+               gauge=tr._registry.scalars().get("dlrover_moe_capacity_resplits"),
+               plan=getattr(tr._grad_sync_plan, "kind", None),
+               grad_sync_ms=tr.pipeline_stats.grad_sync_ms,
+               params=params_to_numpy(tr.state.params, tr.mesh),
+               state=jax_train_state(tr.state, tr.mesh, tr._grad_sync_plan),
+               strategy=tr.strategy.to_json(), step=tr.global_step)
+    tr.close()
+    return out
+
+
+def job_ep(rank, world, cases):
+    """MoE and expert parallelism: each case a ``step`` (``_ep_step_case``)
+    or a trainer run (``_ep_trainer_case``)."""
+    import torch
+
+    out = {}
+    for name, c in cases.items():
+        out[name] = _ep_step_case(c) if c["kind"] == "step" else _ep_trainer_case(c, rank)
+        torch.distributed.barrier()
     return out
 
 
@@ -783,7 +921,7 @@ def job_resize(rank, world, cases):
 
 JOBS = {"sync": job_sync, "train": job_train, "step": job_step, "accel": job_accel,
         "resize": job_resize, "units": job_units, "zero_peak": job_zero_peak,
-        "wire": job_wire, "sp": job_sp, "tp": job_tp, "multi": job_multi}
+        "wire": job_wire, "sp": job_sp, "tp": job_tp, "ep": job_ep, "multi": job_multi}
 
 
 def main():
