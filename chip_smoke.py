@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlrover_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama|accel|peak_memory|resize|sp|tp|ep|ckpt7b [--no-persist]]
+    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama|accel|peak_memory|resize|sp|tp|ep|pp|ckpt7b [--no-persist]]
 
 (``--profile`` adds a torch.profiler window of a few more steps to the
 per-leaf gpt2_small path and to the full-size sparse path; ``--phase
@@ -12,7 +12,8 @@ phase alone, ``--phase accel`` the strategy-search phase alone,
 ``--phase resize`` the elastic-resize phase alone, ``--phase sp`` the
 sequence-parallel phase alone, ``--phase tp`` the tensor-parallel one
 and ``--phase ep`` the expert-parallel one (each at 4 layers and 3
-steps), without the contract's closing lines; ``--phase peak_memory`` holds the static
+steps), ``--phase pp`` the pipeline-parallel one (3 steps, interleaved
+and pp 2 x dp 2 included), without the contract's closing lines; ``--phase peak_memory`` holds the static
 peak model to the card, a phase the full run does not take.
 ``--dp-worker SPEC RANK`` is one rank of the dp phase, ``--llama-worker
 OUT [--search-only]`` the llama phase's full model (its search first),
@@ -196,7 +197,29 @@ jobs.)
      all-to-alls' number and host ms a step, the routing, the launches a
      step); then one step in the same ranks with the first MoE layer's
      return exchange stripped of its backward, which the two gates
-     together must refuse.
+     together must refuse;
+   - ``pp`` (in the full run in tp's three processes, after ep and C3,
+     at 2 steps, GPipe and 1F1B; alone with ``--phase pp`` at 3 steps,
+     with interleaved 1F1B and pp 2 x dp 2): each attention kernel
+     against its plain version at the pp path's microbatch (2 x 1024, 12
+     heads of 64) and the per-leaf 8-bit AdamW's kernel at a stage row's
+     shape (``stages.mlp.w_up`` at pp = 2); then ``ElasticTrainer`` on
+     gpt2_small at full width and depth, 8 x 1024 in 4 microbatches,
+     bf16, remat, ``adamw_8bit``: one process at pp = 1 with
+     ``grad_accum=4`` beside two gloo ranks on the one card at pp = 2,
+     the same seeded weights and data, pp = 2's losses within
+     ``PP_LOSS_TOL`` of pp = 1's, the first step's gradients (the stage
+     rows gathered into whole layers, the shared leaves) within
+     ``PP_GRAD_TOL``, the eval loss through the stages, each rank's peak
+     within ``PEAK_CAL_RTOL`` of ``static_peak_bytes``, the launches a
+     step the reckoned ones (``pp_train``: losses, step ms, peaks, the
+     hops' number and host ms a step, the busy share beside the clock's
+     bubble); then one step in the same ranks with the last stage's
+     cotangents to stage 0 replaced by zeros, which the two gates
+     together must refuse; with ``--phase pp`` four gloo ranks at pp 2
+     x dp 2 with ``comm_overlap``, each step's reduce-scatters and
+     all-gathers the ``PPSyncPlan``'s buckets and bytes, its losses pp 2
+     x dp 1's.
 4. a ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -3272,7 +3295,8 @@ def dp_worker(spec_path, rank):
     out = {}
     for job in spec["jobs"]:
         fn = {"probe": _dp_probe, "train": _dp_train, "nccl": _dp_nccl,
-              "accel": _dp_accel, "c3": _dp_c3, "sp": _dp_sp, "tp": _dp_tp}[job["kind"]]
+              "accel": _dp_accel, "c3": _dp_c3, "sp": _dp_sp, "tp": _dp_tp,
+              "pp": _dp_pp}[job["kind"]]
         if job.get("die_after"):  # the hook writes what ran before it dies
             job["prior"] = out
         out[job["name"]] = fn(torch, job, rank, world, spec_path)
@@ -3578,14 +3602,16 @@ def with_master(jobs):
 def check_dp_accel(ranks):
     """The two-rank search's line: one strategy on both ranks (rank 0's,
     through the master), the link model probed on the dp group, the
-    auto knobs' choices, every candidate the port can build timed."""
+    auto knobs' choices, the ``max_timed`` best estimates timed, and
+    every candidate priced: the pipeline candidates (gpt2_small is deep
+    enough for pp = 2) build since the pp slice."""
     a = [r["accel"] for r in ranks]
     timed = [r for r in a[0]["reports"] if r["ok"] and r["step_s"] is not None]
+    pp = [r for r in a[0]["reports"] if r["strategy"].startswith("pp")]
     ok = (a[0]["strategy"] == a[1]["strategy"] == a[0]["own_pick"] == a[1]["own_pick"]
           and a[0]["link"]["source"] == "measured" and len(timed) >= 2
-          and {r["strategy"].split("/")[0] for r in timed} >= {"dp2", "fsdp2"}
-          and all(not r["ok"] and "ROADMAP" in (r["error"] or "") for r in a[0]["reports"]
-                  if r["strategy"].startswith("pp")))
+          and bool(pp) and all(r["ok"] for r in pp)
+          and not any("ROADMAP" in (r["error"] or "") for r in a[0]["reports"]))
     emit("accel_dp_search", world=2, backend="gloo", model="gpt2_small", batch=DP_B, seq=DP_T,
          optimizer="adamw_8bit", winner=a[0]["describe"], strategies=[x["strategy"] for x in a],
          link=a[0]["link"], probe_s=[x["probe_s"] for x in a], auto_compress=a[0]["auto_compress"],
@@ -4188,13 +4214,13 @@ def run_resize(torch, side=None):
     timing-grade, which only ``--phase resize`` gives. Returns what
     ``side`` returned."""
     t0 = time.perf_counter()
-    beside = ("tp_train", "ep_train", "resize_c3") if side else ()
+    beside = ("tp_train", "ep_train", "pp_train", "resize_c3") if side else ()
     try:
         drill = run_resize_drill(torch, beside)
     finally:
         res = side() if side else None
     if res:
-        c3 = _c3_line(res.pop("c3"), True, beside=("resize", "tp_train", "ep_train"))
+        c3 = _c3_line(res.pop("c3"), True, beside=("resize", "tp_train", "ep_train", "pp_train"))
     else:
         c3 = run_c3(torch)
     emit("resize_phase", seconds=time.perf_counter() - t0, drill=drill, c3=c3,
@@ -5005,28 +5031,397 @@ def run_ep(torch, qo, full=False):
     return _ep_line(t0, one["ep1"], two, adam, free, full)
 
 
-def start_tp_ep(torch, qo):
-    """The full run's tp and ep phases in the same three processes (one
-    process at tp = 1 then ep = 1, beside a gloo pair at tp = 2 then ep =
-    2, then C3's two runs), at ``TP_RUNS`` / ``EP_RUNS`` / ``C3_RUNS``'
-    full depth: the kernel checks, then the processes started; the
-    returned function waits for them, prints the tp and ep lines and
-    returns ``{"tp", "ep", "c3"}`` (C3's results per rank). The full run
-    starts them before the resize drill, whose launchers mostly wait, so
-    they run side by side (the steps' times are then not timing-grade;
-    ``--phase tp`` / ``--phase ep`` / ``--phase resize`` run alone)."""
+# ---------------------------------------------------------------------------
+# the pp phase: pipeline parallelism (parallel/pipeline.py)
+# ---------------------------------------------------------------------------
+# gpt2_small at its full width and depth, the global batch of 8 x 1024 in
+# PP_M microbatches of 2 x 1024: one process at pp = 1 with grad_accum =
+# PP_M (the same microbatches) beside two gloo ranks on the one card at
+# pp = 2 (6 blocks a stage; 3 a chunk interleaved)
+PP_SEQ = 1024
+PP_BATCH = 8
+PP_M = 4
+PP_STEPS = {"phase": 3, "full": 2}  # --phase pp, the full run
+PP_SCHEDULES = {"phase": ("gpipe", "1f1b", "interleaved"), "full": ("gpipe", "1f1b")}
+# pp = 2's losses against pp = 1's, absolute, and the first step's
+# gradients (the stage leaves gathered over pp into whole layers, the
+# shared leaves) against pp = 1's (``_grad_err``). On the H100 80GB HBM3 at
+# 700 W, 3 steps: the first loss bitwise (the same microbatch products;
+# the 1/M seed is a power of two), the later ones 5.1e-5 to 8.1e-5 off;
+# the gradients 1.9e-3 off, in the learned positions (stage 0's f32
+# scatter-add of the rows against autograd's bf16 embedding backward);
+# the control (zero cotangents into stage 0) 1.52 off, its loss the sound
+# one (the forward is unchanged). So the loss gate sits 6x above the
+# sound spread, the gradient gate 5x above it and 150x below the fault.
+PP_LOSS_TOL = 5e-4
+PP_GRAD_TOL = 1e-2
+# pp 2 x dp 2 against pp 2 x dp 1: each rank's microbatch is one row
+# instead of two, so the bf16 GEMMs round by another shape (1.27e-3 off
+# over 3 steps on the same card)
+PP_DP_LOSS_TOL = 5e-3
+# the kernels the pp path launches in every stage
+PP_KERNELS = ("fa_fwd", "fa_bwd_dkdv", "fa_bwd_dq", "adam8_leaf")
+# one stage leaf the per-leaf 8-bit AdamW updates on the pp path:
+# stages.mlp.w_up's row at pp = 2 (6 blocks of 768 x 3072)
+PP_ADAM_SHAPE = (1, 6, 768, 3072)
+
+
+def _pp_whole_grads(torch, trainer):
+    """The gradients of the step about to update, as whole layers in the
+    list layout's JAX order (a stage rank's rows gathered over pp and
+    split into layers; the shared leaves as they are), f32."""
+    from dlrover_tpu_torch.parallel import pipeline as pl
+    from dlrover_tpu_torch.parallel.sharding_rules import gather_tp, jax_order
+
+    model, mesh = trainer.state.params, trainer.mesh
+    out = {}
+    for name, p in model.named_parameters():
+        g = p.grad.float()
+        if name.startswith("stages."):
+            full = pl._dechunk_leaf(gather_tp(g, 0, mesh.groups["pp"]), model.virtual)
+            for i in range(full.shape[0]):
+                out[f"layers.{i}.{name[len('stages.'):]}"] = full[i]
+        else:
+            out[name] = g
+    return [out[n] for n in jax_order(out)]
+
+
+def _dp_pp(torch, job, rank, world, spec_path):
+    """``ElasticTrainer`` on gpt2_small (12 x 768, vocab 50257, tied),
+    batch ``PP_BATCH`` x ``PP_SEQ``, bf16, remat, per-leaf ``adamw_8bit``:
+    at pp = 1 with ``grad_accum=PP_M``, or on a mesh of ``job["pp"]`` (x
+    ``job["dp"]``) under ``job["schedule"]`` with ``PP_M`` microbatches
+    (``job["overlap"]``: the ``PPSyncPlan``); the weights from the
+    trainer's seeded CPU generator. Returns the losses, step ms, this
+    rank's peak beside its static figure, the hops' number and host ms a
+    step, the busy share of the step (ticks with a slot, each synced)
+    beside the clock's bubble, the first step's gradient prints (whole
+    layers), the launches a step beside the reckoned ones, the eval loss
+    through the stages, and under a plan the collectives each step issued
+    beside the plan's buckets and bytes. ``job["fault"] ==
+    "zero_cotangent"``: the gates' control, planted here only: the last
+    stage sends zeros for every cotangent to the stage before it."""
+    from dataclasses import replace
+
+    from dlrover_tpu_torch.accel.dry_runner import _apply_strategy, static_peak_bytes
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.models import gpt2_small
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import quantized_optim as qo
+    from dlrover_tpu_torch.parallel import grad_sync
+    from dlrover_tpu_torch.parallel import pipeline as pl
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig
+    from dlrover_tpu_torch.trainer.elastic.trainer import (
+        ElasticTrainer, TrainerConfig, build_optimizer,
+    )
+
+    pp, dp, steps = job.get("pp", 1), job.get("dp", 1), job["steps"]
+    sched = job.get("schedule", "gpipe")
+    cfg = replace(gpt2_small(), max_seq_len=PP_SEQ)
+    tx = build_optimizer("adamw_8bit", lr=3e-4, min_quantized_size=4096)
+    strategy = Strategy(mesh=MeshConfig(pp=pp, dp=dp), remat=True, opts=("bf16",),
+                        num_microbatches=PP_M if pp > 1 else 1, pp_schedule=sched,
+                        pp_virtual=2, comm_overlap=bool(job.get("overlap")))
+    losses, stamps, issued, busy = [], [], [], []
+
+    def hook(step, metrics):
+        if "loss" in metrics:
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            busy.append(pl.comm["busy_ms"])
+            issued.append(dict(count=dict(grad_sync.issued), bytes=dict(grad_sync.issued_bytes)))
+            grad_sync.reset_counts()
+
+    # cuBLAS's workspaces (allocated at a process's first GEMMs and kept)
+    # before the base: the peak is the job's own
+    for dt in (torch.bfloat16, torch.float32):
+        w = torch.ones((64, 64), device="cuda", dtype=dt, requires_grad=True)
+        torch.nn.functional.linear(w, w, w[0]).sum().backward()
+    del w
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    trainer = ElasticTrainer(
+        cfg, tx, RandomTokens(n=64, seq=PP_SEQ, vocab=cfg.vocab_size),
+        TrainerConfig(batch_size=PP_BATCH, seq_len=PP_SEQ, report_metrics=False, log_interval=1,
+                      grad_accum=1 if pp > 1 else PP_M),
+        strategy=strategy, metrics_hook=hook,
+        eval_dataset=RandomTokens(n=PP_BATCH, seq=PP_SEQ, vocab=cfg.vocab_size, seed=5),
+    )
+    cfg2, applied = _apply_strategy(trainer.strategy, cfg)
+    mesh = trainer.mesh
+    stage = mesh.stage
+    static = static_peak_bytes(cfg2, applied, tx, PP_BATCH, PP_SEQ, stage=stage)
+    real_exchange = pl._Link.exchange
+    if job.get("fault") == "zero_cotangent" and stage == pp - 1:
+        def exchange(self, sends, recvs):
+            return real_exchange(self, [(torch.zeros_like(t) if tag == pl._GRAD else t, peer, tag)
+                                        for t, peer, tag in sends], recvs)
+
+        pl._Link.exchange = exchange
+    # the first step's gradients as whole layers, gathered just before
+    # its update; the peak is read around the gathering
+    opt, prints, peaks = trainer.state.opt_state, [], []
+    real_step = opt.step
+
+    def step_and_print():
+        if not prints:
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+            counts = dict(grad_sync.issued), dict(grad_sync.issued_bytes)
+            if pp > 1:
+                grads = _pp_whole_grads(torch, trainer)
+            else:  # the list layout's JAX order, as the pp ranks give theirs
+                from dlrover_tpu_torch.parallel.sharding_rules import jax_order
+
+                named = dict(trainer.state.params.named_parameters())
+                grads = [named[n].grad for n in jax_order(named)]
+            prints.extend(_grad_prints(torch, grads))
+            grad_sync.issued.update(counts[0])
+            grad_sync.issued_bytes.update(counts[1])
+            del grads
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if job.get("trace"):  # from here on: the step's own allocations
+                torch.cuda.memory._record_memory_history(max_entries=200000)
+        return real_step()
+
+    opt.step = step_and_print
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    qo.reset_launch_counts()
+    pl.reset_comm()
+    pl.comm["time_slots"] = pp > 1
+    grad_sync.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer.train(steps)
+    finally:
+        pl._Link.exchange = real_exchange
+        pl.comm["time_slots"] = False
+        opt.step = real_step
+    torch.cuda.synchronize()
+    peaks.append(torch.cuda.max_memory_allocated() - base)
+    live_at_peak = None
+    if job.get("trace"):
+        live_at_peak = _live_at_peak(torch.cuda.memory._snapshot())
+        torch.cuda.memory._record_memory_history(enabled=None)
+    launches = {**fa.launch_counts, **qo.launch_counts}
+    hops = dict(pl.comm)
+    step_ms = [x * 1e3 for x in np.diff([t0] + stamps)]
+    eval_loss = None if job.get("fault") else trainer.evaluate(1)["eval_loss"]
+    # reckoned: under remat each block's forward runs twice a microbatch
+    # (GPipe: the forward and the checkpoint's recompute; 1F1B: the
+    # forward tick and the stage's recompute), its backward once
+    blocks = cfg.num_layers // pp
+    leaf = sum(getattr(p, "leaf_numel", p.numel()) >= 4096
+               for p in trainer.state.params.jax_ordered_parameters())
+    reckoned = {"fa_fwd": 2 * blocks * PP_M, "fa_bwd_dkdv": blocks * PP_M,
+                "fa_bwd_dq": blocks * PP_M, "adam8_leaf": leaf}
+    v = applied.resolved_virtual()
+    if pp > 1 and sched != "gpipe":
+        _, busy_slots, total_slots = pl.schedule_occupancy(pp, PP_M, v)
+        bubble = 1 - busy_slots / total_slots
+    else:
+        bubble = (pp - 1) / (PP_M + pp - 1)
+    plan = trainer._grad_sync_plan
+    res = dict(
+        live_at_peak=live_at_peak, resident_bytes=torch.cuda.memory_allocated() - base,
+        pp=pp, dp=dp, schedule=sched if pp > 1 else None, virtual=v, stage=stage,
+        fault=job.get("fault"), losses=losses, eval_loss=eval_loss, grad_prints=prints,
+        step_ms=step_ms, peak_bytes=max(peaks), peaks_before_and_after_prints=peaks,
+        static_peak_bytes=static, static_vs_measured=static / max(peaks) - 1,
+        backend=None if mesh.groups.get("pp") is None else torch.distributed.get_backend(
+            mesh.groups["pp"]),
+        launches_per_step={k: v_ / steps for k, v_ in launches.items()},
+        launches_reckoned_per_step=reckoned,
+        hops_per_step=hops["hops"] / steps, hop_host_ms_per_step=hops["ms"] / steps,
+        hops_staged=hops["staged"],
+        busy_ms_per_step=list(np.diff([0.0] + busy)),
+        bubble_share_of_the_clock=bubble,
+        # the last step's: the first pays one-time costs
+        bubble_share_measured=(1 - (busy[-1] - (busy[-2] if steps > 1 else 0.0)) / step_ms[-1])
+        if pp > 1 else None,
+        issued_per_step=issued,
+        plan=None if plan is None else dict(
+            kind=plan.kind, buckets=plan.num_buckets, padded=sum(b.padded for b in plan.buckets),
+            raw_bytes=plan.raw_bytes, wire_bytes=plan.wire_bytes, describe=plan.describe()),
+    )
+    trainer.close()
+    del trainer, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _pp_jobs(full):
+    """(the pp = 1 job, the pair's jobs): the schedules at
+    ``PP_STEPS``' depth, then the control (one GPipe step)."""
+    steps = PP_STEPS["full" if full else "phase"]
+    job = dict(kind="pp", steps=steps, trace=not full)
+    return ([dict(job, name="pp1", pp=1)],
+            [dict(job, name=f"pp2_{s}", pp=2, schedule=s)
+             for s in PP_SCHEDULES["full" if full else "phase"]]
+            + [dict(job, name="pp2_zero_cotangent", pp=2, steps=1, trace=False,
+                    fault="zero_cotangent")])
+
+
+def _pp_line(t0, one, two, kernels, adam, free_before, full, dp_run=None):
+    """The pp runs' gates: each schedule's losses against pp = 1's within
+    ``PP_LOSS_TOL``, its first step's whole-layer gradients within
+    ``PP_GRAD_TOL``, the eval loss through the stages, the ranks
+    agreeing, each rank's peak within ``PEAK_CAL_RTOL`` of its static
+    figure, the launches a step the reckoned ones; the control must fail
+    the two gates together. ``dp_run``: pp 2 x dp 2's ranks, its losses
+    against pp 2 x dp 1's (GPipe) and each step's reduce-scatters and
+    all-gathers the plan's buckets and bytes."""
+    steps = PP_STEPS["full" if full else "phase"]
+    ref = one.pop("grad_prints")
+    runs = {"pp1": one}
+    checks = {}
+    for name in two[0]:
+        ranks = [r[name] for r in two]
+        prints = [r.pop("grad_prints") for r in ranks]
+        runs[name] = ranks
+        fault = bool(ranks[0]["fault"])
+        want = 1 if fault else steps
+        diff = max(abs(a - b) for r in ranks for a, b in zip(r["losses"], one["losses"]))
+        grad_err, worst = _grad_err(prints[0], ref)
+        passes = diff <= PP_LOSS_TOL and grad_err <= PP_GRAD_TOL
+        same = all(r["losses"] == ranks[0]["losses"] for r in ranks)
+        finite = all(np.isfinite(r["losses"]).all() and len(r["losses"]) == want for r in ranks)
+        launches_ok = all(r["launches_per_step"].get(k, 0) == r["launches_reckoned_per_step"][k]
+                          for r in ranks for k in PP_KERNELS)
+        peaks_ok = all(abs(r["static_vs_measured"]) <= PEAK_CAL_RTOL for r in ranks)
+        eval_ok = fault or all(abs(r["eval_loss"] - one["eval_loss"]) <= PP_LOSS_TOL
+                               for r in ranks)
+        checks[name] = {"max_abs_loss_diff_vs_pp1": diff, "tol": PP_LOSS_TOL,
+                        "first_loss_diff_vs_pp1": abs(ranks[0]["losses"][0] - one["losses"][0]),
+                        "first_step_grad_rel_err_vs_pp1": grad_err, "worst_tensor": worst,
+                        "grad_tol": PP_GRAD_TOL, "ranks_agree": same,
+                        "ranks_grads_agree": prints[1] == prints[0], "passes_gates": passes,
+                        "launches_as_reckoned": launches_ok, "peaks_within_static": peaks_ok,
+                        "eval_loss_vs_pp1": None if fault else max(
+                            abs(r["eval_loss"] - one["eval_loss"]) for r in ranks),
+                        "ok": finite and same and passes and launches_ok and peaks_ok and eval_ok}
+    fault = checks.pop("pp2_zero_cotangent")
+    fault["ok"] = not fault["passes_gates"]
+    fault["loss_gate_alone_refuses"] = fault["max_abs_loss_diff_vs_pp1"] > PP_LOSS_TOL
+    first_ok = abs(one["losses"][0] - float(np.log(50257))) <= 1.0
+    one_peak_ok = abs(one["static_vs_measured"]) <= PEAK_CAL_RTOL
+    one_launch_ok = all(one["launches_per_step"].get(k, 0) == n
+                        for k, n in one["launches_reckoned_per_step"].items())
+    dp_check = None
+    if dp_run is not None:
+        ranks = [r["pp2_dp2"] for r in dp_run]
+        plan = ranks[0]["plan"]
+        per_step = [s for r in ranks for s in r["issued_per_step"]]
+        issued_ok = all(s["count"]["reduce_scatter"] == s["count"]["all_gather"] == plan["buckets"]
+                        and s["bytes"]["reduce_scatter"] == 4 * plan["padded"]
+                        and s["bytes"]["all_gather"] == 4 * plan["padded"] // 2
+                        for s in per_step)
+        diff = max(abs(a - b) for r in ranks for a, b in zip(r["losses"],
+                                                             runs["pp2_gpipe"][0]["losses"]))
+        for r in ranks:
+            r.pop("grad_prints")
+        peaks_ok = all(abs(r["static_vs_measured"]) <= PEAK_CAL_RTOL for r in ranks)
+        dp_check = dict(runs=ranks, plan=plan, issued_as_planned=issued_ok,
+                        max_abs_loss_diff_vs_pp2_dp1=diff, tol=PP_DP_LOSS_TOL,
+                        peaks_within_static=peaks_ok,
+                        ok=plan["kind"] == "pp" and issued_ok and diff <= PP_DP_LOSS_TOL
+                        and peaks_ok)
+    # pp = 1's peak is reported beside its static figure, not gated: the
+    # dense model leaves out grad_accum's f32 accumulators and prices the
+    # head's logits above what the card holds (PERF.md §7)
+    ok = (first_ok and one_launch_ok and all(c["ok"] for c in checks.values())
+          and fault["ok"] and adam["ok"] and kernels["ok"] and (dp_check is None or dp_check["ok"]))
+    emit("pp_train", seconds=time.perf_counter() - t0, model="gpt2_small", batch=PP_BATCH,
+         seq=PP_SEQ, microbatches=PP_M, steps=steps, runs=runs, checks=checks,
+         planted_fault=fault, pp2_dp2=dp_check, peak_cal_rtol=PEAK_CAL_RTOL,
+         pp1_peak_within_static=one_peak_ok, pp1_launches_as_reckoned=one_launch_ok,
+         card_free_bytes_before_runs=free_before, pp1_beside_the_pair=True,
+         first_loss_near_ln_vocab=first_ok, kernels_at_the_microbatch=kernels,
+         adam8_leaf_stage_row=adam, card=card_line(),
+         transport="batch_isend_irecv over gloo, CUDA tensors staged through pinned host "
+                   "buffers (two ranks share the one card)",
+         never_on_a_card=["NCCL pp hops", "pp across cards", "pp > 2", "pp x dp over NCCL"]
+         + ([] if dp_run is not None else ["pp x dp (--phase pp only)",
+                                           "interleaved (--phase pp only)"]),
+         ok=ok)
+    if not ok:
+        raise RuntimeError(f"the pp runs failed their checks: {checks}, the control: {fault}, "
+                           f"pp x dp: {dp_check}")
+    return dict(runs=runs, adam=adam, kernels=kernels)
+
+
+def _pp_launches(pp, name):
+    """A kernel's launches a step on each pp = 2 rank (stage order), by
+    schedule."""
+    return {run[len("pp2_"):]: [r["launches_per_step"].get(name, 0)
+                                for r in sorted(ranks, key=lambda r: r["stage"])]
+            for run, ranks in pp["runs"].items() if run.startswith("pp2_") and run[4:] != "zero_cotangent"}
+
+
+def pp_kernel_checks(torch, fa, qo):
+    """Each attention kernel against its plain version at the pp path's
+    microbatch (2 x 1024, 12 heads, D 64), and ``adam8_leaf`` at a stage
+    row's shape (``PP_ADAM_SHAPE``)."""
+    res, errs = check_attention(torch, fa, "B1/B2 gpt2_small pp microbatch", PP_BATCH // PP_M,
+                                12, 12, PP_SEQ, 64)
+    adam, _ = check_adam8_leaf(torch, qo, None, PP_ADAM_SHAPE,
+                               "B7 adam8_leaf stage row stages.mlp.w_up (pp=2)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = dict(ms=res["ms"], plain_ms=res["plain_ms"], bound=res["bound"],
+                   tile_err=res["tile_err"], max_abs_err=errs, ok=res["ok"])
+    return kernels, adam
+
+
+def run_pp(torch, fa, qo):
+    """The pp phase (``--phase pp``): the kernels at the pp path's shapes
+    (``pp_kernel_checks``), then gpt2_small training at ``PP_BATCH`` x
+    ``PP_SEQ`` in ``PP_M`` microbatches: one process at pp = 1 with
+    ``grad_accum=PP_M`` beside two gloo ranks on the one card at pp = 2
+    under GPipe, 1F1B and interleaved 1F1B (v = 2), then the control;
+    then four gloo ranks at pp 2 x dp 2 with ``comm_overlap`` (the
+    ``PPSyncPlan``). The gates are ``_pp_line``'s."""
+    t0 = time.perf_counter()
+    kernels, adam = pp_kernel_checks(torch, fa, qo)
+    one_jobs, two_jobs = _pp_jobs(False)
+    one, two, free = _split_runs(torch, "pp", one_jobs, two_jobs)
+    dp_run = _dp_spawn("pp_dp", 4, [dict(kind="pp", name="pp2_dp2", pp=2, dp=2, schedule="gpipe",
+                                         overlap=True, steps=PP_STEPS["phase"], trace=True)])
+    return _pp_line(t0, one["pp1"], two, kernels, adam, free, False, dp_run)
+
+
+def start_tp_ep(torch, fa, qo):
+    """The full run's tp, ep and pp phases in the same three processes
+    (one process at tp = 1, ep = 1, then pp = 1, beside a gloo pair at tp
+    = 2, ep = 2, C3's two runs, then pp = 2 under GPipe and 1F1B and the
+    pp control), at ``TP_RUNS`` / ``EP_RUNS`` / ``C3_RUNS`` /
+    ``PP_STEPS``' full depth: the kernel checks, then the processes
+    started; the returned function waits for them, prints the tp, ep and
+    pp lines and returns ``{"tp", "ep", "pp", "c3"}`` (C3's results per
+    rank). The full run starts them before the resize drill, whose
+    launchers mostly wait, so they run side by side (the steps' times
+    are then not timing-grade; ``--phase tp`` / ``ep`` / ``pp`` /
+    ``resize`` run alone)."""
     t0 = time.perf_counter()
     tp_adam, _ = check_adam8_leaf(torch, qo, None, TP_ADAM_SHAPE,
                                   "B7 adam8_leaf tp-local w_gate (tp=2)")
     ep_adam, _ = check_adam8_leaf(torch, qo, None, EP_ADAM_SHAPE,
                                   "B7 adam8_leaf expert box w_up (ep=2)")
+    pp_kernels, pp_adam = pp_kernel_checks(torch, fa, qo)
     gc.collect()
     torch.cuda.empty_cache()
     tp1, tp2 = _tp_jobs(True)
     ep1, ep2 = _ep_jobs(True)
+    pp1, pp2 = _pp_jobs(True)
     free = torch.cuda.mem_get_info()[0]
-    one = _dp_start("tp_ep1", 1, tp1 + ep1, backend=None)
-    two = _dp_start("tp_ep2", 2, tp2 + ep2 + _c3_jobs(True))
+    one = _dp_start("tp_ep1", 1, tp1 + ep1 + pp1, backend=None)
+    two = _dp_start("tp_ep2", 2, tp2 + ep2 + _c3_jobs(True) + pp2)
 
     def finish():
         try:
@@ -5038,7 +5433,9 @@ def start_tp_ep(torch, qo):
                       free, True)
         ep = _ep_line(t0, res1["ep1"], [{k: r[k] for k in ep_names} for r in res2], ep_adam,
                       free, True)
-        return dict(tp=tp, ep=ep, c3=[{k: r[k] for k in ("dp2", "zero")} for r in res2])
+        pp = _pp_line(t0, res1["pp1"], [{j["name"]: r[j["name"]] for j in pp2} for r in res2],
+                      pp_kernels, pp_adam, free, True)
+        return dict(tp=tp, ep=ep, pp=pp, c3=[{k: r[k] for k in ("dp2", "zero")} for r in res2])
 
     return finish
 
@@ -5138,7 +5535,7 @@ def main() -> int:
     if "--phase" in sys.argv:  # one phase alone; the contract's lines need a full run
         phase = sys.argv[sys.argv.index("--phase") + 1]
         if phase not in ("flash_ckpt", "evict", "dp", "llama", "accel", "peak_memory", "resize",
-                         "c3", "sp", "tp", "ep", "ckpt7b"):
+                         "c3", "sp", "tp", "ep", "pp", "ckpt7b"):
             raise SystemExit(f"unknown phase {phase!r}")
         if phase == "ckpt7b":
             link_calibration(torch)
@@ -5151,6 +5548,8 @@ def main() -> int:
             run_tp(torch, qo)
         elif phase == "ep":
             run_ep(torch, qo)
+        elif phase == "pp":
+            run_pp(torch, fa, qo)
         elif phase == "resize":
             run_resize(torch)
         elif phase == "c3":  # C3 alone, with the allocator's history at each peak
@@ -5200,8 +5599,8 @@ def main() -> int:
     dp_accel = run_dp(torch)
     run_accel(torch, llama["full"]["search"], dp_accel, audit)
     link_arbiter_line(flash=run_flash_ckpt(torch)["arbiter"], spill=spill_link)
-    side = run_resize(torch, side=start_tp_ep(torch, qo))
-    tp, ep = side["tp"], side["ep"]
+    side = run_resize(torch, side=start_tp_ep(torch, fa, qo))
+    tp, ep, pp = side["tp"], side["ep"], side["pp"]
     sp = run_sp(torch, fa, full=True)
 
     src_fa = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"
@@ -5228,6 +5627,8 @@ def main() -> int:
             sp_ring_launches_per_step=sp["runs"]["ring"][0]["launches_per_step"][name],
             tp2_launches_per_step=tp["runs"]["tp2"][0]["launches_per_step"][name],
             ep2_launches_per_step=ep["runs"]["ep2"][0]["launches_per_step"][name],
+            pp2_launches_per_step=_pp_launches(pp, name),
+            pp_microbatch={k: pp["kernels"][k][name] for k in ("ms", "plain_ms", "bound")},
         ))
     src_qo, qo_tpu = "dlrover_tpu_torch/ops/quantized_optim.py", "dlrover_tpu/ops/quantized_optim.py"
     for name, replaces, res, abs_err, n in (
@@ -5242,8 +5643,10 @@ def main() -> int:
             llama2_7b_launches_per_step=llama["full"]["launches_per_step"][name],
             tp2_launches_per_step=tp["runs"]["tp2"][0]["launches_per_step"].get(name, 0),
             ep2_launches_per_step=ep["runs"]["ep2"][0]["launches_per_step"].get(name, 0),
+            pp2_launches_per_step=_pp_launches(pp, name),
             **({"tp_local_w_gate": {k: tp["adam"][k] for k in ("ms", "plain_ms", "bound_ms")},
-                "ep_expert_box_w_up": {k: ep["adam"][k] for k in ("ms", "plain_ms", "bound_ms")}}
+                "ep_expert_box_w_up": {k: ep["adam"][k] for k in ("ms", "plain_ms", "bound_ms")},
+                "pp_stage_row_w_up": {k: pp["adam"][k] for k in ("ms", "plain_ms", "bound_ms")}}
                if name == "adam8_leaf" else {}),
         ))
     emb_tpu = "dlrover_tpu/ops/embedding/device_tier.py"

@@ -153,22 +153,19 @@ def _check_unported(strategy: Strategy, cfg: TransformerConfig, tx) -> None:
     from dlrover_tpu_torch.models.transformer import check_supported
 
     m = strategy.mesh
-    if m.pp > 1:
-        if strategy.offload_opt:
-            # a silently-ignored offload would let a run OOM while its
-            # strategy claims the state left the card
-            raise ValueError(
-                "offload_opt is not supported on the pipeline (pp>1) "
-                "path: pipeline state keeps its own on-device layout"
-            )
-        raise NotImplementedError("pipeline parallelism (pp > 1) is not ported yet (ROADMAP A11b)")
-    for name in ("1f1b", "interleaved"):
-        if name in strategy.opts:
-            raise NotImplementedError(
-                f"the {name} pipeline schedule is not ported yet (ROADMAP A11b)"
-            )
+    if m.pp > 1 and strategy.offload_opt:
+        # a silently-ignored offload would let a run OOM while its
+        # strategy claims the state left the card
+        raise ValueError(
+            "offload_opt is not supported on the pipeline (pp>1) "
+            "path: pipeline state keeps its own on-device layout"
+        )
     check_supported(cfg, m)
-    if getattr(tx, "opt_name", None) == "adamw_8bit_flat" and (m.fsdp > 1 or m.tp > 1 or m.ep > 1):
+    if m.pp > 1:
+        from dlrover_tpu_torch.parallel.pipeline import _check_pipeline_cfg
+
+        _check_pipeline_cfg(cfg, m.pp, strategy.resolved_virtual())
+    if getattr(tx, "opt_name", None) == "adamw_8bit_flat" and max(m.fsdp, m.tp, m.ep, m.pp) > 1:
         # the flat optimizer concatenates every big leaf per step: on a
         # model-sharded mesh that defeats the sharding
         raise ValueError(
@@ -216,16 +213,24 @@ def _build(
     cfg, applied = _apply_strategy(strategy, cfg)
     _check_unported(applied, cfg, tx)
 
+    pp, virtual = applied.mesh.pp, applied.resolved_virtual()
+
     def abstract_state():
         """The state's params on the meta device (shapes and dtypes,
-        no storage)."""
+        no storage); on a pp mesh stage 0's."""
         from dlrover_tpu_torch.models.train import TrainState
 
         with torch.device("meta"):
+            if pp > 1:
+                from dlrover_tpu_torch.parallel.pipeline import PipelineStage
+
+                return TrainState(step=0, params=PipelineStage(cfg, pp, 0, virtual), opt_state=None)
             return TrainState(step=0, params=Transformer(cfg), opt_state=None)
 
     if abstract:
         return cfg, None, None, None, None, abstract_state
+    if pp > 1:
+        return _build_pipeline(cfg, applied, tx, device, before_update, abstract_state)
 
     from dlrover_tpu_torch.models.train import build_train_step, init_state
     from dlrover_tpu_torch.parallel import grad_sync
@@ -269,6 +274,48 @@ def _build(
         m = applied.mesh
         if m.dp * m.fsdp > 1:
             x = x[batch_sharding(mesh, x.shape[0], applied.grad_accum)]
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        return t, t
+
+    return cfg, mesh, step_fn, init_fn, make_batch, abstract_state
+
+
+def _build_pipeline(cfg, applied: Strategy, tx, device, before_update, abstract_state):
+    """``_build``'s pp branch: the mesh, the pipeline step
+    (``parallel/pipeline.build_pipeline_train_step``, the strategy's
+    schedule and microbatches, its ``PPSyncPlan`` under ``comm_overlap``),
+    the rank's stage from the seeded init, and its rows of a batch (every
+    stage of a data coordinate the same rows)."""
+    import torch
+
+    from dlrover_tpu_torch.parallel import grad_sync
+    from dlrover_tpu_torch.parallel.mesh import batch_sharding
+    from dlrover_tpu_torch.parallel.pipeline import build_pipeline_train_step, init_pipeline_state
+    from dlrover_tpu_torch.utils.device import resolve_device
+
+    if applied.grad_accum > 1:
+        raise ValueError(
+            "grad_accum does not apply to pipeline strategies — use num_microbatches"
+        )
+    dev = resolve_device(device)
+    mesh = _mesh_for(applied.mesh, dev.type)
+    plan = grad_sync.resolve_plan(cfg, applied)
+    virtual = applied.resolved_virtual()
+    M = max(applied.num_microbatches, 1)
+    step_fn = build_pipeline_train_step(
+        cfg, tx, mesh, M, schedule=applied.resolved_pp_schedule(),
+        virtual_stages=applied.pp_virtual, plan=plan, before_update=before_update,
+    )
+
+    def init_fn(seed: int = 0, device_generator: bool = False):
+        gen = torch.Generator(device=dev).manual_seed(seed) if device_generator else None
+        return init_pipeline_state(cfg, tx, mesh, virtual, seed=seed, devices=dev, generator=gen)
+
+    def make_batch(batch, seq):
+        rng = np.random.default_rng(0)
+        x = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int64)
+        if applied.mesh.dp > 1:
+            x = x[batch_sharding(mesh, batch, M)]
         t = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
         return t, t
 
@@ -352,9 +399,11 @@ def static_peak_bytes(
     batch: int,
     seq: int,
     leaves=None,
+    stage: Optional[int] = None,
 ) -> float:
     """Peak device bytes of one train step on one rank, reckoned from the
-    shapes alone (nothing is allocated). ``cfg`` and ``strategy`` as
+    shapes alone (nothing is allocated). On a pp mesh the rank of
+    ``stage`` (None: the largest over the stages; ``_pp_peak_bytes``). ``cfg`` and ``strategy`` as
     ``_build`` applies them. For this rank's microbatch of ``tok``
     tokens and a compute dtype of ``ab`` bytes:
 
@@ -439,9 +488,12 @@ def static_peak_bytes(
 
     from dlrover_tpu_torch.parallel import grad_sync
 
+    m = strategy.mesh
+    if m.pp > 1:
+        stages = range(m.pp) if stage is None else (stage,)
+        return max(_pp_peak_bytes(cfg, strategy, tx, batch, seq, s) for s in stages)
     if leaves is None:
         leaves = grad_sync.model_leaves(cfg)
-    m = strategy.mesh
     tp = max(m.tp, 1)
     plan_leaves = leaves
     if tp > 1 or m.ep > 1:
@@ -530,6 +582,133 @@ def static_peak_bytes(
         shard = p_bytes / m.fsdp
         return shard + state + max(shard + trans, sync, live + regathered)
     return p_bytes + state + max(grads + trans, sync, live, bwd_end)
+
+
+def _block_bytes(cfg: TransformerConfig, tok: int, ab: int, block_params: float, pb: int) -> float:
+    """What one block saves for its backward, for ``tok`` tokens
+    (``static_peak_bytes``' per-token set; tp = 1), with its weights' casts
+    when the params are wider than the compute dtype."""
+    D, F = cfg.model_dim, cfg.ffn_dim
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    per_tok = (
+        2 * (8 if cfg.rmsnorm else 12) * D
+        + 2 * ab * D
+        + ab * (q + 2 * kv + q)
+        + (ab * (q + kv) if cfg.rope else 0)
+        + ab * F * (4 if cfg.swiglu else 2)
+    )
+    return tok * per_tok + (block_params * ab if pb > ab else 0.0)
+
+
+def _pp_peak_bytes(cfg: TransformerConfig, strategy: Strategy, tx, batch: int, seq: int,
+                   stage: int) -> float:
+    """``static_peak_bytes`` of the rank of pipeline ``stage``
+    (``parallel/pipeline``), for its rows of a microbatch, ``tok`` tokens
+    (``batch / (M dp)`` rows of ``seq``), ``X = tok x D`` activations and
+    one block's saved set ``a`` (``_block_bytes``): the resident leaves
+    (the shared ones and the stage row, ``PipelineStage``) and their
+    optimizer state, plus the largest of three phases.
+
+    - The schedule, walked on the rank's own tick clock (``_slots``): the
+      grads as they appear (the stage's at its first backward, the
+      table's f32 gradient on stage 0 at its first embedding backward,
+      the head weight's on the last stage at its first head) beside the
+      saved microbatches (GPipe: each one's graph, under remat its
+      blocks' inputs and output ``(L_c + 1) X``, else ``L_c a + X``, and
+      on the last stage its head's cotangent ``X``; 1F1B: its input
+      ``X``) and the op's transient: a forward's block ``a``; the
+      embedding's table cast to the compute dtype; the head's backward,
+      five f32 logits-sized tensors and the table's cast; a backward's
+      working set ``w = 0.75 a`` (the activations' and weights' grads)
+      with the cotangent in and out ``2X``, beside, under GPipe with
+      remat, the checkpoint's recompute of the block and its unpacked
+      copy (``2a``), under 1F1B the chunk's ``L_c`` blocks recomputed
+      without remat.
+    - The sync: every grad (zeros for a shared leaf the stage never
+      used), the shared leaves' f32 concatenation (the pp sum) with the
+      backend's copy of it; under a ``PPSyncPlan`` instead one bucket in
+      flight (the backend's copies of its reduce-scatter input and its
+      all-gather output, and the scattered chunk); without a plan at dp
+      > 1 the stage grads' concatenation with its copy.
+    - The update: the grads and the optimizer's transient.
+
+    Held to an H100 80GB HBM3 at 700 W by ``chip_smoke.py --phase pp``
+    (gpt2_small, 8 x 1024 in 4 microbatches, remat, per-leaf 8-bit
+    AdamW; ``PEAK_CAL_RTOL``): the constants of ``w`` and the GPipe
+    recompute are read off its allocator history (PERF.md, PR 16)."""
+    import torch
+
+    from dlrover_tpu_torch.parallel import grad_sync
+    from dlrover_tpu_torch.parallel.pipeline import PipelineStage, _slots
+
+    m = strategy.mesh
+    P, v = m.pp, strategy.resolved_virtual()
+    schedule = strategy.resolved_pp_schedule()
+    M = max(strategy.num_microbatches, 1)
+    with torch.device("meta"):
+        st = PipelineStage(cfg, P, stage, v)
+    leaves = st.jax_ordered_parameters()
+
+    def nbytes(ps):
+        return float(sum(p.numel() * p.element_size() for p in ps))
+
+    p_bytes, shared_bytes = nbytes(leaves), nbytes(st.shared_parameters())
+    stage_bytes = p_bytes - shared_bytes
+    state, trans, _ = _opt_state_bytes(tx, leaves)
+    ab = 2 if cfg.dtype in ("bfloat16", "float16") else 4
+    pb = torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size()
+    tok = max(batch // (M * max(m.dp, 1)), 1) * seq
+    D, V = cfg.model_dim, cfg.vocab_size
+    X = float(tok * D * ab)
+    L_c = cfg.num_layers // (P * v)  # a chunk's blocks
+    a = _block_bytes(cfg, tok, ab, stage_bytes / pb / max(L_c * v, 1), pb)
+    w = 0.75 * a
+    gpipe = schedule == "gpipe"
+    first, last = stage == 0, stage == P - 1
+    table = V * D * pb
+    emb_grad = table + (0.0 if cfg.rope else cfg.max_seq_len * D * pb)
+    head_grad = table  # the tied table's, or the untied head's D x V
+    head = 5.0 * 4 * tok * V + V * D * ab
+    if gpipe:
+        graph = (L_c + 1) * X if cfg.remat else L_c * a + X
+        bwd = (2 * a if cfg.remat else 0.0) + w + 2 * X
+    else:
+        graph, bwd = X, L_c * a + w + 2 * X
+    n_ticks, fwd_slot, bwd_slot = _slots(schedule, P, M, v)
+    g = saved = run = 0.0
+    got_stage = got_emb = got_head = False
+    for t in range(n_ticks):
+        f, b = fwd_slot(stage, t), bwd_slot(stage, t)
+        if f is not None:
+            q = f[1]
+            if first and q == 0:  # the embedding: the table's cast
+                run = max(run, g + saved + V * D * ab + X)
+            saved += graph
+            run = max(run, g + saved + a)
+            if last and q == v - 1:
+                if not got_head:
+                    g, got_head = g + head_grad, True
+                run = max(run, g + saved + head)
+                if gpipe:
+                    saved += X  # the cotangent kept for the backward
+        if b is not None:
+            q = b[1]
+            if not got_stage:
+                g, got_stage = g + stage_bytes, True
+            run = max(run, g + saved + bwd)
+            saved -= graph + (X if gpipe and last and q == v - 1 else 0.0)
+            if first and q == 0 and not got_emb:
+                g, got_emb = g + emb_grad, True
+    grads = p_bytes
+    shared_f32 = 4.0 * shared_bytes / pb
+    sync = grads + 2 * shared_f32
+    plan = grad_sync.resolve_plan(cfg, strategy) if m.dp > 1 else None
+    if plan is not None:
+        big = 4.0 * max(b.padded for b in plan.buckets)
+        sync = grads + shared_f32 + 2 * big + big / m.dp
+    elif m.dp > 1:
+        sync = max(sync, grads + 2 * 4.0 * stage_bytes / pb)
+    return p_bytes + state + max(run, sync, grads + trans)
 
 
 def _moe_block_bytes(cfg: TransformerConfig, tok: int, ab: int) -> float:

@@ -5,7 +5,8 @@ transforms of ``(TransformerConfig, Strategy)``).
 In the port, names whose machinery is not ported yet still apply as
 transforms; ``accel/dry_runner._build`` then raises on the result,
 naming the ROADMAP item, as ``models/transformer.check_supported``
-does: ``int8_mlp`` (A12), ``1f1b`` / ``interleaved`` (pipeline, A11b).
+does: ``int8_mlp`` (A12). ``1f1b`` / ``interleaved`` set the pipeline
+schedule that ``parallel/pipeline.py`` runs on a pp mesh.
 ``sp_auto`` reads the sequence-parallel scheme table
 (``parallel/sp_select.py``, measured on the H100): on a strategy
 without an sp axis it is the JAX package's no-op.
@@ -122,10 +123,9 @@ register_optimization(
 # reduce-scatter into the fsdp shard layout on dp x fsdp, the
 # bucketed dp sync of each tp coordinate's boxes on dp x tp/sp, ZeRO
 # on the tp-local leaves on 3D dp x fsdp x tp, the expert and dense
-# plans of dp x ep — and grad_accum syncs once per optimizer step
-# instead of per microbatch. The JAX package's mesh matrix also takes
-# pp x dp (per-stage sync into the pipeline bubble) on the explicit
-# path (ROADMAP A11b here). Tunable: auto_accelerate's candidate stamping may apply
+# plans of dp x ep, the per-stage plans of pp x dp after the
+# pipeline's drain — and grad_accum syncs once per optimizer step
+# instead of per microbatch. Tunable: auto_accelerate's candidate stamping may apply
 # it across the whole candidate list; the remaining exotica (pp/ep
 # composed with other model axes) fall back to the GSPMD default
 # schedule inside the step builders with a once-per-mesh log naming

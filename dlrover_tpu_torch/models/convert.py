@@ -20,6 +20,12 @@ cuts the boxes, ``params_to_numpy`` and ``jax_train_state`` gather them
 back to whole leaves (the per-leaf 8-bit codes and scales, quantized in
 each box's own blocks, come back stacked ``[tp, ...]``), and a rank
 stages a split leaf's tensors as their boxes of the whole leaf.
+Under pipeline parallelism (pp > 1) a rank holds its
+``parallel/pipeline.PipelineStage``: its row ``[s]`` of each JAX
+stage-stacked leaf (``[d]`` of ``[pp, v, L/(pp v), ...]`` when
+interleaved), the same machinery's boxes along dim 0 over the ``pp``
+group, and the shared leaves (embedding, final norm, head) whole, staged
+by stage 0 alone.
 Optimizer state maps form for form: ``Adam8FlatState`` to
 ``adamw_8bit_flat`` (the same group layout), ``Adam8State`` to
 ``adamw_8bit`` (its 4-bit form's nibble-packed first moment included),
@@ -62,31 +68,50 @@ def _count_leaves(tree) -> int:
 
 def _tp_names(cfg: TransformerConfig, mesh):
     """(degree, coordinate, group, each parameter's split dim by name) of
-    the axis that splits the mesh's leaves (tp's, or ep's:
-    ``sharding_rules.split_of``)."""
+    the axis that splits the mesh's leaves (tp's, ep's, or pp's rows of
+    the stage-stacked leaves: ``sharding_rules.split_of``)."""
     from dlrover_tpu_torch.parallel.sharding_rules import split_of, tp_dims
 
     axis, tp, coord, group = split_of(mesh)
+    if axis == "pp":
+        from dlrover_tpu_torch.parallel.pipeline import stage_dims
+
+        return tp, coord, group, stage_dims(cfg)
     return tp, coord, group, (tp_dims(cfg, tp, axis) if tp > 1 else {})
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: TransformerConfig, device=None,
-                    mesh=None) -> Transformer:
+                    mesh=None, virtual: int = 1) -> Transformer:
     """The JAX param pytree (numpy leaves; layers as a list, or stacked
     ``[L, ...]`` leaves under ``cfg.scan_layers``) -> the port's
     ``Transformer`` on ``device`` (default the CPU); with a ``mesh`` of
     tp > 1 this rank's tp boxes of the leaves. ``stack_layer_params`` /
     ``unstack_layer_params`` (``models/transformer.py``) move a tree
-    between the two layouts."""
+    between the two layouts. With a ``mesh`` of pp > 1 the tree is the
+    JAX pipeline's stacked one (``stages`` leaves ``[pp, L/pp, ...]``, or
+    ``[pp, v, L/(pp v), ...]`` with ``virtual=v``) and the result this
+    rank's ``parallel/pipeline.PipelineStage``: its row of each stage
+    leaf, the shared leaves whole."""
     from dlrover_tpu_torch.parallel.sharding_rules import local_shard
 
-    stacked = isinstance(np_tree.get("layers"), dict)
-    if stacked != cfg.scan_layers:
-        raise ValueError(
-            f"the tree's layers are {'stacked' if stacked else 'a list'}, "
-            f"the config's scan_layers={cfg.scan_layers}"
-        )
-    model = Transformer(cfg, device=device, mesh=mesh)
+    pp = getattr(getattr(mesh, "config", mesh), "pp", 1) if mesh is not None else 1
+    if pp > 1 or "stages" in np_tree:
+        if pp == 1 or "stages" not in np_tree:
+            raise ValueError(
+                f"a pipeline tree (stages) goes to a pp mesh: the tree has "
+                f"{'no ' if 'stages' not in np_tree else ''}stages, the mesh pp={pp}"
+            )
+        from dlrover_tpu_torch.parallel.pipeline import PipelineStage
+
+        model = PipelineStage(cfg, pp, getattr(mesh, "stage", 0), virtual, device=device)
+    else:
+        stacked = isinstance(np_tree.get("layers"), dict)
+        if stacked != cfg.scan_layers:
+            raise ValueError(
+                f"the tree's layers are {'stacked' if stacked else 'a list'}, "
+                f"the config's scan_layers={cfg.scan_layers}"
+            )
+        model = Transformer(cfg, device=device, mesh=mesh)
     tp, coord, _, dims = _tp_names(cfg, mesh)
     n = 0
     with torch.no_grad():
@@ -311,14 +336,15 @@ def _tp_parts(model: Transformer, mesh):
     from dlrover_tpu_torch.parallel.sharding_rules import split_of
 
     tp, coord, group, dims = _tp_names(model.cfg, mesh)
-    ep = split_of(mesh)[0] == "ep"
+    rows = split_of(mesh)[0] in ("ep", "pp")
     parts = []
     if tp > 1:
         for pp, p in _param_paths(model):
             d = dims.get(pp.replace("/", "."))
-            # an ep rank's experts (a box along dim 0) whose elements
-            # fill whole 128-blocks are a run of the whole leaf's blocks
-            parts.append((pp, d, ep and d == 0 and p.numel() % BLOCK == 0))
+            # an ep rank's experts, a pp rank's stage row (a box along dim
+            # 0) whose elements fill whole 128-blocks are a run of the
+            # whole leaf's blocks
+            parts.append((pp, d, rows and d == 0 and p.numel() % BLOCK == 0))
     return tp, coord, group, parts
 
 

@@ -61,9 +61,16 @@ the JAX ``loss_fn`` does. On a mesh with ``ep > 1`` each ep rank holds
 its ``E/ep`` experts of every expert leaf (``sharding_rules.split_of``)
 and the layer exchanges its buckets over the ``ep`` group.
 
+Pipeline parallelism (a mesh with ``pp > 1``) runs the blocks of a
+stage on each pp rank: ``parallel/pipeline.PipelineStage`` holds them,
+drawn by this module's ``leaf_maker`` in the order ``Transformer`` draws
+them, and runs them through ``_attention_block`` / ``_mlp_block``,
+``embed_tokens`` and ``lm_head``.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: pipeline parallelism (A11b), MoE or ep composed with fsdp x ep,
-tp or sp (A19), ``int8_mlp`` (A12), the KV-cache decode paths (A14).
+item: pp composed with fsdp, tp or sp (A11c), MoE or ep composed with
+fsdp x ep, tp or sp (A19), ``int8_mlp`` (A12), the KV-cache decode paths
+(A14).
 """
 
 from __future__ import annotations
@@ -101,17 +108,31 @@ def _torch_dtype(name: str) -> torch.dtype:
 def check_supported(cfg: TransformerConfig, mesh=None) -> None:
     """Raise for the configuration switches the port does not run yet.
     ``mesh``: a ``parallel/mesh.Mesh`` or its ``MeshConfig``; the data
-    axes, sp, tp and ep run, a pp axis raises naming its ROADMAP item, so
-    does MoE or ep composed with fsdp x ep, tp or sp; a tp degree that
-    does not divide the heads, the kv heads or the MLP width, or an ep
-    degree on a dense model or one that does not divide the experts,
+    axes, sp, tp, ep and pp (alone or with dp) run. pp composed with
+    fsdp, tp or sp raises naming its ROADMAP item, so does MoE or ep
+    composed with fsdp x ep, tp or sp; pp x ep, a model the pipeline
+    cannot stage (``parallel/pipeline._check_pipeline_cfg``), a tp degree
+    that does not divide the heads, the kv heads or the MLP width, or an
+    ep degree on a dense model or one that does not divide the experts,
     raises ``ValueError``."""
     if mesh is not None:
         m = getattr(mesh, "config", mesh)
         if m.pp > 1:
-            raise NotImplementedError(
-                "pipeline parallelism is not ported yet (ROADMAP A11b)"
-            )
+            if m.ep > 1:
+                # the JAX package scopes EP x PP out: MoE blocks and the
+                # stage-stacked layout are separate optimizations
+                raise ValueError(
+                    f"pp={m.pp} x ep={m.ep}: pipeline parallelism with expert "
+                    f"parallelism is not supported (use ep without pp)"
+                )
+            others = [a for a in ("fsdp", "tp", "sp") if getattr(m, a) > 1]
+            if others:
+                raise NotImplementedError(
+                    f"pp x {' x '.join(others)} is not ported yet (ROADMAP A11c)"
+                )
+            from dlrover_tpu_torch.parallel.pipeline import _check_pipeline_cfg
+
+            _check_pipeline_cfg(cfg, m.pp)
         others = [a for a in ("fsdp", "tp", "sp") if getattr(m, a) > 1]
         if m.ep > 1 and others:
             raise NotImplementedError(
@@ -221,6 +242,58 @@ def layer_views(layers) -> list:
     ]
 
 
+def leaf_maker(cfg: TransformerConfig, generator: Optional[torch.Generator] = None,
+               device=None, mesh=None):
+    """``make(name, kind, shape, fan_in=None)``: one parameter leaf by its
+    list-layout name, ``kind`` "dense" (``N(0, 1/fan_in)`` from
+    ``generator``, drawn whole on the generator's own device: the same
+    seed gives the same weights on every device), "ones" or "zeros"
+    (also "dense" without a generator), cut to this rank's tp (ep) box
+    and moved to ``device`` in ``cfg.param_dtype``. The draws advance
+    ``generator`` in call order: ``Transformer`` and
+    ``parallel/pipeline.PipelineStage`` call it leaf by leaf in one
+    order, so both hold the same weights of one seed."""
+    pd = _torch_dtype(cfg.param_dtype)
+    axis, tp, coord, _ = split_of(mesh)
+    # each leaf's dim on the splitting axis (tp's or ep's), by its
+    # list-layout name (the names the leaves are drawn under); the pp
+    # axis splits no leaf of this tree
+    dims = tp_dims(list_layout(cfg), tp, axis) if tp > 1 and axis != "pp" else {}
+
+    def make(name, kind, shape, fan_in=None):
+        dim = dims.get(name)
+        if kind == "dense" and generator is not None:
+            w = torch.randn(shape, generator=generator, device=generator.device) * fan_in**-0.5
+            if dim is not None:
+                # a copy of the box alone: the whole leaf is freed
+                w = local_shard(w, dim, tp, coord).clone(memory_format=torch.contiguous_format)
+        elif kind == "ones":
+            w = torch.ones(local_shape(shape, dim, tp))
+        else:
+            w = torch.zeros(local_shape(shape, dim, tp))
+        p = nn.Parameter(w.to(device=device, dtype=pd))
+        if dim is not None:
+            # the 8-bit AdamW decides quantization on the whole leaf
+            p.leaf_numel = int(np.prod(shape))
+        return p
+
+    return make
+
+
+def shared_leaves(cfg: TransformerConfig, make):
+    """The leaves outside the blocks, drawn in ``Transformer``'s order:
+    ``(embed, final_norm, lm_head or None)``."""
+    d = cfg.model_dim
+    embed = nn.ParameterDict({"tokens": make("embed.tokens", "dense", (cfg.vocab_size, d), d)})
+    final_norm = nn.ParameterDict({"scale": make("final_norm.scale", "ones", (d,))})
+    if not cfg.rmsnorm:
+        final_norm["bias"] = make("final_norm.bias", "zeros", (d,))
+    if not cfg.rope:
+        embed["positions"] = make("embed.positions", "dense", (cfg.max_seq_len, d), d)
+    head = None if cfg.tie_embeddings else make("lm_head", "dense", (d, cfg.vocab_size), d)
+    return embed, final_norm, head
+
+
 class Transformer(nn.Module):
     """The parameter tree (see the module docstring); the model runs
     through the free function ``forward``. With a ``mesh`` of tp > 1 or
@@ -239,43 +312,10 @@ class Transformer(nn.Module):
         super().__init__()
         check_supported(cfg, mesh)
         self.cfg = cfg
-        pd = _torch_dtype(cfg.param_dtype)
-        axis, tp, coord, _ = split_of(mesh)
-        # each leaf's dim on the splitting axis (tp's or ep's), by its
-        # list-layout name (the names the leaves are drawn under)
-        dims = tp_dims(list_layout(cfg), tp, axis) if tp > 1 else {}
-
-        def make(name, kind, shape, fan_in=None):
-            # drawn whole from the explicit generator on its own device
-            # (the CPU's: the same seed gives the same weights on every
-            # device), cut to this rank's box, then moved
-            dim = dims.get(name)
-            if kind == "dense" and generator is not None:
-                w = torch.randn(shape, generator=generator, device=generator.device) * fan_in**-0.5
-                if dim is not None:
-                    # a copy of the box alone: the whole leaf is freed
-                    w = local_shard(w, dim, tp, coord).clone(memory_format=torch.contiguous_format)
-            elif kind == "ones":
-                w = torch.ones(local_shape(shape, dim, tp))
-            else:
-                w = torch.zeros(local_shape(shape, dim, tp))
-            p = nn.Parameter(w.to(device=device, dtype=pd))
-            if dim is not None:
-                # the 8-bit AdamW decides quantization on the whole leaf
-                p.leaf_numel = int(np.prod(shape))
-            return p
-
-        d = cfg.model_dim
-        self.embed = nn.ParameterDict(
-            {"tokens": make("embed.tokens", "dense", (cfg.vocab_size, d), d)}
-        )
-        self.final_norm = nn.ParameterDict({"scale": make("final_norm.scale", "ones", (d,))})
-        if not cfg.rmsnorm:
-            self.final_norm["bias"] = make("final_norm.bias", "zeros", (d,))
-        if not cfg.rope:
-            self.embed["positions"] = make("embed.positions", "dense", (cfg.max_seq_len, d), d)
-        if not cfg.tie_embeddings:
-            self.lm_head = make("lm_head", "dense", (d, cfg.vocab_size), d)
+        make = leaf_maker(cfg, generator, device, mesh)
+        self.embed, self.final_norm, head = shared_leaves(cfg, make)
+        if head is not None:
+            self.lm_head = head
         # drawn layer by layer in both layouts: a stacked model holds the
         # list layout's weights of the same seed
         layers = [_Layer(cfg, make, f"layers.{i}.", i) for i in range(cfg.num_layers)]

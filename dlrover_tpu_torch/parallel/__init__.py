@@ -5,9 +5,9 @@ measured link-cost model (``topology.py``), the SDC detector's per-lane
 fence (``sdc.py``), sequence parallelism (``ring_attention.py``,
 ``ulysses.py``), the tensor- and expert-parallel layouts
 (``sharding_rules.py``), MoE layers over the ep group (``moe.py``, with
-the all-to-all it shares with Ulysses, ``collectives.py``) and the
-host-link arbiter (``transfer_sched.py``). Pipeline parallelism is
-ROADMAP A11b."""
+the all-to-all it shares with Ulysses, ``collectives.py``), pipeline
+parallelism over the pp group (``pipeline.py``) and the host-link
+arbiter (``transfer_sched.py``)."""
 
 from dlrover_tpu_torch.parallel.grad_sync import (  # noqa: F401
     BucketPlan,

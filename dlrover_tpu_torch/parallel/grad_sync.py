@@ -98,8 +98,14 @@ a sync's wire time per link from it, as in the JAX package.
   the grad norm is ``sqrt(sum_ep(expert squares) + dense squares)``.
   ep plans never compress (the JAX ``_plan_for_ep`` plans none).
 
-What raises instead, naming the ROADMAP item that brings it: plans of
-kind ``pp`` (A11b).
+- **pp** (pp x dp; ``PPSyncPlan``, the JAX class): ``stage_plan``
+  buckets ONE stage's leaves (the stage-local shapes of the stacked
+  leaves), which every stage rank walks over its own leaves, and
+  ``shared_plan`` the shared leaves (embedding, final norm, head) every
+  stage holds; each syncs over the rank's dp group by the dp legs, once
+  the pipeline's drain ends (``parallel/pipeline``; the shared grads are
+  summed over pp first). pp plans never compress (the JAX
+  ``plan_for_pipeline`` plans none).
 """
 
 from __future__ import annotations
@@ -109,8 +115,6 @@ from dataclasses import dataclass
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
-
-_KIND_ITEM = {"pp": "ROADMAP A11b (pipeline parallelism)"}
 
 # bytes per element of the dtypes a leaf may carry (numpy cannot name
 # bfloat16 without ml_dtypes)
@@ -126,19 +130,6 @@ def _numel(shape) -> int:
 
 def _dtype_name(dt) -> str:
     return str(dt).removeprefix("torch.")
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"gradient-sync plans of kind {kind!r} are not ported yet "
-        f"({_KIND_ITEM[kind]})"
-    )
-
-
-def _check_ported(kind: str) -> None:
-    """Raise for the plan kinds the port has no sync for."""
-    if kind in _KIND_ITEM:
-        raise _not_ported(kind)
 
 
 # assumed fraction of sync wire time hidden behind backward compute
@@ -790,7 +781,6 @@ def plan_buckets(
             "must be the tp-LOCAL shards — use resolve_plan/"
             "plan_for_mesh, not plan_buckets directly)"
         )
-    _check_ported(kind)
     shapes, dtypes = _leaf_meta(leaves)
     buckets: List[Bucket] = []
     start = 0
@@ -879,8 +869,8 @@ def note_gspmd_fallback(axis_sizes: dict, reason: str = "") -> None:
     logger.info(
         f"grad_sync: mesh {sizes or {'dp': 1}} keeps the default "
         f"schedule{' (' + reason + ')' if reason else ''}; the explicit "
-        f"bucketed path supports dp, dp x fsdp, dp x tp/sp and "
-        f"dp x fsdp x tp meshes here (grad_sync_path=gspmd)"
+        f"bucketed path supports dp, dp x fsdp, dp x tp/sp, "
+        f"dp x fsdp x tp and pp x dp meshes here (grad_sync_path=gspmd)"
     )
 
 
@@ -1015,7 +1005,6 @@ def _plan_for_mode(
     params_shape=None, slices: int = 1,
     topk_density: float = AUTO_TOPK_DENSITY, whole_dcn: bool = False,
 ) -> BucketPlan:
-    _check_ported(mode.kind)
     if params_shape is None:
         params_shape = model_leaves(cfg)
     if grad_compress == "auto":
@@ -1078,6 +1067,105 @@ def _plan_for_mode(
 # the port's ZeRO layout cuts every leaf into whole blocks of the 8-bit
 # AdamW's quantization block (``ops/quantized_optim.BLOCK``)
 ZERO_LEAF_BLOCK = 128
+
+
+@dataclass(frozen=True)
+class PPSyncPlan:
+    """Per-stage bucketed sync for a pp x dp mesh (SyncMode "pp"; the JAX
+    class). ``stage_plan`` buckets ONE stage's leaves (stage-local
+    shapes): every stage rank walks it over its own leaves, each
+    collective within its stage's dp group. ``shared_plan`` covers the
+    embedding / final-norm / head leaves every stage holds (synced
+    identically on each stage). Quacks like a ``BucketPlan`` for the
+    trainer and the cost model."""
+
+    stage_plan: BucketPlan
+    shared_plan: BucketPlan
+    pp: int
+    dp: int
+    schedule: str = "gpipe"
+    kind: str = "pp"
+    compress: str = "none"
+
+    @property
+    def buckets(self) -> Tuple[Bucket, ...]:
+        return self.stage_plan.buckets + self.shared_plan.buckets
+
+    @property
+    def num_buckets(self) -> int:
+        return self.stage_plan.num_buckets + self.shared_plan.num_buckets
+
+    @property
+    def two_level(self) -> bool:
+        return self.stage_plan.two_level
+
+    @property
+    def slices(self) -> int:
+        return self.stage_plan.slices
+
+    @property
+    def raw_bytes(self) -> int:
+        """Per-rank raw bytes of one sync (a rank holds 1/pp of the
+        stage leaves plus the shared leaves)."""
+        return self.stage_plan.raw_bytes + self.shared_plan.raw_bytes
+
+    @property
+    def wire_bytes(self) -> int:
+        return self.stage_plan.wire_bytes + self.shared_plan.wire_bytes
+
+    def explicit_wire_bytes(self) -> int:
+        return self.stage_plan.explicit_wire_bytes() + self.shared_plan.explicit_wire_bytes()
+
+    def gspmd_allreduce_bytes(self) -> int:
+        return self.stage_plan.gspmd_allreduce_bytes() + self.shared_plan.gspmd_allreduce_bytes()
+
+    def describe(self) -> str:
+        return (
+            f"pp{self.pp} x dp{self.dp} [{self.schedule}] per-stage "
+            f"sync: {self.stage_plan.num_buckets} stage buckets + "
+            f"{self.shared_plan.num_buckets} shared, "
+            f"{self.raw_bytes >> 10} KiB raw -> "
+            f"{self.wire_bytes >> 10} KiB wire per device/sync, "
+            f"after the pipeline's drain"
+        )
+
+
+def plan_for_pipeline(
+    cfg,
+    axis_sizes: dict,
+    grad_bucket_mb: int = 4,
+    slices: int = 1,
+    schedule: str = "gpipe",
+    virtual: int = 1,
+) -> Optional[PPSyncPlan]:
+    """Gate + plan for the pipeline step: a ``PPSyncPlan`` when the mesh
+    is pp x dp (SyncMode "pp"), else None (also when the model cannot
+    pipeline at this degree). int8 is not planned on pipeline plans;
+    the dp legs honor ``slices`` (two-level)."""
+    from dlrover_tpu_torch.parallel.pipeline import _check_pipeline_cfg, pipeline_leaves
+
+    mode = resolve_sync_mode(axis_sizes)
+    if mode is None or mode.kind != "pp":
+        return None
+    pp, dp = mode.pp, mode.dp
+    try:
+        _check_pipeline_cfg(cfg, pp, virtual)
+    except ValueError:
+        # the step builder will reject the strategy; a plan would be
+        # fiction
+        return None
+    slices = slices if 1 < slices < dp else 1
+    stage_local, shared = pipeline_leaves(cfg, pp, virtual)
+    bucket_bytes = resolve_bucket_bytes(grad_bucket_mb, dp=dp, slices=slices)
+    return PPSyncPlan(
+        stage_plan=plan_buckets(stage_local, dp=dp, bucket_bytes=bucket_bytes,
+                                slices=slices, kind="pp"),
+        shared_plan=plan_buckets(shared, dp=dp, bucket_bytes=bucket_bytes,
+                                 slices=slices, kind="pp"),
+        pp=pp,
+        dp=dp,
+        schedule=schedule,
+    )
 
 
 @dataclass(frozen=True)
@@ -1236,7 +1324,10 @@ def plan_for_mesh(
     if mode is None:
         return None
     if mode.kind == "pp":
-        raise _not_ported("pp")
+        # the non-pipeline step asked about a pp mesh: its flat grad list
+        # has no stage structure to key buckets on (the pipeline step
+        # plans through ``plan_for_pipeline``)
+        return None
     slices = slices if slices > 1 else mesh.config.dp_slices()
     if slices > 1 and mode.dp % slices:
         raise ValueError(
@@ -1260,8 +1351,8 @@ def resolve_plan(
     requires the explicit path) is requested AND the mesh qualifies
     (``resolve_sync_mode``). A mesh that resolves to no mode (dp = 1
     and fsdp = 1, for one) keeps the default path with a once-per-mesh
-    log naming why. Kinds this port has no sync for raise, naming their
-    ROADMAP item. A hybrid dp axis (``MeshConfig.dp_slices() > 1``)
+    log naming why; pp x dp returns a ``PPSyncPlan``
+    (``plan_for_pipeline``). A hybrid dp axis (``MeshConfig.dp_slices() > 1``)
     plans the two-level schedule on the dp legs."""
     if not strategy.resolved_comm_overlap():
         return None
@@ -1279,7 +1370,15 @@ def resolve_plan(
             f"the manual region syncs per call",
         )
         return None
-    _check_ported(mode.kind)
+    if mode.kind == "pp":
+        return plan_for_pipeline(
+            cfg,
+            sizes,
+            grad_bucket_mb=strategy.grad_bucket_mb,
+            slices=strategy.mesh.dp_slices(),
+            schedule=strategy.resolved_pp_schedule(),
+            virtual=strategy.resolved_virtual(),
+        )
     slices = strategy.mesh.dp_slices()
     return _plan_for_mode(
         cfg,
@@ -1297,13 +1396,21 @@ def resolve_plan(
 
 # -- collectives ------------------------------------------------------------
 
-# every collective issued, by kind (tests count them per step)
+# every collective issued, by kind, and the bytes of their inputs (tests
+# and chip_smoke.py's pp phase count them per step)
 issued = {"reduce_scatter": 0, "all_to_all": 0, "all_gather": 0, "all_reduce": 0}
+issued_bytes = dict.fromkeys(issued, 0)
 
 
 def reset_counts() -> None:
     for k in issued:
         issued[k] = 0
+        issued_bytes[k] = 0
+
+
+def _count(kind: str, t) -> None:
+    issued[kind] += 1
+    issued_bytes[kind] += t.numel() * t.element_size()
 
 
 def _reduce_scatter(inp, group):
@@ -1314,7 +1421,7 @@ def _reduce_scatter(inp, group):
 
     n = dist.get_world_size(group)
     out = torch.empty(inp.numel() // n, dtype=inp.dtype, device=inp.device)
-    issued["reduce_scatter"] += 1
+    _count("reduce_scatter", inp)
     return out, dist.reduce_scatter_tensor(out, inp, group=group, async_op=True)
 
 
@@ -1325,7 +1432,7 @@ def _all_gather(inp, group):
 
     n = dist.get_world_size(group)
     out = torch.empty(inp.numel() * n, dtype=inp.dtype, device=inp.device)
-    issued["all_gather"] += 1
+    _count("all_gather", inp)
     return out, dist.all_gather_into_tensor(out, inp, group=group, async_op=True)
 
 
@@ -1336,7 +1443,7 @@ def _all_to_all(inp, group):
     import torch.distributed as dist
 
     out = torch.empty_like(inp)
-    issued["all_to_all"] += 1
+    _count("all_to_all", inp)
     return out, dist.all_to_all_single(out, inp, group=group, async_op=True)
 
 
@@ -1369,7 +1476,7 @@ def _all_reduce(t, group, op=None):
     """In-place all-reduce of ``t`` (SUM unless ``op``); its handle."""
     import torch.distributed as dist
 
-    issued["all_reduce"] += 1
+    _count("all_reduce", t)
     op = dist.ReduceOp.SUM if op is None else op
     return dist.all_reduce(t, op=op, group=group, async_op=True)
 
@@ -1640,7 +1747,6 @@ def sync_grads(
     import torch
     import torch.distributed as dist
 
-    _check_ported(plan.kind)
     ef = plan.compressed and residual is not None
     flats = []
     for b in plan.buckets:
@@ -2137,6 +2243,9 @@ def _measure_sync(plan: BucketPlan, mesh, iters: int, legs: str, device=None) ->
     if isinstance(plan, EPSyncPlan):  # its expert and dense plans, one after the other
         return sum(_measure_sync(p, mesh, iters, legs, device)
                    for p in (plan.expert_plan, plan.dense_plan))
+    if isinstance(plan, PPSyncPlan):  # the stage walk, then the shared one
+        return sum(_measure_sync(p, mesh, iters, legs, device)
+                   for p in (plan.stage_plan, plan.shared_plan))
     device = torch.device(device) if device is not None else torch.device("cpu")
     grads = [
         torch.zeros(plan.local_shape(i), dtype=getattr(torch, dt), device=device)

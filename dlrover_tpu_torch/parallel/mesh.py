@@ -36,8 +36,9 @@ slice-major (coordinate ``slice * (dp / slices) + j``).
 ``data`` coordinate's contiguous block, as ``P(("dp", "fsdp"))`` lays
 the batch dim on the JAX mesh; ``sequence_sharding`` its block of a
 row's positions, as ``P(("dp", "fsdp"), "sp")`` lays the sequence dim.
-The ep ranks of one data coordinate hold the same rows. The pp group
-comes with ROADMAP A11b.
+The ep ranks of one data coordinate hold the same rows, and so do its pp
+ranks (each stage reads its coordinate's rows; stage 0 embeds them, the
+last stage scores them).
 """
 
 from __future__ import annotations
@@ -176,6 +177,11 @@ class Mesh:
         """This rank's lane on the data axes: ``dp * fsdp + fsdp``."""
         return self.coords["dp"] * self.config.fsdp + self.coords["fsdp"]
 
+    @property
+    def stage(self) -> int:
+        """This rank's pipeline stage: its coordinate on ``pp``."""
+        return self.coords.get("pp", 0)
+
     def group_index(self, name: str) -> int:
         """This rank's position in ``ranks[name]`` (mesh order)."""
         return self.ranks[name].index(self.rank)
@@ -224,7 +230,7 @@ def build_mesh(config: MeshConfig, device_type: str = "cpu") -> Mesh:
             _init_backend=False,
         )
     wanted = {"dp": ("dp",), "fsdp": ("fsdp",), "data": ("dp", "fsdp"), "sp": ("sp",),
-              "tp": ("tp",), "ep": ("ep",)}
+              "tp": ("tp",), "ep": ("ep",), "pp": ("pp",)}
     if config.sp > 1:
         # the ranks that hold one replica of the state under sp
         wanted["replica"] = ("dp", "fsdp", "sp")

@@ -17,7 +17,10 @@ vocab of 50257 at tp = 2: the embedding table and the head are whole).
 Expert parallelism uses the same boxes on the ``ep`` axis: "experts"
 maps to ``ep``, so a rank holds experts ``[i E/ep, (i+1) E/ep)`` of each
 expert leaf (dim 0 of ``w_up`` / ``w_down``) and every other leaf whole
-(``split_of`` names the axis that splits a mesh's leaves).
+(``split_of`` names the axis that splits a mesh's leaves). Pipeline
+parallelism's boxes are rows of the stage-stacked leaves
+(``parallel/pipeline.stage_dims``): a stage rank holds row ``[s]`` of
+each ``[pp, L/pp, ...]`` leaf.
 """
 
 from __future__ import annotations
@@ -208,15 +211,17 @@ def split_of(mesh) -> Tuple[str, int, int, object]:
     """(axis, degree, this rank's coordinate, group) of the mesh axis
     that splits parameter leaves into per-rank boxes: ``tp`` when tp >
     1, else ``ep`` when ep > 1 (each ep rank holds ``E/ep`` experts of
-    every expert leaf; the two never compose), else ``("tp", 1, 0,
-    None)``. Takes a ``parallel/mesh.Mesh``, a ``MeshConfig`` (coordinate
-    0, no group) or None."""
+    every expert leaf), else ``pp`` when pp > 1 (each stage rank holds
+    its row of every stage-stacked leaf, ``parallel/pipeline``; the
+    three never compose), else ``("tp", 1, 0, None)``. Takes a
+    ``parallel/mesh.Mesh``, a ``MeshConfig`` (coordinate 0, no group) or
+    None."""
     if mesh is None:
         return "tp", 1, 0, None
     m = getattr(mesh, "config", mesh)
     coords = getattr(mesh, "coords", None) or {}
     groups = getattr(mesh, "groups", None) or {}
-    for axis in ("tp", "ep"):
+    for axis in ("tp", "ep", "pp"):
         n = int(getattr(m, axis, 1))
         if n > 1:
             return axis, n, int(coords.get(axis, 0)), groups.get(axis)

@@ -42,6 +42,16 @@ many zero rows to every global batch before the rank split, which the
 step weighs 0 in the loss (the eval batch is trimmed instead, to the
 rows the data ranks divide, as in the JAX trainer).
 
+A pp strategy (``Strategy(mesh=MeshConfig(pp=, dp=), num_microbatches=,
+pp_schedule=)``) runs the pipeline step of ``parallel/pipeline.py``: each
+rank holds its stage, every stage of a data coordinate reads that
+coordinate's rows of each microbatch, the eval loss runs through the
+stages, and a checkpoint records each stage's rows of the JAX
+stage-stacked leaves (the shared leaves from stage 0 alone).
+``adamw_8bit_flat``, ``grad_accum`` (the microbatches are the
+accumulation) and the micro-batch rebalance are refused on it, and a
+resize keeps pp.
+
 ``donation_aware``: the JAX trainer stops donating state buffers while
 a save reads them. Here the optimizer updates the state in place, so
 the step's stream waits for the save's device copies before the
@@ -1214,13 +1224,16 @@ class ElasticTrainer:
         )
 
     def _local_rows(self, n: int) -> Optional[torch.Tensor]:
-        """This rank's rows of a global batch of ``n`` (None: all)."""
+        """This rank's rows of a global batch of ``n`` (None: all): of
+        each accumulation microbatch, or on a pp mesh of each of the
+        pipeline's microbatches (every stage of a data coordinate the
+        same rows)."""
         if self.mesh.config.dp * self.mesh.config.fsdp == 1:
             return None
         if n not in self._rows:
-            self._rows[n] = torch.from_numpy(
-                batch_sharding(self.mesh, n, self.tcfg.grad_accum)
-            )
+            m = self.strategy.mesh
+            k = self.strategy.num_microbatches if m.pp > 1 else self.tcfg.grad_accum
+            self._rows[n] = torch.from_numpy(batch_sharding(self.mesh, n, k))
         return self._rows[n]
 
     def _to_device(self, x, local: bool = True) -> torch.Tensor:
@@ -1283,6 +1296,14 @@ class ElasticTrainer:
             mesh = dc_replace(self.mesh, config=dc_replace(self.mesh.config, sp=1))
         for batch in self._eval_batches(max_batches):
             x, y = self._device_batch(batch, local=False)
+            if self.strategy.mesh.pp > 1:
+                # through the stages: every rank of a data coordinate runs
+                # the whole eval batch
+                from dlrover_tpu_torch.parallel.pipeline import pipeline_eval_loss
+
+                losses.append(pipeline_eval_loss(self.state.params, self.mesh, x, y,
+                                                 self.strategy.num_microbatches))
+                continue
             # a ZeRO rank gathers a unit at a time from its shards
             logits, _ = forward(self.state.params, x, self.cfg, mesh, gather=self.state.units)
             losses.append(float(token_nll(logits, y, split=vocab_split(self.cfg, mesh))))

@@ -184,12 +184,20 @@ def test_bad_combinations_raise_the_same_value_errors(kw):
 
 
 @pytest.mark.parametrize("sizes,item", [
-    (dict(pp=2, dp=4), "A11b"), (dict(pp=2, dp=2), "A11b"),
+    (dict(pp=2, dp=4, tp=2), "A11c"), (dict(pp=2, dp=2, fsdp=2), "A11c"),
 ])
 def test_model_sharded_plans_name_their_roadmap_item(sizes, item):
+    """pp composed with a model axis: the sync falls back as in the JAX
+    package (no plan, the composition named) and the model raises
+    naming its ROADMAP item (pp x dp plans per stage:
+    tests/test_torch_pipeline.py)."""
+    from dlrover_tpu_torch.models.transformer import check_supported
+
     s = Strategy(mesh=MeshConfig(**sizes), comm_overlap=True)
+    assert tgs.resolve_plan(tcfg.tiny(num_layers=2), s) is None
+    assert tgs.fallback_reason(s.mesh.axis_sizes()) == jgs.fallback_reason(s.mesh.axis_sizes())
     with pytest.raises(NotImplementedError, match=item):
-        tgs.resolve_plan(tcfg.tiny(num_layers=1), s)
+        check_supported(tcfg.tiny(num_layers=2), s.mesh)
 
 
 # one fixed link model for both packages (the field names and values are

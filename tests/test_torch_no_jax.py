@@ -182,6 +182,18 @@ EXPERT_PARALLEL = {
 }
 
 
+# pipeline parallelism: the stages, the schedules, the pp sync plan and
+# their users (ROADMAP A11b)
+PIPELINE = {
+    "dlrover_tpu_torch.parallel.pipeline",
+    "dlrover_tpu_torch.parallel.grad_sync",
+    "dlrover_tpu_torch.parallel.mesh",
+    "dlrover_tpu_torch.models.convert",
+    "dlrover_tpu_torch.accel.dry_runner",
+    "dlrover_tpu_torch.trainer.elastic.trainer",
+}
+
+
 # the host-link arbiter and its users (ROADMAP A9b)
 LINK_ARBITER = {
     "dlrover_tpu_torch.parallel.transfer_sched",
@@ -218,18 +230,20 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert TENSOR_PARALLEL <= names, sorted(TENSOR_PARALLEL - names)
     assert LINK_ARBITER <= names, sorted(LINK_ARBITER - names)
     assert EXPERT_PARALLEL <= names, sorted(EXPERT_PARALLEL - names)
+    assert PIPELINE <= names, sorted(PIPELINE - names)
 
 
 def test_data_parallel_modules_and_the_rank_worker_import_without_jax():
-    """The data-parallel, strategy-search, resize, sequence-, tensor- and
-    expert-parallel modules and the host-link arbiter's by name, and the
+    """The data-parallel, strategy-search, resize, sequence-, tensor-,
+    expert- and pipeline-parallel modules and the host-link arbiter's by
+    name, and the
     rank processes of the multi-rank tests
     (``tests/torch_dist_worker.py``), with JAX and the JAX package
     blocked."""
     probe = _PROBE.split("import dlrover_tpu_torch\n")[0] + "\n".join(
         f"importlib.import_module({m!r})"
         for m in sorted(DATA_PARALLEL | STRATEGY_SEARCH | RESIZE | SEQUENCE_PARALLEL
-                        | TENSOR_PARALLEL | LINK_ARBITER | EXPERT_PARALLEL)
+                        | TENSOR_PARALLEL | LINK_ARBITER | EXPERT_PARALLEL | PIPELINE)
     ) + (
         "\nsys.path.insert(0, 'tests')\nimportlib.import_module('torch_dist_worker')"
         "\nleaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)"

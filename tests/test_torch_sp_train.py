@@ -151,7 +151,7 @@ def test_unknown_scheme_raises_the_jax_error():
 
 
 @pytest.mark.parametrize("mesh,item", [
-    (dict(sp=2, pp=2), "A11b"), (dict(sp=2, ep=2), "A19"),
+    (dict(sp=2, pp=2), "A11c"), (dict(sp=2, ep=2), "A19"),
 ])
 def test_unported_meshes_still_raise(mesh, item):
     from dlrover_tpu_torch.models import config as tcfg

@@ -137,11 +137,19 @@ def test_resolve_plan_plans_tp_and_3d_and_still_names_a11():
     assert tgs.resolve_plan(tc, s) is None
     assert "fsdp x sp" in tgs.fallback_reason(s.mesh.axis_sizes())
     # dp x ep plans its expert and dense leaves apart (tests/test_torch_
-    # grad_sync_plan.py); the pipeline is not ported
+    # grad_sync_plan.py), pp x dp per stage (tests/test_torch_pipeline.py);
+    # pp x tp falls back, as in the JAX package (the model raises A11c)
     assert tgs.resolve_plan(tcfg.tiny(num_layers=2, num_experts=4),
                             Strategy(mesh=MeshConfig(dp=2, ep=2), comm_overlap=True)).kind == "ep"
-    with pytest.raises(NotImplementedError, match="A11b"):
-        tgs.resolve_plan(tc, Strategy(mesh=MeshConfig(pp=2, dp=2), comm_overlap=True))
+    assert tgs.resolve_plan(tcfg.tiny(num_layers=2),
+                            Strategy(mesh=MeshConfig(pp=2, dp=2), comm_overlap=True)).kind == "pp"
+    s = Strategy(mesh=MeshConfig(pp=2, dp=2, tp=2), comm_overlap=True)
+    assert tgs.resolve_plan(tc, s) is None
+    assert "pp x tp composition" in tgs.fallback_reason(s.mesh.axis_sizes())
+    from dlrover_tpu_torch.models.transformer import check_supported
+
+    with pytest.raises(NotImplementedError, match="A11c"):
+        check_supported(tcfg.tiny(num_layers=2), s.mesh)
 
 
 def test_the_rule_table_is_the_jax_package_s():
@@ -201,7 +209,7 @@ def test_what_runs_and_what_still_raises():
                   dict(fsdp=2, sp=2)):
         check_supported(cfg, MeshConfig(**sizes))
         _check_unported(Strategy(mesh=MeshConfig(**sizes)), cfg, tx)
-    for sizes, item in ((dict(ep=2, tp=2), "A19"), (dict(pp=2, dp=2), "A11b")):
+    for sizes, item in ((dict(ep=2, tp=2), "A19"), (dict(pp=2, tp=2), "A11c")):
         with pytest.raises(NotImplementedError, match=item):
             check_supported(cfg, MeshConfig(**sizes))
     for bad, dim in ((dict(num_heads=6, num_kv_heads=2), "num_heads"),

@@ -39,7 +39,11 @@ Jobs:
 - ``ep``: MoE models (``job_ep``): ``build_train_step`` from JAX
   weights on a mesh of dp x ep, dp, fsdp (each rank its ep boxes of the
   expert leaves), and ``ElasticTrainer`` runs that stage a checkpoint,
-  land one, or re-split the experts' capacity.
+  land one, or re-split the experts' capacity;
+- ``pp``: pipeline parallelism (``job_pp``): ``parallel/pipeline``'s
+  step from the JAX stacked weights on a mesh of pp (x dp), each rank
+  its stage; and ``ElasticTrainer`` runs on pp strategies that train,
+  evaluate, stage a checkpoint or land one.
 """
 
 from __future__ import annotations
@@ -532,6 +536,141 @@ def job_ep(rank, world, cases):
     return out
 
 
+def _pp_step_case(c):
+    """``build_pipeline_train_step`` of ``tiny(**c["model"])`` from the JAX
+    stacked params ``c["params"]`` on ``c["mesh"]`` (``c["schedule"]``,
+    ``c["virtual"]``, ``c["microbatches"]``; a ``PPSyncPlan`` with
+    ``c["comm_overlap"]``; from the whole JAX train state
+    ``c["jax_state"]`` when given) over the rank's rows of
+    ``c["batches"]``: each step's loss, grad norm, collectives (count and
+    bytes) and hops; the first step's synced gradients, the params and
+    the whole train state at the end, as whole JAX leaves (gathered over
+    pp)."""
+    import torch
+
+    from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.models.convert import (
+        jax_train_state,
+        load_jax_train_state,
+        params_from_jax,
+        params_to_numpy,
+    )
+    from dlrover_tpu_torch.models.train import TrainState
+    from dlrover_tpu_torch.parallel import grad_sync as gs
+    from dlrover_tpu_torch.parallel import pipeline as pl
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, batch_sharding, build_mesh
+    from dlrover_tpu_torch.parallel.sharding_rules import gather_tp
+    from dlrover_tpu_torch.trainer.elastic import trainer as tt
+
+    cfg = tcfg.tiny(**c["model"])
+    mesh = build_mesh(MeshConfig(**c["mesh"]))
+    v, M, sched = c.get("virtual", 1), c["microbatches"], c["schedule"]
+    plan = None
+    if c.get("comm_overlap"):
+        plan = gs.plan_for_pipeline(cfg, mesh.axis_sizes(), grad_bucket_mb=1, schedule=sched,
+                                    virtual=v)
+    tx = tt.build_optimizer(c["optimizer"], lr=c["lr"], **c.get("opt_kw", {}))
+    model = params_from_jax(c["params"], cfg, mesh=mesh, virtual=v)
+    state = TrainState(step=0, params=model, opt_state=tx(model.jax_ordered_parameters()))
+    if c.get("jax_state") is not None:
+        # the JAX pipeline's whole train state after its first step(s)
+        load_jax_train_state(state, c["jax_state"], mesh)
+    step = pl.build_pipeline_train_step(cfg, tx, mesh, M, schedule=sched, virtual_stages=v,
+                                        plan=plan)
+    dims = pl.stage_dims(cfg)
+    grads, real = {}, state.opt_state.step
+
+    def capture():
+        if not grads:
+            # the gathering's collectives are not the step's
+            counts = dict(gs.issued), dict(gs.issued_bytes)
+            for n, p in model.named_parameters():
+                grads[n.replace(".", "/")] = gather_tp(p.grad, dims[n], mesh.groups["pp"]).numpy().copy()
+            gs.issued.update(counts[0])
+            gs.issued_bytes.update(counts[1])
+        return real()
+
+    state.opt_state.step = capture
+    metrics = []
+    for x, y in c["batches"]:
+        rows = batch_sharding(mesh, x.shape[0], M)
+        gs.reset_counts()
+        pl.reset_comm()
+        state, m = step(state, torch.from_numpy(x[rows]).long(), torch.from_numpy(y[rows]).long())
+        metrics.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                            issued=dict(gs.issued), issued_bytes=dict(gs.issued_bytes),
+                            hops=pl.comm["hops"]))
+    return dict(metrics=metrics, grads=grads, params=params_to_numpy(model, mesh),
+                state=jax_train_state(state, mesh), stage=mesh.stage,
+                plan=None if plan is None else dict(
+                    kind=plan.kind, buckets=plan.num_buckets,
+                    padded=[b.padded for b in plan.buckets], raw=plan.raw_bytes,
+                    wire=plan.wire_bytes))
+
+
+def _pp_trainer_case(c):
+    """``ElasticTrainer`` on ``tiny(**c["model"])`` with ``c["strategy"]``
+    (JSON, or None: derived from a checkpoint's, or the default) and
+    ``c["trainer"]``'s config: ``c["kind"]`` ``run``, ``stage`` (then a
+    disk save) or ``land`` (the checkpoint in ``c["ckpt_dir"]``; the
+    whole train state as restored too): the losses, the eval loss, the
+    strategy, the plan's kind and the whole train state (JAX layout) at
+    the end."""
+    from dlrover_tpu_torch.accel.strategy import Strategy
+    from dlrover_tpu_torch.ckpt.checkpointer import StorageType
+    from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.models.convert import jax_train_state
+    from dlrover_tpu_torch.trainer.elastic import trainer as tt
+
+    job = os.environ["DLROVER_TPU_JOB_NAME"]
+    # a job no saver serves: every save is a synchronous disk write
+    os.environ["DLROVER_TPU_JOB_NAME"] = job + "disk"
+    losses = []
+
+    def hook(step, m):
+        if "loss" in m:
+            losses.append(float(m["loss"]))
+
+    try:
+        tx = tt.build_optimizer(c.get("optimizer", "adamw_8bit"), lr=c.get("lr", 1e-3),
+                                **c.get("opt_kw", dict(min_quantized_size=512)))
+        kw = dict(batch_size=8, seq_len=16, log_interval=1000, report_metrics=False, prefetch=0,
+                  ckpt_dir=c.get("ckpt_dir", ""), save_memory_interval=1000,
+                  save_storage_interval=1000, **c.get("trainer", {}))
+        strategy = Strategy.from_json(c["strategy"]) if c.get("strategy") else None
+        tr = tt.ElasticTrainer(tcfg.tiny(**c["model"]), tx, Tokens(), tt.TrainerConfig(**kw),
+                               devices="cpu", strategy=strategy, metrics_hook=hook,
+                               eval_dataset=Tokens(n=16, seed=5))
+    finally:
+        os.environ["DLROVER_TPU_JOB_NAME"] = job
+    plan = tr._grad_sync_plan
+    out = dict(restored=tr.restored_step, source=tr.restore_source)
+    if c["kind"] == "land":
+        out["restored_state"] = jax_train_state(tr.state, tr.mesh, plan)
+    tr.train(tr.global_step + c.get("steps", 0))
+    if c["kind"] == "stage":
+        tr.save(StorageType.DISK)
+    out.update(losses=losses, eval_loss=tr.evaluate(2)["eval_loss"],
+               strategy=tr.strategy.to_json(), plan=getattr(plan, "kind", None),
+               grad_sync_ms=tr.pipeline_stats.grad_sync_ms, step=tr.global_step,
+               state=jax_train_state(tr.state, tr.mesh, plan),
+               stage=tr.mesh.stage if tr.mesh.config.pp > 1 else None)
+    tr.close()
+    return out
+
+
+def job_pp(rank, world, cases):
+    """Pipeline parallelism: each case a ``step`` (``_pp_step_case``) or
+    a trainer run (``_pp_trainer_case``)."""
+    import torch
+
+    out = {}
+    for name, c in cases.items():
+        out[name] = _pp_step_case(c) if c["kind"] == "step" else _pp_trainer_case(c)
+        torch.distributed.barrier()
+    return out
+
+
 def job_multi(rank, world, parts):
     """Several jobs in one start of the ranks: ``parts`` a list of
     ``(job, args)``; returns their results in order."""
@@ -921,7 +1060,8 @@ def job_resize(rank, world, cases):
 
 JOBS = {"sync": job_sync, "train": job_train, "step": job_step, "accel": job_accel,
         "resize": job_resize, "units": job_units, "zero_peak": job_zero_peak,
-        "wire": job_wire, "sp": job_sp, "tp": job_tp, "ep": job_ep, "multi": job_multi}
+        "wire": job_wire, "sp": job_sp, "tp": job_tp, "ep": job_ep, "pp": job_pp,
+        "multi": job_multi}
 
 
 def main():
