@@ -219,7 +219,22 @@ jobs.)
      together must refuse; with ``--phase pp`` four gloo ranks at pp 2
      x dp 2 with ``comm_overlap``, each step's reduce-scatters and
      all-gathers the ``PPSyncPlan``'s buckets and bytes, its losses pp 2
-     x dp 1's.
+     x dp 1's. Then pp composed with tp and fsdp (``pp3d_train``): each
+     attention kernel against its plain version at pp x tp's microbatch
+     (2 x 1024, 6 heads of 64) and pp x fsdp's (1 x 1024, 12 heads),
+     ``adam8_leaf`` at a stage row's tp box; four gloo ranks at pp 2 x
+     tp 2 (GPipe and 1F1B, ``--phase pp`` adds interleaved) and pp 2 x
+     fsdp 2 (GPipe, ``--phase pp`` adds 1F1B), each held to the pp = 1
+     job's losses (``PP3D_LOSS_TOL``) and first-step gradients, the tp
+     boxes and ZeRO shards gathered (``PP3D_GRAD_TOL``), the eval loss,
+     each rank's peak within ``PEAK_CAL_RTOL``, the launches and the
+     collectives a step (tp all-reduces; ZeRO's all-gathers and
+     reduce-scatters) the reckoned ones, and each composition's control
+     (stage 1's first ``copy_to_tp`` without its backward sum; stage 1's
+     blocks' reduce-scatter unsummed) refused; ``--phase pp`` adds pp 2
+     x dp 2 x tp 2 over eight gloo ranks against pp = 1's losses. In
+     the full run the four ranks are a group of their own, started with
+     the tp / ep / pp pair beside the resize drill.
 4. a ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -5064,21 +5079,53 @@ PP_KERNELS = ("fa_fwd", "fa_bwd_dkdv", "fa_bwd_dq", "adam8_leaf")
 # one stage leaf the per-leaf 8-bit AdamW updates on the pp path:
 # stages.mlp.w_up's row at pp = 2 (6 blocks of 768 x 3072)
 PP_ADAM_SHAPE = (1, 6, 768, 3072)
+# pp composed with tp and fsdp: four gloo ranks on the one card, each
+# run held to the pp = 1 job's losses and first-step gradients. The
+# schedules of --phase pp and the full run; the full run adds its four
+# ranks as a second group started beside the tp / ep / pp pair
+PP3D_SCHEDULES = {"phase": {"tp": ("gpipe", "1f1b", "interleaved"), "fsdp": ("gpipe", "1f1b")},
+                  "full": {"tp": ("gpipe", "1f1b"), "fsdp": ("gpipe",)}}
+# The gates against pp = 1, set from the H100 80GB HBM3 at 700 W (3
+# steps; PERF.md §6). pp x tp: losses 4.0e-5 off (a tp rank's bf16
+# GEMMs over half the heads and columns, the halves summed in f32), the
+# eval loss 8e-6, the first step's gradients 0.043 off (layer 9's wq);
+# its control (stage 1's first copy_to_tp without its backward sum) 0.67
+# off. pp x fsdp: one row a microbatch a rank, so the bf16 GEMMs and the
+# bias sums round by another shape: losses 1.19e-3 off, the eval loss
+# 3.7e-3 (after 3 steps), the gradients 0.072 (layer 3's b_down); its
+# control (stage 1's blocks' reduce-scatter unsummed) 1.12 off. Each
+# gradient gate sits 3.5x above its sound reading and 4.4x below its
+# control; the losses 12x (tp) and 2.7x (fsdp, its eval) above theirs
+PP3D_LOSS_TOL = {"tp": 5e-4, "fsdp": 1e-2}
+PP3D_GRAD_TOL = {"tp": 0.15, "fsdp": 0.25}
+# pp 2 x dp 2 x tp 2 (--phase pp, eight gloo ranks) against pp = 1: a
+# rank's microbatch is one row, as pp 2 x dp 2's (1.13e-3 off)
+PP3D_DP_LOSS_TOL = 5e-3
+# the tp box of a stage row the per-leaf 8-bit AdamW updates at pp 2 x tp
+# 2: stages.mlp.w_up's 1536 of 3072 columns
+PP3D_ADAM_SHAPE = (1, 6, 768, 1536)
 
 
 def _pp_whole_grads(torch, trainer):
     """The gradients of the step about to update, as whole layers in the
-    list layout's JAX order (a stage rank's rows gathered over pp and
-    split into layers; the shared leaves as they are), f32."""
+    list layout's JAX order (a stage rank's boxes gathered over fsdp
+    from its ZeRO shards, over tp and over pp, and split into layers;
+    the shared leaves whole), f32. Every rank of the mesh calls it."""
+    from dlrover_tpu_torch.models.convert import _splits, whole_leaf
     from dlrover_tpu_torch.parallel import pipeline as pl
-    from dlrover_tpu_torch.parallel.sharding_rules import gather_tp, jax_order
+    from dlrover_tpu_torch.parallel.sharding_rules import jax_order
 
-    model, mesh = trainer.state.params, trainer.mesh
+    state, mesh = trainer.state, trainer.mesh
+    model = state.params
+    shard = {}
+    if state.shards is not None:
+        shard = {id(p): s for p, s in zip(model.jax_ordered_parameters(), state.shards)}
+    splits = _splits(model, mesh)
     out = {}
     for name, p in model.named_parameters():
-        g = p.grad.float()
+        g = whole_leaf((shard[id(p)].grad if shard else p.grad).float(), name, model, mesh, splits)
         if name.startswith("stages."):
-            full = pl._dechunk_leaf(gather_tp(g, 0, mesh.groups["pp"]), model.virtual)
+            full = pl._dechunk_leaf(g, model.virtual)
             for i in range(full.shape[0]):
                 out[f"layers.{i}.{name[len('stages.'):]}"] = full[i]
         else:
@@ -5086,26 +5133,87 @@ def _pp_whole_grads(torch, trainer):
     return [out[n] for n in jax_order(out)]
 
 
+def _pp_faults(torch, job, trainer):
+    """Plant ``job["fault"]`` (the gates' controls, planted here only) and
+    return the function that takes it out: ``zero_cotangent``, the last
+    stage sends zeros for every cotangent to the stage before it;
+    ``drop_copy_bwd``, stage 1's first block's attention ``copy_to_tp``
+    loses its backward all-reduce (both tp ranks of the stage: the
+    forward is the identity either way); ``unsummed_shard``, stage 1's
+    first reduce-scatter (its blocks' gradients, the first sync unit)
+    hands each fsdp rank its own unsummed rows."""
+    from dlrover_tpu_torch.models import transformer as tfm
+    from dlrover_tpu_torch.parallel import grad_sync
+    from dlrover_tpu_torch.parallel import pipeline as pl
+
+    fault, mesh = job.get("fault"), trainer.mesh
+    stage, pp = mesh.stage, mesh.config.pp
+    real_exchange, real_block = pl._Link.exchange, tfm._attention_block
+    real_rs = grad_sync._reduce_scatter
+    if fault == "zero_cotangent" and stage == pp - 1:
+        def exchange(self, sends, recvs):
+            return real_exchange(self, [(torch.zeros_like(t) if tag == pl._GRAD else t, peer, tag)
+                                        for t, peer, tag in sends], recvs)
+
+        pl._Link.exchange = exchange
+    if fault == "drop_copy_bwd" and stage == 1:
+        first = trainer.state.params.stages.attn["wq"]
+
+        def faulty_block(x, layer, cfg, positions, mesh=None):
+            if layer.attn["wq"].data_ptr() != first.data_ptr():
+                return real_block(x, layer, cfg, positions, mesh)
+            real_copy = tfm.copy_to_tp
+            tfm.copy_to_tp = lambda h, group: h  # the forward's identity, no backward sum
+            try:
+                return real_block(x, layer, cfg, positions, mesh)
+            finally:
+                tfm.copy_to_tp = real_copy
+
+        tfm._attention_block = faulty_block
+    if fault == "unsummed_shard" and stage == 1:
+        calls = []
+
+        class Done:
+            def wait(self):
+                pass
+
+        def own_rows(inp, group):
+            if calls:
+                return real_rs(inp, group)
+            calls.append(True)
+            n = torch.distributed.get_world_size(group)
+            return inp.view(n, -1)[torch.distributed.get_rank(group)].clone(), Done()
+
+        grad_sync._reduce_scatter = own_rows
+
+    def undo():
+        pl._Link.exchange, tfm._attention_block = real_exchange, real_block
+        grad_sync._reduce_scatter = real_rs
+
+    return undo
+
+
 def _dp_pp(torch, job, rank, world, spec_path):
     """``ElasticTrainer`` on gpt2_small (12 x 768, vocab 50257, tied),
     batch ``PP_BATCH`` x ``PP_SEQ``, bf16, remat, per-leaf ``adamw_8bit``:
     at pp = 1 with ``grad_accum=PP_M``, or on a mesh of ``job["pp"]`` (x
-    ``job["dp"]``) under ``job["schedule"]`` with ``PP_M`` microbatches
-    (``job["overlap"]``: the ``PPSyncPlan``); the weights from the
-    trainer's seeded CPU generator. Returns the losses, step ms, this
-    rank's peak beside its static figure, the hops' number and host ms a
-    step, the busy share of the step (ticks with a slot, each synced)
+    ``job["dp"]``, ``job["tp"]``, ``job["fsdp"]``) under
+    ``job["schedule"]`` with ``PP_M`` microbatches (``job["overlap"]``:
+    the ``PPSyncPlan``); the weights from the trainer's seeded CPU
+    generator. Returns the losses, step ms, this rank's peak beside its
+    static figure, the hops' number and host ms a step, the tp
+    all-reduces' number and host ms a step, the collectives each step
+    issued, the busy share of the step (ticks with a slot, each synced)
     beside the clock's bubble, the first step's gradient prints (whole
-    layers), the launches a step beside the reckoned ones, the eval loss
-    through the stages, and under a plan the collectives each step issued
-    beside the plan's buckets and bytes. ``job["fault"] ==
-    "zero_cotangent"``: the gates' control, planted here only: the last
-    stage sends zeros for every cotangent to the stage before it."""
+    layers), the launches and the collectives a step beside the reckoned
+    ones, the eval loss through the stages, and under a plan the plan's
+    buckets and bytes. ``job["fault"]``: a control (``_pp_faults``)."""
     from dataclasses import replace
 
     from dlrover_tpu_torch.accel.dry_runner import _apply_strategy, static_peak_bytes
     from dlrover_tpu_torch.accel.strategy import Strategy
     from dlrover_tpu_torch.models import gpt2_small
+    from dlrover_tpu_torch.models import transformer as tfm
     from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import quantized_optim as qo
     from dlrover_tpu_torch.parallel import grad_sync
@@ -5116,13 +5224,14 @@ def _dp_pp(torch, job, rank, world, spec_path):
     )
 
     pp, dp, steps = job.get("pp", 1), job.get("dp", 1), job["steps"]
+    tp, fsdp = job.get("tp", 1), job.get("fsdp", 1)
     sched = job.get("schedule", "gpipe")
     cfg = replace(gpt2_small(), max_seq_len=PP_SEQ)
     tx = build_optimizer("adamw_8bit", lr=3e-4, min_quantized_size=4096)
-    strategy = Strategy(mesh=MeshConfig(pp=pp, dp=dp), remat=True, opts=("bf16",),
-                        num_microbatches=PP_M if pp > 1 else 1, pp_schedule=sched,
-                        pp_virtual=2, comm_overlap=bool(job.get("overlap")))
-    losses, stamps, issued, busy = [], [], [], []
+    strategy = Strategy(mesh=MeshConfig(pp=pp, dp=dp, tp=tp, fsdp=fsdp), remat=True,
+                        opts=("bf16",), num_microbatches=PP_M if pp > 1 else 1,
+                        pp_schedule=sched, pp_virtual=2, comm_overlap=bool(job.get("overlap")))
+    losses, stamps, issued, busy, tp_calls, tp_ms = [], [], [], [], [], []
 
     def hook(step, metrics):
         if "loss" in metrics:
@@ -5132,6 +5241,9 @@ def _dp_pp(torch, job, rank, world, spec_path):
             busy.append(pl.comm["busy_ms"])
             issued.append(dict(count=dict(grad_sync.issued), bytes=dict(grad_sync.issued_bytes)))
             grad_sync.reset_counts()
+            tp_calls.append(tfm.tp_comm["calls"])
+            tp_ms.append(tfm.tp_comm["ms"])
+            tfm.reset_tp_comm()
 
     # cuBLAS's workspaces (allocated at a process's first GEMMs and kept)
     # before the base: the peak is the job's own
@@ -5153,13 +5265,7 @@ def _dp_pp(torch, job, rank, world, spec_path):
     mesh = trainer.mesh
     stage = mesh.stage
     static = static_peak_bytes(cfg2, applied, tx, PP_BATCH, PP_SEQ, stage=stage)
-    real_exchange = pl._Link.exchange
-    if job.get("fault") == "zero_cotangent" and stage == pp - 1:
-        def exchange(self, sends, recvs):
-            return real_exchange(self, [(torch.zeros_like(t) if tag == pl._GRAD else t, peer, tag)
-                                        for t, peer, tag in sends], recvs)
-
-        pl._Link.exchange = exchange
+    undo = _pp_faults(torch, job, trainer)
     # the first step's gradients as whole layers, gathered just before
     # its update; the peak is read around the gathering
     opt, prints, peaks = trainer.state.opt_state, [], []
@@ -5193,13 +5299,14 @@ def _dp_pp(torch, job, rank, world, spec_path):
     fa.reset_launch_counts()
     qo.reset_launch_counts()
     pl.reset_comm()
+    tfm.reset_tp_comm()
     pl.comm["time_slots"] = pp > 1
     grad_sync.reset_counts()
     t0 = time.perf_counter()
     try:
         trainer.train(steps)
     finally:
-        pl._Link.exchange = real_exchange
+        undo()
         pl.comm["time_slots"] = False
         opt.step = real_step
     torch.cuda.synchronize()
@@ -5213,14 +5320,31 @@ def _dp_pp(torch, job, rank, world, spec_path):
     step_ms = [x * 1e3 for x in np.diff([t0] + stamps)]
     eval_loss = None if job.get("fault") else trainer.evaluate(1)["eval_loss"]
     # reckoned: under remat each block's forward runs twice a microbatch
-    # (GPipe: the forward and the checkpoint's recompute; 1F1B: the
-    # forward tick and the stage's recompute), its backward once
+    # (GPipe: the forward and the checkpoint's recompute, or under fsdp
+    # the unit's recompute; 1F1B: the forward tick and the stage's
+    # recompute), its backward once
+    v = applied.resolved_virtual()
     blocks = cfg.num_layers // pp
     leaf = sum(getattr(p, "leaf_numel", p.numel()) >= 4096
                for p in trainer.state.params.jax_ordered_parameters())
     reckoned = {"fa_fwd": 2 * blocks * PP_M, "fa_bwd_dkdv": blocks * PP_M,
                 "fa_bwd_dq": blocks * PP_M, "adam8_leaf": leaf}
-    v = applied.resolved_virtual()
+    collectives = None
+    if pp > 1 and (tp > 1 or fsdp > 1):
+        # the tp all-reduces: a block's two forward sums in each forward
+        # run (GPipe's checkpoint recompute stops before the MLP's: one),
+        # its two backward ones; gpt2's odd vocab is whole on every tp
+        # rank (no vocab-parallel sums). fsdp: the blocks gathered before
+        # each chunk forward and each backward, the embedding (stage 0)
+        # and the head (the last stage) a microbatch; one reduce-scatter
+        # a sync unit (the stage's leaves, the shared ones)
+        per = 5 if sched == "gpipe" else 6
+        collectives = {
+            "tp_all_reduce": blocks * PP_M * per if tp > 1 else 0,
+            "all_gather": (2 * v * PP_M + PP_M * (stage == 0) + PP_M * (stage == pp - 1))
+            if fsdp > 1 else 0,
+            "reduce_scatter": 2 if fsdp > 1 else 0,
+        }
     if pp > 1 and sched != "gpipe":
         _, busy_slots, total_slots = pl.schedule_occupancy(pp, PP_M, v)
         bubble = 1 - busy_slots / total_slots
@@ -5229,7 +5353,8 @@ def _dp_pp(torch, job, rank, world, spec_path):
     plan = trainer._grad_sync_plan
     res = dict(
         live_at_peak=live_at_peak, resident_bytes=torch.cuda.memory_allocated() - base,
-        pp=pp, dp=dp, schedule=sched if pp > 1 else None, virtual=v, stage=stage,
+        pp=pp, dp=dp, tp=tp, fsdp=fsdp, schedule=sched if pp > 1 else None, virtual=v,
+        stage=stage, coords=dict(mesh.coords),
         fault=job.get("fault"), losses=losses, eval_loss=eval_loss, grad_prints=prints,
         step_ms=step_ms, peak_bytes=max(peaks), peaks_before_and_after_prints=peaks,
         static_peak_bytes=static, static_vs_measured=static / max(peaks) - 1,
@@ -5239,6 +5364,8 @@ def _dp_pp(torch, job, rank, world, spec_path):
         launches_reckoned_per_step=reckoned,
         hops_per_step=hops["hops"] / steps, hop_host_ms_per_step=hops["ms"] / steps,
         hops_staged=hops["staged"],
+        tp_all_reduces_per_step=tp_calls, tp_host_ms_per_step=tp_ms,
+        collectives_reckoned_per_step=collectives,
         busy_ms_per_step=list(np.diff([0.0] + busy)),
         bubble_share_of_the_clock=bubble,
         # the last step's: the first pays one-time costs
@@ -5266,6 +5393,115 @@ def _pp_jobs(full):
              for s in PP_SCHEDULES["full" if full else "phase"]]
             + [dict(job, name="pp2_zero_cotangent", pp=2, steps=1, trace=False,
                     fault="zero_cotangent")])
+
+
+def _pp3d_jobs(full):
+    """The four ranks' jobs: pp 2 x tp 2 and pp 2 x fsdp 2 under
+    ``PP3D_SCHEDULES`` at ``PP_STEPS``' depth, each composition then its
+    control (one GPipe step)."""
+    key = "full" if full else "phase"
+    job = dict(kind="pp", pp=2, steps=PP_STEPS[key], trace=not full)
+    jobs = []
+    for axis, fault in (("tp", "drop_copy_bwd"), ("fsdp", "unsummed_shard")):
+        jobs += [dict(job, name=f"pp2_{axis}2_{s}", schedule=s, **{axis: 2})
+                 for s in PP3D_SCHEDULES[key][axis]]
+        jobs.append(dict(job, name=f"pp2_{axis}2_{fault}", steps=1, trace=False, fault=fault,
+                         **{axis: 2}))
+    return jobs
+
+
+def _pp3d_line(t0, one, four, kernels, adam, free_before, full, eight=None):
+    """The pp x tp and pp x fsdp runs' gates: each run's losses against
+    pp = 1's within ``PP3D_LOSS_TOL``, its first step's whole-layer
+    gradients (the tp boxes and ZeRO shards gathered too) within
+    ``PP3D_GRAD_TOL``, the eval loss through the stages, the ranks
+    agreeing, each rank's peak within ``PEAK_CAL_RTOL`` of its static
+    figure, the launches and the collectives a step the reckoned ones
+    (the tp all-reduces; ZeRO's all-gathers and reduce-scatters); each
+    composition's control must fail the two gates together. ``eight``:
+    pp 2 x dp 2 x tp 2's ranks, its losses within ``PP3D_DP_LOSS_TOL``
+    of pp = 1's."""
+    steps = PP_STEPS["full" if full else "phase"]
+    ref = one["grad_prints"]
+    runs, checks, faults = {}, {}, {}
+    for name in four[0]:
+        ranks = [r[name] for r in four]
+        prints = [r.pop("grad_prints") for r in ranks]
+        runs[name] = ranks
+        axis = "tp" if ranks[0]["tp"] > 1 else "fsdp"
+        fault = bool(ranks[0]["fault"])
+        want = 1 if fault else steps
+        diff = max(abs(a - b) for r in ranks for a, b in zip(r["losses"], one["losses"]))
+        grad_err, worst = _grad_err(prints[0], ref)
+        passes = diff <= PP3D_LOSS_TOL[axis] and grad_err <= PP3D_GRAD_TOL[axis]
+        same = all(r["losses"] == ranks[0]["losses"] for r in ranks)
+        finite = all(np.isfinite(r["losses"]).all() and len(r["losses"]) == want for r in ranks)
+        launches_ok = all(r["launches_per_step"].get(k, 0) == r["launches_reckoned_per_step"][k]
+                          for r in ranks for k in PP_KERNELS)
+        coll = [dict(tp_all_reduce=r["tp_all_reduces_per_step"][k],
+                     all_gather=r["issued_per_step"][k]["count"]["all_gather"],
+                     reduce_scatter=r["issued_per_step"][k]["count"]["reduce_scatter"])
+                for r in ranks for k in range(len(r["losses"]))]
+        reckoned = [r["collectives_reckoned_per_step"] for r in ranks
+                    for _ in range(len(r["losses"]))]
+        coll_ok = coll == reckoned
+        peaks_ok = all(abs(r["static_vs_measured"]) <= PEAK_CAL_RTOL for r in ranks)
+        eval_ok = fault or all(abs(r["eval_loss"] - one["eval_loss"]) <= PP3D_LOSS_TOL[axis]
+                               for r in ranks)
+        check = {"max_abs_loss_diff_vs_pp1": diff, "tol": PP3D_LOSS_TOL[axis],
+                 "first_loss_diff_vs_pp1": abs(ranks[0]["losses"][0] - one["losses"][0]),
+                 "first_step_grad_rel_err_vs_pp1": grad_err, "worst_tensor": worst,
+                 "grad_tol": PP3D_GRAD_TOL[axis], "ranks_agree": same,
+                 "ranks_grads_agree": all(p == prints[0] for p in prints),
+                 "passes_gates": passes, "launches_as_reckoned": launches_ok,
+                 "collectives_as_reckoned": coll_ok, "peaks_within_static": peaks_ok,
+                 "static_vs_measured": [r["static_vs_measured"] for r in ranks],
+                 "eval_loss_vs_pp1": None if fault else max(
+                     abs(r["eval_loss"] - one["eval_loss"]) for r in ranks),
+                 "ok": finite and same and passes and launches_ok and coll_ok and peaks_ok
+                 and eval_ok}
+        if fault:
+            check["ok"] = not passes
+            check["loss_gate_alone_refuses"] = diff > PP3D_LOSS_TOL[axis]
+            faults[name] = check
+        else:
+            checks[name] = check
+    dp_check = None
+    if eight is not None:
+        ranks = [r["pp2_dp2_tp2_1f1b"] for r in eight]
+        for r in ranks:
+            r.pop("grad_prints")
+        diff = max(abs(a - b) for r in ranks for a, b in zip(r["losses"], one["losses"]))
+        coll_ok = all(r["tp_all_reduces_per_step"][k]
+                      == r["collectives_reckoned_per_step"]["tp_all_reduce"]
+                      for r in ranks for k in range(len(r["losses"])))
+        peaks_ok = all(abs(r["static_vs_measured"]) <= PEAK_CAL_RTOL for r in ranks)
+        dp_check = dict(runs=ranks, max_abs_loss_diff_vs_pp1=diff, tol=PP3D_DP_LOSS_TOL,
+                        ranks_agree=all(r["losses"] == ranks[0]["losses"] for r in ranks),
+                        collectives_as_reckoned=coll_ok, peaks_within_static=peaks_ok,
+                        ok=diff <= PP3D_DP_LOSS_TOL and coll_ok and peaks_ok
+                        and all(len(r["losses"]) == steps for r in ranks))
+    ok = (all(c["ok"] for c in checks.values()) and len(faults) == 2
+          and all(f["ok"] for f in faults.values()) and adam["ok"] and kernels["ok"]
+          and (dp_check is None or dp_check["ok"]))
+    emit("pp3d_train", seconds=time.perf_counter() - t0, model="gpt2_small", batch=PP_BATCH,
+         seq=PP_SEQ, microbatches=PP_M, steps=steps, runs=runs, checks=checks,
+         planted_faults=faults, pp2_dp2_tp2=dp_check, peak_cal_rtol=PEAK_CAL_RTOL,
+         card_free_bytes_before_runs=free_before, kernels_at_the_microbatch=kernels,
+         adam8_leaf_tp_box=adam, card=card_line(),
+         transport="hops: batch_isend_irecv over gloo, staged through pinned host buffers; "
+                   "tp sums and ZeRO's collectives: gloo, staged by gloo through host memory "
+                   "(four ranks share the one card)",
+         never_on_a_card=["pp x tp over NCCL", "pp x tp across cards", "pp x fsdp over NCCL",
+                          "pp x fsdp x tp", "interleaved pp x fsdp"]
+         + ([] if eight is not None else ["interleaved pp x tp (--phase pp only)",
+                                          "pp x fsdp under 1F1B (--phase pp only)",
+                                          "pp x dp x tp (--phase pp only)"]),
+         ok=ok)
+    if not ok:
+        raise RuntimeError(f"the pp x tp / pp x fsdp runs failed their checks: {checks}, "
+                           f"the controls: {faults}, pp x dp x tp: {dp_check}")
+    return dict(runs=runs, adam=adam, kernels=kernels)
 
 
 def _pp_line(t0, one, two, kernels, adam, free_before, full, dp_run=None):
@@ -5357,11 +5593,33 @@ def _pp_line(t0, one, two, kernels, adam, free_before, full, dp_run=None):
 
 
 def _pp_launches(pp, name):
-    """A kernel's launches a step on each pp = 2 rank (stage order), by
-    schedule."""
+    """A kernel's launches a step on each pp = 2 rank (stage order, then
+    the mesh's other coordinates), by run; the controls left out."""
     return {run[len("pp2_"):]: [r["launches_per_step"].get(name, 0)
-                                for r in sorted(ranks, key=lambda r: r["stage"])]
-            for run, ranks in pp["runs"].items() if run.startswith("pp2_") and run[4:] != "zero_cotangent"}
+                                for r in sorted(ranks, key=lambda r: (r["stage"], sorted(r["coords"].items())))]
+            for run, ranks in pp["runs"].items()
+            if run.startswith("pp2_") and not ranks[0]["fault"]}
+
+
+def pp3d_kernel_checks(torch, fa, qo):
+    """Each attention kernel against its plain version at the pp x tp
+    path's microbatch (2 x 1024, 6 heads of 64 a tp rank) and the pp x
+    fsdp path's (1 x 1024, 12 heads), and ``adam8_leaf`` at a stage
+    row's tp box (``PP3D_ADAM_SHAPE``)."""
+    res, errs = check_attention(torch, fa, "B1/B2 gpt2_small pp x tp microbatch",
+                                PP_BATCH // PP_M, 6, 6, PP_SEQ, 64)
+    res_f, errs_f = check_attention(torch, fa, "B1/B2 gpt2_small pp x fsdp microbatch",
+                                    PP_BATCH // PP_M // 2, 12, 12, PP_SEQ, 64)
+    adam, _ = check_adam8_leaf(torch, qo, None, PP3D_ADAM_SHAPE,
+                               "B7 adam8_leaf stage row's tp box stages.mlp.w_up (pp=2 x tp=2)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = dict(ms=res["ms"], plain_ms=res["plain_ms"], bound=res["bound"],
+                   tile_err=res["tile_err"], max_abs_err=errs,
+                   fsdp=dict(ms=res_f["ms"], plain_ms=res_f["plain_ms"], bound=res_f["bound"],
+                             tile_err=res_f["tile_err"], max_abs_err=errs_f),
+                   ok=res["ok"] and res_f["ok"])
+    return kernels, adam
 
 
 def pp_kernel_checks(torch, fa, qo):
@@ -5389,11 +5647,17 @@ def run_pp(torch, fa, qo):
     ``PPSyncPlan``). The gates are ``_pp_line``'s."""
     t0 = time.perf_counter()
     kernels, adam = pp_kernel_checks(torch, fa, qo)
+    kernels3d, adam3d = pp3d_kernel_checks(torch, fa, qo)
     one_jobs, two_jobs = _pp_jobs(False)
     one, two, free = _split_runs(torch, "pp", one_jobs, two_jobs)
     dp_run = _dp_spawn("pp_dp", 4, [dict(kind="pp", name="pp2_dp2", pp=2, dp=2, schedule="gpipe",
                                          overlap=True, steps=PP_STEPS["phase"], trace=True)])
-    return _pp_line(t0, one["pp1"], two, kernels, adam, free, False, dp_run)
+    four = _dp_spawn("pp3d", 4, _pp3d_jobs(False))
+    eight = _dp_spawn("pp3d_dp", 8, [dict(kind="pp", name="pp2_dp2_tp2_1f1b", pp=2, dp=2, tp=2,
+                                          schedule="1f1b", steps=PP_STEPS["phase"])])
+    pp3d = _pp3d_line(t0, one["pp1"], four, kernels3d, adam3d, free, False, eight)
+    pp = _pp_line(t0, one["pp1"], two, kernels, adam, free, False, dp_run)
+    return dict(pp, pp3d=pp3d)
 
 
 def start_tp_ep(torch, fa, qo):
@@ -5414,6 +5678,7 @@ def start_tp_ep(torch, fa, qo):
     ep_adam, _ = check_adam8_leaf(torch, qo, None, EP_ADAM_SHAPE,
                                   "B7 adam8_leaf expert box w_up (ep=2)")
     pp_kernels, pp_adam = pp_kernel_checks(torch, fa, qo)
+    pp3d_kernels, pp3d_adam = pp3d_kernel_checks(torch, fa, qo)
     gc.collect()
     torch.cuda.empty_cache()
     tp1, tp2 = _tp_jobs(True)
@@ -5422,20 +5687,28 @@ def start_tp_ep(torch, fa, qo):
     free = torch.cuda.mem_get_info()[0]
     one = _dp_start("tp_ep1", 1, tp1 + ep1 + pp1, backend=None)
     two = _dp_start("tp_ep2", 2, tp2 + ep2 + _c3_jobs(True) + pp2)
+    # a group of its own: the pair's two-rank jobs keep their world, and
+    # these four ranks run while the drill's launchers mostly wait
+    four = _dp_start("pp3d", 4, _pp3d_jobs(True))
 
     def finish():
         try:
             res1 = one()[0]
         finally:
-            res2 = two()
+            try:
+                res2 = two()
+            finally:
+                res4 = four()
         tp_names, ep_names = [j["name"] for j in tp2], [j["name"] for j in ep2]
         tp = _tp_line(t0, res1["tp1"], [{k: r[k] for k in tp_names} for r in res2], tp_adam,
                       free, True)
         ep = _ep_line(t0, res1["ep1"], [{k: r[k] for k in ep_names} for r in res2], ep_adam,
                       free, True)
+        pp3d = _pp3d_line(t0, res1["pp1"], res4, pp3d_kernels, pp3d_adam, free, True)
         pp = _pp_line(t0, res1["pp1"], [{j["name"]: r[j["name"]] for j in pp2} for r in res2],
                       pp_kernels, pp_adam, free, True)
-        return dict(tp=tp, ep=ep, pp=pp, c3=[{k: r[k] for k in ("dp2", "zero")} for r in res2])
+        return dict(tp=tp, ep=ep, pp=dict(pp, pp3d=pp3d),
+                    c3=[{k: r[k] for k in ("dp2", "zero")} for r in res2])
 
     return finish
 
@@ -5629,6 +5902,11 @@ def main() -> int:
             ep2_launches_per_step=ep["runs"]["ep2"][0]["launches_per_step"][name],
             pp2_launches_per_step=_pp_launches(pp, name),
             pp_microbatch={k: pp["kernels"][k][name] for k in ("ms", "plain_ms", "bound")},
+            pp3d_launches_per_step=_pp_launches(pp["pp3d"], name),
+            pp_tp_microbatch={k: pp["pp3d"]["kernels"][k][name]
+                              for k in ("ms", "plain_ms", "bound")},
+            pp_fsdp_microbatch={k: pp["pp3d"]["kernels"]["fsdp"][k][name]
+                                for k in ("ms", "plain_ms", "bound")},
         ))
     src_qo, qo_tpu = "dlrover_tpu_torch/ops/quantized_optim.py", "dlrover_tpu/ops/quantized_optim.py"
     for name, replaces, res, abs_err, n in (
@@ -5644,9 +5922,12 @@ def main() -> int:
             tp2_launches_per_step=tp["runs"]["tp2"][0]["launches_per_step"].get(name, 0),
             ep2_launches_per_step=ep["runs"]["ep2"][0]["launches_per_step"].get(name, 0),
             pp2_launches_per_step=_pp_launches(pp, name),
+            pp3d_launches_per_step=_pp_launches(pp["pp3d"], name),
             **({"tp_local_w_gate": {k: tp["adam"][k] for k in ("ms", "plain_ms", "bound_ms")},
                 "ep_expert_box_w_up": {k: ep["adam"][k] for k in ("ms", "plain_ms", "bound_ms")},
-                "pp_stage_row_w_up": {k: pp["adam"][k] for k in ("ms", "plain_ms", "bound_ms")}}
+                "pp_stage_row_w_up": {k: pp["adam"][k] for k in ("ms", "plain_ms", "bound_ms")},
+                "pp_tp_stage_box_w_up": {k: pp["pp3d"]["adam"][k]
+                                         for k in ("ms", "plain_ms", "bound_ms")}}
                if name == "adam8_leaf" else {}),
         ))
     emb_tpu = "dlrover_tpu/ops/embedding/device_tier.py"

@@ -224,7 +224,9 @@ def _build(
             if pp > 1:
                 from dlrover_tpu_torch.parallel.pipeline import PipelineStage
 
-                return TrainState(step=0, params=PipelineStage(cfg, pp, 0, virtual), opt_state=None)
+                return TrainState(step=0, params=PipelineStage(cfg, pp, 0, virtual,
+                                                               mesh=applied.mesh),
+                                  opt_state=None)
             return TrainState(step=0, params=Transformer(cfg), opt_state=None)
 
     if abstract:
@@ -289,8 +291,11 @@ def _build_pipeline(cfg, applied: Strategy, tx, device, before_update, abstract_
     import torch
 
     from dlrover_tpu_torch.parallel import grad_sync
-    from dlrover_tpu_torch.parallel.mesh import batch_sharding
-    from dlrover_tpu_torch.parallel.pipeline import build_pipeline_train_step, init_pipeline_state
+    from dlrover_tpu_torch.parallel.pipeline import (
+        build_pipeline_train_step,
+        init_pipeline_state,
+        pipeline_rows,
+    )
     from dlrover_tpu_torch.utils.device import resolve_device
 
     if applied.grad_accum > 1:
@@ -305,6 +310,7 @@ def _build_pipeline(cfg, applied: Strategy, tx, device, before_update, abstract_
     step_fn = build_pipeline_train_step(
         cfg, tx, mesh, M, schedule=applied.resolved_pp_schedule(),
         virtual_stages=applied.pp_virtual, plan=plan, before_update=before_update,
+        comm_overlap=applied.resolved_comm_overlap(),
     )
 
     def init_fn(seed: int = 0, device_generator: bool = False):
@@ -314,8 +320,8 @@ def _build_pipeline(cfg, applied: Strategy, tx, device, before_update, abstract_
     def make_batch(batch, seq):
         rng = np.random.default_rng(0)
         x = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int64)
-        if applied.mesh.dp > 1:
-            x = x[batch_sharding(mesh, batch, M)]
+        if applied.mesh.dp * applied.mesh.fsdp > 1:
+            x = x[pipeline_rows(mesh, batch, M)]
         t = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
         return t, t
 
@@ -584,12 +590,14 @@ def static_peak_bytes(
     return p_bytes + state + max(grads + trans, sync, live, bwd_end)
 
 
-def _block_bytes(cfg: TransformerConfig, tok: int, ab: int, block_params: float, pb: int) -> float:
+def _block_bytes(cfg: TransformerConfig, tok: int, ab: int, block_params: float, pb: int,
+                 tp: int = 1) -> float:
     """What one block saves for its backward, for ``tok`` tokens
-    (``static_peak_bytes``' per-token set; tp = 1), with its weights' casts
-    when the params are wider than the compute dtype."""
-    D, F = cfg.model_dim, cfg.ffn_dim
-    q, kv = cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    (``static_peak_bytes``' per-token set, of H/tp heads and F/tp MLP
+    columns under tp), with its weights' casts when the params are wider
+    than the compute dtype."""
+    D, F = cfg.model_dim, cfg.ffn_dim // tp
+    q, kv = cfg.num_heads * cfg.head_dim // tp, cfg.kv_heads * cfg.head_dim // tp
     per_tok = (
         2 * (8 if cfg.rmsnorm else 12) * D
         + 2 * ab * D
@@ -604,10 +612,13 @@ def _pp_peak_bytes(cfg: TransformerConfig, strategy: Strategy, tx, batch: int, s
                    stage: int) -> float:
     """``static_peak_bytes`` of the rank of pipeline ``stage``
     (``parallel/pipeline``), for its rows of a microbatch, ``tok`` tokens
-    (``batch / (M dp)`` rows of ``seq``), ``X = tok x D`` activations and
-    one block's saved set ``a`` (``_block_bytes``): the resident leaves
-    (the shared ones and the stage row, ``PipelineStage``) and their
-    optimizer state, plus the largest of three phases.
+    (``batch / M`` rows of ``seq`` over the data axes that divide them,
+    ``pipeline._microbatch_axes``), ``X = tok x D`` activations and one
+    block's saved set ``a`` (``_block_bytes``; under tp of H/tp heads and
+    F/tp MLP columns): the resident leaves (the shared ones and the
+    stage row, ``PipelineStage``; under tp its tp boxes, under fsdp
+    their ZeRO shards) and their optimizer state (1/fsdp of it under
+    fsdp), plus the largest of three phases.
 
     - The schedule, walked on the rank's own tick clock (``_slots``): the
       grads as they appear (the stage's at its first backward, the
@@ -618,35 +629,46 @@ def _pp_peak_bytes(cfg: TransformerConfig, strategy: Strategy, tx, batch: int, s
       on the last stage its head's cotangent ``X``; 1F1B: its input
       ``X``) and the op's transient: a forward's block ``a``; the
       embedding's table cast to the compute dtype; the head's backward,
-      five f32 logits-sized tensors and the table's cast; a backward's
-      working set ``w = 0.75 a`` (the activations' and weights' grads)
-      with the cotangent in and out ``2X``, beside, under GPipe with
-      remat, the checkpoint's recompute of the block and its unpacked
-      copy (``2a``), under 1F1B the chunk's ``L_c`` blocks recomputed
-      without remat.
+      five f32 logits-sized tensors (two of V/tp under a vocab split)
+      and the table's cast; a backward's working set ``w = 0.75 a`` (the
+      activations' and weights' grads) with the cotangent in and out
+      ``2X``, beside, under GPipe with remat, the checkpoint's recompute
+      of the block and its unpacked copy (``2a``), under 1F1B the
+      chunk's ``L_c`` blocks recomputed without remat. Under tp an op
+      adds a tp collective's f32 copy of ``X`` and its cast back. Under
+      fsdp an op adds the unit it gathered (the stage's blocks, the
+      embedding, the head), a gather the unit, the f32 all-gather's
+      output and gloo's device copy of it and the rank's concatenated
+      shards, and GPipe's unit keeps only its input and output ``2X``
+      under remat, recomputing the stage as 1F1B does.
     - The sync: every grad (zeros for a shared leaf the stage never
-      used), the shared leaves' f32 concatenation (the pp sum) with the
-      backend's copy of it; under a ``PPSyncPlan`` instead one bucket in
+      used) and the shared leaves' f32 concatenation (the pp sum); under
+      a ``PPSyncPlan`` instead one bucket in
       flight (the backend's copies of its reduce-scatter input and its
       all-gather output, and the scattered chunk); without a plan at dp
-      > 1 the stage grads' concatenation with its copy.
-    - The update: the grads and the optimizer's transient.
+      > 1 the stage grads' concatenation with its copy; under fsdp the
+      stage unit's rank-major f32 flat and the backend's copy of it.
+    - The update: the grads (under fsdp this rank's f32 shards of them)
+      and the optimizer's transient.
 
     Held to an H100 80GB HBM3 at 700 W by ``chip_smoke.py --phase pp``
     (gpt2_small, 8 x 1024 in 4 microbatches, remat, per-leaf 8-bit
     AdamW; ``PEAK_CAL_RTOL``): the constants of ``w`` and the GPipe
-    recompute are read off its allocator history (PERF.md, PR 16)."""
+    recompute are read off its allocator history, the sync's and
+    ZeRO's gather terms off pp x tp's and pp x fsdp's (PERF.md §6)."""
     import torch
 
     from dlrover_tpu_torch.parallel import grad_sync
-    from dlrover_tpu_torch.parallel.pipeline import PipelineStage, _slots
+    from dlrover_tpu_torch.parallel.pipeline import PipelineStage, _microbatch_axes, _slots
 
     m = strategy.mesh
     P, v = m.pp, strategy.resolved_virtual()
+    tp, fsdp = max(m.tp, 1), max(m.fsdp, 1)
+    zero = fsdp > 1
     schedule = strategy.resolved_pp_schedule()
     M = max(strategy.num_microbatches, 1)
     with torch.device("meta"):
-        st = PipelineStage(cfg, P, stage, v)
+        st = PipelineStage(cfg, P, stage, v, mesh=m)
     leaves = st.jax_ordered_parameters()
 
     def nbytes(ps):
@@ -657,21 +679,40 @@ def _pp_peak_bytes(cfg: TransformerConfig, strategy: Strategy, tx, batch: int, s
     state, trans, _ = _opt_state_bytes(tx, leaves)
     ab = 2 if cfg.dtype in ("bfloat16", "float16") else 4
     pb = torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size()
-    tok = max(batch // (M * max(m.dp, 1)), 1) * seq
+    mb = max(batch // M, 1)
+    div = int(np.prod([getattr(m, a) for a in _microbatch_axes(m.axis_sizes(), mb)]))
+    tok = max(mb // div, 1) * seq
     D, V = cfg.model_dim, cfg.vocab_size
+    split = tp > 1 and V % tp == 0
+    V_loc = V // tp if split else V
     X = float(tok * D * ab)
+    tpx = float(tok * D * (4 + ab)) if tp > 1 else 0.0
     L_c = cfg.num_layers // (P * v)  # a chunk's blocks
-    a = _block_bytes(cfg, tok, ab, stage_bytes / pb / max(L_c * v, 1), pb)
+    a = _block_bytes(cfg, tok, ab, stage_bytes / pb / max(L_c * v, 1), pb, tp)
     w = 0.75 * a
     gpipe = schedule == "gpipe"
     first, last = stage == 0, stage == P - 1
-    table = V * D * pb
+    table = V_loc * D * pb
     emb_grad = table + (0.0 if cfg.rope else cfg.max_seq_len * D * pb)
     head_grad = table  # the tied table's, or the untied head's D x V
-    head = 5.0 * 4 * tok * V + V * D * ab
-    if gpipe:
+    head = (2 if split else 5) * 4.0 * tok * V_loc + V_loc * D * ab
+    # the units ZeRO gathers (nothing without fsdp: the params are
+    # resident), each while it runs; a gather itself holds the unit's
+    # storage, the f32 all-gather's output with the backend's device copy
+    # of it (gloo's), and the rank's concatenated shards
+    u_blocks = stage_bytes if zero else 0.0
+    u_embed = nbytes(st.embed.values()) if zero else 0.0
+    u_head = nbytes(list(st.final_norm.values()) + [
+        st.embed["tokens"] if cfg.tie_embeddings else st.lm_head]) if zero else 0.0
+
+    def gathering(u):
+        return u + 4.0 * u / pb * (2 + 1.0 / fsdp)
+
+    if gpipe and not (zero and cfg.remat):
         graph = (L_c + 1) * X if cfg.remat else L_c * a + X
         bwd = (2 * a if cfg.remat else 0.0) + w + 2 * X
+    elif gpipe:
+        graph, bwd = 2 * X, L_c * a + w + 2 * X
     else:
         graph, bwd = X, L_c * a + w + 2 * X
     n_ticks, fwd_slot, bwd_slot = _slots(schedule, P, M, v)
@@ -682,32 +723,42 @@ def _pp_peak_bytes(cfg: TransformerConfig, strategy: Strategy, tx, batch: int, s
         if f is not None:
             q = f[1]
             if first and q == 0:  # the embedding: the table's cast
-                run = max(run, g + saved + V * D * ab + X)
+                run = max(run, g + saved + gathering(u_embed),
+                          g + saved + V_loc * D * ab + X + tpx + u_embed)
+            run = max(run, g + saved + gathering(u_blocks))
             saved += graph
-            run = max(run, g + saved + a)
+            run = max(run, g + saved + a + tpx + u_blocks)
             if last and q == v - 1:
                 if not got_head:
                     g, got_head = g + head_grad, True
-                run = max(run, g + saved + head)
+                run = max(run, g + saved + gathering(u_head), g + saved + head + tpx + u_head)
                 if gpipe:
                     saved += X  # the cotangent kept for the backward
         if b is not None:
             q = b[1]
             if not got_stage:
                 g, got_stage = g + stage_bytes, True
-            run = max(run, g + saved + bwd)
+            run = max(run, g + saved + gathering(u_blocks), g + saved + bwd + tpx + u_blocks)
             saved -= graph + (X if gpipe and last and q == v - 1 else 0.0)
             if first and q == 0 and not got_emb:
                 g, got_emb = g + emb_grad, True
     grads = p_bytes
     shared_f32 = 4.0 * shared_bytes / pb
-    sync = grads + 2 * shared_f32
+    # the shared leaves' f32 concatenation beside every grad (gloo stages
+    # the pp sum of a CUDA tensor through host memory)
+    sync = grads + shared_f32
     plan = grad_sync.resolve_plan(cfg, strategy) if m.dp > 1 else None
     if plan is not None:
         big = 4.0 * max(b.padded for b in plan.buckets)
         sync = grads + shared_f32 + 2 * big + big / m.dp
+    elif zero:
+        stage_f32 = 4.0 * stage_bytes / pb
+        sync = max(sync, grads + shared_f32 + stage_f32,
+                   shared_bytes + shared_f32 + 2 * stage_f32)
     elif m.dp > 1:
         sync = max(sync, grads + 2 * 4.0 * stage_bytes / pb)
+    if zero:
+        return (p_bytes + state) / fsdp + max(run, sync, (4.0 * p_bytes / pb + trans) / fsdp)
     return p_bytes + state + max(run, sync, grads + trans)
 
 
@@ -885,8 +936,10 @@ def _tp_comm_estimate(report: DryRunReport, cfg: TransformerConfig, batch, seq) 
     all-reduces in the forward, two in the backward, and under remat one
     more in the recompute (the attention's: the non-reentrant checkpoint
     stops recomputing at the last tensor the backward saved, before the
-    MLP's sum); one more each way around a vocab split over tp. Each carries this rank's microbatch of tokens x
-    D in f32 (the dtype ``models/transformer._tp_sum`` reduces in) over
+    MLP's sum); one more each way around a vocab split over tp. On a pp
+    mesh a stage's (the pipeline takes no all-gather of the embedding
+    or the head: its vocab-parallel gather and head run inside the
+    stages). Each carries this rank's microbatch of tokens x D in f32 (the dtype ``models/transformer._tp_sum`` reduces in) over
     the tp group's link (``topology``), at the ring factor plus one
     ring's latency, and none of it is hidden."""
     m = report.strategy.mesh
@@ -899,6 +952,20 @@ def _tp_comm_estimate(report: DryRunReport, cfg: TransformerConfig, batch, seq) 
     ga = max(report.strategy.grad_accum, 1)
     tok = batch * seq / float(max(m.dp * m.fsdp * m.sp, 1) * ga)
     n = cfg.num_layers * (5 if cfg.remat else 4) + (2 if cfg.vocab_size % m.tp == 0 else 0)
+    if m.pp > 1:
+        # a stage: its L/pp layers for each of M microbatches of the
+        # rank's rows; 1F1B's forward tick and its recompute each run the
+        # forward's two sums; one more a microbatch around a vocab split
+        # (stage 0's embedding, the last stage's head)
+        from dlrover_tpu_torch.parallel.pipeline import _microbatch_axes
+
+        s = report.strategy
+        M = max(s.num_microbatches, 1)
+        mb = max(batch // M, 1)
+        div = int(np.prod([getattr(m, a) for a in _microbatch_axes(m.axis_sizes(), mb)]))
+        tok, ga = max(mb // div, 1) * seq, M
+        per = 6 if s.resolved_pp_schedule() != "gpipe" else (5 if cfg.remat else 4)
+        n = cfg.num_layers // m.pp * per + (1 if cfg.vocab_size % m.tp == 0 else 0)
     wire = 2.0 * (m.tp - 1) / m.tp * tok * cfg.model_dim * 4.0
     t = n * ga * (wire * model.sec_per_axis_byte("tp") + 2 * m.tp * model.ici_lat_s)
     report.comm_bytes_per_device += n * ga * wire

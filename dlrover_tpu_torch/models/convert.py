@@ -25,7 +25,10 @@ Under pipeline parallelism (pp > 1) a rank holds its
 stage-stacked leaf (``[d]`` of ``[pp, v, L/(pp v), ...]`` when
 interleaved), the same machinery's boxes along dim 0 over the ``pp``
 group, and the shared leaves (embedding, final norm, head) whole, staged
-by stage 0 alone.
+by stage 0 alone. Under pp x tp a rank's box is its stage row cut again
+along the leaf's tp dim (the boxes compose, ``_place``: a leaf whole on
+an axis is staged by that axis's coordinate 0), and under pp x fsdp its
+ZeRO shard of that box is recorded as its run of the box's flatten.
 Optimizer state maps form for form: ``Adam8FlatState`` to
 ``adamw_8bit_flat`` (the same group layout), ``Adam8State`` to
 ``adamw_8bit`` (its 4-bit form's nibble-packed first moment included),
@@ -66,18 +69,27 @@ def _count_leaves(tree) -> int:
     return 1
 
 
-def _tp_names(cfg: TransformerConfig, mesh):
-    """(degree, coordinate, group, each parameter's split dim by name) of
-    the axis that splits the mesh's leaves (tp's, ep's, or pp's rows of
-    the stage-stacked leaves: ``sharding_rules.split_of``)."""
-    from dlrover_tpu_torch.parallel.sharding_rules import split_of, tp_dims
+def _splits(model, mesh):
+    """``[(axis, degree, coordinate, group, each parameter's split dim by
+    name)]`` of every axis that splits the mesh's leaves, in the order a
+    rank's box is cut (``sharding_rules.splits_of``): pp's rows of the
+    stage-stacked leaves, then tp's (or ep's) blocks."""
+    from dlrover_tpu_torch.parallel.sharding_rules import splits_of, tp_dims
 
-    axis, tp, coord, group = split_of(mesh)
-    if axis == "pp":
-        from dlrover_tpu_torch.parallel.pipeline import stage_dims
+    out = []
+    for axis, n, coord, group in splits_of(mesh):
+        if axis == "pp":
+            from dlrover_tpu_torch.parallel.pipeline import stage_dims
 
-        return tp, coord, group, stage_dims(cfg)
-    return tp, coord, group, (tp_dims(cfg, tp, axis) if tp > 1 else {})
+            dims = stage_dims(model.cfg)
+        elif hasattr(model, "stages"):  # a pipeline stage's tp boxes
+            from dlrover_tpu_torch.parallel.pipeline import stage_tp_dims
+
+            dims = stage_tp_dims(model.cfg, n, model.virtual)
+        else:
+            dims = tp_dims(model.cfg, n, axis)
+        out.append((axis, n, coord, group, dims))
+    return out
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: TransformerConfig, device=None,
@@ -91,7 +103,8 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: TransformerConfig, device=None
     JAX pipeline's stacked one (``stages`` leaves ``[pp, L/pp, ...]``, or
     ``[pp, v, L/(pp v), ...]`` with ``virtual=v``) and the result this
     rank's ``parallel/pipeline.PipelineStage``: its row of each stage
-    leaf, the shared leaves whole."""
+    leaf, the shared leaves whole, and under pp x tp the tp box of
+    each."""
     from dlrover_tpu_torch.parallel.sharding_rules import local_shard
 
     pp = getattr(getattr(mesh, "config", mesh), "pp", 1) if mesh is not None else 1
@@ -103,7 +116,8 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: TransformerConfig, device=None
             )
         from dlrover_tpu_torch.parallel.pipeline import PipelineStage
 
-        model = PipelineStage(cfg, pp, getattr(mesh, "stage", 0), virtual, device=device)
+        model = PipelineStage(cfg, pp, getattr(mesh, "stage", 0), virtual, device=device,
+                              mesh=mesh)
     else:
         stacked = isinstance(np_tree.get("layers"), dict)
         if stacked != cfg.scan_layers:
@@ -112,11 +126,13 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: TransformerConfig, device=None
                 f"the config's scan_layers={cfg.scan_layers}"
             )
         model = Transformer(cfg, device=device, mesh=mesh)
-    tp, coord, _, dims = _tp_names(cfg, mesh)
+    splits = _splits(model, mesh)
     n = 0
     with torch.no_grad():
         for name, p in model.named_parameters():
-            arr = local_shard(np.asarray(_lookup(np_tree, name)), dims.get(name), tp, coord)
+            arr = np.asarray(_lookup(np_tree, name))
+            for _, deg, coord, _, dims in splits:
+                arr = local_shard(arr, dims.get(name), deg, coord)
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(
                     f"{name}: JAX leaf {arr.shape} vs port {tuple(p.shape)}"
@@ -130,16 +146,35 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: TransformerConfig, device=None
     return model
 
 
+def whole_leaf(t: torch.Tensor, name: str, model, mesh, splits=None) -> torch.Tensor:
+    """A rank's tensor of parameter ``name`` (its box of the leaf, or a
+    tensor of the box's shape such as its gradient, or under ZeRO its
+    1-D shard of the box's padded flatten) as the whole leaf: gathered
+    over fsdp and cut to the box's shape, then joined over each axis
+    that splits it (``_splits``; every rank of the mesh calls it)."""
+    from dlrover_tpu_torch.parallel.grad_sync import _all_gather
+    from dlrover_tpu_torch.parallel.sharding_rules import gather_tp
+
+    local = dict(model.named_parameters())[name]
+    t = t.detach()
+    if t.dim() == 1 and t.shape != local.shape:  # a ZeRO shard
+        full, h = _all_gather(t.contiguous(), mesh.groups["fsdp"])
+        h.wait()
+        t = full[:local.numel()].view(local.shape)
+    for _, _, _, group, dims in (_splits(model, mesh) if splits is None else splits):
+        t = gather_tp(t, dims.get(name), group)
+    return t
+
+
 def params_to_numpy(model: Transformer, mesh=None) -> Dict[str, Any]:
     """The port's parameters as the JAX-structured tree of f32 numpy
     arrays (the inverse of ``params_from_jax``); with a ``mesh`` of tp >
-    1 the whole leaves, gathered over tp (every tp rank must call)."""
-    from dlrover_tpu_torch.parallel.sharding_rules import gather_tp
-
-    _, _, group, dims = _tp_names(model.cfg, mesh)
+    1 the whole leaves, gathered over tp (every tp rank must call), and
+    over pp the stage rows."""
+    splits = _splits(model, mesh)
     tree: Dict[str, Any] = {}
     for name, p in model.named_parameters():
-        p = gather_tp(p, dims.get(name), group)
+        p = whole_leaf(p, name, model, mesh, splits)
         parts = name.split(".")
         node = tree
         for i, part in enumerate(parts[:-1]):
@@ -151,7 +186,9 @@ def params_to_numpy(model: Transformer, mesh=None) -> Dict[str, Any]:
                 node = node[idx]
             else:
                 node = node.setdefault(part, [] if nxt.isdigit() else {})
-        node[parts[-1]] = p.detach().float().cpu().numpy()
+        # a copy: numpy's view of a param's own storage would pin it
+        # (ZeRO frees the params' storage between steps)
+        node[parts[-1]] = p.detach().to("cpu", torch.float32, copy=True).numpy()
     return tree
 
 
@@ -329,23 +366,23 @@ def replica_group(mesh, zero: bool) -> str:
 
 
 def _tp_parts(model: Transformer, mesh):
-    """(degree, coordinate, group, ``[(param path, its split dim, its
-    8-bit blocks are rows of the whole leaf's)]``; the list empty at
-    degree 1) of the axis that splits the mesh's leaves."""
+    """``[(axis, degree, coordinate, group, [(param path, its split dim,
+    its 8-bit blocks are rows of the whole leaf's)])]`` of every axis that
+    splits the mesh's leaves, in the order a box is cut (``_splits``)."""
     from dlrover_tpu_torch.ops.quantized_optim import BLOCK
-    from dlrover_tpu_torch.parallel.sharding_rules import split_of
 
-    tp, coord, group, dims = _tp_names(model.cfg, mesh)
-    rows = split_of(mesh)[0] in ("ep", "pp")
-    parts = []
-    if tp > 1:
+    out = []
+    for axis, n, coord, group, dims in _splits(model, mesh):
+        rows = axis in ("ep", "pp")
+        parts = []
         for pp, p in _param_paths(model):
             d = dims.get(pp.replace("/", "."))
             # an ep rank's experts, a pp rank's stage row (a box along dim
             # 0) whose elements fill whole 128-blocks are a run of the
             # whole leaf's blocks
             parts.append((pp, d, rows and d == 0 and p.numel() % BLOCK == 0))
-    return tp, coord, group, parts
+        out.append((axis, n, coord, group, parts))
+    return out
 
 
 def _tp_part(path: str, parts):
@@ -363,14 +400,38 @@ def _tp_part(path: str, parts):
     return None
 
 
-def tp_whole_tensors(state, mesh) -> list:
-    """The tensors of ``train_state_tree(state)`` every tp rank holds
-    whole (tp coordinate 0 stages them; a restore hands them on over the
-    tp group). Empty at tp 1."""
+def _place(path: str, shape, splits):
+    """(record shape, box) of this rank's tensor at ``path`` of local
+    ``shape`` in the checkpoint's leaf, cutting along each split axis in
+    turn (a box multiplies its dim by the degree, a stack adds a leading
+    dim of the degree), or None when no axis splits it."""
+    from dlrover_tpu_torch.ckpt.sharding import full_index
+
+    shape, box, lead, placed = list(shape), list(full_index(shape)), 0, False
+    for _, n, coord, _, parts in splits:
+        part = _tp_part(path, parts)
+        if part is None:
+            continue
+        placed = True
+        kind, d = part
+        if kind == "stack":
+            shape, box, lead = [n] + shape, [(coord, coord + 1)] + box, lead + 1
+        else:
+            k, (lo, hi) = shape[d + lead], box[d + lead]
+            shape[d + lead] = k * n
+            box[d + lead] = (lo + coord * k, hi + coord * k)
+    return (tuple(shape), tuple(box)) if placed else None
+
+
+def axis_whole_tensors(state, mesh, axis: str) -> list:
+    """The tensors of ``train_state_tree(state)`` every rank of ``axis``
+    (tp, ep or pp) holds whole: its coordinate 0 stages them, and a
+    restore hands them on over the axis's group. Empty when the axis
+    splits nothing."""
     from dlrover_tpu_torch.ckpt.sharding import flatten_state
 
-    tp, _, _, parts = _tp_parts(state.params, mesh)
-    if tp == 1:
+    parts = next((s[4] for s in _tp_parts(state.params, mesh) if s[0] == axis), None)
+    if parts is None:
         return []
     return [t for path, t in flatten_state(train_state_tree(state))
             if isinstance(t, torch.Tensor) and _tp_part(path, parts) is None]
@@ -378,24 +439,12 @@ def tp_whole_tensors(state, mesh) -> list:
 
 def _rank_tree(tree, mesh, model: Transformer, zero: bool):
     """``tree`` as this rank stages it (see ``train_state_tree``)."""
-    from dlrover_tpu_torch.ckpt.sharding import BlockLeaf, full_index
-    from dlrover_tpu_torch.parallel.sharding_rules import tp_box
+    from dlrover_tpu_torch.ckpt.sharding import BlockLeaf
 
     params = _param_paths(model)
-    tp, coord, _, parts = _tp_parts(model, mesh)
+    splits = _tp_parts(model, mesh)
     stager = mesh.group_index(replica_group(mesh, zero)) == 0
     f = mesh.group_index("fsdp")
-
-    def place(path, shape):
-        """(record shape, box) of a tp-local leaf of ``shape``, or None."""
-        part = _tp_part(path, parts)
-        if part is None:
-            return None
-        kind, d = part
-        if kind == "stack":
-            return (tp,) + tuple(shape), ((coord, coord + 1),) + full_index(shape)
-        whole = tuple(n * tp if i == d else n for i, n in enumerate(shape))
-        return whole, tp_box(whole, d, tp, coord)
 
     def block(path, t):
         # this rank's run of the JAX leaf's row-major flatten: fsdp equal
@@ -403,14 +452,14 @@ def _rank_tree(tree, mesh, model: Transformer, zero: bool):
         shape = _jax_shape(path, t, params)
         n = t.numel()
         lo, hi = f * n, min((f + 1) * n, int(np.prod(shape)))
-        return BlockLeaf(t, shape, lo, hi, place(path, shape)) if lo < hi else None
+        return BlockLeaf(t, shape, lo, hi, _place(path, shape, splits)) if lo < hi else None
 
     def leaf(path, t):
-        if coord and _tp_part(path, parts) is None:
-            return None  # whole on every tp rank: tp coordinate 0 stages it
+        if any(coord and _tp_part(path, parts) is None for _, _, coord, _, parts in splits):
+            return None  # whole on every rank of an axis: its coordinate 0 stages it
         if zero:
             return block(path, t)
-        where = place(path, tuple(t.shape))
+        where = _place(path, tuple(t.shape), splits)
         return t if where is None else BlockLeaf(t, tuple(t.shape), 0, t.numel(), where)
 
     def walk(prefix, node):
@@ -488,14 +537,27 @@ def load_jax_train_state(state, leaves: Dict[str, np.ndarray], mesh=None, plan=N
     zero = state.shards is not None
     F = mesh.config.fsdp if zero else 1
     f = mesh.group_index("fsdp") if zero else 0
-    tp, coord, _, tp_parts = _tp_parts(state.params, mesh)
+    splits = _tp_parts(state.params, mesh)
+
+    def cut(path, a):
+        # this rank's box of a whole JAX leaf, along each split axis
+        for _, n, coord, _, parts in splits:
+            part = _tp_part(path, parts)
+            if part is None:
+                continue
+            if part[0] == "stack":
+                raise NotImplementedError(
+                    f"{path}: the JAX package's 8-bit state quantizes the whole "
+                    f"leaf; a tp rank's codes are its box's own blocks"
+                )
+            a = local_shard(a, part[1], n, coord)
+        return np.ascontiguousarray(a)
+
     with torch.no_grad():
         if not zero:  # under ZeRO the shards carry the params
             for pp, p in _param_paths(state.params):
-                part = _tp_part("params/" + pp, tp_parts)
-                a = local_shard(np.asarray(leaves["params/" + pp], np.float32),
-                                part and part[1], tp, coord)
-                p.copy_(torch.from_numpy(np.ascontiguousarray(a)).to(p.dtype))
+                a = cut("params/" + pp, np.asarray(leaves["params/" + pp], np.float32))
+                p.copy_(torch.from_numpy(a).to(p.dtype))
         tree = train_state_tree(state)
         for path, t in flatten_state(tree):
             a = np.asarray(leaves[path])
@@ -505,14 +567,7 @@ def load_jax_train_state(state, leaves: Dict[str, np.ndarray], mesh=None, plan=N
                     node = node[part]
                 node[parts[-1]] = a
                 continue
-            tp_part = _tp_part(path, tp_parts)
-            if tp_part is not None:
-                if tp_part[0] == "stack":
-                    raise NotImplementedError(
-                        f"{path}: the JAX package's 8-bit state quantizes the whole "
-                        f"leaf; a tp rank's codes are its box's own blocks"
-                    )
-                a = np.ascontiguousarray(local_shard(a, tp_part[1], tp, coord))
+            a = cut(path, a)
             if zero:
                 flat = np.pad(a.reshape(-1), (0, F * t.numel() - a.size))
                 a = flat.reshape((F,) + tuple(t.shape))[f]
@@ -541,7 +596,7 @@ def jax_train_state(state, mesh=None, plan=None) -> Dict[str, np.ndarray]:
 
     zero = state.shards is not None
     params = _param_paths(state.params)
-    tp, _, group, parts = _tp_parts(state.params, mesh)
+    splits = _tp_parts(state.params, mesh)
     out: Dict[str, np.ndarray] = {}
     for path, t in flatten_state(train_state_tree(state)):
         if not isinstance(t, torch.Tensor):
@@ -553,11 +608,16 @@ def jax_train_state(state, mesh=None, plan=None) -> Dict[str, np.ndarray]:
             h.wait()
             shape = _jax_shape(path, t, params)
             a = full[:int(np.prod(shape))].view(shape)
-        part = _tp_part(path, parts)
-        if part is not None:
+        lead = 0
+        for _, _, _, group, parts in splits:
+            part = _tp_part(path, parts)
+            if part is None:
+                continue
             # a box joined along its dim; 8-bit state stacked [tp, ...]
-            a = gather_tp(a, part[1], group) if part[0] == "box" else \
-                gather_tp(a[None], 0, group)
+            if part[0] == "box":
+                a = gather_tp(a, part[1] + lead, group)
+            else:
+                a, lead = gather_tp(a[None], 0, group), lead + 1
         out[path] = a.cpu().numpy().copy()
     out["grad_residual"] = None
     if state.grad_residual is not None and plan is not None:

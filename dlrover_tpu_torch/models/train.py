@@ -226,18 +226,22 @@ class ZeroUnits:
     (``_GatheredUnit``) the unit's own graph is kept aside and the
     backward gathers the unit again only if that graph saved its params'
     storage (those params only), or, for a remat block
-    (``recompute``), to rebuild it."""
+    (``recompute``), to rebuild it. ``units``: the parameters of each
+    unit by key (default ``transformer.unit_parameters``; a pipeline
+    stage's are ``parallel/pipeline.stage_units``)."""
 
-    def __init__(self, state: TrainState, mesh, plan):
+    def __init__(self, state: TrainState, mesh, plan, units=None):
         self.state, self.plan = state, plan
         self.group = mesh.groups["fsdp"]
         leaves = state.params.jax_ordered_parameters()
         index = {id(p): i for i, p in enumerate(leaves)}
-        from dlrover_tpu_torch.models.transformer import unit_parameters
+        if units is None:
+            from dlrover_tpu_torch.models.transformer import unit_parameters
 
+            units = unit_parameters(state.params)
         # key -> (leaf indices, their params), in leaf order
         self.units = {}
-        for key, ps in unit_parameters(state.params).items():
+        for key, ps in units.items():
             pairs = sorted((index[id(p)], p) for p in ps)
             self.units[key] = ([i for i, _ in pairs], [p for _, p in pairs])
 

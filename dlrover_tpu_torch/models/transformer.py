@@ -64,13 +64,14 @@ and the layer exchanges its buckets over the ``ep`` group.
 Pipeline parallelism (a mesh with ``pp > 1``) runs the blocks of a
 stage on each pp rank: ``parallel/pipeline.PipelineStage`` holds them,
 drawn by this module's ``leaf_maker`` in the order ``Transformer`` draws
-them, and runs them through ``_attention_block`` / ``_mlp_block``,
-``embed_tokens`` and ``lm_head``.
+them (under pp x tp each stage row's tp box), and runs them through
+``_attention_block`` / ``_mlp_block`` (over the stage's tp group),
+``embed_tokens``, ``lm_head`` and ``token_nll``.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: pp composed with fsdp, tp or sp (A11c), MoE or ep composed with
-fsdp x ep, tp or sp (A19), ``int8_mlp`` (A12), the KV-cache decode paths
-(A14).
+item: MoE or ep composed with fsdp x ep, tp or sp (A19), ``int8_mlp``
+(A12), the KV-cache decode paths (A14). pp x sp and pp x ep raise the
+JAX package's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -108,13 +109,14 @@ def _torch_dtype(name: str) -> torch.dtype:
 def check_supported(cfg: TransformerConfig, mesh=None) -> None:
     """Raise for the configuration switches the port does not run yet.
     ``mesh``: a ``parallel/mesh.Mesh`` or its ``MeshConfig``; the data
-    axes, sp, tp, ep and pp (alone or with dp) run. pp composed with
-    fsdp, tp or sp raises naming its ROADMAP item, so does MoE or ep
-    composed with fsdp x ep, tp or sp; pp x ep, a model the pipeline
-    cannot stage (``parallel/pipeline._check_pipeline_cfg``), a tp degree
-    that does not divide the heads, the kv heads or the MLP width, or an
-    ep degree on a dense model or one that does not divide the experts,
-    raises ``ValueError``."""
+    axes, sp, tp, ep and pp run, and pp composes with tp and fsdp (dp on
+    top). MoE or ep composed with fsdp x ep, tp or sp raises
+    ``NotImplementedError`` naming its ROADMAP item; pp x ep and pp x sp
+    (the JAX package's refusals), a model the pipeline cannot stage
+    (``parallel/pipeline._check_pipeline_cfg``), a tp degree that does
+    not divide the heads, the kv heads or the MLP width, or an ep degree
+    on a dense model or one that does not divide the experts, raise
+    ``ValueError``."""
     if mesh is not None:
         m = getattr(mesh, "config", mesh)
         if m.pp > 1:
@@ -125,11 +127,8 @@ def check_supported(cfg: TransformerConfig, mesh=None) -> None:
                     f"pp={m.pp} x ep={m.ep}: pipeline parallelism with expert "
                     f"parallelism is not supported (use ep without pp)"
                 )
-            others = [a for a in ("fsdp", "tp", "sp") if getattr(m, a) > 1]
-            if others:
-                raise NotImplementedError(
-                    f"pp x {' x '.join(others)} is not ported yet (ROADMAP A11c)"
-                )
+            if m.sp > 1:
+                raise ValueError("sp (ring attention) inside pp stages not supported")
             from dlrover_tpu_torch.parallel.pipeline import _check_pipeline_cfg
 
             _check_pipeline_cfg(cfg, m.pp)
@@ -256,9 +255,8 @@ def leaf_maker(cfg: TransformerConfig, generator: Optional[torch.Generator] = No
     pd = _torch_dtype(cfg.param_dtype)
     axis, tp, coord, _ = split_of(mesh)
     # each leaf's dim on the splitting axis (tp's or ep's), by its
-    # list-layout name (the names the leaves are drawn under); the pp
-    # axis splits no leaf of this tree
-    dims = tp_dims(list_layout(cfg), tp, axis) if tp > 1 and axis != "pp" else {}
+    # list-layout name (the names the leaves are drawn under)
+    dims = tp_dims(list_layout(cfg), tp, axis) if tp > 1 else {}
 
     def make(name, kind, shape, fan_in=None):
         dim = dims.get(name)

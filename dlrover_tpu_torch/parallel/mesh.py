@@ -261,23 +261,30 @@ def data_axes() -> Tuple[str, ...]:
     return ("dp", "fsdp")
 
 
-def batch_sharding(mesh: Mesh, global_rows: int, microbatches: int = 1) -> np.ndarray:
+def batch_sharding(mesh: Mesh, global_rows: int, microbatches: int = 1,
+                   axes: Sequence[str] = ("dp", "fsdp")) -> np.ndarray:
     """The rows of a global batch of ``global_rows`` this rank owns, in
     order: of each of the ``microbatches`` consecutive microbatches (the
     JAX step's ``grad_accum`` reshape), the ``data_index``-th of
     ``dp * fsdp`` equal contiguous blocks, as ``P(("dp", "fsdp"))`` lays
     a microbatch's batch dim on the JAX mesh. The rank's k-th
-    microbatch is then the k-th equal chunk of its rows."""
-    n = mesh.config.dp * mesh.config.fsdp
+    microbatch is then the k-th equal chunk of its rows. ``axes``: the
+    data axes a microbatch is split over (its index over them, in mesh
+    order; the ranks that differ only on another data axis read the
+    same rows), as ``P(axes)`` lays it."""
+    sizes = [getattr(mesh.config, a) for a in axes]
+    n = int(np.prod(sizes)) if sizes else 1
     if global_rows % (n * microbatches):
         raise ValueError(
             f"global batch {global_rows} does not divide into "
             f"{microbatches} microbatch(es) over the {n} data ranks "
-            f"(dp x fsdp)"
+            f"({' x '.join(axes) or 'none'})"
         )
     mb = global_rows // microbatches
     per = mb // n
-    i = mesh.data_index
+    i = 0
+    for a, size in zip(axes, sizes):
+        i = i * size + mesh.coords.get(a, 0)
     return np.concatenate([
         np.arange(k * mb + i * per, k * mb + (i + 1) * per)
         for k in range(microbatches)

@@ -52,12 +52,35 @@ gather, the last stage's head: for a tied table both land on
 ``embed.tokens``) are summed over pp before the update, so every stage
 applies the same update to its copy.
 
-The dp sync (pp x dp): without a plan, the mean over the dp group of
-the whole gradient list in one all-reduce; with a ``PPSyncPlan``
-(``comm_overlap``), once the drain ends, the stage plan's buckets over
-the rank's stage leaves and the shared plan's over the shared leaves,
-each bucket a reduce-scatter and an all-gather over dp. ``grad_norm`` is
-``sqrt(sum_pp(stage squares) + shared squares)``.
+pp composed with tp and fsdp (dp on top; the JAX package's GSPMD stages,
+manual over pp only): a rank holds its stage row cut again along each
+leaf's tp dim at its tp coordinate (``stage_tp_dims``; the shared leaves
+are tp boxes when tp divides the vocab, else whole), and under fsdp
+ZeRO's 1/fsdp shard of that box (``stage_state``). The ``pp`` group of
+a rank is the run of stages at its own (dp, fsdp, tp) coordinate, so tp
+rank t of stage s hops with tp rank t of stage s+1, each sending its
+whole copy of the (tp-replicated) activations; the blocks, the
+embedding and the head run their tp collectives over the stage's ``tp``
+group inside a tick, between the tick boundaries' hops. Under fsdp a
+unit (``stage_units``: the blocks, the embedding, the head) is gathered
+over fsdp just before it runs and freed after: before each chunk
+forward and before each backward's recompute (GPipe's backward through
+``models/train._GatheredUnit``, which under remat recomputes the stage
+as 1F1B does). A microbatch's rows split over the data axes that divide
+it (``pipeline_rows``, the JAX ``_microbatch_axes`` rule).
+
+The sync: without a plan, the mean over the data axes, each tp box on
+its own: one all-reduce of the whole gradient list over dp, or under
+fsdp one reduce-scatter over fsdp a sync unit (the stage leaves, the
+shared leaves) into the rank's ZeRO shards and an all-reduce over dp;
+with a ``PPSyncPlan`` (pp x dp with ``comm_overlap``), once the drain
+ends, the stage plan's buckets over the rank's stage leaves and the
+shared plan's over the shared leaves, each bucket a reduce-scatter and
+an all-gather over dp. A pp x tp or pp x fsdp mesh gets no plan (the
+JAX gate's verdict); ``comm_overlap`` there logs the fallback.
+``grad_norm`` is ``sqrt`` of the squares summed over pp, tp and fsdp,
+each leaf counted once over the axes that hold it whole (a tp-whole
+leaf from tp coordinate 0, a shared leaf from stage 0).
 
 Transport: on NCCL the hops go device to device; over gloo (two ranks
 sharing one card) a hop of CUDA tensors is staged through pinned host
@@ -67,6 +90,7 @@ The hops' count and host ms are in ``comm``.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from types import SimpleNamespace
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -208,6 +232,55 @@ def stage_dims(cfg: TransformerConfig) -> Dict[str, Optional[int]]:
     return {n: 0 if n.startswith("stages.") else None for n in names}
 
 
+def stage_tp_dims(cfg: TransformerConfig, tp: int, virtual: int = 1) -> Dict[str, Optional[int]]:
+    """Each ``PipelineStage`` parameter's split dim over tp by name, None
+    for a leaf every tp rank holds whole: a stage leaf's is its layer
+    leaf's tp dim after the stacked layout's leading (stage[, chunk],
+    layer_stack) axes (``pipeline_logical_axes``), a shared leaf's its
+    own (the embedding's rows and the head's columns when tp divides
+    the vocab, ``sharding_rules.tp_dims``)."""
+    from dlrover_tpu_torch.parallel.sharding_rules import list_layout, tp_dims
+
+    dims = tp_dims(list_layout(cfg), tp) if tp > 1 else {}
+    lead = len(STAGE_AXES) + (virtual > 1)
+    out: Dict[str, Optional[int]] = {}
+    for n in stage_dims(cfg):
+        if n.startswith("stages."):
+            d = dims.get("layers.0." + n[len("stages."):])
+            out[n] = None if d is None else d + lead
+        else:
+            out[n] = dims.get(n)
+    return out
+
+
+def _microbatch_axes(axis_sizes: Dict[str, int], mb: int) -> Tuple[str, ...]:
+    """The data axes a microbatch of ``mb`` rows is split over (the JAX
+    package's rule): the axes of ("dp", "fsdp"), in order, whose running
+    product of degrees divides ``mb``. The ranks that differ only on an
+    axis left out read the same rows."""
+    axes, n = [], 1
+    for ax in ("dp", "fsdp"):
+        sz = int(axis_sizes.get(ax, 1))
+        if sz > 1 and mb % (n * sz) == 0:
+            axes.append(ax)
+            n *= sz
+    return tuple(axes)
+
+
+def pipeline_rows(mesh, global_rows: int, microbatches: int) -> np.ndarray:
+    """This rank's rows of a global batch, in order: of each of the
+    ``microbatches``, its block over the data axes ``_microbatch_axes``
+    picks (``mesh.batch_sharding``). Every stage and every tp rank of a
+    data coordinate reads the same rows; the mean over the data axes of
+    the ranks' means is the batch mean, duplicated rows or not."""
+    from dlrover_tpu_torch.parallel.mesh import batch_sharding
+
+    if global_rows % microbatches:
+        raise ValueError(f"batch {global_rows} must divide into {microbatches} microbatches")
+    axes = _microbatch_axes(mesh.config.axis_sizes(), global_rows // microbatches)
+    return batch_sharding(mesh, global_rows, microbatches, axes)
+
+
 def schedule_occupancy(pp: int, M: int, virtual: int = 1):
     """Pure-Python occupancy model of the (interleaved) 1F1B tick clock
     (the JAX package's, copied): ``(n_ticks, busy_slots, total_slots)``,
@@ -252,25 +325,30 @@ class _StageStack(nn.Module):
 
 class PipelineStage(nn.Module):
     """One pp rank's parameters: the shared leaves and its row of the
-    stage-stacked ones (the module docstring's layout). With a
-    ``generator`` the weights are those of ``models/transformer.
-    Transformer`` from the same generator: every leaf is drawn in its
-    order (on the generator's device), the stage's own layers kept and
-    stacked, the others dropped; without one, norm scales 1 and every
-    other leaf 0 (a tree a restore or ``params_from_jax`` fills)."""
+    stage-stacked ones (the module docstring's layout). With a ``mesh``
+    of tp > 1 (a ``parallel/mesh.Mesh``, or a ``MeshConfig`` for tp
+    coordinate 0's shapes) each leaf is that row's tp box
+    (``stage_tp_dims``). With a ``generator`` the weights are those of
+    ``models/transformer.Transformer`` from the same generator: every
+    leaf is drawn whole in its order (on the generator's device), the
+    stage's own layers kept, cut to the tp box and stacked, the others
+    dropped; without one, norm scales 1 and every other leaf 0 (a tree a
+    restore or ``params_from_jax`` fills)."""
 
     def __init__(self, cfg: TransformerConfig, pp: int, stage: int, virtual: int = 1,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None, mesh=None):
         super().__init__()
         from dlrover_tpu_torch.models.transformer import _Layer, leaf_maker, shared_leaves
 
         _check_pipeline_cfg(cfg, pp, virtual)
         self.cfg, self.pp, self.stage, self.virtual = cfg, pp, stage, virtual
-        self.embed, self.final_norm, head = shared_leaves(cfg, leaf_maker(cfg, generator, device))
+        self.embed, self.final_norm, head = shared_leaves(
+            cfg, leaf_maker(cfg, generator, device, mesh))
         if head is not None:
             self.lm_head = head
-        # the blocks are drawn where the generator draws and stacked there
-        draw = leaf_maker(cfg, generator)
+        # the blocks are drawn where the generator draws (each a copy of
+        # its tp box) and stacked there
+        draw = leaf_maker(cfg, generator, mesh=mesh)
         chunks = stage_layers(cfg, pp, stage, virtual)
         mine = {i: (q, k) for q, ids in enumerate(chunks) for k, i in enumerate(ids)}
         lc = len(chunks[0])
@@ -280,7 +358,7 @@ class PipelineStage(nn.Module):
             if i in mine:
                 q, k = mine[i]
                 kept[q][k] = layer
-        parts = {}
+        parts, whole = {}, {}
         for part in _PARTS:
             parts[part] = {}
             for key in getattr(kept[0][0], part):
@@ -288,11 +366,15 @@ class PipelineStage(nn.Module):
                         for chunk in kept]
                 leaf = rows[0] if virtual == 1 else torch.stack(rows)
                 parts[part][key] = leaf.unsqueeze(0).to(device)
+                first = getattr(kept[0][0], part)[key]
+                whole[(part, key)] = (first.numel(), getattr(first, "leaf_numel", first.numel()))
         self.stages = _StageStack(parts)
-        for p in self.stages.parameters():
-            # the whole JAX leaf is [pp, ...]: the 8-bit AdamW decides
-            # quantization on its size
-            p.leaf_numel = pp * p.numel()
+        for part in _PARTS:
+            for key, p in getattr(self.stages, part).items():
+                # the whole JAX leaf is [pp, ...] of whole layer leaves:
+                # the 8-bit AdamW decides quantization on its size
+                box, layer_numel = whole[(part, key)]
+                p.leaf_numel = pp * (p.numel() // box) * layer_numel
 
     def jax_ordered_parameters(self):
         """Parameters in the JAX package's flatten order of the stacked
@@ -329,28 +411,75 @@ class PipelineStage(nn.Module):
                 for i in range(n)]
 
 
-def pipeline_leaves(cfg: TransformerConfig, pp: int, virtual: int = 1) -> Tuple[list, list]:
+def stage_units(stage: PipelineStage) -> Dict[str, List[nn.Parameter]]:
+    """The parameters each unit of a stage reads, by key: ZeRO gathers
+    a unit over fsdp just before it runs and frees it after
+    (``models/train.ZeroUnits``): ``"embed"`` (stage 0's gather),
+    ``"blocks"`` (the stage's stacked leaves, every chunk of them) and
+    ``"head"`` (the final norm and the head, the tied table under
+    tying; the last stage's)."""
+    head = list(stage.final_norm.values())
+    head.append(stage.embed["tokens"] if stage.cfg.tie_embeddings else stage.lm_head)
+    return {"embed": list(stage.embed.values()), "blocks": list(stage.stages.parameters()),
+            "head": head}
+
+
+def pipeline_leaves(cfg: TransformerConfig, pp: int, virtual: int = 1,
+                    mesh=None) -> Tuple[list, list]:
     """``(stage leaves, shared leaves)`` of a stage rank on the meta device,
     each in the JAX order: the stage leaves at the JAX plan's stage-local
-    shapes (``[L/pp, ...]`` or ``[v, L/(pp v), ...]``)."""
+    shapes (``[L/pp, ...]`` or ``[v, L/(pp v), ...]``); with a ``mesh``
+    (``MeshConfig``) of tp > 1 tp coordinate 0's boxes."""
     with torch.device("meta"):
-        st = PipelineStage(cfg, pp, 0, virtual)
+        st = PipelineStage(cfg, pp, 0, virtual, mesh=mesh)
         return ([p[0] for p in st.stage_parameters()], st.shared_parameters())
+
+
+def zero_layout(leaves: Sequence, fsdp: int):
+    """The ZeRO layout of a stage rank's leaves over fsdp (the port's:
+    each leaf padded to fsdp x whole 128-element blocks, a rank's shard
+    its run of block rows; ``grad_sync.BucketPlan.leaf_shard``), as one
+    bucket a ``models/train`` ZeRO helper walks."""
+    from dlrover_tpu_torch.parallel.grad_sync import ZERO_LEAF_BLOCK, plan_buckets
+
+    return plan_buckets(list(leaves), dp=1, fsdp=fsdp, bucket_bytes=1 << 62, kind="zero",
+                        leaf_block=ZERO_LEAF_BLOCK)
+
+
+def stage_state(stage: PipelineStage, tx: Callable, mesh):
+    """The port's ``TrainState`` of a stage: the optimizer bound to its
+    parameters in the JAX order, or on a mesh with fsdp > 1 to this
+    rank's ZeRO shards of them (``TrainState.shards``; the module's
+    params then hold no storage between the units' gathers,
+    ``stage_units``)."""
+    from dlrover_tpu_torch.models.train import TrainState, ZeroUnits, free_params, leaf_shards
+
+    leaves = stage.jax_ordered_parameters()
+    fsdp = mesh.config.fsdp if mesh is not None else 1
+    if fsdp == 1:
+        return TrainState(step=0, params=stage, opt_state=tx(leaves))
+    plan = zero_layout(leaves, fsdp)
+    shards = leaf_shards(leaves, mesh, plan)
+    state = TrainState(step=0, params=stage, opt_state=tx(shards), shards=shards)
+    state.units = ZeroUnits(state, mesh, plan, stage_units(stage))
+    free_params(state)
+    return state
 
 
 def init_pipeline_state(cfg: TransformerConfig, tx: Callable, mesh, virtual: int = 1,
                         seed: int = 0, devices=None, generator: Optional[torch.Generator] = None):
-    """The rank's stage (``PipelineStage`` at ``mesh.stage``) from
-    ``torch.Generator().manual_seed(seed)`` (or ``generator``), on the
-    device (the card unless ``devices="cpu"``), and the optimizer bound
-    to its parameters in the JAX order: the port's ``TrainState``."""
-    from dlrover_tpu_torch.models.train import TrainState
+    """The rank's stage (``PipelineStage`` at ``mesh.stage``, its tp boxes
+    under tp) from ``torch.Generator().manual_seed(seed)`` (or
+    ``generator``), on the device (the card unless ``devices="cpu"``),
+    and the optimizer bound to its parameters in the JAX order, or under
+    fsdp to their ZeRO shards (``stage_state``): the port's
+    ``TrainState``."""
     from dlrover_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(devices)
     gen = generator if generator is not None else torch.Generator().manual_seed(seed)
-    stage = PipelineStage(cfg, mesh.config.pp, mesh.stage, virtual, gen, device)
-    return TrainState(step=0, params=stage, opt_state=tx(stage.jax_ordered_parameters()))
+    stage = PipelineStage(cfg, mesh.config.pp, mesh.stage, virtual, gen, device, mesh=mesh)
+    return stage_state(stage, tx, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -457,19 +586,36 @@ class _Link:
         return inbs
 
 
-def _blocks(stage: PipelineStage, q: int, x, positions, remat: bool):
+def _blocks(stage: PipelineStage, q: int, x, positions, remat: bool, mesh=None):
     """Chunk ``q``'s blocks on ``x``; ``remat``: each block under the
-    non-reentrant checkpoint (``models/transformer.forward``'s)."""
+    non-reentrant checkpoint (``models/transformer.forward``'s); under
+    tp (``mesh``) each block's collectives run over the stage's tp
+    group."""
     from dlrover_tpu_torch.models.transformer import _attention_block, _mlp_block
 
     cfg = stage.cfg
 
     def block(x, layer):
-        return _mlp_block(_attention_block(x, layer, cfg, positions), layer, cfg)
+        return _mlp_block(_attention_block(x, layer, cfg, positions, mesh), layer, cfg, mesh)
 
     for layer in stage.chunk_views(q):
         x = checkpoint(block, x, layer, use_reentrant=False) if remat else block(x, layer)
     return x
+
+
+@contextlib.contextmanager
+def _gathered(units, key: str):
+    """Unit ``key``'s params in place while the body runs (ZeRO's
+    per-unit gather over fsdp, freed after), or nothing without
+    ``units``."""
+    if units is None:
+        yield
+        return
+    units.gather(key)
+    try:
+        yield
+    finally:
+        units.free(key)
 
 
 def _add_grad(p: nn.Parameter, g: torch.Tensor) -> None:
@@ -478,16 +624,24 @@ def _add_grad(p: nn.Parameter, g: torch.Tensor) -> None:
     p.grad.add_(g.to(p.grad.dtype))
 
 
-def _embed_backward(stage: PipelineStage, tok: torch.Tensor, dx: torch.Tensor) -> None:
+def _embed_backward(stage: PipelineStage, tok: torch.Tensor, dx: torch.Tensor,
+                    split=None) -> None:
     """The embedding gather's backward: ``dx``'s rows scatter-added (f32)
     into the table's gradient at their token ids, and summed over the
-    rows into the learned positions' (the JAX 1F1B's scatter-add)."""
+    rows into the learned positions' (the JAX 1F1B's scatter-add). Under
+    a vocab split over tp (``split``: ``transformer.vocab_split``) only
+    the rows of this rank's block of the vocab, at their local ids."""
     D = dx.shape[-1]
     contrib = dx.float()
     table = stage.embed["tokens"]
     if table.grad is None:
         table.grad = torch.zeros_like(table)
-    table.grad.index_add_(0, tok.reshape(-1), contrib.reshape(-1, D).to(table.grad.dtype))
+    ids, rows = tok.reshape(-1), contrib.reshape(-1, D)
+    if split is not None:
+        local = ids - split[0]
+        inside = (local >= 0) & (local < table.shape[0])
+        ids, rows = local[inside], rows[inside]
+    table.grad.index_add_(0, ids, rows.to(table.grad.dtype))
     if "positions" in stage.embed:
         pos = torch.zeros_like(stage.embed["positions"])
         pos[:dx.shape[1]] = contrib.sum(0)
@@ -495,14 +649,23 @@ def _embed_backward(stage: PipelineStage, tok: torch.Tensor, dx: torch.Tensor) -
 
 
 def run_schedule(stage: PipelineStage, mesh, tokens: Sequence[torch.Tensor],
-                 targets: Sequence[torch.Tensor], schedule: str, train: bool = True) -> torch.Tensor:
+                 targets: Sequence[torch.Tensor], schedule: str, train: bool = True,
+                 units=None) -> torch.Tensor:
     """Run ``schedule`` over the microbatches ``tokens`` / ``targets``
     (this rank's rows of each, in order) on every stage rank of the pp
     group together; returns the last stage's sum of the microbatches'
     mean NLL over M (its loss; zeros on the other stages). ``train``:
     the backward slots run and the gradients accumulate into the
     parameters' ``.grad``; otherwise only the forward slots, without
-    autograd (the eval path)."""
+    autograd (the eval path). Under tp the blocks, the embedding and the
+    head run their collectives over the stage's tp group; ``units``
+    (``models/train.ZeroUnits`` over ``stage_units``, under fsdp)
+    gathers each unit before it runs and frees it after: the blocks
+    before each chunk forward and before each backward's recompute
+    (GPipe's backward through ``_GatheredUnit``), the embedding and the
+    head where they run."""
+    from dlrover_tpu_torch.models.transformer import embed_tokens, lm_head, token_nll, vocab_split
+
     cfg = stage.cfg
     P, v, d = stage.pp, stage.virtual, stage.stage
     M = len(tokens)
@@ -517,7 +680,7 @@ def run_schedule(stage: PipelineStage, mesh, tokens: Sequence[torch.Tensor],
     positions = torch.arange(T, device=dev).expand(rows, T)
     last = (P - 1, v - 1)
     gpipe = schedule == "gpipe"
-    from dlrover_tpu_torch.models.transformer import embed_tokens, lm_head, token_nll
+    split = vocab_split(cfg, mesh)
 
     loss = torch.zeros((), dtype=torch.float32, device=dev)
     saved: Dict[Tuple[int, int], Any] = {}
@@ -530,26 +693,35 @@ def run_schedule(stage: PipelineStage, mesh, tokens: Sequence[torch.Tensor],
         if f is not None:
             j, q = f
             if (d, q) == (0, 0):
-                with torch.no_grad():
-                    x = embed_tokens(stage, tokens[j], cfg).to(act_dt)
+                with torch.no_grad(), _gathered(units, "embed"):
+                    x = embed_tokens(stage, tokens[j], cfg, mesh=mesh).to(act_dt)
             else:
                 x = act
             if gpipe and train:
                 xi = x.detach().requires_grad_()
                 with torch.enable_grad():
-                    y = _blocks(stage, q, xi, positions, cfg.remat)
+                    if units is None:
+                        y = _blocks(stage, q, xi, positions, cfg.remat, mesh)
+                    else:
+                        # the unit's own recompute is the remat (at
+                        # stage granularity, as 1F1B's)
+                        y = units("blocks", lambda x_, q=q: _blocks(stage, q, x_, positions,
+                                                                     False, mesh),
+                                  xi, cfg.remat)
                 saved[(j, q)] = (xi, y)
             else:
-                with torch.no_grad():
-                    y = _blocks(stage, q, x, positions, False)
+                with torch.no_grad(), _gathered(units, "blocks"):
+                    y = _blocks(stage, q, x, positions, False, mesh)
                 if train:
                     saved[(j, q)] = x
             if (d, q) == last:
                 yl = y.detach().requires_grad_(train)
-                with torch.set_grad_enabled(train):
-                    mb_loss = token_nll(lm_head(stage, yl, cfg), targets[j]) / M
+                with _gathered(units, "head"), torch.set_grad_enabled(train):
+                    mb_loss = token_nll(lm_head(stage, yl, cfg, mesh), targets[j],
+                                        split=split) / M
+                    if train:
+                        mb_loss.backward()
                 if train:
-                    mb_loss.backward()
                     dy_head[j] = yl.grad.to(act_dt)
                 loss = loss + mb_loss.detach()
             else:
@@ -559,16 +731,18 @@ def run_schedule(stage: PipelineStage, mesh, tokens: Sequence[torch.Tensor],
             dy = dy_head.pop(j) if (d, q) == last else gin
             if gpipe:
                 xi, y = saved.pop((j, q))
+                torch.autograd.backward(y, dy)
             else:
                 xi = saved.pop((j, q)).detach().requires_grad_()
-                with torch.enable_grad():
-                    # remat at stage granularity: the recompute runs the
-                    # blocks plainly
-                    y = _blocks(stage, q, xi, positions, False)
-            torch.autograd.backward(y, dy)
+                with _gathered(units, "blocks"):
+                    with torch.enable_grad():
+                        # remat at stage granularity: the recompute runs
+                        # the blocks plainly
+                        y = _blocks(stage, q, xi, positions, False, mesh)
+                    torch.autograd.backward(y, dy)
             del y
             if (d, q) == (0, 0):
-                _embed_backward(stage, tokens[j], xi.grad)
+                _embed_backward(stage, tokens[j], xi.grad, split)
             else:
                 out_grad = xi.grad.to(act_dt)
         if comm["time_slots"] and (f is not None or b is not None):
@@ -624,24 +798,62 @@ def _split(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> List[torch.Tenso
     return out
 
 
+def _zero_scatter(grads: Sequence[torch.Tensor], idx: Sequence[int], units, mesh,
+                  n_data: int) -> List[torch.Tensor]:
+    """The whole grads of leaves ``idx`` (this rank's, of one sync unit)
+    -> this rank's ZeRO shards of their mean over the data axes: each
+    leaf padded to its ``leaf_padded`` length and laid out rank-major
+    (every fsdp rank's block rows of the unit's leaves in turn), one
+    reduce-scatter over fsdp, one all-reduce over dp, divided by dp x
+    fsdp. ``grads`` is consumed."""
+    from dlrover_tpu_torch.parallel.grad_sync import _all_reduce, _reduce_scatter
+
+    plan = units.plan
+    sizes = [plan.leaf_shard(i) for i in idx]
+    flat = torch.zeros((plan.fsdp, sum(sizes)), dtype=torch.float32, device=grads[0].device)
+    off = 0
+    for k, g in enumerate(grads):
+        # the leaf's padded flatten as fsdp rows of its shard's length
+        sh, gf = sizes[k], g.reshape(-1)
+        full, rest = divmod(gf.numel(), sh)
+        flat[:full, off:off + sh] = gf[:full * sh].view(full, sh)
+        if rest:
+            flat[full, off:off + rest] = gf[full * sh:]
+        off += sh
+        grads[k] = gf = g = None
+    flat = flat.reshape(-1)
+    out, h = _reduce_scatter(flat, units.group)
+    h.wait()
+    del flat
+    _reduce_(out, mesh.groups["dp"])
+    out.div_(n_data)
+    return list(out.split(sizes))
+
+
 def build_pipeline_train_step(
     cfg: TransformerConfig, tx: Callable = None, mesh=None, num_microbatches: int = 1,
     schedule: str = "gpipe", virtual_stages: int = 2, plan=None,
-    before_update: Optional[Callable[[], None]] = None,
+    before_update: Optional[Callable[[], None]] = None, comm_overlap: bool = False,
 ):
     """``(state, tokens, targets) -> (state, {"loss", "grad_norm"})`` over
     pp, updating ``state`` in place (params, optimizer, step count), as
     ``models/train.build_train_step`` does. ``tokens`` / ``targets`` are
-    this rank's rows of the global batch (``mesh.batch_sharding`` with
-    ``num_microbatches``: its rows of each microbatch, in order); every
-    stage rank of a data coordinate passes the same rows. ``schedule``:
-    "gpipe", "1f1b" or "interleaved" (with ``virtual_stages`` chunks a
-    device; the state from ``init_pipeline_state(..., virtual=v)``).
-    ``plan``: a ``grad_sync.PPSyncPlan`` (pp x dp with ``comm_overlap``),
-    else the default dp mean. ``tx`` is accepted for the JAX signature;
-    the step uses the optimizer bound in ``state.opt_state``.
-    ``before_update()`` runs after the gradients are final and before
-    the optimizer writes anything."""
+    this rank's rows of the global batch (``pipeline_rows``: its rows of
+    each microbatch, in order); every stage and tp rank of a data
+    coordinate passes the same rows. ``schedule``: "gpipe", "1f1b" or
+    "interleaved" (with ``virtual_stages`` chunks a device; the state
+    from ``init_pipeline_state(..., virtual=v)``). ``plan``: a
+    ``grad_sync.PPSyncPlan`` (pp x dp with ``comm_overlap``), else the
+    default sync: the mean over the data axes, over fsdp by the
+    reduce-scatter of each sync unit (the stage leaves, the shared
+    leaves) into the ZeRO shards, each tp box on its own.
+    ``comm_overlap`` without a plan (pp composed with tp or fsdp) logs
+    the fallback once (``grad_sync.note_gspmd_fallback``), as the JAX
+    step does. ``tx`` is accepted for the JAX signature; the step uses
+    the optimizer bound in ``state.opt_state``. ``before_update()`` runs
+    after the gradients are final and before the optimizer writes
+    anything."""
+    from dlrover_tpu_torch.parallel import grad_sync
     from dlrover_tpu_torch.parallel.grad_sync import PPSyncPlan, sync_grads
 
     if schedule not in SCHEDULES:
@@ -649,12 +861,21 @@ def build_pipeline_train_step(
     virtual = virtual_stages if schedule == "interleaved" else 1
     if schedule == "interleaved" and virtual < 2:
         raise ValueError("interleaved schedule needs virtual_stages >= 2")
-    pp, dp = mesh.config.pp, mesh.config.dp
+    m = mesh.config
+    pp, tp, n_data = m.pp, m.tp, m.dp * m.fsdp
     _check_pipeline_cfg(cfg, pp, virtual)
     if plan is not None and not isinstance(plan, PPSyncPlan):
         raise ValueError(f"a pipeline step syncs through a PPSyncPlan, not {type(plan).__name__}")
+    if comm_overlap and plan is None:
+        sizes = mesh.axis_sizes()
+        grad_sync.note_gspmd_fallback(sizes, reason=grad_sync.fallback_reason(sizes) or (
+            f"num_layers={cfg.num_layers} does not divide into pp={pp} x virtual={virtual} "
+            f"stages (or the model cannot pipeline at all)"))
     M = num_microbatches
-    pp_group, dp_group = mesh.groups["pp"], mesh.groups["dp"]
+    pp_group, data_group = mesh.groups["pp"], mesh.groups["data"]
+    tp_group, fsdp_group = mesh.groups["tp"], mesh.groups["fsdp"]
+    tp_coord, stage_coord = mesh.coords.get("tp", 0), mesh.stage
+    tp_dims = stage_tp_dims(cfg, tp, virtual)
     primed = []
 
     def train_step(state, tokens, targets):
@@ -674,11 +895,16 @@ def build_pipeline_train_step(
         params = stage.jax_ordered_parameters()
         for p in params:
             p.grad = None
-        loss = run_schedule(stage, mesh, tokens.chunk(M), targets.chunk(M), schedule)
+        units = state.units
+        loss = run_schedule(stage, mesh, tokens.chunk(M), targets.chunk(M), schedule,
+                            units=units)
         stage_ps, shared_ps = stage.stage_parameters(), stage.shared_parameters()
         # the shared leaves' grads: stage 0's gather, the last stage's
-        # head, zeros elsewhere: their pp sum is every stage's update
+        # head, zeros elsewhere: their pp sum (per tp coordinate) is
+        # every stage's update
         shared = _split(_reduce_(_take_flat(shared_ps), pp_group), shared_ps)
+        targets_st, targets_sh = stage_ps, shared_ps
+        ss_sh = None
         if plan is not None:
             # each grad is released as its bucket is flattened
             local = []
@@ -687,27 +913,57 @@ def build_pipeline_train_step(
                 p.grad = None
             local, _, gn_st = sync_grads(local, mesh, plan.stage_plan, consume=True)
             shared, _, gn_sh = sync_grads(shared, mesh, plan.shared_plan, consume=True)
-            ss_st, ss_sh = gn_st.square(), gn_sh.square()
+            ss_own, ss_sh = gn_st.square(), gn_sh.square()
         else:
-            local = _split(_reduce_(_take_flat(stage_ps), dp_group, dp), stage_ps)
-            if dp_group is not None:
-                shared = _split(_reduce_(torch.cat([g.reshape(-1) for g in shared]), dp_group, dp),
-                                shared_ps)
-            ss_st = sum(torch.linalg.vector_norm(g).square() for g in local)
-            ss_sh = sum(torch.linalg.vector_norm(g).square() for g in shared)
+            if units is not None:
+                index = {id(p): i for i, p in enumerate(params)}
+                ids_st = [index[id(p)] for p in stage_ps]
+                ids_sh = [index[id(p)] for p in shared_ps]
+                local = []
+                for p in stage_ps:
+                    local.append(p.grad if p.grad is not None else torch.zeros_like(p))
+                    p.grad = None
+                local = _zero_scatter(local, ids_st, units, mesh, n_data)
+                shared = _zero_scatter(shared, ids_sh, units, mesh, n_data)
+                targets_st = [state.shards[i] for i in ids_st]
+                targets_sh = [state.shards[i] for i in ids_sh]
+            else:
+                local = _split(_reduce_(_take_flat(stage_ps), data_group, n_data), stage_ps)
+                if data_group is not None:
+                    shared = _split(_reduce_(torch.cat([g.reshape(-1) for g in shared]),
+                                             data_group, n_data), shared_ps)
+            # each leaf's squares once over the axes that hold it whole:
+            # a tp-whole leaf from tp coordinate 0, a shared leaf from
+            # stage 0 (the ZeRO shards partition their leaves)
+            names = {id(p): n for n, p in stage.named_parameters()}
+            ss_own = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            for ps, gs in ((stage_ps, local), (shared_ps, shared)):
+                for p, g in zip(ps, gs):
+                    if tp_coord and tp_dims[names[id(p)]] is None:
+                        continue
+                    if stage_coord and ps is shared_ps:
+                        continue
+                    ss_own = ss_own + torch.linalg.vector_norm(g.float()).square()
         # the loss is the last stage's, the squares each stage's own:
-        # summed over pp in one all-reduce, the loss then averaged over dp
-        vec = _reduce_(torch.stack([loss, ss_st.reshape(())]), pp_group)
-        loss = _reduce_(vec[0].clone(), dp_group, dp)
-        gnorm = torch.sqrt(vec[1] + ss_sh)
-        for p, g in zip(stage_ps, local):
-            p.grad = g.reshape(p.shape).to(p.dtype)
-        for p, g in zip(shared_ps, shared):
+        # summed over pp in one all-reduce, the loss then averaged over
+        # the data axes
+        vec = _reduce_(torch.stack([loss, ss_own.reshape(())]), pp_group)
+        loss = _reduce_(vec[0].clone(), data_group, n_data)
+        if ss_sh is not None:
+            gnorm = torch.sqrt(vec[1] + ss_sh)
+        else:
+            ss = vec[1:].clone()
+            if tp > 1:
+                _reduce_(ss, tp_group)
+            if units is not None:
+                _reduce_(ss, fsdp_group)
+            gnorm = torch.sqrt(ss[0])
+        for p, g in zip(list(targets_st) + list(targets_sh), list(local) + list(shared)):
             p.grad = g.reshape(p.shape).to(p.dtype)
         if before_update is not None:
             before_update()
         state.opt_state.step()
-        for p in params:
+        for p in list(params) + list(state.shards or []):
             p.grad = None
         state.step += 1
         return state, {"loss": loss, "grad_norm": gnorm}
@@ -718,14 +974,16 @@ def build_pipeline_train_step(
 
 @torch.no_grad()
 def pipeline_eval_loss(stage: PipelineStage, mesh, tokens: torch.Tensor, targets: torch.Tensor,
-                       num_microbatches: int) -> float:
+                       num_microbatches: int, units=None) -> float:
     """The mean NLL of ``tokens`` -> ``targets`` through the stages (the
     forward slots of the state's schedule, no autograd), the same number
     on every stage rank (the JAX ``pipeline_loss_fn`` of the eval
-    path)."""
+    path); under tp over each stage's tp group, under fsdp through the
+    state's per-unit gather (``units``)."""
     M = num_microbatches
     if tokens.shape[0] % M:
         raise ValueError(f"batch {tokens.shape[0]} must divide into {M} microbatches")
     schedule = "interleaved" if stage.virtual > 1 else "1f1b"
-    loss = run_schedule(stage, mesh, tokens.chunk(M), targets.chunk(M), schedule, train=False)
+    loss = run_schedule(stage, mesh, tokens.chunk(M), targets.chunk(M), schedule, train=False,
+                        units=units)
     return float(_reduce_(loss, mesh.groups["pp"]))

@@ -17,16 +17,17 @@ vocab of 50257 at tp = 2: the embedding table and the head are whole).
 Expert parallelism uses the same boxes on the ``ep`` axis: "experts"
 maps to ``ep``, so a rank holds experts ``[i E/ep, (i+1) E/ep)`` of each
 expert leaf (dim 0 of ``w_up`` / ``w_down``) and every other leaf whole
-(``split_of`` names the axis that splits a mesh's leaves). Pipeline
+(``split_of`` names the axis that splits a per-layer leaf). Pipeline
 parallelism's boxes are rows of the stage-stacked leaves
 (``parallel/pipeline.stage_dims``): a stage rank holds row ``[s]`` of
-each ``[pp, L/pp, ...]`` leaf.
+each ``[pp, L/pp, ...]`` leaf, and under pp x tp that row's tp box
+(``splits_of`` lists the axes a mesh cuts its boxes along, in order).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
@@ -209,23 +210,37 @@ def tp_of(mesh) -> Tuple[int, int, object]:
 
 def split_of(mesh) -> Tuple[str, int, int, object]:
     """(axis, degree, this rank's coordinate, group) of the mesh axis
-    that splits parameter leaves into per-rank boxes: ``tp`` when tp >
-    1, else ``ep`` when ep > 1 (each ep rank holds ``E/ep`` experts of
-    every expert leaf), else ``pp`` when pp > 1 (each stage rank holds
-    its row of every stage-stacked leaf, ``parallel/pipeline``; the
-    three never compose), else ``("tp", 1, 0, None)``. Takes a
+    that splits a per-layer parameter leaf into per-rank boxes: ``tp``
+    when tp > 1, else ``ep`` when ep > 1 (each ep rank holds ``E/ep``
+    experts of every expert leaf), else ``("tp", 1, 0, None)``. Takes a
     ``parallel/mesh.Mesh``, a ``MeshConfig`` (coordinate 0, no group) or
-    None."""
+    None. ``splits_of`` adds pp's stage rows."""
+    for axis, n, coord, group in splits_of(mesh):
+        if axis != "pp":
+            return axis, n, coord, group
+    return "tp", 1, 0, None
+
+
+def splits_of(mesh) -> List[Tuple[str, int, int, object]]:
+    """``(axis, degree, this rank's coordinate, group)`` of every mesh
+    axis that splits parameter leaves, in the order a rank's box is cut
+    from the whole leaf: ``pp`` first (a stage rank's row of every
+    stage-stacked leaf, ``parallel/pipeline``), then ``tp`` (its block
+    along the leaf's tp dim) or ``ep`` (its ``E/ep`` experts; ep
+    composes with neither). A pp x tp rank's box of a stage leaf is its
+    stage row cut again along the tp dim. Empty on a mesh that splits no
+    leaf."""
     if mesh is None:
-        return "tp", 1, 0, None
+        return []
     m = getattr(mesh, "config", mesh)
     coords = getattr(mesh, "coords", None) or {}
     groups = getattr(mesh, "groups", None) or {}
-    for axis in ("tp", "ep", "pp"):
+    out = []
+    for axis in ("pp", "tp", "ep"):
         n = int(getattr(m, axis, 1))
         if n > 1:
-            return axis, n, int(coords.get(axis, 0)), groups.get(axis)
-    return "tp", 1, 0, None
+            out.append((axis, n, int(coords.get(axis, 0)), groups.get(axis)))
+    return out
 
 
 def list_layout(cfg):

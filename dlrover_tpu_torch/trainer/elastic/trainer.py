@@ -42,12 +42,15 @@ many zero rows to every global batch before the rank split, which the
 step weighs 0 in the loss (the eval batch is trimmed instead, to the
 rows the data ranks divide, as in the JAX trainer).
 
-A pp strategy (``Strategy(mesh=MeshConfig(pp=, dp=), num_microbatches=,
-pp_schedule=)``) runs the pipeline step of ``parallel/pipeline.py``: each
-rank holds its stage, every stage of a data coordinate reads that
-coordinate's rows of each microbatch, the eval loss runs through the
-stages, and a checkpoint records each stage's rows of the JAX
-stage-stacked leaves (the shared leaves from stage 0 alone).
+A pp strategy (``Strategy(mesh=MeshConfig(pp=, dp=, fsdp=, tp=),
+num_microbatches=, pp_schedule=)``) runs the pipeline step of
+``parallel/pipeline.py``: each rank holds its stage (under tp its tp
+boxes, under fsdp its ZeRO shards of them), every stage and tp rank of
+a data coordinate reads that coordinate's rows of each microbatch
+(``pipeline.pipeline_rows``), the eval loss runs through the stages,
+and a checkpoint records each stage's rows of the JAX stage-stacked
+leaves (the shared leaves from stage 0 alone, a tp-whole leaf from tp
+coordinate 0).
 ``adamw_8bit_flat``, ``grad_accum`` (the microbatches are the
 accumulation) and the micro-batch rebalance are refused on it, and a
 resize keeps pp.
@@ -1231,9 +1234,15 @@ class ElasticTrainer:
         if self.mesh.config.dp * self.mesh.config.fsdp == 1:
             return None
         if n not in self._rows:
-            m = self.strategy.mesh
-            k = self.strategy.num_microbatches if m.pp > 1 else self.tcfg.grad_accum
-            self._rows[n] = torch.from_numpy(batch_sharding(self.mesh, n, k))
+            if self.strategy.mesh.pp > 1:
+                # the JAX rule: a microbatch splits over the data axes
+                # that divide it
+                from dlrover_tpu_torch.parallel.pipeline import pipeline_rows
+
+                rows = pipeline_rows(self.mesh, n, self.strategy.num_microbatches)
+            else:
+                rows = batch_sharding(self.mesh, n, self.tcfg.grad_accum)
+            self._rows[n] = torch.from_numpy(rows)
         return self._rows[n]
 
     def _to_device(self, x, local: bool = True) -> torch.Tensor:
@@ -1302,7 +1311,8 @@ class ElasticTrainer:
                 from dlrover_tpu_torch.parallel.pipeline import pipeline_eval_loss
 
                 losses.append(pipeline_eval_loss(self.state.params, self.mesh, x, y,
-                                                 self.strategy.num_microbatches))
+                                                 self.strategy.num_microbatches,
+                                                 units=self.state.units))
                 continue
             # a ZeRO rank gathers a unit at a time from its shards
             logits, _ = forward(self.state.params, x, self.cfg, mesh, gather=self.state.units)
@@ -1458,21 +1468,23 @@ class ElasticTrainer:
         world staged them: the records carry global indices), so it
         hands them to the rest of the set, which need not have existed
         when the state was staged (under ZeRO the step gathers the
-        params from the restored shards). Under tp (ep), coordinate 0 of
-        the axis alone staged the tensors every rank of it holds whole:
-        each tp (ep) group first hands those on from it."""
+        params from the restored shards). Under tp (ep, pp), coordinate
+        0 of the axis alone staged the tensors every rank of it holds
+        whole: each tp (ep) group first hands those on from it, then each
+        pp group (the shared leaves, from stage 0, per tp coordinate)."""
         if self._world == 1:
             return
         from dlrover_tpu_torch.ckpt.sharding import flatten_state
-        from dlrover_tpu_torch.models.convert import replica_group, tp_whole_tensors
-        from dlrover_tpu_torch.parallel.sharding_rules import split_of
+        from dlrover_tpu_torch.models.convert import axis_whole_tensors, replica_group
+        from dlrover_tpu_torch.parallel.sharding_rules import splits_of
 
-        axis, _, _, tp_group = split_of(self.mesh)
-        if tp_group is not None:
+        for axis, _, _, group in sorted(splits_of(self.mesh), key=lambda s: s[0] == "pp"):
+            if group is None:
+                continue
             src = self.mesh.ranks[axis][0]
             with torch.no_grad():
-                handles = [grad_sync.broadcast(t, src, tp_group)
-                           for t in tp_whole_tensors(self.state, self.mesh)]
+                handles = [grad_sync.broadcast(t, src, group)
+                           for t in axis_whole_tensors(self.state, self.mesh, axis)]
                 for h in handles:
                     h.wait()
         zero = self.state.shards is not None

@@ -6,7 +6,7 @@ Without processes: the stacked layout (``stack_pipeline_params`` /
 virtual 1 and 2; ``schedule_occupancy`` equal to the reference over a
 grid of (pp, M, v) with partial last lane groups; the tick clock's hops
 landing one tick later on the neighbour; the config refusals with the
-JAX package's messages, and the meshes that still raise; the
+JAX package's messages, pp x sp refused as the JAX package refuses it; the
 ``PPSyncPlan``'s buckets and bytes equal to the JAX ``plan_for_pipeline``'s;
 the dry runner's pp report (the bubble term, the stage's static peak).
 
@@ -331,9 +331,12 @@ def test_bad_configs_raise_the_jax_package_s_errors():
         assert str(te.value) == str(je.value)
     cfg = tcfg.tiny(num_layers=4)
     check_supported(cfg, MeshConfig(pp=2, dp=2))
-    for sizes in (dict(pp=2, fsdp=2), dict(pp=2, tp=2), dict(pp=2, sp=2), dict(pp=2, dp=2, tp=2)):
-        with pytest.raises(NotImplementedError, match="A11c"):
-            check_supported(cfg, MeshConfig(**sizes))
+    # pp composes with fsdp and tp; sp inside the stages is the JAX
+    # package's refusal
+    for sizes in (dict(pp=2, fsdp=2), dict(pp=2, tp=2), dict(pp=2, dp=2, tp=2)):
+        check_supported(cfg, MeshConfig(**sizes))
+    with pytest.raises(ValueError, match="sp \\(ring attention\\) inside pp stages"):
+        check_supported(cfg, MeshConfig(pp=2, sp=2))
     with pytest.raises(ValueError, match="pp=2 x ep=2"):
         check_supported(tcfg.tiny(num_layers=4, num_experts=4), MeshConfig(pp=2, ep=2))
     with pytest.raises(ValueError, match="num_layers=3"):

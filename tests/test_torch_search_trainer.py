@@ -137,8 +137,11 @@ def test_pipeline_refuses_offload_as_the_jax_package_does():
     assert str(port_err.value) == str(jax_err.value)
     r = tdr.compiled_cost(s, tcfg.tiny(), tt.build_optimizer("adamw"), 8, 16, 2)
     assert not r.ok and "offload_opt is not supported on the pipeline" in r.error
-    # without offload the pipeline builds; composed with tp it names its
-    # ROADMAP item
-    with pytest.raises(NotImplementedError, match="A11c"):
-        tdr._build(Strategy(mesh=MeshConfig(pp=2, tp=2)), tcfg.tiny(), tt.build_optimizer("adamw"),
-                   "cpu")
+    # without offload the pipeline builds, composed with tp too; with
+    # offload it is refused there as well
+    s3d = Strategy(mesh=MeshConfig(pp=2, tp=2), num_microbatches=2)
+    tdr._build(s3d, tcfg.tiny(), tt.build_optimizer("adamw"), "cpu", abstract=True)
+    assert tdr.compiled_cost(s3d, tcfg.tiny(), tt.build_optimizer("adamw"), 8, 16, 4).ok
+    with pytest.raises(ValueError, match="offload_opt is not supported on the pipeline"):
+        tdr._build(Strategy(mesh=MeshConfig(pp=2, tp=2), offload_opt=True, num_microbatches=2),
+                   tcfg.tiny(), tt.build_optimizer("adamw"), "cpu")

@@ -538,28 +538,30 @@ def job_ep(rank, world, cases):
 
 def _pp_step_case(c):
     """``build_pipeline_train_step`` of ``tiny(**c["model"])`` from the JAX
-    stacked params ``c["params"]`` on ``c["mesh"]`` (``c["schedule"]``,
-    ``c["virtual"]``, ``c["microbatches"]``; a ``PPSyncPlan`` with
-    ``c["comm_overlap"]``; from the whole JAX train state
-    ``c["jax_state"]`` when given) over the rank's rows of
-    ``c["batches"]``: each step's loss, grad norm, collectives (count and
-    bytes) and hops; the first step's synced gradients, the params and
-    the whole train state at the end, as whole JAX leaves (gathered over
-    pp)."""
+    stacked params ``c["params"]`` on ``c["mesh"]`` (pp, with dp, tp or
+    fsdp; ``c["schedule"]``, ``c["virtual"]``, ``c["microbatches"]``; a
+    ``PPSyncPlan`` with ``c["comm_overlap"]``; from the whole JAX train
+    state ``c["jax_state"]`` when given) over the rank's rows of
+    ``c["batches"]`` (``pipeline.pipeline_rows``): each step's loss, grad
+    norm, collectives (count and bytes), hops and tp all-reduces; the
+    first step's synced gradients, the params and the whole train state
+    at the end, as whole JAX leaves (gathered over fsdp, tp and pp), and
+    this rank's copies of the leaves every tp rank holds whole."""
     import torch
 
     from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.models import transformer as tr
     from dlrover_tpu_torch.models.convert import (
         jax_train_state,
         load_jax_train_state,
         params_from_jax,
         params_to_numpy,
+        whole_leaf,
     )
-    from dlrover_tpu_torch.models.train import TrainState
+    from dlrover_tpu_torch.models.train import free_params, gather_params
     from dlrover_tpu_torch.parallel import grad_sync as gs
     from dlrover_tpu_torch.parallel import pipeline as pl
-    from dlrover_tpu_torch.parallel.mesh import MeshConfig, batch_sharding, build_mesh
-    from dlrover_tpu_torch.parallel.sharding_rules import gather_tp
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
     from dlrover_tpu_torch.trainer.elastic import trainer as tt
 
     cfg = tcfg.tiny(**c["model"])
@@ -571,21 +573,24 @@ def _pp_step_case(c):
                                     virtual=v)
     tx = tt.build_optimizer(c["optimizer"], lr=c["lr"], **c.get("opt_kw", {}))
     model = params_from_jax(c["params"], cfg, mesh=mesh, virtual=v)
-    state = TrainState(step=0, params=model, opt_state=tx(model.jax_ordered_parameters()))
+    state = pl.stage_state(model, tx, mesh)
     if c.get("jax_state") is not None:
         # the JAX pipeline's whole train state after its first step(s)
         load_jax_train_state(state, c["jax_state"], mesh)
     step = pl.build_pipeline_train_step(cfg, tx, mesh, M, schedule=sched, virtual_stages=v,
-                                        plan=plan)
-    dims = pl.stage_dims(cfg)
+                                        plan=plan, comm_overlap=bool(c.get("comm_overlap")))
     grads, real = {}, state.opt_state.step
+    shard_of = {}
+    if state.shards is not None:
+        shard_of = {id(p): s for p, s in zip(model.jax_ordered_parameters(), state.shards)}
 
     def capture():
         if not grads:
             # the gathering's collectives are not the step's
             counts = dict(gs.issued), dict(gs.issued_bytes)
             for n, p in model.named_parameters():
-                grads[n.replace(".", "/")] = gather_tp(p.grad, dims[n], mesh.groups["pp"]).numpy().copy()
+                g = shard_of[id(p)].grad if shard_of else p.grad
+                grads[n.replace(".", "/")] = whole_leaf(g.float(), n, model, mesh).numpy().copy()
             gs.issued.update(counts[0])
             gs.issued_bytes.update(counts[1])
         return real()
@@ -593,15 +598,25 @@ def _pp_step_case(c):
     state.opt_state.step = capture
     metrics = []
     for x, y in c["batches"]:
-        rows = batch_sharding(mesh, x.shape[0], M)
+        rows = pl.pipeline_rows(mesh, x.shape[0], M)
         gs.reset_counts()
         pl.reset_comm()
+        tr.reset_tp_comm()
         state, m = step(state, torch.from_numpy(x[rows]).long(), torch.from_numpy(y[rows]).long())
         metrics.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                             issued=dict(gs.issued), issued_bytes=dict(gs.issued_bytes),
-                            hops=pl.comm["hops"]))
-    return dict(metrics=metrics, grads=grads, params=params_to_numpy(model, mesh),
+                            hops=pl.comm["hops"], tp_calls=tr.tp_comm["calls"], rows=len(rows)))
+    if state.shards is not None:
+        gather_params(state, mesh, state.units.plan)
+    tp_dims = pl.stage_tp_dims(cfg, mesh.config.tp, v)
+    tp_whole = {n: p.detach().clone().numpy() for n, p in model.named_parameters()
+                if tp_dims[n] is None}
+    params = params_to_numpy(model, mesh)
+    if state.shards is not None:
+        free_params(state)
+    return dict(metrics=metrics, grads=grads, params=params, tp_whole=tp_whole,
                 state=jax_train_state(state, mesh), stage=mesh.stage,
+                coords=dict(mesh.coords),
                 plan=None if plan is None else dict(
                     kind=plan.kind, buckets=plan.num_buckets,
                     padded=[b.padded for b in plan.buckets], raw=plan.raw_bytes,
