@@ -1622,27 +1622,52 @@ def llama_worker(out_path, profile=False, search_only=False, persist=False, sear
     ck.close()
 
 
-def _worker(torch, flag, label, extra=(), timeout=900):
-    """This script with ``flag OUT`` in a process of its own (a fresh
-    allocator with expandable segments); returns its JSON result and
-    wall seconds, and prints its JSON lines."""
+def _worker_start(torch, flag, label, extra=(), timeout=900):
+    """This script with ``flag OUT`` started in a process of its own (a
+    fresh allocator with expandable segments); the returned
+    ``finish(abort=False)`` waits for it (``abort``: kills it first) and
+    returns its JSON result and wall seconds, and prints its JSON lines."""
     import tempfile
 
     gc.collect()
     torch.cuda.empty_cache()
-    out = os.path.join(tempfile.mkdtemp(prefix=f"{label}_"), "result.json")
+    d = tempfile.mkdtemp(prefix=f"{label}_")
+    out = os.path.join(d, "result.json")
     env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
     cmd = [sys.executable, os.path.abspath(__file__), flag, out, *extra]
     t0 = time.perf_counter()
-    p = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=timeout)
-    wall = time.perf_counter() - t0
-    if p.returncode != 0:
-        raise RuntimeError(f"{label} worker exited {p.returncode}:\n{p.stdout[-3000:]}\n{p.stderr[-6000:]}")
-    for line in p.stdout.splitlines():  # the worker's own lines
-        if line.startswith("{"):
-            print(line, flush=True)
-    with open(out) as f:
-        return json.load(f), wall
+    # its output to files: nothing reads a pipe while the caller works
+    with open(os.path.join(d, "stdout"), "w") as o, open(os.path.join(d, "stderr"), "w") as e:
+        p = subprocess.Popen(cmd, env=env, stdout=o, stderr=e, text=True)
+
+    def finish(abort=False):
+        if abort:
+            p.kill()
+        try:
+            p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+        if abort:
+            return None, wall
+        with open(os.path.join(d, "stdout")) as o, open(os.path.join(d, "stderr")) as e:
+            stdout, stderr = o.read(), e.read()
+        if p.returncode != 0:
+            raise RuntimeError(f"{label} worker exited {p.returncode}:\n{stdout[-3000:]}\n{stderr[-6000:]}")
+        for line in stdout.splitlines():  # the worker's own lines
+            if line.startswith("{"):
+                print(line, flush=True)
+        with open(out) as f:
+            return json.load(f), wall
+
+    return finish
+
+
+def _worker(torch, flag, label, extra=(), timeout=900):
+    """``_worker_start``'s process, waited for."""
+    return _worker_start(torch, flag, label, extra, timeout)()
 
 
 def check_llama_search(search, trainer_remat=True):
@@ -1982,14 +2007,18 @@ def audit_line(trainer, label):
     return res
 
 
-def run_accel(torch, llama_search_res=None, dp_accel=None, audit=None):
+def run_accel(torch, llama_search_res=None, dp_accel=None, audit=None, worker=None):
     """The accel phase: the link model and offload (a process of its
-    own), beside the Llama-2-7B search (``llama_search``, in the llama
-    worker), the two-rank search (``_dp_accel``, in the dp phase's first
-    start) and the auditor of the gpt2_small slice; run alone
-    (``--phase accel``) it starts each of those itself."""
+    own; ``worker``: that process's ``finish``, started earlier: the
+    full run starts it beside the dp phase, whose ranks then share the
+    card and the host link with it, so its step and link figures are
+    not timing-grade there), beside the Llama-2-7B search
+    (``llama_search``, in the llama worker), the two-rank search
+    (``_dp_accel``, in the dp phase's first start) and the auditor of
+    the gpt2_small slice; run alone (``--phase accel``) it starts each
+    of those itself."""
     t0 = time.perf_counter()
-    r, wall = _worker(torch, "--accel-worker", "accel")
+    r, wall = (worker or _worker_start(torch, "--accel-worker", "accel"))()
     link, off = r["link"], r["offload"]
     emit("accel_link_model", **link, card=card_line())
     emit("accel_offload", **off, card=card_line())
@@ -4400,13 +4429,14 @@ def sp_path_shapes(heads=32, sp=2, seq=SP_SEQ):
             ("sp path sp=1", heads, seq, 0, 0)]
 
 
-def _grad_prints(torch, grads):
+def _grad_prints(torch, grads, start=0):
     """Each gradient tensor's norm and its dot products with
     ``SP_PROJ`` seeded normal vectors: two runs' prints give an
     estimate of each tensor's ``|g_a - g_b| / |g_b|`` (``_grad_err``)
-    without moving the gradients off the card."""
+    without moving the gradients off the card. ``start``: the index of
+    the first tensor in the whole list (the seeds follow the index)."""
     out = []
-    for i, g in enumerate(grads):
+    for i, g in enumerate(grads, start):
         g = g.float().reshape(-1)
         gen = torch.Generator(device=g.device).manual_seed(7919 * i + 1)
         proj = [float(torch.dot(g, torch.randn(g.numel(), generator=gen, device=g.device)))
@@ -4415,12 +4445,17 @@ def _grad_prints(torch, grads):
     return out
 
 
-def _grad_err(prints, ref):
-    """The largest, over tensors, of the projections' rms difference over
-    the reference tensor's norm (an estimate of ``|g - g_ref| / |g_ref|``:
-    a projection on a standard normal vector has variance ``|d|^2``)."""
-    errs = [float(np.sqrt(np.mean(np.square(np.subtract(p, r)))) / max(nr, 1e-30))
+def _grad_errs(prints, ref):
+    """Per tensor, the projections' rms difference over the reference
+    tensor's norm (an estimate of ``|g - g_ref| / |g_ref|``: a projection
+    on a standard normal vector has variance ``|d|^2``)."""
+    return [float(np.sqrt(np.mean(np.square(np.subtract(p, r)))) / max(nr, 1e-30))
             for (_, p), (nr, r) in zip(prints, ref)]
+
+
+def _grad_err(prints, ref):
+    """The largest of ``_grad_errs`` and its tensor's index."""
+    errs = _grad_errs(prints, ref)
     i = int(np.argmax(errs))
     return errs[i], i
 
@@ -4694,46 +4729,215 @@ EP_ROUTE_TOL = 4.0 / EP_SEQ
 # 4 of 8 experts at Llama-2 width, ep = 2
 EP_ADAM_SHAPE = (4, 4096, 11008)
 
+# ROADMAP A19 on the card: MoE and ep composed with tp, fsdp and sp, four
+# gloo ranks on the one card (``--phase ep``; the full run checks the
+# kernels at their shapes, ``ep3d_kernel_checks``), each held to one
+# ep = 1 process with the same gating: ep x tp and dp x tp
+# route the same tokens as ep = 1 (tokens are replicated over tp);
+# ep x fsdp and dp x tp run a row a data rank, as ep = 1 with
+# ``grad_accum=2`` over the same two rows (each microbatch one shard's
+# rows); ep x sp gates each half of a row on its own, which changes no
+# routing at a capacity factor of E / k (``EP_SP_CAPACITY``: no token
+# can drop), but its balance loss is the mean of the halves' terms.
+EP3D_STEPS = 2
+EP_SP_CAPACITY = float(EP_MOE["num_experts"] // EP_MOE["moe_top_k"])
+# name: (mesh, rows, layers, the ep = 1 reference job, its control, more
+# job fields, which the reference shares). Four ranks of ep x fsdp or ep x
+# sp at 4 layers (17.6 / 18.5 GB each by the static model) ran the card
+# out of memory (ep x fsdp in its reduce-scatter, ep x sp in its dense
+# grads' ep sum): those runs, and their references, take 2 layers (one
+# MoE layer). ``ep2_tp2_cap4`` is ep x tp's second witness: at the
+# capacity of no drops (no token's slot can move) and on data seed 1,
+# against an ep = 1 run of the same
+EP3D = {
+    "ep2_tp2": (dict(ep=2, tp=2), 1, 4, "ep1", "drop_moe_reduce_bwd", {}),
+    "ep2_fsdp2": (dict(ep=2, fsdp=2), 2, 2, "ep1_accum", "unsummed_expert_rs", {}),
+    "ep2_sp2": (dict(ep=2, sp=2), 1, 2, "ep1_cap4", "skip_expert_sp_sum",
+                dict(capacity=EP_SP_CAPACITY)),
+    "dp2_tp2": (dict(dp=2, tp=2), 2, 2, "ep1_accum", "drop_moe_reduce_bwd", {}),
+    "ep2_tp2_cap4": (dict(ep=2, tp=2), 1, 2, "ep1_cap4_seed1", None,
+                     dict(capacity=EP_SP_CAPACITY, seed=1)),
+}
+# the gates, by composition, against the reference job: the losses
+# (absolute) and the first step's whole-leaf gradients (``_grad_err``),
+# set from the first complete run (an H100 80GB HBM3 at 700 W; PERF.md):
+# ep x tp read 6.96e-4 / 0.163 (a MoE gate: bf16 partial sums, a few
+# tokens routed apart), its control 1.08; dp x tp 2.2e-3 / 0.127; ep x
+# fsdp bitwise (each rank's row is a microbatch of the reference, the
+# two summed in f32 in the same order), its control 0.775; ep x sp
+# 3.0e-3 / 0.057 (the ring's merges, and the balance loss a mean of the
+# two halves' terms), its control 0.777. Each gradient gate sits 2.5-3.5x
+# above its sound reading and below its control; each loss gate 4-5x
+# above its reading (two runs read the same digits), ep x fsdp's at 1e-4
+# as ep = 2's. A control runs one step, whose loss precedes any update:
+# only the gradient gate can refuse it. dp x tp's control and ep x tp's
+# second witness (``ep2_tp2_cap4``, its gates tp's loss gate and ep x
+# tp's gradient gate) were added after those runs: PERF.md gives their
+# readings
+EP3D_LOSS_TOL = {"ep2_tp2": 3e-3, "ep2_fsdp2": 1e-4, "ep2_sp2": 1.5e-2, "dp2_tp2": 1e-2,
+                 "ep2_tp2_cap4": 3e-2}
+EP3D_GRAD_TOL = {"ep2_tp2": 0.4, "ep2_fsdp2": 1e-4, "ep2_sp2": 0.2, "dp2_tp2": 0.4,
+                 "ep2_tp2_cap4": 0.4}
+# step 1's routing against the reference's, ``EP_ROUTE_TOL`` unless named:
+# the second witness's first run (an H100 80GB HBM3 at 700 W) routed 5
+# tokens of 4096 apart (per-expert load 1.22e-3), past the shared 4, its
+# drop rates both 0: its gate was set from that reading
+EP3D_ROUTE_TOL = {"ep2_tp2_cap4": 8.0 / EP_SEQ}
+# the ep x tp expert box the per-leaf 8-bit AdamW updates: w_up's 4 of 8
+# experts, 5504 of 11008 columns
+EP_TP_ADAM_SHAPE = (4, 4096, 5504)
+# one leaf the 4-bit AdamW (PyTorch, no kernel) updates, timed alone: an
+# expert's w_up at Llama-2 width
+ADAM4_SHAPE = (4096, 11008)
+
+
+def _ep3d_faults(torch, job):
+    """Plant ``job["fault"]``, a composed mesh's control (planted here
+    only, on every rank), and return the function that takes it out:
+    ``drop_moe_reduce_bwd``, the first MoE layer's ``reduce_from_tp``
+    loses its backward (its forward is the tp sum; no gradient reaches
+    the layer's experts, gate or tokens through it; the aux losses
+    summed tp times, ``moe._tp_once`` an identity, change about 1 % of
+    the gate's gradient at Llama-2 width: the CPU tests' f32 gate
+    refuses that variant, the card's bf16 spread would not);
+    ``unsummed_expert_rs``, the reduce-scatter of the first unit holding
+    expert leaves (the first MoE layer) hands each fsdp rank its own
+    unsummed rows; ``skip_expert_sp_sum``, the expert leaves' sum over
+    the replica group (under ep x sp, the sp sum) is skipped."""
+    from dlrover_tpu_torch.models import train as mt
+    from dlrover_tpu_torch.models import transformer as tfm
+    from dlrover_tpu_torch.parallel import grad_sync
+
+    fault = job.get("fault")
+    real_zs, real_sync = mt.zero_scatter, grad_sync.sync_ep_grads
+    real_rs, real_ar = grad_sync._reduce_scatter, grad_sync._all_reduce
+    real_reduce, real_moe = tfm.reduce_from_tp, tfm._moe_block
+    if fault == "drop_moe_reduce_bwd":
+        class NoBackward(torch.autograd.Function):
+            """The tp sum forward, no gradient backward."""
+
+            @staticmethod
+            def forward(ctx, x, group):
+                return tfm._tp_sum(x, group)
+
+            @staticmethod
+            def backward(ctx, g):
+                return torch.zeros_like(g), None
+
+        first = []
+
+        def faulty_moe(h, params, cfg, mesh=None):
+            if first and params is not first[0]:
+                return real_moe(h, params, cfg, mesh)
+            first[:1] = [params]
+            tfm.reduce_from_tp = lambda x, group: NoBackward.apply(x, group)
+            try:
+                return real_moe(h, params, cfg, mesh)
+            finally:
+                tfm.reduce_from_tp = real_reduce
+
+        tfm._moe_block = faulty_moe
+    if fault == "unsummed_expert_rs":
+        done = []
+
+        def zero_scatter(grads, idx, units, mesh, n_data, over=("dp",)):
+            leaves = units.state.params.jax_ordered_parameters()
+            names = {id(p): n for n, p in units.state.params.named_parameters()}
+            expert = any(".moe.w_" in names[id(leaves[i])] for i in idx)
+            if not expert or done:
+                return real_zs(grads, idx, units, mesh, n_data, over)
+            done.append(True)
+
+            class Done:
+                def wait(self):
+                    pass
+
+            def own_rows(inp, group):
+                n = torch.distributed.get_world_size(group)
+                return inp.view(n, -1)[torch.distributed.get_rank(group)].clone(), Done()
+
+            grad_sync._reduce_scatter = own_rows
+            try:
+                return real_zs(grads, idx, units, mesh, n_data, over)
+            finally:
+                grad_sync._reduce_scatter = real_rs
+
+        mt.zero_scatter = zero_scatter
+    if fault == "skip_expert_sp_sum":
+        def sync_ep_grads(grads, mesh, plan, expert_ids, *a, **kw):
+            # the expert leaves are summed in place (f32 grads: the same
+            # storage): skip the all-reduces of that storage
+            experts = {grads[i].data_ptr() for i in expert_ids}
+
+            class Done:
+                def wait(self):
+                    pass
+
+            def all_reduce(t, group, op=None):
+                return Done() if t.data_ptr() in experts else real_ar(t, group, op)
+
+            grad_sync._all_reduce = all_reduce
+            try:
+                return real_sync(grads, mesh, plan, expert_ids, *a, **kw)
+            finally:
+                grad_sync._all_reduce = real_ar
+
+        grad_sync.sync_ep_grads = sync_ep_grads
+
+    def undo():
+        mt.zero_scatter, grad_sync.sync_ep_grads = real_zs, real_sync
+        grad_sync._reduce_scatter, grad_sync._all_reduce = real_rs, real_ar
+        tfm.reduce_from_tp, tfm._moe_block = real_reduce, real_moe
+
+    return undo
+
 
 def _dp_tp(torch, job, rank, world, spec_path):
     """``ElasticTrainer`` at Llama-2 width (d 4096, 32 heads of 128, kv
-    32, ffn 11008, vocab 32000), ``job["layers"]`` layers, batch 1 x
-    ``TP_SEQ``, bf16, remat, per-leaf ``adamw_8bit``, on a mesh of
-    ``job["tp"]`` tensor-parallel ranks, or with ``job["ep"]`` of a MoE
-    model (``EP_MOE``) on ``job["ep"]`` expert-parallel ranks; the
-    weights from the trainer's seeded CPU generator (tp = 1's (ep = 1's)
-    weights, each rank keeping its boxes). Returns the losses, step ms,
-    this rank's peak beside its static figure, the tp all-reduces' (the
-    ep all-to-alls') number and host ms a step, the first step's gradient
-    prints of the whole leaves (gathered over tp or ep), a MoE model's
-    routing stats of each step, and the kernels' launches a step.
-    ``job["fault"]``: the gates' control, planted here only:
-    ``drop_copy_bwd``, layer 0's attention ``copy_to_tp`` loses its
-    backward all-reduce (its forward is the identity either way);
-    ``drop_return_bwd``, the first MoE layer's return all-to-all loses
-    its backward exchange (each rank keeps its own gradient rows)."""
+    32, ffn 11008, vocab 32000), ``job["layers"]`` layers, batch
+    ``job["rows"]`` (default 1) x ``TP_SEQ``, bf16, remat, per-leaf
+    ``adamw_8bit``, on a mesh of ``job["tp"]`` tensor-parallel ranks, or
+    with ``job["ep"]`` of a MoE model (``EP_MOE``, its capacity factor
+    ``job["capacity"]`` when given) on ``job["ep"]`` expert-parallel
+    ranks, or on the composed mesh ``job["mesh"]`` (a MoE model, ROADMAP
+    A19: ep x tp, ep x fsdp, ep x sp, dp x tp), with
+    ``job["grad_accum"]``; the weights from the trainer's seeded CPU
+    generator (one process's weights, each rank keeping its boxes).
+    Returns the losses, step ms, this rank's peak beside its static
+    figure, the tp all-reduces' and the ep all-to-alls' number and host
+    ms a step, the first step's gradient prints of the whole leaves
+    (gathered over fsdp, tp and ep), a MoE model's routing stats of each
+    step, and the kernels' launches a step. ``job["fault"]``: the gates'
+    control, planted here only: ``drop_copy_bwd``, layer 0's attention
+    ``copy_to_tp`` loses its backward all-reduce (its forward is the
+    identity either way); ``drop_return_bwd``, the first MoE layer's
+    return all-to-all loses its backward exchange (each rank keeps its
+    own gradient rows); the composed meshes' (``_ep3d_faults``)."""
     from dataclasses import replace
 
     from dlrover_tpu_torch.accel.dry_runner import _apply_strategy, static_peak_bytes
     from dlrover_tpu_torch.accel.strategy import Strategy
     from dlrover_tpu_torch.models import llama2_7b
     from dlrover_tpu_torch.models import transformer as tfm
+    from dlrover_tpu_torch.models.convert import _splits, whole_leaf
     from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import quantized_optim as qo
     from dlrover_tpu_torch.parallel import moe
     from dlrover_tpu_torch.parallel.mesh import MeshConfig
-    from dlrover_tpu_torch.parallel.sharding_rules import gather_tp, leaf_tp_dims
     from dlrover_tpu_torch.trainer.elastic.trainer import (
         ElasticTrainer, TrainerConfig, build_optimizer,
     )
 
-    ep_run = "ep" in job
-    axis, n = ("ep", job["ep"]) if ep_run else ("tp", job["tp"])
-    seq = EP_SEQ if ep_run else TP_SEQ
+    moe_run = "ep" in job or "mesh" in job
+    mesh_sizes = job.get("mesh") or ({"ep": job["ep"]} if "ep" in job else {"tp": job["tp"]})
+    seq = EP_SEQ if moe_run else TP_SEQ
+    rows, ga = job.get("rows", 1), job.get("grad_accum", 1)
+    moe_cfg = dict(EP_MOE, capacity_factor=job.get("capacity", EP_MOE["capacity_factor"]))
     cfg = replace(llama2_7b(), num_layers=job["layers"], max_seq_len=seq,
-                  **(EP_MOE if ep_run else {}))
+                  **(moe_cfg if moe_run else {}))
     tx = build_optimizer("adamw_8bit", lr=3e-4, min_quantized_size=4096)
-    strategy = Strategy(mesh=MeshConfig(**{axis: n}), remat=True, opts=("bf16",))
+    strategy = Strategy(mesh=MeshConfig(**mesh_sizes), remat=True, opts=("bf16",),
+                        grad_accum=ga)
     losses, stamps, routes = [], [], []
 
     def hook(step, metrics):
@@ -4751,14 +4955,14 @@ def _dp_tp(torch, job, rank, world, spec_path):
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     trainer = ElasticTrainer(
-        cfg, tx, RandomTokens(n=8, seq=seq, vocab=cfg.vocab_size),
-        TrainerConfig(batch_size=1, seq_len=seq, report_metrics=False, log_interval=1),
+        cfg, tx, RandomTokens(n=8 * rows, seq=seq, vocab=cfg.vocab_size, seed=job.get("seed", 0)),
+        TrainerConfig(batch_size=rows, seq_len=seq, grad_accum=ga, report_metrics=False,
+                      log_interval=1),
         strategy=strategy, metrics_hook=hook,
     )
     cfg2, applied = _apply_strategy(trainer.strategy, cfg)
-    static = static_peak_bytes(cfg2, applied, tx, 1, seq)
+    static = static_peak_bytes(cfg2, applied, tx, rows, seq)
     mesh = trainer.mesh
-    dims = leaf_tp_dims(cfg2, n, axis) if n > 1 else None
     real_block, real_moe = tfm._attention_block, tfm._moe_block
     first = trainer.state.params.layers[0]
     first_moe = next((l.moe for l in trainer.state.params.layers if hasattr(l, "moe")), None)
@@ -4809,22 +5013,29 @@ def _dp_tp(torch, job, rank, world, spec_path):
                 moe._EpAllToAll = real_a2a
 
         tfm._moe_block = faulty_moe
-    # the first step's gradients, gathered to whole leaves just before
-    # its update; the peak is read around the gathering (its transient
-    # copies are not the step's)
-    opt, prints, peaks = trainer.state.opt_state, [], []
+    undo_faults = _ep3d_faults(torch, job)
+    # the first step's gradients, gathered leaf by leaf to whole leaves
+    # just before its update (from the ZeRO shards' grads under ep x
+    # fsdp); the peak is read around the gathering (its transient copies
+    # are not the step's)
+    opt, prints, peaks, leaf_names = trainer.state.opt_state, [], [], []
     real_step = opt.step
 
     def step_and_print():
         if not prints:
             torch.cuda.synchronize()
             peaks.append(torch.cuda.max_memory_allocated() - base)
-            params = trainer.state.params.jax_ordered_parameters()
-            grads = [p.grad if dims is None or d is None else
-                     gather_tp(p.grad.float(), d, mesh.groups[axis])
-                     for p, d in zip(params, dims or [None] * len(params))]
-            prints.extend(_grad_prints(torch, grads))
-            del grads
+            state = trainer.state
+            model = state.params
+            names = {id(p): n for n, p in model.named_parameters()}
+            params = model.jax_ordered_parameters()
+            holders = state.shards if state.shards is not None else params
+            splits = _splits(model, mesh)
+            leaf_names.extend(names[id(p)] for p in params)
+            for i, (p, h) in enumerate(zip(params, holders)):
+                g = whole_leaf(h.grad.float(), names[id(p)], model, mesh, splits)
+                prints.extend(_grad_prints(torch, [g], start=i))
+                del g
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             if job.get("trace"):  # from here on: the step's own allocations
@@ -4843,6 +5054,7 @@ def _dp_tp(torch, job, rank, world, spec_path):
         trainer.train(job["steps"])
     finally:
         tfm._attention_block, tfm._moe_block = real_block, real_moe
+        undo_faults()
         opt.step = real_step
     torch.cuda.synchronize()
     peaks.append(torch.cuda.max_memory_allocated() - base)
@@ -4851,22 +5063,26 @@ def _dp_tp(torch, job, rank, world, spec_path):
         live_at_peak = _live_at_peak(torch.cuda.memory._snapshot())
         torch.cuda.memory._record_memory_history(enabled=None)
     steps = job["steps"]
-    comm = moe.comm if ep_run else tfm.tp_comm
-    what = "ep_alltoalls" if ep_run else "tp_allreduces"
-    group = mesh.groups.get(axis)
     res = dict(
         live_at_peak=live_at_peak, resident_bytes=torch.cuda.memory_allocated() - base,
         layers=job["layers"], fault=job.get("fault"), losses=losses,
-        grad_prints=prints, step_ms=[x * 1e3 for x in np.diff([t0] + stamps)],
+        grad_prints=prints, leaf_names=leaf_names,
+        step_ms=[x * 1e3 for x in np.diff([t0] + stamps)],
         peak_bytes=max(peaks), peaks_before_and_after_prints=peaks, static_peak_bytes=static,
-        static_vs_measured=static / max(peaks) - 1,
-        backend=None if group is None else torch.distributed.get_backend(group),
+        static_vs_measured=static / max(peaks) - 1, mesh=mesh_sizes, rows=rows, grad_accum=ga,
+        coords=dict(mesh.coords), zero=trainer.state.shards is not None,
+        backend=None if world == 1 else torch.distributed.get_backend(),
         launches_per_step={k: v / steps for k, v in {**fa.launch_counts, **qo.launch_counts}.items()},
         launches={**fa.launch_counts, **qo.launch_counts},
-        **{axis: n, f"{what}_per_step": comm["calls"] / steps, f"{what}_ms_per_step": comm["ms"] / steps},
+        tp_allreduces_per_step=tfm.tp_comm["calls"] / steps,
+        tp_allreduces_ms_per_step=tfm.tp_comm["ms"] / steps,
+        ep_alltoalls_per_step=moe.comm["calls"] / steps,
+        ep_alltoalls_ms_per_step=moe.comm["ms"] / steps,
+        **{a: n for a, n in mesh_sizes.items()},
     )
-    if ep_run:
-        res.update(routing=routes, ep_alltoalls_staged=comm["staged"])
+    if moe_run:
+        res.update(routing=routes, ep_alltoalls_staged=moe.comm["staged"],
+                   capacity_factor=cfg.capacity_factor)
     trainer.close()
     del trainer, opt, first, first_moe
     gc.collect()
@@ -4884,11 +5100,42 @@ def _tp_jobs(full):
 
 
 def _ep_jobs(full):
+    """(the ep = 1 process's jobs, the pair's): ep = 1, and under
+    ``--phase ep`` the references at the capacity of no drops (``EP3D``:
+    ep x sp's, ep x tp's second witness's); ep = 2 and its control. ``_ep_accum_job`` is the other
+    reference, run alone (33 GB: beside the pair's 2 x 18.5 GB it ran
+    the card out of memory)."""
     layers, steps = EP_RUNS["full" if full else "phase"]
     job = dict(kind="tp", layers=layers, steps=steps)
-    return ([dict(job, name="ep1", ep=1, trace=not full)],
+    one = [dict(job, name="ep1", ep=1, trace=not full)]
+    if not full:
+        # the references at the capacity of no drops
+        one += [dict(job, name=ref, ep=1, layers=layers, steps=EP3D_STEPS, **extra)
+                for _, _, layers, ref, _, extra in EP3D.values() if "capacity" in extra]
+    return (one,
             [dict(job, name="ep2", ep=2, trace=not full),
              dict(job, name="ep2_drop_return_bwd", ep=2, steps=1, fault="drop_return_bwd")])
+
+
+def _ep_accum_job():
+    """ep x fsdp's and dp x tp's reference (``EP3D``): ep = 1 over two rows
+    in two microbatches (``grad_accum=2``), each microbatch one data
+    rank's row."""
+    return dict(kind="tp", name="ep1_accum", ep=1, layers=EP3D["ep2_fsdp2"][2],
+                steps=EP3D_STEPS, rows=2, grad_accum=2)
+
+
+def _ep3d_jobs():
+    """The four ranks' jobs (``EP3D``, ROADMAP A19): each composition at
+    its depth, ``EP3D_STEPS`` steps, then its control (one step)."""
+    jobs = []
+    for name, (mesh, rows, layers, _, fault, extra) in EP3D.items():
+        job = dict(kind="tp", name=name, mesh=mesh, rows=rows, layers=layers, steps=EP3D_STEPS,
+                   **extra)
+        jobs.append(job)
+        if fault:
+            jobs.append(dict(job, name=f"{name}_{fault}", steps=1, fault=fault))
+    return jobs
 
 
 def _split_checks(one, two, axis, steps, loss_tol, grad_tol, kernels):
@@ -4898,11 +5145,14 @@ def _split_checks(one, two, axis, steps, loss_tol, grad_tol, kernels):
     launched, each rank's peak within ``PEAK_CAL_RTOL`` of its static
     figure; the planted fault's run must fail the two gates together."""
     ref = one.pop("grad_prints")
+    one.pop("leaf_names")
     runs = {f"{axis}1": one}
     checks = {}
     for name in two[0]:
         per_rank = [r[name] for r in two]
         prints = [r.pop("grad_prints") for r in per_rank]
+        for r in per_rank:
+            r.pop("leaf_names")
         runs[name] = per_rank
         want = 1 if per_rank[0]["fault"] else steps
         diff = max(abs(a - b) for r in per_rank for a, b in zip(r["losses"], one["losses"]))
@@ -4989,6 +5239,172 @@ def _ep_line(t0, one, two, adam, free_before, full):
     return dict(runs=runs, adam=adam)
 
 
+def _ep3d_line(t0, refs, four, kernels, free_before):
+    """The composed meshes' gates (``EP3D``): each run's losses against
+    its ep = 1 reference's within ``EP3D_LOSS_TOL``, its first step's
+    whole-leaf gradients (the ZeRO shards, tp and ep boxes gathered)
+    within ``EP3D_GRAD_TOL``, step 1's routing (per-expert load, drop
+    rate) within ``EP_ROUTE_TOL``, the ranks agreeing, each rank's peak
+    within ``PEAK_CAL_RTOL`` of ``static_peak_bytes``, the kernels
+    launched, and the collectives a step the reckoned ones: 6 ep
+    all-to-alls a MoE layer and microbatch (remat) under ep, and under
+    tp 5 all-reduces a layer, 1 more a MoE layer (the gate's), 4 around
+    the split vocab. Each control must fail the two gates together."""
+    from dataclasses import replace
+
+    from dlrover_tpu_torch.models import llama2_7b
+    from dlrover_tpu_torch.models.config import num_moe_layers
+
+    runs, checks, faults = {}, {}, {}
+    kernel_names = ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkdv", "adam8_leaf")
+    for name in four[0]:
+        per_rank = [r[name] for r in four]
+        fault = per_rank[0]["fault"]
+        base = name[:-len(fault) - 1] if fault else name
+        mesh, rows, _, ref_name, _, _ = EP3D[base]
+        ref = refs[ref_name]
+        layers = per_rank[0]["layers"]
+        n_moe = num_moe_layers(replace(llama2_7b(), num_layers=layers, **EP_MOE))
+        prints = [r.pop("grad_prints") for r in per_rank]
+        runs[name] = per_rank
+        want = 1 if fault else EP3D_STEPS
+        n = min(len(per_rank[0]["losses"]), len(ref["losses"]))
+        diff = max(abs(a - b) for r in per_rank for a, b in zip(r["losses"][:n], ref["losses"][:n]))
+        errs = _grad_errs(prints[0], ref["grad_prints"])
+        grad_err = max(errs)
+        # the five leaves furthest from the reference's, by name
+        names = [r.pop("leaf_names") for r in per_rank][0]
+        top = sorted(zip(errs, names), reverse=True)[:5]
+        r1, w1 = per_rank[0]["routing"][0], ref["routing"][0]
+        route_diff = max(abs(a - b) for a, b in zip(r1["load"], w1["load"]))
+        drop_diff = abs(r1["drop_rate"] - w1["drop_rate"])
+        ga = per_rank[0]["grad_accum"]
+        a2a_want = 6 * n_moe * ga if mesh.get("ep", 1) > 1 else 0
+        tp_want = ga * (5 * layers + n_moe + 4) if mesh.get("tp", 1) > 1 else 0
+        comm_ok = all(r["ep_alltoalls_per_step"] == a2a_want
+                      and r["tp_allreduces_per_step"] == tp_want for r in per_rank)
+        passes = diff <= EP3D_LOSS_TOL[base] and grad_err <= EP3D_GRAD_TOL[base]
+        route_tol = EP3D_ROUTE_TOL.get(base, EP_ROUTE_TOL)
+        c = {"max_abs_loss_diff_vs_ref": diff, "reference": ref_name,
+             "tol": EP3D_LOSS_TOL[base], "first_loss_diff_vs_ref":
+                 abs(per_rank[0]["losses"][0] - ref["losses"][0]),
+             "first_step_grad_rel_err_vs_ref": grad_err,
+             "furthest_leaves": [[n, e] for e, n in top],
+             "grad_tol": EP3D_GRAD_TOL[base], "passes_gates": passes,
+             "step1_load_max_diff_vs_ref": route_diff, "step1_drop_rate_diff_vs_ref": drop_diff,
+             "balance_vs_ref": [r1["balance"], w1["balance"]],
+             "alltoalls_per_step": [r["ep_alltoalls_per_step"] for r in per_rank],
+             "tp_allreduces_per_step": [r["tp_allreduces_per_step"] for r in per_rank],
+             "reckoned": dict(alltoalls=a2a_want, tp_allreduces=tp_want)}
+        if fault:
+            c["ok"] = not passes
+            c["loss_gate_alone_refuses"] = diff > EP3D_LOSS_TOL[base]
+            faults[name] = c
+            continue
+        c.update(
+            ranks_agree=all(r["losses"] == per_rank[0]["losses"] for r in per_rank),
+            ranks_grads_agree=all(p == prints[0] for p in prints),
+            route_ok=max(route_diff, drop_diff) <= route_tol, route_tol=route_tol,
+            comm_ok=comm_ok,
+            peaks_within_static=all(abs(r["static_vs_measured"]) <= PEAK_CAL_RTOL
+                                    for r in per_rank),
+            launched=all(r["launches"].get(k, 0) > 0 for r in per_rank for k in kernel_names))
+        finite = all(np.isfinite(r["losses"]).all() and len(r["losses"]) == want
+                     for r in per_rank)
+        c["ok"] = (finite and passes and c["ranks_agree"] and c["ranks_grads_agree"]
+                   and c["route_ok"] and comm_ok and c["peaks_within_static"] and c["launched"])
+        checks[name] = c
+    refs_ok = all(abs(r["static_vs_measured"]) <= PEAK_CAL_RTOL for r in refs.values())
+    ok = (all(c["ok"] for c in checks.values()) and all(c["ok"] for c in faults.values())
+          and refs_ok and kernels["ok"])
+    emit("ep3d_train", seconds=time.perf_counter() - t0, seq=EP_SEQ, steps=EP3D_STEPS,
+         moe=EP_MOE, sp_capacity=EP_SP_CAPACITY, runs=runs, checks=checks,
+         planted_faults=faults, peak_cal_rtol=PEAK_CAL_RTOL, route_tol=EP_ROUTE_TOL,
+         references={k: dict(losses=v["losses"], routing=v["routing"][:1],
+                             peak_bytes=v["peak_bytes"], static_vs_measured=v["static_vs_measured"],
+                             step_ms=v["step_ms"])
+                     for k, v in refs.items()},
+         references_peaks_within_static=refs_ok, kernels=kernels,
+         card_free_bytes_before_runs=free_before,
+         transport="gloo all_reduce / all_to_all_single / reduce_scatter of CUDA tensors, "
+                   "staged through host memory (four ranks share the one card)",
+         never_on_a_card=["NCCL at world > 1", "any link between cards", "ep x tp x fsdp",
+                          "ep x sp x tp", "ep x sp under Ulysses", "MoE at dp x sp", "ep > 2",
+                          "tp > 2 with MoE", "an ep x tp or ep x fsdp checkpoint or resize",
+                          "moe_rebalance_interval", "the 3d / tp plans with MoE"],
+         ok=ok)
+    if not ok:
+        raise RuntimeError(f"the composed MoE runs failed their checks: {checks}, "
+                           f"the controls: {faults}")
+    return dict(runs=runs, checks=checks)
+
+
+def ep3d_kernel_checks(torch, fa, qo, full=False):
+    """The kernels at the composed meshes' shapes: the attention kernels
+    on a tp rank's 16 of 32 heads at 1 x 4096 (ep x tp, dp x tp), on the
+    ring's blocks of 2048 rows under ep x sp (``--phase ep``: the hop of
+    earlier keys and the diagonal), ``adam8_leaf`` at the ep x tp expert
+    box (``EP_TP_ADAM_SHAPE``), and (``--phase ep``) the 4-bit AdamW's
+    update on one leaf (``ADAM4_SHAPE``), timed alone."""
+    tp_heads, errs = check_attention(torch, fa, "B3-B5 Llama-2 width, 16 tp-local heads (ep x tp)",
+                                     1, 16, 16, EP_SEQ, 128)
+    out = dict(tp_heads=dict(ms=tp_heads["ms"], plain_ms=tp_heads["plain_ms"],
+                             bound=tp_heads["bound"], library_ms=tp_heads["library_ms"],
+                             max_abs_err=errs))
+    ok = tp_heads["ok"]
+    if not full:
+        half = EP_SEQ // 2
+        for key, k_off in (("ring_hop_earlier_keys", 0), ("ring_diagonal", half)):
+            r, e = check_attention(torch, fa, f"B3-B5 ep x sp {key} ({half} rows)",
+                                   1, 32, 32, half, 128, q_off=half, k_off=k_off)
+            out[key] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bound=r["bound"],
+                            library_ms=r["library_ms"], max_abs_err=e)
+            ok = ok and r["ok"]
+    adam, _ = check_adam8_leaf(torch, qo, None, EP_TP_ADAM_SHAPE,
+                               "B7 adam8_leaf ep x tp expert box w_up (ep=2 x tp=2)")
+    out["adam8_ep_tp_box"] = {k: adam[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    ok = ok and adam["ok"]
+    if not full:
+        out["adam4_leaf"] = time_adam4_leaf(torch, qo, ADAM4_SHAPE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ok"] = ok
+    return out
+
+
+def time_adam4_leaf(torch, qo, shape):
+    """The 4-bit AdamW's update (``_adam4_update_plain``, PyTorch: the
+    JAX package has no Pallas kernel for it) on one leaf of ``shape``,
+    timed alone, and its byte bound: the f32 gradient read, the nibble
+    first moment and int8 second moment read and written, the f32 delta
+    written, two scales a block read and written."""
+    dev = torch.device("cuda")
+    R = int(np.prod(shape)) // qo.BLOCK
+    g = torch.Generator(device=dev).manual_seed(5)
+    grads = torch.randn((R, qo.BLOCK), generator=g, device=dev) * 1e-3
+    mq = qo.Quantized4(torch.full((R, qo.BLOCK // 2), 0x88, dtype=torch.uint8, device=dev),
+                       torch.zeros((R,), device=dev), (R * qo.BLOCK,), True)
+    vq = qo.Quantized8(torch.zeros((R, qo.BLOCK), dtype=torch.int8, device=dev),
+                       torch.zeros((R,), device=dev), (R * qo.BLOCK,), False)
+    scalars = (3e-4 / (1 - 0.9), 1 / (1 - 0.999), 1e-8)
+    delta = qo._adam4_update_plain(grads, mq, vq, scalars, 0.9, 0.999, True)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(delta).all())
+    ms = time_ms(torch, lambda: qo._adam4_update_plain(grads, mq, vq, scalars, 0.9, 0.999, True),
+                 iters=10)
+    n = R * qo.BLOCK
+    nbytes = n * (4 + 1 + 2 + 4) + 4 * R * 4
+    b_ms, b_by = bound(nbytes, 60 * n, F32_OPS)
+    res = dict(shape=list(shape), ms=ms, bound_ms=b_ms, bound_by=b_by, finite=finite,
+               route="pytorch (no Pallas site)")
+    emit("adam4_leaf", **res)
+    del grads, mq, vq, delta
+    torch.cuda.empty_cache()
+    if not finite:
+        raise RuntimeError("the 4-bit AdamW's update is not finite")
+    return res
+
+
 def _split_runs(torch, label, one_jobs, two_jobs):
     """One process of ``one_jobs`` beside two gloo ranks of
     ``two_jobs`` on the one card; each's results by job name."""
@@ -5023,9 +5439,10 @@ def run_tp(torch, qo, full=False):
     return _tp_line(t0, one["tp1"], [{k: v for k, v in r.items()} for r in two], adam, free, full)
 
 
-def run_ep(torch, qo, full=False):
+def run_ep(torch, fa, qo, full=False):
     """The ep phase (``--phase ep``): ``adam8_leaf`` against its plain
-    version at an expert box's shape (``EP_ADAM_SHAPE``), then a MoE
+    version at an expert box's shape (``EP_ADAM_SHAPE``) and the composed
+    meshes' kernel checks (``ep3d_kernel_checks``), then a MoE
     model at Llama-2 width (``EP_MOE``: 8 experts, top-2, every second
     block) at 1 x ``EP_SEQ`` tokens, one process at ep = 1 beside two
     gloo ranks on the one card at dp 1 x ep 2 (the same seeded weights
@@ -5035,15 +5452,41 @@ def run_ep(torch, qo, full=False):
     a step (remat), each rank's peak within ``PEAK_CAL_RTOL`` of
     ``static_peak_bytes``; then, in the same two ranks, one step with
     the first MoE layer's return exchange stripped of its backward,
-    which the two gates together must refuse."""
+    which the two gates together must refuse. The ep = 1 process also
+    runs the references at the capacity of no drops (``_ep_jobs``); once
+    it and the pair are done, one process runs the two-row reference
+    (``_ep_accum_job``),
+    then four gloo ranks run ROADMAP A19's meshes (``EP3D``:
+    ep 2 x tp 2, ep 2 x fsdp 2, ep 2 x sp 2, MoE at dp 2 x tp 2, each
+    with its control, and ep x tp's second witness) under
+    ``_ep3d_line``'s gates."""
     t0 = time.perf_counter()
     adam, _ = check_adam8_leaf(torch, qo, None, EP_ADAM_SHAPE,
                                "B7 adam8_leaf expert box w_up (ep=2)")
+    kernels3d = ep3d_kernel_checks(torch, fa, qo)
     gc.collect()
     torch.cuda.empty_cache()
-    one_jobs, two_jobs = _ep_jobs(full)
-    one, two, free = _split_runs(torch, "ep", one_jobs, two_jobs)
-    return _ep_line(t0, one["ep1"], two, adam, free, full)
+    # every process of the phase on expandable segments: beside the pair
+    # the ep = 1 runs read 79 of the card's 85 GB in nvidia-smi (blocks
+    # reserved, split by the jobs before)
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        one_jobs, two_jobs = _ep_jobs(full)
+        one, two, free = _split_runs(torch, "ep", one_jobs, two_jobs)
+        accum = _dp_spawn("ep1_accum", 1, [_ep_accum_job()], backend=None)[0]
+        # the four ranks alone on the card
+        free4 = torch.cuda.mem_get_info()[0]
+        four = _dp_spawn("ep3d", 4, _ep3d_jobs(), timeout=2400.0)
+    finally:
+        if alloc_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    refs = dict(one, ep1_accum=accum["ep1_accum"])
+    ep3d = _ep3d_line(t0, refs, four, kernels3d, free4)
+    ep = _ep_line(t0, one["ep1"], two, adam, free, full)
+    return dict(ep, ep3d=ep3d, kernels3d=kernels3d)
 
 
 # ---------------------------------------------------------------------------
@@ -5679,6 +6122,7 @@ def start_tp_ep(torch, fa, qo):
                                   "B7 adam8_leaf expert box w_up (ep=2)")
     pp_kernels, pp_adam = pp_kernel_checks(torch, fa, qo)
     pp3d_kernels, pp3d_adam = pp3d_kernel_checks(torch, fa, qo)
+    ep3d_kernels = ep3d_kernel_checks(torch, fa, qo, full=True)
     gc.collect()
     torch.cuda.empty_cache()
     tp1, tp2 = _tp_jobs(True)
@@ -5688,7 +6132,11 @@ def start_tp_ep(torch, fa, qo):
     one = _dp_start("tp_ep1", 1, tp1 + ep1 + pp1, backend=None)
     two = _dp_start("tp_ep2", 2, tp2 + ep2 + _c3_jobs(True) + pp2)
     # a group of its own: the pair's two-rank jobs keep their world, and
-    # these four ranks run while the drill's launchers mostly wait
+    # these four ranks run while the drill's launchers mostly wait. The
+    # composed MoE meshes (ROADMAP A19) run under --phase ep alone: four
+    # more Llama-width ranks here took the machine past its 96 GiB of host
+    # memory, and run after this group they would add ~80 s to a run
+    # whose time has no room
     four = _dp_start("pp3d", 4, _pp3d_jobs(True))
 
     def finish():
@@ -5707,7 +6155,7 @@ def start_tp_ep(torch, fa, qo):
         pp3d = _pp3d_line(t0, res1["pp1"], res4, pp3d_kernels, pp3d_adam, free, True)
         pp = _pp_line(t0, res1["pp1"], [{j["name"]: r[j["name"]] for j in pp2} for r in res2],
                       pp_kernels, pp_adam, free, True)
-        return dict(tp=tp, ep=ep, pp=dict(pp, pp3d=pp3d),
+        return dict(tp=tp, ep=dict(ep, kernels3d=ep3d_kernels), pp=dict(pp, pp3d=pp3d),
                     c3=[{k: r[k] for k in ("dp2", "zero")} for r in res2])
 
     return finish
@@ -5820,7 +6268,7 @@ def main() -> int:
         elif phase == "tp":
             run_tp(torch, qo)
         elif phase == "ep":
-            run_ep(torch, qo)
+            run_ep(torch, fa, qo)
         elif phase == "pp":
             run_pp(torch, fa, qo)
         elif phase == "resize":
@@ -5869,8 +6317,16 @@ def main() -> int:
         raise RuntimeError("adamw_8bit's losses leave adamw_8bit_flat's")
     emb_counts = run_sparse_full(torch, er, profile="--profile" in sys.argv)
     spill_link = run_sparse_spill(torch)
-    dp_accel = run_dp(torch)
-    run_accel(torch, llama["full"]["search"], dp_accel, audit)
+    # the accel worker (the link model, gpt2_xl's offload: no timing gate)
+    # runs beside the dp phase (gpt2_small ranks: 43 + 3 x 7.8 GB at
+    # their peaks)
+    accel_wait = _worker_start(torch, "--accel-worker", "accel")
+    try:
+        dp_accel = run_dp(torch)
+    except BaseException:
+        accel_wait(abort=True)
+        raise
+    run_accel(torch, llama["full"]["search"], dp_accel, audit, worker=accel_wait)
     link_arbiter_line(flash=run_flash_ckpt(torch)["arbiter"], spill=spill_link)
     side = run_resize(torch, side=start_tp_ep(torch, fa, qo))
     tp, ep, pp = side["tp"], side["ep"], side["pp"]
@@ -5907,6 +6363,8 @@ def main() -> int:
                               for k in ("ms", "plain_ms", "bound")},
             pp_fsdp_microbatch={k: pp["pp3d"]["kernels"]["fsdp"][k][name]
                                 for k in ("ms", "plain_ms", "bound")},
+            ep_tp_heads={k: ep["kernels3d"]["tp_heads"][k][name]
+                         for k in ("ms", "plain_ms", "bound", "library_ms")},
         ))
     src_qo, qo_tpu = "dlrover_tpu_torch/ops/quantized_optim.py", "dlrover_tpu/ops/quantized_optim.py"
     for name, replaces, res, abs_err, n in (
@@ -5927,7 +6385,8 @@ def main() -> int:
                 "ep_expert_box_w_up": {k: ep["adam"][k] for k in ("ms", "plain_ms", "bound_ms")},
                 "pp_stage_row_w_up": {k: pp["adam"][k] for k in ("ms", "plain_ms", "bound_ms")},
                 "pp_tp_stage_box_w_up": {k: pp["pp3d"]["adam"][k]
-                                         for k in ("ms", "plain_ms", "bound_ms")}}
+                                         for k in ("ms", "plain_ms", "bound_ms")},
+                "ep_tp_expert_box_w_up": ep["kernels3d"]["adam8_ep_tp_box"]}
                if name == "adam8_leaf" else {}),
         ))
     emb_tpu = "dlrover_tpu/ops/embedding/device_tier.py"

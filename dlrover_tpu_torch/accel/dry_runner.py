@@ -474,11 +474,25 @@ def static_peak_bytes(
     D]`` expert inputs and outputs, ``[E, C, F]`` pre- and post-activation,
     the activations' f32 casts), and their backward adds the ``[E, C, F]``
     activation's two f32 grads; the experts' weights are used in f32 (no
-    cast). Under ep a rank holds its ``E/ep`` experts of each expert leaf
+    cast). The default sync (no plan) on a data or sp group sums the
+    whole tree's f32 concatenation beside the grads (an H100 80GB HBM3 at
+    700 W, MoE at dp 2 x tp 2: the model missed it by 1.78 GB, -20.3 %,
+    ``chip_smoke.py --phase ep``). The term prices dense dp, fsdp and sp
+    strategies without ``comm_overlap`` too, wherever the sync phase is
+    the largest (remat at Llama-2 width, say); no such dense peak was
+    read on the card. Under ep a rank holds its ``E/ep`` experts of each expert leaf
     (their grads and optimizer state with them), but its expert buffers
     are ep = 1's (each rank runs ``E/ep`` experts over ``ep x C``
     slots), and the ep sum of the dense grads adds their f32
-    concatenation to the optimizer phase.
+    concatenation to the optimizer phase. Under tp the expert leaves and
+    the ``[E, C, F]`` buffers are the rank's ``F/tp`` columns; under sp
+    the capacity is the rank's block's. ep x fsdp keeps ZeRO's shards of
+    the rank's boxes (without a plan: ``models/train.zero_layout_of``),
+    and its sync phase holds the grads, the dense ones' f32 ep sum, the
+    largest unit's (an expert block's) rank-major f32 flat with the
+    backend's copy of it and its scattered chunk, and the other units'
+    f32 shards (the same card at ep 2 x fsdp 2: a unit of the mean
+    block's size missed 2.5 GB, -19.0 %).
 
     The peak is the resident state plus the largest phase. Held against
     the measured peaks on an H100 80GB HBM3 at 700 W (``chip_smoke.py
@@ -516,7 +530,8 @@ def static_peak_bytes(
     pb = torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size()
     state, trans, unit = _opt_state_bytes(tx, leaves)
     state /= max(m.fsdp, 1)
-    zero = m.fsdp > 1 and strategy.resolved_comm_overlap()
+    # ZeRO: the explicit sync's, and ep x fsdp's without a plan
+    zero = m.fsdp > 1 and (strategy.resolved_comm_overlap() or m.ep > 1)
     plan = None
     if shards > 1 and strategy.resolved_comm_overlap():
         plan = grad_sync.resolve_plan(cfg, strategy, plan_leaves)
@@ -550,7 +565,7 @@ def static_peak_bytes(
         mlp_t = ab * F * (4 if cfg.swiglu else 2)
         mlp_p = D * F * (3 if cfg.swiglu else 2)
         a_block = tok * per_tok + ((attn_p + mlp_p) * ab if pb > ab else 0.0)
-        a_moe = (tok * (per_tok - mlp_t) + _moe_block_bytes(cfg, tok, ab)
+        a_moe = (tok * (per_tok - mlp_t) + _moe_block_bytes(cfg, tok, ab, tp)
                  + (attn_p * ab if pb > ab else 0.0))
     if cfg.remat:
         biggest = max(a_block, a_moe) if n_moe else a_block
@@ -580,6 +595,21 @@ def static_peak_bytes(
         dims = leaf_tp_dims(cfg, m.ep, "ep")
         dense = sum(p.numel() for p, d in zip(leaves, dims) if d is None)
         sync = max(sync, grads + 4.0 * dense)
+        if zero:
+            # the largest unit (an expert block: its attention and its
+            # rank's experts) scattered: its rank-major f32 flat, gloo's
+            # copy of it and the scattered chunk, beside the f32 shards of
+            # the other units
+            unit = max(block_params, V * D)
+            if n_moe:
+                unit = max(unit, attn_p + cfg.num_experts // m.ep * 2 * D * F + D * cfg.num_experts)
+            sync = (grads + 4.0 * dense + 4.0 * unit * (2 + 1.0 / m.fsdp)
+                    + 4.0 * (n_params - unit) / m.fsdp)
+    elif plan is None and (shards > 1 or sp > 1):
+        # the default sync: one all-reduce of the whole tree's f32
+        # concatenation (``models/train._flat_all_reduce_mean``) beside the
+        # grads
+        sync = max(sync, grads + 4.0 * n_params)
     if zero:
         regathered = 0.0
         if cfg.remat or pb <= ab:
@@ -762,15 +792,15 @@ def _pp_peak_bytes(cfg: TransformerConfig, strategy: Strategy, tx, batch: int, s
     return p_bytes + state + max(run, sync, grads + trans)
 
 
-def _moe_block_bytes(cfg: TransformerConfig, tok: int, ab: int) -> float:
+def _moe_block_bytes(cfg: TransformerConfig, tok: int, ab: int, tp: int = 1) -> float:
     """What one expert block's MLP half holds for its backward, for a
     rank's ``tok`` tokens (f32, as ``parallel/moe.moe_layer_local``
     computes): the routed ``[T, k, E, C]`` one-hots, ``dispatch`` and
     ``combine`` ``[T, E, C]``, the expert inputs and outputs ``[E, C,
-    D]``, the FFN's pre- and post-activation ``[E, C, F]`` with the two
-    f32 grads of its backward, and the activations' f32 casts (two,
-    when ``ab`` < 4)."""
-    E, k, D, F = cfg.num_experts, max(cfg.moe_top_k, 1), cfg.model_dim, cfg.ffn_dim
+    D]``, the FFN's pre- and post-activation ``[E, C, F]`` (under tp the
+    rank's ``F/tp`` columns) with the two f32 grads of its backward, and
+    the activations' f32 casts (two, when ``ab`` < 4)."""
+    E, k, D, F = cfg.num_experts, max(cfg.moe_top_k, 1), cfg.model_dim, cfg.ffn_dim // tp
     if cfg.capacity_splits:
         C = max(1, int(max(cfg.capacity_splits)))
     else:
@@ -848,12 +878,14 @@ def _comm_estimate(
     param_bytes = prof.total_params * p_bytes
 
     # MoE all-to-all term: the dispatch/combine all-to-alls run on the
-    # critical path — 2 forward + 2 backward per MoE layer per step
+    # critical path — 2 forward + 2 backward per MoE layer per step.
+    # Each rank exchanges the buckets of its own tokens: its rows' (its
+    # sp block's under sp), full width under tp
     if cfg.num_experts and m.ep > 1:
         from dlrover_tpu_torch.parallel import topology
 
         act_bytes = 2 if cfg.dtype in ("bfloat16", "float16") else 4
-        tokens_loc = batch * seq / max(m.dp * m.fsdp, 1)
+        tokens_loc = batch * seq / max(m.dp * m.fsdp * m.sp, 1)
         a2a_payload = (
             cfg.capacity_factor
             * max(cfg.moe_top_k, 1)
@@ -941,7 +973,10 @@ def _tp_comm_estimate(report: DryRunReport, cfg: TransformerConfig, batch, seq) 
     or the head: its vocab-parallel gather and head run inside the
     stages). Each carries this rank's microbatch of tokens x D in f32 (the dtype ``models/transformer._tp_sum`` reduces in) over
     the tp group's link (``topology``), at the ring factor plus one
-    ring's latency, and none of it is hidden."""
+    ring's latency, and none of it is hidden. A MoE layer's expert FFN
+    is split as the MLP is (``parallel/moe``: its ``[T, D]`` output is
+    the layer's second forward sum), and its backward adds the gate's tp
+    sum, ``D x E`` in f32."""
     m = report.strategy.mesh
     if m.tp <= 1:
         return
@@ -968,7 +1003,15 @@ def _tp_comm_estimate(report: DryRunReport, cfg: TransformerConfig, batch, seq) 
         n = cfg.num_layers // m.pp * per + (1 if cfg.vocab_size % m.tp == 0 else 0)
     wire = 2.0 * (m.tp - 1) / m.tp * tok * cfg.model_dim * 4.0
     t = n * ga * (wire * model.sec_per_axis_byte("tp") + 2 * m.tp * model.ici_lat_s)
-    report.comm_bytes_per_device += n * ga * wire
+    total = n * ga * wire
+    if cfg.num_experts and m.pp == 1:
+        from dlrover_tpu_torch.models.config import num_moe_layers
+
+        gate = 2.0 * (m.tp - 1) / m.tp * cfg.model_dim * cfg.num_experts * 4.0
+        k = num_moe_layers(cfg) * ga
+        t += k * (gate * model.sec_per_axis_byte("tp") + 2 * m.tp * model.ici_lat_s)
+        total += k * gate
+    report.comm_bytes_per_device += total
     report.comm_exposed_s += t
     report.comm_ici_s += t
 

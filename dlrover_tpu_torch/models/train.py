@@ -59,7 +59,8 @@ the real rows ``padded / real``), so the mean over the padded batch, and
 the mean of the ranks' means, is the mean over the real rows. It needs
 ``grad_accum=1`` and a dense model, as in the JAX package.
 
-ZeRO (a plan of kind ``zero``, dp x fsdp): between steps the optimizer
+ZeRO (a plan of kind ``zero``, dp x fsdp; and ep x fsdp, which no plan
+syncs: ``zero_layout_of``): between steps the optimizer
 and its state hold only this rank's block rows of each leaf
 (``TrainState.shards``, ``BucketPlan.leaf_shard`` elements each, whole
 128-element blocks of the row-major flatten), so the per-leaf 8-bit
@@ -161,14 +162,29 @@ def leaf_shards(leaves, mesh, plan) -> List[torch.Tensor]:
     return out
 
 
+def zero_layout_of(leaves, mesh, plan):
+    """The ZeRO layout a rank's ``leaves`` take, or None off ZeRO: the
+    plan's (the zero and 3d kinds), and on an ep x fsdp mesh, which no
+    plan syncs, the port's block layout of the rank's ep-local (under
+    ep x tp, ep x tp-local) boxes over its fsdp group
+    (``zero_layout``, as pp x fsdp lays its stage boxes out)."""
+    if _zero(plan):
+        return plan
+    m = getattr(mesh, "config", None)
+    if m is not None and m.ep > 1 and m.fsdp > 1:
+        return zero_layout(leaves, m.fsdp)
+    return None
+
+
 def state_from_params(
     params: Transformer, tx: Callable, mesh=None, plan=None, offload_opt_state: bool = False,
 ) -> TrainState:
     leaves = params.jax_ordered_parameters()
-    if _zero(plan):
-        shards = leaf_shards(leaves, mesh, plan)
+    layout = zero_layout_of(leaves, mesh, plan)
+    if layout is not None:
+        shards = leaf_shards(leaves, mesh, layout)
         state = TrainState(step=0, params=params, opt_state=tx(shards), shards=shards)
-        state.units = ZeroUnits(state, mesh, plan)
+        state.units = ZeroUnits(state, mesh, layout)
         free_params(state)
     else:
         state = TrainState(step=0, params=params, opt_state=tx(leaves))
@@ -267,6 +283,54 @@ class ZeroUnits:
             finally:
                 self.free(key)
         return _GatheredUnit.apply(self, key, fn, recompute, x, *self.units[key][1])
+
+
+def zero_layout(leaves, fsdp: int):
+    """The port's ZeRO layout of a rank's leaves (its boxes) over fsdp
+    when no plan lays them out (pp x fsdp, ep x fsdp): each leaf padded
+    to fsdp x whole 128-element blocks, a rank's shard its run of block
+    rows (``grad_sync.BucketPlan.leaf_shard``), as one bucket the ZeRO
+    helpers here walk."""
+    from dlrover_tpu_torch.parallel.grad_sync import ZERO_LEAF_BLOCK, plan_buckets
+
+    return plan_buckets(list(leaves), dp=1, fsdp=fsdp, bucket_bytes=1 << 62, kind="zero",
+                        leaf_block=ZERO_LEAF_BLOCK)
+
+
+def zero_scatter(grads, idx, units: "ZeroUnits", mesh, n_data: int,
+                 over=("dp",)) -> List[torch.Tensor]:
+    """The whole grads of leaves ``idx`` (this rank's, of one sync unit)
+    -> this rank's ZeRO shards of their mean over the data axes: each
+    leaf padded to its ``leaf_padded`` length and laid out rank-major
+    (every fsdp rank's block rows of the unit's leaves in turn), one
+    reduce-scatter over fsdp, one all-reduce over each group of
+    ``over`` (dp; under ep x fsdp x sp also sp), divided by ``n_data``.
+    ``grads`` is consumed."""
+    from dlrover_tpu_torch.parallel.grad_sync import _all_reduce, _reduce_scatter
+
+    plan = units.plan
+    sizes = [plan.leaf_shard(i) for i in idx]
+    flat = torch.zeros((plan.fsdp, sum(sizes)), dtype=torch.float32, device=grads[0].device)
+    off = 0
+    for k, g in enumerate(grads):
+        # the leaf's padded flatten as fsdp rows of its shard's length
+        sh, gf = sizes[k], g.reshape(-1)
+        full, rest = divmod(gf.numel(), sh)
+        flat[:full, off:off + sh] = gf[:full * sh].view(full, sh)
+        if rest:
+            flat[full, off:off + rest] = gf[full * sh:]
+        off += sh
+        grads[k] = gf = g = None
+    flat = flat.reshape(-1)
+    out, h = _reduce_scatter(flat, units.group)
+    h.wait()
+    del flat
+    for name in over:
+        group = mesh.groups.get(name)
+        if group is not None:
+            _all_reduce(out, group).wait()
+    out.div_(n_data)
+    return list(out.split(sizes))
 
 
 class _GatheredUnit(torch.autograd.Function):
@@ -404,20 +468,26 @@ def build_train_step(
     MoE layer, all means over the data axes and the microbatches.
 
     Expert parallelism (a mesh with ``ep > 1``; the JAX
-    ``ep_synced_grads``): every ep rank of a data coordinate runs the
-    same rows, with its ``E/ep`` experts, through the MoE layers'
-    all-to-alls. The loss is seeded on ep rank 0 alone (each ep rank
-    computes the same loss through the exchanges: seeding all of them
-    would scale the experts' cotangent by ep) and every ep rank runs the
-    backward, whose transposed exchanges are collectives too; rank 0's
-    backward reaches every rank's experts through them. The grads then
-    go through ``grad_sync.sync_ep_grads``: the dense ones summed over ep
-    (the sum selects rank 0's), then the expert and the dense leaves
-    synced over dp by the ``EPSyncPlan``'s two plans (without a plan: at
-    dp = 1 nothing, else the mean over the data group); ``grad_norm`` is
-    ``sqrt(sum_ep(expert squares) + dense squares)``. Under
+    ``ep_synced_grads``): every ep rank of a data (and sp, tp)
+    coordinate runs the same rows, with its ``E/ep`` experts, through
+    the MoE layers' all-to-alls. The loss is seeded on ep rank 0 alone
+    (each ep rank computes the same loss through the exchanges: seeding
+    all of them would scale the experts' cotangent by ep) and every ep
+    rank runs the backward, whose transposed exchanges are collectives
+    too; rank 0's backward reaches every rank's experts through them.
+    The grads then go through ``grad_sync.sync_ep_grads``: the dense
+    ones summed over ep (the sum selects rank 0's), then the expert and
+    the dense leaves synced over dp by the ``EPSyncPlan``'s two plans
+    (dp x ep with ``comm_overlap``), else by the default sync: the sum
+    over the data axes and sp divided by dp x fsdp, under fsdp a
+    reduce-scatter into the ZeRO shards of the rank's boxes
+    (``zero_layout_of``). ``grad_norm`` counts each leaf once over the
+    axes that hold it whole (``grad_sync.split_grad_norm``). Under
     ``grad_accum`` the microbatches' grads accumulate locally and sync
-    once."""
+    once. ep composes with tp (each tp rank its ``F/tp`` columns of its
+    experts, ``parallel/moe``), with sp (each rank gates its own block)
+    and with fsdp; the JAX package runs these meshes under its default
+    schedule, and so does the port: no plan."""
     if batch_pad and grad_accum > 1:
         raise ValueError("batch_pad (micro-batch rebalance) requires grad_accum=1")
     if batch_pad and cfg.num_experts:
@@ -474,11 +544,14 @@ def build_train_step(
     def loss_of(model, tokens, targets, row_w=None, units=None):
         """(the rank's loss, its packed MoE aux or None): over sp, its
         block's mean divided by sp (the sp sum of these is the mean over
-        the whole rows)."""
+        the whole rows), and so its aux (each sp block gates its own
+        tokens: their sp sum is the JAX package's mean over sp)."""
         loss, aux = loss_fn(model, tokens, targets, cfg, model_mesh, row_weights=row_w,
                             gather=units, return_aux=True)
         aux = _pack_aux(aux).detach() if moe else None
-        return (loss / sp if sp > 1 else loss), aux
+        if sp > 1:
+            return loss / sp, (aux / sp if moe else None)
+        return loss, aux
 
     def backward(loss, params):
         # under ep only rank 0's seed is 1 (every rank runs the backward)
@@ -568,11 +641,12 @@ def build_train_step(
         )
         return loss, out, gnorm, new_res, lanes, aux
 
-    def ep_grads(model, params, tokens, targets):
+    def ep_grads(state, model, params, tokens, targets):
         from dlrover_tpu_torch.parallel.grad_sync import sync_ep_grads
 
-        loss, grads, aux = local_grads(model, params, tokens, targets)
-        grads, gnorm = sync_ep_grads(grads, mesh, plan, expert_ids, n_data)
+        loss, grads, aux = local_grads(model, params, tokens, targets, state.units)
+        grads, gnorm = sync_ep_grads(grads, mesh, plan, expert_ids, n_data, units=state.units,
+                                     tp_dims=tp_dims)
         return loss, grads, gnorm, aux
 
     def train_step(state: TrainState, tokens, targets):
@@ -581,8 +655,8 @@ def build_train_step(
         tokens, targets = seq_block(tokens, targets)
         lanes = None
         if ep > 1:
-            loss, grads, gnorm, aux = ep_grads(model, params, tokens, targets)
-            targets_ = params
+            loss, grads, gnorm, aux = ep_grads(state, model, params, tokens, targets)
+            targets_ = params if state.shards is None else state.shards
         elif plan is not None:
             loss, grads, gnorm, new_res, lanes, aux = synced_grads(
                 state, model, params, tokens, targets
@@ -595,9 +669,9 @@ def build_train_step(
             if tp_dims is None:
                 gnorm = global_norm(grads)
             else:
-                from dlrover_tpu_torch.parallel.grad_sync import tp_grad_norm
+                from dlrover_tpu_torch.parallel.grad_sync import split_grad_norm, tp_axes
 
-                gnorm = tp_grad_norm(grads, tp_dims, mesh.groups["tp"])
+                gnorm = split_grad_norm(grads, tp_axes(tp_dims), mesh)
             targets_ = params
         for p, g in zip(targets_, grads):
             p.grad = g.to(p.dtype)

@@ -58,8 +58,12 @@ returns its routing aux beside the residual stream (a dense block of a
 MoE model zeros), ``forward`` sums it over the blocks and ``loss_fn``
 adds ``MOE_AUX_WEIGHT x balance + router_z_weight x z`` to the NLL, as
 the JAX ``loss_fn`` does. On a mesh with ``ep > 1`` each ep rank holds
-its ``E/ep`` experts of every expert leaf (``sharding_rules.split_of``)
-and the layer exchanges its buckets over the ``ep`` group.
+its ``E/ep`` experts of every expert leaf (``sharding_rules.splits_of``)
+and the layer exchanges its buckets over the ``ep`` group. Under tp the
+expert FFN is split as the dense MLP is (each tp rank its ``F/tp``
+columns of every local expert, one tp sum of the layer's output); under
+sp each rank gates its own block of the sequence. Every mix of dp,
+fsdp, ep, sp and tp runs.
 
 Pipeline parallelism (a mesh with ``pp > 1``) runs the blocks of a
 stage on each pp rank: ``parallel/pipeline.PipelineStage`` holds them,
@@ -69,9 +73,8 @@ them (under pp x tp each stage row's tp box), and runs them through
 ``embed_tokens``, ``lm_head`` and ``token_nll``.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: MoE or ep composed with fsdp x ep, tp or sp (A19), ``int8_mlp``
-(A12), the KV-cache decode paths (A14). pp x sp and pp x ep raise the
-JAX package's ``ValueError``.
+item: ``int8_mlp`` (A12), the KV-cache decode paths (A14). pp x sp and
+pp x ep raise the JAX package's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -93,7 +96,7 @@ from dlrover_tpu_torch.parallel.sharding_rules import (
     list_layout,
     local_shape,
     local_shard,
-    split_of,
+    splits_of,
     tp_dims,
     tp_of,
 )
@@ -108,15 +111,15 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 def check_supported(cfg: TransformerConfig, mesh=None) -> None:
     """Raise for the configuration switches the port does not run yet.
-    ``mesh``: a ``parallel/mesh.Mesh`` or its ``MeshConfig``; the data
-    axes, sp, tp, ep and pp run, and pp composes with tp and fsdp (dp on
-    top). MoE or ep composed with fsdp x ep, tp or sp raises
-    ``NotImplementedError`` naming its ROADMAP item; pp x ep and pp x sp
-    (the JAX package's refusals), a model the pipeline cannot stage
+    ``mesh``: a ``parallel/mesh.Mesh`` or its ``MeshConfig``; every mix
+    of dp, fsdp, ep, sp and tp runs, MoE on any of them, and pp composes
+    with dp, tp and fsdp. pp x ep and pp x sp (the JAX package's
+    refusals), a model the pipeline cannot stage
     (``parallel/pipeline._check_pipeline_cfg``), a tp degree that does
     not divide the heads, the kv heads or the MLP width, or an ep degree
     on a dense model or one that does not divide the experts, raise
-    ``ValueError``."""
+    ``ValueError``; ``int8_mlp`` raises ``NotImplementedError`` naming
+    its ROADMAP item."""
     if mesh is not None:
         m = getattr(mesh, "config", mesh)
         if m.pp > 1:
@@ -132,11 +135,6 @@ def check_supported(cfg: TransformerConfig, mesh=None) -> None:
             from dlrover_tpu_torch.parallel.pipeline import _check_pipeline_cfg
 
             _check_pipeline_cfg(cfg, m.pp)
-        others = [a for a in ("fsdp", "tp", "sp") if getattr(m, a) > 1]
-        if m.ep > 1 and others:
-            raise NotImplementedError(
-                f"ep x {' x '.join(others)} is not ported yet (ROADMAP A19)"
-            )
         if m.ep > 1:
             if not cfg.num_experts:
                 raise ValueError(f"ep={m.ep} needs a MoE config (num_experts > 0)")
@@ -144,10 +142,6 @@ def check_supported(cfg: TransformerConfig, mesh=None) -> None:
                 raise ValueError(
                     f"ep={m.ep} does not divide num_experts={cfg.num_experts}"
                 )
-        if cfg.num_experts and (m.tp > 1 or m.sp > 1):
-            raise NotImplementedError(
-                "MoE layers with tp or sp are not ported yet (ROADMAP A19)"
-            )
         if m.tp > 1:
             check_tp(cfg, m.tp)
     if cfg.int8_mlp:
@@ -247,30 +241,35 @@ def leaf_maker(cfg: TransformerConfig, generator: Optional[torch.Generator] = No
     list-layout name, ``kind`` "dense" (``N(0, 1/fan_in)`` from
     ``generator``, drawn whole on the generator's own device: the same
     seed gives the same weights on every device), "ones" or "zeros"
-    (also "dense" without a generator), cut to this rank's tp (ep) box
-    and moved to ``device`` in ``cfg.param_dtype``. The draws advance
+    (also "dense" without a generator), cut to this rank's box (along
+    tp, then ep: ``sharding_rules.splits_of``) and moved to ``device`` in ``cfg.param_dtype``. The draws advance
     ``generator`` in call order: ``Transformer`` and
     ``parallel/pipeline.PipelineStage`` call it leaf by leaf in one
     order, so both hold the same weights of one seed."""
     pd = _torch_dtype(cfg.param_dtype)
-    axis, tp, coord, _ = split_of(mesh)
-    # each leaf's dim on the splitting axis (tp's or ep's), by its
+    # each splitting axis (tp, then ep) with each leaf's dim on it, by its
     # list-layout name (the names the leaves are drawn under)
-    dims = tp_dims(list_layout(cfg), tp, axis) if tp > 1 else {}
+    cuts = [(n, coord, tp_dims(list_layout(cfg), n, axis))
+            for axis, n, coord, _ in splits_of(mesh) if axis != "pp"]
 
     def make(name, kind, shape, fan_in=None):
-        dim = dims.get(name)
+        box, split = tuple(shape), False
+        for n, _, dims in cuts:
+            box = local_shape(box, dims.get(name), n)
+            split = split or dims.get(name) is not None
         if kind == "dense" and generator is not None:
             w = torch.randn(shape, generator=generator, device=generator.device) * fan_in**-0.5
-            if dim is not None:
+            if split:
+                for n, coord, dims in cuts:
+                    w = local_shard(w, dims.get(name), n, coord)
                 # a copy of the box alone: the whole leaf is freed
-                w = local_shard(w, dim, tp, coord).clone(memory_format=torch.contiguous_format)
+                w = w.clone(memory_format=torch.contiguous_format)
         elif kind == "ones":
-            w = torch.ones(local_shape(shape, dim, tp))
+            w = torch.ones(box)
         else:
-            w = torch.zeros(local_shape(shape, dim, tp))
+            w = torch.zeros(box)
         p = nn.Parameter(w.to(device=device, dtype=pd))
-        if dim is not None:
+        if split:
             # the 8-bit AdamW decides quantization on the whole leaf
             p.leaf_numel = int(np.prod(shape))
         return p
@@ -296,9 +295,9 @@ class Transformer(nn.Module):
     """The parameter tree (see the module docstring); the model runs
     through the free function ``forward``. With a ``mesh`` of tp > 1 or
     ep > 1 (a ``parallel/mesh.Mesh``, or a ``MeshConfig`` for coordinate
-    0's shapes) each leaf the rules split on that axis is this rank's box
-    of it; the generator still draws every whole leaf, so the weights are
-    tp = 1's (ep = 1's) of the same seed."""
+    0's shapes) each leaf the rules split on those axes is this rank's
+    box of it; the generator still draws every whole leaf, so the weights
+    are tp = 1's (ep = 1's) of the same seed."""
 
     def __init__(
         self,
@@ -646,15 +645,18 @@ def _unpack_aux(v: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 def _moe_block(h, moe, cfg: TransformerConfig, mesh=None):
     """The expert FFN on the normed ``h [B, T, D]``: the rank's tokens
-    through ``moe_layer_local``, over the mesh's ep group when ep > 1."""
+    through ``moe_layer_local``, over the mesh's ep group when ep > 1
+    and with each tp rank's ``F/tp`` columns of the experts under tp."""
     from dlrover_tpu_torch.parallel.moe import ep_group_of, moe_layer_local
 
     B, T, d = h.shape
     group, ep = ep_group_of(mesh)
+    tp, tp_coord, _ = tp_of(mesh)
     out, aux = moe_layer_local(
         dict(moe), h.reshape(B * T, d), group=group, ep=ep,
         capacity_factor=cfg.capacity_factor, top_k=cfg.moe_top_k,
         expert_caps=tuple(cfg.capacity_splits) or None,
+        tp_group=_tp_group(mesh), tp_coord=tp_coord,
     )
     return out.reshape(B, T, d), aux
 

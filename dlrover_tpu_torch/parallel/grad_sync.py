@@ -1255,57 +1255,109 @@ def _plan_for_ep(cfg, mode: SyncMode, grad_bucket_mb: int, params_shape=None,
     )
 
 
+def tp_axes(dims) -> List[Tuple[str, ...]]:
+    """``split_grad_norm``'s axes of leaves by their tp dims (None: a
+    leaf every tp rank holds whole)."""
+    return [() if d is None else ("tp",) for d in dims]
+
+
+def split_grad_norm(leaves, split_axes, mesh, zero: bool = False):
+    """The whole tree's grad norm from a rank's synced leaves: each
+    leaf's squares summed once over the axes that hold it whole.
+    ``split_axes``: per leaf the tuple of the mesh axes (of "tp", "ep")
+    that cut it into boxes; ``zero``: the leaves are ZeRO shards of the
+    rank's boxes (their padding zero), summed over fsdp first. The
+    squares of the leaves split by tp are then summed over the tp group,
+    those split by ep over the ep group (an ep x tp box over both)."""
+    import torch
+
+    classes = ((), ("tp",), ("ep",), ("tp", "ep"))
+    ss = torch.zeros(4, dtype=torch.float32, device=leaves[0].device if leaves else None)
+    for g, axes in zip(leaves, split_axes):
+        # squares summed without a leaf-sized temporary
+        ss[classes.index(tuple(axes))] += torch.linalg.vector_norm(g.float()).square()
+    if zero and mesh.groups.get("fsdp") is not None:
+        _wait([_all_reduce(ss, mesh.groups["fsdp"])])
+    for axis, idx in (("tp", [1, 3]), ("ep", [2, 3])):
+        group = mesh.groups.get(axis)
+        if group is not None:
+            part = ss[idx].clone()
+            _wait([_all_reduce(part, group)])
+            ss[idx] = part
+    return torch.sqrt(ss.sum())
+
+
 def sync_ep_grads(grads: Sequence, mesh, plan: Optional[EPSyncPlan], expert_ids: Sequence[int],
-                  n_data: int = 1):
-    """A dp x ep rank's gradients synced: ``grads`` (the JAX flatten
-    order; the leaves ``expert_ids`` are its ep-local experts) whose
-    dense leaves are nonzero on ep rank 0 alone (the loss seed) -> (the
-    synced leaves, the global grad norm). The dense leaves are summed
-    over ep (one all-reduce of their concatenation: the sum selects rank
-    0's), then the expert and the dense leaves take the dp legs of their
-    plans; without a plan and with ``n_data`` > 1, the mean over the
-    data group (one all-reduce of each set). The norm is
-    ``sqrt(sum_ep(expert squares) + dense squares)``."""
+                  n_data: int = 1, units=None, tp_dims: Optional[Sequence] = None):
+    """An ep rank's gradients synced: ``grads`` (the JAX flatten order;
+    the leaves ``expert_ids`` are its ep-local experts, under tp its tp
+    boxes of them; consumed) whose dense leaves are nonzero on ep rank 0
+    alone (the loss seed) -> (the synced leaves, the global grad norm).
+    The dense leaves are summed over ep (one all-reduce of their f32
+    concatenation: the sum selects rank 0's); then, with an
+    ``EPSyncPlan`` (dp x ep), the expert and the dense leaves take the
+    dp legs of their plans; else the default sync: under ZeRO
+    (``units``, the step's ``models/train.ZeroUnits``: ep x fsdp) each
+    unit's leaves reduce-scattered over fsdp into this rank's shards and
+    summed over dp and sp, else summed in place over the data axes (and
+    sp: the replica group), the dense concatenation in one all-reduce,
+    each expert leaf in one; both divided by ``n_data`` (dp x fsdp: the
+    loss is the sp blocks' sum). The norm is ``split_grad_norm``'s, the
+    expert leaves split by ep and, by ``tp_dims`` (each leaf's tp dim or
+    None), the tp boxes by tp."""
     import torch
 
     e_ids = list(expert_ids)
     d_ids = [i for i in range(len(grads)) if i not in set(e_ids)]
     ep_group = mesh.groups.get("ep")
-
-    def flat_sum(leaves, group, div=1):
-        flat = torch.cat([g.reshape(-1).float() for g in leaves])
-        if group is not None:
-            _all_reduce(flat, group).wait()
-        if div > 1:
-            flat /= div
-        out, off = [], 0
-        for g in leaves:
-            out.append(flat[off:off + g.numel()].view(g.shape))
-            off += g.numel()
-        return out
-
-    dense = flat_sum([grads[i] for i in d_ids], ep_group)
-    expert = [grads[i].float() for i in e_ids]
-    if plan is not None:
-        expert, _, gn_e = sync_grads(expert, mesh, plan.expert_plan)
-        dense, _, gn_d = sync_grads(dense, mesh, plan.dense_plan)
-        ss_e, ss_d = gn_e.square(), gn_d.square()
-    else:
-        if n_data > 1:
-            expert = flat_sum(expert, mesh.groups["data"], n_data)
-            dense = flat_sum(dense, mesh.groups["data"], n_data)
-        # squares summed without a leaf-sized temporary
-        ss_e = sum(torch.linalg.vector_norm(g).square() for g in expert)
-        ss_d = sum(torch.linalg.vector_norm(g).square() for g in dense)
-    ss_e = ss_e.reshape(1).clone()
+    flat = torch.cat([grads[i].reshape(-1).float() for i in d_ids])
     if ep_group is not None:
-        _all_reduce(ss_e, ep_group).wait()
-    out = [None] * len(grads)
-    for i, g in zip(e_ids, expert):
-        out[i] = g.to(grads[i].dtype)
-    for i, g in zip(d_ids, dense):
-        out[i] = g.to(grads[i].dtype)
-    return out, torch.sqrt(ss_e[0] + ss_d)
+        _all_reduce(flat, ep_group).wait()
+    synced = list(grads)
+    off = 0
+    for i in d_ids:
+        synced[i] = flat[off:off + grads[i].numel()].view(grads[i].shape)
+        off += grads[i].numel()
+    for i in e_ids:
+        synced[i] = grads[i].float()
+    if plan is not None:
+        expert, _, gn_e = sync_grads([synced[i] for i in e_ids], mesh, plan.expert_plan)
+        dense, _, gn_d = sync_grads([synced[i] for i in d_ids], mesh, plan.dense_plan)
+        ss_e = gn_e.square().reshape(1).clone()
+        if ep_group is not None:
+            _all_reduce(ss_e, ep_group).wait()
+        for i, g in list(zip(e_ids, expert)) + list(zip(d_ids, dense)):
+            synced[i] = g.to(grads[i].dtype)
+        return synced, torch.sqrt(ss_e[0] + gn_d.square())
+    if units is not None:
+        from dlrover_tpu_torch.models.train import zero_scatter
+
+        done = set()
+        for idx, _ in units.units.values():
+            # a leaf two units read (a tied table) is scattered once
+            idx = [i for i in idx if i not in done]
+            if not idx:
+                continue
+            done.update(idx)
+            shards = zero_scatter([synced[i] for i in idx], idx, units, mesh, n_data,
+                                   over=("dp", "sp"))
+            for i, sh in zip(idx, shards):
+                synced[i] = sh
+    else:
+        group = mesh.groups["replica"] if mesh.config.sp > 1 else mesh.groups["data"]
+        if group is not None:  # else no data axis and no sp: nothing to sum
+            for t in [flat] + [synced[i] for i in e_ids]:
+                _all_reduce(t, group).wait()
+                if n_data > 1:
+                    t /= n_data
+    e_set = set(e_ids)
+    axes = [tuple(a for a, on in (("tp", tp_dims is not None and tp_dims[i] is not None),
+                                  ("ep", i in e_set)) if on)
+            for i in range(len(grads))]
+    gnorm = split_grad_norm(synced, axes, mesh, zero=units is not None)
+    if units is None:
+        synced = [g.to(grads[i].dtype) for i, g in enumerate(synced)]
+    return synced, gnorm
 
 
 def plan_for_mesh(
@@ -1768,8 +1820,7 @@ def sync_grads(
     for b, m in zip(plan.buckets, means):
         out.extend(_unflatten_bucket(m, b, plan))
     if plan.tp > 1 and mesh.groups.get("tp") is not None:
-        gnorm = tp_grad_norm(out, plan.leaf_tp_dims, mesh.groups["tp"],
-                             mesh.groups["fsdp"] if plan.zero else None)
+        gnorm = split_grad_norm(out, tp_axes(plan.leaf_tp_dims), mesh, zero=plan.zero)
     else:
         if sumsq is None:
             sumsq = torch.zeros((), dtype=torch.float32)
@@ -1792,24 +1843,6 @@ def sync_grads(
         order = sorted(mesh.ranks["data"])
         lanes = got[[order.index(r) for r in mesh.ranks["data"]]]
     return out, res_out, gnorm, torch.sqrt(lanes)
-
-
-def tp_grad_norm(leaves, dims, tp_group, fsdp_group=None):
-    """The whole tree's grad norm from a rank's tp-local leaves (``dims``:
-    each leaf's tp dim, None for a leaf every tp rank holds whole; with
-    ``fsdp_group``, the leaves are ZeRO shards, whose padding is zero):
-    the squares of the split leaves and of the whole ones, summed over
-    fsdp, then the split ones' over tp, so a whole leaf counts once."""
-    import torch
-
-    ss = torch.zeros(2, dtype=torch.float32, device=leaves[0].device if leaves else None)
-    for l, d in zip(leaves, dims):
-        ss[int(d is None)] += l.float().square().sum()
-    if fsdp_group is not None:
-        _wait([_all_reduce(ss, fsdp_group)])
-    split = ss[:1].clone()
-    _wait([_all_reduce(split, tp_group)])
-    return torch.sqrt(split[0] + ss[1])
 
 
 # -- error-feedback state ---------------------------------------------------

@@ -21,7 +21,23 @@ The math is the JAX package's, kept op for op:
 
 The global ``moe_layer`` wrapper (``shard_map`` over the JAX mesh) has
 no counterpart: the port's model hands ``moe_layer_local`` its local
-tokens and the ep group, as its tp path hands the tp group around.
+tokens (under sp its block of each row, gated with the capacity of its
+own tokens, as the JAX shard_map gates each block), the ep group and
+the tp group.
+
+Under tp the expert FFN is Megatron's split, as the dense MLP's: each tp
+rank holds its ``F/tp`` columns of every local expert (``w_up [E/ep, D,
+F/tp]``, ``w_down [E/ep, F/tp, D]``), the tokens and the gate enter
+through ``copy_to_tp`` (identity forward, the tp sum backward), the
+gating, the buckets and both ep exchanges are full width on every tp
+rank, and the combined ``[T, D]`` output leaves through one
+``reduce_from_tp``. The activation is elementwise, so the split is
+exact: the same function the JAX layer computes after gathering the
+expert weights over tp, at ``1/tp`` of the weights and the expert
+FLOPs. The gradients of the tokens and the gate are then tp sums of each
+rank's part, and the balance and z losses, computed whole on every tp
+rank, must enter that sum once: they carry their gradient on tp
+coordinate 0 alone (``_tp_once``).
 
 Each all-to-all is ``_EpAllToAll``, an autograd op whose backward is
 the same exchange of the gradient (an all-to-all that splits and joins
@@ -186,6 +202,14 @@ def _promoted(*ts):
     return [t.to(dt) for t in ts]
 
 
+def _tp_once(t: torch.Tensor, tp_coord: int) -> torch.Tensor:
+    """An aux loss every tp rank computes whole, with its gradient on tp
+    coordinate 0 alone: its cotangent reaches the tokens and the gate,
+    whose tp sums (``copy_to_tp``'s backward) would otherwise take it tp
+    times."""
+    return t if tp_coord == 0 else t.detach()
+
+
 def moe_layer_local(
     params: Dict[str, torch.Tensor],
     x: torch.Tensor,
@@ -196,17 +220,25 @@ def moe_layer_local(
     activation=_gelu,
     top_k: int = 1,
     expert_caps: Optional[Sequence[int]] = None,
+    tp_group=None,
+    tp_coord: int = 0,
 ):
     """One rank's MoE FFN: ``x [T, d]`` (this rank's tokens) -> ``(out
     [T, d] in x's dtype, aux)``, aux ``{"balance", "z", "load", "drop"}``.
     ``params``: ``gate [d, E]`` whole, ``w_up [E/ep, d, f]`` and ``w_down
     [E/ep, f, d]`` this ep rank's experts (rank ``i`` holds experts ``i x
-    E/ep`` on). ``group`` / ``ep``: the ep group and its size (None / 1:
-    every expert local, no exchange). ``expert_caps`` (static
-    ``[E]`` ints, ``CapacityRebalancer.splits``): the bucket dim becomes
-    ``max(expert_caps)`` and expert ``e`` keeps its first
+    E/ep`` on; under tp ``f`` is this tp rank's ``F/tp`` columns of
+    them). ``group`` / ``ep``: the ep group and its size (None / 1:
+    every expert local, no exchange). ``tp_group`` / ``tp_coord``: the tp
+    group (None: no tp) and this rank's coordinate on it. ``expert_caps``
+    (static ``[E]`` ints, ``CapacityRebalancer.splits``): the bucket dim
+    becomes ``max(expert_caps)`` and expert ``e`` keeps its first
     ``expert_caps[e]`` assignments."""
     gate, w_up, w_down = params["gate"], params["w_up"], params["w_down"]
+    if tp_group is not None:
+        from dlrover_tpu_torch.models.transformer import copy_to_tp
+
+        x, gate = copy_to_tp(x, tp_group), copy_to_tp(gate, tp_group)
     e_local = w_up.shape[0]
     e_global = e_local * ep
     T, model = x.shape
@@ -227,6 +259,8 @@ def moe_layer_local(
     dispatch, combine, balance, z, stats = topk_gating(
         logits, e_global, capacity, k=top_k, expert_caps=caps, return_stats=True
     )
+    if tp_group is not None:
+        balance, z = _tp_once(balance, tp_coord), _tp_once(z, tp_coord)
     aux = {"balance": balance, "z": z, "load": stats["load"], "drop": stats["drop"]}
 
     # bucket the tokens [E, C, d]; global expert id (owner rank, local
@@ -253,6 +287,11 @@ def moe_layer_local(
 
     c_, eo = _promoted(combine, expert_out)
     out = torch.einsum("tec,ecm->tm", c_, eo)
+    if tp_group is not None:
+        from dlrover_tpu_torch.models.transformer import reduce_from_tp
+
+        # the tp ranks' partial sums over their F/tp columns
+        out = reduce_from_tp(out, tp_group)
     return out.to(x.dtype), aux
 
 

@@ -435,24 +435,15 @@ def pipeline_leaves(cfg: TransformerConfig, pp: int, virtual: int = 1,
         return ([p[0] for p in st.stage_parameters()], st.shared_parameters())
 
 
-def zero_layout(leaves: Sequence, fsdp: int):
-    """The ZeRO layout of a stage rank's leaves over fsdp (the port's:
-    each leaf padded to fsdp x whole 128-element blocks, a rank's shard
-    its run of block rows; ``grad_sync.BucketPlan.leaf_shard``), as one
-    bucket a ``models/train`` ZeRO helper walks."""
-    from dlrover_tpu_torch.parallel.grad_sync import ZERO_LEAF_BLOCK, plan_buckets
-
-    return plan_buckets(list(leaves), dp=1, fsdp=fsdp, bucket_bytes=1 << 62, kind="zero",
-                        leaf_block=ZERO_LEAF_BLOCK)
-
-
 def stage_state(stage: PipelineStage, tx: Callable, mesh):
     """The port's ``TrainState`` of a stage: the optimizer bound to its
     parameters in the JAX order, or on a mesh with fsdp > 1 to this
     rank's ZeRO shards of them (``TrainState.shards``; the module's
     params then hold no storage between the units' gathers,
     ``stage_units``)."""
-    from dlrover_tpu_torch.models.train import TrainState, ZeroUnits, free_params, leaf_shards
+    from dlrover_tpu_torch.models.train import (
+        TrainState, ZeroUnits, free_params, leaf_shards, zero_layout,
+    )
 
     leaves = stage.jax_ordered_parameters()
     fsdp = mesh.config.fsdp if mesh is not None else 1
@@ -798,38 +789,6 @@ def _split(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> List[torch.Tenso
     return out
 
 
-def _zero_scatter(grads: Sequence[torch.Tensor], idx: Sequence[int], units, mesh,
-                  n_data: int) -> List[torch.Tensor]:
-    """The whole grads of leaves ``idx`` (this rank's, of one sync unit)
-    -> this rank's ZeRO shards of their mean over the data axes: each
-    leaf padded to its ``leaf_padded`` length and laid out rank-major
-    (every fsdp rank's block rows of the unit's leaves in turn), one
-    reduce-scatter over fsdp, one all-reduce over dp, divided by dp x
-    fsdp. ``grads`` is consumed."""
-    from dlrover_tpu_torch.parallel.grad_sync import _all_reduce, _reduce_scatter
-
-    plan = units.plan
-    sizes = [plan.leaf_shard(i) for i in idx]
-    flat = torch.zeros((plan.fsdp, sum(sizes)), dtype=torch.float32, device=grads[0].device)
-    off = 0
-    for k, g in enumerate(grads):
-        # the leaf's padded flatten as fsdp rows of its shard's length
-        sh, gf = sizes[k], g.reshape(-1)
-        full, rest = divmod(gf.numel(), sh)
-        flat[:full, off:off + sh] = gf[:full * sh].view(full, sh)
-        if rest:
-            flat[full, off:off + rest] = gf[full * sh:]
-        off += sh
-        grads[k] = gf = g = None
-    flat = flat.reshape(-1)
-    out, h = _reduce_scatter(flat, units.group)
-    h.wait()
-    del flat
-    _reduce_(out, mesh.groups["dp"])
-    out.div_(n_data)
-    return list(out.split(sizes))
-
-
 def build_pipeline_train_step(
     cfg: TransformerConfig, tx: Callable = None, mesh=None, num_microbatches: int = 1,
     schedule: str = "gpipe", virtual_stages: int = 2, plan=None,
@@ -853,6 +812,7 @@ def build_pipeline_train_step(
     the optimizer bound in ``state.opt_state``. ``before_update()`` runs
     after the gradients are final and before the optimizer writes
     anything."""
+    from dlrover_tpu_torch.models.train import zero_scatter
     from dlrover_tpu_torch.parallel import grad_sync
     from dlrover_tpu_torch.parallel.grad_sync import PPSyncPlan, sync_grads
 
@@ -923,8 +883,8 @@ def build_pipeline_train_step(
                 for p in stage_ps:
                     local.append(p.grad if p.grad is not None else torch.zeros_like(p))
                     p.grad = None
-                local = _zero_scatter(local, ids_st, units, mesh, n_data)
-                shared = _zero_scatter(shared, ids_sh, units, mesh, n_data)
+                local = zero_scatter(local, ids_st, units, mesh, n_data)
+                shared = zero_scatter(shared, ids_sh, units, mesh, n_data)
                 targets_st = [state.shards[i] for i in ids_st]
                 targets_sh = [state.shards[i] for i in ids_sh]
             else:

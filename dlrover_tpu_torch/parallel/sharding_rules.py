@@ -16,12 +16,15 @@ vocab of 50257 at tp = 2: the embedding table and the head are whole).
 
 Expert parallelism uses the same boxes on the ``ep`` axis: "experts"
 maps to ``ep``, so a rank holds experts ``[i E/ep, (i+1) E/ep)`` of each
-expert leaf (dim 0 of ``w_up`` / ``w_down``) and every other leaf whole
-(``split_of`` names the axis that splits a per-layer leaf). Pipeline
-parallelism's boxes are rows of the stage-stacked leaves
-(``parallel/pipeline.stage_dims``): a stage rank holds row ``[s]`` of
-each ``[pp, L/pp, ...]`` leaf, and under pp x tp that row's tp box
-(``splits_of`` lists the axes a mesh cuts its boxes along, in order).
+expert leaf (dim 0 of ``w_up`` / ``w_down``) and every other leaf whole.
+Under ep x tp an expert leaf is cut twice: its ``E/ep`` experts, and of
+them its block along "expert_mlp", which the rules map to ``tp`` (dim 2
+of ``w_up [E, D, F]``, dim 1 of ``w_down [E, F, D]``); the gate stays
+whole. Pipeline parallelism's boxes are rows of the stage-stacked
+leaves (``parallel/pipeline.stage_dims``): a stage rank holds row
+``[s]`` of each ``[pp, L/pp, ...]`` leaf, and under pp x tp that row's
+tp box (``splits_of`` lists the axes a mesh cuts its boxes along, in
+order).
 """
 
 from __future__ import annotations
@@ -208,28 +211,16 @@ def tp_of(mesh) -> Tuple[int, int, object]:
     return tp, int(coords.get("tp", 0)), groups.get("tp")
 
 
-def split_of(mesh) -> Tuple[str, int, int, object]:
-    """(axis, degree, this rank's coordinate, group) of the mesh axis
-    that splits a per-layer parameter leaf into per-rank boxes: ``tp``
-    when tp > 1, else ``ep`` when ep > 1 (each ep rank holds ``E/ep``
-    experts of every expert leaf), else ``("tp", 1, 0, None)``. Takes a
-    ``parallel/mesh.Mesh``, a ``MeshConfig`` (coordinate 0, no group) or
-    None. ``splits_of`` adds pp's stage rows."""
-    for axis, n, coord, group in splits_of(mesh):
-        if axis != "pp":
-            return axis, n, coord, group
-    return "tp", 1, 0, None
-
-
 def splits_of(mesh) -> List[Tuple[str, int, int, object]]:
     """``(axis, degree, this rank's coordinate, group)`` of every mesh
     axis that splits parameter leaves, in the order a rank's box is cut
     from the whole leaf: ``pp`` first (a stage rank's row of every
     stage-stacked leaf, ``parallel/pipeline``), then ``tp`` (its block
-    along the leaf's tp dim) or ``ep`` (its ``E/ep`` experts; ep
-    composes with neither). A pp x tp rank's box of a stage leaf is its
-    stage row cut again along the tp dim. Empty on a mesh that splits no
-    leaf."""
+    along the leaf's tp dim), then ``ep`` (its ``E/ep`` experts). The
+    cuts compose: a pp x tp rank's box of a stage leaf is its stage row
+    cut again along the tp dim, and an ep x tp rank's box of an expert
+    leaf is its tp block (along "expert_mlp") cut again along the
+    experts (dim 0). Empty on a mesh that splits no leaf."""
     if mesh is None:
         return []
     m = getattr(mesh, "config", mesh)

@@ -142,8 +142,11 @@ the default group at the end of each ``train`` call while idle ranks
 exist. A later restart (a membership change) re-derives the world.
 
 MoE models (``num_experts``) train on every strategy the step runs them
-on (dp, ZeRO, dp x ep; ``adamw_8bit_flat`` is refused on an ep mesh, so
-the per-leaf ``adamw_8bit`` updates each rank's expert boxes). With
+on (any mix of dp, fsdp, ep, sp and tp; ep x fsdp on ZeRO's shards of
+the ep boxes; ``adamw_8bit_flat`` is refused on a model-sharded mesh,
+so the per-leaf ``adamw_8bit`` updates each rank's expert boxes). The
+eval routes the whole eval batch on every rank (its capacity from the
+whole batch), so its loss does not depend on the mesh. With
 ``moe_rebalance_interval`` > 0 the measured per-expert load
 (``moe_expert_load``) feeds a ``CapacityRebalancer`` every that many
 steps; a changed re-split sets ``capacity_splits`` and rebuilds the step

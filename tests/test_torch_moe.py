@@ -20,9 +20,11 @@ numpy seed:
   ``MODEL_TOL`` of the JAX ``loss_fn``, every leaf's gradient within
   ``GRAD_TOL``; the leaves in the JAX flatten order (``MoEParams`` in
   its field order); ``logical_axes`` the JAX tree's;
-- what still raises: ep composed with fsdp, tp or sp (ROADMAP A19), ep
-  on a dense model or one that does not divide the experts
-  (``ValueError``)."""
+- the meshes that compose MoE with the other axes build (ep with fsdp,
+  tp or sp, MoE at ep = 1 with tp or sp; ROADMAP A19, checked step for
+  step in ``tests/test_torch_ep_compose.py``): each rank's expert leaves
+  are its ep x tp boxes; what still raises: ep on a dense model or one
+  that does not divide the experts (``ValueError``)."""
 
 import functools
 
@@ -258,14 +260,32 @@ def test_an_ep_mesh_splits_the_expert_leaves_on_dim_0():
             torch.testing.assert_close(p, w, rtol=0, atol=0)
 
 
+# The ids are those of the cases when these meshes raised, naming
+# ROADMAP A19, which now runs them: each of them builds (err None).
 @pytest.mark.parametrize("mesh,err,match", [
-    (dict(ep=2, fsdp=2), NotImplementedError, "A19"), (dict(ep=2, tp=2), NotImplementedError, "A19"),
-    (dict(ep=2, sp=2), NotImplementedError, "A19"), (dict(tp=2), NotImplementedError, "A19"),
-    (dict(sp=2), NotImplementedError, "A19"), (dict(ep=3), ValueError, "divide"),
-])
+    (dict(ep=2, fsdp=2), None, None), (dict(ep=2, tp=2), None, None),
+    (dict(ep=2, sp=2), None, None), (dict(tp=2), None, None),
+    (dict(sp=2), None, None), (dict(ep=3), ValueError, "divide"),
+], ids=[f"mesh{i}-NotImplementedError-A19" for i in range(5)] + ["mesh5-ValueError-divide"])
 def test_what_still_raises(mesh, err, match):
-    with pytest.raises(err, match=match):
-        ttr.check_supported(tcfg.tiny(**MODEL), MeshConfig(**mesh))
+    cfg = tcfg.tiny(**MODEL)
+    if err is not None:
+        with pytest.raises(err, match=match):
+            ttr.check_supported(cfg, MeshConfig(**mesh))
+        return
+    ttr.check_supported(cfg, MeshConfig(**mesh))
+    # the model builds on the mesh (coordinate 0's boxes): an expert
+    # leaf is cut along the experts by ep and along "expert_mlp" by tp
+    E, F = cfg.num_experts, cfg.ffn_dim
+    ep, tp = mesh.get("ep", 1), mesh.get("tp", 1)
+    model = ttr.init_params(torch.Generator().manual_seed(0), cfg, mesh=MeshConfig(**mesh))
+    for n, p in model.named_parameters():
+        if n.endswith(".moe.w_up"):
+            assert tuple(p.shape) == (E // ep, cfg.model_dim, F // tp)
+        elif n.endswith(".moe.w_down"):
+            assert tuple(p.shape) == (E // ep, F // tp, cfg.model_dim)
+        elif n.endswith(".moe.gate"):
+            assert tuple(p.shape) == (cfg.model_dim, E)
 
 
 def test_ep_on_a_dense_model_raises():

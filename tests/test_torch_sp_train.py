@@ -159,13 +159,13 @@ def test_unported_meshes_still_raise(mesh, item):
     from dlrover_tpu_torch.parallel.mesh import MeshConfig
 
     # sp inside pp stages is the JAX package's refusal (a ValueError in
-    # its words), not a part of A11c that waits; ep x sp waits for A19
+    # its words), not a part of A11c that waits; ep x sp, which A19
+    # ported, now builds on a MoE model
     if item == "A11c":
         with pytest.raises(ValueError, match=r"sp \(ring attention\) inside pp stages"):
             check_supported(tcfg.tiny(num_layers=4), MeshConfig(**mesh))
         return
-    with pytest.raises(NotImplementedError, match=item):
-        check_supported(tcfg.tiny(), MeshConfig(**mesh))
+    check_supported(tcfg.tiny(num_experts=4, moe_every=2), MeshConfig(**mesh))
 
 
 # -- ElasticTrainer on an sp strategy -----------------------------------------
@@ -225,8 +225,8 @@ def test_flash_checkpoint_on_an_sp_mesh_resumes_bitwise(tmp_path):
 def test_static_peak_prices_the_block_and_the_scheme_buffers(scheme):
     """Under sp a rank's activations are those of its 1/sp of the
     tokens, plus one layer's in-flight buffers of the scheme; the dry
-    runner builds an sp strategy, and an sp x tp one (an sp x ep one
-    still raises, A19)."""
+    runner builds an sp strategy, an sp x tp one, and an sp x ep one on a
+    MoE model (ROADMAP A19)."""
     from dlrover_tpu_torch.accel.dry_runner import _check_unported, _sp_buffers, static_peak_bytes
     from dlrover_tpu_torch.accel.strategy import Strategy
     from dlrover_tpu_torch.models import config as tcfg
@@ -242,5 +242,5 @@ def test_static_peak_prices_the_block_and_the_scheme_buffers(scheme):
     assert sp2 == pytest.approx(half + _sp_buffers(cfg, 1024, 4))
     _check_unported(Strategy(mesh=MeshConfig(sp=2)), cfg, tx)
     _check_unported(Strategy(mesh=MeshConfig(sp=2, tp=2)), cfg, tx)
-    with pytest.raises(NotImplementedError, match="A19"):
-        _check_unported(Strategy(mesh=MeshConfig(sp=2, ep=2)), cfg, tx)
+    _check_unported(Strategy(mesh=MeshConfig(sp=2, ep=2)),
+                    tcfg.tiny(sp_scheme=scheme, num_experts=4, moe_every=2), tx)

@@ -92,7 +92,7 @@ def test_init_params_shapes_match_jax():
 @pytest.mark.parametrize(
     "override,item",
     [
-        # MoE runs (tests/test_torch_moe.py); with tp it does not yet
+        # MoE with tp raised naming A19 until that item landed: it builds
         (dict(num_experts=4), "A19"),
         (dict(int8_mlp=True), "A12"),
     ],
@@ -100,6 +100,11 @@ def test_init_params_shapes_match_jax():
 def test_unported_switches_raise_naming_roadmap_item(override, item):
     from dlrover_tpu_torch.parallel.mesh import MeshConfig
 
-    mesh = MeshConfig(tp=2) if override.get("num_experts") else None
+    if override.get("num_experts"):
+        cfg = tcfg.tiny(**override)
+        model = ttr.init_params(torch.Generator().manual_seed(0), cfg, mesh=MeshConfig(tp=2))
+        w_up = dict(model.named_parameters())["layers.1.moe.w_up"]
+        assert tuple(w_up.shape) == (4, cfg.model_dim, cfg.ffn_dim // 2)
+        return
     with pytest.raises(NotImplementedError, match=item):
-        ttr.init_params(torch.Generator().manual_seed(0), tcfg.tiny(**override), mesh=mesh)
+        ttr.init_params(torch.Generator().manual_seed(0), tcfg.tiny(**override), mesh=None)

@@ -417,8 +417,11 @@ def _ep_step_case(c):
     ``c["params"]`` (or, without them, the port's seeded draw) on
     ``c["mesh"]`` over the rank's rows of ``c["batches"]``, on
     ``c["device"]`` (the CPU by default): each step's loss, grad norm,
-    MoE metrics and ep all-to-alls; the whole params (gathered over ep)
-    and train state at the end; the plan's kind and expert leaf ids."""
+    MoE metrics, ep all-to-alls and tp all-reduces; the whole params
+    (gathered over fsdp, tp and ep) and train state at the end; the
+    plan's kind and expert leaf ids. ``c["fault"]`` plants a wrong
+    variant: ``"aux_tp_times"``, the balance and z losses carrying their
+    gradient on every tp rank (so the tp sums take them tp times)."""
     import torch
 
     from dlrover_tpu_torch.models import config as tcfg
@@ -429,9 +432,14 @@ def _ep_step_case(c):
     from dlrover_tpu_torch.parallel.mesh import MeshConfig, batch_sharding, build_mesh
     from dlrover_tpu_torch.trainer.elastic import trainer as tt
 
+    from dlrover_tpu_torch.models import transformer as ttr
+
     cfg = tcfg.tiny(**c["model"])
     mesh = build_mesh(MeshConfig(**c["mesh"]))
     ga = c.get("grad_accum", 1)
+    once = moe._tp_once
+    if c.get("fault") == "aux_tp_times":
+        moe._tp_once = lambda t, coord: t
     plan = None
     if c.get("comm_overlap"):
         plan = gs.plan_for_mesh(cfg, mesh, "none", 1, params_shape=gs.model_leaves(cfg))
@@ -449,18 +457,21 @@ def _ep_step_case(c):
     for x, y in c["batches"]:
         rows = batch_sharding(mesh, x.shape[0], ga)
         moe.reset_comm()
+        ttr.reset_tp_comm()
         state, m = step(state, torch.from_numpy(x[rows]).long().to(dev),
                         torch.from_numpy(y[rows]).long().to(dev))
         metrics.append(dict(
             loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
             load=m["moe_expert_load"].cpu().numpy().copy(), drop=float(m["moe_drop_rate"]),
             balance=float(m["moe_balance_loss"]), z=float(m["moe_z_loss"]),
-            a2a=moe.comm["calls"]))
+            a2a=moe.comm["calls"], tp_calls=ttr.tp_comm["calls"]))
+    moe._tp_once = once
     if state.shards is not None:
-        ttrain.gather_params(state, mesh, plan)
+        ttrain.gather_params(state, mesh, state.units.plan)
     return dict(metrics=metrics, params=params_to_numpy(state.params, mesh),
                 state=jax_train_state(state, mesh, plan), kind=getattr(plan, "kind", None),
-                expert_ids=list(getattr(plan, "expert_leaf_ids", ())), ep=mesh.coords["ep"])
+                expert_ids=list(getattr(plan, "expert_leaf_ids", ())), ep=mesh.coords["ep"],
+                zero=state.shards is not None)
 
 
 def _ep_trainer_case(c, rank):
@@ -473,6 +484,7 @@ def _ep_trainer_case(c, rank):
     from dlrover_tpu_torch.ckpt.checkpointer import StorageType
     from dlrover_tpu_torch.models import config as tcfg
     from dlrover_tpu_torch.models.convert import jax_train_state, params_to_numpy
+    from dlrover_tpu_torch.models.train import free_params, gather_params
     from dlrover_tpu_torch.parallel.mesh import MeshConfig
     from dlrover_tpu_torch.trainer.elastic import trainer as tt
 
@@ -512,12 +524,17 @@ def _ep_trainer_case(c, rank):
     tr.train(tr.global_step + c.get("steps", 0))
     if c["kind"] == "stage":
         tr.save(StorageType.DISK)
+    units = tr.state.units
+    if units is not None:  # ZeRO: the module's params from the shards
+        gather_params(tr.state, tr.mesh, units.plan)
+    params = params_to_numpy(tr.state.params, tr.mesh)
+    if units is not None:
+        free_params(tr.state)
     out.update(steps=steps, resplits=resplits, splits=splits, eval_loss=tr.evaluate(2)["eval_loss"],
                stat=tr.pipeline_stats.moe_capacity_resplits,
                gauge=tr._registry.scalars().get("dlrover_moe_capacity_resplits"),
                plan=getattr(tr._grad_sync_plan, "kind", None),
-               grad_sync_ms=tr.pipeline_stats.grad_sync_ms,
-               params=params_to_numpy(tr.state.params, tr.mesh),
+               grad_sync_ms=tr.pipeline_stats.grad_sync_ms, params=params,
                state=jax_train_state(tr.state, tr.mesh, tr._grad_sync_plan),
                strategy=tr.strategy.to_json(), step=tr.global_step)
     tr.close()
