@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlrover_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama|accel|peak_memory|resize|sp|tp|ep|pp|ckpt7b [--no-persist]]
+    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama|accel|peak_memory|resize|sp|tp|ep|pp|ckpt7b [--no-persist]|sparse_tiers]
 
 (``--profile`` adds a torch.profiler window of a few more steps to the
 per-leaf gpt2_small path and to the full-size sparse path; ``--phase
@@ -13,7 +13,9 @@ phase alone, ``--phase accel`` the strategy-search phase alone,
 sequence-parallel phase alone, ``--phase tp`` the tensor-parallel one
 and ``--phase ep`` the expert-parallel one (each at 4 layers and 3
 steps), ``--phase pp`` the pipeline-parallel one (3 steps, interleaved
-and pp 2 x dp 2 included), without the contract's closing lines; ``--phase peak_memory`` holds the static
+and pp 2 x dp 2 included), ``--phase sparse_tiers`` the three-tier
+store at the sparse slice's size (the slice itself beside it), without
+the contract's closing lines; ``--phase peak_memory`` holds the static
 peak model to the card, a phase the full run does not take.
 ``--dp-worker SPEC RANK`` is one rank of the dp phase, ``--llama-worker
 OUT [--search-only]`` the llama phase's full model (its search first),
@@ -73,6 +75,24 @@ jobs.)
    - a small tier that spills (1,024 rows, bench.py's zipf 1.6 stream),
      its flushed host state held to the same run on the CPU and to a
      second run on the card;
+   - ``sparse_tiers``: ``three_tier_embedding`` (the card, the host
+     store, the native spill logs on disk) on that stream under
+     ``SparseTrainer.run`` with the checkpoint cadence every 5 steps
+     (``flush()``, ``evict_to_host()``, ``evict_cold`` of rows untouched
+     since the previous cadence point, ``IncrementalCheckpointManager.
+     save`` with a full every second save; a chunked delta begun and
+     aborted before the second save): spills, evictions to disk and
+     faults back from disk all happen; after each flush the host tiers
+     hold each distinct id once; each save's chain restores into a fresh
+     store bitwise; a second card run ends bitwise equal and a run with
+     the device tier on the CPU within ``SPILL_STATE_TOL``; the launches
+     are the count reckoned from the tier's stats. ``--phase
+     sparse_tiers`` runs it at the sparse slice's stream on a 256 MiB
+     device tier (8 shards, the cadence every 10 steps, a full every
+     third save, one chunked delta drained by ``advance`` a step and
+     committed at the next cadence point, one aborted), without the CPU
+     run, after the slice and the row kernels at the tier's table. The
+     spill logs and chains live in temp dirs that the run removes;
    - ``dp``: data parallelism (``parallel/grad_sync.py``), in three
      starts of rank processes: which collectives gloo takes on CUDA
      tensors (all of them, or the phase fails: the sync has no
@@ -679,17 +699,18 @@ def check_adam8_leaf(torch, qo, cfg, shape=None, label="B7 adam8_leaf gpt2_small
 # ---------------------------------------------------------------------------
 # embedding rows (B8 / B9)
 # ---------------------------------------------------------------------------
-def check_embedding_rows(torch, er):
+def check_embedding_rows(torch, er, cap=4 << 20, label="B8/B9 emb rows, 4 GiB table"):
     """``emb_gather`` / ``emb_scatter`` on the sparse slice's 4 GiB table
     ([4,194,305, 256] f32: 4,194,304 rows of dim 128 + one adagrad slot,
-    and the scratch row) with n = 32,768 sorted unique slots spread over
+    and the scratch row; ``--phase sparse_tiers`` also on its 256 MiB
+    tier's 262,145 rows) with n = 32,768 sorted unique slots spread over
     it (the bucket of the slice's ~17k unique ids a step), against their
     plain versions, BITWISE; then a padded call whose last 15,000 entries
     all name the scratch row with identical values. Times: CUDA events
     around a replayed CUDA graph (``graph_ms``); library:
     ``torch.index_select`` / ``Tensor.index_copy_``."""
     dev = torch.device("cuda")
-    cap, rf, n = 4 << 20, 256, 32768
+    rf, n = 256, 32768
     gen = torch.Generator(device=dev).manual_seed(4)
     table = torch.randn((cap + 1, rf), generator=gen, device=dev)
     slots = torch.randperm(cap, generator=gen, device=dev)[:n].sort().values.int()
@@ -739,7 +760,7 @@ def check_embedding_rows(torch, er):
             ms_repeats=ks, library_ms_repeats=ls,
             ms_spread=[min(ks), max(ks)], library_ms_spread=[min(ls), max(ls)],
             slower_than_library_beyond_spread=min(ks) > max(ls))
-    emit("kernel_check", label="B8/B9 emb rows, 4 GiB table", table=[cap + 1, rf], n=n,
+    emit("kernel_check", label=label, table=[cap + 1, rf], n=n,
          gather_bitwise=gather_eq, padded_gather_bitwise=pad_gather_eq,
          scatter_bitwise=scatter_eq, padded_scatter_bitwise=pad_scatter_eq,
          bound_bytes=nbytes, times=t, ok=ok)
@@ -2177,23 +2198,37 @@ def logistic_dense_step(torch, lr=0.3, stamps=None):
     return dense_step
 
 
+def sparse_stream(full, extra=0):
+    """The sparse paths' ``(ids, labels)`` steps, labels ``ids % 2``: the
+    slice's (60 x 65,536 ids, MLPerf DLRM-DCNv2's global batch, zipf 1.1
+    over 10,000,000, seed 0; ``extra`` more steps from the same
+    generator) or the spilling tier's (bench.py's: 20 x 4,096, zipf 1.6
+    over 50,000, seeded per step)."""
+    if full:
+        rng = np.random.default_rng(0)
+        steps = [np.minimum(rng.zipf(1.1, 65536), 10_000_000).astype(np.int64)
+                 for _ in range(60 + extra)]
+    else:
+        steps = [np.minimum(np.random.default_rng(11 * 100_000 + s).zipf(1.6, 4096), 50_000)
+                 .astype(np.int64) for s in range(20)]
+    return [(ids, (ids % 2).astype(np.float32)) for ids in steps]
+
+
 def run_sparse_full(torch, er, profile=False):
     """The sparse slice at the size a recommender job gives one card: a
     4 GiB hot tier (4,194,304 rows of dim 128 + one adagrad slot), 60
     steps of 65,536 ids (the MLPerf DLRM-DCNv2 global batch), zipf 1.1
     over 10,000,000 ids from seed 0, labels ``ids % 2``. The tier holds
-    every id this stream brings (476,896), so nothing is evicted."""
+    every id this stream brings (~477 k), so nothing is evicted."""
     from dlrover_tpu_torch.ops.embedding import (
         DeviceSparseEmbedding, ShardedKvEmbedding,
     )
     from dlrover_tpu_torch.trainer.sparse import SparseTrainer
 
-    steps, n_ids, vocab = 60, 65536, 10_000_000
-    rng = np.random.default_rng(0)
-    stream = [np.minimum(rng.zipf(1.1, n_ids), vocab).astype(np.int64) for _ in range(steps)]
-    extra = [np.minimum(rng.zipf(1.1, n_ids), vocab).astype(np.int64) for _ in range(5)]
-    data = [(ids, (ids % 2).astype(np.float32)) for ids in stream]
-    distinct = int(len(np.unique(np.concatenate(stream))))
+    steps, n_ids = 60, 65536
+    data = sparse_stream(True, extra=5)
+    data, extra = data[:steps], data[steps:]
+    distinct = int(len(np.unique(np.concatenate([ids for ids, _ in data]))))
     host = ShardedKvEmbedding(8, 128, num_slots=1, seed=0)
     emb = DeviceSparseEmbedding(host, hbm_budget_bytes=4 << 30,
                                 sparse_optimizer="adagrad", lr=0.05)
@@ -2240,7 +2275,7 @@ def run_sparse_full(torch, er, profile=False):
         # the profiler records only the host spans of the thread that
         # started it, not the row pipeline's
         profile_steps(torch, "sparse slice, prepare inline", lambda: trainer.run(
-            iter([(ids, (ids % 2).astype(np.float32)) for ids in extra]), overlapped=False),
+            iter(extra), overlapped=False),
             med * 1e3, len(extra))
     emb.close()
     del trainer, emb, host
@@ -2262,12 +2297,6 @@ def run_sparse_spill(torch):
     )
     from dlrover_tpu_torch.trainer.sparse import SparseTrainer
 
-    def stream():
-        for s in range(20):
-            r = np.random.default_rng(11 * 100_000 + s)
-            ids = np.minimum(r.zipf(1.6, 4096), 50_000).astype(np.int64)
-            yield ids, (ids % 2).astype(np.float32)
-
     def run(devices):
         host = ShardedKvEmbedding(4, 128, num_slots=1, seed=0)
         emb = DeviceSparseEmbedding(host, capacity=1024, sparse_optimizer="adagrad",
@@ -2275,7 +2304,7 @@ def run_sparse_spill(torch):
         trainer = SparseTrainer(emb, torch.zeros(128, device="cuda"),
                                 logistic_dense_step(torch))
         t0 = time.perf_counter()
-        losses = [m["loss"] for m in trainer.run(stream(), overlapped=True)]
+        losses = [m["loss"] for m in trainer.run(iter(sparse_stream(False)), overlapped=True)]
         emb.flush()
         wall = time.perf_counter() - t0
         state = host.export_state()
@@ -2309,6 +2338,247 @@ def run_sparse_spill(torch):
     if not ok:
         raise RuntimeError(f"the spilling tier disagrees with the CPU or with itself: {res}")
     return link
+
+
+# the three-tier store under the checkpoint cadence: (full run, --phase sparse_tiers)
+TIERS_RUNS = {
+    # run_sparse_spill's stream and tier, with a disk tier under the host;
+    # under ``pressure`` the tier is small enough that LRU victims trained
+    # since the last flush drain to the host mid-period
+    False: dict(shards=4, size=dict(capacity=1024), pressure=dict(capacity=640), lr=0.1,
+                every=5, full_every=2, abort_at=10, chunked_at=None, restore_at=(5, 10, 15, 20)),
+    # run_sparse_full's stream on a 256 MiB device tier (262,144 rows of
+    # 1 KiB against the stream's ~477 k distinct ids)
+    True: dict(shards=8, size=dict(hbm_budget_bytes=256 << 20), lr=0.05, every=10,
+               full_every=3, abort_at=20, chunked_at=30, restore_at=(40, 60)),
+}
+TIERS_ADVANCE_S = 0.01  # the chunked save's budget a step
+
+
+def _sorted_state(host):
+    st = host.export_state()
+    order = np.argsort(st["keys"], kind="stable")
+    return st["keys"][order], st["rows"][order]
+
+
+def _tiers_run(torch, data, devices, full, er=None, size=None):
+    """One run of ``three_tier_embedding`` (dim 128, one adagrad slot, the
+    native cold tier in a temp dir the run removes) under
+    ``SparseTrainer.run``, with the checkpoint cadence every ``every``
+    steps: ``flush()``, ``evict_to_host()``, ``evict_cold(ts_limit)`` with
+    ``ts_limit`` the store's clock second read at the previous cadence
+    point, then ``IncrementalCheckpointManager.save(step)``. The store's
+    clock is a step clock for the run: one second a step and one at each
+    cadence point, so that the rows no step touched since the last point
+    are the same rows in every run, whatever the host's speed. At
+    ``abort_at`` a chunked delta is begun and aborted before the save; at
+    ``chunked_at`` the save is a chunked one instead, drained by
+    ``advance(TIERS_ADVANCE_S)`` as the row pipeline takes each step's
+    ids and committed at the next cadence point. At each ``restore_at``
+    the chain restores into a fresh store, held to the live state
+    bitwise. ``size`` replaces the device tier's size. Returns the final
+    state and the run's figures."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.ops.embedding import IncrementalCheckpointManager, three_tier_embedding
+    from dlrover_tpu_torch.ops.embedding import store as kv_store
+    from dlrover_tpu_torch.trainer.sparse import SparseTrainer
+
+    cfg = TIERS_RUNS[full]
+    d = tempfile.mkdtemp(prefix="dlr_tiers_")
+
+    def make(tag):
+        return three_tier_embedding(cfg["shards"], 128, os.path.join(d, tag), num_slots=1, seed=0,
+                                    sparse_optimizer="adagrad", lr=cfg["lr"], devices=devices,
+                                    **(size or cfg["size"]))
+
+    emb = make("cold")
+    host, ckpt_dir = emb.host, os.path.join(d, "ckpt")
+    mgr = IncrementalCheckpointManager(host, ckpt_dir, full_every=cfg["full_every"])
+    stamps = []
+    trainer = SparseTrainer(emb, torch.zeros(128, device="cuda"),
+                            logistic_dense_step(torch, stamps=stamps))
+    r = dict(saves=[], evicted=[], restores=[], advance_ms=[], host_len=[], flush_launches=0,
+             step_ms=[], step_ms_draining=[], cadence_s=[])
+    seen = np.empty(0, np.int64)
+    stager = None
+    failures = []
+    real_now, clock = kv_store._now, [kv_store._now()]
+    kv_store._now = lambda: clock[0]
+    try:
+        if er is not None:
+            er.reset_launch_counts()
+        if devices != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        ts_limit = kv_store._now()
+        t_run = time.perf_counter()
+        for c0 in range(0, len(data), cfg["every"]):
+            chunk = data[c0:c0 + cfg["every"]]
+
+            def feed(chunk=chunk, st=stager):
+                for item in chunk:
+                    clock[0] += 1  # read by this step's prepare (this thread)
+                    if st is not None and not st.done:
+                        a = time.perf_counter()
+                        st.advance(budget_s=TIERS_ADVANCE_S)
+                        r["advance_ms"].append((time.perf_counter() - a) * 1e3)
+                    yield item
+
+            n0 = len(stamps)
+            trainer.run(feed(), overlapped=True)
+            (r["step_ms_draining"] if stager is not None else r["step_ms"]).extend(
+                (np.diff(stamps[n0:]) * 1e3).tolist())
+            for ids, _ in chunk:
+                seen = np.union1d(seen, ids)
+            step = c0 + len(chunk)
+            # the cadence
+            clock[0] += 1
+            a = time.perf_counter()
+            r["flush_launches"] += emb.flush() > 0
+            b = time.perf_counter()
+            r["host_len"].append([len(host), len(seen)])
+            if len(host) != len(seen):
+                failures.append(f"step {step}: the host tiers hold {len(host)} rows, "
+                                f"{len(seen)} distinct ids seen")
+            c = time.perf_counter()
+            emb.evict_to_host()
+            e = time.perf_counter()
+            r["evicted"].append(host.evict_cold(ts_limit))
+            ts_limit = kv_store._now()
+            r["cadence_s"].append(dict(step=step, flush=b - a, evict_to_host=e - c,
+                                       evict_cold=time.perf_counter() - e))
+            if stager is not None:  # begun at the previous cadence point
+                a = time.perf_counter()
+                stager.commit()
+                r["saves"].append(dict(step=stager.step, chunked=True, commit_s=time.perf_counter() - a,
+                                       **_last_save(mgr)))
+                stager = None
+            if step == cfg["abort_at"]:
+                a = time.perf_counter()
+                st = mgr.begin_chunked_save(step=step)
+                st.advance(budget_s=0.0)
+                st.abort()
+                r["aborted_s"] = time.perf_counter() - a
+            a = time.perf_counter()
+            if step == cfg["chunked_at"]:
+                stager = mgr.begin_chunked_save(step=step)
+                r["chunked_begin_s"] = time.perf_counter() - a
+            else:
+                mgr.save(step=step)
+                r["saves"].append(dict(step=step, s=time.perf_counter() - a, **_last_save(mgr)))
+            if step in cfg["restore_at"]:
+                fresh = make(f"fresh{step}")
+                a = time.perf_counter()
+                got = IncrementalCheckpointManager(fresh.host, ckpt_dir).restore()
+                secs = time.perf_counter() - a
+                a = time.perf_counter()
+                lk, lr = _sorted_state(host)  # a full export of both host tiers, sorted
+                export_s = time.perf_counter() - a
+                fk, fr = _sorted_state(fresh.host)
+                ok = (got == step and len(np.unique(lk)) == len(lk) and np.array_equal(lk, fk)
+                      and np.array_equal(lr, fr))
+                r["restores"].append(dict(step=step, restored_step=got, rows=len(fk), s=secs,
+                                          live_export_sorted_s=export_s, bitwise=ok))
+                if not ok:
+                    failures.append(f"step {step}: the restored chain differs from the live state")
+                fresh.close()
+                fresh.host.close()
+                del fresh, lk, lr, fk, fr
+        if devices != "cpu":
+            torch.cuda.synchronize()
+            r["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        r["wall_s"] = time.perf_counter() - t_run
+        if er is not None:
+            r["launches"] = dict(er.launch_counts)
+        st = emb.stats
+        r.update(steps=len(data), distinct_ids=len(seen), spill_rows=st.spill_rows,
+                 faults=st.faults, fault_batches=st.fault_batches,
+                 scatter_drains=st.scatter_drains, faulted_from_disk=host.faulted_rows,
+                 evicted_to_disk=int(sum(r["evicted"])), resident=len(emb.hot),
+                 capacity=emb.hot.capacity, hit_pct=st.hit_pct)
+        r["expected_launches"] = {"emb_gather": 2 * len(data) + st.scatter_drains + r["flush_launches"],
+                                  "emb_scatter": len(data) + st.fault_batches}
+        keys, rows = _sorted_state(host)
+    finally:
+        kv_store._now = real_now
+        emb.close()
+        host.close()
+        shutil.rmtree(d, ignore_errors=True)
+    if r["spill_rows"] <= 0 or r["evicted_to_disk"] <= 0 or r["faulted_from_disk"] <= 0:
+        failures.append("the run did not spill, evict to disk and fault back from disk")
+    r["failures"] = failures
+    return keys, rows, r
+
+
+def _last_save(mgr):
+    e = mgr._read_manifest()[-1]
+    return dict(kind=e["kind"], rows=e["rows"], bytes=e["nbytes"])
+
+
+def run_sparse_tiers(torch, er, full=False):
+    """The three-tier store (card, host, disk) under the checkpoint
+    cadence (``_tiers_run``): a first card run with the launches counted,
+    a second card run that must end bitwise equal, and in the small run
+    a run with the device tier on the CPU (the logistic head on the card,
+    as in ``run_sparse_spill``) within ``SPILL_STATE_TOL`` and a card run
+    on a 640-row tier, whose LRU drains must run and whose state must end
+    bitwise equal (where a row lives never changes its values). Every
+    check of every run must hold, the runs of one tier size must move the
+    same rows between the tiers, and the kernels' launches must be the
+    count reckoned from the tier's stats."""
+    data = sparse_stream(full)
+    k1, r1, a = _tiers_run(torch, data, None, full, er=er)
+    k2, r2, b = _tiers_run(torch, data, None, full)
+    bitwise = bool(np.array_equal(k1, k2) and np.array_equal(r1, r2))
+    del k2, r2
+    res = dict(launches=a["launches"], expected_launches=a["expected_launches"],
+               card_repeat_bitwise=bitwise)
+    fails = a["failures"] + b["failures"]
+    if not bitwise:
+        fails.append("a second card run differs")
+    if a["launches"] != a["expected_launches"]:
+        fails.append("the kernels' launches are not the count reckoned from the tier's stats")
+    if not full:
+        k0, r0, c = _tiers_run(torch, data, "cpu", full)
+        same = bool(np.array_equal(k0, k1))
+        err = float(np.abs(r1 - r0).max() / np.abs(r0).max()) if same else math.inf
+        res.update(cpu_same_keys=same, cpu_rel_err=err, tol=SPILL_STATE_TOL,
+                   cpu_rows_not_bitwise=int((r1 != r0).any(axis=1).sum()) if same else -1)
+        fails += c["failures"]
+        if not (same and err <= SPILL_STATE_TOL):
+            fails.append("the tier on the CPU disagrees")
+        kp, rp, p = _tiers_run(torch, data, None, full, size=TIERS_RUNS[full]["pressure"])
+        res.update(pressure_bitwise=bool(np.array_equal(kp, k1) and np.array_equal(rp, r1)),
+                   pressure_drains=p["scatter_drains"])
+        fails += p["failures"]
+        if not res["pressure_bitwise"] or p["scatter_drains"] <= 0:
+            fails.append("the 640-row tier did not drain, or its state differs")
+    runs = [a, b] + ([c] if not full else [])
+    moves = [(x["spill_rows"], x["evicted"], x["faulted_from_disk"]) for x in runs]
+    runs += [p] if not full else []
+    if any(m != moves[0] for m in moves):
+        fails.append(f"the runs spilled, evicted to disk or faulted back other rows: {moves}")
+    for x in runs:
+        x.pop("launches", None)
+        x.pop("expected_launches", None)
+    if full:
+        fulls = [s["bytes"] for s in a["saves"] if s["kind"] == "full"]
+        deltas = [s["bytes"] for s in a["saves"] if s["kind"] == "delta"]
+        med = float(statistics.median(a["step_ms"]))
+        res.update(median_step_ms=med, ids_per_s=65536 / (med / 1e3),
+                   median_step_ms_draining=(float(statistics.median(a["step_ms_draining"]))
+                                            if a["step_ms_draining"] else None),
+                   delta_bytes_over_full=(statistics.mean(deltas) / statistics.mean(fulls)
+                                          if deltas and fulls else None),
+                   advance_ms_median=(float(statistics.median(a["advance_ms"]))
+                                      if a["advance_ms"] else None))
+    emit("sparse_tiers", size="full" if full else "small", **res, runs=runs,
+         failures=fails, ok=not fails)
+    if fails:
+        raise RuntimeError(f"the three-tier store failed its checks: {fails}")
+    return res["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -6256,9 +6526,15 @@ def main() -> int:
     if "--phase" in sys.argv:  # one phase alone; the contract's lines need a full run
         phase = sys.argv[sys.argv.index("--phase") + 1]
         if phase not in ("flash_ckpt", "evict", "dp", "llama", "accel", "peak_memory", "resize",
-                         "c3", "sp", "tp", "ep", "pp", "ckpt7b"):
+                         "c3", "sp", "tp", "ep", "pp", "ckpt7b", "sparse_tiers"):
             raise SystemExit(f"unknown phase {phase!r}")
-        if phase == "ckpt7b":
+        if phase == "sparse_tiers":  # the sparse slice beside it, for its step and ids/s
+            run_sparse_full(torch, er)
+            check_embedding_rows(torch, er, cap=256 << 10,
+                                 label="B8/B9 emb rows, the 256 MiB tier's table")
+            run_sparse_tiers(torch, er)  # the full run's small size too
+            run_sparse_tiers(torch, er, full=True)
+        elif phase == "ckpt7b":
             link_calibration(torch)
             run_ckpt7b(torch)
         elif phase == "dp":
@@ -6317,6 +6593,7 @@ def main() -> int:
         raise RuntimeError("adamw_8bit's losses leave adamw_8bit_flat's")
     emb_counts = run_sparse_full(torch, er, profile="--profile" in sys.argv)
     spill_link = run_sparse_spill(torch)
+    tiers_counts = run_sparse_tiers(torch, er)
     # the accel worker (the link model, gpt2_xl's offload: no timing gate)
     # runs beside the dp phase (gpt2_small ranks: 43 + 3 x 7.8 GB at
     # their peaks)
@@ -6394,7 +6671,7 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source="dlrover_tpu_torch/ops/csrc/embedding_rows.cu",
             replaces=f"{emb_tpu}:{line}", also_replaces=[], launches=emb_counts[name],
-            max_abs_err=0.0, **emb_t[name],
+            sparse_tiers_launches=tiers_counts[name], max_abs_err=0.0, **emb_t[name],
         ))
     emit("timing", total_s=time.perf_counter() - T0, lines=EMITTED)
     print(card, flush=True)

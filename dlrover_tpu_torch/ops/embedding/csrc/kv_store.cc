@@ -838,37 +838,47 @@ int64_t kv_evict_to_cold(void* hot_h, void* cold_h, int64_t ts_limit,
 
 // Fault keys present in the cold tier back into the hot store (values
 // AND optimizer slots travel; freq/ts preserved), tombstoning them in
-// the log. Keys not in the cold tier are ignored. Returns the number
-// faulted in (or -1 on an IO error).
+// the log. Keys not in the cold tier are ignored. A key that is already
+// hot keeps its hot row (this copy's repair of the reference, which
+// assigned the cold row over it): a row written hot after its eviction,
+// such as a device tier's spill, is newer than its cold record, so the
+// cold record is only tombstoned. Returns the number of rows moved hot
+// (or -1 on an IO error; a row whose tombstone failed is then hot and
+// still in the log).
 int64_t kv_fault_from_cold(void* hot_h, void* cold_h,
                            const int64_t* keys, int64_t n) {
   Store* s = static_cast<Store*>(hot_h);
   ColdStore* c = static_cast<ColdStore*>(cold_h);
   int64_t rf = s->row_floats();
-  std::vector<float> row(static_cast<size_t>(rf));
   int64_t moved = 0;
   std::lock_guard<std::mutex> cg(c->mu);
   for (int64_t i = 0; i < n; ++i) {
     auto it = c->index.find(keys[i]);
     if (it == c->index.end()) continue;
-    if (std::fseek(c->f, static_cast<long>(it->second.offset),
-                   SEEK_SET) != 0)
-      return -1;
-    if (std::fread(row.data(), sizeof(float), static_cast<size_t>(rf),
-                   c->f) != static_cast<size_t>(rf))
-      return -1;
+    bool was_cold = false;
     {
       Bucket& b = s->bucket(keys[i]);
       std::lock_guard<std::mutex> g(b.mu);
-      Row& r = b.map[keys[i]];
-      r.data.assign(row.begin(), row.end());
-      r.freq = it->second.freq;
-      r.ts = it->second.ts;
-      r.version = s->next_version();
+      if (b.map.find(keys[i]) == b.map.end()) {
+        Row r;
+        r.data.resize(static_cast<size_t>(rf));
+        if (std::fseek(c->f, static_cast<long>(it->second.offset),
+                       SEEK_SET) != 0)
+          return -1;
+        if (std::fread(r.data.data(), sizeof(float),
+                       static_cast<size_t>(rf),
+                       c->f) != static_cast<size_t>(rf))
+          return -1;
+        r.freq = it->second.freq;
+        r.ts = it->second.ts;
+        r.version = s->next_version();
+        b.map.emplace(keys[i], std::move(r));
+        was_cold = true;
+      }
     }
     ColdRecHeader tomb{keys[i], 0, 0, it->second.seq, 0};
     if (!cold_append(c, tomb, nullptr)) return -1;
-    ++moved;
+    if (was_cold) ++moved;
   }
   return moved;
 }

@@ -35,7 +35,14 @@ Design (the JAX module's, carried over):
 
 Coherency contract: while a row is device-resident its device copy is
 authoritative and the host copy is stale; ``flush()`` (checkpoint
-cadence) and spills write it back. ``export_state`` flushes first so a
+cadence) and spills write it back. The card also keeps each resident
+row's freq and ts (the host store's lookup count and last lookup
+second): taken from the host at the fault-in, counted and stamped by
+every ``prepare``, carried back by the write-backs. A host tier's
+``evict_cold(ts_limit)`` then sees when the card last touched a row (the
+JAX package writes 0 for both, so every row the card writes back goes
+to disk at the next ``evict_cold``). A row only read on the card is
+never written back, and its lookups leave no trace host-side. ``export_state`` flushes first so a
 checkpoint can never lose device-only training.
 
 Host-link arbitration (``parallel/transfer_sched``): the fault-in leg
@@ -70,6 +77,7 @@ from torch.profiler import record_function
 
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.ops import embedding_rows
+from dlrover_tpu_torch.ops.embedding import store as _store
 from dlrover_tpu_torch.parallel import transfer_sched
 from dlrover_tpu_torch.utils.device import resolve_device
 
@@ -242,6 +250,9 @@ class DeviceHotTier:
         self._id_of = np.full(self.capacity + 1, -1, np.int64)
         self._dirty = np.zeros(self.capacity + 1, bool)
         self._last_used = np.zeros(self.capacity + 1, np.int64)
+        # each resident row's freq / ts (the module's coherency contract)
+        self._freq = np.zeros(self.capacity + 1, np.int64)
+        self._ts = np.zeros(self.capacity + 1, np.int64)
         # pin refcounts: slots referenced by an outstanding
         # PreparedBatch must not be LRU victims — the pipeline thread's
         # fault-in for step N+1 would otherwise evict rows step N is
@@ -270,6 +281,12 @@ class DeviceHotTier:
     def touch(self, slots: np.ndarray):
         self._tick += 1
         self._last_used[slots] = self._tick
+
+    def access(self, slots: np.ndarray, counts: np.ndarray):
+        """``counts`` lookups of each of ``slots``, stamped with the host
+        store's clock, as the host store's gather counts and stamps."""
+        self._freq[slots] += counts
+        self._ts[slots] = _store._now()
 
     def pin(self, slots: np.ndarray):
         self._pins[slots] += 1
@@ -556,10 +573,11 @@ class DeviceSparseEmbedding:
         )
 
     def _import_spill(
-        self, t_enq: float, ids, rows_t, event, n: int,
+        self, t_enq: float, ids, rows_t, event, n: int, freq, ts,
         arbitrate: bool = True, striped: bool = False,
     ):
-        """Land one spill host-side. ``rows_t`` is the pinned host copy
+        """Land one spill host-side, with the rows' ``freq`` / ``ts``.
+        ``rows_t`` is the pinned host copy
         behind ``event`` (its D2H already issued), or with ``striped``
         the device rows themselves behind the gather's event: their
         card-to-host copy is striped here by row ranges. ``arbitrate``
@@ -599,7 +617,7 @@ class DeviceSparseEmbedding:
 
             striper.run_items(ranges, stage, priority=prio)
             rows = rows_host.numpy()
-            self.host.import_rows(ids, rows)
+            self.host.import_rows(ids, rows, freq, ts)
         else:
             grant = (
                 self._spill_stream.transfer(int(n * rows_t[0].numel() * 4), priority=prio)
@@ -608,7 +626,7 @@ class DeviceSparseEmbedding:
             )
             with grant:
                 rows = rows_t.numpy()[:n]  # bucket-padded: the tail is filler
-                self.host.import_rows(ids, rows)
+                self.host.import_rows(ids, rows, freq, ts)
         self.stats.spill_rows += len(ids)
         self.stats.spill_bytes += rows.nbytes
         self.stats.scatter_lag_s += time.perf_counter() - t_enq
@@ -671,6 +689,7 @@ class DeviceSparseEmbedding:
             else:
                 host_rows, event = _d2h_async(dev_rows)
                 item = (time.perf_counter(), ids[dirty], host_rows, event, n)
+            item += (self.hot._freq[d_slots].copy(), self.hot._ts[d_slots].copy())
             # bookkeeping BEFORE dispatch: _import_spill decrements /
             # clears on completion either way
             self._spills_inflight += 1
@@ -691,6 +710,7 @@ class DeviceSparseEmbedding:
         ``emb_admit``)."""
         ids = np.ascontiguousarray(ids, np.int64).ravel()
         unique, inverse = np.unique(ids, return_inverse=True)
+        counts = np.bincount(inverse.ravel(), minlength=len(unique))
         while True:
             with self._lock, record_function("emb_lookup"):
                 gen0 = self._gen
@@ -705,6 +725,7 @@ class DeviceSparseEmbedding:
                     if self._gen != gen0:
                         continue  # resident set changed under us
                     self.hot.touch(slots)
+                    self.hot.access(slots, counts)
                     self.hot.pin(slots)
                     gen = gen0
                 break
@@ -721,7 +742,7 @@ class DeviceSparseEmbedding:
             with self._fault_stream.transfer(
                 len(missing) * self.hot.row_floats * 4
             ), record_function("emb_host_rows"):
-                rows_np = self._host_rows(missing)
+                rows_np, freq_np, ts_np = self._host_rows(missing)
             with self._lock, record_function("emb_admit"):
                 if self._gen != gen0 or self._spills_racing(missing):
                     # an import_state/evict resharded the world while
@@ -755,12 +776,15 @@ class DeviceSparseEmbedding:
                         new_slots, rows_np[still], dirty=False
                     )
                     self.hot.bind(new_ids, new_slots)
+                    self.hot._freq[new_slots] = freq_np[still]
+                    self.hot._ts[new_slots] = ts_np[still]
                     slots[np.nonzero(missing_mask)[0][still]] = new_slots
                     self.stats.fault_batches += 1
                 self.stats.faults += len(missing)
                 self.stats.fault_bytes += rows_np.nbytes
                 self.stats.host_leg_s += self._price(rows_np.nbytes, h2d=True)
                 self.hot.touch(slots)
+                self.hot.access(slots, counts)
                 self.hot.pin(slots)
                 gen = gen0
             break
@@ -788,18 +812,22 @@ class DeviceSparseEmbedding:
                 )
             )
 
-    def _host_rows(self, missing: np.ndarray) -> np.ndarray:
-        """Full rows for ``missing`` from the host tier; keys the host
-        has never seen are created there first (deterministic C++ init)
-        so both tiers agree on the row's birth value. Callers must have
-        joined any racing spill of these ids first."""
-        rows, _f, _t, present = self.host.export_rows(missing)
+    def _host_rows(self, missing: np.ndarray):
+        """Full rows, freq and ts for ``missing`` from the host tier;
+        keys the host has never seen are created there first
+        (deterministic C++ init) so both tiers agree on the row's birth
+        value. Callers must have joined any racing spill of these ids
+        first."""
+        rows, freq, ts, present = self.host.export_rows(missing)
         absent = missing[~present]
         if len(absent):
             self.host.gather(absent, insert_missing=True)
-            rows2, _f2, _t2, _present2 = self.host.export_rows(missing)
+            rows2, _f2, ts2, _present2 = self.host.export_rows(missing)
             rows[~present] = rows2[~present]
-        return rows
+            # the creating lookup is this batch's, which the card counts
+            freq[~present] = 0
+            ts[~present] = ts2[~present]
+        return rows, freq, ts
 
     def _check_gen(self, prep: PreparedBatch):
         if prep.generation != self._gen:
@@ -961,7 +989,9 @@ class DeviceSparseEmbedding:
             if len(dirty):
                 ids = self.hot._id_of[dirty].copy()
                 rows = _to_numpy(self.hot.gather_rows(dirty))
-                self.host.import_rows(ids, rows)
+                self.host.import_rows(
+                    ids, rows, self.hot._freq[dirty], self.hot._ts[dirty]
+                )
                 self.stats.spill_rows += len(ids)
                 self.stats.spill_bytes += rows.nbytes
                 self.stats.host_leg_s += self._price(rows.nbytes, h2d=False)

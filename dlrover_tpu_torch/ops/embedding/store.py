@@ -4,9 +4,12 @@
 The python face of a TFPlus KvVariable: gather/insert, scatter math
 ops, fused sparse optimizers, frequency/timestamp metadata, full/delta
 export-import, plus elastic resharding. The port keeps its own copy of
-the C++ source (``csrc/kv_store.cc``, byte for byte the JAX package's,
-so both stores give the same rows from the same seed) and compiles it
-with g++ at first use; there is no pybind11.
+the C++ source (``csrc/kv_store.cc``, byte for byte the JAX package's
+up to the cold tier, so both stores give the same rows from the same
+seed; the cold tier's spill log keeps the reference's format, with the
+port's repairs of failed writes and of a fault-in over a hot row) and
+compiles it with g++ at first use; there is no pybind11. The cold
+tier's entries are bound here and driven by ``tiered.py``.
 """
 
 from __future__ import annotations
@@ -111,8 +114,22 @@ def _load_library() -> ctypes.CDLL:
         lib.kv_delete_keys.restype = i64
         lib.kv_delete_keys.argtypes = [p, I64P, i64]
         lib.kv_meta.argtypes = [p, I64P, i64, I64P, I64P]
-        # the native cold tier's entries (cold_*, kv_evict_to_cold,
-        # kv_fault_from_cold) are bound with tiered.py (ROADMAP A13)
+        # the native cold tier (tiered.NativeTieredKvEmbedding)
+        lib.cold_open.restype = p
+        lib.cold_open.argtypes = [ctypes.c_char_p, i64]
+        lib.cold_close.argtypes = [p]
+        lib.cold_count.restype = i64
+        lib.cold_count.argtypes = [p]
+        lib.cold_max_seq.restype = i64
+        lib.cold_max_seq.argtypes = [p]
+        lib.cold_export.restype = i64
+        lib.cold_export.argtypes = [p, i64, I64P, F32P, I64P, I64P, i64]
+        lib.cold_export_count.restype = i64
+        lib.cold_export_count.argtypes = [p, i64]
+        lib.kv_evict_to_cold.restype = i64
+        lib.kv_evict_to_cold.argtypes = [p, p, i64, i64]
+        lib.kv_fault_from_cold.restype = i64
+        lib.kv_fault_from_cold.argtypes = [p, p, I64P, i64]
         _LIB = lib
         return lib
 

@@ -6,8 +6,9 @@ fence (``sdc.py``), sequence parallelism (``ring_attention.py``,
 ``ulysses.py``), the tensor- and expert-parallel layouts
 (``sharding_rules.py``), MoE layers over the ep group (``moe.py``, with
 the all-to-all it shares with Ulysses, ``collectives.py``), pipeline
-parallelism over the pp group (``pipeline.py``) and the host-link
-arbiter (``transfer_sched.py``)."""
+parallelism over the pp group (``pipeline.py``), the host-link
+arbiter (``transfer_sched.py``) and the int8 wire of the bulk movers
+(``wire_format.py``)."""
 
 from dlrover_tpu_torch.parallel.grad_sync import (  # noqa: F401
     BucketPlan,

@@ -1,16 +1,19 @@
 """Elastic sparse (recommender-style) training on the PyTorch/CUDA port:
 the native KvEmbedding store on the host, its hot rows in a device tier
-on the card, a dense logistic head, crc-verified checkpoints.
+on the card, a dense logistic head, incremental checkpoints.
 
     python examples/train_sparse_torch.py            # host cycle
     python examples/train_sparse_torch.py --device   # device hot tier +
                                                      # overlapped row pipeline
 
 Both run on the card; ``--cpu`` runs the same on the CPU's plain path.
-The port of ``examples/train_sparse.py`` (whose incremental checkpoint
-manager is not ported yet: this one saves the full crc-verified npz).
+The port of ``examples/train_sparse.py``: every 50 steps the device
+tier is flushed and ``IncrementalCheckpointManager`` saves a full
+snapshot or the rows touched since the last save (a crc-verified npz
+and a manifest entry each), into a temp dir.
 """
 
+import os
 import sys
 import tempfile
 
@@ -19,6 +22,7 @@ import torch
 
 from dlrover_tpu_torch.ops.embedding import (
     DeviceSparseEmbedding,
+    IncrementalCheckpointManager,
     ShardedKvEmbedding,
 )
 from dlrover_tpu_torch.trainer.sparse import SparseTrainer
@@ -49,14 +53,16 @@ def main(device_tier: bool = False, devices=None):
         if device_tier
         else host
     )
+    ckpt_dir = tempfile.mkdtemp(prefix="sparse_ckpt_")
     trainer = SparseTrainer(
         embedding,
         dense_params=torch.zeros(DIM, device=dev),
         dense_step=dense_step,
-        ckpt_dir=tempfile.mkdtemp(prefix="sparse_ckpt_"),
+        ckpt_dir=ckpt_dir,
         sparse_optimizer="adagrad",
         sparse_lr=0.5,
     )
+    ckpt = IncrementalCheckpointManager(host, os.path.join(ckpt_dir, "emb"))
     rng = np.random.default_rng(0)
 
     def stream(n):
@@ -68,8 +74,9 @@ def main(device_tier: bool = False, devices=None):
         metrics = trainer.run(stream(50), overlapped=device_tier)
         print(f"step {trainer.step}: loss={metrics[-1]['loss']:.4f}")
         if device_tier:
+            embedding.flush()  # checkpoint precondition
             print("  hot tier:", trainer.telemetry())
-        trainer.save_embedding()  # flushes the device tier first
+        ckpt.save(step=trainer.step)  # full or delta automatically
     print(f"embedding rows: {len(embedding)}")
     if device_tier:
         embedding.close()

@@ -137,23 +137,7 @@ import ctypes, json, os, resource, signal, sys
 import numpy as np
 from dlrover_tpu_torch.ops.embedding import store
 
-lib = store._load_library()
-p, i64 = ctypes.c_void_p, ctypes.c_int64
-I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
-F32P = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-# the cold entries are not bound by store.py yet: declared here
-lib.cold_open.restype = p
-lib.cold_open.argtypes = [ctypes.c_char_p, i64]
-lib.cold_close.argtypes = [p]
-for name in ("cold_count", "cold_max_seq"):
-    getattr(lib, name).restype = i64
-    getattr(lib, name).argtypes = [p]
-lib.kv_evict_to_cold.restype = i64
-lib.kv_evict_to_cold.argtypes = [p, p, i64, i64]
-lib.kv_fault_from_cold.restype = i64
-lib.kv_fault_from_cold.argtypes = [p, p, I64P, i64]
-lib.cold_export.restype = i64
-lib.cold_export.argtypes = [p, i64, I64P, F32P, I64P, I64P, i64]
+lib = store._load_library()  # the cold entries' signatures are the store's binding
 
 DIM, path = 1024, sys.argv[1]
 REC = 40 + 4 * DIM  # header + payload
