@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlrover_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama|accel|peak_memory|resize|sp|tp|ep|pp|ckpt7b [--no-persist]|sparse_tiers]
+    python3 chip_smoke.py [--profile] [--phase flash_ckpt|evict|dp|llama|accel|peak_memory|resize|sp|tp|ep|pp|ckpt7b [--no-persist]|sparse_tiers|serve]
 
 (``--profile`` adds a torch.profiler window of a few more steps to the
 per-leaf gpt2_small path and to the full-size sparse path; ``--phase
@@ -14,8 +14,10 @@ sequence-parallel phase alone, ``--phase tp`` the tensor-parallel one
 and ``--phase ep`` the expert-parallel one (each at 4 layers and 3
 steps), ``--phase pp`` the pipeline-parallel one (3 steps, interleaved
 and pp 2 x dp 2 included), ``--phase sparse_tiers`` the three-tier
-store at the sparse slice's size (the slice itself beside it), without
-the contract's closing lines; ``--phase peak_memory`` holds the static
+store at the sparse slice's size (the slice itself beside it),
+``--phase serve`` the attention kernels at ragged lengths, the full
+run's ``serve`` line, co-located serving beside ``ElasticTrainer`` and
+Llama-2-7B serving, without the contract's closing lines; ``--phase peak_memory`` holds the static
 peak model to the card, a phase the full run does not take.
 ``--dp-worker SPEC RANK`` is one rank of the dp phase, ``--llama-worker
 OUT [--search-only]`` the llama phase's full model (its search first),
@@ -30,7 +32,8 @@ jobs.)
 2. kernels: every hand-written kernel against its plain PyTorch version
    on the card, at the main paths' shapes (and the streaming attention
    contracts' shapes: Llama-2 width, GQA, a key offset, offsets that are
-   no multiple of a tile, no mask), with error, time, plain time, library
+   no multiple of a tile, no mask; and at lengths that are no multiple
+   of a tile, 95 and 1151, ``ragged_attention``), with error, time, plain time, library
    time, the bound from shapes, achieved TFLOP/s and the share of the
    bound; nvcc's register and spill report is printed and held to 0
    spill bytes and no serialized wgmma for the three attention kernels,
@@ -75,6 +78,34 @@ jobs.)
    - a small tier that spills (1,024 rows, bench.py's zipf 1.6 stream),
      its flushed host state held to the same run on the CPU and to a
      second run on the card;
+   - ``serve`` (after the slice): gpt2_small (f32 params, bf16
+     activations, seed 0) published through a ``ShmHandler`` of its own
+     rank and polled by a ``ShmSubscriber``: the frame's records share
+     the segment's memory, a commit inside a ``serve.stale_read`` delay
+     is caught and the next poll adopts it, a flipped byte's frame is
+     skipped; ``ServingEngine.try_swap`` then one greedy batch (16
+     prompts of 16-256 tokens, 64 new, 8 slots) bitwise equal to
+     ``continuous_generate`` over a direct ``load_records(copy=True)``
+     restore, every emitted token's decode logprob within
+     ``DECODE_LOGP_TOL`` of ``sequence_logprobs`` (the flash kernels)
+     and a cache written one position late beyond it by
+     ``DECODE_FAULT_RATIO``; ``ElasticTrainer._settle`` while another
+     thread holds a CUDA graph capture open (``capture_vs_settle``:
+     both succeed); a ``RewardModel`` 3 steps on seeded pairs,
+     then ``RLHFEngine`` 2 iterations (8 prompts of 64, 32 new,
+     temperature 0.8, top-k 50; scoring at 95 and 96 rows): every
+     metric finite, the first minibatch at ratio 1, the launches
+     reckoned, the first update's loss at 2 layers against the CPU;
+     with ``--phase serve`` also ``serve_colocated`` (gpt2_small 8 x
+     1024 with a memory save every 2 steps, 12 steps alone and with a
+     ``ServingEngine`` thread following the commits: losses bitwise,
+     swaps with the weight step rising, ``serving_soak`` booked) and
+     ``serve_7b`` (Llama-2-7B at full size published, swapped in and
+     served greedy and sampled: 32 prompts of 128-1024, 128 new, 16
+     slots; the decode-vs-scoring limit and the planted late cache on
+     4 greedy prompts), then ``capture_vs_bare_sync`` (the settle
+     check's planted fault: a bare card-wide synchronize during a
+     capture; no gate);
    - ``sparse_tiers``: ``three_tier_embedding`` (the card, the host
      store, the native spill logs on disk) on that stream under
      ``SparseTrainer.run`` with the checkpoint cadence every 5 steps
@@ -280,6 +311,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -379,13 +411,21 @@ def tile_err(got, ref, rows=64):
     is scaled by its own values, so a wrong late tile (where o and dv are
     small) shows as much as a wrong early one; a row alone would not do,
     since a row of few visible keys may cancel to near zero. Tiles the
-    mask leaves empty are floored at 1e-3 of the tensor's rms."""
-    ref = ref.float()
-    shape = ref.shape[:-2] + (ref.shape[-2] // rows, rows * ref.shape[-1])
-    err = (got.float() - ref).abs().reshape(shape).amax(-1)
-    rms = ref.reshape(shape).square().mean(-1).sqrt()
-    floor = 1e-3 * ref.square().mean().sqrt()
-    return (err / rms.clamp_min(floor)).max().item()
+    mask leaves empty are floored at 1e-3 of the tensor's rms. A length
+    that is no multiple of 64 ends in a shorter tile of its own."""
+    ref, got = ref.float(), got.float()
+    T, floor = ref.shape[-2], 1e-3 * ref.square().mean().sqrt()
+    worst = 0.0
+    for lo, n in ((0, T - T % rows), (T - T % rows, T % rows)):
+        if not n:
+            continue
+        r, g = ref[..., lo:lo + n, :], got[..., lo:lo + n, :]
+        tiles = max(n // rows, 1)
+        shape = r.shape[:-2] + (tiles, n // tiles * r.shape[-1])
+        err = (g - r).abs().reshape(shape).amax(-1)
+        rms = r.reshape(shape).square().mean(-1).sqrt()
+        worst = max(worst, (err / rms.clamp_min(floor)).max().item())
+    return worst
 
 
 def visible_pairs(Tq, Tk, q_off, k_off, causal=True, mask=None, B=1):
@@ -485,12 +525,15 @@ def time_attention(torch, fa, q, k, v, o, lse, do, q_off, k_off, causal, graph, 
     scale = D**-0.5
     pairs = visible_pairs(T, T, q_off, k_off, causal, mask, B) * H
     delta = (do.float() * o.float()).sum(-1)
+    # the kernels read lse and delta padded to whole 64-row tiles
+    lse_p = fa._pad_rows(lse.float(), fa.NEG_INF).contiguous()
+    delta_p = fa._pad_rows(delta, 0.0).contiguous()
     # the gradients' dtypes on the path: bf16, and dk/dv f32 per q head
     # under GQA
     gdt = torch.bfloat16 if k.shape[1] == H else torch.float32
     dk = torch.empty((B, H, T, D), dtype=gdt, device=q.device)
     dv, dq = torch.empty_like(dk), torch.empty_like(q)
-    args = (q, k, v, do, lse, delta, scale, causal, q_off, k_off, mask)
+    args = (q, k, v, do, lse_p, delta_p, scale, causal, q_off, k_off, mask)
     timer = graph_ms if graph else time_ms
     if mask is not None:  # the tables are cached before a capture
         for dkv in (False, True):
@@ -518,10 +561,14 @@ def time_attention(torch, fa, q, k, v, o, lse, do, q_off, k_off, causal, graph, 
         # boolean mask, which its flash backend does not take
         lib_mask = (q_off + pos)[:, None] >= (k_off + pos)[None, :]
     # a masked library call is timed eagerly: its capture fails, and a
-    # failed capture leaves the default CUDA generator unusable
+    # failed capture leaves the default CUDA generator unusable; so is
+    # one at a length no multiple of a tile, whose backward's capture
+    # failed too (after twelve such failures the full run's sp ranks
+    # found the card full: a failed capture may keep its memory pool)
+    eager_lib = lib_mask is not None or T % fa._TILE != 0
     lib_fwd, lib_bwd, lib_backend, lib_timed = time_sdpa(
         torch, q, k, v, do, causal=causal, mask=lib_mask,
-        timer=time_ms if lib_mask is not None else timer,
+        timer=time_ms if eager_lib else timer,
         backends=("EFFICIENT_ATTENTION", "MATH") if lib_mask is not None
         else ("FLASH_ATTENTION", "EFFICIENT_ATTENTION"))
     bf, fl = 2, 4
@@ -1018,7 +1065,7 @@ def picked_strategy(cfg):
 
 
 def _trainer_run(torch, fa, qo, cfg, opt, steps, data, batch, inspect=None, keep=False,
-                 strategy=None, tcfg=None, prepare=None, on_step=None):
+                 strategy=None, tcfg=None, prepare=None, on_step=None, device_sync=True):
     """``ElasticTrainer(cfg, build_optimizer(opt), data, strategy=...)
     .train(steps)`` (``strategy``: ``picked_strategy(cfg)`` unless given)
     with every launch count set to 0 just before and read just after;
@@ -1028,7 +1075,9 @@ def _trainer_run(torch, fa, qo, cfg, opt, steps, data, batch, inspect=None, keep
     keys, and closes the trainer (``keep``: returns it open as well).
     ``tcfg``: more ``TrainerConfig`` fields; ``prepare(trainer)`` runs
     once the trainer is built, ``on_step(step, loss, trainer)`` after
-    each step's stamp."""
+    each step's stamp. ``device_sync=False`` stamps a step once the
+    trainer's stream is done, not the whole card (whose synchronize
+    would also wait for a serving thread's work beside it)."""
     from dlrover_tpu_torch.trainer.elastic.trainer import (
         ElasticTrainer, TrainerConfig, build_optimizer,
     )
@@ -1038,7 +1087,10 @@ def _trainer_run(torch, fa, qo, cfg, opt, steps, data, batch, inspect=None, keep
     def hook(step, metrics):
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
-        torch.cuda.synchronize()
+        if device_sync:
+            torch.cuda.synchronize()
+        else:
+            torch.cuda.current_stream().synchronize()
         stamps.append(time.perf_counter())
         if on_step is not None:
             on_step(step, losses[-1], trainer)
@@ -4625,6 +4677,45 @@ def run_masks(torch, fa):
     return out
 
 
+RAGGED_T = (95, 1151)  # lengths that are no multiple of a 64-row tile
+
+
+def ragged_attention_checks(torch, fa):
+    """B1-B5 at lengths that are no multiple of a tile (``RAGGED_T``; the
+    RLHF scoring's ``P + N - 1`` and the critic's ``P + N`` cannot both
+    be multiples of 64): the fused contract's shape (gpt2_small's heads),
+    the streaming one's (Llama-2 width with GQA), not causal, a declared
+    mask (a GLM prefix) and a ring hop's offsets (the queries after every
+    key, and the hop's own block), each kernel against the plain f32
+    result by the per-tile rule (the last, shorter tile by itself), with
+    its ms, plain ms, library ms and bound."""
+    t0 = time.perf_counter()
+    out = {}
+    for T in RAGGED_T:
+        cases = [
+            ("B1/B2 fused shape", 2, 12, 12, 64, {}),
+            ("B3-B5 streaming gqa", 1, 32, 8, 128, {}),
+            ("B3-B5 not causal", 2, 12, 12, 64, {"causal": False}),
+            ("B3-B5 prefix intervals", 2, 12, 12, 64,
+             {"mask": fa.KeyIntervals.prefix(2 * T, T // 3 + 5)}),
+            ("B3-B5 ring hop k<q", 1, 8, 8, 128, {"q_off": T, "k_off": 0}),
+            ("B3-B5 ring hop diagonal", 1, 8, 8, 128, {"q_off": T, "k_off": T}),
+        ]
+        for label, B, H, Hkv, D, kw in cases:
+            res, abs_err = check_attention(torch, fa, f"ragged {label} T={T}", B, H, Hkv, T, D,
+                                           graph=True, **kw)
+            out[f"{label} T={T}"] = {
+                name: {"ms": res["ms"][name], "plain_ms": res["plain_ms"][name],
+                       "bound_ms": res["bound"][name][0], "library_ms": res["library_ms"][name],
+                       "tile_err": max(res["tile_err"][x] for x in es),
+                       "max_abs_err": max(abs_err[x] for x in es)}
+                for name, es in (("fa_fwd", ("o",)), ("fa_bwd_dq", ("dq",)),
+                                 ("fa_bwd_dkdv", ("dk", "dv")))}
+    emit("ragged_attention", seconds=time.perf_counter() - t0, lengths=list(RAGGED_T),
+         cases=sorted(out), ok=True)
+    return out
+
+
 def check_attention_path(torch, fa, label, H, T, q_off=0, k_off=0, D=128, seed=0):
     """The kernels at one of the sp path's shapes (one row, causal, the
     ``bthd`` layout the ring and Ulysses hand them), held to the plain
@@ -6431,6 +6522,736 @@ def start_tp_ep(torch, fa, qo):
     return finish
 
 
+# ---------------------------------------------------------------------------
+# serving and RLHF (ROADMAP A14): the publication, the serving engine, the
+# reward model and PPO; with --phase serve co-located and 7 B serving
+# ---------------------------------------------------------------------------
+SERVE_RANK = 7  # the publication's shm rank: a rank of its own
+SERVE_GREEDY = dict(n=16, lens=(16, 256), max_new=64, slots=8)
+# The decode's logprob of each emitted token against the teacher-forced
+# scoring of the same tokens (``sequence_logprobs``: the flash kernels),
+# |difference| in nats, every emitted token within the limit. Both paths
+# run bf16 activations and bf16 GEMMs; the decode keeps f32 scores and
+# probabilities, the kernels round p to bf16 before P V. A cache written
+# one position late (``late_cache_fault``) attends the previous token in
+# the place of each token, and must exceed the limit by
+# ``DECODE_FAULT_RATIO``, at both sizes. Stated before the first chip
+# run as a mean of 0.04; on the H100 (gpt2_small, the 16 greedy prompts'
+# 1024 tokens) the late cache read a mean of 0.212 (5.3x: too weak a
+# gate), so the gate became the per-token bound. Its readings on an
+# H100 80GB HBM3 at 700 W: the sound decode's max 0.0316 (gpt2_small)
+# and 0.0626 (Llama-2-7B, 4 prompts' 512 tokens), the late cache's max
+# 1.95 and 2.69 (means 0.212-0.224 and 0.623).
+DECODE_LOGP_TOL = 0.1
+DECODE_FAULT_RATIO = 10.0
+RLHF_RUN = dict(prompts=8, prompt_len=64, max_new=32, temperature=0.8, top_k=50,
+                iterations=2, ppo_epochs=2, minibatch=8, rm_steps=3, rm_len=96)
+RLHF_RATIO_TOL = 1e-4  # approx_kl and clip_frac of the first minibatch
+RLHF_CPU_TOL = 2e-2  # the first update's loss on the card against the CPU plain path
+# --phase serve: co-located gpt2_small (as the slice: 8 x 1024) with a
+# memory save every 2 steps, and the dedicated Llama-2-7B serving
+COLOC_STEPS, COLOC_SAVE_EVERY, COLOC_BATCH, COLOC_SEQ = 12, 2, 8, 1024
+COLOC_SERVING = dict(n=8, lens=(16, 64), max_new=16, slots=8)
+COLOC_SWAP_WAIT_S = 1.0  # before each batch, how long to try for a newer frame
+# the JAX bench's serve-while-training gates (bench.py:4171-4172): the
+# co-located step may lose at most 10 % and the goodput 1 point
+JAX_BENCH_STEP_LOSS, JAX_BENCH_GOODPUT_POINTS = 0.10, 1.0
+SERVE_7B = dict(n=32, lens=(128, 1024), max_new=128, slots=16, checked=4,
+                temperature=0.8, top_k=50, top_p=0.95)
+
+
+class _Env:
+    """Job name and socket dir of a phase of its own, put back after."""
+
+    def __init__(self, job):
+        import tempfile
+
+        self.keys = ("DLROVER_TPU_JOB_NAME", "DLROVER_TPU_SOCKET_DIR")
+        self.saved = {k: os.environ.get(k) for k in self.keys}
+        os.environ["DLROVER_TPU_JOB_NAME"] = f"{job}{os.getpid()}"
+        os.environ["DLROVER_TPU_SOCKET_DIR"] = self.sock = tempfile.mkdtemp(prefix="dlr")
+
+    def close(self):
+        import shutil
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(self.sock, ignore_errors=True)
+
+
+def publish_params(torch, handler, step, model, threads=8):
+    """A model's params into ``handler``'s segment as a writer publishes
+    them (``begin_save``, each record's crc taken before its bytes enter
+    the segment, ``commit_save``): each leaf copied off the card in turn,
+    its crc and its write on a pool of threads (at most ``2 threads``
+    leaves on the host at once)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dlrover_tpu_torch.ckpt.sharding import host_shard_plan
+    from dlrover_tpu_torch.ckpt.shm_handler import data_crc32
+    from dlrover_tpu_torch.models.convert import param_state
+
+    plan = host_shard_plan(param_state(model))
+    metas = handler.layout_records([r for r, _ in plan])
+    handler.begin_save(metas[-1].offset + metas[-1].nbytes)
+
+    def write(m, arr):
+        m.crc32 = data_crc32(arr)
+        handler.write_chunk(m.offset, arr)
+
+    with ThreadPoolExecutor(threads) as ex:
+        pending = []
+        for (_, src), m in zip(plan, metas):
+            pending.append(ex.submit(write, m, src.detach().to("cpu").contiguous().numpy()))
+            if len(pending) >= 2 * threads:
+                pending.pop(0).result()
+        for f in pending:
+            f.result()
+    handler.commit_save(step, metas, {})
+    return sum(m.nbytes for m in metas)
+
+
+def prompt_queue(n, lens, vocab, seed):
+    """``n`` right-padded prompts of lengths drawn uniformly in ``lens``."""
+    rng = np.random.default_rng(seed)
+    lo, hi = lens
+    plens = rng.integers(lo, hi + 1, size=n).astype(np.int64)
+    toks = np.zeros((n, hi), np.int64)
+    for i, ln in enumerate(plens):
+        toks[i, :ln] = rng.integers(1, vocab, size=ln)
+    return toks, plens
+
+
+def decode_vs_scoring(torch, model, cfg, tokens, logps, out_lens, plens, rows):
+    """|decode logprob - teacher-forced logprob| of every emitted token
+    of ``rows``: the teacher-forced ones from ``sequence_logprobs`` (the
+    flash kernels) on each row's own tokens. Returns (mean, max, tokens
+    compared, the sequence lengths scored)."""
+    from dlrover_tpu_torch.rl.generation import sequence_logprobs
+
+    diffs, lengths = [], []
+    with torch.no_grad():
+        for i in rows:
+            n, p = int(out_lens[i]), int(plens[i])
+            row = tokens[i:i + 1, :n].long()
+            tf = sequence_logprobs(model, row, cfg, p)[0]
+            diffs.append((logps[i, :n - p].float() - tf.float()).abs())
+            lengths.append(n - 1)
+    d = torch.cat(diffs)
+    return float(d.mean()), float(d.max()), int(d.numel()), lengths
+
+
+def late_cache_fault(ttr):
+    """Patch the decode to write each token's K/V one position late (the
+    planted fault the decode-vs-scoring limit must catch); returns the
+    undo."""
+    real = ttr._cached_decode_layer
+
+    def late(x, lw, kc, vc, *, positions, mask, key_len, cfg, write_kv):
+        import torch
+
+        pos = (positions[:, -1] + 1).clamp_max(kc.shape[2] - 1)
+
+        def write_late(c, val):
+            c[torch.arange(c.shape[0], device=c.device), :, pos] = val[:, -1].to(c.dtype)
+
+        return real(x, lw, kc, vc, positions=positions, mask=mask, key_len=key_len, cfg=cfg,
+                    write_kv=write_late)
+
+    ttr._cached_decode_layer = late
+    return lambda: setattr(ttr, "_cached_decode_layer", real)
+
+
+def capture_vs_settle(torch, locked=True):
+    """A CUDA graph capture held open ~0.2 s in a thread of its own (as
+    the serving thread captures its decode graphs), and a card-wide
+    synchronize in this thread while it is open: ``locked``,
+    ``ElasticTrainer._settle`` (through ``cuda_sync``, which waits for the
+    capture); else the planted fault, a bare ``torch.cuda.synchronize()``
+    (the port's syncs before ``cuda_sync``). Returns the errors each side
+    met (none expected when ``locked``) and the seconds the synchronize
+    took."""
+    import contextlib
+    from types import SimpleNamespace
+
+    from dlrover_tpu_torch.common import cuda_sync
+    from dlrover_tpu_torch.trainer.elastic.trainer import ElasticTrainer
+
+    x = torch.randn(1024, 1024, device="cuda")
+    opened, errors = threading.Event(), {}
+
+    def capture():
+        try:
+            s = torch.cuda.Stream()
+            with torch.cuda.stream(s):
+                x @ x  # warm-up off the capture
+            s.synchronize()
+            with cuda_sync.capturing() if locked else contextlib.nullcontext():
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g, capture_error_mode="thread_local"):
+                    y = x @ x
+                    opened.set()
+                    time.sleep(0.2)
+            g.replay()
+            torch.cuda.current_stream().synchronize()
+            if not torch.allclose(y, x @ x):
+                errors["capture"] = "the replay disagrees with eager"
+        except Exception as e:  # noqa: BLE001 - the check's verdict
+            errors["capture"] = repr(e)[:300]
+        finally:
+            opened.set()
+
+    th = threading.Thread(target=capture)
+    th.start()
+    opened.wait(30)
+    t0 = time.perf_counter()
+    try:
+        if locked:
+            stub = SimpleNamespace(device=torch.device("cuda"), state=None,
+                                   _book_compute=lambda wait: None)
+            ElasticTrainer._settle(stub)
+        else:
+            torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - the check's verdict
+        errors["synchronize"] = repr(e)[:300]
+    sync_s = time.perf_counter() - t0
+    th.join(60)
+    try:  # a failed capture leaves nothing queued behind it
+        torch.cuda.current_stream().synchronize()
+    except Exception as e:  # noqa: BLE001
+        errors.setdefault("after", repr(e)[:300])
+    return dict(locked=locked, errors=errors, synchronize_s=sync_s,
+                thread_alive=th.is_alive())
+
+
+def run_serve(torch, fa):
+    """The full run's serving and RLHF paths (gpt2_small at full width and
+    depth, f32 params, bf16 activations, seed 0), in this process: the
+    publication and its subscriber (zero-copy, a torn frame, a rotten
+    frame), greedy serving held bitwise to a direct restore and to the
+    teacher-forced scoring, then the reward model and PPO. Returns the
+    ``serve`` line's dict (with each path's attention launches)."""
+    from dlrover_tpu_torch.ckpt.shm_handler import ShmHandler, ShmSubscriber
+    from dlrover_tpu_torch.common import faults
+    from dlrover_tpu_torch.models import gpt2_small
+    from dlrover_tpu_torch.models import transformer as ttr
+    from dlrover_tpu_torch.rl.continuous_batching import continuous_generate
+    from dlrover_tpu_torch.serve import ServingConfig, ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = gpt2_small()
+    env = _Env("serve")
+    res = {}
+    writer = sub = None
+    try:
+        model = ttr.Transformer(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
+        writer = ShmHandler(SERVE_RANK, create=True)
+        sub = ShmSubscriber(SERVE_RANK)
+        tp = time.perf_counter()
+        nbytes = publish_params(torch, writer, 1, model)
+        publish_s = time.perf_counter() - tp
+        frame = sub.poll()
+        seg = np.frombuffer(sub.handler._shm.buf, dtype=np.uint8)
+        zero_copy = frame is not None and all(np.shares_memory(r.data, seg) for r in frame.records)
+        del frame, seg
+        # a commit inside the serve.stale_read delay: dropped, then adopted
+        publish_params(torch, writer, 2, model)
+        mapped = threading.Event()
+        real_load = sub.handler.load_records
+
+        def load_then_signal(*a, **kw):
+            out = real_load(*a, **kw)
+            mapped.set()
+            return out
+
+        sub.handler.load_records = load_then_signal
+        racer = threading.Thread(target=lambda: mapped.wait(60) and publish_params(
+            torch, writer, 3, model))
+        faults.configure("serve.stale_read:delay:1.0")
+        try:
+            racer.start()
+            torn = sub.poll()
+        finally:
+            faults.reset()
+            racer.join(120)
+            sub.handler.load_records = real_load
+        after_torn = sub.poll()
+        torn_ok = torn is None and sub.torn_retries >= 1 and after_torn is not None \
+            and after_torn.step == 3 and not racer.is_alive()
+        del torn, after_torn
+        # a flipped byte in flight: the generation is skipped
+        faults.configure("ckpt.shm_stage:bit_flip:@1:7")
+        try:
+            publish_params(torch, writer, 4, model)
+        finally:
+            faults.reset()
+        rotten = sub.poll()
+        crc_ok = rotten is None and sub.crc_retries >= 1
+        publish_params(torch, writer, 5, model)
+
+        # greedy serving through the engine against a direct copy restore
+        g = SERVE_GREEDY
+        eng = ServingEngine(cfg, sub, ttr.Transformer(cfg, device="cuda"),
+                            ServingConfig(max_new_tokens=g["max_new"], slots=g["slots"],
+                                          soak="always"))
+        swapped = eng.try_swap()
+        toks, plens = prompt_queue(g["n"], g["lens"], cfg.vocab_size, seed=0)
+        prompts, lens = torch.from_numpy(toks).cuda(), torch.from_numpy(plens).cuda()
+        st = {}
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        got = eng.serve_batch(prompts, lens, stats=st)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - tb
+        serve_launches = dict(fa.launch_counts)
+        from dlrover_tpu_torch.ckpt.sharding import restore_state
+        from dlrover_tpu_torch.models.convert import param_state
+
+        _, recs, _ = writer.load_records(copy=True)
+        direct = ttr.Transformer(cfg, device="cuda")
+        by = {}
+        for r in recs:
+            by.setdefault(r.path, []).append(r)
+        restore_state(param_state(direct), lambda p: by.get(p, []))
+        del recs, by
+        want = continuous_generate(direct, prompts, lens, None, cfg, max_new_tokens=g["max_new"],
+                                   slots=g["slots"], greedy=True)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+        weights_equal = all(torch.equal(a, b) for a, b in
+                            zip(eng.params.parameters(), model.parameters()))
+        del direct, want
+        fa.reset_launch_counts()
+        mean_d, max_d, n_tok, scored = decode_vs_scoring(
+            torch, eng.params, cfg, *got, plens, range(g["n"]))
+        scoring_launches = dict(fa.launch_counts)
+        undo = late_cache_fault(ttr)
+        try:
+            bad = continuous_generate(eng.params, prompts, lens, None, cfg,
+                                      max_new_tokens=g["max_new"], slots=g["slots"], greedy=True)
+        finally:
+            undo()
+        f_mean, f_max, _, _ = decode_vs_scoring(torch, eng.params, cfg, *bad, plens,
+                                                range(g["n"]))
+        new_tokens = int((got[2].long() - lens).sum())
+        settle = capture_vs_settle(torch)
+        settle_ok = not settle["errors"] and not settle["thread_alive"]
+        serve_ok = (zero_copy and torn_ok and crc_ok and swapped and bitwise and weights_equal
+                    and settle_ok
+                    and max_d <= DECODE_LOGP_TOL and f_max >= DECODE_FAULT_RATIO * DECODE_LOGP_TOL
+                    and all(serve_launches[k] == 0 for k in serve_launches)
+                    and all(scoring_launches[k] > 0 for k in ("fa_fwd",)))
+        res.update(
+            model="gpt2_small", publish_bytes=nbytes, publish_s=publish_s,
+            zero_copy=zero_copy, torn_retries=sub.torn_retries, torn_ok=torn_ok,
+            crc_retries=sub.crc_retries, crc_record=sub.last_crc_record, crc_ok=crc_ok,
+            swap_ms=eng.last_swap_ms, swap_bytes=eng.last_swap_bytes, engine=eng.stats(),
+            greedy=dict(prompts=g["n"], prompt_lens=[int(x) for x in plens],
+                        max_new_tokens=g["max_new"], slots=g["slots"], new_tokens=new_tokens,
+                        batch_s=batch_s, tokens_per_s=new_tokens / batch_s,
+                        iterations=st["iterations"], d2h_reads=st["d2h_reads"],
+                        iteration_ms_median=float(statistics.median(st["read_ms"])),
+                        graphs=st["graphs"], bitwise_vs_direct_restore=bitwise,
+                        weights_equal=weights_equal),
+            decode_vs_scoring=dict(mean_abs=mean_d, max_abs=max_d, tokens=n_tok, tol=DECODE_LOGP_TOL,
+                                   scored_lengths=scored, planted_late_cache_mean=f_mean,
+                                   planted_late_cache_max=f_max, ratio_needed=DECODE_FAULT_RATIO),
+            decode_launches=serve_launches, scoring_launches=scoring_launches,
+            decode_products=ttr.decode_products("cuda"),
+            settle_during_capture=dict(settle, ok=settle_ok),
+        )
+        del eng, model, got, bad
+        gc.collect()
+        torch.cuda.empty_cache()
+        rl = run_rlhf(torch, fa, cfg)
+        res["rlhf"] = rl
+        ok = serve_ok and rl["ok"]
+    finally:
+        if sub is not None:
+            sub.close()
+        if writer is not None:
+            writer.close(unlink=True)
+        env.close()
+    emit("serve", seconds=time.perf_counter() - t0, ok=ok, **res)
+    if not ok:
+        raise RuntimeError("the serve phase failed its checks")
+    return res
+
+
+def run_rlhf(torch, fa, cfg):
+    """A ``RewardModel`` trained ``rm_steps`` steps on seeded preference
+    pairs, then ``RLHFEngine`` (``iterations`` of ``make_experience`` and
+    ``train``) on the card; every loss and metric finite, the first
+    minibatch of each ``train`` at ratio 1 (``approx_kl``, ``clip_frac``
+    within ``RLHF_RATIO_TOL``), the launches each path's reckoning; then
+    the first update's loss at 2 layers held to the CPU plain path."""
+    import copy
+    from dataclasses import replace
+
+    from dlrover_tpu_torch.rl import PPOConfig, RLHFEngine, RewardModel
+    from dlrover_tpu_torch.rl.ppo import ppo_loss
+
+    r = RLHF_RUN
+    V, L = cfg.vocab_size, cfg.num_layers
+    rng = np.random.default_rng(0)
+    chosen = rng.integers(1, V, (8, r["rm_len"]))
+    rejected = rng.integers(1, V, (8, r["rm_len"]))
+    rm = RewardModel(cfg, lr=1e-5, seed=0)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    rm_metrics = [rm.train_on_preferences(chosen, rejected) for _ in range(r["rm_steps"])]
+    torch.cuda.synchronize()
+    rm_s = time.perf_counter() - t0
+    rm_launches = dict(fa.launch_counts)
+    per = 2 if cfg.remat else 1
+    rm_expect = {"fa_fwd": r["rm_steps"] * 2 * L * per, "fa_bwd_dkdv": r["rm_steps"] * 2 * L,
+                 "fa_bwd_dq": r["rm_steps"] * 2 * L}
+    ppo = PPOConfig(rollout_batch=r["prompts"], max_new_tokens=r["max_new"],
+                    temperature=r["temperature"], top_k=r["top_k"], ppo_epochs=r["ppo_epochs"],
+                    minibatch_size=r["minibatch"], learning_rate=1e-5)
+    eng = RLHFEngine(cfg, rm.as_reward_fn(), ppo, seed=0)
+    prompts = rng.integers(1, V, (r["prompts"], r["prompt_len"]))
+    iters = []
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(r["iterations"]):
+        te = time.perf_counter()
+        exp = eng.make_experience(prompts)
+        seen = []
+        last = eng.train(r["prompt_len"], on_update=seen.append)
+        iters.append(dict(reward_mean=float(exp.rewards[:, -1].mean()),
+                          first=seen[0], last=last, updates=len(seen),
+                          s=time.perf_counter() - te))
+    torch.cuda.synchronize()
+    ppo_s = time.perf_counter() - t0
+    ppo_launches = dict(fa.launch_counts)
+    n_mb = -(-r["prompts"] // r["minibatch"]) * r["ppo_epochs"]
+    # a rollout: the actor's, the ref's and the critic's scoring and the
+    # reward model's; an update: the actor's and the critic's forward
+    ppo_expect = {"fa_fwd": r["iterations"] * (4 * L + n_mb * 2 * L * per),
+                  "fa_bwd_dkdv": r["iterations"] * n_mb * 2 * L,
+                  "fa_bwd_dq": r["iterations"] * n_mb * 2 * L}
+    finite = all(math.isfinite(v) for m in rm_metrics for v in m.values()) and all(
+        math.isfinite(v) for it in iters for m in (it["first"], it["last"]) for v in m.values())
+    centered = all(abs(it["first"]["approx_kl"]) <= RLHF_RATIO_TOL
+                   and it["first"]["clip_frac"] <= RLHF_RATIO_TOL for it in iters)
+    del eng, rm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the first update's loss at 2 layers: card against the CPU plain path
+    cfg2 = replace(cfg, num_layers=2)
+    e2 = RLHFEngine(cfg2, lambda t, p: (t[:, p:] % 7 == 0).mean(1).astype(np.float32), ppo,
+                    seed=1)
+    e2.make_experience(prompts)
+    mb = next(e2.buffer.minibatches(r["minibatch"], np.random.default_rng(0)))
+    with torch.no_grad():
+        card = {"actor": e2.actor_params, "critic": e2.critic_params}
+        loss_card, _ = ppo_loss(card, {k: torch.from_numpy(v).cuda() for k, v in mb.items()},
+                                r["prompt_len"], cfg=cfg2, ppo=ppo)
+        cpu = {k: copy.deepcopy(v).to("cpu") for k, v in card.items()}
+        loss_cpu, _ = ppo_loss(cpu, {k: torch.from_numpy(v) for k, v in mb.items()},
+                               r["prompt_len"], cfg=cfg2, ppo=ppo)
+    loss_card, loss_cpu = float(loss_card), float(loss_cpu)
+    del e2, card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpu_ok = abs(loss_card - loss_cpu) <= RLHF_CPU_TOL
+    ok = (finite and centered and cpu_ok and rm_launches == rm_expect
+          and ppo_launches == ppo_expect)
+    return dict(
+        ok=ok, reward_model=dict(steps=r["rm_steps"], pairs=8, seq=r["rm_len"], metrics=rm_metrics,
+                                 s=rm_s, launches=rm_launches, expected_launches=rm_expect),
+        ppo=dict(prompts=r["prompts"], prompt_len=r["prompt_len"], max_new_tokens=r["max_new"],
+                 temperature=r["temperature"], top_k=r["top_k"], iterations=iters, s=ppo_s,
+                 scored_lengths=[r["prompt_len"] + r["max_new"] - 1,
+                                 r["prompt_len"] + r["max_new"]],
+                 launches=ppo_launches, expected_launches=ppo_expect),
+        finite=finite, ratio_centered=centered, ratio_tol=RLHF_RATIO_TOL,
+        first_update_loss_2_layers=dict(card=loss_card, cpu_plain=loss_cpu, tol=RLHF_CPU_TOL,
+                                        ok=cpu_ok),
+    )
+
+
+def run_serve_phase(torch, fa, qo):
+    """``--phase serve``: the ragged attention checks, the full run's
+    serving and RLHF paths, co-located serving beside ``ElasticTrainer``,
+    the dedicated Llama-2-7B serving and the settle check's planted
+    fault."""
+    ragged_attention_checks(torch, fa)
+    run_serve(torch, fa)
+    run_colocated(torch, fa, qo)
+    run_serve_7b(torch)
+    # the planted fault of the serve line's settle check, last (a failed
+    # capture may leave the process's card state behind it): a bare
+    # card-wide synchronize while a capture is open; no gate
+    emit("capture_vs_bare_sync", **capture_vs_settle(torch, locked=False))
+
+
+def run_colocated(torch, fa, qo):
+    """gpt2_small under ``ElasticTrainer`` as the slice (8 x 1024,
+    ``adamw_8bit_flat``, the world-1 strategy) with a Flash Checkpoint
+    memory save every ``COLOC_SAVE_EVERY`` steps to a saver of this
+    process, ``COLOC_STEPS`` steps alone and again with a
+    ``ServingEngine`` thread (``soak="idle_gaps"``) following the
+    trainer's commits and serving between steps. Gates: the trainer's
+    losses bitwise equal, at least 2 swaps with the weight step going up,
+    each batch under one weight step, ``serving_soak`` above 0 in the
+    trainer's ledger, tokens served. Printed beside the JAX bench's
+    gates, without a gate: step medians, tokens/s, forced batches, swap
+    ms, staleness, goodput with and without serving."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.ckpt.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.ckpt.shm_handler import ShmSubscriber, shard_shm_name
+    from dlrover_tpu_torch.common.multi_process import attach_shared_memory
+    from dlrover_tpu_torch.models import gpt2_small
+    from dlrover_tpu_torch.models.transformer import Transformer
+    from dlrover_tpu_torch.serve import ServingConfig, ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = gpt2_small()
+    data = RandomTokens(seq=COLOC_SEQ)
+    runs = {}
+    c = COLOC_SERVING
+    toks, plens = prompt_queue(c["n"], c["lens"], cfg.vocab_size, seed=1)
+    batches, errors, stats = [], [], {}
+
+    def ledger(trainer):
+        rep = trainer._goodput.snapshot()
+        return {"goodput_pct": rep.goodput_pct, "serving_soak_s": rep.seconds.get("serving_soak", 0.0),
+                "productive_compute_s": rep.seconds.get("productive_compute", 0.0)}
+
+    def one_run(label, serve):
+        """One trainer run with a saver of this process, under a job
+        and a checkpoint dir of its own (nothing to restore from)."""
+        env = _Env(f"coloc{label}")
+        ckpt = tempfile.mkdtemp(prefix="coloc_")
+        AsyncCheckpointSaver.reset()
+        saver = AsyncCheckpointSaver.start_async_saving_ckpt(local_shard_num=1)
+        saver._persisted_step = 10 ** 9  # every save stays in shm: nothing to disk
+        # a synchronous memory save: the chunked stage drains a 0.75 GB
+        # state at its 5 ms a step over ~10 steps, so at a save every 2
+        # steps a commit is followed at once by the next save's open
+        # generation, and no frame stays published between steps
+        tcfg = dict(ckpt_dir=ckpt, save_memory_interval=COLOC_SAVE_EVERY,
+                    save_storage_interval=10 ** 9, chunked_staging=False)
+        try:
+            # both runs stamp a step when the trainer's stream is done:
+            # a device-wide synchronize would book the serving thread's
+            # work to the trainer's steps
+            if not serve:
+                return _trainer_run(torch, fa, qo, cfg, "adamw_8bit_flat", COLOC_STEPS, data,
+                                    COLOC_BATCH, strategy=picked_strategy(cfg), tcfg=tcfg,
+                                    inspect=ledger, device_sync=False)
+            stop = threading.Event()
+            sub = ShmSubscriber(0)
+            eng = ServingEngine(cfg, sub, Transformer(cfg, device="cuda"),
+                                ServingConfig(max_new_tokens=c["max_new"], slots=c["slots"],
+                                              soak="idle_gaps"), param_prefix="train/params/")
+            prompts, lens = torch.from_numpy(toks).cuda(), torch.from_numpy(plens).cuda()
+
+            def loop():
+                # follow the trainer's commits: before each batch try for
+                # a newer frame until one lands or COLOC_SWAP_WAIT_S
+                # passes (a save opens the next generation ~2 steps after
+                # a commit, and a poll can meet it mid-write)
+                try:
+                    while not stop.is_set():
+                        deadline = time.monotonic() + COLOC_SWAP_WAIT_S
+                        while (not eng.try_swap() and time.monotonic() < deadline
+                               and not stop.is_set()):
+                            time.sleep(0.003)
+                        if eng.params is None:
+                            continue
+                        w0, g0 = eng.weight_step, eng.weight_generation
+                        stale = eng.staleness_steps()
+                        st = {}
+                        tb = time.perf_counter()
+                        out = eng.serve_batch(prompts, lens, stats=st)
+                        batches.append(dict(weight_step=w0, same_weights=eng.weight_step == w0
+                                            and eng.weight_generation == g0, staleness=stale,
+                                            new_tokens=int((out[2].long() - lens).sum()),
+                                            s=time.perf_counter() - tb,
+                                            iterations=st["iterations"]))
+                except BaseException as e:  # noqa: BLE001 - reported by the phase
+                    errors.append(repr(e))
+
+            th = threading.Thread(target=loop, name="serving")
+
+            def finish(trainer):
+                stop.set()  # the batch in flight ends and is booked first
+                th.join(300)
+                return dict(ledger(trainer), thread_alive=th.is_alive())
+
+            try:
+                return _trainer_run(torch, fa, qo, cfg, "adamw_8bit_flat", COLOC_STEPS, data,
+                                    COLOC_BATCH, strategy=picked_strategy(cfg), tcfg=tcfg,
+                                    prepare=lambda trainer: th.start(), inspect=finish,
+                                    device_sync=False)
+            finally:
+                stop.set()
+                th.join(300)
+                stats.update(eng.stats())
+                del eng
+                sub.close()
+        finally:
+            AsyncCheckpointSaver.reset()
+            # the saver leaves its segment for a restart to read: this
+            # run's job is over
+            seg = attach_shared_memory(shard_shm_name(0))
+            if seg is not None:
+                seg.close()
+                seg.unlink()
+            env.close()
+            shutil.rmtree(ckpt, ignore_errors=True)
+
+    runs["alone"] = one_run("a", False)
+    runs["serving"] = one_run("s", True)
+    a, s = runs["alone"], runs["serving"]
+    steps_seen = [b["weight_step"] for b in batches]
+    swaps_up = stats["swaps"] >= 2 and all(x <= y for x, y in zip(steps_seen, steps_seen[1:])) \
+        and len(set(steps_seen)) >= 2
+    served = sum(b["new_tokens"] for b in batches)
+    serve_s = sum(b["s"] for b in batches)
+    step_loss = s["median_step_ms"] / a["median_step_ms"] - 1
+    goodput_drop = a["goodput_pct"] - s["goodput_pct"]
+    ok = (not errors and not s["thread_alive"] and a["losses"] == s["losses"] and swaps_up
+          and all(b["same_weights"] for b in batches) and s["serving_soak_s"] > 0 and served > 0)
+    emit("serve_colocated", seconds=time.perf_counter() - t0, model="gpt2_small", batch=COLOC_BATCH,
+         seq=COLOC_SEQ,
+         steps=COLOC_STEPS, save_memory_every=COLOC_SAVE_EVERY, losses_bitwise=a["losses"] == s["losses"],
+         median_step_ms={"alone": a["median_step_ms"], "serving": s["median_step_ms"]},
+         step_time_lost=step_loss, jax_bench_step_loss_gate=JAX_BENCH_STEP_LOSS,
+         goodput_pct={"alone": a["goodput_pct"], "serving": s["goodput_pct"]},
+         goodput_points_lost=goodput_drop, jax_bench_goodput_gate_points=JAX_BENCH_GOODPUT_POINTS,
+         serving_soak_s=s["serving_soak_s"], batches=len(batches), served_tokens=served,
+         tokens_per_s=served / serve_s if serve_s else 0.0,
+         tokens_per_s_per_pct_step_lost=(served / serve_s / max(step_loss * 100, 1e-9)
+                                         if serve_s else 0.0),
+         forced_batches=stats["forced_batches"], swaps=stats["swaps"],
+         dropped_swaps=stats["dropped_swaps"], torn_retries=stats["torn_retries"],
+         crc_retries=stats["crc_retries"], swap_ms_last=stats["last_swap_ms"],
+         swap_bytes=stats["last_swap_bytes"], weight_steps=steps_seen,
+         staleness=[b["staleness"] for b in batches], errors=errors,
+         launches={"alone": a["launches"], "serving": s["launches"]}, ok=ok)
+    if not ok:
+        raise RuntimeError("co-located serving failed its checks")
+
+
+def run_serve_7b(torch):
+    """Llama-2-7B at full size (32 x 4096, vocab 32000, f32 params drawn
+    on the card from seed 0, bf16 activations) published through a
+    ``ShmHandler`` and swapped into a ``ServingEngine``, which serves
+    ``soak="always"``: the prompt queue greedy, then sampled. Gates: the
+    decode-vs-scoring limit on ``checked`` greedy prompts (B3 at lengths
+    up to P + N - 1, no multiple of 64) and the planted late cache on
+    them beyond it by ``DECODE_FAULT_RATIO``, every sampled token's
+    logprob finite (a token outside the top-k / top-p support reads
+    -inf)."""
+    from dlrover_tpu_torch.ckpt.shm_handler import ShmHandler, ShmSubscriber
+    from dlrover_tpu_torch.models import llama2_7b
+    from dlrover_tpu_torch.models import transformer as ttr
+    from dlrover_tpu_torch.serve import ServingConfig, ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = llama2_7b()
+    s7 = SERVE_7B
+    env = _Env("serve7b")
+    writer = sub = None
+    try:
+        model = ttr.Transformer(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
+        writer = ShmHandler(SERVE_RANK, create=True)
+        tp = time.perf_counter()
+        nbytes = publish_params(torch, writer, 1, model)
+        publish_s = time.perf_counter() - tp
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sub = ShmSubscriber(SERVE_RANK)
+        eng = ServingEngine(cfg, sub, ttr.Transformer(cfg, device="cuda"),
+                            ServingConfig(max_new_tokens=s7["max_new"], slots=s7["slots"],
+                                          soak="always"))
+        swapped = eng.try_swap()
+        toks, plens = prompt_queue(s7["n"], s7["lens"], cfg.vocab_size, seed=2)
+        prompts, lens = torch.from_numpy(toks).cuda(), torch.from_numpy(plens).cuda()
+        out = {}
+        for mode in ("greedy", "sampled"):
+            eng.serving.greedy = mode == "greedy"
+            eng.serving.temperature = s7["temperature"]
+            eng.serving.top_k = 0 if mode == "greedy" else s7["top_k"]
+            eng.serving.top_p = 1.0 if mode == "greedy" else s7["top_p"]
+            st, iter_ms = {}, []
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            torch.cuda.synchronize()
+            tb = time.perf_counter()
+            res = eng.serve_batch(prompts, lens, gen, stats=st)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - tb
+            new = int((res[2].long() - lens).sum())
+            out[mode] = dict(res=res, stats=dict(
+                batch_s=wall, iterations=st["iterations"], d2h_reads=st["d2h_reads"],
+                graphs=st["graphs"],
+                iteration_ms_median=float(statistics.median(st["read_ms"])),
+                iteration_ms_mean=wall / st["iterations"] * 1e3,
+                new_tokens=new, prefill_tokens=int(lens.sum()), decode_tokens_per_s=new / wall,
+                prefill_tokens_per_s=int(lens.sum()) / wall))
+        g, smp = out["greedy"]["res"], out["sampled"]["res"]
+        rows = list(range(s7["checked"]))
+        mean_d, max_d, n_tok, scored = decode_vs_scoring(torch, eng.params, cfg, *g, plens, rows)
+        # the planted late cache on the checked prompts, greedy
+        eng.serving.greedy, eng.serving.top_k, eng.serving.top_p = True, 0, 1.0
+        n = s7["checked"]
+        undo = late_cache_fault(ttr)
+        try:
+            bad = eng.serve_batch(prompts[:n], lens[:n])
+        finally:
+            undo()
+        f_mean, f_max, _, _ = decode_vs_scoring(torch, eng.params, cfg, *bad, plens, rows)
+        del bad
+        emitted = [smp[1][i, :int(smp[2][i] - lens[i])] for i in range(s7["n"])]
+        sampled_finite = all(bool(torch.isfinite(x).all()) for x in emitted)
+        ragged = [t for t in scored if t % 64]
+        peak = torch.cuda.max_memory_allocated()
+        stats = eng.stats()
+        ok = (swapped and max_d <= DECODE_LOGP_TOL and sampled_finite and len(ragged) > 0
+              and f_max >= DECODE_FAULT_RATIO * DECODE_LOGP_TOL)
+        emit("serve_7b", seconds=time.perf_counter() - t0, model="llama2_7b",
+             publish_bytes=nbytes, publish_s=publish_s, swap_ms=stats["last_swap_ms"],
+             swap_bytes=stats["last_swap_bytes"], prompts=s7["n"],
+             prompt_lens=[int(x) for x in plens], max_new_tokens=s7["max_new"], slots=s7["slots"],
+             kv_cache_bytes=2 * cfg.num_layers * s7["slots"] * (s7["lens"][1] + s7["max_new"])
+             * cfg.kv_heads * cfg.head_dim * 2,
+             greedy=out["greedy"]["stats"], sampled=out["sampled"]["stats"],
+             sampling=dict(temperature=s7["temperature"], top_k=s7["top_k"], top_p=s7["top_p"]),
+             decode_vs_scoring=dict(mean_abs=mean_d, max_abs=max_d, tokens=n_tok,
+                                    tol=DECODE_LOGP_TOL, scored_lengths=scored,
+                                    planted_late_cache_mean=f_mean, planted_late_cache_max=f_max,
+                                    ratio_needed=DECODE_FAULT_RATIO),
+             decode_products=ttr.decode_products("cuda"),
+             sampled_logprobs_finite=sampled_finite, peak_bytes=peak, ok=ok)
+        del eng, g, smp, out
+    finally:
+        if sub is not None:
+            sub.close()
+        if writer is not None:
+            writer.close(unlink=True)
+        env.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not ok:
+        raise RuntimeError("the 7 B serving run failed its checks")
+
+
 def build_kernels():
     """Every kernel source, built at once: one nvcc for each ``.cu`` and
     g++ for the embedding store's ``kv_store.cc``."""
@@ -6526,7 +7347,7 @@ def main() -> int:
     if "--phase" in sys.argv:  # one phase alone; the contract's lines need a full run
         phase = sys.argv[sys.argv.index("--phase") + 1]
         if phase not in ("flash_ckpt", "evict", "dp", "llama", "accel", "peak_memory", "resize",
-                         "c3", "sp", "tp", "ep", "pp", "ckpt7b", "sparse_tiers"):
+                         "c3", "sp", "tp", "ep", "pp", "ckpt7b", "sparse_tiers", "serve"):
             raise SystemExit(f"unknown phase {phase!r}")
         if phase == "sparse_tiers":  # the sparse slice beside it, for its step and ids/s
             run_sparse_full(torch, er)
@@ -6537,6 +7358,8 @@ def main() -> int:
         elif phase == "ckpt7b":
             link_calibration(torch)
             run_ckpt7b(torch)
+        elif phase == "serve":
+            run_serve_phase(torch, fa, qo)
         elif phase == "dp":
             run_dp(torch)
         elif phase == "sp":
@@ -6576,6 +7399,7 @@ def main() -> int:
     check_attention(torch, fa, "B3-B5 misaligned offsets", 2, 4, 4, 1024, 64, q_off=40,
                     k_off=72, graph=True)
     check_attention(torch, fa, "B3-B5 not causal", 2, 12, 12, 1024, 64, causal=False)
+    ragged = ragged_attention_checks(torch, fa)
     adam_res, adam_abs = check_adam8(torch, qo, gpt2_small())
     leaf_res, leaf_abs = check_adam8_leaf(torch, qo, gpt2_small())
     emb_t = check_embedding_rows(torch, er)
@@ -6591,6 +7415,7 @@ def main() -> int:
          bitwise=leaf_losses == flat_losses, ok=ok)
     if not ok:
         raise RuntimeError("adamw_8bit's losses leave adamw_8bit_flat's")
+    serve = run_serve(torch, fa)
     emb_counts = run_sparse_full(torch, er, profile="--profile" in sys.argv)
     spill_link = run_sparse_spill(torch)
     tiers_counts = run_sparse_tiers(torch, er)
@@ -6642,6 +7467,12 @@ def main() -> int:
                                 for k in ("ms", "plain_ms", "bound")},
             ep_tp_heads={k: ep["kernels3d"]["tp_heads"][k][name]
                          for k in ("ms", "plain_ms", "bound", "library_ms")},
+            # lengths no multiple of a tile (RAGGED_T): ms, bound, plain,
+            # library and error per case
+            ragged={case: d[name] for case, d in ragged.items()},
+            serve_scoring_launches=serve["scoring_launches"][name],
+            rlhf_reward_model_launches=serve["rlhf"]["reward_model"]["launches"][name],
+            rlhf_ppo_launches=serve["rlhf"]["ppo"]["launches"][name],
         ))
     src_qo, qo_tpu = "dlrover_tpu_torch/ops/quantized_optim.py", "dlrover_tpu/ops/quantized_optim.py"
     for name, replaces, res, abs_err, n in (

@@ -15,16 +15,24 @@ shm segment holds the raw tensor bytes; a ``SharedDict`` (unix-socket served
 by the agent) holds the metadata describing what is in the segment. The
 writer protocol is crash-safe: metadata is invalidated before the bytes are
 touched and re-published (with the new step) only after every buffer landed,
-so a reader can never see step-N metadata over step-M bytes. (The JAX
-package's seqlock generation and its serving subscriber wait for the
-serving port, ROADMAP A14.)
+so a reader can never see step-N metadata over step-M bytes.
+
+Publication (seqlock): alongside ``valid`` the metadata carries a
+monotonically increasing generation counter ``gen`` — odd while a save
+is open (``begin_save``), bumped to even at ``commit_save``. A
+subscriber (``ShmSubscriber``) snapshots ``gen``, maps the records
+zero-copy, verifies checksums, then re-reads ``gen``: any change means
+the writer raced the read and the frame is discarded. The writer never
+waits on readers. The meta dict's fields are the JAX package's, so a
+frame published by either package polls in the other.
 """
 
 from __future__ import annotations
 
 import os
+import time
 import zlib
-from dataclasses import asdict, dataclass
+from dataclasses import asdict, dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -40,6 +48,8 @@ from dlrover_tpu_torch.common.multi_process import (
 from dlrover_tpu_torch.ckpt.sharding import Index, ShardRecord
 
 _META_DICT_PREFIX = "ckpt_meta"
+# threads a subscriber folds a frame's crcs on (zlib releases the GIL)
+VERIFY_THREADS = 8
 _SHM_PREFIX = "dlrover_tpu_ckpt"
 SHM_ROOT = "/dev/shm"  # where Linux keeps POSIX shared memory
 
@@ -52,6 +62,16 @@ def shm_free_bytes() -> int:
     except OSError:
         return -1
     return st.f_bavail * st.f_frsize
+
+
+def _recreated(shm: SharedMemory, name: str) -> bool:
+    """True when the segment now under ``name`` is not the one ``shm``
+    maps (the writer unlinked it and made a larger one); False where the
+    host cannot tell (no ``/dev/shm`` path)."""
+    try:
+        return os.stat(os.path.join(SHM_ROOT, name.lstrip("/"))).st_ino != os.fstat(shm._fd).st_ino
+    except (OSError, AttributeError, TypeError):
+        return False
 
 
 class ShmCrcError(ValueError):
@@ -118,13 +138,33 @@ class ShmHandler:
         self._shm: Optional[SharedMemory] = None
         self._host: Optional[torch.Tensor] = None  # uint8 view of the segment
         self._registered = False
+        # writer-side cache of the published generation; lazily seeded
+        # from the meta dict so a restarted writer continues the
+        # monotonic sequence instead of rewinding subscribers
+        self._gen: Optional[int] = None
+
+    def _next_gen(self, odd: bool) -> int:
+        """Advance the seqlock generation to the next odd (save open)
+        or even (save committed) value."""
+        if self._gen is None:
+            try:
+                self._gen = int(self._meta.get("gen") or 0)
+            except Exception:
+                self._gen = 0
+        want = 1 if odd else 0
+        self._gen += 1 if self._gen % 2 != want else 2
+        return self._gen
 
     # -- writer (training process) -------------------------------------
     def begin_save(self, nbytes: int) -> None:
         """Open an incremental write: invalidate the published metadata
         (crash-safe ordering — a reader can never see new-step metadata
         over partially written bytes) and (re)size the segment. Bytes
-        then land via ``write_chunk``; ``commit_save`` publishes."""
+        then land via ``write_chunk``; ``commit_save`` publishes.
+
+        The generation goes odd in the same metadata update that clears
+        ``valid``: a subscriber that mapped the previous frame and sees
+        either signal knows the writer has started writing."""
         total = max(int(nbytes), 1)
         if self._shm is None or self._shm.size < total:
             self._drop_mapping()
@@ -143,7 +183,7 @@ class ShmHandler:
             self._shm = create_shared_memory(name, total)
             if self._shm is None:
                 raise RuntimeError(f"cannot allocate checkpoint shm {name!r}")
-        self._meta.update({"valid": False})
+        self._meta.update({"valid": False, "gen": self._next_gen(odd=True)})
 
     def host_tensor(self) -> torch.Tensor:
         """The open segment as a uint8 CPU tensor sharing its memory (the
@@ -225,7 +265,8 @@ class ShmHandler:
         self, step: int, metas: List[RecordMeta], extra: Dict
     ) -> None:
         """Publish the metadata for bytes already written — the moment
-        the checkpoint becomes visible to readers."""
+        the checkpoint becomes visible to readers (and to subscribers:
+        the generation lands in the same atomic update)."""
         self._meta.update(
             {
                 "step": step,
@@ -233,6 +274,7 @@ class ShmHandler:
                 "extra": extra,
                 "shm_name": shard_shm_name(self.local_rank),
                 "valid": True,
+                "gen": self._next_gen(odd=False),
             }
         )
 
@@ -294,7 +336,9 @@ class ShmHandler:
         ``ValueError``) naming the offending record on the first
         mismatch — the saver uses it before persisting (corrupt shm
         must not poison storage), the restore's shm proposal uses it
-        to downgrade to the storage fallback."""
+        to downgrade to the storage fallback, and the serving
+        subscriber uses the record identity to log what rotted before
+        retrying on the next commit."""
         meta = self.metadata()
         if not meta.get("valid"):
             raise LookupError("no valid checkpoint in shared memory")
@@ -302,9 +346,10 @@ class ShmHandler:
             (m["offset"] + m["nbytes"] for m in meta["records"]), default=1
         )
         shm = self._shm
-        if shm is not None and shm.size < needed:
+        if shm is not None and (shm.size < needed or _recreated(shm, meta["shm_name"])):
             # the writer outgrew and recreated the segment; our cached
-            # mapping points at the old unlinked one — reattach
+            # mapping points at the old unlinked one — reattach (also
+            # when the frame still fits the old one: its bytes are stale)
             self._drop_mapping()
             shm = self._shm = None
         if shm is None:
@@ -356,3 +401,154 @@ class ShmHandler:
             logger.info(
                 f"checkpoint shm shard {self.local_rank} unlinked"
             )
+
+
+# -- subscriber (serving process) --------------------------------------
+@dataclass
+class PublishedFrame:
+    """One committed checkpoint frame, mapped zero-copy.
+
+    ``records`` hold views INTO the shm segment — no host memcpy
+    happened to produce them. They stay valid only until the writer's
+    next ``begin_save``; consumers must either finish reading before
+    then or detect the race via ``ShmSubscriber.frame_is_current`` and
+    drop the frame."""
+
+    step: int
+    generation: int
+    records: List[ShardRecord]
+    extra: Dict = field(default_factory=dict)
+
+    def by_path(self) -> Dict[str, ShardRecord]:
+        return {r.path: r for r in self.records}
+
+
+class ShmSubscriber:
+    """Read-side follower of the shm checkpoint publication.
+
+    A serving process attaches the already-published segment
+    (``create=False`` — the trainer/agent side owns the socket servers)
+    and polls for new commits. Each successful ``poll`` returns a
+    ``PublishedFrame`` whose records are zero-copy views
+    (``load_records(copy=False)``), crc-verified, and seqlock-validated:
+    the generation is snapshotted before the bytes are read and
+    re-checked after, so a reader racing ``begin_save``→``commit_save``
+    can never hand out a torn frame — it counts a ``torn_retries`` and
+    waits for the next commit.
+
+    A crc mismatch (in-flight rot, a fault-injected bit flip) is not
+    fatal either: the offending generation is skipped and the
+    subscriber serves the previous weights until the next commit
+    (``crc_retries`` counts these). The records' crcs are recomputed on
+    ``VERIFY_THREADS`` threads (zlib releases the GIL), and a mismatch
+    is taken for rot only if the generation still stands: a writer that
+    began its next save while the bytes were read tore them, which
+    counts as a ``torn_retries`` (the JAX subscriber verifies on one
+    thread and books a tear seen by the crc as rot, skipping a sound
+    frame's generation).
+    """
+
+    def __init__(self, local_rank: int = 0, verify: bool = True):
+        self.handler = ShmHandler(local_rank, create=False)
+        self.verify = verify
+        self.frames = 0
+        self.crc_retries = 0
+        self.torn_retries = 0
+        self.last_crc_record: Optional[str] = None
+        self._last_gen = -1
+        self._skip_gen = -1
+
+    def poll(self) -> Optional[PublishedFrame]:
+        """Map the newest committed frame, or None when there is no new
+        commit / the commit is mid-write / the frame failed validation.
+
+        Fault point ``serve.subscribe``: an armed io_error makes the
+        subscribe attempt itself fail (caller retries next poll).
+        Fault point ``serve.stale_read``: sits between the zero-copy
+        map and the seqlock re-check — an armed delay widens exactly
+        the window a concurrent commit must hit to tear the frame,
+        which is how a run provokes the race deterministically."""
+        faults.fire("serve.subscribe")
+        meta = self.handler.metadata()
+        gen = meta.get("gen")
+        if not meta.get("valid") or gen is None or int(gen) % 2:
+            return None
+        gen = int(gen)
+        if gen == self._last_gen or gen == self._skip_gen:
+            return None
+        try:
+            step, records, extra = self.handler.load_records(copy=False)
+        except LookupError:
+            return None
+        bad = self._first_bad_crc(records, meta.get("records", [])) if self.verify else None
+        if bad is not None:
+            if self.handler.metadata().get("gen") != gen:
+                self.torn_retries += 1  # the next save began under the read
+                return None
+            # skip this generation; the next commit overwrites the rot
+            e = ShmCrcError(*bad)
+            self._skip_gen = gen
+            self.crc_retries += 1
+            self.last_crc_record = e.record
+            logger.warning(
+                f"subscriber: gen {gen} failed crc on {e.record!r} "
+                f"(record {e.index}); retrying on next commit"
+            )
+            return None
+        faults.fire("serve.stale_read")
+        now_gen = self.handler.metadata().get("gen")
+        if now_gen != gen:
+            # writer raced us: the views may mix old and new bytes
+            self.torn_retries += 1
+            return None
+        self._last_gen = gen
+        self.frames += 1
+        return PublishedFrame(
+            step=int(step), generation=gen, records=records, extra=extra
+        )
+
+    def _first_bad_crc(self, records, metas) -> Optional[Tuple[str, int, int, int]]:
+        """(path, index, want, got) of the first record (in order) whose
+        recomputed crc32 differs from the published one, or None."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        def check(i):
+            want = metas[i].get("crc32") if i < len(metas) else None
+            if want is None:
+                return None
+            got = zlib.crc32(records[i].data.reshape(-1).view(np.uint8))
+            return None if got == want else (records[i].path, i, want, got)
+
+        with ThreadPoolExecutor(VERIFY_THREADS) as pool:
+            for bad in pool.map(check, range(len(records))):
+                if bad is not None:
+                    return bad
+        return None
+
+    def wait_for_commit(
+        self, timeout: float = 10.0, interval: float = 0.01
+    ) -> Optional[PublishedFrame]:
+        """Poll until a new frame lands or ``timeout`` expires."""
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                frame = self.poll()
+            except (OSError, RuntimeError):
+                frame = None  # meta dict not served yet; keep waiting
+            if frame is not None:
+                return frame
+            if time.monotonic() >= deadline:
+                return None
+            time.sleep(interval)
+
+    def frame_is_current(self, frame: PublishedFrame) -> bool:
+        """True while the frame's generation is still the published one
+        — consumers re-check AFTER copying off the views (e.g. after a
+        host→device transfer) to rule out a tear during the copy."""
+        try:
+            return self.handler.metadata().get("gen") == frame.generation
+        except Exception:
+            return False
+
+    def close(self) -> None:
+        self.handler.close()

@@ -87,6 +87,10 @@ FAULT_SITES = frozenset(
         "embedding.import",  # embedding ckpt read leg (restore)
         "transfer.stripe",  # one striped chunk move on a rail (the
         # multi-rail scheduler's per-chunk grant + mover)
+        "serve.subscribe",  # subscriber's poll of the shm publication
+        "serve.swap",  # serving engine adopting a newer weight frame
+        "serve.stale_read",  # between zero-copy map and the seqlock
+        # re-check (delay widens the torn-read window)
     }
 )
 

@@ -35,7 +35,9 @@ Optimizer state maps form for form: ``Adam8FlatState`` to
 ``AGDState`` to ``ops/optimizers.agd``, optax's Adam to
 ``torch.optim.AdamW``, optax's momentum trace to ``torch.optim.SGD``'s
 buffers. Params and state convert in either layer layout (a list of
-layers, or ``scan_layers``'s stacked leaves).
+layers, or ``scan_layers``'s stacked leaves). The RLHF critic's and
+reward model's ``{trunk, head}`` trees convert with
+``head_model_from_jax`` / ``head_model_to_numpy``.
 """
 
 from __future__ import annotations
@@ -215,6 +217,35 @@ def _nest(pairs) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         node[parts[-1]] = leaf
     return tree
+
+
+def param_state(model: Transformer) -> Dict[str, Any]:
+    """The model's parameters (detached, sharing their storage) as the
+    JAX param tree's nesting (``embed/tokens``, ``layers/0/attn/wq``; the
+    stacked leaves under ``scan_layers``): the restore target whose
+    record paths are a published params tree's (``ckpt/sharding.
+    restore_state`` fills it in place)."""
+    return _nest((path, p.detach()) for path, p in _param_paths(model))
+
+
+def head_model_from_jax(np_tree: Dict[str, Any], cfg: TransformerConfig, head_name: str,
+                        device=None):
+    """The JAX ``{"trunk": params, head_name: [D]}`` tree of the RLHF
+    critic (``value_head``) or reward model (``reward_head``), numpy
+    leaves, as the port's ``rl.reward.HeadModel`` on ``device``."""
+    from dlrover_tpu_torch.rl.reward import HeadModel
+
+    if set(np_tree) != {"trunk", head_name}:
+        raise ValueError(f"expected the keys trunk and {head_name}, got {sorted(np_tree)}")
+    trunk = params_from_jax(np_tree["trunk"], cfg, device=device)
+    head = torch.from_numpy(np.asarray(np_tree[head_name], np.float32).copy())
+    return HeadModel(trunk, head.to(device), head_name)
+
+
+def head_model_to_numpy(model) -> Dict[str, Any]:
+    """Inverse of ``head_model_from_jax``."""
+    return {"trunk": params_to_numpy(model.trunk),
+            model.head_name: model.head.detach().to("cpu", torch.float32, copy=True).numpy()}
 
 
 def _by_param(model: Transformer, leaves) -> Dict[str, Any]:

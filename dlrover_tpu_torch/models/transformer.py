@@ -72,9 +72,19 @@ them (under pp x tp each stage row's tp box), and runs them through
 ``_attention_block`` / ``_mlp_block`` (over the stage's tp group),
 ``embed_tokens``, ``lm_head`` and ``token_nll``.
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: ``int8_mlp`` (A12), the KV-cache decode paths (A14). pp x sp and
-pp x ep raise the JAX package's ``ValueError``.
+Cached decoding (``init_kv_cache``, ``forward_step``,
+``forward_step_ragged``; the RLHF rollouts and the serving engine): the
+JAX decode's math with the cache written in place. ``decode_weights``
+casts every weight to the activation dtype once (a rollout or a weight
+swap, not every token: the cast is elementwise, so the bits are the
+same); the scores and probabilities keep f32 accumulation, and attend
+over the live prefix of the static cache only. A learned position table
+read past ``max_seq_len`` raises ``ValueError`` (the JAX decode clamps
+the index and decodes with wrong positions).
+
+Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
+item: ``int8_mlp`` (A12). pp x sp and pp x ep raise the JAX package's
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -759,10 +769,16 @@ def forward(
     cfg: TransformerConfig,
     mesh=None,
     gather=None,
+    return_hidden: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens [B,T] -> (logits [B,T,vocab] f32, aux): the MoE losses and
     routing stats summed over the blocks (``_zero_aux``: zeros for a
     dense model).
+
+    ``return_hidden=True`` returns the final-norm'd residual stream
+    [B,T,D] in place of the logits and skips the vocab projection (the
+    trunk of the RLHF critic and reward model, so their math can never
+    drift from the LM path).
 
     The model runs as units: the embedding (``"embed"``), each block
     (``("layer", i)``; under ``scan_layers`` all of them, ``"layers"``:
@@ -818,8 +834,11 @@ def forward(
                 aux = aux + a
             else:
                 x = out
-    logits = run("head", lambda x: lm_head(params, x, cfg, mesh), x)
-    return logits, (_unpack_aux(aux) if moe else _zero_aux(device=x.device))
+    if return_hidden:
+        out = run("head", lambda x: _norm(x, params.final_norm, cfg), x)
+    else:
+        out = run("head", lambda x: lm_head(params, x, cfg, mesh), x)
+    return out, (_unpack_aux(aux) if moe else _zero_aux(device=x.device))
 
 
 def unit_parameters(params: Transformer) -> Dict[Any, List[torch.nn.Parameter]]:
@@ -857,3 +876,245 @@ def loss_fn(
     if cfg.num_experts:
         loss = loss + MOE_AUX_WEIGHT * aux["balance"] + cfg.router_z_weight * aux["z"]
     return (loss, aux) if return_aux else loss
+
+
+# ---------------------------------------------------------------------------
+# cached autoregressive decoding (generation / RLHF rollouts / serving)
+# ---------------------------------------------------------------------------
+def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, device=None):
+    """Per-layer K/V buffers ``[L, B, kv_heads, S, head_dim]`` in the
+    activation dtype: the JAX cache ``[L, B, S, kv_heads, head_dim]``
+    with its two middle axes swapped, so that a (batch, kv head)'s keys
+    are one ``[S, head_dim]`` block for the decode's batched products.
+    Static: the decode writes into it in place."""
+    dt = _torch_dtype(cfg.dtype)
+    shape = (cfg.num_layers, batch, cfg.kv_heads, max_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def decode_weights(params: Transformer, cfg: TransformerConfig,
+                   own: bool = False) -> SimpleNamespace:
+    """Every weight the decode reads, cast to the activation dtype once
+    (the JAX decode casts inside the compiled loop, where XLA hoists the
+    cast; eager PyTorch would cast every weight at every token). Norm
+    parameters stay in their own dtype, as ``_norm`` reads them in f32;
+    MoE experts stay as they are (``moe_layer_local`` casts). Per-layer
+    entries for both layer layouts (``layer_views``). ``own``: every
+    entry a tensor of its own, copied where the cast would hand back the
+    parameter itself, so that a later write into ``params`` leaves them
+    as they were (the serving engine's swaps)."""
+    dt = _torch_dtype(cfg.dtype)
+
+    def cast(t):
+        return t.detach().to(dt, copy=own)
+
+    def keep(d):
+        return {k: v.detach().clone() for k, v in d.items()} if own else d
+
+    def cast_all(d):
+        return {k: cast(v) for k, v in d.items()}
+
+    with torch.no_grad():
+        layers = []
+        for lv in layer_views(params.layers):
+            entry = SimpleNamespace(attn_norm=keep(lv.attn_norm), mlp_norm=keep(lv.mlp_norm),
+                                    attn=cast_all(lv.attn))
+            if getattr(lv, "moe", None) is not None:
+                entry.moe = keep(lv.moe)
+            else:
+                entry.mlp = cast_all(lv.mlp)
+            layers.append(entry)
+        table = cast(params.embed["tokens"])
+        head = table.t() if cfg.tie_embeddings else cast(params.lm_head)
+        pos = None if cfg.rope else cast(params.embed["positions"])
+    return SimpleNamespace(layers=layers, embed=table, positions=pos, head=head,
+                           final_norm=keep(params.final_norm))
+
+
+def check_positions(cfg: TransformerConfig, end: int) -> None:
+    """Raise ``ValueError`` when a learned position table would be read
+    at position ``end - 1`` or later past its ``max_seq_len`` rows (RoPE
+    models have no table to run off)."""
+    if not cfg.rope and end > cfg.max_seq_len:
+        raise ValueError(
+            f"positions up to {end - 1} need {end} rows of the learned position "
+            f"table, which has max_seq_len={cfg.max_seq_len}"
+        )
+
+
+def decode_products(device) -> str:
+    """How the decode's batched products reach f32 on ``device``: on the
+    card, each product of bf16 inputs returns its f32 accumulator
+    (``bmm``'s ``out_dtype``) and P V splits P in two bf16 parts
+    (``"bf16 in, f32 out; P as hi + lo"``); elsewhere the inputs are
+    copied to f32 (``"f32 copies"``)."""
+    if torch.device(device).type == "cuda":
+        return "bf16 in, f32 out; P as hi + lo"
+    return "f32 copies"
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [N, m, k] @ b [N, k, n]`` accumulated and returned in f32, as
+    the JAX decode's ``preferred_element_type=f32``: on the card the f32
+    output of a product of the inputs' own dtype, elsewhere the product
+    of f32 copies (``decode_products``)."""
+    if a.dtype != torch.float32 and a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _probs_v_f32(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``probs [N, m, S] (f32) @ v [N, S, hd]`` in f32. On the card
+    ``probs`` is split into two parts of ``v``'s dtype (``hi = round(p)``,
+    ``lo = round(p - hi)``, p to about 16 bits) and each is one
+    f32-output product with ``v`` as it lies in the cache; elsewhere
+    ``v`` is copied to f32 (``decode_products``)."""
+    if v.dtype != torch.float32 and v.is_cuda:
+        hi = probs.to(v.dtype)
+        lo = (probs - hi.float()).to(v.dtype)
+        return _bmm_f32(hi, v) + _bmm_f32(lo, v)
+    return torch.bmm(probs, v.float())
+
+
+def _cached_decode_layer(x, lw, k_cache, v_cache, *, positions, mask, key_len, cfg, write_kv):
+    """One cached transformer block: (x, this layer's cast weights ``lw``
+    and K/V buffers ``[B, kvh, S, hd]``) -> x'. The cache is written in
+    place (``write_kv``); attention reads its live prefix, keys ``0 ..
+    key_len - 1``, under ``mask [B, t, key_len]``. The shared body of
+    ``forward_step`` and ``forward_step_ragged``: QKV, rope, the muP
+    scale, GQA attention with f32 scores and probabilities (a
+    bf16-accumulated decode would drift from the teacher-forced
+    re-scoring and bias PPO's ratios), wo and the MLP."""
+    B, t = x.shape[0], x.shape[1]
+    kvh, hd = cfg.kv_heads, cfg.head_dim
+    g = cfg.num_heads // kvh
+    h = _norm(x, lw.attn_norm, cfg)
+    q = torch.einsum("btd,dhk->bthk", h, lw.attn["wq"])
+    k = torch.einsum("btd,dhk->bthk", h, lw.attn["wk"])
+    v = torch.einsum("btd,dhk->bthk", h, lw.attn["wv"])
+    if cfg.rope:
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+    if cfg.mup_attn_scale is not None:
+        # the muP 1/d fold of _attention_block: decode scores with the
+        # training attention math
+        q = q * (cfg.mup_attn_scale * cfg.head_dim**0.5)
+    write_kv(k_cache, k)
+    write_kv(v_cache, v)
+    kk = k_cache[:, :, :key_len].reshape(B * kvh, key_len, hd)
+    vv = v_cache[:, :, :key_len].reshape(B * kvh, key_len, hd)
+    # GQA: a kv head's query heads fold next to it, rows (head, token)
+    qg = q.reshape(B, t, kvh, g, hd).permute(0, 2, 3, 1, 4).reshape(B * kvh, g * t, hd)
+    scores = _bmm_f32(qg, kk.transpose(1, 2)) * (hd**-0.5)
+    scores = scores.view(B, kvh, g, t, key_len)
+    scores = torch.where(mask[:, None, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).view(B * kvh, g * t, key_len)
+    o = _probs_v_f32(probs, vv).to(x.dtype)
+    o = o.view(B, kvh, g, t, hd).permute(0, 3, 1, 2, 4).reshape(B, t, cfg.num_heads, hd)
+    x = x + torch.einsum("bthk,hkd->btd", o, lw.attn["wo"])
+    out = _mlp_block(x, lw, cfg, None)
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _run_cached_layers(x, weights, cache, cfg, decode_layer):
+    """Drive ``decode_layer`` over every layer's cast weights and its
+    slice of the cache (both layer layouts: ``decode_weights`` holds
+    per-layer entries either way)."""
+    for i, lw in enumerate(weights.layers):
+        x = decode_layer(x, lw, cache["k"][i], cache["v"][i])
+    return x
+
+
+def _decode_head(weights, x, cfg: TransformerConfig) -> torch.Tensor:
+    """``lm_head`` on the cast weights: final norm, vocab projection,
+    logits f32."""
+    x = _norm(x, weights.final_norm, cfg)
+    logits = (x @ weights.head).float()
+    if cfg.mup_output_mult != 1.0:
+        logits = logits * cfg.mup_output_mult
+    return logits
+
+
+@torch.no_grad()
+def forward_step(
+    params: Transformer,
+    tokens: torch.Tensor,
+    cfg: TransformerConfig,
+    cache,
+    cur_len: int,
+    weights: Optional[SimpleNamespace] = None,
+) -> torch.Tensor:
+    """Cached forward: ``tokens [B, t]`` occupy positions ``cur_len ..
+    cur_len + t - 1`` (t > 1: a prefill chunk, t = 1: a decode step).
+    Returns logits ``[B, t, vocab]`` f32; the cache is written in place
+    (the JAX function returns a new cache). ``weights``: the
+    ``decode_weights`` of ``params`` (cast here when not given).
+    Positions past the cache or past a learned table raise
+    ``ValueError``."""
+    B, t = tokens.shape
+    end = int(cur_len) + t
+    if end > cache["k"].shape[3]:
+        raise ValueError(f"positions up to {end - 1} past the cache's {cache['k'].shape[3]}")
+    check_positions(cfg, end)
+    w = decode_weights(params, cfg) if weights is None else weights
+    x = w.embed[tokens]
+    positions = (cur_len + torch.arange(t, device=tokens.device)).expand(B, t)
+    if w.positions is not None:
+        x = x + w.positions[cur_len:end][None]
+    # a query at cur_len + i sees keys 0 .. cur_len + i
+    mask = torch.arange(end, device=tokens.device)[None, None, :] <= positions[:, :, None]
+
+    def write_kv(c, val):
+        c[:, :, cur_len:end] = val.transpose(1, 2).to(c.dtype)
+
+    def decode_layer(x, lw, kc, vc):
+        return _cached_decode_layer(x, lw, kc, vc, positions=positions, mask=mask,
+                                    key_len=end, cfg=cfg, write_kv=write_kv)
+
+    x = _run_cached_layers(x, w, cache, cfg, decode_layer)
+    return _decode_head(w, x, cfg)
+
+
+@torch.no_grad()
+def forward_step_ragged(
+    params: Transformer,
+    tokens: torch.Tensor,
+    cfg: TransformerConfig,
+    cache,
+    cur_lens: torch.Tensor,
+    weights: Optional[SimpleNamespace] = None,
+    key_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Per-slot decode step: slot ``s``'s one token (``tokens [S]``)
+    occupies position ``cur_lens[s]`` of its sequence, the continuous
+    batcher's slots sitting at different depths. Returns logits ``[S,
+    vocab]`` f32 and writes the cache in place (a per-slot scatter).
+    ``key_len``: a bound on every slot's ``cur_lens + 1`` known to the
+    caller (default the cache's length): attention reads that prefix.
+    Stale cache entries from a slot's previous occupant need no clearing:
+    position ``i`` is rewritten before any later query attends to it. The
+    caller keeps ``cur_lens`` inside a learned position table
+    (``check_positions``): reading it here would cost a device read."""
+    S_slots = tokens.shape[0]
+    T = cache["k"].shape[3]
+    key_len = T if key_len is None else min(int(key_len), T)
+    w = decode_weights(params, cfg) if weights is None else weights
+    slot_ix = torch.arange(S_slots, device=tokens.device)
+    cur = cur_lens.long()
+    x = w.embed[tokens][:, None]
+    positions = cur[:, None]
+    if w.positions is not None:
+        x = x + w.positions[cur][:, None]
+    mask = torch.arange(key_len, device=tokens.device)[None, None, :] <= positions[:, :, None]
+
+    def write_kv(c, val):
+        # per-slot scatter: cache[s, :, cur[s]] = val[s, 0]
+        c[slot_ix, :, cur] = val[:, 0].to(c.dtype)
+
+    def decode_layer(x, lw, kc, vc):
+        return _cached_decode_layer(x, lw, kc, vc, positions=positions, mask=mask,
+                                    key_len=key_len, cfg=cfg, write_kv=write_kv)
+
+    x = _run_cached_layers(x, w, cache, cfg, decode_layer)
+    return _decode_head(w, x, cfg)[:, 0]

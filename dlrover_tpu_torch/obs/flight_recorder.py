@@ -399,10 +399,12 @@ class ProfilerCapture:
             try:
                 import torch
 
+                from dlrover_tpu_torch.common import cuda_sync
+
                 if torch.cuda.is_available():
                     # the last step's kernels are still queued: the
                     # trace must hold them
-                    torch.cuda.synchronize()
+                    cuda_sync.synchronize()
                 prof.stop()
                 prof.export_chrome_trace(os.path.join(out, "trace.json"))
             except Exception as e:

@@ -62,6 +62,16 @@
 // ring). Without intervals the causal or unmasked code is compiled as
 // before (a separate instantiation).
 //
+// Any lengths Tq, Tk >= 1 (the Pallas kernels' jnp path takes what their
+// 8-row tiles do not): the grids round up, the tensor maps read rows past
+// T as zeros, and the last tiles are masked. A key column at or past Tk is
+// masked in the forward and in dq as a crossed tile (the causal or
+// interval test and `c < Tk` fold into one bound a row); in dk/dv query
+// rows past Tq carry lse = NEG_INF (so p = 0) and key rows past Tk are
+// never stored. o, lse, dq, dk and dv are stored only below their lengths.
+// The per-row tables the backward reads (lse, delta, an interval's lo and
+// hi) come padded to whole 64-row tiles, Tqp = ceil(Tq / 64) * 64 rows.
+//
 // Numerics follow the Pallas kernels: NEG_INF = -1e30 is finite, rows
 // with no visible key give o = 0 and lse = NEG_INF, p and ds are rounded
 // to bf16 before each product that consumes them, and in the backward
@@ -287,14 +297,15 @@ __device__ __forceinline__ void product_pb(float (&acc)[D / 2], const uint32_t (
 
 // A warpgroup's 64 x D accumulator (wgmma layout: lane l of warp w holds
 // rows 16w + l/4 and +8, column pairs 8j + 2(l%4)), its two rows scaled,
-// to bf16 rows of D at `dst`. Each warp stages its 16 rows in shared
-// memory (sub-tiles of [ROWS x 64] bf16 under the 128-byte swizzle, the
-// warpgroup's rows starting at `row0`, a multiple of 8) and writes them
-// out 16 bytes a lane, neighbouring lanes on neighbouring addresses.
+// to bf16 rows of D at `dst`, the first `nrows` of them. Each warp stages
+// its 16 rows in shared memory (sub-tiles of [ROWS x 64] bf16 under the
+// 128-byte swizzle, the warpgroup's rows starting at `row0`, a multiple of
+// 8) and writes them out 16 bytes a lane, neighbouring lanes on
+// neighbouring addresses.
 template <int D, int ROWS>
 __device__ __forceinline__ void store_tile_bf16(uint8_t* tile, int row0, const float (&acc)[D / 2],
                                                 float sc0, float sc1, bf16* __restrict__ dst,
-                                                int warp, int lane) {
+                                                int nrows, int warp, int lane) {
   const int g = lane >> 2, t = lane & 3;
   uint8_t* wrow = tile + (row0 + 16 * warp) * 128;
 #pragma unroll
@@ -311,22 +322,25 @@ __device__ __forceinline__ void store_tile_bf16(uint8_t* tile, int row0, const f
     const int r = idx / CPR, c = idx % CPR;
     const uint4 val = *reinterpret_cast<const uint4*>(
         wrow + (c / 8) * ROWS * 128 + r * 128 + (((c % 8) ^ (r % 8)) << 4));
-    *reinterpret_cast<uint4*>(dst + (size_t)(16 * warp + r) * D + c * 8) = val;
+    if (16 * warp + r < nrows)
+      *reinterpret_cast<uint4*>(dst + (size_t)(16 * warp + r) * D + c * 8) = val;
   }
   __syncwarp();
 }
 
 // the same tile in f32, straight from registers: a quad writes 32
-// contiguous bytes of a row
+// contiguous bytes of a row (the first `nrows` rows)
 template <int D>
 __device__ __forceinline__ void store_tile_f32(const float (&acc)[D / 2], float* __restrict__ dst,
-                                               int warp, int lane) {
+                                               int nrows, int warp, int lane) {
   const int g = lane >> 2, t = lane & 3;
+  const bool w0 = 16 * warp + g < nrows, w1 = 16 * warp + g + 8 < nrows;
   float* r0 = dst + (size_t)(16 * warp + g) * D + 2 * t;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    *reinterpret_cast<float2*>(r0 + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<float2*>(r0 + 8 * D + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    if (w0) *reinterpret_cast<float2*>(r0 + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (w1)
+      *reinterpret_cast<float2*>(r0 + 8 * D + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
@@ -347,10 +361,10 @@ struct FwdBlock {
     // late query tiles see the most keys: they go first
     q0 = ((causal || IV) ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.y) * FWD_BM;
     j0 = 0;
-    nk = Tk / FWD_BN;
+    nk = (Tk + FWD_BN - 1) / FWD_BN;
     if constexpr (IV) {
       // the key tiles between the block's least lo and greatest hi
-      const int* st = qstat + ((size_t)(iv_b ? bh / H : 0) * (Tq / 64) + q0 / 64) * 4;
+      const int* st = qstat + ((size_t)(iv_b ? bh / H : 0) * ((Tq + 63) / 64) + q0 / 64) * 4;
       int lo = st[0], hi = st[3];
       if (q0 + 64 < Tq) {
         lo = min(lo, st[4]);
@@ -367,22 +381,26 @@ struct FwdBlock {
 
 // a warpgroup's view of its 64 query rows under intervals: the tile's
 // table entry (min lo, max lo, min hi, max hi) and, per thread, the lo and
-// hi of its rows g and g + 8 relative to key 0 of the call
+// hi of its rows g and g + 8 relative to key 0 of the call. Every hi is cut
+// at Tk, so the tile holding key Tk counts as crossed and its columns past
+// Tk fail the row test.
 struct RowIntervals {
   int lo_min, lo_max, hi_min, hi_max, lo0, hi0, lo1, hi1;
   __device__ __forceinline__ void load(const int* lo, const int* hi, const int* qstat, int bh,
-                                       int H, int Tq, int row0, int row, int k_off, int iv_b) {
+                                       int H, int Tq, int Tk, int row0, int row, int k_off,
+                                       int iv_b) {
+    const int nqt = (Tq + 63) / 64;
     const size_t b = iv_b ? (size_t)(bh / H) : 0;
-    const int* st = qstat + (b * (Tq / 64) + row0 / 64) * 4;
+    const int* st = qstat + (b * nqt + row0 / 64) * 4;
     lo_min = st[0] - k_off;
     lo_max = st[1] - k_off;
-    hi_min = st[2] - k_off;
-    hi_max = st[3] - k_off;
-    const size_t r = b * Tq + row;
+    hi_min = min(st[2] - k_off, Tk);
+    hi_max = min(st[3] - k_off, Tk);
+    const size_t r = b * nqt * 64 + row;
     lo0 = lo[r] - k_off;
-    hi0 = hi[r] - k_off;
+    hi0 = min(hi[r] - k_off, Tk);
     lo1 = lo[r + 8] - k_off;
-    hi1 = hi[r + 8] - k_off;
+    hi1 = min(hi[r + 8] - k_off, Tk);
   }
   // key tile [c0, c0 + 64) of the call: any pair visible / every pair visible
   __device__ __forceinline__ bool any(int c0) const { return c0 + 64 > lo_min && c0 < hi_max; }
@@ -457,14 +475,18 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     const int qw0 = q0 + 64 * wg;        // first row of this warpgroup
     const int qpos = q_off + qw0 - k_off;  // its position relative to key 0
     // tiles this warpgroup sees at all, and those it sees without a mask
+    // (a last tile holding key Tk is masked)
     int nk_wg = qw0 < Tq ? nk : 0, n_full = nk_wg;
     RowIntervals iv;
     if constexpr (IV) {
       if (qw0 < Tq)
-        iv.load(iv_lo, iv_hi, qstat, bh, H, Tq, qw0, qw0 + 16 * warp + g, k_off, iv_b);
-    } else if (causal && nk_wg > 0) {
-      nk_wg = qpos + 63 < 0 ? 0 : min(nk, (qpos + 63) / FWD_BN + 1);
-      n_full = min(nk_wg, max(0, floordiv(qpos - FWD_BN + 1, FWD_BN) + 1));
+        iv.load(iv_lo, iv_hi, qstat, bh, H, Tq, Tk, qw0, qw0 + 16 * warp + g, k_off, iv_b);
+    } else {
+      if (causal && nk_wg > 0) {
+        nk_wg = qpos + 63 < 0 ? 0 : min(nk, (qpos + 63) / FWD_BN + 1);
+        n_full = min(nk_wg, max(0, floordiv(qpos - FWD_BN + 1, FWD_BN) + 1));
+      }
+      n_full = min(n_full, Tk / FWD_BN);
     }
 
     float oacc[D / 2];
@@ -507,11 +529,16 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
               if (c < ((i & 2) ? a1 : a0) || c >= ((i & 2) ? b1 : b0)) s[i] = NEG_INF;
             }
           } else {
-            const int d0 = qpos + 16 * warp + g - j * FWD_BN - 2 * t;  // row g; row g + 8: d0 + 8
+            // column c of this thread is visible to row g iff c <= lim0
+            // (row g + 8: lim1): the causal diagonal, and key Tk - 1
+            const int kend = Tk - 1 - j * FWD_BN - 2 * t;
+            const int d0 = qpos + 16 * warp + g - j * FWD_BN - 2 * t;
+            const int lim0 = causal ? min(d0, kend) : kend;
+            const int lim1 = causal ? min(d0 + 8, kend) : kend;
 #pragma unroll
             for (int i = 0; i < 32; ++i) {
               const int c = 8 * (i / 4) + (i & 1);
-              if (d0 + ((i & 2) ? 8 : 0) < c) s[i] = NEG_INF;
+              if (c > ((i & 2) ? lim1 : lim0)) s[i] = NEG_INF;
             }
           }
         }
@@ -570,14 +597,15 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
       const size_t row_base = (size_t)bh * Tq + qw0;
+      const int nrows = Tq - qw0, r0 = 16 * warp + g;
       if (t == 0) {
-        float* lrow = lse + row_base + 16 * warp + g;
-        lrow[0] = l0 > 0.f ? m0 * LN2 + logf(l0) : NEG_INF;
-        lrow[8] = l1 > 0.f ? m1 * LN2 + logf(l1) : NEG_INF;
+        float* lrow = lse + row_base + r0;
+        if (r0 < nrows) lrow[0] = l0 > 0.f ? m0 * LN2 + logf(l0) : NEG_INF;
+        if (r0 + 8 < nrows) lrow[8] = l1 > 0.f ? m1 * LN2 + logf(l1) : NEG_INF;
       }
       // Q's rows of this warpgroup are read by no one else any more
       store_tile_bf16<D, FWD_BM>(gQ, 64 * wg, oacc, l0 > 0.f ? 1.f / l0 : 1.f,
-                                 l1 > 0.f ? 1.f / l1 : 1.f, o + row_base * D, warp, lane);
+                                 l1 > 0.f ? 1.f / l1 : 1.f, o + row_base * D, nrows, warp, lane);
     }
   }
 }
@@ -597,7 +625,7 @@ struct DkvBlock {
     bh = blockIdx.x;
     kv_bh = (bh / H) * Hkv + (bh % H) / (H / Hkv);
     k0 = blockIdx.y * DKV_BN;  // early key tiles see the most queries: they go first
-    const int nq = Tq / DKV_BM;
+    const int nq = (Tq + DKV_BM - 1) / DKV_BM;
     if constexpr (IV) {
       // the first and past-the-last query tile with a pair visible to
       // this block's keys (from the tables)
@@ -667,9 +695,11 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
         tma_load(sK + s * KV_SUB, &map_k, bar_kv, s * 64, k0, blk.kv_bh);
         tma_load(sV + s * KV_SUB, &map_v, bar_kv, s * 64, k0, blk.kv_bh);
       }
-      const float* lse_g = lse + (size_t)bh * Tq;
-      const float* delta_g = delta + (size_t)bh * Tq;
-      const size_t iv_row = IV ? (iv_b ? (size_t)(bh / H) : 0) * Tq : 0;
+      // the row tables are padded to whole query tiles (Tqp rows)
+      const size_t Tqp = (size_t)(Tq + DKV_BM - 1) / DKV_BM * DKV_BM;
+      const float* lse_g = lse + (size_t)bh * Tqp;
+      const float* delta_g = delta + (size_t)bh * Tqp;
+      const size_t iv_row = IV ? (iv_b ? (size_t)(bh / H) : 0) * Tqp : 0;
       for (int it = 0; it < n_it; ++it) {
         const int st = it % DKV_STAGES, q0 = (i_start + it) * DKV_BM;
         mbar_wait(bar_empty + 8 * st, ((it / DKV_STAGES) & 1) ^ 1);
@@ -708,7 +738,7 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     // under intervals: the first query tile of this batch row in the
     // tables (an int, not a pointer: dk/dv at head_dim 128 has no
     // register to spare)
-    const int qst_row = IV ? (iv_b ? bh / H : 0) * (Tq / DKV_BM) : 0;
+    const int qst_row = IV ? (iv_b ? bh / H : 0) * ((Tq + DKV_BM - 1) / DKV_BM) : 0;
 
     float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
@@ -817,14 +847,16 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
 
     if (valid) {
       const size_t out = ((size_t)bh * Tk + kw0) * D;
+      const int nrows = Tk - kw0;  // key rows past Tk are never stored
       if constexpr (sizeof(OutT) == 2) {
         // this warpgroup's rows of K, then of V, are read by no one else
-        store_tile_bf16<D, DKV_BN>(gK, 64 * wg, dk_acc, 1.f, 1.f, (bf16*)dk + out, warp, lane);
+        store_tile_bf16<D, DKV_BN>(gK, 64 * wg, dk_acc, 1.f, 1.f, (bf16*)dk + out, nrows, warp,
+                                   lane);
         store_tile_bf16<D, DKV_BN>(gK + KV_BYTES, 64 * wg, dv_acc, 1.f, 1.f, (bf16*)dv + out,
-                                   warp, lane);
+                                   nrows, warp, lane);
       } else {
-        store_tile_f32<D>(dk_acc, (float*)dk + out, warp, lane);
-        store_tile_f32<D>(dv_acc, (float*)dv + out, warp, lane);
+        store_tile_f32<D>(dk_acc, (float*)dk + out, nrows, warp, lane);
+        store_tile_f32<D>(dv_acc, (float*)dv + out, nrows, warp, lane);
       }
     }
   }
@@ -914,17 +946,21 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     RowIntervals iv;
     if constexpr (IV) {
       if (qw0 < Tq)
-        iv.load(iv_lo, iv_hi, qstat, bh, H, Tq, qw0, qw0 + 16 * warp + g, k_off, iv_b);
-    } else if (causal && nk_wg > 0) {
-      nk_wg = qpos + 63 < 0 ? 0 : min(nk, (qpos + 63) / FWD_BN + 1);
-      n_full = min(nk_wg, max(0, floordiv(qpos - FWD_BN + 1, FWD_BN) + 1));
+        iv.load(iv_lo, iv_hi, qstat, bh, H, Tq, Tk, qw0, qw0 + 16 * warp + g, k_off, iv_b);
+    } else {
+      if (causal && nk_wg > 0) {
+        nk_wg = qpos + 63 < 0 ? 0 : min(nk, (qpos + 63) / FWD_BN + 1);
+        n_full = min(nk_wg, max(0, floordiv(qpos - FWD_BN + 1, FWD_BN) + 1));
+      }
+      n_full = min(n_full, Tk / FWD_BN);
     }
     // this lane's rows g and g + 8: lse in the exp2 domain and delta, read
-    // once. A row with no visible key (lse == NEG_INF) takes lse = 1e30,
-    // so that p = exp2(s - 1e30) = 0 there without a test per element.
+    // once (from the tables padded to Tqp rows). A row with no visible key
+    // (lse == NEG_INF) takes lse = 1e30, so that p = exp2(s - 1e30) = 0
+    // there without a test per element.
     float lq0 = 0.f, lq1 = 0.f, dl0 = 0.f, dl1 = 0.f;
     if (qw0 < Tq) {
-      const size_t r = (size_t)bh * Tq + qw0 + 16 * warp + g;
+      const size_t r = (size_t)bh * ((Tq + 63) / 64 * 64) + qw0 + 16 * warp + g;
       const float l0 = lse[r], l1 = lse[r + 8];
       lq0 = l0 > NEG_INF * 0.5f ? l0 * LOG2E : -NEG_INF;
       lq1 = l1 > NEG_INF * 0.5f ? l1 * LOG2E : -NEG_INF;
@@ -962,10 +998,14 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
 
         // p = exp(s scale - lse), 0 where the pair is masked; ds = p (dp -
         // delta) scale, rounded to bf16 for its product, eight columns at
-        // a time. Key column c is visible to row g iff c <= d0 (row g + 8:
-        // d0 + 8); the mask is tested only on tiles the diagonal crosses.
-        // Under intervals column c is visible to row g iff a0 <= c < b0.
+        // a time. Key column c is visible to row g iff c <= lim0 (row g +
+        // 8: lim1), the causal diagonal and key Tk - 1; the mask is tested
+        // only on tiles the diagonal or Tk crosses. Under intervals column
+        // c is visible to row g iff a0 <= c < b0.
+        const int kend = Tk - 1 - j * FWD_BN - 2 * t;
         const int d0 = qpos + 16 * warp + g - j * FWD_BN - 2 * t;
+        const int lim0 = causal ? min(d0, kend) : kend;
+        const int lim1 = causal ? min(d0 + 8, kend) : kend;
         const int base = j * FWD_BN + 2 * t;
         const int a0 = IV ? iv.lo0 - base : 0, b0 = IV ? iv.hi0 - base : 0;
         const int a1 = IV ? iv.lo1 - base : 0, b1 = IV ? iv.hi1 - base : 0;
@@ -981,7 +1021,7 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
             if constexpr (IV) {
               if (masked && (c < (hi ? a1 : a0) || c >= (hi ? b1 : b0))) x = NEG_INF;
             } else {
-              if (masked && d0 + (hi ? 8 : 0) < c) x = NEG_INF;
+              if (masked && c > (hi ? lim1 : lim0)) x = NEG_INF;
             }
             dsv[e] = fast_exp2(x) * (dp[i + e] - (hi ? dl1 : dl0)) * scale;
           }
@@ -1001,7 +1041,7 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
 
     if (qw0 < Tq)  // Q's rows of this warpgroup are read by no one else any more
       store_tile_bf16<D, FWD_BM>(gQ, 64 * wg, dq_acc, 1.f, 1.f,
-                                 dq + ((size_t)bh * Tq + qw0) * D, warp, lane);
+                                 dq + ((size_t)bh * Tq + qw0) * D, Tq - qw0, warp, lane);
   }
 }
 

@@ -35,8 +35,13 @@ version (``flash_attention_reference`` forward, ``_bwd_plain``
 backward), with any ``mask_fn``; a CUDA tensor takes the kernels or
 raises ``NotImplementedError`` for what they do not take (a ``mask_fn``
 that is not a ``KeyIntervals``, a dtype other than bf16, head_dim other
-than 64/128, a length not a multiple of 64). Nothing falls back from
-the card to the plain path.
+than 64/128). Nothing falls back from the card to the plain path.
+
+Lengths: any ``Tq, Tk >= 1``. The kernels mask the last tile past the
+length and store nothing past it; the per-row tables the backward reads
+(lse, delta, an interval's lo / hi) go in padded to whole 64-row tiles
+(``_pad_rows``): lse with NEG_INF (so a padded row's p is 0), delta with
+0, lo / hi as rows that see nothing.
 
 ``merge_partials`` and ``flash_attention_fwd_chunked`` are the JAX
 module's online-softmax merge and its tiled long-sequence forward (each
@@ -55,7 +60,7 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30  # finite stand-in for -inf, as in the JAX package
-_TILE = 64  # lengths come in 64-row tiles: a consumer warpgroup's rows
+_TILE = 64  # a consumer warpgroup's rows; the row tables come in whole tiles
 # the tile schedule of csrc/flash_attention.cu (FWD_BM, FWD_BN, DKV_BN,
 # DKV_BM there): the forward and dq take 128 query rows a block, 64 each
 # of two consumer warpgroups, against 64-key tiles; dk/dv takes 128 keys
@@ -238,17 +243,18 @@ class KeyIntervals:
 
     def tables(self, device, q_offset: int, Tq: int, k_offset: int, Tk: int):
         """(lo, hi, qstat, kblk) of the call's rows on ``device`` (cached):
-        ``lo`` / ``hi`` ``[Bi, Tq]``; ``qstat [Bi, Tq/64, 4]`` each 64-row
-        tile's (min lo, max lo, min hi, max hi), empty rows counted as
-        ``lo = +IV_FAR``, ``hi = -IV_FAR``; ``kblk [Bi, ceil(Tk/128), 2]``
-        each 128-key block's first and past-the-last query tile with a
-        visible pair (both 0 if none)."""
+        ``lo`` / ``hi`` ``[Bi, Tqp]`` (``Tqp``: Tq rounded up to whole
+        64-row tiles, the rows past Tq seeing nothing); ``qstat [Bi,
+        Tqp/64, 4]`` each 64-row tile's (min lo, max lo, min hi, max hi),
+        empty rows counted as ``lo = +IV_FAR``, ``hi = -IV_FAR``; ``kblk
+        [Bi, ceil(Tk/128), 2]`` each 128-key block's first and
+        past-the-last query tile with a visible pair (both 0 if none)."""
         key = (str(device), q_offset, Tq, k_offset, Tk)
         hit = self._cache.get(key)
         if hit is not None:
             return hit
-        lo = self.lo[:, q_offset:q_offset + Tq]
-        hi = self.hi[:, q_offset:q_offset + Tq]
+        lo = _pad_rows(self.lo[:, q_offset:q_offset + Tq], 0)
+        hi = _pad_rows(self.hi[:, q_offset:q_offset + Tq], 0)
         empty = hi <= lo
         los = torch.where(empty, _IV_FAR, lo).view(self.batch, -1, _TILE)
         his = torch.where(empty, -_IV_FAR, hi).view(self.batch, -1, _TILE)
@@ -273,6 +279,15 @@ class KeyIntervals:
 
     def __repr__(self) -> str:
         return f"KeyIntervals({self.name}, batch={self.batch}, T={self.T})"
+
+
+def _pad_rows(t: torch.Tensor, value) -> torch.Tensor:
+    """``t [..., T]`` padded along its last dim to whole 64-row tiles
+    with ``value`` (itself when T is a multiple of 64)."""
+    pad = -t.shape[-1] % _TILE
+    if not pad:
+        return t
+    return torch.cat([t, t.new_full(t.shape[:-1] + (pad,), value)], -1)
 
 
 def _mask_for_block(q_pos, k_pos, causal, mask_fn):
@@ -398,10 +413,8 @@ def _check_cuda(q, k, v, mask_fn, q_offset, k_offset):
             f"head_dim {D} (k {tuple(k.shape)}, v {tuple(v.shape)}): the "
             f"kernels take head_dim in {_HEAD_DIMS} and v shaped as k"
         )
-    if Tq % _TILE or Tk % _TILE:
-        raise NotImplementedError(
-            f"sequence lengths {Tq}/{Tk} must be multiples of {_TILE}"
-        )
+    if Tq < 1 or Tk < 1:
+        raise ValueError(f"sequence lengths {Tq}/{Tk} must be at least 1")
     if H % Hkv or k.shape[0] != B:
         raise ValueError(f"{Hkv} kv heads do not divide {H} heads")
     if not (isinstance(q_offset, int) and isinstance(k_offset, int)):
@@ -457,7 +470,8 @@ def _bwd_launch(name, outs, qt, kt, vt, dot, lse, delta, scale, causal,
     """One backward kernel (``fa_bwd_dkdv`` writes ``outs = (dk, dv)``
     per q head, bf16 or f32; ``fa_bwd_dq`` writes ``outs = (dq,)``, bf16)
     on contiguous, 16-byte aligned ``[B,H,T,D]`` inputs, f32
-    ``lse``/``delta [B,H,Tq]``; ``iv`` a ``KeyIntervals`` or None."""
+    ``lse``/``delta [B,H,Tqp]`` (padded to whole 64-row tiles,
+    ``_pad_rows``); ``iv`` a ``KeyIntervals`` or None."""
     B, H, Tq, D = qt.shape
     Hkv, Tk = kt.shape[1], kt.shape[2]
     out_bf16 = outs[0].dtype == torch.bfloat16
@@ -481,12 +495,14 @@ def _bwd_launch(name, outs, qt, kt, vt, dot, lse, delta, scale, causal,
 
 def _bwd_cuda(qt, kt, vt, ot, lse, dot, scale, causal, q_offset, k_offset, iv=None):
     qt, kt, vt, dot = (_dense(x) for x in (qt, kt, vt, dot))
-    lse = _dense(lse.float())
+    # the row tables in whole 64-row tiles: a padded row's lse is NEG_INF
+    # (its p is 0), its delta 0
+    lse = _dense(_pad_rows(lse.float(), NEG_INF))
     B, H, Tq, D = qt.shape
     Hkv, Tk = kt.shape[1], kt.shape[2]
     # bandwidth-bound rowsum, left to PyTorch as the JAX code leaves it
     # to XLA
-    delta = (dot.float() * ot.float()).sum(-1)
+    delta = _dense(_pad_rows((dot.float() * ot.float()).sum(-1), 0.0))
     # per-q-head dk/dv in f32 under GQA, summed per group by the caller
     gdt = qt.dtype if Hkv == H else torch.float32
     dk = torch.empty((B, H, Tk, D), dtype=gdt, device=qt.device)

@@ -100,6 +100,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from dlrover_tpu_torch.common import cuda_sync
 from dlrover_tpu_torch.models.config import TransformerConfig
 from dlrover_tpu_torch.parallel.sharding_rules import ShardingRules, default_lm_rules
 
@@ -738,7 +739,7 @@ def run_schedule(stage: PipelineStage, mesh, tokens: Sequence[torch.Tensor],
                 out_grad = xi.grad.to(act_dt)
         if comm["time_slots"] and (f is not None or b is not None):
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                cuda_sync.synchronize(dev)
             comm["busy_ms"] += (time.perf_counter() - t_tick) * 1e3
         sends = []
         if out_act is not None:

@@ -188,7 +188,7 @@ from dlrover_tpu_torch.agent.monitor import (
     report_runtime_metrics,
 )
 from dlrover_tpu_torch.ckpt.checkpointer import FlashCheckpointer, StorageType
-from dlrover_tpu_torch.common import faults, storage
+from dlrover_tpu_torch.common import cuda_sync, faults, storage
 from dlrover_tpu_torch.common.constants import NodeEnv, TrainerEnv
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.data.prefetch import DevicePrefetcher
@@ -2233,14 +2233,14 @@ class ElasticTrainer:
             self._close_prefetcher()  # a fresh buffer per epoch
         if self.eviction_pending:
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                cuda_sync.synchronize(self.device)
             self._drain_for_eviction()
         return self._settle()
 
     def _settle(self):
         """Wait for the card and book the last steps' compute spans."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            cuda_sync.synchronize(self.device)
         self._book_compute(wait=True)
         return self.state
 

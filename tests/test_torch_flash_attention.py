@@ -7,7 +7,8 @@ forward in f32, 5e-4 on gradients.
 The CUDA kernels cannot run without a card, so their tile schedule is
 rehearsed here in PyTorch (``_emulate_fwd``, ``_emulate_dq``,
 ``_emulate_dkdv``): the same blocks, warpgroup rows, key / query tiles,
-full / crossed / skipped classification and exp2-domain arithmetic as
+full / crossed / skipped classification, the masked last tile of a
+length that is no multiple of 64 and exp2-domain arithmetic as
 ``csrc/flash_attention.cu``, held to the plain versions and to the JAX
 package."""
 
@@ -130,7 +131,7 @@ def test_custom_mask_runs_reference_on_cpu():
     [
         (torch.float32, 64, 128, None),  # kernels take bf16 only
         (torch.bfloat16, 32, 128, None),  # head_dim 64 / 128 only
-        (torch.bfloat16, 64, 100, None),  # lengths in 64-row tiles
+        (torch.bfloat16, 96, 100, None),  # at any length
         (torch.bfloat16, 64, 128, lambda a, b: a >= b),  # no mask_fn
     ],
 )
@@ -138,6 +139,59 @@ def test_cuda_wrapper_refuses_what_the_kernels_cannot_take(dtype, D, T, mask_fn)
     x = torch.zeros((1, 2, T, D), dtype=dtype)
     with pytest.raises(NotImplementedError):
         tfa._check_cuda(x, x, x, mask_fn, 0, 0)
+
+
+@pytest.mark.parametrize("T", [1, 7, 95, 520, 1151])
+def test_the_wrapper_takes_any_length(T):
+    """Every length passes the card's checks (the kernels mask the last
+    tile), and an empty one is refused."""
+    x = torch.zeros((1, 2, T, 64), dtype=torch.bfloat16)
+    tfa._check_cuda(x, x, x, None, 0, 0)
+    with pytest.raises(ValueError):
+        tfa._check_cuda(x[:, :, :0], x, x, None, 0, 0)
+
+
+@pytest.mark.parametrize("T", [1, 7, 95, 520, 1151])
+def test_ragged_lengths_match_jax(T):
+    """Forward and gradients at lengths that are no multiple of a tile
+    against the JAX ``flash_attention`` (its Pallas kernels in interpret
+    mode where they take the length, a multiple of 8; its jnp path
+    elsewhere), GQA, causal."""
+    import jax
+
+    q, k, v, do = _inputs(B=1, H=4, Hkv=2, T=T, D=16, seed=T)
+    force = "pallas" if T % 8 == 0 else None
+
+    def jax_out(q, k, v):
+        return jfa.flash_attention(q, k, v, causal=True, layout="bhtd", force=force,
+                                   block_q=8, block_k=8)
+
+    o_j, vjp = jax.vjp(jax_out, *(jnp.asarray(x) for x in (q, k, v)))
+    g_j = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    o_t = tfa.flash_attention(*leaves, causal=True, layout="bhtd")
+    g_t = torch.autograd.grad(o_t, leaves, torch.from_numpy(do))
+    np.testing.assert_allclose(o_t.detach().numpy(), np.asarray(o_j), atol=FWD_TOL)
+    for a, b in zip(g_t, g_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=BWD_TOL)
+
+
+def test_interval_tables_pad_to_whole_tiles():
+    """The tables the kernels read at a ragged length: lo / hi padded
+    with rows that see nothing, one stat entry a 64-row tile."""
+    iv = tfa.KeyIntervals.prefix(95, 20)
+    lo, hi, qstat, kblk = iv.tables("cpu", 0, 95, 0, 95)
+    assert lo.shape == hi.shape == (1, 128) and qstat.shape == (1, 2, 4)
+    assert torch.equal(lo[0, :95], iv.lo[0]) and torch.equal(hi[0, :95], iv.hi[0])
+    assert (hi[0, 95:] <= lo[0, 95:]).all()
+    # the pad rows are empty: they widen neither range, and leave the
+    # tile a crossed one (an empty row is masked)
+    assert qstat[0, 1].tolist() == [0, tfa._IV_FAR, -tfa._IV_FAR, 95]
+    assert kblk.tolist() == [[[0, 2]]]
+    lse = torch.zeros(2, 3, 95)
+    padded = tfa._pad_rows(lse, tfa.NEG_INF)
+    assert padded.shape == (2, 3, 128) and (padded[..., 95:] == tfa.NEG_INF).all()
+    assert tfa._pad_rows(torch.zeros(1, 128), 0.0).shape == (1, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -160,15 +214,17 @@ def _emulate_fwd(q, k, v, causal, q_off, k_off):
     Hkv, Tk = k.shape[1], k.shape[2]
     BM, BN = tfa.FWD_BLOCK_Q, tfa.FWD_BLOCK_K
     scale_log2 = D**-0.5 * LOG2E
+    # the tensor maps read rows past T as zeros
+    q, k, v = _pad_t(q), _pad_t(k), _pad_t(v)
     o = torch.zeros_like(q)
-    lse = torch.full((B, H, Tq), NEG)
+    lse = torch.full((B, H, q.shape[2]), NEG)
     classes, loaded = {}, {}
     for b in range(B):
         for h in range(H):
             hk = h // (H // Hkv)
             for q0 in range(0, Tq, BM):
                 rows_here = min(BM, Tq - q0)
-                nk = Tk // BN
+                nk = -(-Tk // BN)
                 if causal:
                     lim = q_off + q0 + rows_here - 1 - k_off
                     nk = 0 if lim < 0 else min(nk, lim // BN + 1)
@@ -179,6 +235,7 @@ def _emulate_fwd(q, k, v, causal, q_off, k_off):
                     if causal and nk:
                         nk_wg = 0 if qpos + 63 < 0 else min(nk, (qpos + 63) // BN + 1)
                         n_full = min(nk_wg, max(0, (qpos - BN + 1) // BN + 1))
+                    n_full = min(n_full, Tk // BN)  # the tile holding key Tk is masked
                     m = torch.full((WGR,), NEG)
                     l = torch.zeros(WGR)
                     acc = torch.zeros(WGR, D)
@@ -187,9 +244,7 @@ def _emulate_fwd(q, k, v, causal, q_off, k_off):
                         kj = k[b, hk, j * BN:(j + 1) * BN].float()
                         s = qw @ kj.T * scale_log2
                         if j >= n_full:
-                            qp = q_off + qw0 + torch.arange(WGR)[:, None]
-                            kp = k_off + j * BN + torch.arange(BN)[None, :]
-                            s = torch.where(qp >= kp, s, NEG)
+                            s = torch.where(_visible(causal, q_off, qw0, k_off, j * BN, Tk), s, NEG)
                         if (b, h) == (0, 0):
                             classes[(qw0, j)] = "full" if j < n_full else "crossed"
                         mn = torch.maximum(m, s.amax(1))
@@ -204,7 +259,25 @@ def _emulate_fwd(q, k, v, causal, q_off, k_off):
                     o[b, h, qw0:qw0 + WGR] = (acc / torch.where(seen, l, 1.0)[:, None]).to(q.dtype)
                     lse[b, h, qw0:qw0 + WGR] = torch.where(
                         seen, m * LN2 + torch.log(l.clamp_min(1e-30)), NEG)
-    return o, lse, classes, loaded
+    # nothing is stored past Tq
+    return o[:, :, :Tq], lse[:, :, :Tq], classes, loaded
+
+
+def _pad_t(x, value=0.0):
+    """``[B, H, T, ...]`` padded along T to whole 64-row tiles."""
+    pad = -x.shape[2] % WGR
+    if not pad:
+        return x
+    return torch.cat([x, x.new_full(x.shape[:2] + (pad,) + x.shape[3:], value)], 2)
+
+
+def _visible(causal, q_off, q0, k_off, c0, Tk, rows=WGR, cols=WGR):
+    """A crossed tile's mask: the causal diagonal and the key length
+    (rows query rows from ``q0``, cols keys from ``c0``, call frame)."""
+    qp = q_off + q0 + torch.arange(rows)[:, None]
+    kp = k_off + c0 + torch.arange(cols)[None, :]
+    vis = (c0 + torch.arange(cols)[None, :]) < Tk
+    return vis & (qp >= kp) if causal else vis.expand(rows, cols)
 
 
 def _emulate_dkdv(q, k, v, do, lse, delta, causal, q_off, k_off):
@@ -217,10 +290,14 @@ def _emulate_dkdv(q, k, v, do, lse, delta, causal, q_off, k_off):
     Hkv, Tk = k.shape[1], k.shape[2]
     BN, BM = tfa.DKV_BLOCK_K, tfa.DKV_BLOCK_Q
     scale = D**-0.5
-    dk = torch.zeros((B, H, Tk, D))
-    dv = torch.zeros((B, H, Tk, D))
+    # rows past T read as zeros; the row tables come padded (a padded
+    # query row's lse NEG_INF, its delta 0)
+    q, k, v, do = (_pad_t(x) for x in (q, k, v, do))
+    lse, delta = tfa._pad_rows(lse, NEG), tfa._pad_rows(delta, 0.0)
+    dk = torch.zeros((B, H, k.shape[2], D))
+    dv = torch.zeros((B, H, k.shape[2], D))
     classes = {}
-    nq = Tq // BM
+    nq = -(-Tq // BM)
     for b in range(B):
         for h in range(H):
             hk = h // (H // Hkv)
@@ -253,7 +330,8 @@ def _emulate_dkdv(q, k, v, do, lse, delta, causal, q_off, k_off):
                         dv[b, h, kw0:kw0 + WGR] += p.to(q.dtype).float() @ dot
                         ds = p * (dpt - dl) * scale
                         dk[b, h, kw0:kw0 + WGR] += ds.to(q.dtype).float() @ qt
-    return dk, dv, classes
+    # key rows past Tk are never stored
+    return dk[:, :, :Tk], dv[:, :, :Tk], classes
 
 
 def _emulate_dq(q, k, v, do, lse, delta, causal, q_off, k_off):
@@ -268,14 +346,16 @@ def _emulate_dq(q, k, v, do, lse, delta, causal, q_off, k_off):
     Hkv, Tk = k.shape[1], k.shape[2]
     BM, BN = tfa.DQ_BLOCK_Q, tfa.DQ_BLOCK_K
     scale = D**-0.5
-    dq = torch.zeros((B, H, Tq, D))
+    q, k, v, do = (_pad_t(x) for x in (q, k, v, do))
+    lse, delta = tfa._pad_rows(lse, NEG), tfa._pad_rows(delta, 0.0)
+    dq = torch.zeros((B, H, q.shape[2], D))
     classes, loaded = {}, {}
     for b in range(B):
         for h in range(H):
             hk = h // (H // Hkv)
             for q0 in range(0, Tq, BM):
                 rows_here = min(BM, Tq - q0)
-                nk = Tk // BN
+                nk = -(-Tk // BN)
                 if causal:
                     lim = q_off + q0 + rows_here - 1 - k_off
                     nk = 0 if lim < 0 else min(nk, lim // BN + 1)
@@ -286,6 +366,7 @@ def _emulate_dq(q, k, v, do, lse, delta, causal, q_off, k_off):
                     if causal and nk:
                         nk_wg = 0 if qpos + 63 < 0 else min(nk, (qpos + 63) // BN + 1)
                         n_full = min(nk_wg, max(0, (qpos - BN + 1) // BN + 1))
+                    n_full = min(n_full, Tk // BN)
                     rows = slice(qw0, qw0 + WGR)
                     lq = lse[b, h, rows]
                     lq = torch.where(lq > NEG * 0.5, lq * LOG2E, -NEG)[:, None]
@@ -297,15 +378,13 @@ def _emulate_dq(q, k, v, do, lse, delta, causal, q_off, k_off):
                         vj = v[b, hk, j * BN:(j + 1) * BN].float()
                         x = qw @ kj.T * (scale * LOG2E) - lq
                         if j >= n_full:
-                            qp = q_off + qw0 + torch.arange(WGR)[:, None]
-                            kp = k_off + j * BN + torch.arange(BN)[None, :]
-                            x = torch.where(qp >= kp, x, NEG)
+                            x = torch.where(_visible(causal, q_off, qw0, k_off, j * BN, Tk), x, NEG)
                         if (b, h) == (0, 0):
                             classes[(qw0, j)] = "full" if j < n_full else "crossed"
                         ds = torch.exp2(x) * (dow @ vj.T - dl) * scale
                         acc += ds.to(q.dtype).float() @ kj
                     dq[b, h, rows] = acc
-    return dq, classes, loaded
+    return dq[:, :, :Tq], classes, loaded
 
 
 def _tile_classes(Tq, Tk, causal, q_off, k_off, by_key=False):
@@ -384,6 +463,38 @@ def test_dq_tile_schedule_matches_plain(T, qo, ko, causal, Hkv):
         assert n == (max(seen) + 1 if seen else 0)
 
 
+RAGGED_CASES = [
+    (Tq, Tk, qo, ko, causal)
+    for Tq, Tk in ((95, 95), (1, 95), (7, 200), (150, 30), (130, 130))
+    for qo, ko in ((0, 0), (Tk - Tq if Tk > Tq else 0, 0), (0, 40))
+    for causal in (True, False)
+]
+
+
+@pytest.mark.parametrize("Tq,Tk,qo,ko,causal", RAGGED_CASES)
+def test_ragged_tile_schedules_match_plain(Tq, Tk, qo, ko, causal):
+    """The three kernels' schedules at lengths that are no multiple of a
+    tile: rows past T read as zeros, the tile holding key Tk masked as a
+    crossed one, the padded row tables, nothing stored past T."""
+    rng = np.random.default_rng(Tq * 7 + Tk)
+    q, do = (torch.from_numpy(rng.normal(size=(1, 4, Tq, 16)).astype(np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(1, 2, Tk, 16)).astype(np.float32))
+            for _ in range(2))
+    o_e, lse_e, _, _ = _emulate_fwd(q, k, v, causal, qo, ko)
+    o_r, lse_r = tfa.flash_attention_reference(
+        *(x.transpose(1, 2) for x in (q, k, v)), causal=causal, q_offset=qo,
+        k_offset=ko, return_residuals=True)
+    np.testing.assert_allclose(o_e.numpy(), o_r.transpose(1, 2).numpy(), atol=FWD_TOL)
+    np.testing.assert_allclose(lse_e.numpy(), lse_r.numpy(), atol=FWD_TOL, rtol=0)
+    delta = (do * o_e).sum(-1)
+    dq_r, dk_r, dv_r = tfa._bwd_plain(q, k, v, do, lse_e, delta, 16**-0.5, causal, None, qo, ko)
+    dk_e, dv_e, _ = _emulate_dkdv(q, k, v, do, lse_e, delta, causal, qo, ko)
+    dq_e, _, _ = _emulate_dq(q, k, v, do, lse_e, delta, causal, qo, ko)
+    for got, ref in ((dq_e, dq_r), (dk_e, dk_r), (dv_e, dv_r)):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=BWD_TOL)
+
+
 @pytest.mark.parametrize("name,H,Hkv,causal,qo,ko,fused", CASES)
 def test_forward_tile_schedule_matches_jax(name, H, Hkv, causal, qo, ko, fused):
     q, k, v, _ = _inputs(H=H, Hkv=Hkv)
@@ -425,8 +536,9 @@ def test_dq_tile_schedule_matches_jax(name, H, Hkv, causal, qo, ko, fused):
 
 
 def test_schedule_constants_tile_the_lengths_the_wrapper_admits():
-    """Lengths come in multiples of 64; a block's last warpgroup may be
-    empty (T an odd multiple of 64), never part of one."""
+    """The tiles are 64 rows, a block two warpgroups of them; a length
+    that is no multiple of 64 ends in a warpgroup whose rows past T read
+    zeros (``test_ragged_tile_schedules_match_plain``)."""
     assert WGR == tfa.FWD_BLOCK_K == tfa.DQ_BLOCK_K == tfa.DKV_BLOCK_Q == 64
     assert tfa.FWD_BLOCK_Q == tfa.DQ_BLOCK_Q == tfa.DKV_BLOCK_K == 2 * WGR
     assert math.isclose(LOG2E * LN2, 1.0, rel_tol=1e-12)

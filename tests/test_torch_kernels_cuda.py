@@ -47,12 +47,21 @@ def _rel(got, ref):
 
 def _tile_err(got, ref, rows=64):
     """Largest over 64-row tiles of max |got - ref| / rms(ref tile); empty
-    tiles are floored at 1e-3 of the tensor's rms."""
-    ref = ref.float()
-    shape = ref.shape[:-2] + (ref.shape[-2] // rows, rows * ref.shape[-1])
-    err = (got.float() - ref).abs().reshape(shape).amax(-1)
-    rms = ref.reshape(shape).square().mean(-1).sqrt()
-    return (err / rms.clamp_min(1e-3 * ref.square().mean().sqrt())).max().item()
+    tiles are floored at 1e-3 of the tensor's rms. A length that is no
+    multiple of 64 ends in a shorter tile of its own."""
+    ref, got = ref.float(), got.float()
+    T, floor = ref.shape[-2], 1e-3 * ref.square().mean().sqrt()
+    worst = 0.0
+    for lo, n in ((0, T - T % rows), (T - T % rows, T % rows)):
+        if not n:
+            continue
+        r, g = ref[..., lo:lo + n, :], got[..., lo:lo + n, :]
+        tiles = max(n // rows, 1)
+        shape = r.shape[:-2] + (tiles, n // tiles * r.shape[-1])
+        err = (g - r).abs().reshape(shape).amax(-1)
+        rms = r.reshape(shape).square().mean(-1).sqrt()
+        worst = max(worst, (err / rms.clamp_min(floor)).max().item())
+    return worst
 
 
 @pytest.mark.parametrize(
@@ -88,6 +97,32 @@ def test_attention_kernels_lengths_and_offsets(dev, Tq, Tk, q_off, k_off, causal
     _check_attention(dev, 1, 4, 2, Tq, Tk, 64, q_off, k_off, causal)
 
 
+@pytest.mark.parametrize("T", [95, 1151])
+@pytest.mark.parametrize(
+    "B,H,Hkv,D,q_off,k_off,causal",
+    [
+        (2, 12, 12, 64, 0, 0, True),  # the fused contract's shape
+        (1, 8, 2, 128, 0, 0, True),  # the streaming one's, GQA
+        (2, 4, 4, 64, 0, 0, False),
+        (1, 4, 4, 128, 0, 40, True),  # the diagonal crosses the ragged tile
+        (1, 4, 2, 64, 1151, 0, True),  # a ring hop: every key visible
+        (1, 4, 4, 64, 1151, 1151, True),  # the hop's own block
+    ],
+)
+def test_attention_kernels_at_ragged_lengths(dev, T, B, H, Hkv, D, q_off, k_off, causal):
+    """Lengths that are no multiple of a 64-row tile: the last key tile is
+    masked past Tk, and nothing is stored past either length."""
+    _check_attention(dev, B, H, Hkv, T, T, D, q_off, k_off, causal)
+
+
+@pytest.mark.parametrize(
+    "Tq,Tk,q_off,k_off",
+    [(1, 95, 94, 0), (7, 520, 513, 0), (95, 1151, 1056, 0), (520, 7, 0, 0)],
+)
+def test_attention_kernels_at_ragged_query_and_key_lengths(dev, Tq, Tk, q_off, k_off):
+    _check_attention(dev, 1, 4, 2, Tq, Tk, 64, q_off, k_off, True)
+
+
 def _masks(T, B):
     """The ``KeyIntervals`` families over ``T`` rows (documents one layout
     a batch row)."""
@@ -119,6 +154,22 @@ def test_masked_attention_kernels_match_plain(dev, family, B, H, Hkv, T, D, q_of
     running the same mask as a function."""
     mask = _masks(T + max(q_off, k_off), B)[family]
     _check_attention(dev, B, H, Hkv, T, T, D, q_off, k_off, True, mask)
+
+
+@pytest.mark.parametrize("family", ["prefix", "documents", "empty_rows"])
+@pytest.mark.parametrize("T", [95, 1151])
+def test_masked_attention_kernels_at_ragged_lengths(dev, family, T):
+    """The interval tables padded to whole tiles: the rows past Tq see
+    nothing, and every hi is cut at Tk."""
+    import numpy as np
+
+    if family == "prefix":
+        mask = fa.KeyIntervals.prefix(T, T // 3 + 5)
+    elif family == "documents":  # one layout a batch row
+        mask = fa.KeyIntervals.documents(np.stack([np.arange(T) * 3 // T, np.arange(T) * 5 // T]))
+    else:  # a run of empty rows that ends at the last row
+        mask = fa.KeyIntervals.prefix(T, T // 3).without_rows(range(T // 2, T))
+    _check_attention(dev, 2, 4, 2, T, T, 64, 0, 0, True, mask)
 
 
 def _check_attention(dev, B, H, Hkv, Tq, Tk, D, q_off, k_off, causal, mask=None):
@@ -552,3 +603,106 @@ def test_flat_adamw_step_holds_one_group_of_transients(dev):
     assert before >= params_bytes
     for a, b in zip(leaves, leaves_b):  # the same updates, bit for bit
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["gpt2", "llama"])
+def test_continuous_batching_graph_replay_matches_eager(dev, name):
+    """Each iteration's forward replayed from a CUDA graph (a 128-key
+    bucket of the live prefix) decodes what the eager loop decodes: the
+    keys past a slot's position are masked, so only the sums' order
+    differs (f32 here: tokens equal, logprobs within 1e-5)."""
+    import numpy as np
+
+    from dlrover_tpu_torch.models import config as tcfg
+    from dlrover_tpu_torch.models import transformer as ttr
+    from dlrover_tpu_torch.rl.continuous_batching import continuous_generate
+
+    over = dict(vocab_size=64, num_layers=2, model_dim=128, num_heads=2, mlp_dim=256,
+                max_seq_len=512, dtype="float32")
+    if name == "gpt2":
+        over.update(rope=False, rmsnorm=False, swiglu=False, tie_embeddings=True,
+                    num_kv_heads=None)
+    cfg = tcfg.tiny(**over)
+    model = ttr.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(2, 200, size=6)
+    toks = np.zeros((6, 200), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(1, 64, size=n)
+    p, l = torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev)
+    st = {}
+    g = continuous_generate(model, p, l, None, cfg, max_new_tokens=40, slots=4, greedy=True,
+                            stats=st)
+    e = continuous_generate(model, p, l, None, cfg, max_new_tokens=40, slots=4, greedy=True,
+                            cuda_graphs=False)
+    assert st["graphs"] >= 2  # the live prefix crossed a bucket
+    assert torch.equal(g[0], e[0]) and torch.equal(g[2], e[2])
+    assert (g[1] - e[1]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("S", [95, 1151])
+def test_decode_products_hold_the_f32_products(dev, S):
+    """The decode's card-only products against the f32 products of the
+    same bf16 values: ``_bmm_f32`` (bf16 in, the f32 accumulator out) and
+    ``_probs_v_f32`` (P as hi + lo bf16 parts, p to about 16 bits), each
+    within 1e-5 of the reference's largest magnitude."""
+    from dlrover_tpu_torch.models import transformer as ttr
+
+    assert ttr.decode_products(dev) == "bf16 in, f32 out; P as hi + lo"
+    g = torch.Generator(device=dev).manual_seed(S)
+    N, m, hd = 32, 4, 128
+    q = torch.randn(N, m, hd, device=dev, generator=g).bfloat16()
+    k = torch.randn(N, hd, S, device=dev, generator=g).bfloat16()
+    scores = ttr._bmm_f32(q, k)
+    assert scores.dtype == torch.float32
+    assert _rel(scores, torch.bmm(q.double(), k.double()).float()) <= 1e-5
+    p = torch.softmax(torch.randn(N, m, S, device=dev, generator=g) * 3, -1)
+    v = torch.randn(N, S, hd, device=dev, generator=g).bfloat16()
+    pv = ttr._probs_v_f32(p, v)
+    assert pv.dtype == torch.float32
+    assert _rel(pv, torch.bmm(p.double(), v.double()).float()) <= 1e-5
+
+
+def test_settle_waits_for_a_graph_capture_in_another_thread(dev):
+    """``ElasticTrainer._settle``'s card-wide synchronize while a serving
+    thread holds a CUDA graph capture open: it waits for the capture
+    (``cuda_sync``), and both the capture and the synchronize succeed."""
+    import threading
+    import time
+    from types import SimpleNamespace
+
+    from dlrover_tpu_torch.common import cuda_sync
+    from dlrover_tpu_torch.trainer.elastic.trainer import ElasticTrainer
+
+    x = torch.randn(512, 512, device=dev)
+    opened, errors, out = threading.Event(), [], {}
+
+    def capture():
+        try:
+            s = torch.cuda.Stream()
+            with torch.cuda.stream(s):
+                x @ x  # warm-up off the capture
+            s.synchronize()
+            with cuda_sync.capturing():
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g, capture_error_mode="thread_local"):
+                    out["y"] = x @ x
+                    opened.set()
+                    time.sleep(0.2)
+            g.replay()
+            torch.cuda.current_stream().synchronize()
+        except Exception as e:  # the test's verdict, read below
+            errors.append(repr(e))
+        finally:
+            opened.set()
+
+    th = threading.Thread(target=capture)
+    th.start()
+    assert opened.wait(30)
+    booked = []
+    stub = SimpleNamespace(device=torch.device(dev), state="state",
+                           _book_compute=lambda wait: booked.append(wait))
+    assert ElasticTrainer._settle(stub) == "state" and booked == [True]
+    th.join(30)
+    assert not th.is_alive() and not errors, errors
+    assert torch.allclose(out["y"], x @ x)

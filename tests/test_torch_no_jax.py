@@ -205,6 +205,22 @@ LINK_ARBITER = {
 }
 
 
+# serving and RLHF: the decode, generation, continuous batching, the
+# reward model, PPO, the subscriber and the serving engine (ROADMAP A14)
+RL_SERVING = {
+    "dlrover_tpu_torch.rl",
+    "dlrover_tpu_torch.rl.buffer",
+    "dlrover_tpu_torch.rl.generation",
+    "dlrover_tpu_torch.rl.continuous_batching",
+    "dlrover_tpu_torch.rl.reward",
+    "dlrover_tpu_torch.rl.ppo",
+    "dlrover_tpu_torch.serve",
+    "dlrover_tpu_torch.serve.engine",
+    "dlrover_tpu_torch.ckpt.shm_handler",
+    "dlrover_tpu_torch.models.transformer",
+}
+
+
 def test_port_imports_with_jax_and_the_jax_package_blocked():
     p = subprocess.run(
         [sys.executable, "-c", _PROBE],
@@ -231,19 +247,21 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert LINK_ARBITER <= names, sorted(LINK_ARBITER - names)
     assert EXPERT_PARALLEL <= names, sorted(EXPERT_PARALLEL - names)
     assert PIPELINE <= names, sorted(PIPELINE - names)
+    assert RL_SERVING <= names, sorted(RL_SERVING - names)
 
 
 def test_data_parallel_modules_and_the_rank_worker_import_without_jax():
     """The data-parallel, strategy-search, resize, sequence-, tensor-,
-    expert- and pipeline-parallel modules and the host-link arbiter's by
-    name, and the
+    expert- and pipeline-parallel modules, the host-link arbiter's and
+    the serving and RLHF modules by name, and the
     rank processes of the multi-rank tests
     (``tests/torch_dist_worker.py``), with JAX and the JAX package
     blocked."""
     probe = _PROBE.split("import dlrover_tpu_torch\n")[0] + "\n".join(
         f"importlib.import_module({m!r})"
         for m in sorted(DATA_PARALLEL | STRATEGY_SEARCH | RESIZE | SEQUENCE_PARALLEL
-                        | TENSOR_PARALLEL | LINK_ARBITER | EXPERT_PARALLEL | PIPELINE)
+                        | TENSOR_PARALLEL | LINK_ARBITER | EXPERT_PARALLEL | PIPELINE
+                        | RL_SERVING)
     ) + (
         "\nsys.path.insert(0, 'tests')\nimportlib.import_module('torch_dist_worker')"
         "\nleaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)"
